@@ -6,10 +6,10 @@ It mirrors ``repro``'s module names so each counterpart is easy to find:
 
 * ``core``      — the Specx task runtime (own copy of ``repro.core``'s
                   graph, engine, schedulers, speculation, codelet frontend);
-* ``configs``, ``models`` — architecture configs and the dense transformer
-                  as ``nn.Module``s with JAX's weight layouts;
+* ``configs``, ``models`` — architecture configs, the dense transformer and
+                  the Mamba-2 stack as ``nn.Module``s with JAX's weight layouts;
 * ``kernels``   — hand-written CUDA kernels for Hopper (rmsnorm, flash
-                  attention, decode attention) beside their plain versions;
+                  attention, decode attention, ssd) beside their plain versions;
 * ``runtime``, ``serving`` — cache priming and the continuous-batching
                   ``ServeEngine`` on one persistent task graph;
 * ``launch``    — ``python -m repro_torch.launch.serve``;

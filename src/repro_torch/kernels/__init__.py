@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels for the compute hot spots of the serving path.
+"""Hand-written Hopper kernels for the compute hot spots of the serving paths.
 
 Each kernel replaces one Pallas TPU kernel of ``repro.kernels``:
 
@@ -6,9 +6,13 @@ Each kernel replaces one Pallas TPU kernel of ``repro.kernels``:
 * ``flash_attention``  — causal / windowed GQA prefill attention
   (``csrc/flash_attention.cu``);
 * ``decode_attention`` — one-token attention against the KV cache with a
-  per-sequence position (``csrc/decode_attention.cu``).
+  per-sequence position (``csrc/decode_attention.cu``);
+* ``ssd``              — the Mamba-2 SSD intra-chunk step, and the chunked
+  scan around it (``csrc/ssd.cu``).
 
 Every kernel directory holds ``ops.py`` (the wrapper: checks, launch, launch
-counter) and ``ref.py`` (the plain PyTorch version, used for CPU tensors).
+counter, and the kernel's Specx codelet with ``ref`` and ``cuda``
+implementations) and ``ref.py`` (the plain PyTorch version, used for CPU
+tensors).
 ``dispatch.py`` probes the card and builds the shared library.
 """

@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from repro_torch.core.api import sp_task
 from repro_torch.kernels import dispatch
 
 from .ref import decode_attention_ref
@@ -77,3 +78,15 @@ def decode_attention(
     dispatch.check(rc, "decode_attention")
     launches.add()
     return out[:, None]
+
+
+# -- codelet registration (SpCpu/SpCuda selection, paper §4.3) ---------------
+
+@sp_task(read=("q", "k_cache", "v_cache", "pos"), write=("out",), name="decode_attention")
+def decode_attention_codelet(q, k_cache, v_cache, pos, out):
+    out.value = decode_attention_ref(q, k_cache, v_cache, pos)
+
+
+@decode_attention_codelet.impl("cuda", available=dispatch.cuda_available)
+def _decode_attention_cuda_impl(q, k_cache, v_cache, pos, out):
+    out.value = decode_attention(q, k_cache, v_cache, pos)

@@ -134,10 +134,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, S3, S3, S3, S3, F, I, P,
     ]
     lib.decode_attention_chunk.argtypes = []
+    lib.ssd_intra_chunk_fwd.argtypes = [P] * 7 + [I] * 7 + [S3] * 7 + [I, P]
     lib.kernels_error_string.argtypes = [I]
     lib.kernels_error_string.restype = ctypes.c_char_p
     for fn in (lib.rmsnorm_fwd, lib.flash_attention_fwd, lib.decode_attention_fwd,
-               lib.decode_attention_chunk):
+               lib.decode_attention_chunk, lib.ssd_intra_chunk_fwd):
         fn.restype = I
     return lib
 

@@ -16,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.api import sp_task
 from repro_torch.kernels import dispatch
 
 from .ref import attention_ref
@@ -70,3 +71,15 @@ def flash_attention(
     dispatch.check(rc, "flash_attention")
     launches.add()
     return out
+
+
+# -- codelet registration (SpCpu/SpCuda selection, paper §4.3) ---------------
+
+@sp_task(read=("q", "k", "v"), write=("out",), name="flash_attention", cost=10.0)
+def flash_attention_codelet(q, k, v, out, *, causal=True, window=None, q_offset=0):
+    out.value = attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+@flash_attention_codelet.impl("cuda", available=dispatch.cuda_available)
+def _flash_attention_cuda_impl(q, k, v, out, *, causal=True, window=None, q_offset=0):
+    out.value = flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)

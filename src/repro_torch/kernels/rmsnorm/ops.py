@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.api import sp_task
 from repro_torch.kernels import dispatch
 
 from .ref import rmsnorm_ref
@@ -42,3 +43,15 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
     dispatch.check(rc, "rmsnorm")
     launches.add()
     return out
+
+
+# -- codelet registration (SpCpu/SpCuda selection, paper §4.3) ---------------
+
+@sp_task(read=("x", "scale"), write=("out",), name="rmsnorm")
+def rmsnorm_codelet(x, scale, out, *, eps: float = 1e-6):
+    out.value = rmsnorm_ref(x, scale, eps)
+
+
+@rmsnorm_codelet.impl("cuda", available=dispatch.cuda_available)
+def _rmsnorm_cuda_impl(x, scale, out, *, eps: float = 1e-6):
+    out.value = rmsnorm(x, scale, eps)

@@ -1,5 +1,6 @@
-"""The dense transformer (block kind ``"attn"``) as ``nn.Module``s, with the
-JAX package's weight layouts and function names."""
+"""The dense transformer (block kind ``"attn"``) and the Mamba-2 stack (block
+kind ``"ssm"``) as ``nn.Module``s, with the JAX package's weight layouts and
+function names."""
 from repro_torch.models.config import (
     ArchConfig,
     HybridConfig,
@@ -12,6 +13,7 @@ from repro_torch.models.config import (
 )
 from repro_torch.models.transformer import (
     Block,
+    SSMBlock,
     Transformer,
     cache_defs,
     cache_layout,
@@ -25,7 +27,7 @@ from repro_torch.models.transformer import (
 
 __all__ = [
     "ArchConfig", "HybridConfig", "MLAConfig", "MoEConfig", "SHAPES", "ShapeSpec",
-    "SSMConfig", "applicable_shapes", "Block", "Transformer", "cache_defs",
+    "SSMConfig", "applicable_shapes", "Block", "SSMBlock", "Transformer", "cache_defs",
     "cache_layout", "decode_step", "forward", "init_cache", "init_params",
     "model_defs", "prefill",
 ]

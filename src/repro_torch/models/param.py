@@ -9,7 +9,8 @@ axis as in ``repro``; the port's modules hold the layers unstacked in a
 
 Initialisation follows ``repro.models.param.init_tree``: ``normal`` with
 stddev 1/sqrt(fan_in), ``embed`` with stddev 1, ``zeros`` for the norm
-offsets.  Values are drawn on the target device from a seeded
+offsets, ``ones`` and ``const`` (filled with ``scale``) for the SSM's
+``A_log``, ``D`` and ``dt_bias``.  Values are drawn on the target device from a seeded
 ``torch.Generator`` in float32 one leaf (one layer) at a time and cast to the
 parameter dtype, so the full model never exists in float32, and nothing is
 materialised on the host.  ``torch`` cannot replay ``jax.random``, so the
@@ -30,7 +31,7 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class ParamDef:
     shape: tuple[int, ...]
     axes: tuple[Optional[str], ...]
-    init: str = "normal"  # normal | zeros | embed
+    init: str = "normal"  # normal | zeros | ones | const | embed
     dtype: Optional[str] = None  # None → model dtype
     scale: Optional[float] = None  # stddev override
 
@@ -69,6 +70,10 @@ def init_(t: torch.Tensor, d: ParamDef, gen: torch.Generator) -> None:
         raise ValueError(f"parameter shape {tuple(t.shape)} != def {d.shape}")
     if d.init == "zeros":
         t.zero_()
+    elif d.init == "ones":
+        t.fill_(1.0)
+    elif d.init == "const":
+        t.fill_(d.scale or 0.0)
     else:
         draw = torch.randn(d.shape, generator=gen, device=t.device, dtype=torch.float32)
         t.copy_(draw.mul_(_stddev(d)))

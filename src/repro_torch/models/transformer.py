@@ -1,6 +1,7 @@
-"""Model assembly for block kind ``"attn"``: the dense decoder-only
-transformer (embed → per layer rmsnorm → GQA attention with RoPE → rmsnorm →
-gated MLP → final rmsnorm → logits).
+"""Model assembly for block kinds ``"attn"`` and ``"ssm"``: the dense
+decoder-only transformer (embed → per layer rmsnorm → GQA attention with RoPE
+→ rmsnorm → gated MLP → final rmsnorm → logits) and the Mamba-2 stack (embed
+→ per layer rmsnorm → SSD mixer → final rmsnorm → logits).
 
 A port of ``repro.models.transformer``.  Parameters live in ``nn.Module``s
 whose attribute names are the JAX tree's keys (``layers[i].attn.wq`` ↔
@@ -8,8 +9,8 @@ whose attribute names are the JAX tree's keys (``layers[i].attn.wq`` ↔
 for ``lax.scan``, the port keeps them in a ``ModuleList`` and loops.  The
 functions take the model where ``repro``'s take the parameter tree.
 
-The other block kinds (``mla``, ``moe``, ``ssm``, ``rec``) and hybrid stacks
-raise ``NotImplementedError`` naming their ROADMAP item.
+The other block kinds (``mla``, ``moe``, ``rec``), hybrid stacks and
+frontends raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from torch import nn
 
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
     MLP,
@@ -45,10 +47,10 @@ def block_kind(cfg: ArchConfig) -> str:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """The port runs block kind ``attn`` with a token frontend only."""
+    """The port runs block kinds ``attn`` and ``ssm`` with a token frontend only."""
     kind = "hybrid" if cfg.family == "hybrid" else block_kind(cfg)
-    if kind != "attn" or cfg.frontend is not None:
-        what = kind if kind != "attn" else f"frontend {cfg.frontend!r}"
+    if kind not in ("attn", "ssm") or cfg.frontend is not None:
+        what = kind if kind not in ("attn", "ssm") else f"frontend {cfg.frontend!r}"
         raise NotImplementedError(
             f"{cfg.name}: {what} is not ported yet (ROADMAP.md, port queue: "
             "'Other families')"
@@ -57,6 +59,8 @@ def check_supported(cfg: ArchConfig) -> None:
 
 def block_defs(cfg: ArchConfig) -> dict:
     D = cfg.d_model
+    if block_kind(cfg) == "ssm":
+        return {"ln1": rmsnorm_def(D), "ssm": ssm_mod.ssm_defs(cfg)}
     return {
         "ln1": rmsnorm_def(D),
         "attn": attn_mod.attn_defs(cfg),
@@ -94,6 +98,23 @@ class Block(nn.Module):
         return x + self.mlp(self.ln2(x)), cache
 
 
+class SSMBlock(nn.Module):
+    """Block kind ``ssm``: rmsnorm → SSD mixer, residual (no MLP)."""
+
+    def __init__(self, cfg: ArchConfig, *, dtype: torch.dtype, device):
+        super().__init__()
+        self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
+        self.ssm = ssm_mod.SSM(cfg, dtype=dtype, device=device)
+
+    def forward(self, x, positions, cfg: ArchConfig, *, causal: bool, want_cache: bool):
+        h, cache = ssm_mod.ssm_apply(self.ssm, self.ln1(x), cfg, want_cache=want_cache)
+        return x + h, cache
+
+    def decode(self, x, cache: dict, pos: torch.Tensor, cfg: ArchConfig):
+        h, cache = ssm_mod.ssm_decode_step(self.ssm, self.ln1(x), cache, cfg)
+        return x + h, cache
+
+
 class Transformer(nn.Module):
     """Uninitialised (``torch.empty``) parameters; see :func:`init_params`."""
 
@@ -104,8 +125,9 @@ class Transformer(nn.Module):
         dtype = DTYPES[cfg.dtype]
         self.cfg = cfg
         make_params(self, embed_defs(cfg), dtype=dtype, device=device)
+        block = SSMBlock if block_kind(cfg) == "ssm" else Block
         self.layers = nn.ModuleList(
-            Block(cfg, dtype=dtype, device=device) for _ in range(cfg.n_layers)
+            block(cfg, dtype=dtype, device=device) for _ in range(cfg.n_layers)
         )
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
 
@@ -151,21 +173,24 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda") -> Transformer
 # ---------------------------------------------------------------------------
 
 def forward(model: Transformer, batch: dict, cfg: ArchConfig, *, want_cache: bool = False):
-    """→ (hidden (B, L, D), caches | None); caches are stacked
-    ``{'k', 'v'}: (n_layers, B, L, KH, Dh)`` as in ``repro``."""
+    """→ (hidden (B, L, D), caches | None); caches are stacked on a leading
+    layer axis as in ``repro``: ``{'k', 'v'}: (n_layers, B, L, KH, Dh)`` for
+    attention, ``{'state': (n_layers, B, H, N, P) float32, 'conv':
+    (n_layers, B, 3, C)}`` for ssm."""
     tokens = batch["tokens"]
     x = embed_apply(model, tokens, cfg)
     B, L = tokens.shape
     positions = torch.arange(L, dtype=torch.int32, device=tokens.device).expand(B, L)
     causal = not cfg.is_encoder
-    ks, vs = [], []
+    layer_caches = []
     for layer in model.layers:
         x, cache = layer(x, positions, cfg, causal=causal, want_cache=want_cache)
         if want_cache:
-            ks.append(cache["k"])
-            vs.append(cache["v"])
+            layer_caches.append(cache)
     x = model.final_norm(x)
-    caches = {"k": torch.stack(ks), "v": torch.stack(vs)} if want_cache else None
+    caches = None
+    if want_cache:
+        caches = {k: torch.stack([c[k] for c in layer_caches]) for k in layer_caches[0]}
     return x, caches
 
 
@@ -188,12 +213,12 @@ def _pos_vector(pos, batch: int, device) -> torch.Tensor:
 @torch.no_grad()
 def decode_step(model: Transformer, tokens: torch.Tensor, caches: dict, pos, cfg: ArchConfig):
     """One decode step.  tokens (B, 1) int; pos a scalar or a (B,) tensor of
-    current positions; caches stacked ``{'k', 'v'}`` (n_layers, B, S, KH, Dh),
+    current positions; caches stacked on the layer axis (:func:`cache_defs`),
     **updated in place**.  → (logits (B, 1, V), caches)."""
     x = embed_apply(model, tokens, cfg)
     pos_b = _pos_vector(pos, tokens.shape[0], tokens.device)
     for i, layer in enumerate(model.layers):
-        layer_cache = {"k": caches["k"][i], "v": caches["v"][i]}
+        layer_cache = {k: v[i] for k, v in caches.items()}
         x, _ = layer.decode(x, layer_cache, pos_b, cfg)
     x = model.final_norm(x)
     return logits_apply(model, x, cfg), caches
@@ -205,6 +230,8 @@ def decode_step(model: Transformer, tokens: torch.Tensor, caches: dict, pos, cfg
 
 def cache_defs(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
     check_supported(cfg)
+    if block_kind(cfg) == "ssm":
+        return stack_defs(ssm_mod.ssm_cache_defs(cfg, batch), cfg.n_layers)
     sh = attn_mod.kv_cache_shape(cfg, batch, max_seq)
     ax = ("batch", "kv_seq", "kv_heads", None)
     leaf = {"k": ParamDef(sh, ax, dtype=cfg.dtype), "v": ParamDef(sh, ax, dtype=cfg.dtype)}
@@ -213,10 +240,11 @@ def cache_defs(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
 
 def cache_layout(cfg: ArchConfig) -> Optional[dict]:
     """Per-leaf ``(batch_axis, seq_axis)`` of the stacked decode caches, the
-    plumbing the paged serving tier needs; None for a ring-buffered
-    (windowed) cache, whose slots fold positions modulo the window."""
+    plumbing the paged serving tier needs; None for an ssm state (one
+    vector per sequence, not per token) and for a ring-buffered (windowed)
+    cache, whose slots fold positions modulo the window."""
     check_supported(cfg)
-    if cfg.attn_window is not None:
+    if block_kind(cfg) == "ssm" or cfg.attn_window is not None:
         return None
     return {"k": (1, 2), "v": (1, 2)}
 

@@ -30,7 +30,11 @@ def _pad_kv(kv: torch.Tensor, size: int, window) -> torch.Tensor:
 
 def prime_cache(cfg: ArchConfig, prefill_caches: dict, prompt_len: int, max_seq: int) -> dict:
     """Turn ``prefill(...)``'s stacked caches (n_layers, B, prompt_len, KH,
-    Dh) into decode-ready caches of capacity ``max_seq`` (ring-aware)."""
+    Dh) into decode-ready caches of capacity ``max_seq`` (ring-aware).  The
+    ssm ``state`` / ``conv`` leaves are already decode-ready and pass
+    through, as in ``repro``."""
+    if "k" not in prefill_caches:
+        return dict(prefill_caches)
     W = cfg.attn_window
     size = min(max_seq, W) if W is not None else max_seq
     out = {}

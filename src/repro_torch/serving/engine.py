@@ -21,11 +21,14 @@ must be serialised and nothing else:
                                 payloads in instead of recomputing
 
 On the card the codelets launch the CUDA kernels (flash attention in
-prefill, decode attention in decode, rmsnorm in both) from the engine's
-worker threads, each on its thread's current stream.  The KV cache and the
-batch's last tokens live on the device and are updated **in place**; per
-step there is one device→host copy (the sampled tokens, in collect) and one
-host→device copy (the per-slot positions, in decode).
+prefill, decode attention in decode, rmsnorm in both; for an ssm model the
+ssd kernel in prefill and rmsnorm in both) from the engine's worker threads,
+each on its thread's current stream.  The KV cache (or the ssm state and
+conv caches) and the batch's last tokens live on the device and are updated
+**in place**; per step there is one device→host copy (the sampled tokens, in
+collect) and one host→device copy (the per-slot positions, in decode).  An
+ssm cache has no per-token rows to page (``cache_layout`` is None): a
+duplicate prompt or a preempted sequence is prefilled again.
 
 Memory is managed by the paged KV cache (``kvcache.py``); admission control
 and backpressure live in ``scheduler.py``.  Speculative decoding

@@ -17,6 +17,7 @@ from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops  # noqa: E402
+from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # tests/test_kernels.py's tolerances
@@ -86,3 +87,42 @@ def test_decode_kernel_is_deterministic(cuda_device):
     first = decode_ops.decode_attention(q, k, v, pos)
     for _ in range(5):
         assert torch.equal(decode_ops.decode_attention(q, k, v, pos), first)
+
+
+def _close_to_scale(got, want) -> None:
+    """ssd outputs are float32 sums of up to cs·N products whatever the input
+    type, so the limit scales with the output (chip_smoke.py's ssd limit)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=5e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_matches_plain(cuda_device, dtype):
+    """The scan on a ragged L with B/C on 2 groups of 4 heads each, read in
+    place, and the intra-chunk step alone on contiguous (b, H, nc, cs, ·)
+    tensors with a chunk of 100 rows."""
+    tdt = DTYPES[dtype]
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device)
+
+    x, Bg, Cg = rnd(2, 300, 8, 64).to(tdt), rnd(2, 300, 2, 128).to(tdt), rnd(2, 300, 2, 128).to(tdt)
+    dt = torch.nn.functional.softplus(rnd(2, 300, 8) - 1)
+    A = -torch.exp(rnd(8) * 0.2)
+    s0 = rnd(2, 8, 128, 64)
+    before = ssd_ops.launches.count
+    y, s = ssd_ops.ssd_chunked(x, dt, A, Bg, Cg, 128, s0)
+    rep = lambda t: torch.repeat_interleave(t, 4, dim=2)  # noqa: E731
+    y0, s_ref = ssd_ops.ssd_chunked_ref(x, dt, A, rep(Bg), rep(Cg), 128, s0)
+    _close_to_scale(y, y0)
+    _close_to_scale(s, s_ref)
+    xc, Bc, Cc = rnd(2, 3, 3, 100, 64).to(tdt), rnd(2, 3, 3, 100, 128).to(tdt), rnd(2, 3, 3, 100, 128).to(tdt)
+    dtc = torch.nn.functional.softplus(rnd(2, 3, 3, 100) - 1)
+    cum = torch.cumsum(-dtc * 0.4, dim=-1)
+    got, want = ssd_ops.ssd_intra_chunk(xc, dtc, cum, Bc, Cc), ssd_ops.ssd_chunk_ref(xc, dtc, cum, Bc, Cc)
+    for g, w in zip(got, want):
+        _close_to_scale(g, w)
+    assert ssd_ops.launches.count - before == 2

@@ -28,6 +28,7 @@ from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops  # noqa: E402
+from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -202,14 +203,16 @@ def test_rmsnorm_plain_leading_dims():
 # ---------------------------------------------------------------------------
 
 def test_cpu_tensors_never_count_as_launches():
-    for ops in (rmsnorm_ops, flash_ops, decode_ops):
+    all_ops = (rmsnorm_ops, flash_ops, decode_ops, ssd_ops)
+    for ops in all_ops:
         ops.launches.reset()
     x = torch.randn(3, 8)
     rmsnorm_ops.rmsnorm(x, torch.zeros(8))
     q = torch.randn(1, 5, 4, 8)
     flash_ops.flash_attention(q, q, q)
     decode_ops.decode_attention(q[:, :1], q, q, torch.tensor([2], dtype=torch.int32))
-    assert [m.launches.count for m in (rmsnorm_ops, flash_ops, decode_ops)] == [0, 0, 0]
+    ssd_ops.ssd_chunked(q, torch.rand(1, 5, 4), -torch.ones(4), q, q, chunk=4)
+    assert [m.launches.count for m in all_ops] == [0, 0, 0, 0]
 
 
 def test_cuda_request_without_card_raises():
@@ -226,4 +229,49 @@ def test_cuda_request_without_card_raises():
 
 def test_kernel_sources_are_present():
     names = sorted(p.name for p in dispatch.CSRC.glob("*.cu"))
-    assert names == ["decode_attention.cu", "flash_attention.cu", "rmsnorm.cu"]
+    assert names == ["decode_attention.cu", "flash_attention.cu", "rmsnorm.cu", "ssd.cu"]
+
+
+# ---------------------------------------------------------------------------
+# codelets: the paper's CPU / GPU choice of implementation
+# ---------------------------------------------------------------------------
+
+def _codelet_case(name):
+    """(codelet, data-slot values, static parameters, plain version)."""
+    rng = np.random.default_rng(11)
+    f32 = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))  # noqa: E731
+    if name == "rmsnorm":
+        return rmsnorm_ops.rmsnorm_codelet, (f32(4, 128), f32(128)), dict(eps=1e-6), rmsnorm_ops.rmsnorm_ref
+    if name == "flash_attention":
+        q, k, v = f32(1, 9, 4, 16), f32(1, 9, 2, 16), f32(1, 9, 2, 16)
+        return flash_ops.flash_attention_codelet, (q, k, v), dict(window=5), flash_ops.attention_ref
+    if name == "decode_attention":
+        q, k = f32(2, 1, 4, 16), f32(2, 12, 2, 16)
+        pos = torch.tensor([3, 11], dtype=torch.int32)
+        return decode_ops.decode_attention_codelet, (q, k, f32(2, 12, 2, 16), pos), {}, decode_ops.decode_attention_ref
+    xh, Bc = f32(1, 21, 4, 8), f32(1, 21, 1, 12)
+    dt = torch.nn.functional.softplus(f32(1, 21, 4) - 1)
+    args = (xh, dt, -torch.ones(4), Bc, f32(1, 21, 1, 12))
+    return ssd_ops.ssd_codelet, args, dict(chunk=8), ssd_ops.ssd_chunked_ref
+
+
+@pytest.mark.parametrize("name", ["rmsnorm", "flash_attention", "decode_attention", "ssd_chunked"])
+def test_codelet_registers_cuda_and_ref(name):
+    """Each kernel is a Specx codelet with a plain (``ref``) and a device
+    (``cuda``) implementation, as ``repro`` registers ``ref`` and ``pallas``
+    (``tests/test_codelet.py``); without a card only ``ref`` is available,
+    and a run through the port's ``SpRuntime`` gives the plain result."""
+    from repro_torch.core import SpData, SpRuntime
+
+    codelet, args, static, plain = _codelet_case(name)
+    assert codelet.name == name
+    assert codelet.impl_kinds == ["cuda", "ref"]
+    want_kinds = ["cuda", "ref"] if dispatch.cuda_available() else ["ref"]
+    assert codelet.available_kinds() == want_kinds
+    out = SpData(None)
+    with SpRuntime(workers=2) as rt:
+        codelet(*(SpData(a) for a in args), out, **static)
+        rt.wait_all_tasks()
+    got, want = out.value, plain(*args, **static)
+    for g, w in zip(*(t if isinstance(t, tuple) else (t,) for t in (got, want))):
+        assert torch.equal(g, w)
