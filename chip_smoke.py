@@ -9,13 +9,16 @@ Phases (any failure raises and the script exits non-zero):
 3. kernels  — each kernel against its plain PyTorch version on the card, at
               the serving paths' shapes (deepseek-7b, mamba2-130m; bf16) and at
               edge shapes (fp32 and bf16), with kernel / plain / library times
-              and bounds; then one codelet per kernel on a device worker;
+              and bounds (rmsnorm also at both paths' decode rows), and the
+              HGMMA count of the flash kernels' SASS where ``cuobjdump`` is
+              present; then one codelet per kernel on a device worker;
 4. serving  — full-width deepseek-7b (30 layers, bf16, seeded random init)
               through ``repro_torch.serving.ServeEngine``: ragged prompts and a
               sampled request, then duplicates that take the prefix-share and
               the restore paths; launch counts show the path ran through all
               three of its kernels; one greedy request is held against a
-              sequential prefill + decode loop;
+              sequential prefill + decode loop; a decode iteration and the
+              2048-token prefill alone are profiled;
 5. serving  — full-width mamba2-130m (24 layers, bf16, seeded random init):
               prompts up to 4096 tokens, a sampled request and a duplicate
               (re-prefilled: ssm states are not paged); launch counts show the
@@ -34,6 +37,8 @@ from __future__ import annotations
 
 import gc
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -159,9 +164,11 @@ def check_rmsnorm(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     err = 0.0
     # each serving path's rows: deepseek-7b D = 4096 (decode T = 1, prefill),
-    # mamba2-130m D = 768 (decode T = 1 and 8, prefill up to 4096); then edges
+    # mamba2-130m D = 768 (decode T = 1 and 8, prefill up to 4096); then edges:
+    # qk-norm rows (128), tiny rows, a D that is not a multiple of the vector
+    # (37: the scalar path), one beyond the register path (12288: looped)
     cases = ((1, 4096), (100, 4096), (2048, 4096), (1, 768), (8, 768), (100, 768), (4096, 768),
-             (37, 128), (5, 16))
+             (37, 128), (5, 16), (3, 37), (7, 12288))
     for dtype in (torch.bfloat16, torch.float32):
         for T, D in cases:
             x = _randn(gen, (T, D), dtype, dev)
@@ -169,18 +176,32 @@ def check_rmsnorm(dev) -> dict:
             e = _compare(f"rmsnorm {dtype} T={T} D={D}", ops.rmsnorm(x, s), rmsnorm_ref(x, s), dtype)
             if dtype == torch.bfloat16 and (T, D) == (2048, 4096):
                 err = e
-    # main-path shape: prefill rows of deepseek-7b
-    T, D, dtype = 2048, 4096, torch.bfloat16
-    sets = [(_randn(gen, (T, D), dtype, dev), _randn(gen, (D,), dtype, dev, 0.1)) for _ in range(4)]
-    ms = time_ms(ops.rmsnorm, sets)
-    plain = time_ms(rmsnorm_ref, sets)
-    weights = [(x, (1.0 + s.float()).to(dtype)) for x, s in sets]
-    lib = time_ms(lambda x, w: torch.nn.functional.rms_norm(x, (D,), w, 1e-6), weights)
-    bound, by = _bound(2 * T * D * 2 + D * 2, 4 * T * D, dtype)
+        # rows one element into a buffer: no 16-byte alignment, scalar path
+        T, D = 50, 768
+        x = _randn(gen, (T * D + 1,), dtype, dev)[1:].view(T, D)
+        s = _randn(gen, (D,), dtype, dev, 0.1)
+        _compare(f"rmsnorm {dtype} T={T} D={D} unaligned rows", ops.rmsnorm(x, s), rmsnorm_ref(x, s), dtype)
+    # the paths' shapes: deepseek-7b prefill rows (the record's), then the
+    # decode rows of deepseek-7b (4 slots) and mamba2-130m (8 slots)
+    dtype = torch.bfloat16
+    times = {}
+    for T, D in ((2048, 4096), (4, 4096), (8, 768)):
+        sets = [(_randn(gen, (T, D), dtype, dev), _randn(gen, (D,), dtype, dev, 0.1)) for _ in range(4)]
+        weights = [(x, (1.0 + s.float()).to(dtype)) for x, s in sets]
+        bound, by = _bound(2 * T * D * 2 + D * 2, 4 * T * D, dtype)
+        times[(T, D)] = dict(
+            ms=time_ms(ops.rmsnorm, sets), plain_ms=time_ms(rmsnorm_ref, sets),
+            library_ms=time_ms(lambda x, w: torch.nn.functional.rms_norm(x, (w.shape[0],), w, 1e-6), weights),
+            bound_ms=bound, bound_by=by,
+        )
+        t = times[(T, D)]
+        log(f"[kernels] rmsnorm x ({T}, {D}) bf16: kernel {t['ms']:.4f} ms, F.rms_norm {t['library_ms']:.4f} ms "
+            f"(kernel / library {t['ms'] / t['library_ms']:.2f}), plain {t['plain_ms']:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}, {bound / t['ms']:.1%} of it)")
+    T, D = 2048, 4096
     return dict(
         name="rmsnorm", route="cuda", source="src/repro_torch/kernels/csrc/rmsnorm.cu",
-        replaces="src/repro/kernels/rmsnorm/kernel.py:27", max_abs_err=err, ms=ms,
-        plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib,
+        replaces="src/repro/kernels/rmsnorm/kernel.py:27", max_abs_err=err, **times[(T, D)],
         shape=f"x ({T}, {D}) bf16",
     )
 
@@ -193,30 +214,56 @@ def _pairs(Lq, Lk, causal, window, q_offset) -> int:
     return int(torch.clamp(hi - lo, min=0).sum())
 
 
+def _hgmma_counts() -> str:
+    """HGMMA (wgmma) instructions in the SASS of each flash-attention kernel
+    of the built library, by ``cuobjdump -sass``."""
+    from repro_torch.kernels import dispatch
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return "cuobjdump not on this machine: HGMMA count not taken"
+    sass = subprocess.run([tool, "-sass", str(dispatch.build())], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"(flash_fwd\w*?kernel)I(\w*?)E+v", line)
+        if "Function :" in line:
+            fn = f"{m.group(1)}<{m.group(2)}>" if m else None
+            if fn:
+                counts[fn] = 0
+        elif fn and "HGMMA" in line:
+            counts[fn] += 1
+    return ", ".join(f"{k}: {v}" for k, v in counts.items())
+
+
 def check_flash(dev) -> dict:
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
+    log(f"[kernels] HGMMA instructions in the flash kernels' SASS: {_hgmma_counts()}")
     gen = torch.Generator(device=dev).manual_seed(2)
-    cases = [  # (B, Lq, Lk, H, KH, D, causal, window, q_offset, dtypes)
-        (1, 2048, 2048, 32, 32, 128, True, None, 0, (torch.bfloat16,)),
-        (2, 1000, 1000, 32, 8, 128, True, 256, 0, (torch.bfloat16, torch.float32)),
-        (1, 300, 1000, 8, 2, 64, True, None, 700, (torch.bfloat16, torch.float32)),
-        (1, 333, 333, 4, 4, 128, False, None, 0, (torch.float32,)),
-        (2, 77, 77, 4, 1, 32, True, 40, 0, (torch.float32,)),
+    # every case in bf16 (tensor cores) and fp32 (SIMT)
+    cases = [  # (B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_offset)
+        (1, 2048, 2048, 32, 32, 128, 128, True, None, 0),
+        (2, 1000, 1000, 32, 8, 128, 128, True, 256, 0),
+        (1, 300, 1000, 8, 2, 64, 64, True, None, 700),
+        (1, 333, 333, 4, 4, 128, 128, False, None, 0),
+        (2, 77, 77, 4, 1, 32, 32, True, 40, 0),
+        (1, 1, 777, 8, 8, 128, 128, True, None, 776),  # one query row
+        (1, 500, 500, 16, 16, 80, 80, True, None, 0),  # head dim padded to 128
     ]
     err = 0.0
-    for B, Lq, Lk, H, KH, D, causal, window, q_off, dtypes in cases:
-        for dtype in dtypes:
-            q = _randn(gen, (B, Lq, H, D), dtype, dev)
-            k = _randn(gen, (B, Lk, KH, D), dtype, dev)
-            v = _randn(gen, (B, Lk, KH, D), dtype, dev)
+    for B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_off in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = _randn(gen, (B, Lq, H, Dh), dtype, dev)
+            k = _randn(gen, (B, Lk, KH, Dh), dtype, dev)
+            v = _randn(gen, (B, Lk, KH, Dv), dtype, dev)
             kw = dict(causal=causal, window=window, q_offset=q_off)
             e = _compare(
-                f"flash {dtype} B={B} Lq={Lq} Lk={Lk} H={H} KH={KH} D={D} {kw}",
+                f"flash {dtype} B={B} Lq={Lq} Lk={Lk} H={H} KH={KH} Dh={Dh} Dv={Dv} {kw}",
                 ops.flash_attention(q, k, v, **kw), attention_ref(q, k, v, **kw), dtype,
             )
-            if Lq == 2048:
+            if Lq == 2048 and dtype == torch.bfloat16:
                 err = e
     B, L, H, D, dtype = 1, 2048, 32, 128, torch.bfloat16
     sets = [tuple(_randn(gen, (B, L, H, D), dtype, dev) for _ in range(3)) for _ in range(2)]
@@ -229,6 +276,8 @@ def check_flash(dev) -> dict:
     )
     flops = 4 * B * H * D * _pairs(L, L, True, None, 0)
     bound, by = _bound(4 * B * L * H * D * 2, flops, dtype)
+    log(f"[kernels] flash at ({B}, {L}, {H}, {D}) bf16 causal: {flops / 1e9:.2f} GFLOP, kernel "
+        f"{flops / ms / 1e9:.1f} TFLOP/s, kernel / SDPA {ms / lib:.2f}")
     return dict(
         name="flash_attention", route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:111", max_abs_err=err, ms=ms,
@@ -592,6 +641,7 @@ def serving_phase(dev) -> dict:
                      restores=eng.restores - base[2])
         peak = torch.cuda.max_memory_allocated()
         step_profile = _profile_decode(eng, warm)
+    prefill_profile = _profile_prefill(model, cfg, prompts[0], dev)
 
     reqs = greedy + [sampled, dup, dup_restore]
     assert all(r.done and len(r.out_tokens) == GEN for r in reqs), "a request did not finish"
@@ -632,9 +682,16 @@ def serving_phase(dev) -> dict:
         f"{weight_bytes / 1e9:.2f} GB of weights once takes {sp['weights_bound_ms']:.2f} ms")
     for name, ms in sp["top"]:
         log(f"[profile]   {ms:8.4f} ms  {name}")
+    pp = prefill_profile
+    log(f"[profile] deepseek-7b prefill of {PROMPT_LENS[0]} tokens alone: {pp['wall_ms']:.2f} ms wall "
+        f"(median of 3); under the profiler {pp['profiled_wall_ms']:.2f} ms wall, "
+        f"{pp['device_ms']:.2f} ms device time, device busy {pp['busy']:.1%}")
+    for name, ms in pp["top"]:
+        log(f"[profile]   {ms:8.4f} ms  {name}")
     return dict(
         launches=launches, tok_per_s=n_tok / wall, wall_s=wall, peak_bytes=peak, stats=stats,
         ttft_ms=[(r.t_first - r.t_arrival) * 1e3 for r in reqs], decode_profile=sp,
+        prefill_profile=pp,
     )
 
 

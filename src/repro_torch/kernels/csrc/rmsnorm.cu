@@ -6,71 +6,262 @@
 //           f32, result cast back to x's dtype.  x is (T, D) row-major.
 //
 // Bound: device-memory bytes (one read of x, one write of out, ~4 flops per
-// element).  Design: one block per row, so a ragged T needs no row-block
-// halving; threads stride the row with neighbouring threads on neighbouring
-// addresses, reduce the sum of squares with warp shuffles and one shared
-// array, then re-read the row (it is in L1/L2 by then) to scale and store.
+// element), so each byte is read once, 16 bytes a thread at a time.  Design:
+// a row belongs to `tpr` neighbouring threads (a power of two); the block
+// holds 128 / tpr rows when a row is shorter than a warp's worth of
+// vectors, or one row of up to 256 threads.  Each thread loads VPT vectors
+// of VEC elements (uint4: 8 bf16 or 4 f32), neighbouring threads on
+// neighbouring 16 bytes, and keeps them in registers across the reduction,
+// so there is no second pass over x; (1 + scale) is loaded the same way
+// once per thread.  The sum of squares reduces with warp shuffles, and
+// through shared memory only when a row spans several warps.  The grid
+// holds at most 1024 threads an SM; a block walks its rows with a stride
+// and loads its share of the next row before it reduces and writes the
+// current one, so loads stay in flight across rows.  Registers hold the
+// loaded words packed (bf16 pairs), not as f32.  VPT = 0 is
+// the looped variant for rows too long for registers (it reads x twice);
+// VEC = 1 is the scalar path for a D that is not a multiple of the vector
+// or a base that is not 16-byte aligned.  The launch plan (VEC, VPT, tpr,
+// rows per block, blocks) is chosen in Python (rmsnorm/ops.py::launch_plan).
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
 
-template <typename T, typename S>
-__global__ void rmsnorm_kernel(const T* __restrict__ x, const S* __restrict__ scale,
-                               T* __restrict__ out, int D, float eps) {
-  const long long row = blockIdx.x;
-  const T* xr = x + row * D;
-  T* orow = out + row * D;
+constexpr int MAX_VPT = 4;
 
-  float ss = 0.f;
-  for (int i = threadIdx.x; i < D; i += blockDim.x) {
-    const float v = rt::to_f32(xr[i]);
-    ss += v * v;
-  }
-  ss = rt::warp_sum(ss);
-
-  __shared__ float warp_sums[32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sums[warp] = ss;
-  __syncthreads();
-  if (warp == 0) {
-    const int n_warps = blockDim.x >> 5;
-    float v = lane < n_warps ? warp_sums[lane] : 0.f;
-    v = rt::warp_sum(v);
-    if (lane == 0) warp_sums[0] = v;
-  }
-  __syncthreads();
-
-  const float inv = rsqrtf(warp_sums[0] / static_cast<float>(D) + eps);
-  for (int i = threadIdx.x; i < D; i += blockDim.x) {
-    const float y = rt::to_f32(xr[i]) * inv * (1.f + rt::to_f32(scale[i]));
-    orow[i] = rt::from_f32<T>(y);
+// the N elements of T packed in 32-bit words w, as f32
+template <typename T, int N>
+__device__ __forceinline__ void words_to_f32(const uint32_t* w, float (&f)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if constexpr (sizeof(T) == 4)
+      f[i] = __uint_as_float(w[i]);
+    else  // bf16 is the high half of an f32
+      f[i] = __uint_as_float((i & 1) ? (w[i / 2] & 0xffff0000u) : (w[i / 2] << 16));
   }
 }
 
+// N elements of T as a thread holds them between loading and using them:
+// packed 32-bit words, filled by 16-byte (or, for 8 bytes, 8-byte) vector
+// loads from an address aligned to them ...
+template <typename T, int N, bool PACKED = (N * sizeof(T) >= 8)>
+struct Raw {
+  static constexpr int W = N * static_cast<int>(sizeof(T)) / 4;
+  uint32_t w[W];
+  __device__ __forceinline__ void load(const T* p) {
+    if constexpr (W % 4 == 0) {
+#pragma unroll
+      for (int c = 0; c < W / 4; ++c) {
+        const uint4 u = reinterpret_cast<const uint4*>(p)[c];
+        w[4 * c] = u.x, w[4 * c + 1] = u.y, w[4 * c + 2] = u.z, w[4 * c + 3] = u.w;
+      }
+    } else {
+      static_assert(W == 2, "8 or 16·k bytes");
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      w[0] = u.x, w[1] = u.y;
+    }
+  }
+  __device__ __forceinline__ void get(float (&f)[N]) const { words_to_f32<T, N>(w, f); }
+};
+
+// ... or, on the scalar path, element by element as f32
+template <typename T, int N>
+struct Raw<T, N, false> {
+  float v[N];
+  __device__ __forceinline__ void load(const T* p) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = rt::to_f32(p[i]);
+  }
+  __device__ __forceinline__ void get(float (&f)[N]) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i) f[i] = v[i];
+  }
+};
+
+template <typename T, int N>
+__device__ __forceinline__ void store_from_f32(T* p, const float (&f)[N]) {
+  constexpr int bytes = N * static_cast<int>(sizeof(T));
+  if constexpr (bytes % 16 == 0) {
+    uint32_t w[bytes / 4];
+#pragma unroll
+    for (int i = 0; i < bytes / 4; ++i) {
+      if constexpr (sizeof(T) == 4)
+        w[i] = __float_as_uint(f[i]);
+      else
+        w[i] = static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(f[2 * i]))) |
+               (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(f[2 * i + 1]))) << 16);
+    }
+#pragma unroll
+    for (int c = 0; c < bytes / 16; ++c)
+      reinterpret_cast<uint4*>(p)[c] = make_uint4(w[4 * c], w[4 * c + 1], w[4 * c + 2], w[4 * c + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) p[i] = rt::from_f32<T>(f[i]);
+  }
+}
+
+// Sum over the tpr threads of a row (rows are aligned groups of tpr threads).
+// Every thread of the block calls it, rows past the end included; `partial`
+// alternates between two buffers from one row to the next.
+__device__ __forceinline__ float row_sum(float v, int tpr, float* partial) {
+  const int width = tpr < 32 ? tpr : 32;
+  for (int o = width >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if (tpr <= 32) return v;
+  const int warp = threadIdx.x >> 5, wpr = tpr >> 5, first = warp & ~(wpr - 1);
+  if ((threadIdx.x & 31) == 0) partial[warp] = v;
+  __syncthreads();
+  float s = 0.f;
+  for (int i = 0; i < wpr; ++i) s += partial[first + i];
+  return s;
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ float sum_sq(const Raw<T, VEC>& r) {
+  float f[VEC];
+  r.get(f);
+  float ss = 0.f;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) ss += f[e] * f[e];
+  return ss;
+}
+
+template <typename T, typename S, int VEC>
+__device__ __forceinline__ void scale_store(T* p, const Raw<T, VEC>& xr, const Raw<S, VEC>& sr,
+                                            float inv) {
+  float f[VEC], g[VEC];
+  xr.get(f);
+  sr.get(g);
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) f[e] = f[e] * inv * (1.f + g[e]);
+  store_from_f32<T, VEC>(p, f);
+}
+
+// The block's row groups are blockIdx.x, blockIdx.x + gridDim.x, ...; on the
+// register path each thread loads its share of the next row before it
+// reduces and writes the current one.
+template <typename T, typename S, int VEC, int VPT>
+__global__ void __launch_bounds__(256) rmsnorm_kernel(const T* __restrict__ x,
+                                                      const S* __restrict__ scale,
+                                                      T* __restrict__ out, long long rows, int D,
+                                                      int tpr, int rows_per_block, float eps) {
+  __shared__ float partial[2][8];
+  const int lane = threadIdx.x & (tpr - 1), sub = threadIdx.x / tpr;
+  const long long stride = static_cast<long long>(gridDim.x) * rows_per_block;
+  const int nvec = D / VEC;
+  long long base = static_cast<long long>(blockIdx.x) * rows_per_block;
+
+  if constexpr (VPT > 0) {
+    Raw<S, VEC> sr[VPT];
+    Raw<T, VEC> xr[VPT], xn[VPT];
+#pragma unroll
+    for (int j = 0; j < VPT; ++j) {
+      const int vi = j * tpr + lane;
+      if (vi < nvec) sr[j].load(scale + vi * VEC);
+      if (vi < nvec && base + sub < rows) xr[j].load(x + (base + sub) * D + vi * VEC);
+    }
+    for (int it = 0; base < rows; base += stride, ++it) {
+      const long long row = base + sub, next = row + stride;
+#pragma unroll
+      for (int j = 0; j < VPT; ++j) {
+        const int vi = j * tpr + lane;
+        if (vi < nvec && next < rows) xn[j].load(x + next * D + vi * VEC);
+      }
+      float ss = 0.f;
+#pragma unroll
+      for (int j = 0; j < VPT; ++j)
+        if (j * tpr + lane < nvec && row < rows) ss += sum_sq(xr[j]);
+      const float inv = rsqrtf(row_sum(ss, tpr, partial[it & 1]) / static_cast<float>(D) + eps);
+#pragma unroll
+      for (int j = 0; j < VPT; ++j) {
+        const int vi = j * tpr + lane;
+        if (vi < nvec && row < rows) scale_store(out + row * D + vi * VEC, xr[j], sr[j], inv);
+        xr[j] = xn[j];
+      }
+    }
+  } else {  // looped: rows too long to hold in registers; x is read twice
+    for (int it = 0; base < rows; base += stride, ++it) {
+      const long long row = base + sub;
+      const bool live = row < rows;
+      float ss = 0.f;
+      for (int vi = lane; live && vi < nvec; vi += tpr) {
+        Raw<T, VEC> xr;
+        xr.load(x + row * D + vi * VEC);
+        ss += sum_sq(xr);
+      }
+      const float inv = rsqrtf(row_sum(ss, tpr, partial[it & 1]) / static_cast<float>(D) + eps);
+      for (int vi = lane; live && vi < nvec; vi += tpr) {
+        Raw<T, VEC> xr;
+        Raw<S, VEC> sr;
+        xr.load(x + row * D + vi * VEC);
+        sr.load(scale + vi * VEC);
+        scale_store(out + row * D + vi * VEC, xr, sr, inv);
+      }
+    }
+  }
+}
+
+template <typename T, typename S, int VEC>
+int launch_vec(const void* x, const void* scale, void* out, long long rows, int D, int vpt,
+               int tpr, int rpb, int blocks, float eps, cudaStream_t stream) {
+  const int threads = tpr * rpb;
+  const T* xp = static_cast<const T*>(x);
+  const S* sp = static_cast<const S*>(scale);
+  T* op = static_cast<T*>(out);
+  switch (vpt) {
+#define RMSNORM_CASE(V)                                                              \
+  case V:                                                                            \
+    rmsnorm_kernel<T, S, VEC, V><<<blocks, threads, 0, stream>>>(xp, sp, op, rows, D, \
+                                                                 tpr, rpb, eps);     \
+    break;
+    RMSNORM_CASE(0)
+    RMSNORM_CASE(1)
+    RMSNORM_CASE(2)
+    RMSNORM_CASE(3)
+    RMSNORM_CASE(4)
+#undef RMSNORM_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, typename S>
-void launch(const void* x, const void* scale, void* out, long long T_rows, int D, float eps,
-            cudaStream_t stream) {
-  const int threads = D >= 2048 ? 256 : (D >= 256 ? 128 : 32);
-  rmsnorm_kernel<T, S><<<static_cast<unsigned>(T_rows), threads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const S*>(scale), static_cast<T*>(out), D, eps);
+int launch(const void* x, const void* scale, void* out, long long rows, int D, int vec, int vpt,
+           int tpr, int rpb, int blocks, float eps, cudaStream_t stream) {
+  constexpr int full = 16 / static_cast<int>(sizeof(T));
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(scale) % 16 == 0 && D % full == 0;
+  // tpr a power of two up to 256, whole warps per block
+  if (tpr < 1 || tpr > 256 || (tpr & (tpr - 1)) || rpb < 1 || (tpr * rpb) % 32 ||
+      tpr * rpb > 256 || vpt < 0 || vpt > MAX_VPT || (tpr > 32 && rpb != 1) || blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec == full && aligned)
+    return launch_vec<T, S, full>(x, scale, out, rows, D, vpt, tpr, rpb, blocks, eps, stream);
+  if (vec == 1)
+    return launch_vec<T, S, 1>(x, scale, out, rows, D, vpt, tpr, rpb, blocks, eps, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-extern "C" int rmsnorm_fwd(const void* x, const void* scale, void* out, long long T_rows, int D,
-                           float eps, int x_dtype, int s_dtype, void* stream) {
+// vec, vpt, tpr, rows_per_block, blocks: the launch plan of rmsnorm/ops.py
+extern "C" int rmsnorm_fwd(const void* x, const void* scale, void* out, long long rows, int D,
+                           float eps, int x_dtype, int s_dtype, int vec, int vpt, int tpr,
+                           int rows_per_block, int blocks, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_dtype == rt::BF16 && s_dtype == rt::BF16)
-    launch<__nv_bfloat16, __nv_bfloat16>(x, scale, out, T_rows, D, eps, st);
-  else if (x_dtype == rt::BF16 && s_dtype == rt::F32)
-    launch<__nv_bfloat16, float>(x, scale, out, T_rows, D, eps, st);
-  else if (x_dtype == rt::F32 && s_dtype == rt::BF16)
-    launch<float, __nv_bfloat16>(x, scale, out, T_rows, D, eps, st);
-  else if (x_dtype == rt::F32 && s_dtype == rt::F32)
-    launch<float, float>(x, scale, out, T_rows, D, eps, st);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  if (static_cast<long long>(D) * (vpt > 0 ? 1 : 0) > static_cast<long long>(vpt) * tpr * vec)
+    return static_cast<int>(cudaErrorInvalidValue);  // the register path must cover the row
+#define RMSNORM_LAUNCH(T, S) \
+  return launch<T, S>(x, scale, out, rows, D, vec, vpt, tpr, rows_per_block, blocks, eps, st)
+  if (x_dtype == rt::BF16 && s_dtype == rt::BF16) RMSNORM_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+  if (x_dtype == rt::BF16 && s_dtype == rt::F32) RMSNORM_LAUNCH(__nv_bfloat16, float);
+  if (x_dtype == rt::F32 && s_dtype == rt::BF16) RMSNORM_LAUNCH(float, __nv_bfloat16);
+  if (x_dtype == rt::F32 && s_dtype == rt::F32) RMSNORM_LAUNCH(float, float);
+#undef RMSNORM_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* kernels_error_string(int code) {

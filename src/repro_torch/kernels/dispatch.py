@@ -12,6 +12,7 @@ a wrapper given a CUDA tensor launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -126,7 +127,7 @@ def build_log() -> str:
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     S3 = ctypes.POINTER(ctypes.c_longlong)
-    lib.rmsnorm_fwd.argtypes = [P, P, P, LL, I, F, I, I, P]
+    lib.rmsnorm_fwd.argtypes = [P, P, P, LL, I, F, I, I, I, I, I, I, I, P]
     lib.flash_attention_fwd.argtypes = [
         P, P, P, P, I, I, I, I, I, I, I, S3, S3, S3, S3, I, I, I, F, I, P,
     ]
@@ -176,6 +177,12 @@ def dtype_code(name: str, t: torch.Tensor) -> int:
         return DTYPE_CODES[t.dtype]
     except KeyError:
         raise TypeError(f"{name}: dtype {t.dtype} not supported (float32, bfloat16)") from None
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA card."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_handle(t: torch.Tensor) -> int:

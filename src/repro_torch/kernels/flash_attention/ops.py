@@ -2,12 +2,12 @@
 
 Replaces ``src/repro/kernels/flash_attention/kernel.py::flash_attention_pallas``.
 At prefill lengths the work is bound by operations (~4·L²·H·Dh/2 flops for
-~4·L·H·Dh elements moved); the kernel tiles 64 queries per block, loops over
-64-key tiles inside the block with the online softmax, and never loads a tile
-that the causal diagonal or the window masks out.  It reads the model's
-(B, L, H, D) layout through strides, so nothing is transposed.  A CPU tensor
-takes the plain version in ``ref.py``; a CUDA tensor launches the kernel or
-raises.
+~4·L·H·Dh elements moved).  bfloat16 runs on the tensor cores (``wgmma``),
+128 queries per block over 64-key tiles that arrive by 16-byte asynchronous
+copies; float32 runs on the SIMT cores.  Both never load a tile that the
+causal diagonal or the window masks out, and read the model's (B, L, H, D)
+layout through strides, so nothing is transposed.  A CPU tensor takes the
+plain version in ``ref.py``; a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -25,6 +25,21 @@ from .ref import attention_ref
 launches = dispatch.LaunchCounter()
 
 _MAX_HEAD_DIM = 128
+
+
+def check_tensor_core_layout(**tensors: torch.Tensor) -> None:
+    """The bfloat16 kernel copies 16-byte chunks: each tensor's base must lie
+    on 16 bytes, and its head dim and its batch, sequence and head strides
+    must be whole multiples of 8 elements.  Raises ``ValueError`` otherwise."""
+    for name, t in tensors.items():
+        bad = [d for d in (0, 1, 2) if t.stride(d) % 8]
+        if t.data_ptr() % 16 or t.shape[-1] % 8 or bad:
+            raise ValueError(
+                f"flash_attention: bfloat16 {name} {tuple(t.shape)} with strides {t.stride()} "
+                f"at offset {t.data_ptr() % 16} mod 16 bytes: the tensor-core kernel needs a "
+                "16-byte-aligned base and a head dim and (batch, sequence, head) strides "
+                "that are multiples of 8 elements"
+            )
 
 
 def flash_attention(
@@ -56,6 +71,8 @@ def flash_attention(
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention: the head dim must be contiguous")
     code = dispatch.dtype_code("flash_attention", q)
+    if q.dtype == torch.bfloat16:
+        check_tensor_core_layout(q=q, k=k, v=v)
     out = torch.empty((B, Lq, H, Dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0 or Lk == 0:
         return out.zero_()

@@ -2,11 +2,15 @@
 
 Replaces ``src/repro/kernels/rmsnorm/kernel.py::rmsnorm_pallas``.  On this
 card the work is bound by device-memory bytes (one read of x, one write of
-the output); the kernel keeps one block per row so any row count works and
-re-reads the row from cache for the scaling pass.  A CPU tensor takes the
-plain version in ``ref.py``; a CUDA tensor launches the kernel or raises.
+the output): the kernel reads 16 bytes a thread and holds the row in
+registers between the reduction and the scaling.  :func:`launch_plan`
+chooses how many threads share a row and how many rows share a block.  A
+CPU tensor takes the plain version in ``ref.py``; a CUDA tensor launches the
+kernel or raises.
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -17,6 +21,54 @@ from .ref import rmsnorm_ref
 
 #: launches of the kernel through :func:`rmsnorm` (``.count``)
 launches = dispatch.LaunchCounter()
+
+#: vectors a thread holds in registers at most (csrc/rmsnorm.cu MAX_VPT)
+MAX_VPT = 4
+
+
+class LaunchPlan(NamedTuple):
+    """How ``rmsnorm_kernel`` covers a (rows, D) input.
+
+    Thread ``t`` of a row's ``tpr`` threads handles vectors ``j·tpr + t`` of
+    ``vec`` elements for ``j < vpt`` (``vpt == 0``: every ``tpr``-th vector in
+    a loop), dropping those past ``D / vec``."""
+
+    vec: int  # elements per load: 16 bytes' worth, or 1 (the scalar path)
+    vpt: int  # vectors per thread held in registers; 0 = the looped variant
+    tpr: int  # threads per row, a power of two
+    rows_per_block: int
+    blocks: int
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def launch_plan(rows: int, D: int, itemsize: int, aligned: bool,
+                sms: Optional[int] = None) -> LaunchPlan:
+    """The plan for ``rows`` rows of ``D`` elements of ``itemsize`` bytes.
+    ``aligned``: x, out and scale start on 16 bytes (then, with D a multiple
+    of the vector, so does every row).  Given the card's ``sms``, the grid
+    holds at most 1024 threads per SM and a block takes every ``blocks``-th
+    group of rows, loading the next while it writes the current one (at
+    (2048, 4096) bf16 that took the kernel from ~70% to ~93% of the bytes
+    bound on an H100, in ``chip_smoke.py``)."""
+    full = 16 // itemsize
+    vec = full if aligned and D % full == 0 else 1
+    nvec = D // vec
+    if nvec <= 32 * MAX_VPT:  # a warp or less per row, several rows per block
+        tpr = min(32, _pow2_at_least(nvec))
+        rows_per_block = 128 // tpr
+    else:  # one row per block of 128 or 256 threads, ~2 vectors a thread
+        tpr = min(256, _pow2_at_least(-(-nvec // 2)))
+        rows_per_block = 1
+    vpt = -(-nvec // tpr)
+    if vpt > MAX_VPT:
+        vpt = 0
+    blocks = -(-rows // rows_per_block)
+    if sms is not None:
+        blocks = min(blocks, sms * (1024 // (tpr * rows_per_block)))
+    return LaunchPlan(vec, vpt, tpr, rows_per_block, blocks)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -35,10 +87,12 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
     rows = x.numel() // D if D else 0
     if rows == 0:
         return out
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, scale, out))
+    plan = launch_plan(rows, D, x.element_size(), aligned, dispatch.sm_count(x.device))
     lib = dispatch.library()
     rc = lib.rmsnorm_fwd(
         x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, D, float(eps),
-        x_code, s_code, dispatch.stream_handle(x),
+        x_code, s_code, *plan, dispatch.stream_handle(x),
     )
     dispatch.check(rc, "rmsnorm")
     launches.add()

@@ -126,3 +126,84 @@ def test_ssd_kernel_matches_plain(cuda_device, dtype):
     for g, w in zip(got, want):
         _close_to_scale(g, w)
     assert ssd_ops.launches.count - before == 2
+
+
+# (B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_offset): the tensor-core route
+# at every padded head dim (64: Dh 8 / 32 / 64; 128: Dh 80 / 96 / 128), GQA
+# and MQA, window, offset, non-causal, and ragged lengths around the 64-key
+# and 128-query tiles
+FLASH_BF16_CASES = [
+    (1, 63, 63, 4, 4, 8, 8, True, None, 0),
+    (2, 65, 65, 4, 2, 32, 32, True, None, 0),
+    (1, 777, 777, 8, 2, 64, 64, True, None, 0),
+    (1, 65, 65, 4, 4, 80, 80, True, None, 0),
+    (2, 300, 300, 8, 8, 128, 128, True, None, 0),
+    (1, 130, 130, 4, 2, 96, 64, True, None, 0),
+    (2, 777, 777, 4, 1, 64, 64, True, 100, 0),
+    (1, 63, 700, 8, 2, 64, 64, True, None, 637),
+    (1, 1, 777, 4, 4, 128, 128, True, None, 776),
+    (1, 1, 1, 2, 2, 128, 128, True, None, 0),
+    (2, 333, 65, 4, 1, 128, 128, False, None, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_BF16_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_tensor_core_route_matches_plain(cuda_device, case):
+    B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_offset = case
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device).bfloat16()
+
+    q, k, v = rnd(B, Lq, H, Dh), rnd(B, Lk, KH, Dh), rnd(B, Lk, KH, Dv)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = flash_ops.launches.count
+    got = flash_ops.flash_attention(q, k, v, **kw)
+    assert flash_ops.launches.count - before == 1
+    assert got.shape == (B, Lq, H, Dv)
+    _close(got, flash_ops.attention_ref(q, k, v, **kw), "bfloat16")
+
+
+@pytest.mark.cuda
+def test_flash_tensor_core_route_rejects_unaligned_heads(cuda_device):
+    """A head stride of 68 elements (a slice of a wider tensor) is not whole
+    16-byte chunks: the bf16 wrapper raises instead of launching."""
+    wide = torch.zeros(1, 16, 4, 68, device=cuda_device, dtype=torch.bfloat16)
+    q = wide[..., :64]
+    kv = torch.zeros(1, 16, 4, 64, device=cuda_device, dtype=torch.bfloat16)
+    before = flash_ops.launches.count
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_ops.flash_attention(q, kv, kv)
+    assert flash_ops.launches.count == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [16, 37, 128, 768, 4096, 12288])
+def test_rmsnorm_kernel_matches_plain(cuda_device, dtype, D):
+    """Register path (16 / 128 / 768 / 4096), scalar path (37) and looped
+    path (12288) against the plain version, at decode and prefill row
+    counts."""
+    tdt = DTYPES[dtype]
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    for T in (1, 8, 333):
+        x = torch.randn(T, D, generator=gen, device=cuda_device).to(tdt)
+        s = (torch.randn(D, generator=gen, device=cuda_device) * 0.1).to(tdt)
+        _close(rmsnorm_ops.rmsnorm(x, s), rmsnorm_ops.rmsnorm_ref(x, s), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_kernel_unaligned_rows(cuda_device, dtype):
+    """A contiguous slice one element into a buffer: no row starts on 16
+    bytes, so the kernel takes its scalar path."""
+    tdt = DTYPES[dtype]
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    T, D = 50, 768
+    x = torch.randn(T * D + 1, generator=gen, device=cuda_device).to(tdt)[1:].view(T, D)
+    s = (torch.randn(D, generator=gen, device=cuda_device) * 0.1).to(tdt)
+    assert x.data_ptr() % 16 != 0
+    plan = rmsnorm_ops.launch_plan(T, D, x.element_size(), aligned=False)
+    assert plan.vec == 1
+    _close(rmsnorm_ops.rmsnorm(x, s), rmsnorm_ops.rmsnorm_ref(x, s), dtype)

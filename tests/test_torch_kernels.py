@@ -111,6 +111,25 @@ def test_flash_plain_ragged_lengths(dtype, Lq, Lk, H, KH, q_offset, window):
     _close(out, ref, dtype)
 
 
+def test_flash_model_qkv_meet_tensor_core_layout():
+    """The q / k / v that the model hands the flash kernel in bfloat16 pass
+    the tensor-core route's alignment rule; a head slice does not."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import Transformer
+    from repro_torch.models.attention import qkv_project
+
+    cfg = reduced_config("deepseek-7b").replace(dtype="bfloat16")
+    torch.manual_seed(0)
+    model = Transformer(cfg, device="cpu")
+    attn = next(m for m in model.modules() if hasattr(m, "wq"))
+    x = torch.randn(2, 37, cfg.d_model).to(torch.bfloat16)
+    q, k, v = qkv_project(attn, x, torch.arange(37), cfg)
+    assert q.dtype == torch.bfloat16 and q.shape == (2, 37, cfg.n_heads, cfg.head_dim)
+    flash_ops.check_tensor_core_layout(q=q, k=k, v=v)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_ops.check_tensor_core_layout(q=q[..., :12])
+
+
 def test_flash_rejects_nonpositive_window():
     q = torch.zeros(1, 4, 2, 8)
     with pytest.raises(ValueError):
@@ -196,6 +215,67 @@ def test_rmsnorm_plain_leading_dims():
     out = rmsnorm_ops.rmsnorm(torch.from_numpy(x), torch.from_numpy(s))
     want = jax_rmsnorm_ref(jnp.asarray(x.reshape(-1, 16)), jnp.asarray(s))
     _close(out.reshape(-1, 16), want, "float32")
+
+
+def _rmsnorm_dims() -> list[int]:
+    """Every d_model and head_dim of the port's configs and their reduced
+    configs, and edges: tiny, not a multiple of the vector, past registers."""
+    from repro_torch.configs import ARCH_NAMES, get_config, reduced_config
+
+    cfgs = [get_config(n) for n in ARCH_NAMES] + [reduced_config(n) for n in ARCH_NAMES]
+    return sorted({d for c in cfgs for d in (c.d_model, c.head_dim)} | {5, 16, 37, 12288})
+
+
+def _plan_coverage(plan, D: int) -> np.ndarray:
+    """How often the kernel's indexing (csrc/rmsnorm.cu) touches each element
+    of a row under ``plan``."""
+    counts = np.zeros(D, np.int64)
+    nvec = D // plan.vec
+    for t in range(plan.tpr):
+        if plan.vpt:
+            vis = [j * plan.tpr + t for j in range(plan.vpt)]
+        else:
+            vis = range(t, nvec, plan.tpr)
+        for vi in vis:
+            if vi < nvec:
+                counts[vi * plan.vec:(vi + 1) * plan.vec] += 1
+    return counts
+
+
+@pytest.mark.parametrize("D", _rmsnorm_dims())
+def test_rmsnorm_launch_plan_covers_every_element_once(D):
+    for itemsize in (2, 4):
+        for aligned in (True, False):
+            for rows in (1, 8, 2048):
+                plan = rmsnorm_ops.launch_plan(rows, D, itemsize, aligned)
+                assert (_plan_coverage(plan, D) == 1).all(), (plan, D)
+                assert plan.rows_per_block >= 1 and plan.blocks * plan.rows_per_block >= rows
+                assert (plan.blocks - 1) * plan.rows_per_block < rows
+                # on a card of 132 SMs: at most 1024 threads an SM, every
+                # row still in some block's stride
+                capped = rmsnorm_ops.launch_plan(rows, D, itemsize, aligned, sms=132)
+                threads = plan.tpr * plan.rows_per_block
+                assert capped[:4] == plan[:4] and 1 <= capped.blocks <= plan.blocks
+                assert capped.blocks * threads <= 132 * 1024 or capped.blocks == plan.blocks
+                assert threads % 32 == 0 and threads <= 256
+                assert plan.tpr & (plan.tpr - 1) == 0
+                assert plan.tpr <= 32 or plan.rows_per_block == 1
+                assert 0 <= plan.vpt <= rmsnorm_ops.MAX_VPT
+                if aligned and D % (16 // itemsize) == 0:
+                    assert plan.vec == 16 // itemsize
+                else:
+                    assert plan.vec == 1
+
+
+def test_rmsnorm_launch_plan_shapes():
+    """The serving shapes: deepseek-7b's rows of 4096 bf16 (512 vectors) on
+    one 256-thread block, mamba2's 768 (96 vectors) one warp a row with 3
+    vectors a lane, qk-norm rows of 128 on 16 lanes; 12288 loops."""
+    assert rmsnorm_ops.launch_plan(4, 4096, 2, True) == (8, 2, 256, 1, 4)
+    assert rmsnorm_ops.launch_plan(8, 768, 2, True) == (8, 3, 32, 4, 2)
+    assert rmsnorm_ops.launch_plan(2048, 128, 2, True) == (8, 1, 16, 8, 256)
+    assert rmsnorm_ops.launch_plan(1, 12288, 2, True).vpt == 0
+    assert rmsnorm_ops.launch_plan(2048, 4096, 2, True, sms=132).blocks == 528
 
 
 # ---------------------------------------------------------------------------
