@@ -6,12 +6,16 @@ Phases (any failure raises and the script exits non-zero):
 
 1. header   — card name and power limit (nvidia-smi), torch and CUDA versions;
 2. build    — builds the hand-written kernels from ``src/repro_torch/kernels/csrc``;
-3. kernels  — each kernel against its plain PyTorch version on the card, at
-              the serving paths' shapes (deepseek-7b, mamba2-130m; bf16) and at
-              edge shapes (fp32 and bf16), with kernel / plain / library times
-              and bounds (rmsnorm also at both paths' decode rows), and the
-              HGMMA count of the flash kernels' SASS where ``cuobjdump`` is
-              present; then one codelet per kernel on a device worker;
+3. kernels  — the HGMMA count of the flash and ssd kernels' SASS where
+              ``cuobjdump`` is present (the bf16 routes have some, the f32
+              routes none); each kernel against its plain PyTorch version on
+              the card, at the serving paths' shapes (deepseek-7b,
+              mamba2-130m; bf16) and at edge shapes (fp32 and bf16), with
+              kernel / plain / library times and bounds (rmsnorm also at both
+              paths' decode rows, decode also at short positions; decode is
+              checked run to run identical and batch-invariant, the ssd bound
+              is logged in both reckonings); then one codelet per kernel on a
+              device worker;
 4. serving  — full-width deepseek-7b (30 layers, bf16, seeded random init)
               through ``repro_torch.serving.ServeEngine``: ragged prompts and a
               sampled request, then duplicates that take the prefix-share and
@@ -102,7 +106,8 @@ def build_kernels() -> float:
     dt = time.perf_counter() - t0
     log(f"[build] kernels built and loaded in {dt:.2f} s")
     for line in dispatch.build_log().splitlines():
-        if "registers" in line or "bytes stack" in line or line.startswith("=="):
+        # "Potential Performance Loss": ptxas serialised a kernel's wgmmas
+        if "registers" in line or "bytes stack" in line or "Performance Loss" in line or line.startswith("=="):
             log(f"[build] {line.strip()}")
     return dt
 
@@ -214,33 +219,49 @@ def _pairs(Lq, Lk, causal, window, q_offset) -> int:
     return int(torch.clamp(hi - lo, min=0).sum())
 
 
-def _hgmma_counts() -> str:
-    """HGMMA (wgmma) instructions in the SASS of each flash-attention kernel
-    of the built library, by ``cuobjdump -sass``."""
+def _hgmma_counts() -> dict | None:
+    """HGMMA (wgmma) instructions in the SASS of each flash-attention and
+    ssd kernel of the built library, by ``cuobjdump -sass``; None where the
+    tool is missing."""
     from repro_torch.kernels import dispatch
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
-        return "cuobjdump not on this machine: HGMMA count not taken"
+        return None
     sass = subprocess.run([tool, "-sass", str(dispatch.build())], capture_output=True, text=True,
                           check=True, timeout=300).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
-        m = re.search(r"(flash_fwd\w*?kernel)I(\w*?)E+v", line)
         if "Function :" in line:
-            fn = f"{m.group(1)}<{m.group(2)}>" if m else None
+            m = re.search(r"(flash_fwd_\w*?kernel|ssd_chunk_\w*?kernel)(?:I(\w*?)E+v)?", line)
+            fn = (f"{m.group(1)}<{m.group(2)}>" if m.group(2) else m.group(1)) if m else None
             if fn:
                 counts[fn] = 0
         elif fn and "HGMMA" in line:
             counts[fn] += 1
-    return ", ".join(f"{k}: {v}" for k, v in counts.items())
+    return counts
+
+
+def check_hgmma() -> dict | None:
+    """The bf16 routes of flash and ssd run on the tensor cores (HGMMA in
+    their SASS); the f32 routes do not."""
+    counts = _hgmma_counts()
+    if counts is None:
+        log("[kernels] cuobjdump not on this machine: HGMMA counts not taken")
+        return None
+    log("[kernels] HGMMA instructions in the SASS: "
+        + ", ".join(f"{k}: {v}" for k, v in counts.items()))
+    tc = [k for k in counts if "wgmma" in k]
+    simt = [k for k in counts if "wgmma" not in k]
+    assert any(k.startswith("ssd_chunk_wgmma") for k in tc) and any(k.startswith("flash") for k in tc), counts
+    assert all(counts[k] > 0 for k in tc) and all(counts[k] == 0 for k in simt), counts
+    return counts
 
 
 def check_flash(dev) -> dict:
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    log(f"[kernels] HGMMA instructions in the flash kernels' SASS: {_hgmma_counts()}")
     gen = torch.Generator(device=dev).manual_seed(2)
     # every case in bf16 (tensor cores) and fp32 (SIMT)
     cases = [  # (B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_offset)
@@ -297,6 +318,7 @@ def check_decode(dev) -> dict:
         (4, 1000, 32, 8, 128, [0, 999, 500, 63], (torch.bfloat16, torch.float32)),
         (4, 256, 8, 2, 64, [1000, 10, 255, 256], (torch.bfloat16, torch.float32)),  # ring
         (3, 70, 4, 4, 16, [69, 0, 64], (torch.float32,)),
+        (3, 300, 6, 2, 12, [299, 0, 130], (torch.bfloat16, torch.float32)),  # 24-byte bf16 rows
     ]
     err = 0.0
     for B, S, H, KH, D, pos_l, dtypes in cases:
@@ -311,29 +333,49 @@ def check_decode(dev) -> dict:
             )
             if S == MAX_SEQ:
                 err = e
+    # run to run identical, and batch-invariant: each sequence beside empty
+    # slots (positions 0) equals itself beside the live ones, bit for bit
     B, S, H, D, dtype = N_SLOTS, MAX_SEQ, 32, 128, torch.bfloat16
-    pos = torch.tensor(main_pos, dtype=torch.int32, device=dev)
-    sets = [
+    for KH in (32, 8):
+        q = _randn(gen, (B, 1, H, D), dtype, dev)
+        k, v = (_randn(gen, (B, S, KH, D), dtype, dev) for _ in range(2))
+        live = torch.tensor(main_pos, dtype=torch.int32, device=dev)
+        first = ops.decode_attention(q, k, v, live)
+        assert all(torch.equal(ops.decode_attention(q, k, v, live), first) for _ in range(3)), "not deterministic"
+        for b in range(B):
+            alone = torch.zeros_like(live)
+            alone[b] = live[b]
+            assert torch.equal(ops.decode_attention(q, k, v, alone)[b], first[b]), f"batch-variant at b={b}"
+        log(f"[kernels] decode KH={KH}: run to run identical and batch-invariant at pos {main_pos}")
+    # times at the path's positions and at short ones, same cache
+    short_pos = [15, 100, 31, 64]
+    cache_sets = [
         (_randn(gen, (B, 1, H, D), dtype, dev), _randn(gen, (B, S, H, D), dtype, dev),
-         _randn(gen, (B, S, H, D), dtype, dev), pos)
+         _randn(gen, (B, S, H, D), dtype, dev))
         for _ in range(2)
     ]
-    ms = time_ms(ops.decode_attention, sets)
-    plain = time_ms(decode_attention_ref, sets)
-    valid = (torch.arange(S, device=dev)[None, :] <= pos[:, None])[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = time_ms(
-        lambda q, k, v, p: sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=valid),
-        sets,
-    )
-    n_valid = sum(min(p + 1, S) for p in main_pos)
-    bytes_moved = (2 * B * H * D + 2 * n_valid * H * D) * 2 + B * 4
-    bound, by = _bound(bytes_moved, 4 * n_valid * H * D, dtype)
+    rec = {}
+    for label, pos_l in (("main", main_pos), ("short", short_pos)):
+        pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+        sets = [(q, k, v, pos) for q, k, v in cache_sets]
+        ms = time_ms(ops.decode_attention, sets)
+        plain = time_ms(decode_attention_ref, sets)
+        valid = (torch.arange(S, device=dev)[None, :] <= pos[:, None])[:, None, None, :]
+        lib = time_ms(
+            lambda q, k, v, p: sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=valid),
+            sets,
+        )
+        n_valid = sum(min(p + 1, S) for p in pos_l)
+        bytes_moved = (2 * B * H * D + 2 * n_valid * H * D) * 2 + B * 4
+        bound, by = _bound(bytes_moved, 4 * n_valid * H * D, dtype)
+        rec[label] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by)
+        log(f"[kernels] decode at pos {pos_l} (cache ({B}, {S}, {H}, {D}) bf16): kernel {ms:.4f} ms, SDPA "
+            f"{lib:.4f} ms, plain {plain:.4f} ms, bound {bound:.5f} ms ({by}, {bound / ms:.1%} of it)")
     return dict(
         name="decode_attention", route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
-        replaces="src/repro/kernels/decode_attention/kernel.py:81", max_abs_err=err, ms=ms,
-        plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib,
-        shape=f"q ({B}, 1, {H}, {D}), cache ({B}, {S}, {H}, {D}) bf16, pos {main_pos}",
+        replaces="src/repro/kernels/decode_attention/kernel.py:81", max_abs_err=err, **rec["main"],
+        short=rec["short"], shape=f"q ({B}, 1, {H}, {D}), cache ({B}, {S}, {H}, {D}) bf16, pos {main_pos}",
     )
 
 
@@ -379,13 +421,14 @@ def check_ssd(dev) -> dict:
     H, P, N = 24, 64, 128
     err = 0.0
     # the intra-chunk step on ssd_chunked's views: the path's shape, then
-    # ragged chunk lengths (cs = 100: tiles of 64 + 36 rows; cs = 1)
-    for L, cs in ((2048, 256), (300, 100), (5, 1)):
+    # ragged chunk lengths (cs = 100: tiles of 64 + 36 rows; cs = 1), then
+    # one group per head; bf16 runs on the tensor cores, f32 on the SIMT cores
+    for L, cs, G in ((2048, 256, 1), (300, 100, 1), (5, 1, 1), (512, 256, H)):
         for dtype in (torch.float32, torch.bfloat16):
-            args = _ssd_chunk_args(*_ssd_inputs(gen, dev, dtype, L, H, P, N, 1), cs)
+            args = _ssd_chunk_args(*_ssd_inputs(gen, dev, dtype, L, H, P, N, G), cs)
             (y, st), (y0, st0) = ops.ssd_intra_chunk(*args), ssd_chunk_ref(*args)
-            e = _compare_ssd(f"ssd y {dtype} L={L} cs={cs}", y, y0)
-            _compare_ssd(f"ssd state {dtype} L={L} cs={cs}", st, st0)
+            e = _compare_ssd(f"ssd y {dtype} L={L} cs={cs} G={G}", y, y0)
+            _compare_ssd(f"ssd state {dtype} L={L} cs={cs} G={G}", st, st0)
             if dtype == torch.bfloat16 and L == 2048:
                 err = e
     # the whole scan: a ragged L (777 = 3 chunks of 256 + 9 rows) with G = 1
@@ -412,31 +455,40 @@ def check_ssd(dev) -> dict:
     plain = time_ms(ssd_chunk_ref, sets)
     n_chunks = H * (L // cs)  # (head, chunk) pairs; every B / C group row is read once
     pairs = cs * (cs + 1) // 2  # (i, j) with i >= j
-    # the C·Bᵀ scores take bf16 operands whose products are exact in f32, so
-    # they count at the bf16 tensor rate; the decay-weighted y product and the
-    # state product take f32 weights and count at the f32 rate
     score_flops = n_chunks * 2 * pairs * N
-    f32_flops = n_chunks * (2 * pairs * P + 2 * cs * N * P)
-    t_ops = (score_flops / PEAK_FLOPS[dtype] + f32_flops / PEAK_FLOPS[torch.float32]) * 1e3
+    y_flops = n_chunks * 2 * pairs * P
+    state_flops = n_chunks * 2 * cs * N * P
     bytes_moved = (L * H * P + 2 * L * N) * 2 + 2 * L * H * 4 + (L * H * P + n_chunks * N * P) * 4
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    # the bound: every product on the tensor cores at the bf16 rate, the y
+    # and state products counted twice (the hi and lo halves of the f32 weights)
+    tc_flops = score_flops + 2 * (y_flops + state_flops)
+    t_ops = tc_flops / PEAK_FLOPS[dtype] * 1e3
     bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    log(f"[kernels] ssd bound: scores {score_flops / 1e9:.3f} GFLOP at bf16 "
+    # the SIMT reckoning, kept for comparison with the f32-weight kernel:
+    # the scores at the bf16 rate, the y and state products at the f32 rate
+    f32_flops = y_flops + state_flops
+    t_ops_old = (score_flops / PEAK_FLOPS[dtype] + f32_flops / PEAK_FLOPS[torch.float32]) * 1e3
+    old_bound = max(t_ops_old, t_bytes)
+    log(f"[kernels] ssd bound: {tc_flops / 1e9:.3f} GFLOP at the bf16 tensor rate {t_ops:.5f} ms; "
+        f"{bytes_moved} bytes {t_bytes:.5f} ms; bound {bound:.5f} ms ({by}), kernel at {bound / ms:.1%} of it")
+    log(f"[kernels] ssd bound with y and state at the f32 SIMT rate: scores {score_flops / 1e9:.3f} GFLOP at bf16 "
         f"{score_flops / PEAK_FLOPS[dtype] * 1e3:.5f} ms + {f32_flops / 1e9:.3f} GFLOP at f32 "
-        f"{f32_flops / PEAK_FLOPS[torch.float32] * 1e3:.5f} ms = {t_ops:.5f} ms; "
-        f"{bytes_moved} bytes {t_bytes:.5f} ms")
+        f"{f32_flops / PEAK_FLOPS[torch.float32] * 1e3:.5f} ms = {t_ops_old:.5f} ms; bound {old_bound:.5f} ms, "
+        f"kernel at {old_bound / ms:.1%} of it")
     return dict(
         name="ssd", route="cuda", source="src/repro_torch/kernels/csrc/ssd.cu",
         replaces="src/repro/kernels/ssd/kernel.py:58", max_abs_err=err, ms=ms,
-        plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None,
+        plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None, old_bound_ms=old_bound,
         shape=(f"x (1, {L}, {H}, {P}), B/C (1, {L}, 1, {N}) bf16, cs {cs}; "
-               f"{(score_flops + f32_flops) / 1e9:.2f} GFLOP"),
+               f"{(score_flops + f32_flops) / 1e9:.2f} GFLOP ({tc_flops / 1e9:.2f} on the tensor cores)"),
     )
 
 
 def kernel_phase(dev) -> list[dict]:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    check_hgmma()
     records = [check_rmsnorm(dev), check_flash(dev), check_decode(dev), check_ssd(dev)]
     for r in records:
         lib = "none (no single PyTorch call)" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
@@ -843,6 +895,9 @@ def mamba2_serving_phase(dev) -> dict:
     log(f"[profile] mamba2 prefill of {M_PROMPT_LENS[0]} tokens alone: {pp['wall_ms']:.2f} ms wall "
         f"(median of 3); under the profiler {pp['profiled_wall_ms']:.2f} ms wall, "
         f"{pp['device_ms']:.2f} ms device time, device busy {pp['busy']:.1%}")
+    ssd_ms = sum(ms for name, ms in pp["top"] if "ssd_chunk" in name)
+    log(f"[profile] the ssd kernel takes {ssd_ms:.3f} ms of that prefill's {pp['device_ms']:.2f} ms of device "
+        f"time ({ssd_ms / pp['device_ms']:.1%})")
     for name, ms in pp["top"]:
         log(f"[profile]   {ms:8.4f} ms  {name}")
     return dict(

@@ -132,7 +132,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         P, P, P, P, I, I, I, I, I, I, I, S3, S3, S3, S3, I, I, I, F, I, P,
     ]
     lib.decode_attention_fwd.argtypes = [
-        P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, S3, S3, S3, S3, F, I, P,
+        P, P, P, P, P, P, P, I, I, I, I, I, I, I, S3, S3, S3, S3, F, I, P,
     ]
     lib.decode_attention_chunk.argtypes = []
     lib.ssd_intra_chunk_fwd.argtypes = [P] * 7 + [I] * 7 + [S3] * 7 + [I, P]

@@ -2,16 +2,19 @@
 SSD scan built on it.
 
 Replaces ``src/repro/kernels/ssd/kernel.py::ssd_intra_chunk_pallas`` and the
-scan around it, ``ops.py::ssd_chunked_pallas``.  At a chunk of 256 rows the
-intra-chunk work is bound by operations (~cs²·(N+P) flops per chunk for
-~cs·(P+2N) elements read); the kernel gives each 64-row tile of a chunk its
-own block, loops over the tiles of j up to the diagonal only, and never
-computes the masked triangle, whose decay may be inf.  It reads the model's
+scan around it, ``ops.py::ssd_chunked_pallas``.  bfloat16 (the serving path)
+runs its three products on the tensor cores (``wgmma``): two blocks per
+chunk, each holding the chunk's B and x and two causal 64-row tiles of C in
+shared memory, with the f32 decay weights carried as a bf16 hi + lo pair so
+the f32 accuracy is kept; float32 runs on the SIMT cores.  Both never
+compute the masked triangle, whose decay may be inf, and read the model's
 (B, L, H, ·) layout, and B/C by group, through strides, so nothing is
 transposed or expanded.  A CPU tensor takes the plain version in ``ref.py``;
 a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +29,54 @@ launches = dispatch.LaunchCounter()
 
 _MAX_HEAD_DIM = 64
 _MAX_STATE_DIM = 128
+#: rows of a tile (i and j) and the longest chunk of the tensor-core route
+TILE = 64
+TC_MAX_CHUNK = 256
+
+
+class TcBlock(NamedTuple):
+    """The work of one block of the tensor-core route for one chunk."""
+    half: int                               # blockIdx.x
+    y_tiles: tuple[tuple[int, tuple[int, ...]], ...]  # (i tile, its j tiles)
+    state_rows: tuple[int, int]             # [lo, hi) of the N state rows
+    state_j_tiles: tuple[int, ...]
+
+
+def tc_launch_plan(cs: int, N: int = _MAX_STATE_DIM) -> list[TcBlock]:
+    """The two blocks ``ssd_chunk_wgmma_kernel`` runs for one chunk of
+    ``cs`` rows (its grid is (2, chunks, batch · heads)), as the kernel
+    indexes them: block ``half`` takes the causal i tiles ``half`` and
+    ``3 - half`` (5 tile products each at cs = 256) and state rows
+    ``64·half`` to ``64·half + 64`` over every j tile."""
+    n_tiles = -(-cs // TILE)
+    plan = []
+    for half in (0, 1):
+        tiles = tuple((it, tuple(range(it + 1))) for it in (half, 3 - half) if it < n_tiles)
+        lo = half * TILE
+        rows = (lo, min(lo + TILE, N)) if lo < N else (lo, lo)
+        plan.append(TcBlock(half, tiles, rows, tuple(range(n_tiles)) if lo < N else ()))
+    return plan
+
+
+def check_tensor_core_layout(cs: int, **tensors: torch.Tensor) -> None:
+    """The bfloat16 kernel holds a chunk of at most 256 rows and copies
+    16-byte chunks: each tensor's base must lie on 16 bytes, its last dim
+    (P or N) must be a multiple of 8 elements, and every stride of a dim
+    with more than one index must be a whole multiple of 8 elements.
+    Raises ``ValueError`` otherwise."""
+    if cs > TC_MAX_CHUNK:
+        raise ValueError(
+            f"ssd_intra_chunk: bfloat16 chunk of {cs} rows: the tensor-core kernel takes "
+            f"at most {TC_MAX_CHUNK}"
+        )
+    for name, t in tensors.items():
+        bad = [d for d in range(t.ndim - 1) if t.shape[d] > 1 and t.stride(d) % 8]
+        if t.data_ptr() % 16 or t.shape[-1] % 8 or bad:
+            raise ValueError(
+                f"ssd_intra_chunk: bfloat16 {name} {tuple(t.shape)} with strides {t.stride()} "
+                f"at offset {t.data_ptr() % 16} mod 16 bytes: the tensor-core kernel needs a "
+                "16-byte-aligned base, a last dim and strides that are multiples of 8 elements"
+            )
 
 
 def ssd_intra_chunk(x, dt, cum, B, C):
@@ -66,6 +117,8 @@ def ssd_intra_chunk(x, dt, cum, B, C):
     if any(t.shape[-1] > 1 and t.stride(-1) != 1 for t in (x, B, C)):
         raise ValueError("ssd_intra_chunk: the last dim of x, B and C must be contiguous")
     code = dispatch.dtype_code("ssd_intra_chunk", x)
+    if x.dtype == torch.bfloat16:
+        check_tensor_core_layout(cs, x=x, B=B, C=C)
     # y in the model's (b, nc, cs, H, P) order, seen as (b, H, nc, cs, P)
     y = torch.empty((Bsz, nc, cs, H, P), dtype=torch.float32, device=x.device).permute(0, 3, 1, 2, 4)
     state = torch.empty((Bsz, H, nc, N, P), dtype=torch.float32, device=x.device)

@@ -89,6 +89,48 @@ def test_decode_kernel_is_deterministic(cuda_device):
         assert torch.equal(decode_ops.decode_attention(q, k, v, pos), first)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("KH", [32, 8])
+def test_decode_kernel_is_batch_invariant(cuda_device, KH):
+    """Sequence b's output depends on its own q, cache and pos[b] only:
+    sequence 0 beside empty slots (positions 0) is bit-equal to sequence 0
+    beside live ones, as the serving check and speculative decoding need."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    B, S, H, D = 4, 2304, 32, 128
+    q = torch.randn(B, 1, H, D, generator=gen, device=cuda_device).bfloat16()
+    k = torch.randn(B, S, KH, D, generator=gen, device=cuda_device).bfloat16()
+    v = torch.randn(B, S, KH, D, generator=gen, device=cuda_device).bfloat16()
+    live = [2063, 792, 115, 336]
+    for b in range(B):
+        alone = [0] * B
+        alone[b] = live[b]
+        pos_alone = torch.tensor(alone, dtype=torch.int32, device=cuda_device)
+        pos_live = torch.tensor(live, dtype=torch.int32, device=cuda_device)
+        got_alone = decode_ops.decode_attention(q, k, v, pos_alone)[b]
+        got_live = decode_ops.decode_attention(q, k, v, pos_live)[b]
+        assert torch.equal(got_alone, got_live), b
+        _close(got_live, decode_ops.decode_attention_ref(q, k, v, pos_live)[b], "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D", [("bfloat16", 12), ("float32", 6), ("float32", 20)])
+def test_decode_kernel_element_wise_loads(cuda_device, dtype, D):
+    """Head dims whose rows are not whole 16-byte chunks take element-wise
+    loads into shared memory (and 20 f32 a partial 8-element lane group)."""
+    tdt = DTYPES[dtype]
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    q = torch.randn(3, 1, 6, D, generator=gen, device=cuda_device).to(tdt)
+    k = torch.randn(3, 300, 2, D, generator=gen, device=cuda_device).to(tdt)
+    v = torch.randn(3, 300, 2, D, generator=gen, device=cuda_device).to(tdt)
+    pos = torch.tensor([299, 0, 130], dtype=torch.int32, device=cuda_device)
+    _close(decode_ops.decode_attention(q, k, v, pos), decode_ops.decode_attention_ref(q, k, v, pos), dtype)
+
+
+@pytest.mark.cuda
+def test_decode_chunk_matches_the_plan(cuda_device):
+    assert dispatch.library().decode_attention_chunk() == decode_ops.CHUNK
+
+
 def _close_to_scale(got, want) -> None:
     """ssd outputs are float32 sums of up to cs·N products whatever the input
     type, so the limit scales with the output (chip_smoke.py's ssd limit)."""
@@ -207,3 +249,57 @@ def test_rmsnorm_kernel_unaligned_rows(cuda_device, dtype):
     plan = rmsnorm_ops.launch_plan(T, D, x.element_size(), aligned=False)
     assert plan.vec == 1
     _close(rmsnorm_ops.rmsnorm(x, s), rmsnorm_ops.rmsnorm_ref(x, s), dtype)
+
+
+def _ssd_model_views(gen, dev, L, cs, H, G, dt_shift=-1.0):
+    """ssd_chunked's views of model-layout inputs (L a multiple of cs):
+    x / B / C as (1, H or G, nc, cs, ·) strided views, dt / cum (1, H, nc, cs)."""
+    P, N, nc = 64, 128, L // cs
+    x = torch.randn(1, L, H, P, generator=gen, device=dev).bfloat16()
+    Bm = torch.randn(1, L, G, N, generator=gen, device=dev).bfloat16()
+    Cm = torch.randn(1, L, G, N, generator=gen, device=dev).bfloat16()
+    dt = torch.nn.functional.softplus(torch.randn(1, L, H, generator=gen, device=dev) + dt_shift)
+    A = -torch.exp(torch.randn(H, generator=gen, device=dev) * 0.2)
+    dtc = dt.reshape(1, nc, cs, H)
+    cum = torch.cumsum(dtc * A, dim=2)
+    heads_first = lambda t: t.reshape(1, nc, cs, t.shape[2], t.shape[3]).permute(0, 3, 1, 2, 4)  # noqa: E731
+    return heads_first(x), dtc.permute(0, 3, 1, 2), cum.permute(0, 3, 1, 2), heads_first(Bm), heads_first(Cm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "L,cs,H,G,dt_shift",
+    [(2048, 256, 24, 1, -1.0), (2048, 256, 8, 8, -1.0), (300, 100, 24, 1, -1.0), (300, 100, 4, 4, -1.0),
+     (5, 1, 24, 1, -1.0), (5, 1, 4, 4, -1.0), (512, 256, 24, 1, 3.0)],
+    ids=lambda v: str(v),
+)
+def test_ssd_tensor_core_route_matches_plain(cuda_device, L, cs, H, G, dt_shift):
+    """The bf16 route on the model's strided views: cs 256 / 100 / 1, one
+    group or one group per head, and a strong decay (cum_i − cum_j > 100
+    inside a chunk)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    args = _ssd_model_views(gen, cuda_device, L, cs, H, G, dt_shift)
+    if dt_shift > 0:
+        assert float((args[2][..., 0] - args[2][..., -1]).max()) > 100
+    before = ssd_ops.launches.count
+    got = ssd_ops.ssd_intra_chunk(*args)
+    assert ssd_ops.launches.count - before == 1
+    for g, w in zip(got, ssd_ops.ssd_chunk_ref(*args)):
+        _close_to_scale(g, w)
+
+
+@pytest.mark.cuda
+def test_ssd_tensor_core_route_rejects_unaligned(cuda_device):
+    """x one element into its buffer is not whole 16-byte chunks, and a
+    chunk of 512 rows is past what a block holds: the bf16 wrapper raises
+    instead of launching."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    x, dt, cum, B, C = _ssd_model_views(gen, cuda_device, 512, 256, 4, 1)
+    shifted = torch.zeros(x.numel() + 1, dtype=torch.bfloat16, device=cuda_device)[1:].view(x.shape)
+    before = ssd_ops.launches.count
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ssd_ops.ssd_intra_chunk(shifted, dt, cum, B, C)
+    x2, dt2, cum2, B2, C2 = _ssd_model_views(gen, cuda_device, 512, 512, 4, 1)
+    with pytest.raises(ValueError, match="at most 256"):
+        ssd_ops.ssd_intra_chunk(x2, dt2, cum2, B2, C2)
+    assert ssd_ops.launches.count == before

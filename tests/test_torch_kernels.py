@@ -279,6 +279,198 @@ def test_rmsnorm_launch_plan_shapes():
 
 
 # ---------------------------------------------------------------------------
+# ssd: the tensor-core route's arithmetic, launch plan and layout rule
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's and test_torch_cuda_kernels.py's ssd limit:
+# SSD_ATOL·max|plain| + SSD_RTOL·|plain|
+SSD_ATOL, SSD_RTOL = 5e-5, 1e-4
+
+
+def _bf16_split(w: torch.Tensor):
+    hi = w.to(torch.bfloat16).float()
+    return hi, (w - hi).to(torch.bfloat16).float()
+
+
+def _ssd_tc_emulate(x, dt, cum, B, C, *, split=True):
+    """csrc/ssd.cu's bf16 route in plain torch on (..., nc, cs, ·) f32
+    tensors holding bf16 values: f32 scores of exact bf16 products; per
+    64-row (i, j <= i) tile pair the decay weights W in f32, split into
+    bf16 hi + lo, accumulated into y in f32 tile by tile (hi then lo); the
+    state from (B ∘ w) split the same way, tile by tile over j.  (The
+    kernel's decay is 2^x on the MUFU unit, within ~1e-6 of exp here.)  With
+    ``split=False`` W and B ∘ w are rounded to bf16 alone."""
+    cs, T = x.shape[-2], ssd_ops.TILE
+    n_tiles = -(-cs // T)
+    S = C @ B.transpose(-1, -2)
+    ii = torch.arange(cs)
+    y = torch.zeros(x.shape)
+    for it in range(n_tiles):
+        i = slice(it * T, min(cs, it * T + T))
+        for jt in range(it + 1):
+            j = slice(jt * T, min(cs, jt * T + T))
+            keep = ii[i, None] >= ii[None, j]
+            decay = torch.exp(cum[..., i, None] - cum[..., None, j])
+            w = torch.where(keep, S[..., i, j] * decay * dt[..., None, j], torch.zeros(()))
+            hi, lo = _bf16_split(w) if split else (w.to(torch.bfloat16).float(), torch.zeros(()))
+            y[..., i, :] = y[..., i, :] + hi @ x[..., j, :]
+            if split:
+                y[..., i, :] = y[..., i, :] + lo @ x[..., j, :]
+    wts = torch.exp(cum[..., -1:] - cum) * dt
+    state = torch.zeros(x.shape[:-2] + (B.shape[-1], x.shape[-1]))
+    for jt in range(n_tiles):
+        j = slice(jt * T, min(cs, jt * T + T))
+        a = (B[..., j, :] * wts[..., j, None]).transpose(-1, -2)
+        hi, lo = _bf16_split(a) if split else (a.to(torch.bfloat16).float(), torch.zeros(()))
+        state = state + hi @ x[..., j, :]
+        if split:
+            state = state + lo @ x[..., j, :]
+    return y, state
+
+
+def _ssd_bf16_chunks(L, cs, H, P, N, *, seed, dt_shift=-1.0):
+    """chip_smoke.py's ssd inputs, drawn with numpy: x, B, C rounded to bf16
+    (held as f32), dt = softplus(randn + dt_shift), A < 0; one group, B / C
+    broadcast over the heads; → (b·H, nc, cs, ·) chunks and cum."""
+    rng = np.random.default_rng(seed)
+    bf = lambda a: torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16).float()  # noqa: E731
+    x = bf(rng.standard_normal((L, H, P)))
+    Bm, Cm = bf(rng.standard_normal((L, N))), bf(rng.standard_normal((L, N)))
+    dt = torch.nn.functional.softplus(torch.from_numpy(rng.standard_normal((L, H)).astype(np.float32)) + dt_shift)
+    A = -torch.exp(torch.from_numpy(rng.standard_normal(H).astype(np.float32)) * 0.2)
+    nc = L // cs
+    chunks = lambda t: t.reshape(nc, cs, H, -1).permute(2, 0, 1, 3)  # noqa: E731
+    dtc = dt.reshape(nc, cs, H).permute(2, 0, 1)
+    cum = torch.cumsum(dtc * A[:, None, None], dim=-1)
+    Bc = Bm.reshape(nc, cs, N).expand(H, nc, cs, N)
+    Cc = Cm.reshape(nc, cs, N).expand(H, nc, cs, N)
+    return chunks(x), dtc, cum, Bc, Cc
+
+
+def _ssd_within(got, want) -> bool:
+    return bool(((got - want).abs() <= SSD_ATOL * want.abs().max() + SSD_RTOL * want.abs()).all())
+
+
+@pytest.mark.parametrize("L,dt_shift", [(2048, -1.0), (512, 3.0)], ids=["serving-shape", "strong-decay"])
+def test_ssd_tensor_core_arithmetic_meets_the_kept_tolerance(L, dt_shift):
+    """The hi / lo split keeps the bf16 route inside the f32 tolerance that
+    is kept, at the serving shape (cs 256, H 24, P 64, N 128, one group) and
+    with a decay so strong that cum_i − cum_j passes 100 inside a chunk;
+    rounding W to bf16 alone does not."""
+    args = _ssd_bf16_chunks(L, 256, 24, 64, 128, seed=7, dt_shift=dt_shift)
+    cum = args[2]
+    if dt_shift > 0:
+        assert float((cum[..., 0] - cum[..., -1]).max()) > 100
+    want = ssd_ops.ssd_chunk_ref(*args)
+    got = _ssd_tc_emulate(*args)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert _ssd_within(g, w)
+    y_hi_only, _ = _ssd_tc_emulate(*args, split=False)
+    assert not _ssd_within(y_hi_only, want[0])
+
+
+@pytest.mark.parametrize("cs", [1, 36, 100, 256])
+def test_ssd_tensor_core_plan_covers_every_tile_once(cs):
+    """Every causal (i tile, j tile <= i tile) pair of a chunk and every
+    state row over every j tile is computed by exactly one block; at cs = 256
+    the two blocks do 5 tile products each."""
+    n_tiles = -(-cs // ssd_ops.TILE)
+    for N in (128, 64, 16):
+        plan = ssd_ops.tc_launch_plan(cs, N)
+        assert [blk.half for blk in plan] == [0, 1]
+        pairs = [(it, jt) for blk in plan for it, js in blk.y_tiles for jt in js]
+        assert sorted(pairs) == [(i, j) for i in range(n_tiles) for j in range(i + 1)]
+        rows = [n for blk in plan for n in range(*blk.state_rows)]
+        assert sorted(rows) == list(range(N))
+        for blk in plan:
+            if blk.state_rows[0] < blk.state_rows[1]:
+                assert blk.state_j_tiles == tuple(range(n_tiles))
+        if cs == 256:
+            assert [sum(len(js) for _, js in blk.y_tiles) for blk in plan] == [5, 5]
+
+
+def test_ssd_model_views_meet_tensor_core_layout():
+    """The x / B / C views that the mamba2 model hands the intra-chunk step
+    in bfloat16 pass the tensor-core route's rule (bases and strides in
+    16-byte chunks, chunk <= 256); a slice one element in does not, and
+    neither does a chunk of 512."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import Transformer, prefill
+    from repro_torch.models import ssm as tssm
+
+    cfg = reduced_config("mamba2-130m").replace(dtype="bfloat16")
+    torch.manual_seed(0)
+    model = Transformer(cfg, device="cpu")
+    seen = []
+
+    def spy(xh, dt, A, Bc, Cc, chunk, initial_state=None):
+        def intra(x, dtc, cum, B, C):
+            assert x.dtype == B.dtype == C.dtype == torch.bfloat16
+            ssd_ops.check_tensor_core_layout(x.shape[-2], x=x, B=B, C=C)
+            seen.append(x.shape)
+            return ssd_ops.ssd_chunk_ref(x, dtc, cum, B, C)
+
+        return ssd_ops._chunked(xh, dt, A, Bc, Cc, chunk, initial_state, intra)
+
+    orig = tssm.ssd_chunked
+    tssm.ssd_chunked = spy
+    try:
+        for L in (37, 64):  # a ragged tail (padded copies) and whole chunks (views)
+            tokens = torch.from_numpy(np.random.default_rng(L).integers(0, cfg.vocab, (2, L)).astype(np.int32))
+            prefill(model, {"tokens": tokens}, cfg)
+    finally:
+        tssm.ssd_chunked = orig
+    assert len(seen) == 2 * cfg.n_layers
+    x = torch.zeros(1, 2, 3, 8, 65, dtype=torch.bfloat16)[..., 1:]
+    B = torch.zeros(1, 1, 3, 8, 16, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ssd_ops.check_tensor_core_layout(8, x=x, B=B, C=B)
+    with pytest.raises(ValueError, match="at most 256"):
+        ssd_ops.check_tensor_core_layout(512, x=x[..., :64], B=B, C=B)
+
+
+# ---------------------------------------------------------------------------
+# decode attention: the launch plan
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S", [1, 70, 256, 2304])
+def test_decode_plan_covers_every_valid_slot_once(S):
+    rng = np.random.default_rng(S)
+    pos = [0, S - 1, S + 40, int(rng.integers(0, S)), 63, 64, 65]
+    plan = decode_ops.chunk_plan(pos, S)
+    for p, chunks in zip(pos, plan):
+        slots = [s for a, b in chunks for s in range(a, b)]
+        assert slots == list(range(min(p + 1, S)))
+        assert all(a % decode_ops.CHUNK == 0 and 0 < b - a <= decode_ops.CHUNK for a, b in chunks)
+
+
+def test_decode_work_list_holds_each_chunk_once():
+    """Every (sequence, chunk, KV head) of the plan is one item of the
+    kernel's work list (one block each); nothing past pos[b]."""
+    S, KH = 300, 3
+    pos = [299, 0, 130, 1000, -1]
+    plan = decode_ops.chunk_plan(pos, S)
+    items = decode_ops.work_list(pos, S, KH)
+    assert len(set(items)) == len(items)
+    want = {(b, c, kh) for b, chunks in enumerate(plan) for c in range(len(chunks)) for kh in range(KH)}
+    assert set(items) - {(4, 0, kh) for kh in range(KH)} == want
+    assert [b for b, _, _ in items] == sorted(b for b, _, _ in items)
+
+
+def test_decode_plan_of_a_sequence_ignores_the_others():
+    """Sequence b's chunk boundaries are a function of pos[b] and S alone:
+    the other entries of pos (empty slots, live ones) do not move them."""
+    S = 2304
+    alone = decode_ops.chunk_plan([792, 0, 0, 0], S)[0]
+    rng = np.random.default_rng(3)
+    for _ in range(20):
+        others = [int(v) for v in rng.integers(-1, 3000, 3)]
+        assert decode_ops.chunk_plan([792] + others, S)[0] == alone
+        assert decode_ops.chunk_plan(others + [792], S)[3] == alone
+
+
+# ---------------------------------------------------------------------------
 # dispatch: counters, devices
 # ---------------------------------------------------------------------------
 
