@@ -14,8 +14,13 @@ Phases (any failure raises and the script exits non-zero):
               kernel / plain / library times and bounds (rmsnorm also at both
               paths' decode rows, decode also at short positions; decode is
               checked run to run identical and batch-invariant, the ssd bound
-              is logged in both reckonings); then one codelet per kernel on a
-              device worker;
+              is logged in both reckonings); the train path's backward
+              kernels (flash attention at the path's (1, 2048, 32, 128) and
+              edge shapes, with the forward's lse; rmsnorm at (2048, 4096),
+              (2048·32, 128) and the edge paths) against their plain
+              versions, run to run identical, timed beside the backward of
+              SDPA / F.rms_norm; then one codelet per kernel on a device
+              worker;
 4. serving  — full-width deepseek-7b (30 layers, bf16, seeded random init)
               through ``repro_torch.serving.ServeEngine``: ragged prompts and a
               sampled request, then duplicates that take the prefix-share and
@@ -32,7 +37,19 @@ Phases (any failure raises and the script exits non-zero):
               and caches);
 6. model    — full width cut in depth, fp32: the card's logits against the
               CPU port's (plain versions) for a prompt and decode steps, for
-              deepseek-7b (2 layers) and mamba2-130m (4 layers).
+              deepseek-7b (2 layers) and mamba2-130m (4 layers);
+7. train    — parity: deepseek-7b at full width and 2 layers, fp32, two
+              staged train steps (B = 2, L = 256, 2 microbatches) with
+              Adafactor and with AdamW on the card against the CPU port from
+              the same state (loss, grad norm, parameters; exact launch
+              counts);
+8. train    — deepseek-7b at full width and depth (30 layers, bf16,
+              Adafactor, remat "full", logits in chunks of 1024), global
+              batch (2, 2048) in 2 microbatches, 4 staged steps: finite
+              losses, the schedule, exact launch counts of the four train
+              kernels, step time, tokens/s, model TFLOP/s, peak memory; one
+              profiled step; a nonfinite step that leaves every bit as it
+              was.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing of JAX.
@@ -485,11 +502,170 @@ def check_ssd(dev) -> dict:
     )
 
 
+def kernel_time_ms(fn, iters: int = 10) -> float:
+    """Device time of one call of ``fn``: the sum of its kernels' times
+    under ``torch.profiler`` over ``iters`` calls, warmed up first.  For
+    calls that a CUDA graph does not capture (an autograd backward through
+    a library op); like a graph replay, it leaves out the host's gaps
+    between launches, which events around eager calls would count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return _device_rows(prof, 0.0, iters)["device_ms"]
+
+
+# backward outputs are float32 sums over a sequence (dK, dV over queries, dQ
+# over keys; dscale over rows), whatever the dtype, so their rounding error
+# scales with the output's magnitude: atol·max|plain| + rtol·|plain|
+BWD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+
+
+def _compare_bwd(name, got, want, dtype) -> float:
+    scale = float(want.float().abs().max())
+    atol, rtol = BWD_TOL[dtype]
+    return _compare(f"{name} (max|plain| {scale:.3e})", got, want, None,
+                    dict(atol=atol * scale, rtol=rtol))
+
+
+def check_flash_bwd(dev) -> dict:
+    """The forward's lse and the backward kernel against the plain versions
+    on the same out and lse, run to run identical; times at the path's
+    shape (deepseek-7b train: one 2048-token sequence, 32 heads of 128)."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_fwd_ref
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cases = [  # (B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_offset)
+        (1, 2048, 2048, 32, 32, 128, 128, True, None, 0),  # the path's
+        (1, 1000, 1000, 32, 8, 128, 128, True, 256, 0),  # GQA + window
+        (2, 777, 777, 8, 8, 64, 64, True, None, 0),
+        (1, 65, 700, 8, 2, 128, 128, True, None, 635),  # offset queries, Lq != Lk
+        (1, 1, 65, 4, 4, 64, 64, True, None, 64),  # one query row
+        (1, 300, 300, 4, 4, 128, 128, False, None, 0),
+    ]
+    err = 0.0
+    for B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_off in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = _randn(gen, (B, Lq, H, Dh), dtype, dev)
+            k = _randn(gen, (B, Lk, KH, Dh), dtype, dev)
+            v = _randn(gen, (B, Lk, KH, Dv), dtype, dev)
+            do = _randn(gen, (B, Lq, H, Dv), dtype, dev)
+            kw = dict(causal=causal, window=window, q_offset=q_off)
+            label = f"{dtype} B={B} Lq={Lq} Lk={Lk} H={H} KH={KH} Dh={Dh} {kw}"
+            out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+            want_out, want_lse = attention_fwd_ref(q, k, v, **kw)
+            _compare(f"flash fwd lse {label}", lse, want_lse, torch.float32,
+                     dict(atol=1e-4 if dtype == torch.float32 else 1e-3, rtol=0))
+            _compare(f"flash fwd out (with lse) {label}", out, want_out, dtype)
+            got = ops.flash_attention_bwd(q, k, v, want_out, want_lse, do, **kw)
+            want = attention_bwd_ref(q, k, v, want_out, want_lse, do, **kw)
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                e = _compare_bwd(f"flash bwd {name} {label}", g, w, dtype)
+                if Lq == 2048 and dtype == torch.bfloat16:
+                    err = max(err, e)
+            again = ops.flash_attention_bwd(q, k, v, want_out, want_lse, do, **kw)
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), f"flash bwd {label}: not deterministic"
+            del q, k, v, do, out, lse, want_out, want_lse, got, want, again
+    log("[kernels] flash bwd: run to run identical in every case")
+    B, L, H, D, dtype = 1, 2048, 32, 128, torch.bfloat16
+    sets = []
+    for _ in range(2):
+        q, k, v, do = (_randn(gen, (B, L, H, D), dtype, dev) for _ in range(4))
+        out, lse = ops.flash_attention(q, k, v, causal=True, return_lse=True)
+        sets.append((q, k, v, out, lse, do))
+    ms = time_ms(lambda *a: ops.flash_attention_bwd(*a, causal=True), sets)
+    plain = time_ms(lambda *a: attention_bwd_ref(*a, causal=True), sets[:1], iters=3)
+    # the serving forward (lse not asked for) against the train forward
+    fwd_sets = [s[:3] for s in sets]
+    fwd_ms = time_ms(lambda q, k, v: ops.flash_attention(q, k, v, causal=True), fwd_sets)
+    fwd_lse_ms = time_ms(lambda q, k, v: ops.flash_attention(q, k, v, causal=True, return_lse=True), fwd_sets)
+    # PyTorch's call: the backward of SDPA alone (its forward built once)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in sets[0][:3])
+    o = sdpa(qt, kt, vt, is_causal=True)
+    dot = sets[0][5].transpose(1, 2)
+    lib = kernel_time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True))
+    pairs = _pairs(L, L, True, None, 0)
+    flops = 10 * B * H * D * pairs  # 5 products over the unmasked pairs
+    bound, by = _bound(8 * B * L * H * D * 2 + B * H * L * 4, flops, dtype)
+    log(f"[kernels] flash bwd at ({B}, {L}, {H}, {D}) bf16 causal: {flops / 1e9:.2f} GFLOP, kernel "
+        f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), SDPA backward {lib:.4f} ms (kernel / library "
+        f"{ms / lib:.2f}), plain {plain:.4f} ms, bound {bound:.4f} ms ({by}, {bound / ms:.1%} of it)")
+    log(f"[kernels] flash fwd at the same shape: {fwd_ms:.4f} ms without lse (serving), "
+        f"{fwd_lse_ms:.4f} ms with it (train)")
+    return dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/models/attention.py:139 (no Pallas kernel: JAX differentiates the jnp custom VJP)",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib,
+        fwd_ms=fwd_ms, fwd_lse_ms=fwd_lse_ms,
+        shape=f"q/k/v/out/dout ({B}, {L}, {H}, {D}) bf16 causal",
+    )
+
+
+def check_rmsnorm_bwd(dev) -> dict:
+    """The backward kernel against the plain version on the path's rows
+    (deepseek-7b: D = 4096; q/k-norm rows of 128 when qk_norm is set) and
+    the edge paths, run to run identical; times at (2048, 4096) bf16."""
+    from repro_torch.kernels.rmsnorm import ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    err = 0.0
+    cases = ((2048, 4096), (2048 * 32, 128), (333, 37), (7, 12288), (1, 4096), (100, 768))
+    for dtype in (torch.bfloat16, torch.float32):
+        for T, D in cases + ((50, -768),):
+            if D < 0:  # rows one element into a buffer: the scalar path
+                D = -D
+                x = _randn(gen, (T * D + 1,), dtype, dev)[1:].view(T, D)
+                dy = _randn(gen, (T * D + 1,), dtype, dev)[1:].view(T, D)
+                label = f"{dtype} T={T} D={D} unaligned rows"
+            else:
+                x, dy = _randn(gen, (T, D), dtype, dev), _randn(gen, (T, D), dtype, dev)
+                label = f"{dtype} T={T} D={D}"
+            s = _randn(gen, (D,), dtype, dev, 0.1)
+            dx, ds = ops.rmsnorm_bwd(x, s, dy)
+            want_dx, want_ds = rmsnorm_bwd_ref(x, s, dy)
+            e = _compare(f"rmsnorm bwd dx {label}", dx, want_dx, dtype)
+            _compare_bwd(f"rmsnorm bwd dscale {label}", ds, want_ds, dtype)
+            if dtype == torch.bfloat16 and (T, D) == (2048, 4096):
+                err = e
+            dx2, ds2 = ops.rmsnorm_bwd(x, s, dy)
+            assert torch.equal(dx, dx2) and torch.equal(ds, ds2), f"rmsnorm bwd {label}: not deterministic"
+    log("[kernels] rmsnorm bwd: run to run identical in every case")
+    T, D, dtype = 2048, 4096, torch.bfloat16
+    sets = [(_randn(gen, (T, D), dtype, dev), _randn(gen, (D,), dtype, dev, 0.1),
+             _randn(gen, (T, D), dtype, dev)) for _ in range(4)]
+    ms = time_ms(ops.rmsnorm_bwd, sets)
+    plain = time_ms(rmsnorm_bwd_ref, sets)
+    x, s, dy = (t.detach() for t in sets[0])
+    xl = x.clone().requires_grad_()
+    wl = (1.0 + s.float()).to(dtype).requires_grad_()
+    y = torch.nn.functional.rms_norm(xl, (D,), wl, 1e-6)
+    lib = kernel_time_ms(lambda: torch.autograd.grad(y, (xl, wl), dy, retain_graph=True))
+    bound, by = _bound(3 * T * D * 2 + 2 * D * 2, 8 * T * D, dtype)
+    log(f"[kernels] rmsnorm bwd x ({T}, {D}) bf16: kernel {ms:.4f} ms, F.rms_norm backward {lib:.4f} ms "
+        f"(kernel / library {ms / lib:.2f}), plain {plain:.4f} ms, bound {bound:.4f} ms ({by}, "
+        f"{bound / ms:.1%} of it)")
+    return dict(
+        name="rmsnorm_bwd", route="cuda", source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+        replaces="src/repro/models/layers.py:22 (no Pallas kernel: JAX differentiates the jnp rmsnorm)",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib,
+        shape=f"x, dy ({T}, {D}) bf16",
+    )
+
+
 def kernel_phase(dev) -> list[dict]:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     check_hgmma()
-    records = [check_rmsnorm(dev), check_flash(dev), check_decode(dev), check_ssd(dev)]
+    records = [check_rmsnorm(dev), check_flash(dev), check_decode(dev), check_ssd(dev),
+               check_flash_bwd(dev), check_rmsnorm_bwd(dev)]
     for r in records:
         lib = "none (no single PyTorch call)" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(
@@ -524,14 +700,14 @@ def codelet_phase(dev) -> None:
                               bf(1, 300, 1, 128), bf(1, 300, 1, 128)), dict(chunk=256)),
     }
     ops = _kernel_ops()
-    before = {name: ops[name].launches.count for name in cases}
+    before = {name: ops[name].count for name in cases}
     outs = {name: SpData(None) for name in cases}
     with SpRuntime(workers=SpWorkerTeam(["cuda"])) as rt:
         for name, (codelet, args, static) in cases.items():
             codelet(*(SpData(a) for a in args), outs[name], **static)
         rt.wait_all_tasks()
     torch.cuda.synchronize()
-    moved = {name: ops[name].launches.count - before[name] for name in cases}
+    moved = {name: ops[name].count - before[name] for name in cases}
     log(f"[codelets] one codelet per kernel on a 'cuda' worker: launches {moved}")
     assert moved == {name: 1 for name in cases}, moved
     for name, out in outs.items():
@@ -544,13 +720,15 @@ def codelet_phase(dev) -> None:
 # ---------------------------------------------------------------------------
 
 def _kernel_ops() -> dict:
+    """Each kernel's launch counter, by the name its record carries."""
     from repro_torch.kernels.decode_attention import ops as decode_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
 
-    return {"rmsnorm": rmsnorm_ops, "flash_attention": flash_ops, "decode_attention": decode_ops,
-            "ssd": ssd_ops}
+    return {"rmsnorm": rmsnorm_ops.launches, "flash_attention": flash_ops.launches,
+            "decode_attention": decode_ops.launches, "ssd": ssd_ops.launches,
+            "flash_attention_bwd": flash_ops.bwd_launches, "rmsnorm_bwd": rmsnorm_ops.bwd_launches}
 
 
 def _sequential_greedy(model, cfg, prompt, slot, dev, n_slots=N_SLOTS, max_seq=MAX_SEQ,
@@ -604,18 +782,32 @@ def _profile_decode(eng, prompts, n_iter: int = 4) -> dict:
     return dict(wall_ms=wall_ms, **_device_rows(prof, prof_wall_ms, n_iter))
 
 
+# device-time categories by kernel name, first match wins
+KINDS = (("flash backward", ("flash_bwd",)), ("flash forward", ("flash_fwd",)),
+         ("rmsnorm", ("rmsnorm", "dscale_reduce")), ("decode / ssd", ("decode_kernel", "ssd_chunk")),
+         ("matrix products (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "sm90_", "splitK")),
+         ("reductions", ("reduce_kernel", "scan")), ("copies", ("copy", "Copy", "cat", "Cat")))
+
+
 def _device_rows(prof, prof_wall_ms: float, n_iter: int) -> dict:
-    """Device time per iteration by kernel name and the busy share of the
-    profiled wall time."""
+    """Device time per iteration by kernel name and by kind (``KINDS``;
+    the rest is elementwise), and the busy share of the profiled wall
+    time."""
     rows = []
     for ev in prof.key_averages():
         t = getattr(ev, "device_time_total", 0.0)
         if t and ev.device_type.name == "CUDA":
-            rows.append((ev.key[:90], t / 1e3 / n_iter))
+            rows.append((ev.key, t / 1e3 / n_iter))
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(ms for _, ms in rows)
+    kinds: dict = {}
+    for name, ms in rows:
+        kind = next((k for k, pats in KINDS if any(pt in name for pt in pats)), "elementwise and other")
+        kinds[kind] = kinds.get(kind, 0.0) + ms
     return dict(profiled_wall_ms=prof_wall_ms, device_ms=device_ms,
-                busy=device_ms / prof_wall_ms if prof_wall_ms else 0.0, top=rows[:12])
+                busy=device_ms / prof_wall_ms if prof_wall_ms else 0.0,
+                top=[(name[:90], ms) for name, ms in rows[:12]],
+                kinds=sorted(kinds.items(), key=lambda r: -r[1]))
 
 
 def _profile_prefill(model, cfg, prompt, dev, n_iter: int = 3) -> dict:
@@ -672,8 +864,8 @@ def serving_phase(dev) -> dict:
         log(f"[serve] warm-up wave ({len(warm)} requests, 2 tokens each) took {time.perf_counter() - t0:.2f} s")
         base = (eng.prefills, eng.decode_steps, eng.restores)
         # ---- the main path: counts from 0 just before, read just after ----
-        for m in ops.values():
-            m.launches.reset()
+        for c in ops.values():
+            c.reset()
         t0 = time.perf_counter()
         greedy = [eng.submit(p, GEN) for p in prompts]
         sampled = eng.submit(sampled_prompt, GEN, temperature=0.8, top_k=40, seed=7)
@@ -686,7 +878,7 @@ def serving_phase(dev) -> dict:
         eng.run_until_drained()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {name: m.launches.count for name, m in ops.items()}
+        launches = {name: c.count for name, c in ops.items()}
         # --------------------------------------------------------------------
         stats = eng.stats()
         stats.update(prefills=eng.prefills - base[0], decode_steps=eng.decode_steps - base[1],
@@ -705,6 +897,8 @@ def serving_phase(dev) -> dict:
         "decode_attention": cfg.n_layers * stats["decode_steps"],
         "rmsnorm": (2 * cfg.n_layers + 1) * n_fwd,
         "ssd": 0,  # no ssm layer in this model
+        "flash_attention_bwd": 0,  # serving runs no backward
+        "rmsnorm_bwd": 0,
     }
     log(f"[serve] launches on the main path {launches}; expected {want} from "
         f"{stats['prefills']} prefills and {stats['decode_steps']} decode steps")
@@ -815,8 +1009,8 @@ def mamba2_serving_phase(dev) -> dict:
         log(f"[mamba2] warm-up wave ({len(warm)} requests, 2 tokens each) took {time.perf_counter() - t0:.2f} s")
         base = (eng.prefills, eng.decode_steps, eng.restores)
         # ---- the main path: counts from 0 just before, read just after ----
-        for m in ops.values():
-            m.launches.reset()
+        for c in ops.values():
+            c.reset()
         t0 = time.perf_counter()
         greedy = [eng.submit(p, M_GEN) for p in prompts]
         sampled = eng.submit(sampled_prompt, M_GEN, temperature=0.8, top_k=40, seed=7)
@@ -825,7 +1019,7 @@ def mamba2_serving_phase(dev) -> dict:
         eng.run_until_drained()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {name: m.launches.count for name, m in ops.items()}
+        launches = {name: c.count for name, c in ops.items()}
         # --------------------------------------------------------------------
         stats = eng.stats()
         stats.update(prefills=eng.prefills - base[0], decode_steps=eng.decode_steps - base[1],
@@ -844,6 +1038,8 @@ def mamba2_serving_phase(dev) -> dict:
         "decode_attention": 0,
         "rmsnorm": (cfg.n_layers + 1) * (stats["prefills"] + stats["decode_steps"]),
         "ssd": cfg.n_layers * stats["prefills"],
+        "flash_attention_bwd": 0,
+        "rmsnorm_bwd": 0,
     }
     log(f"[mamba2] launches on the main path {launches}; expected {want} from "
         f"{stats['prefills']} prefills and {stats['decode_steps']} decode steps")
@@ -952,6 +1148,240 @@ def model_phase(dev, cfg=None, prompt_len: int = 256, limit: float = 1e-3) -> fl
     return worst
 
 
+# ---------------------------------------------------------------------------
+# 7-8. the train step
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB, TRAIN_STEPS = 2, 2048, 2, 4
+
+
+def _train_launches_per_step(cfg, n_mb: int) -> dict:
+    """Kernel launches of one train step of the dense model: per microbatch,
+    each layer's flash attention and two norms plus the final norm forward,
+    the layers' kernels once more when ``remat="full"`` recomputes them, and
+    one backward of each."""
+    remat = 2 if cfg.remat == "full" else 1
+    norms = 2 + (2 if cfg.qk_norm else 0)
+    return {
+        "flash_attention": n_mb * remat * cfg.n_layers,
+        "flash_attention_bwd": n_mb * cfg.n_layers,
+        "rmsnorm": n_mb * (remat * norms * cfg.n_layers + 1),
+        "rmsnorm_bwd": n_mb * (norms * cfg.n_layers + 1),
+        "decode_attention": 0,
+        "ssd": 0,
+    }
+
+
+def _batches(cfg, dev, n: int, batch: int, seq: int) -> list[dict]:
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models.config import ShapeSpec
+
+    ds = SyntheticLMDataset(cfg, ShapeSpec("train", "train", seq, batch), seed=0)
+    return [{k: torch.from_numpy(v).to(dev) for k, v in ds.batch_for_step(i).items()} for i in range(n)]
+
+
+def train_parity_phase(dev) -> dict:
+    """deepseek-7b at full width and 2 layers, float32, B = 2, L = 256, two
+    microbatches, two steps, for each optimizer: the card (kernels) against
+    the CPU port (plain versions) from the same state.  Loss and grad norm
+    within 1e-3 relative at each step; after the last step every parameter
+    within 2·steps·lr for adamw (its update m / (sqrt(v) + eps) does not
+    scale with the gradient, so an element whose gradient is float noise
+    may move by up to lr differently on the two devices) and within 1e-6
+    for adafactor (its update is normalised by row and column statistics);
+    exact launch counts per step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer, set_trainable
+    from repro_torch.optim import TrainState
+    from repro_torch.runtime.train import build_train_step, init_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    steps, n_mb, lr = 2, 2, 3e-4
+    ops = _kernel_ops()
+    out = {}
+    for opt in ("adafactor", "adamw"):
+        cfg = get_config("deepseek-7b").replace(n_layers=2, dtype="float32", logits_chunk=256,
+                                                optimizer=opt)
+        gpu = init_train_state(cfg, 3, device=dev)
+        model = set_trainable(Transformer(cfg, device="cpu"))
+        with torch.no_grad():
+            model.load_state_dict(gpu.params.state_dict())
+        copy = lambda t: {k: copy(v) for k, v in t.items()} if isinstance(t, dict) else t.to("cpu", copy=True)  # noqa: E731
+        cpu = TrainState(step=gpu.step.cpu(), params=model, opt=copy(gpu.opt))
+        batches = _batches(cfg, dev, steps, 2, 256)
+        art_g, art_c = build_train_step(cfg, n_microbatches=n_mb), build_train_step(cfg, n_microbatches=n_mb)
+        want_launches = {k: v * steps for k, v in _train_launches_per_step(cfg, n_mb).items()}
+        for c in ops.values():
+            c.reset()
+        worst = 0.0
+        for b in batches:
+            gpu, mg = art_g(gpu, b)
+            cpu, mc = art_c(cpu, {k: v.cpu() for k, v in b.items()})
+            for key in ("loss", "grad_norm"):
+                g, c = float(mg[key]), float(mc[key])
+                assert np.isfinite(g), (opt, key, g)
+                worst = max(worst, abs(g - c) / abs(c))
+                log(f"[train-parity] {opt} step {int(gpu.step)} {key}: card {g:.7f} cpu {c:.7f}")
+        launches = {name: c.count for name, c in ops.items()}
+        assert launches == want_launches, (opt, launches, want_launches)
+        cpu_params = dict(cpu.params.named_parameters())
+        dp = max(float((p.detach().cpu() - cpu_params[n].detach()).abs().max())
+                 for n, p in gpu.params.named_parameters())
+        limit = 2 * steps * lr if opt == "adamw" else 1e-6
+        log(f"[train-parity] {opt}: {cfg.n_layers}-layer full-width fp32, {steps} steps of "
+            f"{n_mb} microbatches: max relative loss / grad-norm error {worst:.3e} (limit 1e-3), "
+            f"max parameter difference {dp:.3e} (limit {limit:.1e}); launches {launches}")
+        assert worst <= 1e-3 and dp <= limit
+        out[opt] = dict(rel_err=worst, param_diff=dp)
+        del gpu, cpu, model, art_g, art_c, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+def _codelet_times(art, state, batch) -> tuple:
+    """One train step with each codelet's body between two CUDA events on
+    the stream it enqueues on: the device time of each task (the staged
+    runtime runs the bodies in order on this thread, and the backward's
+    kernels go to the same stream)."""
+    from repro_torch.runtime import train as train_mod
+
+    codelets = (train_mod._microbatch_codelet, train_mod._grad_finalize_codelet,
+                train_mod._optimizer_codelet)
+    spans, saved = [], [cl._impls["ref"] for cl in codelets]
+
+    def timed(fn, name):
+        def body(*args, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            spans.append((name, start, end))
+            return out
+        return body
+
+    for cl, (fn, avail) in zip(codelets, saved):
+        cl._impls["ref"] = (timed(fn, cl.name), avail)
+    try:
+        state, _ = art(state, batch)
+    finally:
+        for cl, impl in zip(codelets, saved):
+            cl._impls["ref"] = impl
+    torch.cuda.synchronize()
+    return state, [(name, start.elapsed_time(end)) for name, start, end in spans]
+
+
+def _profile_train_step(art, state, batch) -> tuple:
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = art(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return state, m, _device_rows(prof, wall_ms, 1)
+
+
+def train_phase(dev) -> dict:
+    """deepseek-7b at full width and depth (30 layers, bf16), Adafactor,
+    ``remat="full"``, logits in chunks of 1024, a global batch of (2, 2048)
+    in two microbatches: four steps on ``SpRuntime(backend="staged")``.
+    Then one profiled step and a nonfinite rollback on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.train import build_train_step, init_train_state
+
+    gc.collect()  # the serving phases' models and engines are cyclic garbage
+    torch.cuda.empty_cache()
+    mem_base = torch.cuda.memory_allocated()
+    cfg = get_config("deepseek-7b").replace(optimizer="adafactor")
+    assert (cfg.remat, cfg.logits_chunk, cfg.dtype, cfg.n_layers) == ("full", 1024, "bfloat16", 30)
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    params = dict(state.params.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    n_matmul = n_params - state.params.embedding.numel() - sum(
+        p.numel() for n, p in params.items() if n.endswith("scale"))
+    log(f"[train] deepseek-7b ({cfg.n_layers} layers, {n_params / 1e9:.3f} B params, {n_matmul / 1e9:.3f} B "
+        f"in matrix products, {cfg.dtype}, {cfg.optimizer}, remat {cfg.remat}, logits chunk "
+        f"{cfg.logits_chunk}) initialised on the card in {time.perf_counter() - t0:.1f} s "
+        f"({mem_base} bytes allocated before it)")
+    art = build_train_step(cfg, n_microbatches=TRAIN_MB, schedule_policy="overlap")
+    batches = _batches(cfg, dev, TRAIN_STEPS + 2, TRAIN_BATCH, TRAIN_SEQ)  # + timed / profiled and rollback steps
+    ops = _kernel_ops()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts from 0 just before, read just after ----
+    for c in ops.values():
+        c.reset()
+    walls, losses, gnorms = [], [], []
+    for b in batches[:TRAIN_STEPS]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = art(state, b)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    launches = {name: c.count for name, c in ops.items()}
+    # ------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: v * TRAIN_STEPS for k, v in _train_launches_per_step(cfg, TRAIN_MB).items()}
+    log(f"[train] launches on the main path {launches}; expected {want} from {TRAIN_STEPS} steps of "
+        f"{TRAIN_MB} microbatches")
+    assert launches == want, "the train step did not run through every kernel as expected"
+    assert all(np.isfinite(losses)) and all(np.isfinite(gnorms)), (losses, gnorms)
+    assert int(state.step) == TRAIN_STEPS
+    assert art.schedule_names == ["mb0", "mb1", "grad_allreduce", "optimizer"], art.schedule_names
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_ms = float(np.median(walls[1:]))
+    attn = 3 * 4 * cfg.n_heads * cfg.head_dim * _pairs(TRAIN_SEQ, TRAIN_SEQ, True, None, 0) * TRAIN_BATCH * cfg.n_layers
+    model_flops = 6 * n_matmul * tokens + attn
+    tflops = model_flops / (step_ms / 1e3) / 1e12
+    log(f"[train] losses {losses}, grad norms {gnorms}; schedule {art.schedule_names}")
+    log(f"[train] step wall ms {[round(w, 2) for w in walls]}; median of steps 2-{TRAIN_STEPS} {step_ms:.2f} ms, "
+        f"{tokens / step_ms * 1e3:.1f} tokens/s, model {model_flops / 1e12:.1f} TFLOP a step "
+        f"(6·N·tokens + attention, no recompute) = {tflops:.1f} TFLOP/s, {tflops / 989:.1%} of 989; "
+        f"peak device memory {peak / 2**30:.2f} GiB ({peak} bytes)")
+    state, spans = _codelet_times(art, state, batches[TRAIN_STEPS])
+    log("[train] device time of each task of one step: "
+        + ", ".join(f"{name} {ms:.1f} ms" for name, ms in spans))
+    state, _, prof = _profile_train_step(art, state, batches[TRAIN_STEPS])
+    log(f"[profile] one train step under the profiler: {prof['profiled_wall_ms']:.2f} ms wall, "
+        f"{prof['device_ms']:.2f} ms device time, device busy {prof['busy']:.1%}")
+    for name, ms in prof["top"]:
+        log(f"[profile]   {ms:9.3f} ms  {name}")
+    log("[profile] by kind: " + ", ".join(f"{k} {ms:.1f} ms ({ms / prof['device_ms']:.1%})"
+                                          for k, ms in prof["kinds"]))
+    # nonfinite rollback: a NaN in one ln1 scale; every bit stays, the step advances
+    with torch.no_grad():
+        state.params.layers[0].ln1.scale[0] = float("nan")
+    before = {n: _bits(p).cpu() for n, p in state.params.named_parameters()}
+    opt_before = {k: {kk: vv.clone() for kk, vv in v.items()} for k, v in state.opt.items()}
+    step_before = int(state.step)
+    state, m = art(state, batches[TRAIN_STEPS + 1])
+    gn = float(m["grad_norm"])
+    assert not np.isfinite(gn), gn
+    assert int(state.step) == step_before + 1
+    for n, p in state.params.named_parameters():
+        assert torch.equal(_bits(p).cpu(), before[n]), f"rollback changed {n}"
+    for k, v in state.opt.items():
+        for kk, vv in v.items():
+            assert torch.equal(_bits(vv), _bits(opt_before[k][kk])), f"rollback changed opt {k}/{kk}"
+    log(f"[train] nonfinite rollback: grad norm {gn}, every parameter ({len(before)} tensors) and "
+        f"optimizer tensor bit-identical, step {step_before} -> {int(state.step)}")
+    del state, art, batches, before, opt_before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, losses=losses, grad_norms=gnorms, walls_ms=walls, step_ms=step_ms,
+                tokens_per_s=tokens / step_ms * 1e3, model_tflops=tflops, peak_bytes=peak, profile=prof,
+                task_ms=spans)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -970,13 +1400,16 @@ def main() -> int:
     model_err_m = model_phase(
         dev, get_config("mamba2-130m").replace(n_layers=4, dtype="float32"), prompt_len=600
     )
-    for r in records:  # launches on both serving paths
-        r["launches"] = serve["launches"][r["name"]] + serve_m["launches"][r["name"]]
+    parity = train_parity_phase(dev)
+    train = train_phase(dev)
+    for r in records:  # launches on both serving paths and the train path
+        r["launches"] = sum(run["launches"][r["name"]] for run in (serve, serve_m, train))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     kernels = [{k: r[k] for k in keys} for r in records]
     log(f"[done] {smi}: build {build_s:.1f} s, model checks {model_err:.2e} (deepseek-7b), "
-        f"{model_err_m:.2e} (mamba2-130m), {time.perf_counter() - t_start:.1f} s in all")
+        f"{model_err_m:.2e} (mamba2-130m), train parity {parity}, train step {train['step_ms']:.1f} ms "
+        f"({train['tokens_per_s']:.1f} tokens/s), {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

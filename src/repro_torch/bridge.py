@@ -12,6 +12,13 @@ a transpose.
 bfloat16 crosses as its bit pattern (``arr.view(np.uint16)`` →
 ``torch.from_numpy(...).view(torch.bfloat16)``), which is exact and needs
 neither JAX nor ``ml_dtypes`` on this side.
+
+:func:`train_state_from_numpy` and :func:`train_state_to_numpy` carry a
+whole train state (parameters, optimizer state, step) both ways, so the two
+packages' train steps can be compared after any number of steps.  The
+optimizer state is keyed as :mod:`repro_torch.optim` keeps it: AdamW's
+``m`` / ``v`` by parameter name, Adafactor's by ``repro``'s leaf path with
+the layer axis kept.
 """
 from __future__ import annotations
 
@@ -20,7 +27,8 @@ import torch
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import RMSNorm
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.transformer import Transformer, set_trainable
+from repro_torch.optim import TrainState, leaf_path, param_leaves
 
 
 def tensor_from_numpy(arr, device="cpu") -> torch.Tensor:
@@ -64,3 +72,67 @@ def params_from_numpy(tree: dict, cfg: ArchConfig, device="cuda") -> Transformer
     if missing:
         raise ValueError(f"parameter tree lacks {missing}")
     return model
+
+
+def _at(tree: dict, path: str):
+    for key in path.split("/"):
+        tree = tree[key]
+    return tree
+
+
+def _put(tree: dict, path: str, value) -> None:
+    *head, last = path.split("/")
+    for key in head:
+        tree = tree.setdefault(key, {})
+    tree[last] = value
+
+
+def train_state_from_numpy(params_tree: dict, opt_tree: dict, step, cfg: ArchConfig,
+                           device="cuda") -> TrainState:
+    """``repro``'s ``TrainState`` as numpy trees (``jax.tree.map(np.asarray,
+    ...)``) → the port's, trainable, on ``device``."""
+    model = set_trainable(params_from_numpy(params_tree, cfg, device))
+    names = [n for n, _ in model.named_parameters()]
+    if cfg.optimizer == "adamw":
+        opt = {}
+        for k in ("m", "v"):
+            opt[k] = {}
+            for n in names:
+                path, layer = leaf_path(n)
+                arr = _at(opt_tree[k], path)
+                opt[k][n] = tensor_from_numpy(arr if layer is None else np.asarray(arr)[layer], device)
+    else:
+        opt = {
+            leaf.path: {k: tensor_from_numpy(v, device) for k, v in _at(opt_tree, leaf.path).items()}
+            for leaf in param_leaves(names)
+        }
+    step_t = torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=model.device)
+    return TrainState(step=step_t, params=model, opt=opt)
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    """float32 for bfloat16 (exact: numpy has no bfloat16), else as is."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def train_state_to_numpy(state: TrainState) -> tuple[dict, dict, int]:
+    """The port's train state → (params tree, optimizer tree, step) shaped
+    as ``repro``'s, with numpy leaves (layer parameters stacked on axis 0)."""
+    params = dict(state.params.named_parameters())
+    leaves = param_leaves(params)
+    p_tree: dict = {}
+    for leaf in leaves:
+        parts = [_np(params[n]) for n in leaf.names]
+        _put(p_tree, leaf.path, np.stack(parts) if leaf.stacked else parts[0])
+    o_tree: dict = {}
+    if set(state.opt) == {"m", "v"}:  # adamw; adafactor's keys are leaf paths
+        for k in ("m", "v"):
+            o_tree[k] = {}
+            for leaf in leaves:
+                parts = [_np(state.opt[k][n]) for n in leaf.names]
+                _put(o_tree[k], leaf.path, np.stack(parts) if leaf.stacked else parts[0])
+    else:
+        for leaf in leaves:
+            _put(o_tree, leaf.path, {k: _np(v) for k, v in state.opt[leaf.path].items()})
+    return p_tree, o_tree, int(state.step)

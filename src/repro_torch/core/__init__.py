@@ -2,9 +2,10 @@
 
 Pure Python (no ``torch``, no ``jax``): sequential-task-flow graphs with the
 paper's five access modes, worker-thread compute engines with pluggable
-schedulers, commit/rollback speculation, and the codelet frontend.  What the
-copy leaves out until the distributed slice: the comm layer (``comm.py``),
-the staged backend (``staged.py``) and the elastic runtime.  The device
+schedulers, commit/rollback speculation, the codelet frontend and the staged
+backend (``staged.py``: one policy-chosen order, run on the calling thread).
+What the copy leaves out until the distributed slice: the comm layer
+(``comm.py``) and the elastic runtime.  The device
 implementation kind is ``"cuda"`` (``repro`` says ``"pallas"``)::
 
     from repro_torch.core import SpData, SpRuntime, sp_task

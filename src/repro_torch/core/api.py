@@ -31,15 +31,15 @@ module is that frontend for the PyTorch port:
   probe passes; the executing worker's kind picks among them, and the
   ``cuda`` kind is preferred where it is available.
 
-* :class:`SpRuntime` — the eager entry point: a worker-thread engine drives
-  the graph::
+* :class:`SpRuntime` — one entry point over both execution backends.  The
+  same user code runs threaded-eager or staged by flipping one argument::
 
-      with SpRuntime(workers=4) as rt:
+      with SpRuntime(backend="eager", workers=4) as rt:   # or backend="staged"
           view = axpy(a_cell, b_cell)
           print(view.result())
 
-  (The JAX package's staged backend and its elastic, rank-death-surviving
-  mode are not part of this copy: they come with the distributed slice.)
+  (The JAX package's elastic, rank-death-surviving mode is not part of this
+  copy: it comes with the distributed slice, ROADMAP.md Queue 1 item 5.)
 
   The runtime is a context manager; inside its scope (or an explicit
   :func:`graph_scope`) codelet calls insert tasks into the current graph and
@@ -545,66 +545,129 @@ def sp_task(
 
 
 # ---------------------------------------------------------------------------
-# The eager runtime.
+# One runtime over both backends.
 # ---------------------------------------------------------------------------
 
 class SpRuntime:
-    """Unified entry point (paper Code 1): a worker-thread
-    :class:`SpComputeEngine` drives one graph.  ``workers`` is an int, an
-    ``SpWorkerTeam`` or None (default team), ``scheduler`` a name
-    (``make_scheduler``) or instance.  Pass ``engine=`` to share an existing
-    engine (not stopped on exit).
+    """Unified entry point (paper Code 1): one constructor, two backends.
+
+    * ``backend="eager"`` — a worker-thread :class:`SpComputeEngine` drives
+      the graph; ``workers`` is an int, an ``SpWorkerTeam`` or None
+      (default team), ``scheduler`` a name (``make_scheduler``) or instance.
+      Pass ``engine=`` to share an existing engine (not stopped on exit).
+    * ``backend="staged"`` — tasks accumulate and :meth:`run` (or the first
+      ``TaskView.result()``, or scope exit) executes them on the calling
+      thread in the ``policy``-linearized order (``core/staged.py``).  Where
+      ``repro`` traces that order under ``jax.jit``, the port runs it
+      eagerly: each body enqueues its kernels on the card's stream.
 
     Used as a context manager the runtime opens a graph scope: codelet calls
     inside the block target its graph.  ``SpRuntime(4)`` (a bare int) is the
-    legacy spelling for a runtime with 4 workers.
+    legacy spelling for an eager runtime with 4 workers.  ``elastic=True``
+    (rank-death recovery) raises: it comes with the distributed slice
+    (ROADMAP.md, Queue 1 item 5).
     """
 
     def __init__(
         self,
-        n_threads: int | None = None,
+        backend: str | int = "eager",
         *,
         scheduler=None,
         workers=None,
         engine=None,
+        policy: str = "fifo",
         speculative_model: SpSpeculativeModel = SpSpeculativeModel.SP_NO_SPEC,
         trace: bool = True,
+        n_threads: int | None = None,
+        elastic: bool = False,
     ):
-        from .engine import SpComputeEngine, SpWorkerTeam, SpWorkerTeamBuilder
-        from .scheduler import make_scheduler
-
+        if isinstance(backend, int):  # legacy SpRuntime(n_threads)
+            n_threads = backend
+            backend = "eager"
+        if backend not in ("eager", "staged"):
+            raise ValueError(f"unknown backend {backend!r}; use 'eager' or 'staged'")
+        if elastic:
+            raise NotImplementedError(
+                "SpRuntime(elastic=True) is not ported yet: rank-death recovery "
+                "comes with the distributed slice (ROADMAP.md, Queue 1 item 5)"
+            )
+        self.backend = backend
+        self.policy = policy
         self.graph = SpTaskGraph(speculative_model, trace=trace)
+        self.engine = None
         self._own_engine = False
         self._scope_token = None
-        if engine is not None:
-            self.engine = engine
+        self._order = None  # last staged schedule (list of Tasks)
+
+        if backend == "eager":
+            from .engine import SpComputeEngine, SpWorkerTeam, SpWorkerTeamBuilder
+            from .scheduler import make_scheduler
+
+            if engine is not None:
+                self.engine = engine
+            else:
+                if isinstance(scheduler, str):
+                    scheduler = make_scheduler(scheduler)
+                team = workers
+                if team is None:
+                    team = SpWorkerTeamBuilder.team_of_cpu_workers(n_threads)
+                elif isinstance(team, int):
+                    team = SpWorkerTeamBuilder.team_of_cpu_workers(team)
+                elif not isinstance(team, SpWorkerTeam):
+                    raise TypeError(
+                        f"workers must be an int or SpWorkerTeam, got {team!r}"
+                    )
+                self.engine = SpComputeEngine(team, scheduler)
+                self._own_engine = True
+            self.graph.compute_on(self.engine)
         else:
-            if isinstance(scheduler, str):
-                scheduler = make_scheduler(scheduler)
-            team = workers
-            if team is None:
-                team = SpWorkerTeamBuilder.team_of_cpu_workers(n_threads)
-            elif isinstance(team, int):
-                team = SpWorkerTeamBuilder.team_of_cpu_workers(team)
-            elif not isinstance(team, SpWorkerTeam):
-                raise TypeError(
-                    f"workers must be an int or SpWorkerTeam, got {team!r}"
+            if engine is not None or workers is not None or scheduler is not None:
+                raise ValueError(
+                    "backend='staged' runs the schedule on the calling thread — "
+                    "it takes policy=..., not workers/scheduler/engine"
                 )
-            self.engine = SpComputeEngine(team, scheduler)
-            self._own_engine = True
-        self.graph.compute_on(self.engine)
+            # TaskView.result() on an unflushed staged graph triggers this
+            self.graph._flush_hook = self.run
 
     def task(self, *args, **kw) -> TaskView:
         """Positional-spelling shim (``SpTaskGraph.task`` passthrough)."""
         return self.graph.task(*args, **kw)
 
+    def run(self) -> list:
+        """Execute pending work; returns the staged schedule (eager: [])."""
+        if self.backend == "eager":
+            self.graph.wait_all_tasks()
+            return []
+        return self._flush()
+
+    def _flush(self) -> list:
+        from .staged import linearize, run_schedule
+
+        graph = self.graph
+        if not graph.tasks:
+            return []
+        if graph.unfinished == 0:
+            return self._order or []
+        order = linearize(graph, self.policy)
+        self._order = order
+        # the codelet frontend stamps the preferred kind at bind time
+        # (pick_impl falls back to 'ref' when it is absent).  Errors are
+        # parked on the tasks/graph — surfaced by result() or
+        # wait_all_tasks, not here.
+        run_schedule(
+            graph, order, lambda t: getattr(t, "preferred_kind", None) or "ref"
+        )
+        return order
+
     def wait_all_tasks(self, timeout: float | None = None, raise_errors: bool = True) -> None:
+        if self.backend == "staged":
+            self._flush()
         self.graph.wait_all_tasks(timeout, raise_errors=raise_errors)
 
     waitAllTasks = wait_all_tasks
 
     def stop(self) -> None:
-        if self._own_engine:
+        if self._own_engine and self.engine is not None:
             self.engine.stop()
 
     def __enter__(self) -> "SpRuntime":

@@ -73,6 +73,9 @@ class SpTaskGraph:
         self.trace = trace
         self.trace_events: list[dict] = []
         self.spec_stats = {"speculated": 0, "commits": 0, "rollbacks": 0}
+        # set by a staged SpRuntime (core/api.py): zero-arg callable that
+        # executes the pending graph; TaskView.result() triggers it
+        self._flush_hook = None
 
     # ------------------------------------------------------------------ insert
 
@@ -88,8 +91,9 @@ class SpTaskGraph:
         ``SpPriority``, ``SpAccess`` / ``SpArrayAccess`` (argument slots, in
         declaration order), and one or more callables / ``SpImpl`` variants.
 
-        ``comm=True`` marks a communication task (a scheduling hint kept on
-        the task; the comm thread that acts on it is not ported yet).
+        ``comm=True`` marks a communication task: in the staged backend the
+        flag steers the ``overlap`` linearization policy (collectives issued
+        as early as possible); the eager comm thread is not ported yet.
 
         This positional spelling is the compatibility form; the declarative
         codelet frontend (``repro_torch.core.api``) inserts through the same

@@ -260,7 +260,9 @@ class TaskView:
     Allows naming the task, waiting for completion and fetching the produced
     value (``get_value`` — paper spelling — or the concurrent.futures-style
     :meth:`result` / :meth:`done` / :meth:`exception`), and chaining
-    follow-up work with :meth:`then`.  The paper notes the pitfall that names may be set after execution —
+    follow-up work with :meth:`then`.  On a staged runtime, asking for the
+    result forces the pending graph to execute (the graph's flush hook).
+    The paper notes the pitfall that names may be set after execution —
     unchanged here, and equally harmless.
     """
 
@@ -296,9 +298,19 @@ class TaskView:
     def done(self) -> bool:
         return self._task.is_done
 
+    def _maybe_flush(self) -> None:
+        """On a staged runtime the graph only executes when flushed; asking
+        for a result is such a trigger (SpRuntime installs the hook)."""
+        if self._task.is_done:
+            return
+        hook = getattr(getattr(self._task, "graph", None), "_flush_hook", None)
+        if hook is not None:
+            hook()
+
     def result(self, timeout: float | None = None) -> Any:
         """Block until done; raise the task's exception (or CancelledError —
         concurrent.futures semantics) or return its value."""
+        self._maybe_flush()
         if not self._task.wait(timeout):
             raise TimeoutError(f"task {self._task.name!r} still pending")
         if self._task.exception is not None:
@@ -309,6 +321,7 @@ class TaskView:
         return self._task.result
 
     def exception(self, timeout: float | None = None) -> BaseException | None:
+        self._maybe_flush()
         if not self._task.wait(timeout):
             raise TimeoutError(f"task {self._task.name!r} still pending")
         if self._task.exception is not None:

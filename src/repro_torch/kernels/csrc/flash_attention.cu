@@ -9,6 +9,10 @@
 //           qpos - kpos < window.  Query head h reads KV head h / (H / KH).
 // Layout:   the model's (B, L, H, D), read through strides (last dim
 //           contiguous), so the caller transposes nothing.
+// lse:      for training, each row's natural-log log-sum-exp of the scaled,
+//           masked scores can be written to a (B, H, Lq) f32 buffer, the
+//           residual flash_attention_bwd.cu recomputes P from; serving
+//           passes none and its time is unchanged.
 //
 // Bound: at prefill lengths the work is ~4·L²·H·Dh/2 flops against ~4·L·H·Dh
 // elements moved, far above the card's ops-per-byte line, so it is bound by
@@ -61,7 +65,7 @@ constexpr int NJ = DMAX / 16;  // output columns per thread
 template <typename T>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
-    int H, int KH, int Lq, int Lk, int Dh, int Dv,
+    float* __restrict__ lse, int H, int KH, int Lq, int Lk, int Dh, int Dv,
     long long q_sb, long long q_sl, long long q_sh,
     long long k_sb, long long k_sl, long long k_sh,
     long long v_sb, long long v_sl, long long v_sh,
@@ -187,6 +191,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const int row = q0 + ty + 16 * i;
     if (row >= Lq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<long long>(b) * H + h) * Lq + row] = m[i] + logf(fmaxf(l[i], 1e-30f));
     T* orow = o + b * o_sb + row * o_sl + h * o_sh;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
@@ -197,7 +203,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KH, int Lq,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int KH, int Lq,
            int Lk, int Dh, int Dv, const long long* qs, const long long* ks, const long long* vs,
            const long long* os, int causal, int window, int q_offset, float scale,
            cudaStream_t stream) {
@@ -210,7 +216,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
   const dim3 grid((Lq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, KH, Lq, Lk, Dh, Dv, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2],
+      static_cast<T*>(o), lse, H, KH, Lq, Lk, Dh, Dv, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2],
       vs[0], vs[1], vs[2], os[0], os[1], os[2], causal, window, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -232,7 +238,7 @@ constexpr int STAGES = 2;    // K/V ring
 template <int DP, int DVP>
 __global__ void __launch_bounds__(NT, 2) flash_fwd_wgmma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ o, int H, int KH, int Lq, int Lk, int Dh, int Dv,
+    bf16* __restrict__ o, float* __restrict__ lse, int H, int KH, int Lq, int Lk, int Dh, int Dv,
     long long q_sb, long long q_sl, long long q_sh,
     long long k_sb, long long k_sl, long long k_sh,
     long long v_sb, long long v_sl, long long v_sh,
@@ -386,6 +392,11 @@ __global__ void __launch_bounds__(NT, 2) flash_fwd_wgmma_kernel(
   for (int r = 0; r < 2; ++r) {
     const int row = wq0 + row0 + 8 * r;
     if (row >= Lq) continue;
+    // m is the running max of the unscaled scores: the natural-log lse of
+    // the scaled ones is m·scale + log(l), with scale = scale_log2·ln 2
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[(static_cast<long long>(b) * H + h) * Lq + row] =
+          m[r] * scale_log2 * 0.6931471805599453f + logf(fmaxf(l[r], 1e-30f));
     bf16* orow = o + b * o_sb + row * o_sl + h * o_sh;
 #pragma unroll
     for (int n = 0; n < DVP / 8; ++n) {
@@ -398,7 +409,7 @@ __global__ void __launch_bounds__(NT, 2) flash_fwd_wgmma_kernel(
 }
 
 template <int DP, int DVP>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KH, int Lq,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int KH, int Lq,
            int Lk, int Dh, int Dv, const long long* qs, const long long* ks, const long long* vs,
            const long long* os, int causal, int window, int q_offset, float scale,
            cudaStream_t stream) {
@@ -409,7 +420,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
   const dim3 grid(H, (Lq + BQ - 1) / BQ, B);
   flash_fwd_wgmma_kernel<DP, DVP><<<grid, NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), H, KH, Lq, Lk, Dh, Dv, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2],
+      static_cast<bf16*>(o), lse, H, KH, Lq, Lk, Dh, Dv, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2],
       vs[0], vs[1], vs[2], os[0], os[1], os[2], causal, window, q_offset,
       scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
@@ -423,7 +434,7 @@ bool aligned16(const void* p, const long long* strides, int d) {
   return true;
 }
 
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int KH, int Lq,
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int KH, int Lq,
                 int Lk, int Dh, int Dv, const long long* qs, const long long* ks,
                 const long long* vs, const long long* os, int causal, int window, int q_offset,
                 float scale, cudaStream_t stream) {
@@ -431,7 +442,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
       reinterpret_cast<uintptr_t>(o) % 4 != 0 || os[0] % 2 || os[1] % 2 || os[2] % 2)
     return static_cast<int>(cudaErrorMisalignedAddress);
 #define FLASH_TC_LAUNCH(DP, DVP)                                                                  \
-  return launch<DP, DVP>(q, k, v, o, B, H, KH, Lq, Lk, Dh, Dv, qs, ks, vs, os, causal, window, \
+  return launch<DP, DVP>(q, k, v, o, lse, B, H, KH, Lq, Lk, Dh, Dv, qs, ks, vs, os, causal, window, \
                          q_offset, scale, stream)
   if (Dh <= 64) {
     if (Dv <= 64) FLASH_TC_LAUNCH(64, 64);
@@ -448,9 +459,12 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
 
 // strides are (batch, sequence, head) in elements; the head_dim stride is 1.
 // window <= 0 means no window.  bf16 takes the tensor-core kernel, f32 the
-// SIMT kernel.
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                                   int H, int KH, int Lq, int Lk, int Dh, int Dv,
+// SIMT kernel.  lse, when not null, is a (B, H, Lq) float32 buffer that
+// receives each row's natural-log log-sum-exp of the scaled, masked scores
+// (the residual the backward, flash_attention_bwd.cu, recomputes P from);
+// serving passes null.
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                                   void* lse, int B, int H, int KH, int Lq, int Lk, int Dh, int Dv,
                                    const long long* q_strides, const long long* k_strides,
                                    const long long* v_strides, const long long* o_strides,
                                    int causal, int window, int q_offset, float scale, int dtype,
@@ -458,10 +472,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (Dh > DMAX || Dv > DMAX || KH <= 0 || H % KH != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == rt::BF16)
-    return tc::launch_bf16(q, k, v, o, B, H, KH, Lq, Lk, Dh, Dv, q_strides, k_strides, v_strides,
+    return tc::launch_bf16(q, k, v, o, static_cast<float*>(lse), B, H, KH, Lq, Lk, Dh, Dv, q_strides, k_strides, v_strides,
                            o_strides, causal, window, q_offset, scale, st);
   if (dtype == rt::F32)
-    return launch<float>(q, k, v, o, B, H, KH, Lq, Lk, Dh, Dv, q_strides, k_strides, v_strides,
+    return launch<float>(q, k, v, o, static_cast<float*>(lse), B, H, KH, Lq, Lk, Dh, Dv, q_strides, k_strides, v_strides,
                          o_strides, causal, window, q_offset, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,9 +1,12 @@
-// Fused RMSNorm for Hopper.
+// Fused RMSNorm for Hopper, and its backward.
 //
 // Replaces: src/repro/kernels/rmsnorm/kernel.py::rmsnorm_pallas
 //           (body _rmsnorm_kernel).
 // Computes: out = x * rsqrt(mean(x^2) + eps) * (1 + scale), statistics in
 //           f32, result cast back to x's dtype.  x is (T, D) row-major.
+//           The backward (rmsnorm_bwd, at the end of this file) has no
+//           Pallas counterpart: JAX differentiates the jnp rmsnorm of
+//           src/repro/models/layers.py.
 //
 // Bound: device-memory bytes (one read of x, one write of out, ~4 flops per
 // element), so each byte is read once, 16 bytes a thread at a time.  Design:
@@ -261,6 +264,254 @@ extern "C" int rmsnorm_fwd(const void* x, const void* scale, void* out, long lon
   if (x_dtype == rt::F32 && s_dtype == rt::BF16) RMSNORM_LAUNCH(float, __nv_bfloat16);
   if (x_dtype == rt::F32 && s_dtype == rt::F32) RMSNORM_LAUNCH(float, float);
 #undef RMSNORM_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// Backward: dx = rstd·(dy·w − x̂·mean(dy·w·x̂)), dscale = Σ_rows dy·x̂
+// ---------------------------------------------------------------------------
+//
+// Bound: device-memory bytes, like the forward (x and dy read once, dx
+// written once; rstd is recomputed from x, nothing is saved between the
+// passes).  Design: the forward's launch plan (a row to `tpr` threads, 16-
+// byte loads, VPT vectors a thread in registers, the looped variant for
+// rows too long for registers, the scalar path for unaligned rows), with
+// fewer blocks (rmsnorm/ops.py::bwd_launch_plan).  Each row needs two sums
+// (Σx², Σdy·w·x), reduced together.  dscale is reduced over the rows in
+// f32 and deterministically, with no atomics: each row group of each block
+// ("part") keeps its partial sums of dy·x̂ (in registers, or in its own
+// slice of the scratch on the looped path) and writes them to
+// partial[part][D]; a second kernel sums the parts of each column in a
+// fixed order and casts once to the scale's dtype.
+
+// the sums of a and b over the tpr threads of a row (see row_sum)
+__device__ __forceinline__ void row_sum2(float& a, float& b, int tpr, float* partial) {
+  const int width = tpr < 32 ? tpr : 32;
+  for (int o = width >> 1; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, o);
+    b += __shfl_xor_sync(0xffffffffu, b, o);
+  }
+  if (tpr <= 32) return;
+  const int warp = threadIdx.x >> 5, wpr = tpr >> 5, first = warp & ~(wpr - 1);
+  if ((threadIdx.x & 31) == 0) partial[warp] = a, partial[8 + warp] = b;
+  __syncthreads();
+  float sa = 0.f, sb = 0.f;
+  for (int i = 0; i < wpr; ++i) sa += partial[first + i], sb += partial[8 + first + i];
+  a = sa, b = sb;
+}
+
+template <typename T, typename S, int VEC, int VPT>
+__global__ void __launch_bounds__(256) rmsnorm_bwd_kernel(
+    const T* __restrict__ x, const S* __restrict__ scale, const T* __restrict__ dy,
+    T* __restrict__ dx, float* __restrict__ partial, long long rows, int D, int tpr,
+    int rows_per_block, float eps) {
+  __shared__ float red[2][16];
+  const int lane = threadIdx.x & (tpr - 1), sub = threadIdx.x / tpr;
+  const long long stride = static_cast<long long>(gridDim.x) * rows_per_block;
+  const int nvec = D / VEC;
+  const float inv_d = 1.f / static_cast<float>(D);
+  float* part = partial + (static_cast<long long>(blockIdx.x) * rows_per_block + sub) * D;
+  long long base = static_cast<long long>(blockIdx.x) * rows_per_block;
+
+  if constexpr (VPT > 0) {
+    float w[VPT][VEC], acc[VPT][VEC];
+#pragma unroll
+    for (int j = 0; j < VPT; ++j) {
+      const int vi = j * tpr + lane;
+      float f[VEC] = {};
+      if (vi < nvec) {
+        Raw<S, VEC> sr;
+        sr.load(scale + vi * VEC);
+        sr.get(f);
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) w[j][e] = 1.f + f[e], acc[j][e] = 0.f;
+    }
+    for (int it = 0; base < rows; base += stride, ++it) {
+      const long long row = base + sub;
+      const bool live = row < rows;
+      float xf[VPT][VEC], gf[VPT][VEC], ss = 0.f, dot = 0.f;
+#pragma unroll
+      for (int j = 0; j < VPT; ++j) {
+        const int vi = j * tpr + lane;
+        if (vi < nvec && live) {
+          Raw<T, VEC> xr, gr;
+          xr.load(x + row * D + vi * VEC);
+          gr.load(dy + row * D + vi * VEC);
+          xr.get(xf[j]);
+          gr.get(gf[j]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) xf[j][e] = 0.f, gf[j][e] = 0.f;
+        }
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          ss += xf[j][e] * xf[j][e];
+          dot += gf[j][e] * w[j][e] * xf[j][e];
+        }
+      }
+      row_sum2(ss, dot, tpr, red[it & 1]);
+      const float rstd = rsqrtf(ss * inv_d + eps);
+      // dx = rstd·dy·w − x·c, with c = rstd · rstd·mean(dy·w·x̂) = rstd³·Σ(dy·w·x) / D
+      const float c = rstd * rstd * rstd * dot * inv_d;
+#pragma unroll
+      for (int j = 0; j < VPT; ++j) {
+        const int vi = j * tpr + lane;
+        if (!(vi < nvec && live)) continue;
+        float o[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          o[e] = rstd * gf[j][e] * w[j][e] - xf[j][e] * c;
+          acc[j][e] += gf[j][e] * (xf[j][e] * rstd);
+        }
+        store_from_f32<T, VEC>(dx + row * D + vi * VEC, o);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < VPT; ++j) {
+      const int vi = j * tpr + lane;
+      if (vi < nvec)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) part[vi * VEC + e] = acc[j][e];
+    }
+  } else {  // looped: rows too long to hold in registers; x and dy are read twice
+    for (int vi = lane; vi < nvec; vi += tpr)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) part[vi * VEC + e] = 0.f;
+    for (int it = 0; base < rows; base += stride, ++it) {
+      const long long row = base + sub;
+      const bool live = row < rows;
+      float ss = 0.f, dot = 0.f;
+      for (int vi = lane; live && vi < nvec; vi += tpr) {
+        Raw<T, VEC> xr, gr;
+        Raw<S, VEC> sr;
+        xr.load(x + row * D + vi * VEC);
+        gr.load(dy + row * D + vi * VEC);
+        sr.load(scale + vi * VEC);
+        float xv[VEC], gv[VEC], sv[VEC];
+        xr.get(xv), gr.get(gv), sr.get(sv);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) ss += xv[e] * xv[e], dot += gv[e] * (1.f + sv[e]) * xv[e];
+      }
+      row_sum2(ss, dot, tpr, red[it & 1]);
+      const float rstd = rsqrtf(ss * inv_d + eps);
+      const float c = rstd * rstd * rstd * dot * inv_d;
+      for (int vi = lane; live && vi < nvec; vi += tpr) {
+        Raw<T, VEC> xr, gr;
+        Raw<S, VEC> sr;
+        xr.load(x + row * D + vi * VEC);
+        gr.load(dy + row * D + vi * VEC);
+        sr.load(scale + vi * VEC);
+        float xv[VEC], gv[VEC], sv[VEC], o[VEC];
+        xr.get(xv), gr.get(gv), sr.get(sv);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          o[e] = rstd * gv[e] * (1.f + sv[e]) - xv[e] * c;
+          part[vi * VEC + e] += gv[e] * (xv[e] * rstd);
+        }
+        store_from_f32<T, VEC>(dx + row * D + vi * VEC, o);
+      }
+    }
+  }
+}
+
+// dscale[c] = Σ_p partial[p][c], 32 columns a block, 8 warps each summing
+// every 8th part, combined in warp order: the same order on every run
+template <typename S>
+__global__ void __launch_bounds__(256) dscale_reduce_kernel(const float* __restrict__ partial,
+                                                            S* __restrict__ dscale, int parts,
+                                                            int D) {
+  __shared__ float red[8][33];
+  const int col = threadIdx.x & 31, j = threadIdx.x >> 5, c = blockIdx.x * 32 + col;
+  float s = 0.f;
+  if (c < D)
+    for (int p = j; p < parts; p += 8) s += partial[static_cast<long long>(p) * D + c];
+  red[j][col] = s;
+  __syncthreads();
+  if (j == 0 && c < D) {
+    float t = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) t += red[i][col];
+    dscale[c] = rt::from_f32<S>(t);
+  }
+}
+
+template <typename T, typename S, int VEC>
+int launch_bwd_vec(const void* x, const void* scale, const void* dy, void* dx, void* partial,
+                   void* dscale, long long rows, int D, int vpt, int tpr, int rpb, int blocks,
+                   float eps, cudaStream_t stream) {
+  const int threads = tpr * rpb;
+  const T* xp = static_cast<const T*>(x);
+  const S* sp = static_cast<const S*>(scale);
+  const T* gp = static_cast<const T*>(dy);
+  T* op = static_cast<T*>(dx);
+  float* pp = static_cast<float*>(partial);
+  switch (vpt) {
+#define RMSNORM_BWD_CASE(V)                                                                      \
+  case V:                                                                                        \
+    rmsnorm_bwd_kernel<T, S, VEC, V><<<blocks, threads, 0, stream>>>(xp, sp, gp, op, pp, rows, D, \
+                                                                     tpr, rpb, eps);             \
+    break;
+    RMSNORM_BWD_CASE(0)
+    RMSNORM_BWD_CASE(1)
+    RMSNORM_BWD_CASE(2)
+    RMSNORM_BWD_CASE(3)
+    RMSNORM_BWD_CASE(4)
+#undef RMSNORM_BWD_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dscale_reduce_kernel<S><<<(D + 31) / 32, 256, 0, stream>>>(pp, static_cast<S*>(dscale),
+                                                             blocks * rpb, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename S>
+int launch_bwd(const void* x, const void* scale, const void* dy, void* dx, void* partial,
+               void* dscale, long long rows, int D, int vec, int vpt, int tpr, int rpb,
+               int blocks, float eps, cudaStream_t stream) {
+  constexpr int full = 16 / static_cast<int>(sizeof(T));
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(dy) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(dx) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(scale) % 16 == 0 && D % full == 0;
+  if (tpr < 1 || tpr > 256 || (tpr & (tpr - 1)) || rpb < 1 || (tpr * rpb) % 32 ||
+      tpr * rpb > 256 || vpt < 0 || vpt > MAX_VPT || (tpr > 32 && rpb != 1) || blocks < 1 ||
+      (vpt == 0 && rpb != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec == full && aligned)
+    return launch_bwd_vec<T, S, full>(x, scale, dy, dx, partial, dscale, rows, D, vpt, tpr, rpb,
+                                      blocks, eps, stream);
+  if (vec == 1)
+    return launch_bwd_vec<T, S, 1>(x, scale, dy, dx, partial, dscale, rows, D, vpt, tpr, rpb,
+                                   blocks, eps, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// dy and dx have x's dtype; partial is float32 scratch of (blocks ·
+// rows_per_block) x D; dscale has scale's dtype.  The launch plan is
+// rmsnorm/ops.py::bwd_launch_plan.
+extern "C" int rmsnorm_bwd(const void* x, const void* scale, const void* dy, void* dx,
+                           void* partial, void* dscale, long long rows, int D, float eps,
+                           int x_dtype, int s_dtype, int vec, int vpt, int tpr,
+                           int rows_per_block, int blocks, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (static_cast<long long>(D) * (vpt > 0 ? 1 : 0) > static_cast<long long>(vpt) * tpr * vec)
+    return static_cast<int>(cudaErrorInvalidValue);  // the register path must cover the row
+#define RMSNORM_BWD_LAUNCH(T, S)                                                                  \
+  return launch_bwd<T, S>(x, scale, dy, dx, partial, dscale, rows, D, vec, vpt, tpr,             \
+                          rows_per_block, blocks, eps, st)
+  if (x_dtype == rt::BF16 && s_dtype == rt::BF16) RMSNORM_BWD_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+  if (x_dtype == rt::BF16 && s_dtype == rt::F32) RMSNORM_BWD_LAUNCH(__nv_bfloat16, float);
+  if (x_dtype == rt::F32 && s_dtype == rt::BF16) RMSNORM_BWD_LAUNCH(float, __nv_bfloat16);
+  if (x_dtype == rt::F32 && s_dtype == rt::F32) RMSNORM_BWD_LAUNCH(float, float);
+#undef RMSNORM_BWD_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -128,9 +128,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     S3 = ctypes.POINTER(ctypes.c_longlong)
     lib.rmsnorm_fwd.argtypes = [P, P, P, LL, I, F, I, I, I, I, I, I, I, P]
+    lib.rmsnorm_bwd.argtypes = [P, P, P, P, P, P, LL, I, F, I, I, I, I, I, I, I, P]
     lib.flash_attention_fwd.argtypes = [
-        P, P, P, P, I, I, I, I, I, I, I, S3, S3, S3, S3, I, I, I, F, I, P,
+        P, P, P, P, P, I, I, I, I, I, I, I, S3, S3, S3, S3, I, I, I, F, I, P,
     ]
+    lib.flash_attention_bwd.argtypes = [P] * 10 + [I] * 7 + [S3] * 8 + [I, I, I, F, I, P]
     lib.decode_attention_fwd.argtypes = [
         P, P, P, P, P, P, P, I, I, I, I, I, I, I, S3, S3, S3, S3, F, I, P,
     ]
@@ -138,8 +140,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ssd_intra_chunk_fwd.argtypes = [P] * 7 + [I] * 7 + [S3] * 7 + [I, P]
     lib.kernels_error_string.argtypes = [I]
     lib.kernels_error_string.restype = ctypes.c_char_p
-    for fn in (lib.rmsnorm_fwd, lib.flash_attention_fwd, lib.decode_attention_fwd,
-               lib.decode_attention_chunk, lib.ssd_intra_chunk_fwd):
+    for fn in (lib.rmsnorm_fwd, lib.rmsnorm_bwd, lib.flash_attention_fwd,
+               lib.flash_attention_bwd, lib.decode_attention_fwd, lib.decode_attention_chunk,
+               lib.ssd_intra_chunk_fwd):
         fn.restype = I
     return lib
 

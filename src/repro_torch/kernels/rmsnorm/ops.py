@@ -1,4 +1,5 @@
-"""Wrapper for the fused RMSNorm kernel (``csrc/rmsnorm.cu``).
+"""Wrappers for the fused RMSNorm kernel and its backward
+(``csrc/rmsnorm.cu``), and the autograd function over them.
 
 Replaces ``src/repro/kernels/rmsnorm/kernel.py::rmsnorm_pallas``.  On this
 card the work is bound by device-memory bytes (one read of x, one write of
@@ -7,6 +8,12 @@ registers between the reduction and the scaling.  :func:`launch_plan`
 chooses how many threads share a row and how many rows share a block.  A
 CPU tensor takes the plain version in ``ref.py``; a CUDA tensor launches the
 kernel or raises.
+
+The backward (:func:`rmsnorm_bwd`) has no Pallas counterpart: JAX
+differentiates the jnp ``repro.models.layers.rmsnorm``.  It follows the
+forward's launch plan with fewer blocks (:func:`bwd_launch_plan`) and
+reduces ``dscale`` over the rows in float32 in a fixed order.
+:class:`RMSNormFn` ties the two together for training.
 """
 from __future__ import annotations
 
@@ -17,10 +24,12 @@ import torch
 from repro_torch.core.api import sp_task
 from repro_torch.kernels import dispatch
 
-from .ref import rmsnorm_ref
+from .ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 #: launches of the kernel through :func:`rmsnorm` (``.count``)
 launches = dispatch.LaunchCounter()
+#: launches of the backward through :func:`rmsnorm_bwd`
+bwd_launches = dispatch.LaunchCounter()
 
 #: vectors a thread holds in registers at most (csrc/rmsnorm.cu MAX_VPT)
 MAX_VPT = 4
@@ -71,6 +80,19 @@ def launch_plan(rows: int, D: int, itemsize: int, aligned: bool,
     return LaunchPlan(vec, vpt, tpr, rows_per_block, blocks)
 
 
+def bwd_launch_plan(rows: int, D: int, itemsize: int, aligned: bool,
+                    sms: Optional[int] = None) -> LaunchPlan:
+    """The backward's plan: the forward's coverage of a row, with at most
+    512 threads an SM (given ``sms``), so that the float32 partial sums of
+    ``dscale`` — one row of D per row group of each block, (blocks ·
+    rows_per_block, D) in all — stay a few MB."""
+    plan = launch_plan(rows, D, itemsize, aligned)
+    if sms is None:
+        return plan
+    per_sm = max(1, 512 // (plan.tpr * plan.rows_per_block))
+    return plan._replace(blocks=min(plan.blocks, sms * per_sm))
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """x (..., D), scale (D,) -> x * rsqrt(mean(x^2) + eps) * (1 + scale)."""
     if x.device.type == "cpu" and scale.device.type == "cpu":
@@ -97,6 +119,65 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
     dispatch.check(rc, "rmsnorm")
     launches.add()
     return out
+
+
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, eps: float = 1e-6):
+    """→ (dx in x's dtype, dscale in scale's dtype) of :func:`rmsnorm` at
+    ``x``; rstd is recomputed from x.  dy has x's shape and dtype."""
+    if all(t.device.type == "cpu" for t in (x, scale, dy)):
+        return rmsnorm_bwd_ref(x, scale, dy, eps)
+    dispatch.check_cuda_tensors("rmsnorm_bwd", x, scale, dy)
+    D = x.shape[-1]
+    if tuple(scale.shape) != (D,) or dy.shape != x.shape:
+        raise ValueError(
+            f"rmsnorm_bwd: x {tuple(x.shape)}, scale {tuple(scale.shape)}, dy {tuple(dy.shape)}"
+        )
+    if dy.dtype != x.dtype:
+        raise TypeError(f"rmsnorm_bwd: dy {dy.dtype} differs from x {x.dtype}")
+    if not (x.is_contiguous() and scale.is_contiguous() and dy.is_contiguous()):
+        raise ValueError("rmsnorm_bwd: x, scale and dy must be contiguous")
+    x_code = dispatch.dtype_code("rmsnorm_bwd", x)
+    s_code = dispatch.dtype_code("rmsnorm_bwd", scale)
+    dx = torch.empty_like(x)
+    rows = x.numel() // D if D else 0
+    if rows == 0:
+        return dx, torch.zeros_like(scale)
+    dscale = torch.empty_like(scale)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, scale, dy, dx))
+    plan = bwd_launch_plan(rows, D, x.element_size(), aligned, dispatch.sm_count(x.device))
+    partial = torch.empty((plan.blocks * plan.rows_per_block, D), dtype=torch.float32,
+                          device=x.device)
+    lib = dispatch.library()
+    rc = lib.rmsnorm_bwd(
+        x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+        dscale.data_ptr(), rows, D, float(eps), x_code, s_code, *plan,
+        dispatch.stream_handle(x),
+    )
+    dispatch.check(rc, "rmsnorm_bwd")
+    bwd_launches.add()
+    return dx, dscale
+
+
+class RMSNormFn(torch.autograd.Function):
+    """Differentiable RMSNorm: the forward kernel, and the backward kernel
+    on the saved x and scale (nothing else is kept)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd(x, scale, dy.contiguous(), ctx.eps)
+        return dx, dscale, None
+
+
+def rmsnorm_train(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """:func:`rmsnorm` that autograd can differentiate."""
+    return RMSNormFn.apply(x, scale, eps)
 
 
 # -- codelet registration (SpCpu/SpCuda selection, paper §4.3) ---------------

@@ -21,13 +21,15 @@ from repro_torch.models.transformer import (
     forward,
     init_cache,
     init_params,
+    loss_fn,
     model_defs,
     prefill,
+    set_trainable,
 )
 
 __all__ = [
     "ArchConfig", "HybridConfig", "MLAConfig", "MoEConfig", "SHAPES", "ShapeSpec",
     "SSMConfig", "applicable_shapes", "Block", "SSMBlock", "Transformer", "cache_defs",
     "cache_layout", "decode_step", "forward", "init_cache", "init_params",
-    "model_defs", "prefill",
+    "loss_fn", "model_defs", "prefill", "set_trainable",
 ]

@@ -4,7 +4,9 @@ A port of ``repro.models.attention`` for block kind ``"attn"``.  The weights
 keep the JAX layouts (``wq (D, H, Dh)``, ``wo (H, Dh, D)``).  Both attention
 paths go through the CUDA kernels on the card, at every length:
 
-* :func:`full_attention` → ``kernels/flash_attention`` (prefill);
+* :func:`full_attention` → ``kernels/flash_attention`` (prefill and the
+  train step; when autograd records, its ``FlashAttentionFn`` saves the
+  forward's log-sum-exp and runs the backward kernel);
 * :func:`decode_attention` → ``kernels/decode_attention`` with a ``(B,)``
   position per sequence (decode).
 
@@ -91,8 +93,12 @@ def full_attention(
     q_offset: int = 0,
 ) -> torch.Tensor:
     """(B, L, H, Dh) attention over the whole sequence: the flash kernel on
-    the card at every length, its plain version on the CPU."""
-    return flash_ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    the card at every length, its plain version on the CPU; differentiable
+    through the backward kernel when autograd records."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return flash_ops.flash_attention_train(q, k, v, **kw)
+    return flash_ops.flash_attention(q, k, v, **kw)
 
 
 # ---------------------------------------------------------------------------

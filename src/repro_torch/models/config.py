@@ -5,11 +5,15 @@ assigned input shapes as :class:`ShapeSpec`.  Configs are pure data, kept
 identical to the JAX package's so one config names the same model in both.
 
 The port reads the model fields (widths, heads, vocab, activation, biases,
-norms, RoPE, window, softcap, dtype).  The JAX package's XLA / Pallas knobs
+norms, RoPE, window, softcap, dtype) and three training knobs: ``remat``
+(``"full"`` recomputes each layer in the backward, ``"none"`` keeps its
+activations; ``"dots_saveable"`` raises), ``logits_chunk`` (the chunked
+cross-entropy, each chunk's logits recomputed in the backward) and
+``optimizer`` / ``opt_state_dtype``.  The JAX package's XLA / Pallas knobs
 (``use_pallas``, ``attn_blockwise_min_seq``, ``attn_mode``, block sizes,
-``kv_update``, ``kv_shard``, ``remat``, ``scan_layers``, ``probe_unroll``,
-``act_shard``, ``logits_chunk``) have no effect here: on the card every
-attention call goes through the CUDA kernels.
+``kv_update``, ``kv_shard``, ``scan_layers``, ``probe_unroll``,
+``act_shard``) have no effect here: on the card every attention call goes
+through the CUDA kernels.
 """
 from __future__ import annotations
 

@@ -1,15 +1,19 @@
-"""Common layers: RMSNorm, rotary embeddings, gated MLPs, embedding, logits.
+"""Common layers: RMSNorm, rotary embeddings, gated MLPs, embedding, logits,
+and the cross-entropy losses.
 
-A port of ``repro.models.layers`` (the losses wait for the training slice).
-Weights keep the JAX package's layouts; functions take the owning module.
-RMSNorm goes through the CUDA kernel (``kernels/rmsnorm``) on the card and
-its plain version on the CPU — ``repro`` computes it in jnp.
+A port of ``repro.models.layers``.  Weights keep the JAX package's layouts;
+functions take the owning module.  RMSNorm goes through the CUDA kernels
+(``kernels/rmsnorm``, forward and, when autograd records, backward) on the
+card and their plain versions on the CPU — ``repro`` computes it in jnp.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 from repro_torch.models.config import ArchConfig
@@ -21,8 +25,12 @@ from repro_torch.models.param import DTYPES, ParamDef
 # ---------------------------------------------------------------------------
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """x (..., D) normalised with f32 statistics, scaled by (1 + scale)."""
-    return rmsnorm_ops.rmsnorm(x.contiguous(), scale, eps)
+    """x (..., D) normalised with f32 statistics, scaled by (1 + scale).
+    Differentiable (the backward kernel) when autograd records."""
+    x = x.contiguous()
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return rmsnorm_ops.rmsnorm_train(x, scale, eps)
+    return rmsnorm_ops.rmsnorm(x, scale, eps)
 
 
 def rmsnorm_def(d: int) -> ParamDef:
@@ -137,3 +145,53 @@ def logits_apply(model: nn.Module, x: torch.Tensor, cfg: ArchConfig) -> torch.Te
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab
         logits = logits.masked_fill(pad, -1e30)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean cross-entropy over (optionally masked) positions; fp32 math."""
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        m = mask.float()
+        return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+    return torch.mean(nll)
+
+
+def _chunk_nll(xc, lc, mc, model, cfg):
+    logits = logits_apply(model, xc, cfg).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+    return torch.sum((lse - gold) * mc)
+
+
+def chunked_softmax_xent(x: torch.Tensor, labels: torch.Tensor, model: nn.Module, cfg: ArchConfig,
+                         mask: Optional[torch.Tensor] = None, chunk: int = 1024) -> torch.Tensor:
+    """Cross-entropy without materialising the full (T, vocab) logits: a
+    loop over sequence chunks whose logits are recomputed in the backward
+    (``torch.utils.checkpoint``, as ``repro`` wraps each chunk in
+    ``jax.checkpoint``), so only one chunk's logits exist at a time."""
+    B, L, D = x.shape
+    n = L // chunk
+    if n * chunk != L:
+        raise ValueError(f"seq {L} not divisible by logits chunk {chunk}")
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    record = torch.is_grad_enabled()
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        xc, lc = x[:, sl], labels[:, sl]
+        mc = (torch.ones(lc.shape, dtype=torch.float32, device=x.device) if mask is None
+              else mask[:, sl].float())
+        if record:
+            t = checkpoint(_chunk_nll, xc, lc, mc, model, cfg, use_reentrant=False)
+        else:
+            t = _chunk_nll(xc, lc, mc, model, cfg)
+        tot, cnt = tot + t, cnt + torch.sum(mc)
+    return tot / torch.clamp(cnt, min=1.0)

@@ -9,6 +9,13 @@ whose attribute names are the JAX tree's keys (``layers[i].attn.wq`` ↔
 for ``lax.scan``, the port keeps them in a ``ModuleList`` and loops.  The
 functions take the model where ``repro``'s take the parameter tree.
 
+Training: :func:`loss_fn` is ``repro``'s (the dense model has no aux
+losses).  Parameters are created frozen, for serving (which also runs under
+``torch.no_grad``); :func:`set_trainable` turns them on for a train step.
+``cfg.remat`` takes effect when autograd records: ``"full"`` recomputes each
+layer in the backward (``torch.utils.checkpoint``), ``"none"`` keeps its
+activations.
+
 The other block kinds (``mla``, ``moe``, ``rec``), hybrid stacks and
 frontends raise ``NotImplementedError`` naming their ROADMAP item.
 """
@@ -18,6 +25,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -26,12 +34,14 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
     MLP,
     RMSNorm,
+    chunked_softmax_xent,
     embed_apply,
     embed_defs,
     logits_apply,
     make_params,
     mlp_defs,
     rmsnorm_def,
+    softmax_xent,
 )
 from repro_torch.models.param import DTYPES, ParamDef, init_, stack_defs, unstack_def
 
@@ -159,6 +169,14 @@ def _unstack_tree(defs):
     return {k: _unstack_tree(v) for k, v in defs.items()}
 
 
+def set_trainable(model: nn.Module) -> nn.Module:
+    """Turn gradients on for every parameter (they are created frozen, for
+    serving)."""
+    for p in model.parameters():
+        p.requires_grad_(True)
+    return model
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda") -> Transformer:
     """A :class:`Transformer` with ``repro``'s init rules, drawn on ``device``
     from a ``torch.Generator`` seeded with ``seed``."""
@@ -172,6 +190,21 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda") -> Transformer
 # Forward (prefill) and decode
 # ---------------------------------------------------------------------------
 
+def _remat(layer: nn.Module, cfg: ArchConfig):
+    """The layer as the forward calls it: recomputed in the backward under
+    ``remat="full"`` when autograd records, as it is otherwise."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return layer
+    if cfg.remat == "dots_saveable":
+        raise NotImplementedError(
+            "remat='dots_saveable' is not ported yet (ROADMAP.md, port queue: "
+            "'remat=\"dots_saveable\"'); use 'full' or 'none'"
+        )
+    if cfg.remat != "full":
+        raise ValueError(f"unknown remat {cfg.remat!r}; use 'none', 'full' or 'dots_saveable'")
+    return lambda *args, **kw: checkpoint(layer, *args, use_reentrant=False, **kw)
+
+
 def forward(model: Transformer, batch: dict, cfg: ArchConfig, *, want_cache: bool = False):
     """→ (hidden (B, L, D), caches | None); caches are stacked on a leading
     layer axis as in ``repro``: ``{'k', 'v'}: (n_layers, B, L, KH, Dh)`` for
@@ -184,7 +217,7 @@ def forward(model: Transformer, batch: dict, cfg: ArchConfig, *, want_cache: boo
     causal = not cfg.is_encoder
     layer_caches = []
     for layer in model.layers:
-        x, cache = layer(x, positions, cfg, causal=causal, want_cache=want_cache)
+        x, cache = _remat(layer, cfg)(x, positions, cfg, causal=causal, want_cache=want_cache)
         if want_cache:
             layer_caches.append(cache)
     x = model.final_norm(x)
@@ -192,6 +225,19 @@ def forward(model: Transformer, batch: dict, cfg: ArchConfig, *, want_cache: boo
     if want_cache:
         caches = {k: torch.stack([c[k] for c in layer_caches]) for k in layer_caches[0]}
     return x, caches
+
+
+def loss_fn(model: Transformer, batch: dict, cfg: ArchConfig):
+    """→ (total loss, {"ce_loss"}): mean next-token cross-entropy over
+    ``batch["labels"]`` (masked by ``batch["mask"]`` when present), chunked
+    over the sequence when ``cfg.logits_chunk`` is set."""
+    x, _ = forward(model, batch, cfg)
+    labels, mask = batch["labels"], batch.get("mask")
+    if cfg.logits_chunk:
+        loss = chunked_softmax_xent(x, labels, model, cfg, mask, chunk=cfg.logits_chunk)
+    else:
+        loss = softmax_xent(logits_apply(model, x, cfg), labels, mask)
+    return loss, {"ce_loss": loss}
 
 
 @torch.no_grad()

@@ -303,3 +303,153 @@ def test_ssd_tensor_core_route_rejects_unaligned(cuda_device):
     with pytest.raises(ValueError, match="at most 256"):
         ssd_ops.ssd_intra_chunk(x2, dt2, cum2, B2, C2)
     assert ssd_ops.launches.count == before
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels (training) and the forward's lse
+# ---------------------------------------------------------------------------
+
+# backward outputs are float32 sums over a sequence (dK, dV over queries, dQ
+# over keys), whatever the dtype, so their rounding error scales with the
+# output's magnitude: the limit is atol·max|plain| + rtol·|plain|
+BWD_TOL = {"float32": dict(rtol=1e-4, atol=1e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def _close_scaled(got, want, dtype: str) -> None:
+    want = want.float().cpu()
+    tol = BWD_TOL[dtype]
+    torch.testing.assert_close(got.float().cpu(), want, rtol=tol["rtol"],
+                               atol=tol["atol"] * float(want.abs().max()))
+
+
+# (B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_offset): the path's head dim,
+# GQA / MQA, a window, queries offset into a longer key range, one query
+# row, ragged lengths around the 64-row tiles, a non-causal case, Dh 64 / 80
+FLASH_BWD_CASES = [
+    (1, 256, 256, 4, 4, 128, 128, True, None, 0),
+    (2, 200, 200, 8, 2, 64, 64, True, 64, 0),
+    (1, 65, 777, 4, 1, 128, 128, True, None, 712),
+    (1, 1, 65, 4, 4, 64, 64, True, None, 64),
+    (1, 130, 130, 4, 2, 80, 80, False, None, 0),
+]
+
+
+def _flash_bwd_inputs(gen, dev, case, tdt):
+    B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_offset = case
+    q = torch.randn(B, Lq, H, Dh, generator=gen, device=dev).to(tdt)
+    k = torch.randn(B, Lk, KH, Dh, generator=gen, device=dev).to(tdt)
+    v = torch.randn(B, Lk, KH, Dv, generator=gen, device=dev).to(tdt)
+    do = torch.randn(B, Lq, H, Dv, generator=gen, device=dev).to(tdt)
+    return q, k, v, do, dict(causal=causal, window=window, q_offset=q_offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_BWD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_bwd_kernel_matches_plain(cuda_device, case, dtype):
+    """(dq, dk, dv) of the kernel against ``attention_bwd_ref`` on the same
+    out and lse (the plain forward's), and the same bits on a second run."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    q, k, v, do, kw = _flash_bwd_inputs(gen, cuda_device, case, DTYPES[dtype])
+    out, lse = flash_ops.attention_fwd_ref(q, k, v, **kw)
+    before = flash_ops.bwd_launches.count
+    got = flash_ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    assert flash_ops.bwd_launches.count - before == 1
+    want = flash_ops.attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _close_scaled(g, w, dtype)
+    again = flash_ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_BWD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_forward_lse_matches_plain(cuda_device, case, dtype):
+    """The forward's lse output (natural log, scaled scores) against the
+    plain one: within 1e-4 (f32) / 1e-3 (bf16, whose kernel keeps its
+    running max in the scaled log2 domain) of values of O(log Lk); out as
+    without lse."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v, _, kw = _flash_bwd_inputs(gen, cuda_device, case, DTYPES[dtype])
+    out, lse = flash_ops.flash_attention(q, k, v, return_lse=True, **kw)
+    want_out, want_lse = flash_ops.attention_fwd_ref(q, k, v, **kw)
+    assert lse.dtype == torch.float32 and lse.shape == want_lse.shape
+    torch.testing.assert_close(lse.cpu(), want_lse.cpu(), rtol=0,
+                               atol=1e-4 if dtype == "float32" else 1e-3)
+    assert torch.equal(out, flash_ops.flash_attention(q, k, v, **kw))
+    _close(out, want_out, dtype)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_rejects_what_the_kernel_does_not_take(cuda_device):
+    wide = torch.zeros(1, 16, 4, 68, device=cuda_device, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 16, 4, 64, device=cuda_device, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 4, 16, device=cuda_device)
+    before = flash_ops.bwd_launches.count
+    with pytest.raises(ValueError, match="multiples of 8"):  # the forward's bf16 rule
+        flash_ops.flash_attention_bwd(kv, kv, kv, kv, lse, wide[..., :64])
+    with pytest.raises(ValueError, match="lse"):
+        flash_ops.flash_attention_bwd(kv, kv, kv, kv, lse.double(), kv)
+    with pytest.raises(ValueError, match="dout"):
+        flash_ops.flash_attention_bwd(kv, kv, kv, kv, lse, kv[:, :8])
+    assert flash_ops.bwd_launches.count == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,D", [(2048, 4096), (4096, 128), (333, 768), (3, 37), (7, 12288), (1, 16)])
+def test_rmsnorm_bwd_kernel_matches_plain(cuda_device, dtype, T, D):
+    """Register (4096, 128, 768, 16), scalar (37) and looped (12288) paths:
+    dx within the forward's tolerance, dscale (a sum over T rows) within
+    the backward's scale-relative one; the same bits on a second run."""
+    tdt = DTYPES[dtype]
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    x = torch.randn(T, D, generator=gen, device=cuda_device).to(tdt)
+    s = (torch.randn(D, generator=gen, device=cuda_device) * 0.1).to(tdt)
+    dy = torch.randn(T, D, generator=gen, device=cuda_device).to(tdt)
+    before = rmsnorm_ops.bwd_launches.count
+    dx, ds = rmsnorm_ops.rmsnorm_bwd(x, s, dy)
+    assert rmsnorm_ops.bwd_launches.count - before == 1
+    want_dx, want_ds = rmsnorm_ops.rmsnorm_bwd_ref(x, s, dy)
+    _close(dx, want_dx, dtype)
+    _close_scaled(ds, want_ds, dtype)
+    dx2, ds2 = rmsnorm_ops.rmsnorm_bwd(x, s, dy)
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_bwd_kernel_unaligned_rows(cuda_device, dtype):
+    tdt = DTYPES[dtype]
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    T, D = 50, 768
+    x = torch.randn(T * D + 1, generator=gen, device=cuda_device).to(tdt)[1:].view(T, D)
+    dy = torch.randn(T * D + 1, generator=gen, device=cuda_device).to(tdt)[1:].view(T, D)
+    s = (torch.randn(D, generator=gen, device=cuda_device) * 0.1).to(tdt)
+    dx, ds = rmsnorm_ops.rmsnorm_bwd(x, s, dy)
+    want_dx, want_ds = rmsnorm_ops.rmsnorm_bwd_ref(x, s, dy)
+    _close(dx, want_dx, dtype)
+    _close_scaled(ds, want_ds, dtype)
+
+
+@pytest.mark.cuda
+def test_autograd_functions_run_the_backward_kernels(cuda_device):
+    """rmsnorm → flash attention under autograd: one forward and one
+    backward launch of each, and gradients equal to the plain versions'."""
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    x = torch.randn(2, 64, 4, 64, generator=gen, device=cuda_device, requires_grad=True)
+    s = torch.zeros(64, device=cuda_device, requires_grad=True)
+    counters = (rmsnorm_ops.launches, rmsnorm_ops.bwd_launches, flash_ops.launches,
+                flash_ops.bwd_launches)
+    before = [c.count for c in counters]
+    y = rmsnorm_ops.rmsnorm_train(x, s)
+    out = flash_ops.flash_attention_train(y, y, y, causal=True)
+    gx, gs = torch.autograd.grad(out.square().sum(), (x, s))
+    assert [c.count - b for c, b in zip(counters, before)] == [1, 1, 1, 1]
+    xr, sr = x.detach().cpu().requires_grad_(), s.detach().cpu().requires_grad_()
+    yr = rmsnorm_ops.rmsnorm_train(xr, sr)
+    rx, rs = torch.autograd.grad(flash_ops.flash_attention_train(yr, yr, yr).square().sum(), (xr, sr))
+    _close_scaled(gx, rx, "float32")
+    _close_scaled(gs, rs, "float32")

@@ -278,6 +278,49 @@ def test_rmsnorm_launch_plan_shapes():
     assert rmsnorm_ops.launch_plan(2048, 4096, 2, True, sms=132).blocks == 528
 
 
+def _bwd_dscale_emulated(plan, x, s, dy, eps=1e-6):
+    """The backward kernel's reduction of dscale (csrc/rmsnorm.cu), in
+    float32: row r belongs to part (block, sub) with block = (r //
+    rows_per_block) % blocks and sub = r % rows_per_block; each part sums
+    its rows in order, then 8 lanes sum every 8th part and are added in
+    lane order."""
+    rows, D = x.shape
+    _, want = rmsnorm_ops.rmsnorm_bwd_ref(x, s, dy, eps)
+    xf = x.float()
+    contrib = dy.float() * xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
+    parts = torch.zeros(plan.blocks * plan.rows_per_block, D)
+    for r in range(rows):
+        block, sub = (r // plan.rows_per_block) % plan.blocks, r % plan.rows_per_block
+        parts[block * plan.rows_per_block + sub] += contrib[r]
+    lanes = [parts[j::8].sum(0) for j in range(8)]
+    got = lanes[0]
+    for lane in lanes[1:]:
+        got = got + lane
+    return got, want
+
+
+@pytest.mark.parametrize("rows,D,itemsize", [(2048, 4096, 2), (4096, 128, 2), (50, 768, 4),
+                                             (3, 37, 4), (7, 12288, 2)])
+def test_rmsnorm_bwd_launch_plan_reduces_every_row_once(rows, D, itemsize):
+    """The backward's plan keeps the forward's coverage of a row, at most 512
+    threads an SM on a 132-SM card and a few MB of partial sums; its
+    partition of the rows into parts, reduced as the kernel does, gives the
+    plain dscale (within 1e-5 of its largest magnitude: f32 sums in another
+    order)."""
+    for aligned in (True, False):
+        fwd = rmsnorm_ops.launch_plan(rows, D, itemsize, aligned)
+        plan = rmsnorm_ops.bwd_launch_plan(rows, D, itemsize, aligned, sms=132)
+        assert plan[:4] == fwd[:4] and 1 <= plan.blocks <= fwd.blocks
+        assert plan.blocks * plan.tpr * plan.rows_per_block <= 132 * 512 or plan.blocks == 132
+        assert plan.blocks * plan.rows_per_block * D * 4 <= 8 << 20
+        assert rmsnorm_ops.bwd_launch_plan(rows, D, itemsize, aligned) == fwd
+    gen = torch.Generator().manual_seed(0)
+    x, dy = torch.randn(rows, D, generator=gen), torch.randn(rows, D, generator=gen)
+    s = 0.1 * torch.randn(D, generator=gen)
+    got, want = _bwd_dscale_emulated(plan, x, s, dy)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
 # ---------------------------------------------------------------------------
 # ssd: the tensor-core route's arithmetic, launch plan and layout rule
 # ---------------------------------------------------------------------------
@@ -501,7 +544,8 @@ def test_cuda_request_without_card_raises():
 
 def test_kernel_sources_are_present():
     names = sorted(p.name for p in dispatch.CSRC.glob("*.cu"))
-    assert names == ["decode_attention.cu", "flash_attention.cu", "rmsnorm.cu", "ssd.cu"]
+    assert names == ["decode_attention.cu", "flash_attention.cu", "flash_attention_bwd.cu",
+                     "rmsnorm.cu", "ssd.cu"]
 
 
 # ---------------------------------------------------------------------------
