@@ -6,9 +6,10 @@ Phases (any failure raises and the script exits non-zero):
 
 1. header   — card name and power limit (nvidia-smi), torch and CUDA versions;
 2. build    — builds the hand-written kernels from ``src/repro_torch/kernels/csrc``;
-3. kernels  — the HGMMA count of the flash and ssd kernels' SASS where
-              ``cuobjdump`` is present (the bf16 routes have some, the f32
-              routes none); each kernel against its plain PyTorch version on
+3. kernels  — the HGMMA count of the flash (forward and backward) and ssd
+              kernels' SASS where ``cuobjdump`` is present (the bf16 routes
+              have some, the f32 routes none), the registers and spills of
+              the bf16 backward kernels; each kernel against its plain PyTorch version on
               the card, at the serving paths' shapes (deepseek-7b,
               mamba2-130m; bf16) and at edge shapes (fp32 and bf16), with
               kernel / plain / library times and bounds (rmsnorm also at both
@@ -19,8 +20,10 @@ Phases (any failure raises and the script exits non-zero):
               edge shapes, with the forward's lse; rmsnorm at (2048, 4096),
               (2048·32, 128) and the edge paths) against their plain
               versions, run to run identical, timed beside the backward of
-              SDPA / F.rms_norm; then one codelet per kernel on a device
-              worker;
+              SDPA / F.rms_norm (the flash backward's dK/dV and dQ kernels
+              also apart); then one codelet per kernel on a device worker,
+              and mamba2 training through ``launch/train.py``, which raises
+              until the ssd kernel has a backward (fault F1's guard);
 4. serving  — full-width deepseek-7b (30 layers, bf16, seeded random init)
               through ``repro_torch.serving.ServeEngine``: ragged prompts and a
               sampled request, then duplicates that take the prefix-share and
@@ -237,9 +240,9 @@ def _pairs(Lq, Lk, causal, window, q_offset) -> int:
 
 
 def _hgmma_counts() -> dict | None:
-    """HGMMA (wgmma) instructions in the SASS of each flash-attention and
-    ssd kernel of the built library, by ``cuobjdump -sass``; None where the
-    tool is missing."""
+    """HGMMA (wgmma) instructions in the SASS of each flash-attention
+    (forward and backward) and ssd kernel of the built library, by
+    ``cuobjdump -sass``; None where the tool is missing."""
     from repro_torch.kernels import dispatch
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -250,7 +253,7 @@ def _hgmma_counts() -> dict | None:
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"(flash_fwd_\w*?kernel|ssd_chunk_\w*?kernel)(?:I(\w*?)E+v)?", line)
+            m = re.search(r"(flash_(?:fwd|bwd)_\w*?kernel|ssd_chunk_\w*?kernel)(?:I(\w*?)E+v)?", line)
             fn = (f"{m.group(1)}<{m.group(2)}>" if m.group(2) else m.group(1)) if m else None
             if fn:
                 counts[fn] = 0
@@ -260,8 +263,9 @@ def _hgmma_counts() -> dict | None:
 
 
 def check_hgmma() -> dict | None:
-    """The bf16 routes of flash and ssd run on the tensor cores (HGMMA in
-    their SASS); the f32 routes do not."""
+    """The bf16 routes of flash (forward and backward) and ssd run on the
+    tensor cores (HGMMA in their SASS); the f32 routes and the backward's D
+    pass do not."""
     counts = _hgmma_counts()
     if counts is None:
         log("[kernels] cuobjdump not on this machine: HGMMA counts not taken")
@@ -270,9 +274,48 @@ def check_hgmma() -> dict | None:
         + ", ".join(f"{k}: {v}" for k, v in counts.items()))
     tc = [k for k in counts if "wgmma" in k]
     simt = [k for k in counts if "wgmma" not in k]
-    assert any(k.startswith("ssd_chunk_wgmma") for k in tc) and any(k.startswith("flash") for k in tc), counts
+    for prefix in ("ssd_chunk_wgmma", "flash_fwd_wgmma", "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma"):
+        assert any(k.startswith(prefix) for k in tc), (prefix, counts)
+    assert any(k.startswith("flash_bwd_dkdv_kernel") for k in simt), counts
     assert all(counts[k] > 0 for k in tc) and all(counts[k] == 0 for k in simt), counts
     return counts
+
+
+# the kernels whose registers and spills the kernel phase prints
+RESOURCE_KERNELS = ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")
+
+
+def resource_usage() -> dict:
+    """Registers and spill bytes of each instantiation of RESOURCE_KERNELS:
+    ptxas's report from the build (``-Xptxas=-v``) and ``cuobjdump
+    -res-usage`` of the built library where the tool is present."""
+    from repro_torch.kernels import dispatch
+
+    usage, fn = {}, None
+    for line in dispatch.build_log().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        if fn and any(k in fn for k in RESOURCE_KERNELS):
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                usage.setdefault(fn, {}).update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                usage.setdefault(fn, {})["registers"] = int(m.group(1))
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if Path(tool).exists():
+        res = subprocess.run([tool, "-res-usage", str(dispatch.build())], capture_output=True, text=True,
+                             check=True, timeout=300).stdout.splitlines()
+        for i, line in enumerate(res):
+            m = re.search(r"Function (\w+):", line)
+            if m and any(k in m.group(1) for k in RESOURCE_KERNELS) and i + 1 < len(res):
+                usage.setdefault(m.group(1), {})["res_usage"] = res[i + 1].strip()
+    for name, u in usage.items():
+        log(f"[kernels] resources of {name}: {u}")
+    assert all(any(k in n for n in usage) for k in RESOURCE_KERNELS), usage
+    return usage
 
 
 def check_flash(dev) -> dict:
@@ -502,11 +545,12 @@ def check_ssd(dev) -> dict:
     )
 
 
-def kernel_time_ms(fn, iters: int = 10) -> float:
-    """Device time of one call of ``fn``: the sum of its kernels' times
-    under ``torch.profiler`` over ``iters`` calls, warmed up first.  For
-    calls that a CUDA graph does not capture (an autograd backward through
-    a library op); like a graph replay, it leaves out the host's gaps
+def profiled_calls(fn, iters: int = 10) -> dict:
+    """Device time of one call of ``fn``, in all (``device_ms``) and by
+    kernel (``top``): ``_device_rows`` of ``iters`` calls under
+    ``torch.profiler``, warmed up first.  For calls that a CUDA graph does
+    not capture (an autograd backward through a library op) and to split a
+    call by kernel; like a graph replay, it leaves out the host's gaps
     between launches, which events around eager calls would count."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -516,7 +560,7 @@ def kernel_time_ms(fn, iters: int = 10) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return _device_rows(prof, 0.0, iters)["device_ms"]
+    return _device_rows(prof, 0.0, iters)
 
 
 # backward outputs are float32 sums over a sequence (dK, dV over queries, dQ
@@ -547,6 +591,7 @@ def check_flash_bwd(dev) -> dict:
         (1, 65, 700, 8, 2, 128, 128, True, None, 635),  # offset queries, Lq != Lk
         (1, 1, 65, 4, 4, 64, 64, True, None, 64),  # one query row
         (1, 300, 300, 4, 4, 128, 128, False, None, 0),
+        (1, 500, 500, 8, 8, 96, 96, True, None, 0),  # head dim padded to 128
     ]
     err = 0.0
     for B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_off in cases:
@@ -579,6 +624,7 @@ def check_flash_bwd(dev) -> dict:
         out, lse = ops.flash_attention(q, k, v, causal=True, return_lse=True)
         sets.append((q, k, v, out, lse, do))
     ms = time_ms(lambda *a: ops.flash_attention_bwd(*a, causal=True), sets)
+    parts = dict(profiled_calls(lambda: ops.flash_attention_bwd(*sets[0], causal=True))["top"])
     plain = time_ms(lambda *a: attention_bwd_ref(*a, causal=True), sets[:1], iters=3)
     # the serving forward (lse not asked for) against the train forward
     fwd_sets = [s[:3] for s in sets]
@@ -589,13 +635,21 @@ def check_flash_bwd(dev) -> dict:
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in sets[0][:3])
     o = sdpa(qt, kt, vt, is_causal=True)
     dot = sets[0][5].transpose(1, 2)
-    lib = kernel_time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True))
+    lib = profiled_calls(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True))["device_ms"]
     pairs = _pairs(L, L, True, None, 0)
-    flops = 10 * B * H * D * pairs  # 5 products over the unmasked pairs
+    flops = 10 * B * H * D * pairs  # 5 products over the unmasked pairs (the kernels run 7)
     bound, by = _bound(8 * B * L * H * D * 2 + B * H * L * 4, flops, dtype)
     log(f"[kernels] flash bwd at ({B}, {L}, {H}, {D}) bf16 causal: {flops / 1e9:.2f} GFLOP, kernel "
         f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), SDPA backward {lib:.4f} ms (kernel / library "
         f"{ms / lib:.2f}), plain {plain:.4f} ms, bound {bound:.4f} ms ({by}, {bound / ms:.1%} of it)")
+    # the dK/dV and dQ kernels apart: dK/dV runs 4 of the 7 products, dQ 3
+    dkdv = sum(t for n, t in parts.items() if "dkdv" in n)
+    dq = sum(t for n, t in parts.items() if "dq_" in n)
+    dot = sum(t for n, t in parts.items() if "dot" in n)
+    log(f"[kernels] flash bwd kernels apart (profiler, 10 calls): dK/dV {dkdv:.4f} ms "
+        f"({flops * 4 / 7 / dkdv / 1e9:.1f} TFLOP/s of its 4 products), dQ {dq:.4f} ms "
+        f"({flops * 3 / 7 / dq / 1e9:.1f} TFLOP/s of its 3), D pass {dot:.4f} ms; "
+        + ", ".join(f"{n[:60]} {t:.4f}" for n, t in parts.items()))
     log(f"[kernels] flash fwd at the same shape: {fwd_ms:.4f} ms without lse (serving), "
         f"{fwd_lse_ms:.4f} ms with it (train)")
     return dict(
@@ -603,7 +657,7 @@ def check_flash_bwd(dev) -> dict:
         source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         replaces="src/repro/models/attention.py:139 (no Pallas kernel: JAX differentiates the jnp custom VJP)",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib,
-        fwd_ms=fwd_ms, fwd_lse_ms=fwd_lse_ms,
+        fwd_ms=fwd_ms, fwd_lse_ms=fwd_lse_ms, dkdv_ms=dkdv, dq_ms=dq, dot_ms=dot,
         shape=f"q/k/v/out/dout ({B}, {L}, {H}, {D}) bf16 causal",
     )
 
@@ -647,7 +701,7 @@ def check_rmsnorm_bwd(dev) -> dict:
     xl = x.clone().requires_grad_()
     wl = (1.0 + s.float()).to(dtype).requires_grad_()
     y = torch.nn.functional.rms_norm(xl, (D,), wl, 1e-6)
-    lib = kernel_time_ms(lambda: torch.autograd.grad(y, (xl, wl), dy, retain_graph=True))
+    lib = profiled_calls(lambda: torch.autograd.grad(y, (xl, wl), dy, retain_graph=True))["device_ms"]
     bound, by = _bound(3 * T * D * 2 + 2 * D * 2, 8 * T * D, dtype)
     log(f"[kernels] rmsnorm bwd x ({T}, {D}) bf16: kernel {ms:.4f} ms, F.rms_norm backward {lib:.4f} ms "
         f"(kernel / library {ms / lib:.2f}), plain {plain:.4f} ms, bound {bound:.4f} ms ({by}, "
@@ -664,6 +718,7 @@ def kernel_phase(dev) -> list[dict]:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     check_hgmma()
+    resource_usage()
     records = [check_rmsnorm(dev), check_flash(dev), check_decode(dev), check_ssd(dev),
                check_flash_bwd(dev), check_rmsnorm_bwd(dev)]
     for r in records:
@@ -713,6 +768,27 @@ def codelet_phase(dev) -> None:
     for name, out in outs.items():
         first = out.value[0] if isinstance(out.value, tuple) else out.value
         assert torch.isfinite(first.float()).all(), name
+
+
+def f1_guard_phase() -> None:
+    """Fault F1's guard: the ssd kernel has no backward yet, so training
+    mamba2 on the card stops at its first microbatch with
+    ``NotImplementedError`` naming ROADMAP.md Queue 2 item 4, through the
+    train launcher as a user calls it, before any ssd launch."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch import train as launch_train
+
+    before = ssd_ops.launches.count
+    argv = ["--arch", "mamba2-130m", "--reduced", "--steps", "1", "--batch", "2", "--seq", "64",
+            "--microbatches", "1", "--log-every", "0"]
+    try:
+        launch_train.main(argv)
+    except NotImplementedError as e:
+        assert "Queue 2 item 4" in str(e), e
+        log(f"[f1] launch.train {' '.join(argv)} on the card raised NotImplementedError: {str(e)[:100]}...")
+    else:
+        raise AssertionError("mamba2 training on the card ran without the ssd backward")
+    assert ssd_ops.launches.count == before, "the ssd kernel launched under autograd"
 
 
 # ---------------------------------------------------------------------------
@@ -1392,6 +1468,7 @@ def main() -> int:
     build_s = build_kernels()
     records = kernel_phase(dev)
     codelet_phase(dev)
+    f1_guard_phase()
     serve = serving_phase(dev)
     serve_m = mamba2_serving_phase(dev)
     model_err = model_phase(dev)

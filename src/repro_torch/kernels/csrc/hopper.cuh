@@ -41,6 +41,12 @@ __device__ __forceinline__ void fence_async_shared() {
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+// at most N of this warpgroup's committed wgmma groups still pending (they
+// complete in the order they were committed)
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 // keeps the compiler from moving reads of an accumulator across the wait
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {

@@ -275,18 +275,31 @@ namespace {
 //
 // Bound: device-memory bytes, like the forward (x and dy read once, dx
 // written once; rstd is recomputed from x, nothing is saved between the
-// passes).  Design: the forward's launch plan (a row to `tpr` threads, 16-
-// byte loads, VPT vectors a thread in registers, the looped variant for
-// rows too long for registers, the scalar path for unaligned rows), with
-// fewer blocks (rmsnorm/ops.py::bwd_launch_plan).  Each row needs two sums
-// (Σx², Σdy·w·x), reduced together.  dscale is reduced over the rows in
-// f32 and deterministically, with no atomics: each row group of each block
-// ("part") keeps its partial sums of dy·x̂ (in registers, or in its own
-// slice of the scratch on the looped path) and writes them to
-// partial[part][D]; a second kernel sums the parts of each column in a
-// fixed order and casts once to the scale's dtype.
+// passes).  Design: the forward's coverage of a row (a row to `tpr`
+// threads, 16-byte loads, VPT vectors a thread in registers, the looped
+// variant for rows too long for registers, the scalar path for unaligned
+// rows); each row needs two sums (Σx², Σdy·w·x), reduced together.  On the
+// register path a block of up to 512 threads holds 512 / tpr row groups,
+// one block an SM, and walks its rows with a stride; each thread holds x
+// and dy packed as loaded (bf16 pairs) and loads its share of the next row
+// before it reduces and writes the current one, so a row's loads are in
+// flight while the previous one is reduced (with only two rows an SM in
+// flight otherwise, too few bytes are outstanding to cover the memory
+// latency).  One block an SM keeps the partial rows below few: more blocks
+// measured slower.  dscale is reduced over the rows in f32 and
+// deterministically, with no atomics: each row group keeps its partial sums
+// of dy·x̂ in registers, the block's row groups add theirs pairwise in
+// shared memory in a fixed order, and the block writes one row of
+// partial[block][D]; a second kernel sums the blocks' rows of each column
+// in a fixed order and casts once to the scale's dtype.  The looped path
+// keeps one row group a block and its partial row in the scratch.  The
+// launch plan is rmsnorm/ops.py::bwd_launch_plan.
 
-// the sums of a and b over the tpr threads of a row (see row_sum)
+constexpr int BWD_THREADS = 512;
+constexpr int BWD_WARPS = BWD_THREADS / 32;
+
+// the sums of a and b over the tpr threads of a row (see row_sum);
+// partial holds 2·BWD_WARPS floats
 __device__ __forceinline__ void row_sum2(float& a, float& b, int tpr, float* partial) {
   const int width = tpr < 32 ? tpr : 32;
   for (int o = width >> 1; o > 0; o >>= 1) {
@@ -295,28 +308,30 @@ __device__ __forceinline__ void row_sum2(float& a, float& b, int tpr, float* par
   }
   if (tpr <= 32) return;
   const int warp = threadIdx.x >> 5, wpr = tpr >> 5, first = warp & ~(wpr - 1);
-  if ((threadIdx.x & 31) == 0) partial[warp] = a, partial[8 + warp] = b;
+  if ((threadIdx.x & 31) == 0) partial[warp] = a, partial[BWD_WARPS + warp] = b;
   __syncthreads();
   float sa = 0.f, sb = 0.f;
-  for (int i = 0; i < wpr; ++i) sa += partial[first + i], sb += partial[8 + first + i];
+  for (int i = 0; i < wpr; ++i) sa += partial[first + i], sb += partial[BWD_WARPS + first + i];
   a = sa, b = sb;
 }
 
 template <typename T, typename S, int VEC, int VPT>
-__global__ void __launch_bounds__(256) rmsnorm_bwd_kernel(
+__global__ void __launch_bounds__(BWD_THREADS) rmsnorm_bwd_kernel(
     const T* __restrict__ x, const S* __restrict__ scale, const T* __restrict__ dy,
     T* __restrict__ dx, float* __restrict__ partial, long long rows, int D, int tpr,
     int rows_per_block, float eps) {
-  __shared__ float red[2][16];
+  __shared__ float red[2][2 * BWD_WARPS];
+  extern __shared__ float tree[];  // (rows_per_block / 2) x D: the row groups' dscale sums
   const int lane = threadIdx.x & (tpr - 1), sub = threadIdx.x / tpr;
   const long long stride = static_cast<long long>(gridDim.x) * rows_per_block;
   const int nvec = D / VEC;
   const float inv_d = 1.f / static_cast<float>(D);
-  float* part = partial + (static_cast<long long>(blockIdx.x) * rows_per_block + sub) * D;
+  float* part = partial + static_cast<long long>(blockIdx.x) * D;
   long long base = static_cast<long long>(blockIdx.x) * rows_per_block;
 
   if constexpr (VPT > 0) {
     float w[VPT][VEC], acc[VPT][VEC];
+    Raw<T, VEC> xr[VPT], gr[VPT];
 #pragma unroll
     for (int j = 0; j < VPT; ++j) {
       const int vi = j * tpr + lane;
@@ -325,31 +340,37 @@ __global__ void __launch_bounds__(256) rmsnorm_bwd_kernel(
         Raw<S, VEC> sr;
         sr.load(scale + vi * VEC);
         sr.get(f);
+        if (base + sub < rows) {
+          xr[j].load(x + (base + sub) * D + vi * VEC);
+          gr[j].load(dy + (base + sub) * D + vi * VEC);
+        }
       }
 #pragma unroll
       for (int e = 0; e < VEC; ++e) w[j][e] = 1.f + f[e], acc[j][e] = 0.f;
     }
     for (int it = 0; base < rows; base += stride, ++it) {
-      const long long row = base + sub;
+      const long long row = base + sub, next = row + stride;
       const bool live = row < rows;
-      float xf[VPT][VEC], gf[VPT][VEC], ss = 0.f, dot = 0.f;
+      Raw<T, VEC> xn[VPT], gn[VPT];  // the next row's share, in flight during this one
 #pragma unroll
       for (int j = 0; j < VPT; ++j) {
         const int vi = j * tpr + lane;
-        if (vi < nvec && live) {
-          Raw<T, VEC> xr, gr;
-          xr.load(x + row * D + vi * VEC);
-          gr.load(dy + row * D + vi * VEC);
-          xr.get(xf[j]);
-          gr.get(gf[j]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) xf[j][e] = 0.f, gf[j][e] = 0.f;
+        if (vi < nvec && next < rows) {
+          xn[j].load(x + next * D + vi * VEC);
+          gn[j].load(dy + next * D + vi * VEC);
         }
+      }
+      float ss = 0.f, dot = 0.f;
+#pragma unroll
+      for (int j = 0; j < VPT; ++j) {
+        if (!(j * tpr + lane < nvec && live)) continue;
+        float xv[VEC], gv[VEC];
+        xr[j].get(xv);
+        gr[j].get(gv);
 #pragma unroll
         for (int e = 0; e < VEC; ++e) {
-          ss += xf[j][e] * xf[j][e];
-          dot += gf[j][e] * w[j][e] * xf[j][e];
+          ss += xv[e] * xv[e];
+          dot += gv[e] * w[j][e] * xv[e];
         }
       }
       row_sum2(ss, dot, tpr, red[it & 1]);
@@ -359,24 +380,54 @@ __global__ void __launch_bounds__(256) rmsnorm_bwd_kernel(
 #pragma unroll
       for (int j = 0; j < VPT; ++j) {
         const int vi = j * tpr + lane;
-        if (!(vi < nvec && live)) continue;
-        float o[VEC];
+        if (vi < nvec && live) {
+          float xv[VEC], gv[VEC], o[VEC];
+          xr[j].get(xv);
+          gr[j].get(gv);
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) {
-          o[e] = rstd * gf[j][e] * w[j][e] - xf[j][e] * c;
-          acc[j][e] += gf[j][e] * (xf[j][e] * rstd);
+          for (int e = 0; e < VEC; ++e) {
+            o[e] = rstd * gv[e] * w[j][e] - xv[e] * c;
+            acc[j][e] += gv[e] * (xv[e] * rstd);
+          }
+          store_from_f32<T, VEC>(dx + row * D + vi * VEC, o);
         }
-        store_from_f32<T, VEC>(dx + row * D + vi * VEC, o);
+        xr[j] = xn[j];
+        gr[j] = gn[j];
       }
     }
+    // row groups [h, 2h) hand their sums to [0, h), halving h: a fixed order
+    for (int h = rows_per_block >> 1; h > 0; h >>= 1) {
+      if (sub >= h && sub < 2 * h) {
 #pragma unroll
-    for (int j = 0; j < VPT; ++j) {
-      const int vi = j * tpr + lane;
-      if (vi < nvec)
+        for (int j = 0; j < VPT; ++j) {
+          const int vi = j * tpr + lane;
+          if (vi < nvec)
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) part[vi * VEC + e] = acc[j][e];
+            for (int e = 0; e < VEC; ++e) tree[(sub - h) * D + vi * VEC + e] = acc[j][e];
+        }
+      }
+      __syncthreads();
+      if (sub < h) {
+#pragma unroll
+        for (int j = 0; j < VPT; ++j) {
+          const int vi = j * tpr + lane;
+          if (vi < nvec)
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) acc[j][e] += tree[sub * D + vi * VEC + e];
+        }
+      }
+      __syncthreads();
     }
-  } else {  // looped: rows too long to hold in registers; x and dy are read twice
+    if (sub == 0) {
+#pragma unroll
+      for (int j = 0; j < VPT; ++j) {
+        const int vi = j * tpr + lane;
+        if (vi < nvec)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) part[vi * VEC + e] = acc[j][e];
+      }
+    }
+  } else {  // looped, one row group a block: x and dy are read twice
     for (int vi = lane; vi < nvec; vi += tpr)
 #pragma unroll
       for (int e = 0; e < VEC; ++e) part[vi * VEC + e] = 0.f;
@@ -443,16 +494,19 @@ int launch_bwd_vec(const void* x, const void* scale, const void* dy, void* dx, v
                    void* dscale, long long rows, int D, int vpt, int tpr, int rpb, int blocks,
                    float eps, cudaStream_t stream) {
   const int threads = tpr * rpb;
+  const size_t tree = sizeof(float) * static_cast<size_t>(rpb / 2) * D;
+  if (tree > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   const T* xp = static_cast<const T*>(x);
   const S* sp = static_cast<const S*>(scale);
   const T* gp = static_cast<const T*>(dy);
   T* op = static_cast<T*>(dx);
   float* pp = static_cast<float*>(partial);
   switch (vpt) {
-#define RMSNORM_BWD_CASE(V)                                                                      \
-  case V:                                                                                        \
-    rmsnorm_bwd_kernel<T, S, VEC, V><<<blocks, threads, 0, stream>>>(xp, sp, gp, op, pp, rows, D, \
-                                                                     tpr, rpb, eps);             \
+#define RMSNORM_BWD_CASE(V)                                                                 \
+  case V:                                                                                   \
+    rmsnorm_bwd_kernel<T, S, VEC, V><<<blocks, threads, tree, stream>>>(xp, sp, gp, op, pp, \
+                                                                        rows, D, tpr, rpb,  \
+                                                                        eps);               \
     break;
     RMSNORM_BWD_CASE(0)
     RMSNORM_BWD_CASE(1)
@@ -465,8 +519,7 @@ int launch_bwd_vec(const void* x, const void* scale, const void* dy, void* dx, v
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dscale_reduce_kernel<S><<<(D + 31) / 32, 256, 0, stream>>>(pp, static_cast<S*>(dscale),
-                                                             blocks * rpb, D);
+  dscale_reduce_kernel<S><<<(D + 31) / 32, 256, 0, stream>>>(pp, static_cast<S*>(dscale), blocks, D);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -479,8 +532,10 @@ int launch_bwd(const void* x, const void* scale, const void* dy, void* dx, void*
                        reinterpret_cast<uintptr_t>(dy) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(dx) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(scale) % 16 == 0 && D % full == 0;
-  if (tpr < 1 || tpr > 256 || (tpr & (tpr - 1)) || rpb < 1 || (tpr * rpb) % 32 ||
-      tpr * rpb > 256 || vpt < 0 || vpt > MAX_VPT || (tpr > 32 && rpb != 1) || blocks < 1 ||
+  // tpr and rows_per_block powers of two (the pairwise dscale sum), whole
+  // warps, at most BWD_THREADS; the looped path takes one row group a block
+  if (tpr < 1 || tpr > 256 || (tpr & (tpr - 1)) || rpb < 1 || (rpb & (rpb - 1)) ||
+      (tpr * rpb) % 32 || tpr * rpb > BWD_THREADS || vpt < 0 || vpt > MAX_VPT || blocks < 1 ||
       (vpt == 0 && rpb != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (vec == full && aligned)
@@ -494,8 +549,8 @@ int launch_bwd(const void* x, const void* scale, const void* dy, void* dx, void*
 
 }  // namespace
 
-// dy and dx have x's dtype; partial is float32 scratch of (blocks ·
-// rows_per_block) x D; dscale has scale's dtype.  The launch plan is
+// dy and dx have x's dtype; partial is float32 scratch of blocks x D (one
+// row a block); dscale has scale's dtype.  The launch plan is
 // rmsnorm/ops.py::bwd_launch_plan.
 extern "C" int rmsnorm_bwd(const void* x, const void* scale, const void* dy, void* dx,
                            void* partial, void* dscale, long long rows, int D, float eps,

@@ -15,8 +15,9 @@ The forward can also return each row's log-sum-exp (``return_lse``), the
 residual that :func:`flash_attention_bwd` recomputes the probabilities
 from.  The backward has no Pallas counterpart: JAX trains through the jnp
 custom VJP of ``repro/models/attention.py::_make_flash``, whose recurrence
-the kernel computes.  :class:`FlashAttentionFn` ties the two together for
-training; serving calls :func:`flash_attention` without it.
+the kernels compute, on the tensor cores in bfloat16 and on the SIMT cores
+in float32.  :class:`FlashAttentionFn` ties the two together for training;
+serving calls :func:`flash_attention` without it.
 """
 from __future__ import annotations
 
@@ -134,9 +135,12 @@ def flash_attention_bwd(
 ):
     """→ (dq, dk, dv) in the inputs' dtype, accumulated in float32 without
     atomics (the same bits on every run).  All tensors are read through
-    their (batch, sequence, head) strides; the head dim must be contiguous,
-    and in bfloat16 the same 16-byte rules as the forward's hold
-    (:func:`check_tensor_core_layout`, ``ValueError`` otherwise)."""
+    their (batch, sequence, head) strides; the head dim must be contiguous.
+    bfloat16 runs on the tensor cores (``wgmma``: a dK/dV kernel per key
+    tile and a dQ kernel per query tile, P and dS rounded to bfloat16 as
+    the forward rounds P), and q, k, v, out, dout, dq, dk and dv must meet
+    the forward's 16-byte rules (:func:`check_tensor_core_layout`,
+    ``ValueError`` otherwise); float32 runs on the SIMT cores."""
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention_bwd: window must be positive, got {window}")
     kw = dict(causal=causal, window=window, q_offset=q_offset)
@@ -152,6 +156,8 @@ def flash_attention_bwd(
             f"float32 ({B}, {H}, {Lq})"
         )
     dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
+    if q.dtype == torch.bfloat16:
+        check_tensor_core_layout(dq=dq, dk=dk, dv=dv)
     if Lq == 0 or Lk == 0 or B == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     dvec = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)

@@ -10,9 +10,10 @@ CPU tensor takes the plain version in ``ref.py``; a CUDA tensor launches the
 kernel or raises.
 
 The backward (:func:`rmsnorm_bwd`) has no Pallas counterpart: JAX
-differentiates the jnp ``repro.models.layers.rmsnorm``.  It follows the
-forward's launch plan with fewer blocks (:func:`bwd_launch_plan`) and
-reduces ``dscale`` over the rows in float32 in a fixed order.
+differentiates the jnp ``repro.models.layers.rmsnorm``.  It covers a row
+as the forward does, with 512-thread blocks, one an SM, that load each
+row ahead (:func:`bwd_launch_plan`), and reduces ``dscale`` over the rows
+in float32 in a fixed order.
 :class:`RMSNormFn` ties the two together for training.
 """
 from __future__ import annotations
@@ -33,6 +34,8 @@ bwd_launches = dispatch.LaunchCounter()
 
 #: vectors a thread holds in registers at most (csrc/rmsnorm.cu MAX_VPT)
 MAX_VPT = 4
+#: threads of a backward block on the register path (csrc/rmsnorm.cu BWD_THREADS)
+BWD_THREADS = 512
 
 
 class LaunchPlan(NamedTuple):
@@ -82,15 +85,26 @@ def launch_plan(rows: int, D: int, itemsize: int, aligned: bool,
 
 def bwd_launch_plan(rows: int, D: int, itemsize: int, aligned: bool,
                     sms: Optional[int] = None) -> LaunchPlan:
-    """The backward's plan: the forward's coverage of a row, with at most
-    512 threads an SM (given ``sms``), so that the float32 partial sums of
-    ``dscale`` — one row of D per row group of each block, (blocks ·
-    rows_per_block, D) in all — stay a few MB."""
-    plan = launch_plan(rows, D, itemsize, aligned)
-    if sms is None:
-        return plan
-    per_sm = max(1, 512 // (plan.tpr * plan.rows_per_block))
-    return plan._replace(blocks=min(plan.blocks, sms * per_sm))
+    """The backward's plan: the forward's coverage of a row (``vec``,
+    ``vpt``, ``tpr``).  On the register path a block of ``BWD_THREADS``
+    threads holds ``BWD_THREADS // tpr`` row groups and, given ``sms``, one
+    block runs on each SM, with the rows spread so that every block walks
+    the same number of them; each thread loads the next row's x and dy
+    while it reduces and writes the current one.  A block's row groups add
+    their float32 ``dscale`` partial sums in shared memory, so the kernel
+    writes one partial row of D per block: (blocks, D) in all.  The looped
+    path keeps one row group a block and at most 512 threads an SM."""
+    fwd = launch_plan(rows, D, itemsize, aligned)
+    if fwd.vpt == 0:
+        rpb, per_sm = 1, max(1, BWD_THREADS // fwd.tpr)
+    else:
+        rpb, per_sm = BWD_THREADS // fwd.tpr, 1
+    groups = -(-rows // rpb)  # row groups' worth of rows
+    blocks = groups
+    if sms is not None and groups > sms * per_sm:
+        walks = -(-groups // (sms * per_sm))  # rows each row group walks
+        blocks = -(-groups // walks)
+    return LaunchPlan(fwd.vec, fwd.vpt, fwd.tpr, rpb, blocks)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -145,8 +159,7 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, eps: flo
     dscale = torch.empty_like(scale)
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, scale, dy, dx))
     plan = bwd_launch_plan(rows, D, x.element_size(), aligned, dispatch.sm_count(x.device))
-    partial = torch.empty((plan.blocks * plan.rows_per_block, D), dtype=torch.float32,
-                          device=x.device)
+    partial = torch.empty((plan.blocks, D), dtype=torch.float32, device=x.device)
     lib = dispatch.library()
     rc = lib.rmsnorm_bwd(
         x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(), partial.data_ptr(),

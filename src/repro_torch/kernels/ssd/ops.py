@@ -11,6 +11,14 @@ compute the masked triangle, whose decay may be inf, and read the model's
 (B, L, H, ·) layout, and B/C by group, through strides, so nothing is
 transposed or expanded.  A CPU tensor takes the plain version in ``ref.py``;
 a CUDA tensor launches the kernel or raises.
+
+The kernel is forward only: its outputs are written through ctypes, so
+autograd sees no path from them back to the inputs.  Until the ssd backward
+lands (ROADMAP.md, Queue 2 item 4), the CUDA route refuses inputs that
+autograd records (:func:`check_no_autograd`), so training mamba2 on the
+card fails at its first microbatch instead of training on wrong gradients.
+Serving runs under ``torch.no_grad`` with frozen parameters and is not
+affected.
 """
 from __future__ import annotations
 
@@ -79,6 +87,18 @@ def check_tensor_core_layout(cs: int, **tensors: torch.Tensor) -> None:
             )
 
 
+def check_no_autograd(*tensors: torch.Tensor) -> None:
+    """Raise ``NotImplementedError`` when autograd records and any of
+    ``tensors`` requires grad: the kernel has no backward yet, and its
+    outputs would carry no gradient back to them."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "ssd_intra_chunk: the CUDA kernel has no backward yet (ROADMAP.md, Queue 2 item 4: "
+            "the ssd backward), so it cannot train: its outputs would carry no gradient to "
+            "x, dt, cum, B or C.  Run it under torch.no_grad, or train on the CPU"
+        )
+
+
 def ssd_intra_chunk(x, dt, cum, B, C):
     """The intra-chunk output and the end-of-chunk state of every chunk.
 
@@ -87,10 +107,13 @@ def ssd_intra_chunk(x, dt, cum, B, C):
     group h // (H // G)).  Any strides with a contiguous last dim.
     → (y (b, H, nc, cs, P), state (b, H, nc, N, P)), both float32.  (The
     plain version also takes the TPU kernel's (BH, nc, cs, ·) layout.)
+    Off the CPU, inputs that autograd records raise ``NotImplementedError``
+    before anything is checked or launched (:func:`check_no_autograd`).
     """
     tensors = (x, dt, cum, B, C)
     if all(t.device.type == "cpu" for t in tensors):
         return ssd_chunk_ref(x, dt, cum, B, C)
+    check_no_autograd(*tensors)
     dispatch.check_cuda_tensors("ssd_intra_chunk", *tensors)
     if x.ndim != 5:
         raise ValueError(f"ssd_intra_chunk: x must be (b, H, nc, cs, P), got {tuple(x.shape)}")

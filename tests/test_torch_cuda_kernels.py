@@ -325,12 +325,21 @@ def _close_scaled(got, want, dtype: str) -> None:
 # (B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_offset): the path's head dim,
 # GQA / MQA, a window, queries offset into a longer key range, one query
 # row, ragged lengths around the 64-row tiles, a non-causal case, Dh 64 / 80
+# / 96 (multiples of 8 padded to 64 or 128), Dh != Dv both ways, more queries
+# than keys, a window without the causal mask, and a sequence long enough
+# that the bf16 kernels' 2-stage rings turn many times
 FLASH_BWD_CASES = [
     (1, 256, 256, 4, 4, 128, 128, True, None, 0),
     (2, 200, 200, 8, 2, 64, 64, True, 64, 0),
     (1, 65, 777, 4, 1, 128, 128, True, None, 712),
     (1, 1, 65, 4, 4, 64, 64, True, None, 64),
     (1, 130, 130, 4, 2, 80, 80, False, None, 0),
+    (1, 300, 300, 8, 8, 96, 96, True, None, 0),
+    (2, 333, 333, 8, 2, 128, 64, True, 100, 0),
+    (1, 200, 260, 4, 4, 64, 128, True, None, 60),
+    (1, 1024, 1024, 8, 8, 128, 128, True, None, 0),
+    (1, 300, 200, 4, 2, 64, 64, True, None, 0),
+    (1, 256, 256, 4, 4, 128, 128, False, 50, 0),
 ]
 
 
@@ -394,14 +403,22 @@ def test_flash_bwd_rejects_what_the_kernel_does_not_take(cuda_device):
         flash_ops.flash_attention_bwd(kv, kv, kv, kv, lse.double(), kv)
     with pytest.raises(ValueError, match="dout"):
         flash_ops.flash_attention_bwd(kv, kv, kv, kv, lse, kv[:, :8])
+    # an out or dout whose base is one element off 16 bytes: the bf16 kernels' copies refuse it
+    shifted = torch.zeros(kv.numel() + 1, device=cuda_device, dtype=torch.bfloat16)[1:].view(kv.shape)
+    with pytest.raises(ValueError, match="out"):
+        flash_ops.flash_attention_bwd(kv, kv, kv, shifted, lse, kv)
+    with pytest.raises(ValueError, match="dout"):
+        flash_ops.flash_attention_bwd(kv, kv, kv, kv, lse, shifted)
     assert flash_ops.bwd_launches.count == before
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("T,D", [(2048, 4096), (4096, 128), (333, 768), (3, 37), (7, 12288), (1, 16)])
+@pytest.mark.parametrize("T,D", [(2048, 4096), (4096, 128), (333, 768), (3, 37), (7, 12288), (1, 16),
+                                 (4096, 768), (65536, 128), (1000, 37)])
 def test_rmsnorm_bwd_kernel_matches_plain(cuda_device, dtype, T, D):
-    """Register (4096, 128, 768, 16), scalar (37) and looped (12288) paths:
+    """Register (4096, 128, 768, 16), scalar (37) and looped (12288) paths,
+    with few rows and with more rows than the plan's blocks hold at once:
     dx within the forward's tolerance, dscale (a sum over T rows) within
     the backward's scale-relative one; the same bits on a second run."""
     tdt = DTYPES[dtype]
@@ -453,3 +470,26 @@ def test_autograd_functions_run_the_backward_kernels(cuda_device):
     rx, rs = torch.autograd.grad(flash_ops.flash_attention_train(yr, yr, yr).square().sum(), (xr, sr))
     _close_scaled(gx, rx, "float32")
     _close_scaled(gs, rs, "float32")
+
+
+@pytest.mark.cuda
+def test_mamba2_training_on_the_card_raises_until_the_ssd_backward(cuda_device):
+    """Fault F1's guard: the ssd kernel has no backward, so a mamba2 loss
+    under autograd on the card raises before any ssd launch (ROADMAP.md,
+    Queue 2 item 4); the same loss under ``torch.no_grad`` (serving's mode)
+    runs through the kernel."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import init_params, loss_fn, set_trainable
+
+    cfg = reduced_config("mamba2-130m")
+    model = set_trainable(init_params(cfg, 0, device=cuda_device))
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab, (2, 64), generator=gen, device=cuda_device, dtype=torch.int32)
+    batch = {"tokens": tokens, "labels": tokens}
+    before = ssd_ops.launches.count
+    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
+        loss_fn(model, batch, cfg)
+    assert ssd_ops.launches.count == before
+    with torch.no_grad():
+        loss, _ = loss_fn(model, batch, cfg)
+    assert torch.isfinite(loss) and ssd_ops.launches.count - before == cfg.n_layers

@@ -111,11 +111,14 @@ def test_flash_plain_ragged_lengths(dtype, Lq, Lk, H, KH, q_offset, window):
     _close(out, ref, dtype)
 
 
-def test_flash_model_qkv_meet_tensor_core_layout():
+def test_flash_model_qkv_meet_tensor_core_layout(monkeypatch):
     """The q / k / v that the model hands the flash kernel in bfloat16 pass
-    the tensor-core route's alignment rule; a head slice does not."""
+    the tensor-core route's alignment rule; a head slice does not.  So do
+    the tensors the train path hands the backward kernel: the out that
+    ``FlashAttentionFn`` saved and the dout that autograd brings, for every
+    layer of a bfloat16 loss's backward."""
     from repro_torch.configs import reduced_config
-    from repro_torch.models import Transformer
+    from repro_torch.models import Transformer, loss_fn, set_trainable
     from repro_torch.models.attention import qkv_project
 
     cfg = reduced_config("deepseek-7b").replace(dtype="bfloat16")
@@ -128,6 +131,23 @@ def test_flash_model_qkv_meet_tensor_core_layout():
     flash_ops.check_tensor_core_layout(q=q, k=k, v=v)
     with pytest.raises(ValueError, match="multiples of 8"):
         flash_ops.check_tensor_core_layout(q=q[..., :12])
+
+    seen = []
+    plain_bwd = flash_ops.flash_attention_bwd
+
+    def spy(q, k, v, out, lse, dout, **kw):
+        seen.append((q, k, v, out, dout))
+        return plain_bwd(q, k, v, out, lse, dout, **kw)
+
+    monkeypatch.setattr(flash_ops, "flash_attention_bwd", spy)
+    set_trainable(model)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab, (2, 40)).astype(np.int32))
+    loss, _ = loss_fn(model, {"tokens": tokens, "labels": tokens}, cfg)
+    loss.backward()
+    assert len(seen) == cfg.n_layers
+    for q, k, v, out, dout in seen:
+        assert out.dtype == dout.dtype == torch.bfloat16
+        flash_ops.check_tensor_core_layout(q=q, k=k, v=v, out=out, dout=dout)
 
 
 def test_flash_rejects_nonpositive_window():
@@ -278,47 +298,107 @@ def test_rmsnorm_launch_plan_shapes():
     assert rmsnorm_ops.launch_plan(2048, 4096, 2, True, sms=132).blocks == 528
 
 
+def _bwd_rows_of_blocks(plan, rows: int) -> list:
+    """The rows each block of the backward kernel (csrc/rmsnorm.cu) visits,
+    by row group, in order: block b's groups are b·rpb + k·stride with
+    stride = blocks·rpb, and row group ``sub`` takes row group + sub."""
+    rpb, stride = plan.rows_per_block, plan.blocks * plan.rows_per_block
+    out = []
+    for b in range(plan.blocks):
+        subs = [[] for _ in range(rpb)]
+        for base in range(b * rpb, rows, stride):
+            for sub in range(rpb):
+                if base + sub < rows:
+                    subs[sub].append(base + sub)
+        out.append(subs)
+    return out
+
+
 def _bwd_dscale_emulated(plan, x, s, dy, eps=1e-6):
     """The backward kernel's reduction of dscale (csrc/rmsnorm.cu), in
-    float32: row r belongs to part (block, sub) with block = (r //
-    rows_per_block) % blocks and sub = r % rows_per_block; each part sums
-    its rows in order, then 8 lanes sum every 8th part and are added in
-    lane order."""
+    float32: each row group sums its rows in order; a block's row groups
+    are added pairwise (groups [h, 2h) into [0, h), h halving from rpb / 2)
+    into the block's one partial row; then 8 lanes sum every 8th block's
+    row and are added in lane order.  → (dscale, plain dscale, the number
+    of partial rows written)."""
     rows, D = x.shape
     _, want = rmsnorm_ops.rmsnorm_bwd_ref(x, s, dy, eps)
     xf = x.float()
     contrib = dy.float() * xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
-    parts = torch.zeros(plan.blocks * plan.rows_per_block, D)
-    for r in range(rows):
-        block, sub = (r // plan.rows_per_block) % plan.blocks, r % plan.rows_per_block
-        parts[block * plan.rows_per_block + sub] += contrib[r]
+    parts = []
+    for subs in _bwd_rows_of_blocks(plan, rows):
+        acc = [torch.zeros(D) for _ in subs]
+        for g, rs in enumerate(subs):
+            for r in rs:
+                acc[g] = acc[g] + contrib[r]
+        h = len(acc) // 2
+        while h:
+            for g in range(h):
+                acc[g] = acc[g] + acc[g + h]
+            h //= 2
+        parts.append(acc[0])
+    parts = torch.stack(parts)
     lanes = [parts[j::8].sum(0) for j in range(8)]
     got = lanes[0]
     for lane in lanes[1:]:
         got = got + lane
-    return got, want
+    return got, want, parts.shape[0]
 
 
 @pytest.mark.parametrize("rows,D,itemsize", [(2048, 4096, 2), (4096, 128, 2), (50, 768, 4),
-                                             (3, 37, 4), (7, 12288, 2)])
+                                             (3, 37, 4), (7, 12288, 2), (4096, 768, 2),
+                                             (2100, 4096, 4)])
 def test_rmsnorm_bwd_launch_plan_reduces_every_row_once(rows, D, itemsize):
-    """The backward's plan keeps the forward's coverage of a row, at most 512
-    threads an SM on a 132-SM card and a few MB of partial sums; its
-    partition of the rows into parts, reduced as the kernel does, gives the
-    plain dscale (within 1e-5 of its largest magnitude: f32 sums in another
-    order)."""
+    """The backward's plan keeps the forward's coverage of a row; on the
+    register path a block holds 512 threads (a power-of-two number of row
+    groups, for the pairwise sum) and, on a 132-SM card, one block an SM
+    with every block walking as many rows as the others (within one); the
+    looped path one row group a block and at most 512 threads an SM.  The
+    blocks visit every row once; the kernel writes one partial row of D a
+    block (a few MB at most) and its shared-memory sum fits in 48 KB; the
+    partition, reduced as the kernel does, gives the plain dscale (within
+    1e-5 of its largest magnitude: f32 sums in another order)."""
     for aligned in (True, False):
         fwd = rmsnorm_ops.launch_plan(rows, D, itemsize, aligned)
-        plan = rmsnorm_ops.bwd_launch_plan(rows, D, itemsize, aligned, sms=132)
-        assert plan[:4] == fwd[:4] and 1 <= plan.blocks <= fwd.blocks
-        assert plan.blocks * plan.tpr * plan.rows_per_block <= 132 * 512 or plan.blocks == 132
-        assert plan.blocks * plan.rows_per_block * D * 4 <= 8 << 20
-        assert rmsnorm_ops.bwd_launch_plan(rows, D, itemsize, aligned) == fwd
+        for sms in (None, 132):
+            plan = rmsnorm_ops.bwd_launch_plan(rows, D, itemsize, aligned, sms=sms)
+            rpb, threads = plan.rows_per_block, plan.tpr * plan.rows_per_block
+            assert plan[:3] == fwd[:3] and plan.blocks >= 1
+            assert rpb & (rpb - 1) == 0 and threads % 32 == 0
+            if plan.vpt:
+                assert threads == rmsnorm_ops.BWD_THREADS
+                assert (rpb // 2) * D * 4 <= 48 << 10
+            else:
+                assert rpb == 1 and threads <= rmsnorm_ops.BWD_THREADS
+            visits = _bwd_rows_of_blocks(plan, rows)
+            seen = sorted(r for subs in visits for rs in subs for r in rs)
+            assert seen == list(range(rows)), plan
+            assert all(any(subs) for subs in visits)  # every block writes its partial row
+            if sms is None:
+                assert plan.blocks == -(-rows // rpb)
+            else:
+                assert plan.blocks * threads <= 132 * rmsnorm_ops.BWD_THREADS
+                walks = [max(len(rs) for rs in subs) for subs in visits]
+                assert max(walks) - min(walks) <= 1
+                assert plan.blocks * D * 4 <= 8 << 20
     gen = torch.Generator().manual_seed(0)
     x, dy = torch.randn(rows, D, generator=gen), torch.randn(rows, D, generator=gen)
     s = 0.1 * torch.randn(D, generator=gen)
-    got, want = _bwd_dscale_emulated(plan, x, s, dy)
+    got, want, n_parts = _bwd_dscale_emulated(plan, x, s, dy)
+    assert n_parts == plan.blocks
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+def test_rmsnorm_bwd_launch_plan_shapes():
+    """The train path's rows: deepseek-7b's (2048, 4096) bf16 on 128 blocks
+    of two 256-thread row groups (8 rows each), one block an SM of 132;
+    mamba2's 768 on 16 warps a block; qk-norm rows of 128 on 32 groups of
+    16 lanes; 12288 loops on one row group a block."""
+    assert rmsnorm_ops.bwd_launch_plan(2048, 4096, 2, True, sms=132) == (8, 2, 256, 2, 128)
+    assert rmsnorm_ops.bwd_launch_plan(4096, 768, 2, True, sms=132) == (8, 3, 32, 16, 128)
+    assert rmsnorm_ops.bwd_launch_plan(65536, 128, 2, True, sms=132) == (8, 1, 16, 32, 128)
+    assert rmsnorm_ops.bwd_launch_plan(7, 12288, 2, True, sms=132) == (8, 0, 256, 1, 7)
+    assert rmsnorm_ops.bwd_launch_plan(1, 4096, 2, True, sms=132) == (8, 2, 256, 2, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -471,6 +551,51 @@ def test_ssd_model_views_meet_tensor_core_layout():
         ssd_ops.check_tensor_core_layout(8, x=x, B=B, C=B)
     with pytest.raises(ValueError, match="at most 256"):
         ssd_ops.check_tensor_core_layout(512, x=x[..., :64], B=B, C=B)
+
+
+# ---------------------------------------------------------------------------
+# ssd: fault F1's guard (the kernel has no backward yet)
+# ---------------------------------------------------------------------------
+
+def _ssd_small_inputs(requires_grad: bool, device="cpu"):
+    rng = np.random.default_rng(21)
+    x = torch.tensor(rng.standard_normal((1, 2, 1, 8, 8)), dtype=torch.float32, device=device)
+    dt = torch.tensor(rng.random((1, 2, 1, 8)), dtype=torch.float32, device=device)
+    cum = torch.cumsum(-dt, dim=-1)
+    B, C = (torch.tensor(rng.standard_normal((1, 1, 1, 8, 16)), dtype=torch.float32, device=device)
+            for _ in range(2))
+    return [t.requires_grad_(requires_grad) for t in (x, dt, cum.detach(), B, C)]
+
+
+def test_ssd_guard_refuses_inputs_autograd_records():
+    """``check_no_autograd`` raises naming ROADMAP.md Queue 2 item 4 when
+    grad mode is on and any input requires grad; it lets through inputs
+    without grad, and any inputs under ``torch.no_grad`` (serving's mode)."""
+    for i in range(5):
+        ts = _ssd_small_inputs(False)
+        ts[i].requires_grad_(True)
+        with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
+            ssd_ops.check_no_autograd(*ts)
+        with torch.no_grad():
+            ssd_ops.check_no_autograd(*ts)
+    ssd_ops.check_no_autograd(*_ssd_small_inputs(False))
+
+
+def test_ssd_card_route_checks_autograd_before_anything_else():
+    """Off the CPU, ``ssd_intra_chunk`` reaches the guard before any check or
+    launch: meta tensors (no card needed) that require grad raise
+    ``NotImplementedError``; under ``torch.no_grad`` they pass the guard
+    and stop at the device check.  No launch is counted."""
+    before = ssd_ops.launches.count
+    ts = _ssd_small_inputs(True, device="meta")
+    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
+        ssd_ops.ssd_intra_chunk(*ts)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_ops.ssd_intra_chunk(*ts)
+    # the CPU route is the differentiable plain version: no guard there
+    y, state = ssd_ops.ssd_intra_chunk(*_ssd_small_inputs(True))
+    assert y.requires_grad and state.requires_grad
+    assert ssd_ops.launches.count == before
 
 
 # ---------------------------------------------------------------------------

@@ -413,3 +413,32 @@ def test_launcher_raises_without_a_card_or_for_unported_flags():
         pytest.skip("a Hopper card is present: the default device runs")
     with pytest.raises(RuntimeError, match="no CUDA card"):
         launch_train.main(["--reduced", "--steps", "1"])
+
+
+def test_mamba2_train_step_surfaces_the_ssd_guard(monkeypatch):
+    """Fault F1: with the intra-chunk step routed as on the card (the guard
+    of ``ssd_intra_chunk``'s CUDA branch, then the plain version), mamba2
+    training through the launcher raises ``NotImplementedError`` naming
+    ROADMAP.md Queue 2 item 4 at its first microbatch: neither the staged
+    runtime nor the launcher catches it.  Under ``torch.no_grad`` (serving)
+    the same route runs."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    calls = []
+
+    def card_route(*args):
+        calls.append(1)
+        ssd_ops.check_no_autograd(*args)
+        return ssd_ops.ssd_chunk_ref(*args)
+
+    monkeypatch.setattr(ssd_ops, "ssd_intra_chunk", card_route)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
+        launch_train.main(["--arch", "mamba2-130m", "--reduced", "--device", "cpu", "--steps", "1",
+                           "--batch", "2", "--seq", "16", "--microbatches", "1", "--log-every", "0"])
+    assert len(calls) == 1
+    cfg = reduced_config("mamba2-130m")
+    model = tm.set_trainable(tm.init_params(cfg, 0, device="cpu"))
+    tokens = torch.zeros((1, 16), dtype=torch.int32)
+    with torch.no_grad():
+        loss, _ = tm.loss_fn(model, {"tokens": tokens, "labels": tokens}, cfg)
+    assert torch.isfinite(loss) and len(calls) == 1 + cfg.n_layers
