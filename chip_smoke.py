@@ -52,7 +52,29 @@ Phases (any failure raises and the script exits non-zero):
               losses, the schedule, exact launch counts of the four train
               kernels, step time, tokens/s, model TFLOP/s, peak memory; one
               profiled step; a nonfinite step that leaves every bit as it
-              was.
+              was;
+9. spec     — full-width deepseek-7b again (seed 0), the serving phase's
+              geometry and requests through ``ServeEngine`` with
+              speculative decoding at k = 4: the 1-layer shrunken draft,
+              the same with two forced rollbacks, and the target as its own
+              draft; every stream (the sampled one too) equals the plain
+              engine's, the self draft's greedy accept rate is 1.0, launch
+              counts are exact (draft feeds × draft layers + verify
+              sub-steps × 30 decode attentions); accept rate, tokens a
+              round, round wall ms, tokens/s beside the plain engine's and
+              one profiled round's device busy share;
+10. load    — ``run_load`` on the same model (16 requests at 2/s, prompts of
+              128-2048 tokens, a quarter duplicates): continuous, drain, and
+              continuous with the 1-layer draft; equal output checksums,
+              exact launch counts; TTFT and ITL p50 / p99, tokens/s;
+11. ckpt    — deepseek-7b at full width and 4 layers (bf16, Adafactor),
+              (2, 2048) in 2 microbatches, through the train launcher's
+              loop and ``CheckpointManager`` calls: two unbroken 4-step runs (one
+              saving every 2 steps), then a fresh state resumed from step 2;
+              the restored state bit for bit the saved one, the resumed run
+              equal to the unbroken one (or within two unbroken runs'
+              spread); save, commit and restore times.  The checkpoint
+              directory (``_smoke_ckpt/``) is removed at the end.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing of JAX.
@@ -1458,6 +1480,371 @@ def train_phase(dev) -> dict:
                 task_ms=spans)
 
 
+# ---------------------------------------------------------------------------
+# 9-10. speculative decoding and the load generator at full width
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+LOAD_SPEC = dict(seed=0, n_requests=16, rate_rps=2.0, prompt_lens=(128, 512, 1024, 2048),
+                 out_lens=(16, 32), vocab=32000, dup_frac=0.25)
+
+
+def _serve_launches(cfg, *, prefills, decode_steps, draft_layers=0, primes=0, draft_feeds=0,
+                    verify_substeps=0) -> dict:
+    """Kernel launches of a deepseek-7b serving run: per layer one flash
+    attention a prefill, one decode attention a decode step, verify sub-step
+    or draft feed, two norms per layer plus the final norm a forward; the
+    draft (``draft_layers`` deep) primes each speculative admission with a
+    prefill and feeds its own decode steps."""
+    fwd = prefills + decode_steps + verify_substeps
+    return {
+        "flash_attention": cfg.n_layers * prefills + draft_layers * primes,
+        "decode_attention": cfg.n_layers * (decode_steps + verify_substeps) + draft_layers * draft_feeds,
+        "rmsnorm": (2 * cfg.n_layers + 1) * fwd + (2 * draft_layers + 1) * (primes + draft_feeds),
+        "ssd": 0, "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
+    }
+
+
+def _verify_substeps(sp: dict, k: int) -> int:
+    """Sub-steps the verify bodies ran: k + 1 a committed round; an aborted
+    round runs its body twice (speculatively, then on rollback) at T = 1."""
+    return (sp["rounds"] - sp["rollback_rounds"]) * (k + 1) + 2 * sp["rollback_rounds"]
+
+
+def _spec_run(cfg, model, dev, prompts, sampled_prompt, warm, draft=None, rollback=0) -> dict:
+    """One engine (plain, or with ``draft`` = (cfg, model) at k = SPEC_K):
+    a warm-up wave, then the serving phase's four requests, every engine
+    iteration timed (host clock, synchronised).  Launch counts from 0 just
+    before the requests, read after."""
+    from repro_torch.serving import ServeEngine
+
+    kw = {} if draft is None else dict(draft_cfg=draft[0], draft_params=draft[1], draft_k=SPEC_K)
+    ops = _kernel_ops()
+    gc.collect()  # the previous run's engine and caches
+    torch.cuda.empty_cache()
+    with ServeEngine(cfg, model, n_slots=N_SLOTS, max_seq=MAX_SEQ, block_size=BLOCK_SIZE,
+                     device=dev, **kw) as eng:
+        for p in warm:
+            eng.submit(p, 2)
+        eng.run_until_drained()
+        spec0 = eng._spec.stats() if draft else {}
+        graph0 = dict(eng._tg.spec_stats)
+        base = (eng.prefills, eng.restores, eng.decode_steps)
+        torch.cuda.synchronize()
+        for c in ops.values():
+            c.reset()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, GEN) for p in prompts]
+        reqs.append(eng.submit(sampled_prompt, GEN, temperature=0.8, top_k=40, seed=7))
+        eng.step()  # admissions
+        if rollback:
+            eng.force_rollback(rollback)
+        round_ms = []
+        while eng.scheduler.queue_depth or eng.n_running:
+            rounds = eng._spec.rounds if draft else 0
+            t1 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            if draft and eng._spec.rounds > rounds:
+                round_ms.append((time.perf_counter() - t1) * 1e3)
+        wall = time.perf_counter() - t0
+        launches = {name: c.count for name, c in ops.items()}
+        out = dict(streams=[r.out_tokens for r in reqs], reqs=reqs, wall=wall, launches=launches,
+                   round_ms=round_ms, prefills=eng.prefills - base[0],
+                   restores=eng.restores - base[1], decode_steps=eng.decode_steps - base[2])
+        if draft:
+            sp = eng._spec.stats()
+            out["spec"] = {k: sp[k] - spec0[k] for k in ("rounds", "rollback_rounds", "sheds",
+                                                         "draft_feeds", "proposed", "accepted",
+                                                         "committed_tokens")}
+            out["graph"] = {k: v - graph0[k] for k, v in eng._tg.spec_stats.items()}
+            out["profile"] = _profile_round(eng, warm)
+    assert all(r.done and len(r.out_tokens) == GEN for r in reqs), "a request did not finish"
+    return out
+
+
+def _profile_round(eng, prompts) -> dict:
+    """One speculation round with every slot busy, under the profiler:
+    device time by kernel and the device-busy share (outside the counted
+    window)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    reqs = [eng.submit(p, GEN) for p in prompts]
+    eng.step()  # admissions
+    rounds = eng._spec.rounds
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    assert eng._spec.rounds == rounds + 1, "the profiled step was not a speculation round"
+    eng.run_until_drained()
+    assert all(r.done for r in reqs)
+    return _device_rows(prof, wall_ms, 1)
+
+
+def _deepseek(dev, tag: str):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    gc.collect()  # earlier phases' models and engines are cyclic garbage
+    torch.cuda.empty_cache()
+    cfg = get_config("deepseek-7b")
+    t0 = time.perf_counter()
+    model = init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    log(f"[{tag}] deepseek-7b ({cfg.n_layers} layers, {cfg.dtype}, seed 0) initialised on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return cfg, model
+
+
+def spec_phase(dev, cfg, model) -> dict:
+    """Full-width deepseek-7b, the serving phase's geometry and requests,
+    greedy and sampled: the plain engine, then the 1-layer shrunken draft
+    at k = 4 (alone, then with two forced rollbacks), then the target as its
+    own draft.  Every stream equals the plain engine's; the self draft's
+    greedy accept rate is 1.0; launch counts exact."""
+    from repro_torch.serving import shrunken_draft
+
+    rng = np.random.default_rng(0)  # the serving phase's prompts
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in PROMPT_LENS]
+    sampled_prompt = rng.integers(0, cfg.vocab, size=SAMPLED_LEN).astype(np.int32)
+    warm = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in PROMPT_LENS + (SAMPLED_LEN,)]
+    run = lambda **kw: _spec_run(cfg, model, dev, prompts, sampled_prompt, warm, **kw)  # noqa: E731
+
+    plain = run()
+    want = _serve_launches(cfg, prefills=plain["prefills"], decode_steps=plain["decode_steps"])
+    assert plain["launches"] == want, (plain["launches"], want)
+    n_tok = sum(len(s) for s in plain["streams"])
+    log(f"[spec] plain engine: {n_tok} tokens in {plain['wall']:.3f} s ({n_tok / plain['wall']:.1f} tok/s), "
+        f"{plain['decode_steps']} decode steps; launches {plain['launches']}")
+    one = shrunken_draft(cfg, model, n_layers=1)
+    runs = {"1-layer draft": run(draft=one), "1-layer draft, 2 forced rollbacks": run(draft=one, rollback=2),
+            "self draft": run(draft=(cfg, model))}
+    out = {"plain": dict(tok_per_s=n_tok / plain["wall"], launches=plain["launches"])}
+    for name, r in runs.items():
+        dl = (one[0] if name.startswith("1-layer") else cfg).n_layers
+        sp, g = r["spec"], r["graph"]
+        assert sp["sheds"] == 0, sp
+        sub = _verify_substeps(sp, SPEC_K)
+        want = _serve_launches(cfg, prefills=r["prefills"], decode_steps=r["decode_steps"],
+                               draft_layers=dl, primes=r["prefills"] + r["restores"],
+                               draft_feeds=sp["draft_feeds"], verify_substeps=sub)
+        log(f"[spec] {name}: launches {r['launches']}; expected {want} from {r['prefills']} prefills, "
+            f"{r['decode_steps']} plain decode steps, {sp['draft_feeds']} draft feeds x {dl} layers, "
+            f"{sub} verify sub-steps x {cfg.n_layers} ({sp['rounds']} rounds, {sp['rollback_rounds']} "
+            f"rolled back)")
+        assert r["launches"] == want, "the speculative path did not run through its kernels as expected"
+        assert r["streams"] == plain["streams"], (name, r["streams"], plain["streams"])
+        n_tok = sum(len(s) for s in r["streams"])
+        rate = sp["accepted"] / max(sp["proposed"], 1)
+        prof = r["profile"]
+        log(f"[spec] {name}: streams equal the plain engine's (sampled one included); accept rate "
+            f"{rate:.3f}, {sp['committed_tokens'] / max(sp['rounds'], 1):.2f} committed tokens a round, "
+            f"round wall ms median {np.median(r['round_ms']):.2f} (min {min(r['round_ms']):.2f}, max "
+            f"{max(r['round_ms']):.2f}); {n_tok} tokens in {r['wall']:.3f} s ({n_tok / r['wall']:.1f} tok/s "
+            f"vs plain {out['plain']['tok_per_s']:.1f}); graph {g}")
+        log(f"[profile] one {name} round, 4 busy slots: {prof['profiled_wall_ms']:.2f} ms wall, "
+            f"{prof['device_ms']:.2f} ms device time, device busy {prof['busy']:.1%}; by kind: "
+            + ", ".join(f"{k} {ms:.2f} ms" for k, ms in prof["kinds"]))
+        out[name] = dict(launches=r["launches"], accept_rate=rate, rounds=sp["rounds"],
+                         per_round=sp["committed_tokens"] / max(sp["rounds"], 1),
+                         round_ms=float(np.median(r["round_ms"])), tok_per_s=n_tok / r["wall"],
+                         busy=prof["busy"], device_ms=prof["device_ms"])
+    roll = runs["1-layer draft, 2 forced rollbacks"]
+    assert roll["spec"]["rollback_rounds"] >= 2 and roll["graph"]["rollbacks"] >= 2, roll["spec"]
+    greedy = [r for r in runs["self draft"]["reqs"] if r.temperature == 0.0]
+    acc = sum(r.spec_accepted for r in greedy) / sum(SPEC_K * r.spec_rounds for r in greedy)
+    log(f"[spec] self draft: greedy accept rate {acc} over {sum(r.spec_rounds for r in greedy)} request rounds")
+    assert acc == 1.0, acc
+    out["launches"] = {name: plain["launches"][name] + sum(r["launches"][name] for r in runs.values())
+                       for name in plain["launches"]}
+    return out
+
+
+def load_phase(dev, cfg, model) -> dict:
+    """``run_load`` on full-width deepseek-7b (``LOAD_SPEC``): continuous,
+    drain, then continuous with the 1-layer draft at k = 4 and
+    ``speculative=True``; equal output checksums, exact launch counts over
+    each engine's life (the warm-up included)."""
+    from repro_torch.serving import LoadSpec, ServeEngine, build_workload, run_load, shrunken_draft
+
+    spec = LoadSpec(**LOAD_SPEC)
+    workload = build_workload(spec)
+    one = shrunken_draft(cfg, model, n_layers=1)
+    ops = _kernel_ops()
+    out = {"launches": {name: 0 for name in ops}}
+    checksums = set()
+    for name, mode, draft in (("continuous", "continuous", None), ("drain", "drain", None),
+                              ("continuous, 1-layer draft", "continuous", one)):
+        kw = {} if draft is None else dict(draft_cfg=draft[0], draft_params=draft[1], draft_k=SPEC_K)
+        run_spec = LoadSpec(**LOAD_SPEC, speculative=draft is not None)
+        torch.cuda.synchronize()
+        for c in ops.values():
+            c.reset()
+        with ServeEngine(cfg, model, n_slots=N_SLOTS, max_seq=MAX_SEQ, block_size=BLOCK_SIZE,
+                         device=dev, **kw) as eng:
+            res = run_load(eng, workload, mode=mode, spec=run_spec)
+            torch.cuda.synchronize()
+            launches = {k: c.count for k, c in ops.items()}
+            st = res["engine"]
+            sp = st.get("spec")
+            want = _serve_launches(
+                cfg, prefills=st["prefills"], decode_steps=eng.decode_steps,
+                draft_layers=draft[0].n_layers if draft else 0,
+                primes=st["prefills"] + st["restores"] if draft else 0,
+                draft_feeds=sp["draft_feeds"] if sp else 0,
+                verify_substeps=_verify_substeps(sp, SPEC_K) if sp else 0)
+        log(f"[load] {name}: launches {launches}; expected {want} ({st['prefills']} prefills, "
+            f"{st['restores']} restores, {eng.decode_steps} plain decode steps"
+            + (f", {sp['rounds']} rounds ({sp['rollback_rounds']} rolled back, {sp['sheds']} shed), "
+               f"{sp['draft_feeds']} draft feeds, accept rate {sp['accept_rate']:.3f}" if sp else "") + ")")
+        assert launches == want, "the load generator's path did not run through its kernels as expected"
+        log(f"[load] {name}: {res['requests']} requests ({res['rejected']} rejected), {res['tokens']} tokens "
+            f"in {res['elapsed_s']:.2f} s, {res['tokens_per_s']:.1f} tok/s; TTFT p50 {res['ttft_p50_ms']:.1f} "
+            f"ms p99 {res['ttft_p99_ms']:.1f} ms; ITL p50 {res['itl_p50_ms']:.1f} ms p99 "
+            f"{res['itl_p99_ms']:.1f} ms; output checksum {res['output_checksum']}")
+        assert res["requests"] + res["rejected"] == spec.n_requests and res["tokens"] > 0
+        checksums.add(res["output_checksum"])
+        out[name] = {k: res[k] for k in ("output_checksum", "requests", "rejected", "tokens", "tokens_per_s",
+                                         "ttft_p50_ms", "ttft_p99_ms", "itl_p50_ms", "itl_p99_ms")}
+        for k, v in launches.items():
+            out["launches"][k] += v
+    assert len(checksums) == 1, f"output checksums differ: {checksums}"
+    log(f"[load] the three runs' output checksums are equal: {checksums.pop()}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 11. checkpoint and resume
+# ---------------------------------------------------------------------------
+
+CKPT_LAYERS, CKPT_STEPS, CKPT_EVERY = 4, 4, 2
+CKPT_DIR = Path(__file__).resolve().parent / "_smoke_ckpt"
+
+
+def _state_tensors(state) -> dict:
+    out = {f"params/{n}": p for n, p in state.params.named_parameters()}
+    for k, v in state.opt.items():
+        out.update({f"opt/{k}/{kk}": vv for kk, vv in v.items()})
+    out["step"] = state.step
+    return out
+
+
+def _max_diff(a, b) -> float:
+    """Largest absolute difference between two states' tensors (0.0: the
+    same bits, NaN aside)."""
+    ta, tb = _state_tensors(a), _state_tensors(b)
+    assert ta.keys() == tb.keys()
+    worst = 0.0
+    for k in ta:
+        if not torch.equal(_bits(ta[k]), _bits(tb[k])):
+            worst = max(worst, float((ta[k].float() - tb[k].float()).abs().max()), 1e-30)
+    return worst
+
+
+def _train_run(cfg, dev, mgr=None, resume_from=None, expect=None) -> dict:
+    """``launch/train.py``'s calls: a fresh seeded state, restored from
+    ``mgr`` at step ``resume_from`` when given (and compared bit for bit
+    with ``expect`` at once: training updates it in place), then
+    ``train_loop`` to CKPT_STEPS, saving every CKPT_EVERY steps when
+    ``mgr`` is given and not resuming."""
+    from repro_torch.launch.train import train_loop
+    from repro_torch.runtime.train import init_train_state
+
+    state = init_train_state(cfg, 0, device=dev)
+    out = {}
+    start = 0
+    if resume_from is not None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start, state = mgr.restore(state, step=resume_from)
+        torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t0
+        got = _state_tensors(state)
+        assert got.keys() == expect.keys()
+        out["n_tensors"] = len(got)
+        out["restored_equal"] = all(torch.equal(_bits(got[k]), _bits(expect[k])) for k in got)
+    out["state"], out["losses"] = train_loop(
+        cfg, state, steps=CKPT_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, microbatches=TRAIN_MB,
+        start_step=start, mgr=mgr, ckpt_every=CKPT_EVERY if resume_from is None else 0)
+    return out
+
+
+def ckpt_phase(dev) -> dict:
+    """deepseek-7b at full width and 4 layers (bf16, Adafactor, remat
+    "full", (2, 2048) in 2 microbatches) through the launcher's loop
+    (``launch/train.py::train_loop``) and ``CheckpointManager`` calls: two
+    unbroken 4-step runs (the first saving every 2 steps), then a fresh
+    state resumed from step 2; the restored
+    state bit for bit the saved one, the resumed losses and parameters the
+    unbroken run's (bitwise if two unbroken runs agree bitwise, else within
+    their spread).  The directory is removed at the end."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("deepseek-7b").replace(optimizer="adafactor", n_layers=CKPT_LAYERS)
+    assert (cfg.remat, cfg.dtype) == ("full", "bfloat16")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    ops = _kernel_ops()
+    for c in ops.values():
+        c.reset()
+    class KeepingManager(CheckpointManager):
+        """Times the save at step CKPT_EVERY (the caller's thread, then its
+        commit, waited for at once) and keeps a device copy of that state."""
+
+        def save(self, step, state, **kw):
+            t0 = time.perf_counter()
+            super().save(step, state, **kw)
+            t1 = time.perf_counter()
+            if step == CKPT_EVERY:
+                self.wait()
+                self.times = (t1 - t0, time.perf_counter() - t1)
+                self.kept = {k: t.clone() for k, t in _state_tensors(state).items()}
+
+    try:
+        mgr = KeepingManager(str(CKPT_DIR), keep=3)
+        a = _train_run(cfg, dev, mgr=mgr)
+        a["save_s"], a["commit_s"] = mgr.times
+        assert mgr.all_steps() == [CKPT_EVERY, CKPT_STEPS], mgr.all_steps()
+        b = _train_run(cfg, dev)
+        r = _train_run(cfg, dev, mgr=mgr, resume_from=CKPT_EVERY, expect=mgr.kept)
+        del mgr.kept
+        launches = {name: c.count for name, c in ops.items()}
+        n_steps = 2 * CKPT_STEPS + (CKPT_STEPS - CKPT_EVERY)
+        want = {k: v * n_steps for k, v in _train_launches_per_step(cfg, TRAIN_MB).items()}
+        log(f"[ckpt] launches {launches}; expected {want} from {n_steps} steps")
+        assert launches == want, "the train steps did not run through every kernel as expected"
+        d = CKPT_DIR / f"step_{CKPT_EVERY:09d}"
+        n_bytes = sum(f.stat().st_size for f in d.iterdir() if f.suffix == ".npy")
+        same = r["restored_equal"]
+        log(f"[ckpt] step {CKPT_EVERY}: {r['n_tensors']} tensors, {n_bytes} bytes in "
+            f"{len(list(d.glob('*.npy')))} files; save {a['save_s']:.3f} s on the caller's thread, commit "
+            f"{a['commit_s']:.3f} s ({n_bytes / (a['save_s'] + a['commit_s']) / 1e9:.2f} GB/s for both), restore "
+            f"{r['restore_s']:.3f} s ({n_bytes / r['restore_s'] / 1e9:.2f} GB/s); restored state bit-identical "
+            f"to the saved one: {same}")
+        assert same, "the restored state differs from the saved one"
+        spread_loss = max(abs(x - y) for x, y in zip(a["losses"], b["losses"]))
+        spread = _max_diff(a["state"], b["state"])
+        got_loss = max(abs(x - y) for x, y in zip(a["losses"][CKPT_EVERY:], r["losses"]))
+        got = _max_diff(a["state"], r["state"])
+        log(f"[ckpt] losses: unbroken {a['losses']}, again {b['losses']}, resumed at {CKPT_EVERY} "
+            f"{r['losses']}")
+        log(f"[ckpt] two unbroken runs: max loss difference {spread_loss}, max final-state difference "
+            f"{spread}; resumed vs unbroken: {got_loss}, {got}"
+            + (" (bitwise)" if spread_loss == spread == got_loss == got == 0.0 else ""))
+        assert all(np.isfinite(a["losses"])) and len(r["losses"]) == CKPT_STEPS - CKPT_EVERY
+        assert got_loss <= spread_loss and got <= spread, "the resumed run left the unbroken runs' spread"
+        return dict(launches=launches, bytes=n_bytes, save_s=a["save_s"], commit_s=a["commit_s"],
+                    restore_s=r["restore_s"], spread=(spread_loss, spread), resumed=(got_loss, got))
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1479,14 +1866,21 @@ def main() -> int:
     )
     parity = train_parity_phase(dev)
     train = train_phase(dev)
-    for r in records:  # launches on both serving paths and the train path
-        r["launches"] = sum(run["launches"][r["name"]] for run in (serve, serve_m, train))
+    cfg, model = _deepseek(dev, "spec")
+    spec = spec_phase(dev, cfg, model)
+    load = load_phase(dev, cfg, model)
+    del model
+    ckpt = ckpt_phase(dev)
+    for r in records:  # launches on every path: serving, train, speculation, load, checkpoint
+        r["launches"] = sum(run["launches"][r["name"]] for run in (serve, serve_m, train, spec, load, ckpt))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     kernels = [{k: r[k] for k in keys} for r in records]
     log(f"[done] {smi}: build {build_s:.1f} s, model checks {model_err:.2e} (deepseek-7b), "
         f"{model_err_m:.2e} (mamba2-130m), train parity {parity}, train step {train['step_ms']:.1f} ms "
-        f"({train['tokens_per_s']:.1f} tokens/s), {time.perf_counter() - t_start:.1f} s in all")
+        f"({train['tokens_per_s']:.1f} tokens/s), self-draft accept rate {spec['self draft']['accept_rate']:.3f}, "
+        f"load checksum {load['continuous']['output_checksum']}, checkpoint {ckpt['bytes']} bytes, "
+        f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -11,7 +11,9 @@ a transpose.
 
 bfloat16 crosses as its bit pattern (``arr.view(np.uint16)`` →
 ``torch.from_numpy(...).view(torch.bfloat16)``), which is exact and needs
-neither JAX nor ``ml_dtypes`` on this side.
+neither JAX nor ``ml_dtypes`` on this side.  Without ``ml_dtypes`` numpy
+holds bfloat16 as raw 2-byte records (dtype ``V2``, as ``repro``'s
+checkpoints load it): such arrays cross the same way.
 
 :func:`train_state_from_numpy` and :func:`train_state_to_numpy` carry a
 whole train state (parameters, optimizer state, step) both ways, so the two
@@ -30,11 +32,15 @@ from repro_torch.models.layers import RMSNorm
 from repro_torch.models.transformer import Transformer, set_trainable
 from repro_torch.optim import TrainState, leaf_path, param_leaves
 
+#: numpy's dtype for bfloat16 bits without ``ml_dtypes``: raw 2-byte records
+BF16_RAW = np.dtype("V2")
+
 
 def tensor_from_numpy(arr, device="cpu") -> torch.Tensor:
-    """A copy of ``arr`` as a tensor (bfloat16 bit-exact)."""
+    """A copy of ``arr`` as a tensor (bfloat16 bit-exact, from ``ml_dtypes``'
+    bfloat16 or from raw ``V2`` records)."""
     a = np.array(arr, copy=True)  # JAX hands out read-only buffers
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name == "bfloat16" or a.dtype == BF16_RAW:
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(a).to(device)
 
@@ -111,14 +117,16 @@ def train_state_from_numpy(params_tree: dict, opt_tree: dict, step, cfg: ArchCon
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
-    """float32 for bfloat16 (exact: numpy has no bfloat16), else as is."""
-    t = t.detach().cpu()
-    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    """A host copy that shares no memory with ``t`` (the train step updates
+    its state in place), bfloat16 as its raw 2-byte records (``BF16_RAW``)."""
+    t = t.detach().to("cpu", copy=True)
+    return t.view(torch.int16).numpy().view(BF16_RAW) if t.dtype == torch.bfloat16 else t.numpy()
 
 
 def train_state_to_numpy(state: TrainState) -> tuple[dict, dict, int]:
     """The port's train state → (params tree, optimizer tree, step) shaped
-    as ``repro``'s, with numpy leaves (layer parameters stacked on axis 0)."""
+    as ``repro``'s, with numpy leaves (layer parameters stacked on axis 0;
+    bfloat16 as raw ``BF16_RAW`` records, the form a checkpoint stores)."""
     params = dict(state.params.named_parameters())
     leaves = param_leaves(params)
     p_tree: dict = {}

@@ -15,9 +15,16 @@ that a later reader can run *in parallel with* the uncertain writer:
                              commit Ŷ→Y if U did not write (r ← r̂),
                              else re-run R's body on the real X (rollback)
 
-Because JAX arrays are immutable, snapshots are reference copies — the cost
-of speculation here is task-management overhead plus possible re-execution,
-never a deep copy.
+Snapshots are reference copies — the cost of speculation is
+task-management overhead plus possible re-execution, never a deep copy.  In
+the port the referenced values may be mutable tensors: a snapshot is then an
+*alias* of the live value, not a frozen copy, and a speculative body that
+writes a tensor in place writes the real one.  Speculation is correct only
+if such writes cannot change what the commit or a rollback re-execution
+reads — the contract a user of this machinery must state and keep (for
+speculative decoding, in ``repro_torch.serving.spec``: every in-place KV
+write of the verify body is at or beyond the committed position, or
+rewrites a row with the same token, and its outputs are fresh tensors).
 
 The paper's two speculative models are both implemented:
 
@@ -32,8 +39,9 @@ Commutative/atomic accesses and array views in the reader bail out to
 normal insertion.  Communication tasks refuse speculation entirely (paper
 §4.4 limitation, enforced in ``comm.py``).
 
-Speculative **decoding** (``repro.serving.spec`` in the JAX package; not yet ported) is this machinery applied
-to LM serving — the mapping from the paper's abstractions to the decoder:
+Speculative **decoding** (``repro_torch.serving.spec``) is this machinery
+applied to LM serving — the mapping from the paper's abstractions to the
+decoder:
 
 * each *draft* step is an uncertain writer (``maybe``) on the engine's
   per-batch decode-state cell: it proposes tokens with a cheap draft model

@@ -5,8 +5,9 @@ model, on the card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b --reduced \\
         --device cpu --requests 6 --slots 2 --gen 8 --temperature 0.7 --top-k 40
 
-The flags are ``repro.launch.serve``'s plus ``--device`` (speculative
-decoding's ``--draft-k`` / ``--draft-layers`` wait for its port).
+The flags are ``repro.launch.serve``'s plus ``--device``; ``--draft-k K``
+turns on speculative decoding with a ``--draft-layers``-layer draft that
+shares the target's weights.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import numpy as np
 
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.models import init_params
-from repro_torch.serving import ServeEngine
+from repro_torch.serving import ServeEngine, shrunken_draft
 
 
 def main(argv=None) -> dict:
@@ -49,11 +50,24 @@ def main(argv=None) -> dict:
         help="batching window in seconds: hold admissions so near-"
         "simultaneous arrivals join the decode batch together",
     )
+    ap.add_argument(
+        "--draft-k", type=int, default=0,
+        help="speculative decoding draft depth (0 = off); the draft model "
+        "is a --draft-layers-layer truncation of the target's own weights",
+    )
+    ap.add_argument(
+        "--draft-layers", type=int, default=1,
+        help="number of target layers kept in the shrunken draft model",
+    )
     args = ap.parse_args(argv)
 
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     params = init_params(cfg, 0, device=args.device)
     rng = np.random.default_rng(0)
+
+    draft_cfg = draft_params = None
+    if args.draft_k > 0:
+        draft_cfg, draft_params = shrunken_draft(cfg, params, n_layers=args.draft_layers)
 
     with ServeEngine(
         cfg,
@@ -63,6 +77,9 @@ def main(argv=None) -> dict:
         block_size=args.block_size,
         max_batch=args.max_batch,
         admit_max_wait=args.admit_max_wait,
+        draft_cfg=draft_cfg,
+        draft_params=draft_params,
+        draft_k=max(args.draft_k, 1),
         device=args.device,
     ) as eng:
         t0 = time.perf_counter()
@@ -94,6 +111,14 @@ def main(argv=None) -> dict:
             f"{pool['live_blocks']}/{pool['n_blocks']} blocks live, "
             f"{pool['shared_hits']} shared hits, {pool['evictions']} evictions"
         )
+        if "spec" in stats:
+            sp = stats["spec"]
+            print(
+                f"[serve] speculation: k={sp['draft_k']}, {sp['rounds']} rounds "
+                f"({sp['rollback_rounds']} rolled back, {sp['sheds']} shed), "
+                f"accept rate {sp['accept_rate']:.2f}, "
+                f"{sp['accepted_per_round']:.2f} tokens/round committed"
+            )
         reject_reasons = collections.Counter(r.reject_reason for r in reqs if r.rejected)
         print(
             f"[serve] rejections: {sum(reject_reasons.values())} total "

@@ -25,11 +25,12 @@ from repro_torch.models.transformer import (
     model_defs,
     prefill,
     set_trainable,
+    verify_step,
 )
 
 __all__ = [
     "ArchConfig", "HybridConfig", "MLAConfig", "MoEConfig", "SHAPES", "ShapeSpec",
     "SSMConfig", "applicable_shapes", "Block", "SSMBlock", "Transformer", "cache_defs",
     "cache_layout", "decode_step", "forward", "init_cache", "init_params",
-    "loss_fn", "model_defs", "prefill", "set_trainable",
+    "loss_fn", "model_defs", "prefill", "set_trainable", "verify_step",
 ]

@@ -270,6 +270,30 @@ def decode_step(model: Transformer, tokens: torch.Tensor, caches: dict, pos, cfg
     return logits_apply(model, x, cfg), caches
 
 
+@torch.no_grad()
+def verify_step(model: Transformer, tokens: torch.Tensor, caches: dict, pos, cfg: ArchConfig,
+                advance=None):
+    """Multi-position decode for speculative-decoding verification: feeds
+    ``tokens`` (B, T) one position at a time, sub-step ``j`` at ``pos +
+    j·advance`` (``advance`` a (B,) 0/1 vector, all ones when None; a slot
+    with 0 re-feeds its token at the same position, an idempotent KV row
+    rewrite).  → (logits (B, T, V), caches updated in place).
+
+    The loop body is :func:`decode_step` itself, at the plain decode's
+    shapes, so each position's logits are bit for bit the plain decode's:
+    batching the T positions into one forward would change the matrix
+    products' shapes, and with them the bits.  The positions are formed on
+    the device from one (B,) ``pos`` and ``advance``."""
+    B, T = tokens.shape
+    pos_b = _pos_vector(pos, B, tokens.device)
+    adv = torch.ones_like(pos_b) if advance is None else _pos_vector(advance, B, tokens.device)
+    outs = []
+    for j in range(T):
+        logits_j, caches = decode_step(model, tokens[:, j:j + 1], caches, pos_b + j * adv, cfg)
+        outs.append(logits_j)
+    return torch.cat(outs, dim=1), caches
+
+
 # ---------------------------------------------------------------------------
 # Caches
 # ---------------------------------------------------------------------------

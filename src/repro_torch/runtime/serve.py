@@ -1,6 +1,8 @@
-"""Serving plumbing: prime a prefill cache for decode, and move one slot's KV
-rows in and out of the paged pool.  A port of ``repro.runtime.serve``
-(the jitted ``build_*_fn`` wrappers have no counterpart: PyTorch runs eagerly).
+"""Serving plumbing: prime a prefill cache for decode, move one slot's KV
+rows in and out of the paged pool, and the speculative verify forward.  A
+port of ``repro.runtime.serve`` (PyTorch runs eagerly, so the jitted
+``build_*_fn`` wrappers have no counterpart but :func:`build_verify_fn`, a
+plain closure).
 
 Block payloads are CPU tensors of the cache dtype, not numpy arrays as in
 ``repro``: numpy has no bfloat16.
@@ -10,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.transformer import verify_step
 
 
 def _pad_kv(kv: torch.Tensor, size: int, window) -> torch.Tensor:
@@ -72,3 +75,13 @@ def concat_cache_rows(payloads: list) -> dict:
     if len(payloads) == 1:
         return payloads[0]
     return {k: torch.cat([p[k] for p in payloads], dim=1) for k in payloads[0]}
+
+
+def build_verify_fn(cfg: ArchConfig):
+    """Speculative-decoding verify forward: (model, tokens (B, T), caches,
+    pos (B,), advance (B,)) → (logits (B, T, V), caches, updated in place):
+    :func:`repro_torch.models.verify_step`'s unrolled ``decode_step``."""
+    def verify_fn(model, tokens, caches, pos, advance):
+        return verify_step(model, tokens, caches, pos, cfg, advance=advance)
+
+    return verify_fn

@@ -7,10 +7,17 @@
                  admission planning, preemption victims.
 ``engine``     — :class:`ServeEngine`: continuously-batched decoding on one
                  persistent SpTaskGraph; per-request sampling controls.
+``spec``       — :class:`SpecDecoder`: draft-model speculative decoding as
+                 SP_MODEL_2 uncertain-writer chains on the engine's
+                 batch-state cell (commit/rollback via the runtime's
+                 speculation machinery).
+``loadgen``    — seeded Poisson load generator + latency metrics.
 """
 from repro_torch.serving.engine import Request, ServeEngine
 from repro_torch.serving.kvcache import BlockTable, KVBlock, KVPagePool, PageError
+from repro_torch.serving.loadgen import LoadSpec, build_workload, run_load
 from repro_torch.serving.scheduler import Admission, AdmissionError, ServeScheduler
+from repro_torch.serving.spec import SpecDecoder, shrunken_draft
 
 __all__ = [
     "Admission",
@@ -18,8 +25,13 @@ __all__ = [
     "BlockTable",
     "KVBlock",
     "KVPagePool",
+    "LoadSpec",
     "PageError",
     "Request",
     "ServeEngine",
     "ServeScheduler",
+    "SpecDecoder",
+    "build_workload",
+    "run_load",
+    "shrunken_draft",
 ]

@@ -20,6 +20,11 @@ must be serialised and nothing else:
     restore     write(state)  — prefix-cache hit / resume: copy saved block
                                 payloads in instead of recomputing
 
+With a draft model (``draft_cfg=``) the graph runs under ``SP_MODEL_2`` and a
+step whose batch holds a speculative request is one speculation round
+instead of decode/collect: draft feeds chained as uncertain writers, a
+verify, a commit (``spec.py``).
+
 On the card the codelets launch the CUDA kernels (flash attention in
 prefill, decode attention in decode, rmsnorm in both; for an ssm model the
 ssd kernel in prefill and rmsnorm in both) from the engine's worker threads,
@@ -31,8 +36,7 @@ ssm cache has no per-token rows to page (``cache_layout`` is None): a
 duplicate prompt or a preempted sequence is prefilled again.
 
 Memory is managed by the paged KV cache (``kvcache.py``); admission control
-and backpressure live in ``scheduler.py``.  Speculative decoding
-(``repro.serving.spec``) is not ported yet: the engine refuses a draft model.
+and backpressure live in ``scheduler.py``.
 
 Threading model: ``submit()`` is thread-safe; ``step()``/``run_until_drained``
 must be driven from one thread (the planner mutates pool state with the
@@ -79,12 +83,17 @@ class Request:
     otherwise tokens are drawn from the temperature-scaled, top-k-filtered
     distribution with a random stream seeded from ``(seed, absolute
     position)`` — two runs with the same seed produce the same tokens, and
-    re-decoding a position (preemption resume) redraws the same token.
+    re-decoding a position (preemption resume, a speculation round) redraws
+    the same token.
 
     ``deadline`` is an absolute ``time.perf_counter()`` timestamp: once it
     passes, the request is shed from the queue or cancelled mid-decode
     (KV blocks released).  ``reject_reason`` says why a rejected request was
-    turned away: ``"queue_full"``, ``"shed"``, or ``"deadline"``."""
+    turned away: ``"queue_full"``, ``"shed"``, or ``"deadline"``.
+
+    ``speculative`` requests decode through draft/verify/commit rounds when
+    the engine has a draft model; ``out_tokens``/``t_tokens``/``on_token``
+    only ever see *committed* tokens."""
 
     prompt: np.ndarray  # (L,) int32
     max_new_tokens: int = 16
@@ -92,6 +101,7 @@ class Request:
     top_k: int = 0  # 0 = no top-k filter
     seed: int = 0
     deadline: Optional[float] = None  # absolute perf_counter seconds
+    speculative: bool = False
     on_token: Optional[callable] = None  # per committed token, engine thread
     req_id: int = field(default_factory=lambda: next(_req_ids))
     out_tokens: list = field(default_factory=list)
@@ -103,6 +113,9 @@ class Request:
     pending_tok: Optional[int] = None  # sampled (or prompt tail) token not yet fed
     admit_order: int = -1
     preemptions: int = 0
+    # speculative-decoding telemetry
+    spec_rounds: int = 0
+    spec_accepted: int = 0
     # latency telemetry (perf_counter seconds)
     t_arrival: Optional[float] = None
     t_first: Optional[float] = None
@@ -216,6 +229,8 @@ def _install_codelet(state, out, *, eng, req, slot):
     eng._pos_host[slot] = n_fed
     eng._slot_req[slot] = req
     state.value = st
+    if eng._spec is not None and req.speculative:
+        eng._spec.prime_slot(slot, req)
 
 
 @sp_task(write=("state",), name="serve.restore")
@@ -228,6 +243,8 @@ def _restore_codelet(state, *, eng, req, slot, rows, n_rows):
     eng._pos_host[slot] = n_rows
     eng._slot_req[slot] = req
     state.value = st
+    if eng._spec is not None and req.speculative:
+        eng._spec.prime_slot(slot, req)
 
 
 class ServeEngine:
@@ -236,9 +253,11 @@ class ServeEngine:
     ``params`` is the port's model (:func:`repro_torch.models.init_params`
     or :func:`repro_torch.bridge.params_from_numpy`) on ``device``, which
     defaults to ``"cuda"``; ``device="cpu"`` runs the plain PyTorch versions
-    of the kernels.  Context manager: ``with ServeEngine(cfg, params) as
-    eng: ...`` stops the owned compute engine on exit even if the body
-    raises.
+    of the kernels.  ``draft_cfg`` / ``draft_params`` (a model on the same
+    device, e.g. from :func:`~repro_torch.serving.spec.shrunken_draft`) and
+    ``draft_k`` turn on speculative decoding.  Context manager: ``with
+    ServeEngine(cfg, params) as eng: ...`` stops the owned compute engine on
+    exit even if the body raises.
     """
 
     def __init__(
@@ -255,14 +274,11 @@ class ServeEngine:
         max_batch: Optional[int] = None,
         admit_max_wait: float = 0.0,
         draft_cfg=None,
+        draft_params=None,
+        draft_k: int = 4,
         engine: Optional[SpComputeEngine] = None,
         device="cuda",
     ):
-        if draft_cfg is not None:
-            raise NotImplementedError(
-                "speculative decoding (repro.serving.spec) is not ported yet "
-                "(ROADMAP.md, port queue: 'Speculative decoding')"
-            )
         self.device = resolve_device(device)
         if params.device.type != self.device.type:
             raise ValueError(f"model lives on {params.device}, engine asked for {self.device}")
@@ -276,6 +292,7 @@ class ServeEngine:
         self.scheduler = ServeScheduler(
             self.pool, n_slots, max_queue=max_queue, overload=overload,
             max_batch=max_batch, admit_max_wait=admit_max_wait,
+            draft_k=draft_k if draft_cfg is not None else 0,
         )
         self._pageable = cache_layout(cfg) is not None
         self._slot_req: dict[int, Request] = {}
@@ -288,6 +305,7 @@ class ServeEngine:
         self._caches = init_cache(cfg, n_slots, max_seq, device=self.device)
         self._own_engine = engine is None
         self.engine = engine or SpComputeEngine(SpWorkerTeamBuilder.team_of_cpu_workers(2))
+        self._force_rollback = 0
         self.stream_errors = 0
         self.steps = 0
         self.decode_steps = 0
@@ -296,10 +314,22 @@ class ServeEngine:
         self.cancels = 0
         self.closed = False
         # ONE persistent graph for the engine's lifetime; every iteration
-        # chains its codelets onto the same batch-state cell
-        self._tg = SpTaskGraph(SpSpeculativeModel.SP_NO_SPEC, trace=False).compute_on(self.engine)
+        # chains its codelets onto the same batch-state cell.  With a draft
+        # model it runs under SP_MODEL_2, so speculation rounds (spec.py)
+        # flow through the uncertain-writer chain machinery; the plain
+        # decode path's certain writes clear any uncertainty at once.
+        spec_model = (
+            SpSpeculativeModel.SP_MODEL_2 if draft_cfg is not None
+            else SpSpeculativeModel.SP_NO_SPEC
+        )
+        self._tg = SpTaskGraph(spec_model, trace=False).compute_on(self.engine)
         last_tok = torch.zeros((n_slots, 1), dtype=torch.int32, device=self.device)
         self._state = SpData({"caches": self._caches, "tok": last_tok}, "serve_state")
+        self._spec = None
+        if draft_cfg is not None:
+            from repro_torch.serving.spec import SpecDecoder
+
+            self._spec = SpecDecoder(self, draft_cfg, draft_params, k=draft_k)
 
     # ------------------------------------------------------------------ API
 
@@ -312,15 +342,25 @@ class ServeEngine:
         top_k: int = 0,
         seed: int = 0,
         deadline: Optional[float] = None,
+        speculative: Optional[bool] = None,
         on_token: Optional[callable] = None,
     ) -> Request:
         """Enqueue a request (thread-safe).  Raises AdmissionError when the
         bounded queue is full under the ``"reject"`` overload policy.
-        ``deadline`` is *relative* seconds from now.  ``on_token`` is invoked
-        with each token as it lands (engine thread; exceptions are swallowed
-        and counted in ``stream_errors``)."""
+        ``deadline`` is *relative* seconds from now.  ``speculative`` opts the
+        request in or out of speculative decoding; the default (None) opts
+        in iff the engine has a draft model.  ``on_token`` is invoked with
+        each committed token as it lands (engine thread; exceptions are
+        swallowed and counted in ``stream_errors``)."""
         if self.closed:
             raise RuntimeError("ServeEngine is closed")
+        if speculative is None:
+            speculative = self._spec is not None
+        elif speculative and self._spec is None:
+            raise ValueError(
+                "speculative=True needs an engine with a draft model "
+                "(ServeEngine(draft_cfg=, draft_params=))"
+            )
         prompt = np.asarray(prompt, np.int32)
         if len(prompt) + max_new_tokens > self.max_seq:
             raise ValueError(
@@ -335,6 +375,7 @@ class ServeEngine:
             top_k=int(top_k),
             seed=int(seed),
             deadline=None if deadline is None else now + float(deadline),
+            speculative=bool(speculative),
             on_token=on_token,
         )
         req.t_arrival = now
@@ -349,14 +390,34 @@ class ServeEngine:
         """One engine iteration: chain this iteration's codelets onto the
         persistent graph.  Decode/collect for the current batch go in first,
         then admissions — so a newly admitted request's prefill overlaps the
-        in-flight decode and its KV installs right after collect."""
+        in-flight decode and its KV installs right after collect.
+
+        When a running request opted into speculation (and the scheduler's
+        draft-depth policy allows it), decode/collect is replaced by one
+        speculation round, which advances speculative slots by up to k+1
+        committed tokens while plain slots ride along at one.  Rounds force
+        ``wait``: round planning reads slot state the previous round must
+        have committed."""
+        spec_round = False
         with graph_scope(self._tg):
             if self._slot_req:
-                _decode_codelet(self._state, eng=self)
-                _collect_codelet(self._state, eng=self)
+                spec_slots = [
+                    s for s, r in self._slot_req.items() if r.speculative
+                ] if self._spec is not None else []
+                k = 0
+                if spec_slots:
+                    k = self.scheduler.draft_depth(len(spec_slots))
+                    if k <= 0:
+                        self._spec.sheds += 1  # pool pressure: plain decode
+                if spec_slots and k > 0:
+                    self._spec.insert_round(spec_slots, k)
+                    spec_round = True
+                else:
+                    _decode_codelet(self._state, eng=self)
+                    _collect_codelet(self._state, eng=self)
             for adm in self.scheduler.plan(pageable=self._pageable):
                 self._insert_admission(adm)
-        if wait:
+        if wait or spec_round:
             self._tg.wait_all_tasks()
         self.steps += 1
 
@@ -383,6 +444,9 @@ class ServeEngine:
         }
         out.update(self.scheduler.stats())
         out["pool"] = self.pool.stats()
+        if self._spec is not None:
+            out["spec"] = self._spec.stats()
+            out["spec"]["graph"] = dict(self._tg.spec_stats)
         return out
 
     def close(self) -> None:
@@ -402,8 +466,9 @@ class ServeEngine:
 
     def _upload_positions(self) -> None:
         """Host positions → the device (B,) tensor, through a pinned buffer on
-        the card.  The previous step's copy has completed: collect's
-        device→host token copy came after it on the same stream."""
+        the card.  The previous step's copy has completed: collect's (or the
+        verify body's) device→host token copy came after it on the same
+        stream."""
         self._pos_staging.copy_(torch.from_numpy(self._pos_host))
         self._pos.copy_(self._pos_staging, non_blocking=True)
 
@@ -457,12 +522,24 @@ class ServeEngine:
         except Exception:
             self.stream_errors += 1
 
+    def force_rollback(self, n: int = 1) -> None:
+        """Poison the next ``n`` speculation rounds: their draft chains
+        write the state cell, so the machinery rolls the verify back and
+        re-executes it as a plain decode.  Output is unchanged (that is the
+        point of the commit/rollback protocol); used by tests and chaos
+        schedules."""
+        if self._spec is None:
+            raise RuntimeError("engine has no draft model; nothing to roll back")
+        self._force_rollback += int(n)
+
     def _finish(self, slot: int) -> None:
         req = self._slot_req.pop(slot)
         req.done = True
         self._writeback(slot, req)
         self.pool.release(req.req_id, keep_resident=True)
         self.scheduler.free_slot(slot)
+        if self._spec is not None:
+            self._spec.drop_slot(slot)
 
     def _cancel_slot(self, slot: int, *, reason: Optional[str]) -> None:
         """Evict a running sequence whose output is no longer wanted: its KV
@@ -475,6 +552,8 @@ class ServeEngine:
         self.pool.release(req.req_id, keep_resident=False)
         self.scheduler.free_slot(slot)
         self.cancels += 1
+        if self._spec is not None:
+            self._spec.drop_slot(slot)
 
     def _preempt(self, slot: int) -> None:
         """Evict a running sequence: save its KV rows, release its blocks
@@ -485,6 +564,8 @@ class ServeEngine:
         self.scheduler.free_slot(slot)
         req.preemptions += 1
         self.scheduler.requeue(req)
+        if self._spec is not None:
+            self._spec.drop_slot(slot)
 
     def _preempt_for(self, needy_slot: int) -> bool:
         victim = self.scheduler.preemption_victim(self._slot_req, exclude=needy_slot)

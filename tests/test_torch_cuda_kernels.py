@@ -493,3 +493,56 @@ def test_mamba2_training_on_the_card_raises_until_the_ssd_backward(cuda_device):
     with torch.no_grad():
         loss, _ = loss_fn(model, batch, cfg)
     assert torch.isfinite(loss) and ssd_ops.launches.count - before == cfg.n_layers
+
+
+@pytest.mark.cuda
+def test_speculative_streams_equal_plain_on_the_card(cuda_device):
+    """Reduced deepseek-7b in bf16: with the 1-layer shrunken draft at k = 4
+    every verify sub-step and draft feed runs the decode-attention kernel,
+    and the greedy streams equal the plain engine's."""
+    import numpy as np
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServeEngine, shrunken_draft
+
+    cfg = reduced_config("deepseek-7b")
+    model = init_params(cfg, 0, device=cuda_device)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in (6, 9, 5)]
+    draft_cfg, draft = shrunken_draft(cfg, model, n_layers=1)
+    outs = []
+    for kw in (dict(draft_cfg=draft_cfg, draft_params=draft), {}):
+        with ServeEngine(cfg, model, n_slots=3, max_seq=48, block_size=4, device=cuda_device,
+                         **kw) as eng:
+            before = decode_ops.launches.count
+            reqs = [eng.submit(p, 10) for p in prompts]
+            eng.run_until_drained()
+            assert decode_ops.launches.count > before
+            outs.append([r.out_tokens for r in reqs])
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_the_card(cuda_device, tmp_path):
+    """A bf16 Adafactor state trained on the card, saved and restored onto
+    the card: every tensor bit-identical."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import reduced_config
+    from repro_torch.runtime.train import build_train_step, init_train_state
+
+    cfg = reduced_config("deepseek-7b").replace(optimizer="adafactor")
+    state = init_train_state(cfg, 0, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab, (2, 64), generator=gen, device=cuda_device, dtype=torch.int32)
+    state, _ = build_train_step(cfg)(state, {"tokens": tokens, "labels": tokens})
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, state, block=True)
+    step, restored = mgr.restore(state)
+    assert step == 1 and restored.step.device.type == "cuda"
+    pairs = list(zip(state.params.parameters(), restored.params.parameters()))
+    pairs += [(state.opt[k][kk], restored.opt[k][kk]) for k in state.opt for kk in state.opt[k]]
+    for a, b in pairs:
+        assert b.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a.view(torch.int16) if a.element_size() == 2 else a.view(torch.int32),
+                           b.view(torch.int16) if b.element_size() == 2 else b.view(torch.int32))

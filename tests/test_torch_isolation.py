@@ -21,6 +21,7 @@ import repro_torch, repro_torch.serving, repro_torch.launch.serve, repro_torch.b
 import repro_torch.core, repro_torch.kernels.dispatch
 import repro_torch.optim, repro_torch.data, repro_torch.runtime.train, repro_torch.launch.train
 import repro_torch.dist.collectives, repro_torch.core.staged
+import repro_torch.checkpoint, repro_torch.serving.spec, repro_torch.serving.loadgen
 bad = sorted(
     name for name, mod in sys.modules.items()
     if mod is not None and (name == "repro" or name.startswith(("repro.", "jax")))

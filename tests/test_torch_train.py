@@ -405,8 +405,7 @@ def test_launcher_loss_decreases_on_cpu():
 
 
 def test_launcher_raises_without_a_card_or_for_unported_flags():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        launch_train.main(["--reduced", "--device", "cpu", "--ckpt-dir", "ck"])
+    # checkpointing is ported now (tests/test_torch_checkpoint.py)
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         launch_train.main(["--reduced", "--device", "cpu", "--fail-at", "5:4"])
     if dispatch.cuda_available():
