@@ -21,39 +21,51 @@ Phases (any failure raises and the script exits non-zero):
               (2048·32, 128) and the edge paths) against their plain
               versions, run to run identical, timed beside the backward of
               SDPA / F.rms_norm (the flash backward's dK/dV and dQ kernels
-              also apart); then one codelet per kernel on a device worker,
-              and mamba2 training through ``launch/train.py``, which raises
-              until the ssd kernel has a backward (fault F1's guard);
-4. serving  — full-width deepseek-7b (30 layers, bf16, seeded random init)
+              also apart); the ssd backward against its plain version at
+              cs 256 / 100 / 1, G = 1 and G = H, a strong decay (finite
+              gradients), bf16 and fp32, run to run identical, autograd
+              through the scan on a ragged L, and timed at the mamba2
+              train path's shape with both reckonings of its bound; then
+              one codelet per kernel on a device worker;
+4. examples — the five examples of ``repro_torch.examples`` on the card
+              at small step counts (the heterogeneous GEMM runs tasks on
+              the card worker);
+5. serving  — full-width deepseek-7b (30 layers, bf16, seeded random init)
               through ``repro_torch.serving.ServeEngine``: ragged prompts and a
               sampled request, then duplicates that take the prefix-share and
               the restore paths; launch counts show the path ran through all
               three of its kernels; one greedy request is held against a
               sequential prefill + decode loop; a decode iteration and the
               2048-token prefill alone are profiled;
-5. serving  — full-width mamba2-130m (24 layers, bf16, seeded random init):
+6. serving  — full-width mamba2-130m (24 layers, bf16, seeded random init):
               prompts up to 4096 tokens, a sampled request and a duplicate
               (re-prefilled: ssm states are not paged); launch counts show the
               path ran through the ssd and rmsnorm kernels; a request admitted
               beside 7 decoding ones is held against prefill (its installed
               caches) and against the sequential loop (tokens, last logits
               and caches);
-6. model    — full width cut in depth, fp32: the card's logits against the
+7. model    — full width cut in depth, fp32: the card's logits against the
               CPU port's (plain versions) for a prompt and decode steps, for
               deepseek-7b (2 layers) and mamba2-130m (4 layers);
-7. train    — parity: deepseek-7b at full width and 2 layers, fp32, two
+8. train    — parity: deepseek-7b at full width and 2 layers, fp32, two
               staged train steps (B = 2, L = 256, 2 microbatches) with
               Adafactor and with AdamW on the card against the CPU port from
               the same state (loss, grad norm, parameters; exact launch
               counts);
-8. train    — deepseek-7b at full width and depth (30 layers, bf16,
+9. train    — deepseek-7b at full width and depth (30 layers, bf16,
               Adafactor, remat "full", logits in chunks of 1024), global
               batch (2, 2048) in 2 microbatches, 4 staged steps: finite
               losses, the schedule, exact launch counts of the four train
               kernels, step time, tokens/s, model TFLOP/s, peak memory; one
               profiled step; a nonfinite step that leaves every bit as it
               was;
-9. spec     — full-width deepseek-7b again (seed 0), the serving phase's
+10. train   — mamba2-130m: parity at full width and 2 layers in fp32 (B =
+              2, L = 512, 2 microbatches, AdamW) against the CPU port, then
+              the full 24 layers in bf16 (AdamW, remat "full"), global
+              batch (8, 2048) in 2 microbatches, 4 staged steps: finite
+              losses, exact ssd / ssd_bwd / rmsnorm / rmsnorm_bwd launch
+              counts, step time, tokens/s, peak memory, one profiled step;
+11. spec    — full-width deepseek-7b again (seed 0), the serving phase's
               geometry and requests through ``ServeEngine`` with
               speculative decoding at k = 4: the 1-layer shrunken draft,
               the same with two forced rollbacks, and the target as its own
@@ -63,11 +75,11 @@ Phases (any failure raises and the script exits non-zero):
               sub-steps × 30 decode attentions); accept rate, tokens a
               round, round wall ms, tokens/s beside the plain engine's and
               one profiled round's device busy share;
-10. load    — ``run_load`` on the same model (16 requests at 2/s, prompts of
+12. load    — ``run_load`` on the same model (16 requests at 2/s, prompts of
               128-2048 tokens, a quarter duplicates): continuous, drain, and
               continuous with the 1-layer draft; equal output checksums,
               exact launch counts; TTFT and ITL p50 / p99, tokens/s;
-11. ckpt    — deepseek-7b at full width and 4 layers (bf16, Adafactor),
+13. ckpt    — deepseek-7b at full width and 4 layers (bf16, Adafactor),
               (2, 2048) in 2 microbatches, through the train launcher's
               loop and ``CheckpointManager`` calls: two unbroken 4-step runs (one
               saving every 2 steps), then a fresh state resumed from step 2;
@@ -304,7 +316,7 @@ def check_hgmma() -> dict | None:
 
 
 # the kernels whose registers and spills the kernel phase prints
-RESOURCE_KERNELS = ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")
+RESOURCE_KERNELS = ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel", "ssd_bwd_kernel")
 
 
 def resource_usage() -> dict:
@@ -736,13 +748,113 @@ def check_rmsnorm_bwd(dev) -> dict:
     )
 
 
+def _ssd_bwd_args(gen, dev, dtype, b, L, H, G, cs, dt_shift=-1.0):
+    """``_ssd_chunk_args`` of a (b, L) batch (mamba2's P = 64, N = 128), and
+    float32 cotangents of y (the permuted view of the model's (b, nc, cs,
+    H, P) order that autograd hands the backward) and of the state."""
+    P, N = 64, 128
+    x = _randn(gen, (b, L, H, P), dtype, dev)
+    Bm, Cm = (_randn(gen, (b, L, G, N), dtype, dev) for _ in range(2))
+    dt = torch.nn.functional.softplus(torch.randn((b, L, H), generator=gen, device=dev) + dt_shift)
+    A = -torch.exp(torch.randn((H,), generator=gen, device=dev) * 0.2)
+    nc = L // cs
+    dy = torch.randn((b, nc, cs, H, P), generator=gen, device=dev).permute(0, 3, 1, 2, 4)
+    dS = torch.randn((b, H, nc, N, P), generator=gen, device=dev)
+    return _ssd_chunk_args(x, dt, A, Bm, Cm, cs), dy, dS
+
+
+def check_ssd_bwd(dev) -> dict:
+    """The ssd backward kernel against ``ssd_chunk_bwd_ref`` on the card:
+    cs 256 / 100 / 1, one group and one group per head, a strong decay (the
+    span of cum inside a chunk past 88, where exp of the masked triangle
+    overflows: every gradient finite), bf16 and fp32, run to run identical;
+    autograd through the scan on a ragged L (777: a padded 9-row tail) with
+    an initial state against the plain scan's autograd; times at the train
+    path's shape (one microbatch of mamba2-130m's (8, 2048) batch in 2)."""
+    from repro_torch.kernels.ssd import ops
+    from repro_torch.kernels.ssd.ref import ssd_chunk_bwd_ref
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    err = 0.0
+    cases = ((512, 256, 24, 1, -1.0), (512, 256, 8, 8, -1.0), (300, 100, 24, 1, -1.0),
+             (300, 100, 4, 4, -1.0), (5, 1, 4, 1, -1.0), (512, 256, 4, 1, 3.0))
+    for L, cs, H, G, shift in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            args, dy, dS = _ssd_bwd_args(gen, dev, dtype, 1, L, H, G, cs, shift)
+            label = f"{dtype} L={L} cs={cs} H={H} G={G} dt_shift={shift}"
+            if shift > 0:
+                span = float((args[2][..., 0] - args[2][..., -1]).max())
+                log(f"[kernels] ssd bwd strong decay: cum spans {span:.1f} inside a chunk")
+                assert span > 88, span
+            got = ops.ssd_intra_chunk_bwd(*args, dy, dS)
+            want = ssd_chunk_bwd_ref(*args, dy, dS)
+            for name, g, w in zip(("dx", "ddt", "dcum", "dB", "dC"), got, want):
+                _compare_bwd(f"ssd bwd {name} {label}", g, w, dtype)
+            again = ops.ssd_intra_chunk_bwd(*args, dy, dS)
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), f"ssd bwd {label}: not deterministic"
+    log("[kernels] ssd bwd: run to run identical in every case")
+    # autograd through the scan: ragged L, one group read in place, an initial state
+    L, H, P, N = 777, 24, 64, 128
+    leaves = [torch.randn((1, L, H, P), generator=gen, device=dev),
+              torch.nn.functional.softplus(torch.randn((1, L, H), generator=gen, device=dev) - 1),
+              -torch.exp(torch.randn((H,), generator=gen, device=dev) * 0.2),
+              torch.randn((1, L, 1, N), generator=gen, device=dev), torch.randn((1, L, 1, N), generator=gen, device=dev),
+              torch.randn((1, H, N, P), generator=gen, device=dev)]
+    dy, ds = torch.randn((1, L, H, P), generator=gen, device=dev), torch.randn((1, H, N, P), generator=gen, device=dev)
+    grads = []
+    for scan in (ops.ssd_chunked, ops.ssd_chunked_ref):
+        ts = [t.clone().requires_grad_() for t in leaves]
+        y, s = scan(*ts[:5], 256, ts[5])
+        grads.append(torch.autograd.grad((y * dy).sum() + (s * ds).sum(), ts))
+    for name, g, w in zip(("x", "dt", "A", "B", "C", "initial state"), *grads):
+        _compare_bwd(f"ssd_chunked grad {name} fp32 L={L} (kernels vs plain autograd)", g, w, torch.float32)
+    # the train path's shape: x (4, 2048, 24, 64), B/C (4, 2048, 1, 128) bf16, cs 256
+    b, L, H, G, cs, P, N, dtype = 4, 2048, 24, 1, 256, 64, 128, torch.bfloat16
+    sets = [_ssd_bwd_args(gen, dev, dtype, b, L, H, G, cs) for _ in range(2)]
+    sets = [(*args, dy, dS) for args, dy, dS in sets]
+    got, want = ops.ssd_intra_chunk_bwd(*sets[0]), ssd_chunk_bwd_ref(*sets[0])
+    for name, g, w in zip(("dx", "ddt", "dcum", "dB", "dC"), got, want):
+        e = _compare_bwd(f"ssd bwd {name} at the train shape", g, w, dtype)
+        if name == "dx":
+            err = e
+    del got, want
+    ms = time_ms(ops.ssd_intra_chunk_bwd, sets)
+    plain = time_ms(ssd_chunk_bwd_ref, sets[:1], iters=3)
+    nc = L // cs
+    n_chunks = b * H * nc  # (chunk, head) pairs
+    pairs = cs * (cs + 1) // 2
+    # per (chunk, head): s (N), dW (P), dx (P), dC (N), dB (N) over the
+    # causal pairs, and u = dS x, v = dS^T B over every row
+    flops = n_chunks * (2 * pairs * (3 * N + 2 * P) + 4 * cs * N * P)
+    el = 2  # bf16
+    bytes_moved = (b * L * H * P * el + 2 * b * L * G * N * el  # x, B, C
+                   + b * L * H * P * 4 + n_chunks * N * P * 4 + 2 * b * L * H * 4  # dy, dS, dt, cum
+                   + b * L * H * P * el + 2 * b * L * H * 4 + 2 * b * L * G * N * el)  # dx, ddt, dcum, dB, dC
+    bound, by = _bound(bytes_moved, flops, dtype)
+    t_simt = flops / PEAK_FLOPS[torch.float32] * 1e3
+    log(f"[kernels] ssd bwd bound: {flops / 1e9:.3f} GFLOP at the bf16 tensor rate "
+        f"{flops / PEAK_FLOPS[dtype] * 1e3:.5f} ms, {bytes_moved} bytes {bytes_moved / HBM_BYTES_PER_S * 1e3:.5f} ms: "
+        f"bound {bound:.5f} ms ({by}), kernel at {bound / ms:.1%} of it; at the f32 SIMT rate the "
+        f"products take {t_simt:.5f} ms, kernel at {t_simt / ms:.1%} of that")
+    parts = dict(profiled_calls(lambda: ops.ssd_intra_chunk_bwd(*sets[0]))["top"])
+    log("[kernels] ssd bwd kernels apart (profiler, 10 calls): "
+        + ", ".join(f"{n[:70]} {t:.4f} ms" for n, t in parts.items()))
+    return dict(
+        name="ssd_bwd", route="cuda", source="src/repro_torch/kernels/csrc/ssd_bwd.cu",
+        replaces="src/repro/models/ssm.py:74 (no Pallas kernel: JAX differentiates the jnp ssd_chunked)",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None,
+        simt_ms=t_simt, flops=flops, bytes=bytes_moved,
+        shape=f"x ({b}, {L}, {H}, {P}), B/C ({b}, {L}, {G}, {N}) bf16, cs {cs}; {flops / 1e9:.2f} GFLOP",
+    )
+
+
 def kernel_phase(dev) -> list[dict]:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     check_hgmma()
     resource_usage()
     records = [check_rmsnorm(dev), check_flash(dev), check_decode(dev), check_ssd(dev),
-               check_flash_bwd(dev), check_rmsnorm_bwd(dev)]
+               check_flash_bwd(dev), check_rmsnorm_bwd(dev), check_ssd_bwd(dev)]
     for r in records:
         lib = "none (no single PyTorch call)" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(
@@ -792,29 +904,50 @@ def codelet_phase(dev) -> None:
         assert torch.isfinite(first.float()).all(), name
 
 
-def f1_guard_phase() -> None:
-    """Fault F1's guard: the ssd kernel has no backward yet, so training
-    mamba2 on the card stops at its first microbatch with
-    ``NotImplementedError`` naming ROADMAP.md Queue 2 item 4, through the
-    train launcher as a user calls it, before any ssd launch."""
-    from repro_torch.kernels.ssd import ops as ssd_ops
-    from repro_torch.launch import train as launch_train
+def examples_phase(dev) -> dict:
+    """The five examples of ``repro_torch.examples`` on the card, at small
+    step counts, with their own asserts: the quickstart's ``double`` ran
+    its ``cuda`` variant; the heterogeneous GEMM ran at least one task on
+    the card worker and is within 1e-3 of A @ B; the Monte-Carlo chain's
+    speculative and plain runs agree; train_lm's loss falls; serve_lm's
+    fitted model continues the rule and its speculative streams equal the
+    plain engine's.  Graphs and checkpoints go to a temporary directory."""
+    import tempfile
 
-    before = ssd_ops.launches.count
-    argv = ["--arch", "mamba2-130m", "--reduced", "--steps", "1", "--batch", "2", "--seq", "64",
-            "--microbatches", "1", "--log-every", "0"]
-    try:
-        launch_train.main(argv)
-    except NotImplementedError as e:
-        assert "Queue 2 item 4" in str(e), e
-        log(f"[f1] launch.train {' '.join(argv)} on the card raised NotImplementedError: {str(e)[:100]}...")
-    else:
-        raise AssertionError("mamba2 training on the card ran without the ssd backward")
-    assert ssd_ops.launches.count == before, "the ssd kernel launched under autograd"
+    from repro_torch.examples import (
+        heterogeneous_gemm,
+        quickstart,
+        serve_lm,
+        speculative_monte_carlo,
+        train_lm,
+    )
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="smoke-examples-") as d:
+        t0 = time.perf_counter()
+        q = quickstart.main(["--out-dir", d])
+        assert q["double_ran"] == "cuda" and q["double"] == 42.0 and q["acc"] == 28.0, q
+        g = heterogeneous_gemm.main(["--out-dir", d])
+        assert g["by_kind"].get("cuda", 0) >= 1 and g["max_err"] < 1e-3, g
+        mc = speculative_monte_carlo.main(["--steps", "12", "--accept-p", "0.0", "0.5"])
+        t = train_lm.main(["--steps", "20", "--seq", "128", "--ckpt-dir", d, "--ckpt-every", "10"])
+        assert t["last"] < t["first"] and t["saved"] == [10, 20], t
+        sv = serve_lm.main(["--draft", "4"])
+        out = dict(gemm_by_kind=g["by_kind"], gemm_err=g["max_err"], mc=[(r["state"], r["obs"]) for r in mc],
+                   train_loss=(t["first"], t["last"]), serve_accuracy=sv["accuracy"],
+                   spec_accept=sv["accept_rate"], seconds=time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    log(f"[examples] all five ran on the card in {out['seconds']:.1f} s: quickstart double on 'cuda'; gemm "
+        f"tasks by worker kind {out['gemm_by_kind']}, max err {out['gemm_err']:.2e}; monte carlo (state, obs) "
+        f"{out['mc']}; train_lm loss {out['train_loss'][0]:.4f} -> {out['train_loss'][1]:.4f}; serve_lm "
+        f"accuracy {out['serve_accuracy']:.2%}, speculative accept rate {out['spec_accept']:.2f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
-# 4-5. serving at full width
+# 5-6. serving at full width
 # ---------------------------------------------------------------------------
 
 def _kernel_ops() -> dict:
@@ -826,7 +959,8 @@ def _kernel_ops() -> dict:
 
     return {"rmsnorm": rmsnorm_ops.launches, "flash_attention": flash_ops.launches,
             "decode_attention": decode_ops.launches, "ssd": ssd_ops.launches,
-            "flash_attention_bwd": flash_ops.bwd_launches, "rmsnorm_bwd": rmsnorm_ops.bwd_launches}
+            "flash_attention_bwd": flash_ops.bwd_launches, "rmsnorm_bwd": rmsnorm_ops.bwd_launches,
+            "ssd_bwd": ssd_ops.bwd_launches}
 
 
 def _sequential_greedy(model, cfg, prompt, slot, dev, n_slots=N_SLOTS, max_seq=MAX_SEQ,
@@ -881,7 +1015,7 @@ def _profile_decode(eng, prompts, n_iter: int = 4) -> dict:
 
 
 # device-time categories by kernel name, first match wins
-KINDS = (("flash backward", ("flash_bwd",)), ("flash forward", ("flash_fwd",)),
+KINDS = (("flash backward", ("flash_bwd",)), ("flash forward", ("flash_fwd",)), ("ssd backward", ("ssd_bwd",)),
          ("rmsnorm", ("rmsnorm", "dscale_reduce")), ("decode / ssd", ("decode_kernel", "ssd_chunk")),
          ("matrix products (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "sm90_", "splitK")),
          ("reductions", ("reduce_kernel", "scan")), ("copies", ("copy", "Copy", "cat", "Cat")))
@@ -997,6 +1131,7 @@ def serving_phase(dev) -> dict:
         "ssd": 0,  # no ssm layer in this model
         "flash_attention_bwd": 0,  # serving runs no backward
         "rmsnorm_bwd": 0,
+        "ssd_bwd": 0,
     }
     log(f"[serve] launches on the main path {launches}; expected {want} from "
         f"{stats['prefills']} prefills and {stats['decode_steps']} decode steps")
@@ -1138,6 +1273,7 @@ def mamba2_serving_phase(dev) -> dict:
         "ssd": cfg.n_layers * stats["prefills"],
         "flash_attention_bwd": 0,
         "rmsnorm_bwd": 0,
+        "ssd_bwd": 0,
     }
     log(f"[mamba2] launches on the main path {launches}; expected {want} from "
         f"{stats['prefills']} prefills and {stats['decode_steps']} decode steps")
@@ -1202,7 +1338,7 @@ def mamba2_serving_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 6. whole model: card against CPU
+# 7. whole model: card against CPU
 # ---------------------------------------------------------------------------
 
 def model_phase(dev, cfg=None, prompt_len: int = 256, limit: float = 1e-3) -> float:
@@ -1247,26 +1383,32 @@ def model_phase(dev, cfg=None, prompt_len: int = 256, limit: float = 1e-3) -> fl
 
 
 # ---------------------------------------------------------------------------
-# 7-8. the train step
+# 8-10. the train step
 # ---------------------------------------------------------------------------
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB, TRAIN_STEPS = 2, 2048, 2, 4
 
 
 def _train_launches_per_step(cfg, n_mb: int) -> dict:
-    """Kernel launches of one train step of the dense model: per microbatch,
-    each layer's flash attention and two norms plus the final norm forward,
-    the layers' kernels once more when ``remat="full"`` recomputes them, and
-    one backward of each."""
+    """Kernel launches of one train step: per microbatch, each layer's
+    mixer (flash attention for the dense model, the ssd intra-chunk step
+    for mamba2) and norms (two, four with qk_norm; one for an ssm block)
+    plus the final norm forward, the layers' kernels once more when
+    ``remat="full"`` recomputes them (``torch.utils.checkpoint`` reruns the
+    layer's forward, the autograd functions' forwards included), and one
+    backward of each."""
     remat = 2 if cfg.remat == "full" else 1
-    norms = 2 + (2 if cfg.qk_norm else 0)
+    ssm = cfg.family == "ssm"
+    norms = 1 if ssm else 2 + (2 if cfg.qk_norm else 0)
+    mixer, other = ("ssd", "flash_attention") if ssm else ("flash_attention", "ssd")
     return {
-        "flash_attention": n_mb * remat * cfg.n_layers,
-        "flash_attention_bwd": n_mb * cfg.n_layers,
+        mixer: n_mb * remat * cfg.n_layers,
+        mixer + "_bwd": n_mb * cfg.n_layers,
+        other: 0,
+        other + "_bwd": 0,
         "rmsnorm": n_mb * (remat * norms * cfg.n_layers + 1),
         "rmsnorm_bwd": n_mb * (norms * cfg.n_layers + 1),
         "decode_attention": 0,
-        "ssd": 0,
     }
 
 
@@ -1278,62 +1420,68 @@ def _batches(cfg, dev, n: int, batch: int, seq: int) -> list[dict]:
     return [{k: torch.from_numpy(v).to(dev) for k, v in ds.batch_for_step(i).items()} for i in range(n)]
 
 
-def train_parity_phase(dev) -> dict:
-    """deepseek-7b at full width and 2 layers, float32, B = 2, L = 256, two
-    microbatches, two steps, for each optimizer: the card (kernels) against
-    the CPU port (plain versions) from the same state.  Loss and grad norm
-    within 1e-3 relative at each step; after the last step every parameter
-    within 2·steps·lr for adamw (its update m / (sqrt(v) + eps) does not
-    scale with the gradient, so an element whose gradient is float noise
-    may move by up to lr differently on the two devices) and within 1e-6
-    for adafactor (its update is normalised by row and column statistics);
-    exact launch counts per step."""
-    from repro_torch.configs import get_config
+def _parity_run(dev, cfg, *, tag: str, seq: int, steps: int = 2, n_mb: int = 2, lr: float = 3e-4) -> dict:
+    """``steps`` staged train steps of ``cfg`` (batch 2 of ``seq`` tokens in
+    ``n_mb`` microbatches) on the card (kernels) and on the CPU port (plain
+    versions) from the same state.  Loss and grad norm within 1e-3 relative
+    at each step; after the last step every parameter within 2·steps·lr
+    for adamw (its update m / (sqrt(v) + eps) does not scale with the
+    gradient, so an element whose gradient is float noise may move by up to
+    lr differently on the two devices) and within 1e-6 for adafactor (its
+    update is normalised by row and column statistics); exact launch
+    counts per step."""
     from repro_torch.models import Transformer, set_trainable
     from repro_torch.optim import TrainState
     from repro_torch.runtime.train import build_train_step, init_train_state
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    steps, n_mb, lr = 2, 2, 3e-4
     ops = _kernel_ops()
+    gpu = init_train_state(cfg, 3, device=dev)
+    model = set_trainable(Transformer(cfg, device="cpu"))
+    with torch.no_grad():
+        model.load_state_dict(gpu.params.state_dict())
+    copy = lambda t: {k: copy(v) for k, v in t.items()} if isinstance(t, dict) else t.to("cpu", copy=True)  # noqa: E731
+    cpu = TrainState(step=gpu.step.cpu(), params=model, opt=copy(gpu.opt))
+    batches = _batches(cfg, dev, steps, 2, seq)
+    art_g, art_c = build_train_step(cfg, n_microbatches=n_mb), build_train_step(cfg, n_microbatches=n_mb)
+    want_launches = {k: v * steps for k, v in _train_launches_per_step(cfg, n_mb).items()}
+    for c in ops.values():
+        c.reset()
+    worst = 0.0
+    for b in batches:
+        gpu, mg = art_g(gpu, b)
+        cpu, mc = art_c(cpu, {k: v.cpu() for k, v in b.items()})
+        for key in ("loss", "grad_norm"):
+            g, c = float(mg[key]), float(mc[key])
+            assert np.isfinite(g), (cfg.optimizer, key, g)
+            worst = max(worst, abs(g - c) / abs(c))
+            log(f"[{tag}] {cfg.optimizer} step {int(gpu.step)} {key}: card {g:.7f} cpu {c:.7f}")
+    launches = {name: c.count for name, c in ops.items()}
+    assert launches == want_launches, (cfg.optimizer, launches, want_launches)
+    cpu_params = dict(cpu.params.named_parameters())
+    dp = max(float((p.detach().cpu() - cpu_params[n].detach()).abs().max())
+             for n, p in gpu.params.named_parameters())
+    limit = 2 * steps * lr if cfg.optimizer == "adamw" else 1e-6
+    log(f"[{tag}] {cfg.name} {cfg.optimizer}: {cfg.n_layers}-layer full-width fp32, {steps} steps of "
+        f"{n_mb} microbatches of {seq} tokens: max relative loss / grad-norm error {worst:.3e} (limit "
+        f"1e-3), max parameter difference {dp:.3e} (limit {limit:.1e}); launches {launches}")
+    assert worst <= 1e-3 and dp <= limit
+    del gpu, cpu, model, art_g, art_c, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(rel_err=worst, param_diff=dp, launches=launches)
+
+
+def train_parity_phase(dev) -> dict:
+    """deepseek-7b at full width and 2 layers, float32, B = 2, L = 256, two
+    microbatches, two steps, with Adafactor and with AdamW (``_parity_run``)."""
+    from repro_torch.configs import get_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
     for opt in ("adafactor", "adamw"):
         cfg = get_config("deepseek-7b").replace(n_layers=2, dtype="float32", logits_chunk=256,
                                                 optimizer=opt)
-        gpu = init_train_state(cfg, 3, device=dev)
-        model = set_trainable(Transformer(cfg, device="cpu"))
-        with torch.no_grad():
-            model.load_state_dict(gpu.params.state_dict())
-        copy = lambda t: {k: copy(v) for k, v in t.items()} if isinstance(t, dict) else t.to("cpu", copy=True)  # noqa: E731
-        cpu = TrainState(step=gpu.step.cpu(), params=model, opt=copy(gpu.opt))
-        batches = _batches(cfg, dev, steps, 2, 256)
-        art_g, art_c = build_train_step(cfg, n_microbatches=n_mb), build_train_step(cfg, n_microbatches=n_mb)
-        want_launches = {k: v * steps for k, v in _train_launches_per_step(cfg, n_mb).items()}
-        for c in ops.values():
-            c.reset()
-        worst = 0.0
-        for b in batches:
-            gpu, mg = art_g(gpu, b)
-            cpu, mc = art_c(cpu, {k: v.cpu() for k, v in b.items()})
-            for key in ("loss", "grad_norm"):
-                g, c = float(mg[key]), float(mc[key])
-                assert np.isfinite(g), (opt, key, g)
-                worst = max(worst, abs(g - c) / abs(c))
-                log(f"[train-parity] {opt} step {int(gpu.step)} {key}: card {g:.7f} cpu {c:.7f}")
-        launches = {name: c.count for name, c in ops.items()}
-        assert launches == want_launches, (opt, launches, want_launches)
-        cpu_params = dict(cpu.params.named_parameters())
-        dp = max(float((p.detach().cpu() - cpu_params[n].detach()).abs().max())
-                 for n, p in gpu.params.named_parameters())
-        limit = 2 * steps * lr if opt == "adamw" else 1e-6
-        log(f"[train-parity] {opt}: {cfg.n_layers}-layer full-width fp32, {steps} steps of "
-            f"{n_mb} microbatches: max relative loss / grad-norm error {worst:.3e} (limit 1e-3), "
-            f"max parameter difference {dp:.3e} (limit {limit:.1e}); launches {launches}")
-        assert worst <= 1e-3 and dp <= limit
-        out[opt] = dict(rel_err=worst, param_diff=dp)
-        del gpu, cpu, model, art_g, art_c, batches
-        gc.collect()
-        torch.cuda.empty_cache()
+        out[opt] = _parity_run(dev, cfg, tag="train-parity", seq=256)
     return out
 
 
@@ -1480,8 +1628,78 @@ def train_phase(dev) -> dict:
                 task_ms=spans)
 
 
+M2_BATCH, M2_SEQ, M2_MB, M2_STEPS = 8, 2048, 2, 4
+
+
+def train_m2_phase(dev) -> dict:
+    """mamba2-130m training on the card.  Parity: full width and 2 layers
+    in fp32, two staged steps (B = 2, L = 512, 2 microbatches) with the
+    config's AdamW against the CPU port (``_parity_run``).  Then the full
+    24 layers in bf16 (AdamW, ``remat="full"``, logits in chunks of 1024),
+    a global batch of (8, 2048) in two microbatches: 4 staged steps with
+    finite losses and exact launch counts of the ssd, ssd_bwd, rmsnorm and
+    rmsnorm_bwd kernels; step time, tokens/s, peak memory; one profiled
+    step."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.train import build_train_step, init_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config("mamba2-130m")
+    assert (full.remat, full.dtype, full.n_layers, full.optimizer, full.logits_chunk) == (
+        "full", "bfloat16", 24, "adamw", 1024)
+    parity = _parity_run(dev, full.replace(n_layers=2, dtype="float32", logits_chunk=256), tag="train-m2",
+                         seq=512)
+    state = init_train_state(full, 0, device=dev)
+    n_params = sum(p.numel() for p in state.params.parameters())
+    art = build_train_step(full, n_microbatches=M2_MB, schedule_policy="overlap")
+    batches = _batches(full, dev, M2_STEPS + 1, M2_BATCH, M2_SEQ)  # + the profiled step
+    ops = _kernel_ops()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts from 0 just before, read just after ----
+    for c in ops.values():
+        c.reset()
+    walls, losses, gnorms = [], [], []
+    for b in batches[:M2_STEPS]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = art(state, b)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    launches = {name: c.count for name, c in ops.items()}
+    # ------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: v * M2_STEPS for k, v in _train_launches_per_step(full, M2_MB).items()}
+    log(f"[train-m2] mamba2-130m ({full.n_layers} layers, {n_params / 1e6:.1f} M params, {full.dtype}, "
+        f"{full.optimizer}, remat {full.remat}): launches on the main path {launches}; expected {want} "
+        f"from {M2_STEPS} steps of {M2_MB} microbatches")
+    assert launches == want, "the mamba2 train step did not run through every kernel as expected"
+    assert all(np.isfinite(losses)) and all(np.isfinite(gnorms)), (losses, gnorms)
+    tokens = M2_BATCH * M2_SEQ
+    step_ms = float(np.median(walls[1:]))
+    log(f"[train-m2] losses {losses}, grad norms {gnorms}; step wall ms {[round(w, 2) for w in walls]}; "
+        f"median of steps 2-{M2_STEPS} {step_ms:.2f} ms, {tokens / step_ms * 1e3:.1f} tokens/s; peak device "
+        f"memory {peak / 2**30:.2f} GiB ({peak} bytes)")
+    state, _, prof = _profile_train_step(art, state, batches[M2_STEPS])
+    log(f"[profile] one mamba2 train step under the profiler: {prof['profiled_wall_ms']:.2f} ms wall, "
+        f"{prof['device_ms']:.2f} ms device time, device busy {prof['busy']:.1%}")
+    for name, ms in prof["top"]:
+        log(f"[profile]   {ms:9.3f} ms  {name}")
+    log("[profile] by kind: " + ", ".join(f"{k} {ms:.1f} ms ({ms / prof['device_ms']:.1%})"
+                                          for k, ms in prof["kinds"]))
+    del state, art, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(parity=parity, launches=launches, losses=losses, grad_norms=gnorms, walls_ms=walls,
+                step_ms=step_ms, tokens_per_s=tokens / step_ms * 1e3, peak_bytes=peak, profile=prof)
+
+
 # ---------------------------------------------------------------------------
-# 9-10. speculative decoding and the load generator at full width
+# 11-12. speculative decoding and the load generator at full width
 # ---------------------------------------------------------------------------
 
 SPEC_K = 4
@@ -1501,7 +1719,7 @@ def _serve_launches(cfg, *, prefills, decode_steps, draft_layers=0, primes=0, dr
         "flash_attention": cfg.n_layers * prefills + draft_layers * primes,
         "decode_attention": cfg.n_layers * (decode_steps + verify_substeps) + draft_layers * draft_feeds,
         "rmsnorm": (2 * cfg.n_layers + 1) * fwd + (2 * draft_layers + 1) * (primes + draft_feeds),
-        "ssd": 0, "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
+        "ssd": 0, "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_bwd": 0,
     }
 
 
@@ -1716,7 +1934,7 @@ def load_phase(dev, cfg, model) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 11. checkpoint and resume
+# 13. checkpoint and resume
 # ---------------------------------------------------------------------------
 
 CKPT_LAYERS, CKPT_STEPS, CKPT_EVERY = 4, 4, 2
@@ -1855,7 +2073,7 @@ def main() -> int:
     build_s = build_kernels()
     records = kernel_phase(dev)
     codelet_phase(dev)
-    f1_guard_phase()
+    examples = examples_phase(dev)
     serve = serving_phase(dev)
     serve_m = mamba2_serving_phase(dev)
     model_err = model_phase(dev)
@@ -1866,19 +2084,23 @@ def main() -> int:
     )
     parity = train_parity_phase(dev)
     train = train_phase(dev)
+    train_m2 = train_m2_phase(dev)
     cfg, model = _deepseek(dev, "spec")
     spec = spec_phase(dev, cfg, model)
     load = load_phase(dev, cfg, model)
     del model
     ckpt = ckpt_phase(dev)
-    for r in records:  # launches on every path: serving, train, speculation, load, checkpoint
-        r["launches"] = sum(run["launches"][r["name"]] for run in (serve, serve_m, train, spec, load, ckpt))
+    for r in records:  # launches on every path: serving, train (both models), speculation, load, checkpoint
+        r["launches"] = sum(run["launches"][r["name"]]
+                            for run in (serve, serve_m, train, train_m2, spec, load, ckpt))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     kernels = [{k: r[k] for k in keys} for r in records]
     log(f"[done] {smi}: build {build_s:.1f} s, model checks {model_err:.2e} (deepseek-7b), "
         f"{model_err_m:.2e} (mamba2-130m), train parity {parity}, train step {train['step_ms']:.1f} ms "
-        f"({train['tokens_per_s']:.1f} tokens/s), self-draft accept rate {spec['self draft']['accept_rate']:.3f}, "
+        f"({train['tokens_per_s']:.1f} tokens/s), mamba2 train step {train_m2['step_ms']:.1f} ms "
+        f"({train_m2['tokens_per_s']:.1f} tokens/s), examples {examples['seconds']:.1f} s, "
+        f"self-draft accept rate {spec['self draft']['accept_rate']:.3f}, "
         f"load checksum {load['continuous']['output_checksum']}, checkpoint {ckpt['bytes']} bytes, "
         f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

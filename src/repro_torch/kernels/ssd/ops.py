@@ -1,5 +1,6 @@
-"""Wrapper for the SSD intra-chunk kernel (``csrc/ssd.cu``) and the chunked
-SSD scan built on it.
+"""Wrappers for the SSD intra-chunk kernel (``csrc/ssd.cu``) and its
+backward (``csrc/ssd_bwd.cu``), the autograd function over them, and the
+chunked SSD scan built on it.
 
 Replaces ``src/repro/kernels/ssd/kernel.py::ssd_intra_chunk_pallas`` and the
 scan around it, ``ops.py::ssd_chunked_pallas``.  bfloat16 (the serving path)
@@ -12,13 +13,13 @@ compute the masked triangle, whose decay may be inf, and read the model's
 transposed or expanded.  A CPU tensor takes the plain version in ``ref.py``;
 a CUDA tensor launches the kernel or raises.
 
-The kernel is forward only: its outputs are written through ctypes, so
-autograd sees no path from them back to the inputs.  Until the ssd backward
-lands (ROADMAP.md, Queue 2 item 4), the CUDA route refuses inputs that
-autograd records (:func:`check_no_autograd`), so training mamba2 on the
-card fails at its first microbatch instead of training on wrong gradients.
-Serving runs under ``torch.no_grad`` with frozen parameters and is not
-affected.
+The backward has no Pallas counterpart: ``repro`` trains mamba2 through
+``jax.grad`` of the jnp ``ssd_chunked``.  :func:`ssd_intra_chunk_bwd` runs
+its vector-Jacobian product on the SIMT cores in float32 for both input
+types, and sums dB / dC over each group's heads in a fixed order (no
+atomics).  On CUDA tensors :func:`ssd_intra_chunk` always goes through
+:class:`SsdIntraChunkFn`, whose backward launches that kernel; under
+``torch.no_grad`` (serving) it records nothing.
 """
 from __future__ import annotations
 
@@ -30,10 +31,12 @@ import torch.nn.functional as F
 from repro_torch.core.api import sp_task
 from repro_torch.kernels import dispatch
 
-from .ref import ssd_chunk_ref
+from .ref import ssd_chunk_bwd_ref, ssd_chunk_ref
 
 #: launches of the kernel through :func:`ssd_intra_chunk` (``.count``)
 launches = dispatch.LaunchCounter()
+#: launches of the backward kernel through :func:`ssd_intra_chunk_bwd`
+bwd_launches = dispatch.LaunchCounter()
 
 _MAX_HEAD_DIM = 64
 _MAX_STATE_DIM = 128
@@ -87,36 +90,12 @@ def check_tensor_core_layout(cs: int, **tensors: torch.Tensor) -> None:
             )
 
 
-def check_no_autograd(*tensors: torch.Tensor) -> None:
-    """Raise ``NotImplementedError`` when autograd records and any of
-    ``tensors`` requires grad: the kernel has no backward yet, and its
-    outputs would carry no gradient back to them."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "ssd_intra_chunk: the CUDA kernel has no backward yet (ROADMAP.md, Queue 2 item 4: "
-            "the ssd backward), so it cannot train: its outputs would carry no gradient to "
-            "x, dt, cum, B or C.  Run it under torch.no_grad, or train on the CPU"
-        )
-
-
-def ssd_intra_chunk(x, dt, cum, B, C):
-    """The intra-chunk output and the end-of-chunk state of every chunk.
-
-    x (b, H, nc, cs, P); dt, cum (b, H, nc, cs) float32; B, C
-    (b, G, nc, cs, N), G | H groups (G = H: one per head; head h reads
-    group h // (H // G)).  Any strides with a contiguous last dim.
-    → (y (b, H, nc, cs, P), state (b, H, nc, N, P)), both float32.  (The
-    plain version also takes the TPU kernel's (BH, nc, cs, ·) layout.)
-    Off the CPU, inputs that autograd records raise ``NotImplementedError``
-    before anything is checked or launched (:func:`check_no_autograd`).
-    """
-    tensors = (x, dt, cum, B, C)
-    if all(t.device.type == "cpu" for t in tensors):
-        return ssd_chunk_ref(x, dt, cum, B, C)
-    check_no_autograd(*tensors)
-    dispatch.check_cuda_tensors("ssd_intra_chunk", *tensors)
+def _check(name: str, x, dt, cum, B, C) -> tuple:
+    """Shapes, dtypes and layouts both kernels take; → (b, H, nc, cs, P, G,
+    N, dtype code)."""
+    dispatch.check_cuda_tensors(name, x, dt, cum, B, C)
     if x.ndim != 5:
-        raise ValueError(f"ssd_intra_chunk: x must be (b, H, nc, cs, P), got {tuple(x.shape)}")
+        raise ValueError(f"{name}: x must be (b, H, nc, cs, P), got {tuple(x.shape)}")
     Bsz, H, nc, cs, P = x.shape
     G, N = B.shape[1], B.shape[-1]
     if (
@@ -125,21 +104,24 @@ def ssd_intra_chunk(x, dt, cum, B, C):
         or G < 1 or H % G
     ):
         raise ValueError(
-            f"ssd_intra_chunk: shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, cum "
+            f"{name}: shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, cum "
             f"{tuple(cum.shape)}, B {tuple(B.shape)}, C {tuple(C.shape)} do not fit "
             "(b, H, nc, cs, ·) with B/C on H or on G | H groups"
         )
     if P > _MAX_HEAD_DIM or N > _MAX_STATE_DIM:
-        raise ValueError(
-            f"ssd_intra_chunk: head dim {P} / state dim {N} exceed {_MAX_HEAD_DIM} / {_MAX_STATE_DIM}"
-        )
+        raise ValueError(f"{name}: head dim {P} / state dim {N} exceed {_MAX_HEAD_DIM} / {_MAX_STATE_DIM}")
     if not (x.dtype == B.dtype == C.dtype):
-        raise TypeError(f"ssd_intra_chunk: mixed dtypes x {x.dtype}, B {B.dtype}, C {C.dtype}")
+        raise TypeError(f"{name}: mixed dtypes x {x.dtype}, B {B.dtype}, C {C.dtype}")
     if dt.dtype != torch.float32 or cum.dtype != torch.float32:
-        raise TypeError(f"ssd_intra_chunk: dt and cum must be float32, got {dt.dtype}, {cum.dtype}")
+        raise TypeError(f"{name}: dt and cum must be float32, got {dt.dtype}, {cum.dtype}")
     if any(t.shape[-1] > 1 and t.stride(-1) != 1 for t in (x, B, C)):
-        raise ValueError("ssd_intra_chunk: the last dim of x, B and C must be contiguous")
-    code = dispatch.dtype_code("ssd_intra_chunk", x)
+        raise ValueError(f"{name}: the last dim of x, B and C must be contiguous")
+    return Bsz, H, nc, cs, P, G, N, dispatch.dtype_code(name, x)
+
+
+def _intra_chunk_kernel(x, dt, cum, B, C):
+    """The forward launch: → (y, state) written by ``csrc/ssd.cu``."""
+    Bsz, H, nc, cs, P, G, N, code = _check("ssd_intra_chunk", x, dt, cum, B, C)
     if x.dtype == torch.bfloat16:
         check_tensor_core_layout(cs, x=x, B=B, C=C)
     # y in the model's (b, nc, cs, H, P) order, seen as (b, H, nc, cs, P)
@@ -159,6 +141,91 @@ def ssd_intra_chunk(x, dt, cum, B, C):
     dispatch.check(rc, "ssd_intra_chunk")
     launches.add()
     return y, state
+
+
+class SsdIntraChunkFn(torch.autograd.Function):
+    """Differentiable intra-chunk step on the card: the forward kernel, and
+    the backward kernel on the saved inputs (nothing else is saved)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, cum, B, C):
+        ctx.save_for_backward(x, dt, cum, B, C)
+        return _intra_chunk_kernel(x, dt, cum, B, C)
+
+    @staticmethod
+    def backward(ctx, dy, dS):
+        return ssd_intra_chunk_bwd(*ctx.saved_tensors, dy, dS)
+
+
+def ssd_intra_chunk(x, dt, cum, B, C):
+    """The intra-chunk output and the end-of-chunk state of every chunk.
+
+    x (b, H, nc, cs, P); dt, cum (b, H, nc, cs) float32; B, C
+    (b, G, nc, cs, N), G | H groups (G = H: one per head; head h reads
+    group h // (H // G)).  Any strides with a contiguous last dim.
+    → (y (b, H, nc, cs, P), state (b, H, nc, N, P)), both float32.  (The
+    plain version also takes the TPU kernel's (BH, nc, cs, ·) layout.)
+    Differentiable on both routes: CUDA tensors go through
+    :class:`SsdIntraChunkFn`.
+    """
+    if all(t.device.type == "cpu" for t in (x, dt, cum, B, C)):
+        return ssd_chunk_ref(x, dt, cum, B, C)
+    return SsdIntraChunkFn.apply(x, dt, cum, B, C)
+
+
+def ssd_intra_chunk_bwd(x, dt, cum, B, C, dy, dS):
+    """The vector-Jacobian product of :func:`ssd_intra_chunk` for the
+    cotangents ``dy`` (b, H, nc, cs, P) of y and ``dS`` (b, H, nc, N, P)
+    of the state, both float32 → (dx, ddt, dcum, dB, dC) with the inputs'
+    shapes and dtypes, in the model's (b, nc, cs, ·, ·) memory order; dB
+    and dC sum each group's heads.  Accumulated in float32 without atomics
+    (the same bits on every run).  ``dy`` is read through its strides (a
+    non-contiguous last dim is copied once); ``dS`` is copied once unless
+    each (N, P) matrix is contiguous."""
+    if all(t.device.type == "cpu" for t in (x, dt, cum, B, C, dy, dS)):
+        return ssd_chunk_bwd_ref(x, dt, cum, B, C, dy, dS)
+    name = "ssd_intra_chunk_bwd"
+    Bsz, H, nc, cs, P, G, N, code = _check(name, x, dt, cum, B, C)
+    dispatch.check_cuda_tensors(name, x, dy, dS)
+    if (
+        tuple(dy.shape) != (Bsz, H, nc, cs, P) or tuple(dS.shape) != (Bsz, H, nc, N, P)
+        or dy.dtype != torch.float32 or dS.dtype != torch.float32
+    ):
+        raise ValueError(
+            f"{name}: dy {tuple(dy.shape)} {dy.dtype} and dS {tuple(dS.shape)} {dS.dtype} are not "
+            f"float32 {(Bsz, H, nc, cs, P)} and {(Bsz, H, nc, N, P)}"
+        )
+    if P > 1 and dy.stride(-1) != 1:
+        dy = dy.contiguous()
+    if (P > 1 and dS.stride(-1) != 1) or (N > 1 and dS.stride(-2) != P):
+        dS = dS.contiguous()
+    dev = x.device
+
+    def heads_last(shape, dtype):  # allocated (b, nc, cs, X[, K]), seen as (b, X, nc, cs[, K])
+        t = torch.empty((Bsz, nc, cs) + shape, dtype=dtype, device=dev)
+        return t.permute(0, 3, 1, 2, 4) if len(shape) == 2 else t.permute(0, 3, 1, 2)
+
+    dx = heads_last((H, P), x.dtype)
+    ddt, dcum = heads_last((H,), torch.float32), heads_last((H,), torch.float32)
+    dB, dC = heads_last((G, N), B.dtype), heads_last((G, N), C.dtype)
+    if dx.numel() == 0:
+        return tuple(t.zero_() for t in (dx, ddt, dcum, dB, dC))
+    tiles = -(-cs // TILE)
+    dBh, dCh = (torch.empty((Bsz, H, nc, cs, N), dtype=torch.float32, device=dev) for _ in range(2))
+    rows = torch.empty((Bsz, H, nc, cs), dtype=torch.float32, device=dev)
+    qsum = torch.empty((Bsz, H, nc, tiles), dtype=torch.float32, device=dev)
+    lib = dispatch.library()
+    dims = (0, 1, 2, 3)
+    rc = lib.ssd_intra_chunk_bwd(
+        *(t.data_ptr() for t in (x, dt, cum, B, C, dy, dS, dx, ddt, dcum, dB, dC, dBh, dCh, rows, qsum)),
+        Bsz, H, H // G, nc, cs, P, N,
+        *(dispatch.strides(t, dims) for t in (x, dt, cum, B, C, dy)), dispatch.strides(dS, (0, 1, 2)),
+        *(dispatch.strides(t, dims) for t in (dx, ddt, dcum, dB, dC)),
+        code, dispatch.stream_handle(x),
+    )
+    dispatch.check(rc, name)
+    bwd_launches.add()
+    return dx, ddt, dcum, dB, dC
 
 
 def _chunked(xh, dt, A, Bc, Cc, chunk: int, initial_state, intra):

@@ -472,27 +472,107 @@ def test_autograd_functions_run_the_backward_kernels(cuda_device):
     _close_scaled(gs, rs, "float32")
 
 
-@pytest.mark.cuda
-def test_mamba2_training_on_the_card_raises_until_the_ssd_backward(cuda_device):
-    """Fault F1's guard: the ssd kernel has no backward, so a mamba2 loss
-    under autograd on the card raises before any ssd launch (ROADMAP.md,
-    Queue 2 item 4); the same loss under ``torch.no_grad`` (serving's mode)
-    runs through the kernel."""
-    from repro_torch.configs import reduced_config
-    from repro_torch.models import init_params, loss_fn, set_trainable
+def _ssd_views(gen, dev, L, cs, H, G, dtype, dt_shift=-1.0):
+    """``_ssd_model_views`` in ``dtype``, with float32 cotangents of y and
+    the state: dy as the permuted view autograd hands the backward."""
+    P, N, nc = 64, 128, L // cs
+    x = torch.randn(1, L, H, P, generator=gen, device=dev).to(dtype)
+    Bm, Cm = (torch.randn(1, L, G, N, generator=gen, device=dev).to(dtype) for _ in range(2))
+    dt = torch.nn.functional.softplus(torch.randn(1, L, H, generator=gen, device=dev) + dt_shift)
+    A = -torch.exp(torch.randn(H, generator=gen, device=dev) * 0.2)
+    dtc = dt.reshape(1, nc, cs, H)
+    cum = torch.cumsum(dtc * A, dim=2)
+    heads_first = lambda t: t.reshape(1, nc, cs, t.shape[2], t.shape[3]).permute(0, 3, 1, 2, 4)  # noqa: E731
+    dy = torch.randn(1, nc, cs, H, P, generator=gen, device=dev).permute(0, 3, 1, 2, 4)
+    dS = torch.randn(1, H, nc, N, P, generator=gen, device=dev)
+    args = (heads_first(x), dtc.permute(0, 3, 1, 2), cum.permute(0, 3, 1, 2), heads_first(Bm), heads_first(Cm))
+    return args, dy, dS
 
-    cfg = reduced_config("mamba2-130m")
-    model = set_trainable(init_params(cfg, 0, device=cuda_device))
-    gen = torch.Generator(device=cuda_device).manual_seed(11)
-    tokens = torch.randint(0, cfg.vocab, (2, 64), generator=gen, device=cuda_device, dtype=torch.int32)
-    batch = {"tokens": tokens, "labels": tokens}
-    before = ssd_ops.launches.count
-    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
-        loss_fn(model, batch, cfg)
-    assert ssd_ops.launches.count == before
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "L,cs,H,G,dt_shift",
+    [(1024, 256, 24, 1, -1.0), (512, 256, 8, 8, -1.0), (300, 100, 24, 1, -1.0), (300, 100, 4, 4, -1.0),
+     (5, 1, 4, 1, -1.0), (512, 256, 4, 1, 3.0)],
+    ids=lambda v: str(v),
+)
+def test_ssd_bwd_kernel_matches_plain(cuda_device, dtype, L, cs, H, G, dt_shift):
+    """The backward kernel against ``ssd_chunk_bwd_ref`` on the model's
+    strided views: cs 256 / 100 / 1, one group or one group per head, and
+    a strong decay (cum_i − cum_j > 100 inside a chunk) whose gradients
+    stay finite; one launch, the same bits on a second run."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    args, dy, dS = _ssd_views(gen, cuda_device, L, cs, H, G, DTYPES[dtype], dt_shift)
+    if dt_shift > 0:
+        assert float((args[2][..., 0] - args[2][..., -1]).max()) > 100
+    before = ssd_ops.bwd_launches.count
+    got = ssd_ops.ssd_intra_chunk_bwd(*args, dy, dS)
+    assert ssd_ops.bwd_launches.count - before == 1
+    want = ssd_ops.ssd_chunk_bwd_ref(*args, dy, dS)
+    for g, w, a in zip(got, want, args):
+        assert g.shape == a.shape and g.dtype == a.dtype and torch.isfinite(g.float()).all()
+        _close_scaled(g, w, dtype)
+    again = ssd_ops.ssd_intra_chunk_bwd(*args, dy, dS)
+    assert all(torch.equal(g, h) for g, h in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_ssd_chunked_gradients_on_the_card(cuda_device):
+    """Autograd through ``ssd_chunked`` on a ragged L with one group read in
+    place and an initial state: one forward and one backward launch, and
+    every gradient (x, dt, A, B, C, the initial state) equal to the CPU's
+    plain autograd within the backward tolerance; the padded tail's rows
+    get none."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device)
+
+    L, H, P, N = 300, 8, 64, 128
+    leaves = [rnd(2, L, H, P), torch.nn.functional.softplus(rnd(2, L, H) - 1), -torch.exp(rnd(H) * 0.2),
+              rnd(2, L, 1, N), rnd(2, L, 1, N), rnd(2, H, N, P)]
+    dy, ds = rnd(2, L, H, P), rnd(2, H, N, P)
+
+    def grads(device):
+        ts = [t.detach().to(device).requires_grad_() for t in leaves]
+        y, s = ssd_ops.ssd_chunked(*ts[:5], 128, ts[5])
+        return torch.autograd.grad((y * dy.to(device)).sum() + (s * ds.to(device)).sum(), ts)
+
+    before = (ssd_ops.launches.count, ssd_ops.bwd_launches.count)
+    got = grads(cuda_device)
+    assert (ssd_ops.launches.count - before[0], ssd_ops.bwd_launches.count - before[1]) == (1, 1)
+    for g, w in zip(got, grads("cpu")):
+        _close_scaled(g, w, "float32")
+
+
+@pytest.mark.cuda
+def test_mamba2_train_step_on_the_card(cuda_device):
+    """Reduced mamba2 in float32 under ``remat="full"``: one staged train
+    step on the card against the CPU port from the same state (loss and
+    grad norm within 1e-4 relative); the ssd kernel ran twice a layer
+    (the forward and its recompute) and its backward once."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.runtime.train import build_train_step, init_train_state
+
+    cfg = reduced_config("mamba2-130m").replace(dtype="float32")
+    assert cfg.remat == "full"
+    gpu = init_train_state(cfg, 0, device=cuda_device)
+    cpu = init_train_state(cfg, 0, device="cpu")
     with torch.no_grad():
-        loss, _ = loss_fn(model, batch, cfg)
-    assert torch.isfinite(loss) and ssd_ops.launches.count - before == cfg.n_layers
+        for (n, p), q in zip(gpu.params.named_parameters(), cpu.params.parameters()):
+            q.copy_(p.cpu())
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    tokens = torch.randint(0, cfg.vocab, (2, 37), generator=gen, device=cuda_device, dtype=torch.int32)
+    batch = {"tokens": tokens, "labels": tokens}
+    before = (ssd_ops.launches.count, ssd_ops.bwd_launches.count)
+    gpu, mg = build_train_step(cfg)(gpu, batch)
+    assert (ssd_ops.launches.count - before[0], ssd_ops.bwd_launches.count - before[1]) == (
+        2 * cfg.n_layers, cfg.n_layers)
+    cpu, mc = build_train_step(cfg)(cpu, {k: v.cpu() for k, v in batch.items()})
+    for key in ("loss", "grad_norm"):
+        g, c = float(mg[key]), float(mc[key])
+        assert abs(g - c) <= 1e-4 * abs(c), (key, g, c)
 
 
 @pytest.mark.cuda

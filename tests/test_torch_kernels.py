@@ -554,7 +554,7 @@ def test_ssd_model_views_meet_tensor_core_layout():
 
 
 # ---------------------------------------------------------------------------
-# ssd: fault F1's guard (the kernel has no backward yet)
+# ssd: the card's route goes through the autograd function
 # ---------------------------------------------------------------------------
 
 def _ssd_small_inputs(requires_grad: bool, device="cpu"):
@@ -567,35 +567,56 @@ def _ssd_small_inputs(requires_grad: bool, device="cpu"):
     return [t.requires_grad_(requires_grad) for t in (x, dt, cum.detach(), B, C)]
 
 
-def test_ssd_guard_refuses_inputs_autograd_records():
-    """``check_no_autograd`` raises naming ROADMAP.md Queue 2 item 4 when
-    grad mode is on and any input requires grad; it lets through inputs
-    without grad, and any inputs under ``torch.no_grad`` (serving's mode)."""
-    for i in range(5):
-        ts = _ssd_small_inputs(False)
-        ts[i].requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
-            ssd_ops.check_no_autograd(*ts)
-        with torch.no_grad():
-            ssd_ops.check_no_autograd(*ts)
-    ssd_ops.check_no_autograd(*_ssd_small_inputs(False))
-
-
-def test_ssd_card_route_checks_autograd_before_anything_else():
-    """Off the CPU, ``ssd_intra_chunk`` reaches the guard before any check or
-    launch: meta tensors (no card needed) that require grad raise
-    ``NotImplementedError``; under ``torch.no_grad`` they pass the guard
-    and stop at the device check.  No launch is counted."""
-    before = ssd_ops.launches.count
+def test_ssd_card_route_records_the_autograd_function(monkeypatch):
+    """Off the CPU, ``ssd_intra_chunk`` goes through ``SsdIntraChunkFn``
+    whether or not autograd records.  Meta tensors (no card needed) stop at
+    the forward's device check; with the forward launch stubbed, their
+    outputs carry the Function's node as ``grad_fn``, and the backward
+    reaches the backward kernel's wrapper, which stops at its own device
+    check.  Under ``torch.no_grad`` nothing is recorded.  No launch is
+    counted."""
+    before = (ssd_ops.launches.count, ssd_ops.bwd_launches.count)
     ts = _ssd_small_inputs(True, device="meta")
-    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
+    with pytest.raises(ValueError, match="ssd_intra_chunk: the kernel takes CUDA tensors"):
         ssd_ops.ssd_intra_chunk(*ts)
-    with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensors"):
-        ssd_ops.ssd_intra_chunk(*ts)
-    # the CPU route is the differentiable plain version: no guard there
+    calls = []
+
+    def stub(x, dt, cum, B, C):
+        calls.append(torch.is_grad_enabled())
+        return (torch.empty(x.shape, device="meta"),
+                torch.empty(x.shape[:3] + (B.shape[-1], x.shape[-1]), device="meta"))
+
+    monkeypatch.setattr(ssd_ops, "_intra_chunk_kernel", stub)
+    y, state = ssd_ops.ssd_intra_chunk(*ts)
+    assert type(y.grad_fn).__name__ == "SsdIntraChunkFnBackward"
+    assert type(state.grad_fn) is type(y.grad_fn)
+    with pytest.raises(ValueError, match="ssd_intra_chunk_bwd: the kernel takes CUDA tensors"):
+        torch.autograd.grad(y.sum() + state.sum(), ts)
+    with torch.no_grad():
+        y, state = ssd_ops.ssd_intra_chunk(*ts)
+    assert y.grad_fn is None and state.grad_fn is None
+    assert calls == [False, False]  # the Function's forward runs without recording
+    # the CPU route is the differentiable plain version
     y, state = ssd_ops.ssd_intra_chunk(*_ssd_small_inputs(True))
-    assert y.requires_grad and state.requires_grad
-    assert ssd_ops.launches.count == before
+    assert y.requires_grad and state.requires_grad and y.grad_fn is not None
+    assert (ssd_ops.launches.count, ssd_ops.bwd_launches.count) == before
+
+
+def test_ssd_function_backward_is_the_plain_backward_on_the_cpu(monkeypatch):
+    """``SsdIntraChunkFn`` wired to the plain forward: its gradients (the
+    backward wrapper's CPU route, ``ssd_chunk_bwd_ref``, fed a permuted
+    dy) equal autograd of the plain forward, B/C on one group of 2 heads."""
+    monkeypatch.setattr(ssd_ops, "_intra_chunk_kernel", ssd_ops.ssd_chunk_ref)
+    rng = np.random.default_rng(22)
+    dy = torch.from_numpy(rng.standard_normal((1, 1, 8, 2, 8)).astype(np.float32)).permute(0, 3, 1, 2, 4)
+    dS = torch.from_numpy(rng.standard_normal((1, 2, 1, 16, 8)).astype(np.float32))
+    grads = []
+    for fn in (ssd_ops.SsdIntraChunkFn.apply, ssd_ops.ssd_chunk_ref):
+        ts = _ssd_small_inputs(True)
+        y, state = fn(*ts)
+        grads.append(torch.autograd.grad((y * dy).sum() + (state * dS).sum(), ts))
+    for g, w in zip(*grads):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -670,7 +691,7 @@ def test_cuda_request_without_card_raises():
 def test_kernel_sources_are_present():
     names = sorted(p.name for p in dispatch.CSRC.glob("*.cu"))
     assert names == ["decode_attention.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-                     "rmsnorm.cu", "ssd.cu"]
+                     "rmsnorm.cu", "ssd.cu", "ssd_bwd.cu"]
 
 
 # ---------------------------------------------------------------------------

@@ -148,7 +148,18 @@ GRAD_CASES = {
     "logits-chunk": (dict(logits_chunk=16), 32),
     "gqa-qknorm-qkvbias": (dict(n_kv_heads=2, qk_norm=True, qkv_bias=True), 128),
     "remat-none": (dict(remat="none", logits_chunk=32), 64),
+    # mamba2 (block kind ssm, chunks of 8): a padded 5-row tail, remat "full"
+    "mamba2-L61": (dict(arch="mamba2-130m"), 61),
+    "mamba2-remat-none-L64": (dict(arch="mamba2-130m", remat="none"), 64),
 }
+
+
+def _configs(arch: str = "deepseek-7b", **over):
+    """``repro``'s reduced config in float32 and the port's copy of it."""
+    jcfg = jax_reduced_config(arch).replace(dtype="float32", **over)
+    if arch == "deepseek-7b":
+        return jcfg, _port_cfg(jcfg)
+    return jcfg, reduced_config(arch).replace(dtype="float32", **over)
 
 
 @pytest.mark.parametrize("name", sorted(GRAD_CASES))
@@ -157,8 +168,7 @@ def test_loss_and_grads_match_repro(name):
     1e-4 of its leaf's largest magnitude (f32; observed ≤ 1e-6), against
     ``jax.value_and_grad(repro.models.loss_fn)``."""
     over, L = GRAD_CASES[name]
-    jcfg = jax_reduced_config("deepseek-7b").replace(dtype="float32", **over)
-    cfg = _port_cfg(jcfg)
+    jcfg, cfg = _configs(**over)
     jparams = jax_init_params(jax.random.PRNGKey(0), jcfg)
     for leaf in ("bq", "bk", "bv") if jcfg.qkv_bias else ():  # zero-initialised: make them matter
         jparams["layers"]["attn"][leaf] = 0.1 * jax.random.normal(
@@ -196,10 +206,10 @@ def test_remat_dots_saveable_names_its_roadmap_line():
 # The staged train step
 # ---------------------------------------------------------------------------
 
-def _pair_states(jcfg, seed=0):
+def _pair_states(jcfg, cfg=None, seed=0):
     js = jax_init_train_state(jax.random.PRNGKey(seed), jcfg)
     st = train_state_from_numpy(jax.tree.map(np.asarray, js.params),
-                                jax.tree.map(np.asarray, js.opt), js.step, _port_cfg(jcfg), "cpu")
+                                jax.tree.map(np.asarray, js.opt), js.step, cfg or _port_cfg(jcfg), "cpu")
     return js, st
 
 
@@ -213,21 +223,34 @@ def _pair_states(jcfg, seed=0):
 # within float noise of a half step of the int8 grid rounds to neighbouring
 # integers in the two packages, which moves its m by (1 - b1)·scale =
 # 0.1·max|g| / 127, about max|m| / 127 (observed once in 8192 elements).
+# mamba2's AdamW state is held within 2e-5 of its leaf's largest magnitude:
+# the same mechanism moves its parameters by up to 1.9e-5 (within 3e-5), and
+# the SSD's exp(cumsum) chain carries that into the next steps' gradients
+# more than the dense model does (observed 1.17e-5 in m of in_proj after 3
+# steps; the first step's gradients agree within 1.2e-6 of each leaf's max).
 PARAM_ATOL = {"adamw": 3e-5, "adafactor": 1e-6}
+OPT_ATOL = {"mamba2-130m": {"adamw": 2e-5, "adafactor": 1e-5}}
 STEP_CASES = [("adamw", 1, False), ("adamw", 2, False), ("adafactor", 1, False),
-              ("adafactor", 2, False), ("adamw", 2, True)]
+              ("adafactor", 2, False), ("adamw", 2, True),
+              ("adamw", 2, False, "mamba2-130m"), ("adafactor", 2, False, "mamba2-130m")]
 
 
-@pytest.mark.parametrize("opt,n_mb,compress", STEP_CASES,
-                         ids=lambda v: str(v) if not isinstance(v, bool) else ("int8" if v else "f32"))
-def test_train_steps_match_repro(opt, n_mb, compress):
+def _step_id(case) -> str:
+    opt, n_mb, compress, *arch = case
+    return "-".join([opt, str(n_mb), "int8" if compress else "f32", *arch])
+
+
+@pytest.mark.parametrize("case", [pytest.param(c, id=_step_id(c)) for c in STEP_CASES])
+def test_train_steps_match_repro(case):
     """Three steps of ``build_train_step`` from bridged state: loss and grad
     norm within 1e-4 relative at every step (observed ≤ 2e-7), then every
-    parameter and optimizer-state leaf (tolerances above)."""
-    jcfg = jax_reduced_config("deepseek-7b").replace(dtype="float32", optimizer=opt)
-    js, st = _pair_states(jcfg)
+    parameter and optimizer-state leaf (tolerances above).  Reduced
+    deepseek-7b, and reduced mamba2-130m (chunks of 8, 32 tokens)."""
+    opt, n_mb, compress, *arch = case
+    jcfg, cfg = _configs(*arch, optimizer=opt)
+    js, st = _pair_states(jcfg, cfg)
     jart = jax_build_train_step(jcfg, n_microbatches=n_mb, grad_compression=compress, donate=False)
-    art = build_train_step(_port_cfg(jcfg), n_microbatches=n_mb, grad_compression=compress)
+    art = build_train_step(cfg, n_microbatches=n_mb, grad_compression=compress)
     ds = JaxDataset(jcfg, JaxShape("t", "train", 32, 4), seed=0)
     for step in range(3):
         b = ds.batch_for_step(step)
@@ -244,7 +267,7 @@ def test_train_steps_match_repro(opt, n_mb, compress):
     want_o, got_o = _tree_leaves(jax.tree.map(np.asarray, js.opt)), _tree_leaves(o_tree)
     assert sorted(want_o) == sorted(got_o)
     for k, w in want_o.items():
-        atol = (1e-2 if compress else 1e-5) * np.abs(w).max()
+        atol = (1e-2 if compress else OPT_ATOL.get("".join(arch), {}).get(opt, 1e-5)) * np.abs(w).max()
         np.testing.assert_allclose(got_o[k], w, rtol=0, atol=atol, err_msg=k)
 
 
@@ -414,30 +437,12 @@ def test_launcher_raises_without_a_card_or_for_unported_flags():
         launch_train.main(["--reduced", "--steps", "1"])
 
 
-def test_mamba2_train_step_surfaces_the_ssd_guard(monkeypatch):
-    """Fault F1: with the intra-chunk step routed as on the card (the guard
-    of ``ssd_intra_chunk``'s CUDA branch, then the plain version), mamba2
-    training through the launcher raises ``NotImplementedError`` naming
-    ROADMAP.md Queue 2 item 4 at its first microbatch: neither the staged
-    runtime nor the launcher catches it.  Under ``torch.no_grad`` (serving)
-    the same route runs."""
-    from repro_torch.kernels.ssd import ops as ssd_ops
-
-    calls = []
-
-    def card_route(*args):
-        calls.append(1)
-        ssd_ops.check_no_autograd(*args)
-        return ssd_ops.ssd_chunk_ref(*args)
-
-    monkeypatch.setattr(ssd_ops, "ssd_intra_chunk", card_route)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
-        launch_train.main(["--arch", "mamba2-130m", "--reduced", "--device", "cpu", "--steps", "1",
-                           "--batch", "2", "--seq", "16", "--microbatches", "1", "--log-every", "0"])
-    assert len(calls) == 1
-    cfg = reduced_config("mamba2-130m")
-    model = tm.set_trainable(tm.init_params(cfg, 0, device="cpu"))
-    tokens = torch.zeros((1, 16), dtype=torch.int32)
-    with torch.no_grad():
-        loss, _ = tm.loss_fn(model, {"tokens": tokens, "labels": tokens}, cfg)
-    assert torch.isfinite(loss) and len(calls) == 1 + cfg.n_layers
+def test_launcher_mamba2_loss_decreases_on_cpu():
+    """Reduced mamba2-130m (block kind ssm, chunks of 8) through the
+    launcher on the CPU: 30 steps lower the loss by more than 0.5."""
+    out = launch_train.main(["--arch", "mamba2-130m", "--reduced", "--device", "cpu",
+                             "--steps", "30", "--batch", "8", "--seq", "32",
+                             "--microbatches", "2", "--log-every", "0"])
+    assert out["final_step"] == 30 and len(out["losses"]) == 30
+    assert all(np.isfinite(out["losses"]))
+    assert out["losses"][-1] < out["losses"][0] - 0.5
