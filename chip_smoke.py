@@ -4,12 +4,13 @@
 
 Phases (any failure raises and the script exits non-zero):
 
-1. header   — card name and power limit (nvidia-smi), torch and CUDA versions;
+1. header   — card name and power limit (nvidia-smi), torch and CUDA versions,
+              the host's cost of a kernel launch into an idle and a busy card;
 2. build    — builds the hand-written kernels from ``src/repro_torch/kernels/csrc``;
-3. kernels  — the HGMMA count of the flash (forward and backward) and ssd
+3. kernels  — the HGMMA count of the flash and ssd (forward and backward)
               kernels' SASS where ``cuobjdump`` is present (the bf16 routes
               have some, the f32 routes none), the registers and spills of
-              the bf16 backward kernels; each kernel against its plain PyTorch version on
+              the backward kernels; each kernel against its plain PyTorch version on
               the card, at the serving paths' shapes (deepseek-7b,
               mamba2-130m; bf16) and at edge shapes (fp32 and bf16), with
               kernel / plain / library times and bounds (rmsnorm also at both
@@ -23,9 +24,11 @@ Phases (any failure raises and the script exits non-zero):
               SDPA / F.rms_norm (the flash backward's dK/dV and dQ kernels
               also apart); the ssd backward against its plain version at
               cs 256 / 100 / 1, G = 1 and G = H, a strong decay (finite
-              gradients), bf16 and fp32, run to run identical, autograd
-              through the scan on a ragged L, and timed at the mamba2
-              train path's shape with both reckonings of its bound; then
+              gradients), bf16 (tensor cores: each output's worst share of
+              its limit; an unaligned input raises) and fp32 (SIMT), run to
+              run identical, autograd through the scan on a ragged L, and
+              timed at the mamba2 train path's shape with both reckonings
+              of its bound and its three kernels apart; then
               one codelet per kernel on a device worker;
 4. examples — the five examples of ``repro_torch.examples`` on the card
               at small step counts (the heterogeneous GEMM runs tasks on
@@ -146,6 +149,34 @@ def header() -> str:
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     return smi
+
+
+def launch_cost(n: int = 200) -> tuple[float, float]:
+    """Host time of one small kernel launch, in µs (median of ``n``), into
+    an idle card and into a busy one (queued behind ``torch.cuda._sleep``).
+    A host-bound step pays the first on every launch that finds the card
+    idle, so a faster kernel can lengthen such a step's wall time."""
+    z = torch.zeros(1024, device="cuda")
+    z.add_(1.0)
+    torch.cuda.synchronize()
+    idle = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        time.sleep(2e-4)
+        t0 = time.perf_counter()
+        z.add_(1.0)
+        idle.append(time.perf_counter() - t0)
+    torch.cuda._sleep(2_000_000_000)
+    busy = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        z.add_(1.0)
+        busy.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    idle_us, busy_us = float(np.median(idle)) * 1e6, float(np.median(busy)) * 1e6
+    log(f"[header] a kernel launch costs the host {idle_us:.1f} us into an idle card, {busy_us:.1f} us "
+        f"into a busy one (median of {n})")
+    return idle_us, busy_us
 
 
 # ---------------------------------------------------------------------------
@@ -275,8 +306,8 @@ def _pairs(Lq, Lk, causal, window, q_offset) -> int:
 
 def _hgmma_counts() -> dict | None:
     """HGMMA (wgmma) instructions in the SASS of each flash-attention
-    (forward and backward) and ssd kernel of the built library, by
-    ``cuobjdump -sass``; None where the tool is missing."""
+    (forward and backward) and ssd (forward and backward) kernel of the
+    built library, by ``cuobjdump -sass``; None where the tool is missing."""
     from repro_torch.kernels import dispatch
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -287,7 +318,10 @@ def _hgmma_counts() -> dict | None:
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"(flash_(?:fwd|bwd)_\w*?kernel|ssd_chunk_\w*?kernel)(?:I(\w*?)E+v)?", line)
+            # the name after its length digits, not the source file's name that the
+            # anonymous namespace's mangling holds (``..._ssd_bwd_cu_<hash>...``)
+            m = re.search(r"(?<=\d)(flash_(?:fwd|bwd)_\w*?kernel|ssd_(?:chunk|bwd)_\w*?kernel)(?:I(\w*?)E+v)?",
+                          line)
             fn = (f"{m.group(1)}<{m.group(2)}>" if m.group(2) else m.group(1)) if m else None
             if fn:
                 counts[fn] = 0
@@ -297,9 +331,10 @@ def _hgmma_counts() -> dict | None:
 
 
 def check_hgmma() -> dict | None:
-    """The bf16 routes of flash (forward and backward) and ssd run on the
-    tensor cores (HGMMA in their SASS); the f32 routes and the backward's D
-    pass do not."""
+    """The bf16 routes of flash and ssd (forward and backward) run on the
+    tensor cores (HGMMA in their SASS); the f32 routes, the flash
+    backward's D pass and the ssd backward's conversion and dcum passes do
+    not."""
     counts = _hgmma_counts()
     if counts is None:
         log("[kernels] cuobjdump not on this machine: HGMMA counts not taken")
@@ -308,15 +343,18 @@ def check_hgmma() -> dict | None:
         + ", ".join(f"{k}: {v}" for k, v in counts.items()))
     tc = [k for k in counts if "wgmma" in k]
     simt = [k for k in counts if "wgmma" not in k]
-    for prefix in ("ssd_chunk_wgmma", "flash_fwd_wgmma", "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma"):
+    for prefix in ("ssd_chunk_wgmma", "flash_fwd_wgmma", "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma",
+                   "ssd_bwd_wgmma"):
         assert any(k.startswith(prefix) for k in tc), (prefix, counts)
-    assert any(k.startswith("flash_bwd_dkdv_kernel") for k in simt), counts
+    for prefix in ("flash_bwd_dkdv_kernel", "ssd_bwd_kernel"):
+        assert any(k.startswith(prefix) for k in simt), (prefix, counts)
     assert all(counts[k] > 0 for k in tc) and all(counts[k] == 0 for k in simt), counts
     return counts
 
 
 # the kernels whose registers and spills the kernel phase prints
-RESOURCE_KERNELS = ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel", "ssd_bwd_kernel")
+RESOURCE_KERNELS = ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel", "ssd_bwd_kernel",
+                    "ssd_bwd_wgmma_kernel")
 
 
 def resource_usage() -> dict:
@@ -767,15 +805,18 @@ def check_ssd_bwd(dev) -> dict:
     """The ssd backward kernel against ``ssd_chunk_bwd_ref`` on the card:
     cs 256 / 100 / 1, one group and one group per head, a strong decay (the
     span of cum inside a chunk past 88, where exp of the masked triangle
-    overflows: every gradient finite), bf16 and fp32, run to run identical;
-    autograd through the scan on a ragged L (777: a padded 9-row tail) with
-    an initial state against the plain scan's autograd; times at the train
-    path's shape (one microbatch of mamba2-130m's (8, 2048) batch in 2)."""
+    overflows: every gradient finite), bf16 (the tensor-core route, each
+    output's worst share of its limit logged) and fp32 (SIMT), run to run
+    identical; an unaligned bf16 input raises; autograd through the scan on
+    a ragged L (777: a padded 9-row tail) with an initial state against the
+    plain scan's autograd; times at the train path's shape (one microbatch
+    of mamba2-130m's (8, 2048) batch in 2), its kernels apart."""
     from repro_torch.kernels.ssd import ops
     from repro_torch.kernels.ssd.ref import ssd_chunk_bwd_ref
 
     gen = torch.Generator(device=dev).manual_seed(15)
     err = 0.0
+    share = {}  # bf16: each output's worst (|kernel - plain| / limit) over the cases
     cases = ((512, 256, 24, 1, -1.0), (512, 256, 8, 8, -1.0), (300, 100, 24, 1, -1.0),
              (300, 100, 4, 4, -1.0), (5, 1, 4, 1, -1.0), (512, 256, 4, 1, 3.0))
     for L, cs, H, G, shift in cases:
@@ -790,9 +831,30 @@ def check_ssd_bwd(dev) -> dict:
             want = ssd_chunk_bwd_ref(*args, dy, dS)
             for name, g, w in zip(("dx", "ddt", "dcum", "dB", "dC"), got, want):
                 _compare_bwd(f"ssd bwd {name} {label}", g, w, dtype)
+                if dtype == torch.bfloat16:
+                    w = w.float()
+                    atol, rtol = BWD_TOL[dtype]
+                    lim = atol * w.abs().max() + rtol * w.abs()
+                    r = float(((g.float() - w).abs() / lim.clamp_min(1e-30)).max())
+                    share[name] = max(share.get(name, 0.0), r)
+            if cs == 1:
+                assert bool((got[2] == 0).all()), f"ssd bwd {label}: dcum does not cancel to 0"
             again = ops.ssd_intra_chunk_bwd(*args, dy, dS)
             assert all(torch.equal(a, b) for a, b in zip(got, again)), f"ssd bwd {label}: not deterministic"
-    log("[kernels] ssd bwd: run to run identical in every case")
+    log("[kernels] ssd bwd: run to run identical in every case; dcum exactly 0 at cs 1")
+    log("[kernels] ssd bwd bf16 (tensor cores): worst share of the limit over the cases: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in share.items()))
+    # an unaligned bf16 input (x one element into its buffer) raises, nothing launched
+    (x, *rest), dy, dS = _ssd_bwd_args(gen, dev, torch.bfloat16, 1, 512, 4, 1, 256)
+    shifted = torch.zeros(x.numel() + 1, dtype=torch.bfloat16, device=dev)[1:].view(x.shape)
+    before = ops.bwd_launches.count
+    try:
+        ops.ssd_intra_chunk_bwd(shifted, *rest, dy, dS)
+    except ValueError as exc:
+        log(f"[kernels] ssd bwd unaligned bf16 x raised: {str(exc)[:100]}")
+    else:
+        raise AssertionError("ssd bwd: an unaligned bf16 x did not raise")
+    assert ops.bwd_launches.count == before
     # autograd through the scan: ragged L, one group read in place, an initial state
     L, H, P, N = 777, 24, 64, 128
     leaves = [torch.randn((1, L, H, P), generator=gen, device=dev),
@@ -839,8 +901,15 @@ def check_ssd_bwd(dev) -> dict:
     parts = dict(profiled_calls(lambda: ops.ssd_intra_chunk_bwd(*sets[0]))["top"])
     log("[kernels] ssd bwd kernels apart (profiler, 10 calls): "
         + ", ".join(f"{n[:70]} {t:.4f} ms" for n, t in parts.items()))
+    main_ms = sum(t for n, t in parts.items() if "wgmma" in n)
+    cvt_ms = sum(t for n, t in parts.items() if "cvt" in n)
+    dcum_ms = sum(t for n, t in parts.items() if "dcum" in n)
+    cvt_bytes = b * L * H * P * (4 + 2) + n_chunks * N * P * (4 + 2)
+    log(f"[kernels] ssd bwd apart: wgmma kernel {main_ms:.4f} ms ({flops / main_ms / 1e9:.1f} TFLOP/s of "
+        f"the needed work), dy / dS conversion {cvt_ms:.4f} ms ({cvt_bytes} bytes, "
+        f"{cvt_bytes / cvt_ms / 1e9:.3f} TB/s), dcum pass {dcum_ms:.4f} ms")
     return dict(
-        name="ssd_bwd", route="cuda", source="src/repro_torch/kernels/csrc/ssd_bwd.cu",
+        name="ssd_bwd", route="cuda", source="src/repro_torch/kernels/csrc/ssd_bwd_wgmma.cu",
         replaces="src/repro/models/ssm.py:74 (no Pallas kernel: JAX differentiates the jnp ssd_chunked)",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None,
         simt_ms=t_simt, flops=flops, bytes=bytes_moved,
@@ -2069,6 +2138,7 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     smi = header()
+    launch_cost()
     dev = torch.device("cuda")
     build_s = build_kernels()
     records = kernel_phase(dev)

@@ -35,8 +35,11 @@ from repro_torch.kernels.dispatch import resolve_device
 
 
 def run(spec: bool, accept_p: float, steps: int = 24, d: float = 5e-3, seed: int = 7,
-        device="cpu"):
-    """One chain → (wall s, state, obs, speculation stats)."""
+        device="cuda"):
+    """One chain → (wall s, state, obs, speculation stats).  ``device``
+    defaults to the card, as every entry point does, and raises without a
+    Hopper card; pass ``"cpu"`` to run on the host."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     proposals = rng.normal(size=steps)
     accepts = rng.random(steps) < accept_p

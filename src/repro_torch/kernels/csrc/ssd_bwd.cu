@@ -1,11 +1,12 @@
-// Backward of the Mamba-2 SSD intra-chunk step (csrc/ssd.cu) for Hopper.
+// Backward of the Mamba-2 SSD intra-chunk step (csrc/ssd.cu) for Hopper:
+// the float32 route.  bf16 takes the tensor cores (csrc/ssd_bwd_wgmma.cu).
 //
 // Replaces: no Pallas kernel.  repro trains mamba2 through jax.grad of the
 //           jnp ssd_chunked (src/repro/models/ssm.py:74); this computes the
 //           vector-Jacobian product of its intra-chunk part
 //           (src/repro/kernels/ssd/ref.py::ssd_chunk_ref), the part
 //           src/repro/kernels/ssd/kernel.py::ssd_intra_chunk_pallas runs.
-// Computes: per (batch, head, chunk), in f32 whatever the input type, with
+// Computes: per (batch, head, chunk), in f32, with
 //           s_ij = C_i.B_j, L_ij = exp(cum_i - cum_j) (i >= j), W_ij =
 //           s_ij L_ij dt_j, e_j = exp(cum_last - cum_j), u_j = dS x_j and the
 //           cotangents dy (cs x P) and dS (N x P):
@@ -20,14 +21,12 @@
 //           the group's heads.
 // Layout:   every operand through strides (batch, head or group, chunk, row)
 //           with the last dim contiguous, as the forward reads them; dS's
-//           N x P matrix is contiguous.  dy, dS, ddt and dcum are f32; dx,
-//           dB and dC take the inputs' type.
+//           N x P matrix is contiguous.  Every operand is f32.
 //
 // Bound: ~cs^2/2 * (3N + 2P) * 2 flops of products per (chunk, head) plus
 // 4 * cs * N * P for the state terms, against ~cs * (2P + 2N) elements read
-// and written: the operations bound it.  This first kernel runs them on the
-// SIMT cores in f32 for both input types (the forward's bf16 hi + lo trick
-// is not needed), recomputing s and dW in each of its two roles:
+// and written: the operations bound it.  This kernel runs them on the SIMT
+// cores in f32, recomputing s and dW in each of its two roles:
 //
 // ssd_bwd_kernel, grid (2 * tiles, chunks, batch * heads), 256 threads, the
 //   forward f32 kernel's 64-row tiles and 4 x 4 register blocking:
@@ -550,8 +549,8 @@ void copy_strides(long long* dst, const long long* src, int n) {
 
 // Strides are in elements: (batch, head, chunk, row) for x, dt, cum, dy, dx,
 // ddt and dcum; (batch, group, chunk, row) for B, C, dB and dC; (batch,
-// head, chunk) for dS, whose N x P matrix is contiguous.  x, B, C, dx, dB
-// and dC share one dtype; dt, cum, dy, dS, ddt and dcum are f32.  The
+// head, chunk) for dS, whose N x P matrix is contiguous.  Every operand is
+// f32 (bf16 goes to ssd_intra_chunk_bwd_tc).  The
 // scratch (f32, contiguous): dbh and dch (batch, heads, chunks, cs, N), rows
 // (batch, heads, chunks, cs), qsum (batch, heads, chunks, ceil(cs / 64)).
 extern "C" int ssd_intra_chunk_bwd(
@@ -604,7 +603,6 @@ extern "C" int ssd_intra_chunk_bwd(
   copy_strides(p.dbs, db_strides, 4);
   copy_strides(p.dcs, dc_strides, 4);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == rt::BF16) return launch<__nv_bfloat16>(p, batch, st);
   if (dtype == rt::F32) return launch<float>(p, batch, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -139,11 +139,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.decode_attention_chunk.argtypes = []
     lib.ssd_intra_chunk_fwd.argtypes = [P] * 7 + [I] * 7 + [S3] * 7 + [I, P]
     lib.ssd_intra_chunk_bwd.argtypes = [P] * 16 + [I] * 7 + [S3] * 12 + [I, P]
+    lib.ssd_intra_chunk_bwd_tc.argtypes = [P] * 16 + [I] * 7 + [S3] * 12 + [P]
     lib.kernels_error_string.argtypes = [I]
     lib.kernels_error_string.restype = ctypes.c_char_p
     for fn in (lib.rmsnorm_fwd, lib.rmsnorm_bwd, lib.flash_attention_fwd,
                lib.flash_attention_bwd, lib.decode_attention_fwd, lib.decode_attention_chunk,
-               lib.ssd_intra_chunk_fwd, lib.ssd_intra_chunk_bwd):
+               lib.ssd_intra_chunk_fwd, lib.ssd_intra_chunk_bwd, lib.ssd_intra_chunk_bwd_tc):
         fn.restype = I
     return lib
 

@@ -15,11 +15,15 @@ a CUDA tensor launches the kernel or raises.
 
 The backward has no Pallas counterpart: ``repro`` trains mamba2 through
 ``jax.grad`` of the jnp ``ssd_chunked``.  :func:`ssd_intra_chunk_bwd` runs
-its vector-Jacobian product on the SIMT cores in float32 for both input
-types, and sums dB / dC over each group's heads in a fixed order (no
-atomics).  On CUDA tensors :func:`ssd_intra_chunk` always goes through
-:class:`SsdIntraChunkFn`, whose backward launches that kernel; under
-``torch.no_grad`` (serving) it records nothing.
+its vector-Jacobian product in two routes, both summing dB / dC over each
+group's heads in a fixed order (no atomics): bfloat16 on the tensor cores
+(``csrc/ssd_bwd_wgmma.cu``: two warpgroups a block in a column role (dx,
+dB, ddt, dcum) or a row role (dC), walking its group's heads in order with
+dB / dC in f32 registers; the plan is :func:`bwd_tc_launch_plan`), float32
+on the SIMT cores (``csrc/ssd_bwd.cu``).  On CUDA tensors
+:func:`ssd_intra_chunk` always goes through :class:`SsdIntraChunkFn`, whose
+backward launches that kernel; under ``torch.no_grad`` (serving) it
+records nothing.
 """
 from __future__ import annotations
 
@@ -66,6 +70,43 @@ def tc_launch_plan(cs: int, N: int = _MAX_STATE_DIM) -> list[TcBlock]:
         lo = half * TILE
         rows = (lo, min(lo + TILE, N)) if lo < N else (lo, lo)
         plan.append(TcBlock(half, tiles, rows, tuple(range(n_tiles)) if lo < N else ()))
+    return plan
+
+
+class BwdTcBlock(NamedTuple):
+    """One block of the bfloat16 backward kernel for one chunk."""
+    y: int                       # blockIdx.y: the role and tile, the heaviest first
+    group: int
+    role: str                    # "column" (dx, dB, ddt, dcum) or "row" (dC)
+    tile: int                    # the j tile (column) or the i tile (row) it owns
+    partners: tuple[int, ...]    # the i tiles (column) or j tiles (row) it walks, in order
+    heads: tuple[int, ...]       # its group's heads, in the order it walks them
+    warpgroups: tuple[tuple[int, ...], tuple[int, ...]]  # the partners each warpgroup takes
+
+
+def bwd_tc_launch_plan(cs: int, heads: int, groups: int) -> list[BwdTcBlock]:
+    """The blocks ``ssd_bwd_wgmma_kernel`` runs for one chunk, in launch
+    order, as the kernel indexes them: its grid is (batch · groups ·
+    chunks, 2 · tiles) and blocks launch with blockIdx.x fastest, so every
+    chunk's blocks of one ``y`` go before the next ``y``.  ``y < tiles`` is
+    the column role of j tile ``y`` (i tiles ``y`` to the last), the rest
+    the row role of i tile ``2·tiles − 1 − y`` (j tiles 0 to it): the
+    heaviest blocks first.  Each walks all of its group's heads in order,
+    so dB and dC sum them in head order inside the block; its two
+    warpgroups share each head, warpgroup w taking every other partner
+    tile from the w-th."""
+    n_tiles = -(-cs // TILE)
+    per = heads // groups
+    plan = []
+    for y in range(2 * n_tiles):
+        for g in range(groups):
+            hs = tuple(range(g * per, (g + 1) * per))
+            if y < n_tiles:
+                role, tile, partners = "column", y, tuple(range(y, n_tiles))
+            else:
+                role, tile = "row", 2 * n_tiles - 1 - y
+                partners = tuple(range(tile + 1))
+            plan.append(BwdTcBlock(y, g, role, tile, partners, hs, (partners[0::2], partners[1::2])))
     return plan
 
 
@@ -181,12 +222,17 @@ def ssd_intra_chunk_bwd(x, dt, cum, B, C, dy, dS):
     and dC sum each group's heads.  Accumulated in float32 without atomics
     (the same bits on every run).  ``dy`` is read through its strides (a
     non-contiguous last dim is copied once); ``dS`` is copied once unless
-    each (N, P) matrix is contiguous."""
+    each (N, P) matrix is contiguous.  bfloat16 runs on the tensor cores and
+    takes what :func:`check_tensor_core_layout` allows (``ValueError``
+    otherwise); its first pass converts dy and dS to bfloat16 copies."""
     if all(t.device.type == "cpu" for t in (x, dt, cum, B, C, dy, dS)):
         return ssd_chunk_bwd_ref(x, dt, cum, B, C, dy, dS)
     name = "ssd_intra_chunk_bwd"
     Bsz, H, nc, cs, P, G, N, code = _check(name, x, dt, cum, B, C)
     dispatch.check_cuda_tensors(name, x, dy, dS)
+    tc = x.dtype == torch.bfloat16
+    if tc:
+        check_tensor_core_layout(cs, x=x, B=B, C=C)
     if (
         tuple(dy.shape) != (Bsz, H, nc, cs, P) or tuple(dS.shape) != (Bsz, H, nc, N, P)
         or dy.dtype != torch.float32 or dS.dtype != torch.float32
@@ -211,18 +257,26 @@ def ssd_intra_chunk_bwd(x, dt, cum, B, C, dy, dS):
     if dx.numel() == 0:
         return tuple(t.zero_() for t in (dx, ddt, dcum, dB, dC))
     tiles = -(-cs // TILE)
-    dBh, dCh = (torch.empty((Bsz, H, nc, cs, N), dtype=torch.float32, device=dev) for _ in range(2))
-    rows = torch.empty((Bsz, H, nc, cs), dtype=torch.float32, device=dev)
-    qsum = torch.empty((Bsz, H, nc, tiles), dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    if tc:  # bf16 copies of dy and dS; rowsum(M) and the last row's sum in parts by (j tile, warp)
+        scratch = (torch.empty((Bsz, H, nc, cs, P), dtype=torch.bfloat16, device=dev),
+                   torch.empty((Bsz, H, nc, N, P), dtype=torch.bfloat16, device=dev),
+                   torch.empty((Bsz, H, nc, tiles, 4, cs), **f32), torch.empty((Bsz, H, nc, tiles, 4), **f32))
+    else:  # per-head f32 dB / dC, rowsum(M), the last row's sum by j tile
+        scratch = (torch.empty((Bsz, H, nc, cs, N), **f32), torch.empty((Bsz, H, nc, cs, N), **f32),
+                   torch.empty((Bsz, H, nc, cs), **f32), torch.empty((Bsz, H, nc, tiles), **f32))
     lib = dispatch.library()
     dims = (0, 1, 2, 3)
-    rc = lib.ssd_intra_chunk_bwd(
-        *(t.data_ptr() for t in (x, dt, cum, B, C, dy, dS, dx, ddt, dcum, dB, dC, dBh, dCh, rows, qsum)),
+    args = (
+        *(t.data_ptr() for t in (x, dt, cum, B, C, dy, dS, dx, ddt, dcum, dB, dC, *scratch)),
         Bsz, H, H // G, nc, cs, P, N,
         *(dispatch.strides(t, dims) for t in (x, dt, cum, B, C, dy)), dispatch.strides(dS, (0, 1, 2)),
         *(dispatch.strides(t, dims) for t in (dx, ddt, dcum, dB, dC)),
-        code, dispatch.stream_handle(x),
     )
+    if tc:
+        rc = lib.ssd_intra_chunk_bwd_tc(*args, dispatch.stream_handle(x))
+    else:
+        rc = lib.ssd_intra_chunk_bwd(*args, code, dispatch.stream_handle(x))
     dispatch.check(rc, name)
     bwd_launches.add()
     return dx, ddt, dcum, dB, dC

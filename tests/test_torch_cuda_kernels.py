@@ -501,7 +501,9 @@ def test_ssd_bwd_kernel_matches_plain(cuda_device, dtype, L, cs, H, G, dt_shift)
     """The backward kernel against ``ssd_chunk_bwd_ref`` on the model's
     strided views: cs 256 / 100 / 1, one group or one group per head, and
     a strong decay (cum_i − cum_j > 100 inside a chunk) whose gradients
-    stay finite; one launch, the same bits on a second run."""
+    stay finite; one launch, the same bits on a second run.  bfloat16 runs
+    the tensor-core route (``csrc/ssd_bwd_wgmma.cu``), float32 the SIMT
+    kernel."""
     gen = torch.Generator(device=cuda_device).manual_seed(12)
     args, dy, dS = _ssd_views(gen, cuda_device, L, cs, H, G, DTYPES[dtype], dt_shift)
     if dt_shift > 0:
@@ -515,6 +517,24 @@ def test_ssd_bwd_kernel_matches_plain(cuda_device, dtype, L, cs, H, G, dt_shift)
         _close_scaled(g, w, dtype)
     again = ssd_ops.ssd_intra_chunk_bwd(*args, dy, dS)
     assert all(torch.equal(g, h) for g, h in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_ssd_bwd_tensor_core_route_rejects_unaligned(cuda_device):
+    """bfloat16 x one element into its buffer is not in whole 16-byte
+    chunks, and a chunk of 512 rows is past what the route holds: the
+    backward raises ``ValueError`` and launches nothing (it never falls
+    back to the SIMT kernel)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(16)
+    (x, dt, cum, B, C), dy, dS = _ssd_views(gen, cuda_device, 512, 256, 4, 1, torch.bfloat16)
+    shifted = torch.zeros(x.numel() + 1, dtype=torch.bfloat16, device=cuda_device)[1:].view(x.shape)
+    before = ssd_ops.bwd_launches.count
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ssd_ops.ssd_intra_chunk_bwd(shifted, dt, cum, B, C, dy, dS)
+    args, dy, dS = _ssd_views(gen, cuda_device, 512, 512, 4, 1, torch.bfloat16)
+    with pytest.raises(ValueError, match="at most 256"):
+        ssd_ops.ssd_intra_chunk_bwd(*args, dy, dS)
+    assert ssd_ops.bwd_launches.count == before
 
 
 @pytest.mark.cuda

@@ -93,3 +93,16 @@ def test_examples_need_a_card_without_device_cpu():
     for mod in (quickstart, heterogeneous_gemm, speculative_monte_carlo, train_lm, serve_lm):
         with pytest.raises(RuntimeError, match="no CUDA card"):
             mod.main([])
+
+
+def test_speculative_monte_carlo_run_defaults_to_the_card():
+    """The example's public ``run`` defaults to the card as the ``main``s
+    do: without a Hopper card it raises, with one it runs there and gives
+    the host's values."""
+    if not dispatch.cuda_available():
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            speculative_monte_carlo.run(True, 0.5, steps=2)
+        return
+    _, state, obs, _ = speculative_monte_carlo.run(True, 0.5, steps=6, seed=3)
+    _, s_cpu, o_cpu, _ = speculative_monte_carlo.run(True, 0.5, steps=6, seed=3, device="cpu")
+    assert (state, obs) == (s_cpu, o_cpu)

@@ -513,6 +513,148 @@ def test_ssd_tensor_core_plan_covers_every_tile_once(cs):
             assert [sum(len(js) for _, js in blk.y_tiles) for blk in plan] == [5, 5]
 
 
+# chip_smoke.py's and test_torch_cuda_kernels.py's backward limit for
+# bf16: BWD_ATOL·max|plain| + BWD_RTOL·|plain|
+BWD_ATOL, BWD_RTOL = 2e-2, 2e-2
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
+def _ssd_bwd_tc_emulate(x, dt, cum, B, C, dy, dS):
+    """csrc/ssd_bwd_wgmma.cu in plain torch on (H, nc, cs, ·) f32 tensors
+    holding bf16 x / B / C: dy and dS rounded once to bf16 (the conversion
+    pass); per 64-row (j tile, i tile >= j tile) pair the column role's f32
+    Sᵀ, dWᵀ, decay, W, G, M = G·s, ddt and colsum(M) sums and its column
+    sums of M over each warp's 16 j rows (rowsum(M)'s parts), then W and G
+    rounded once to bf16 for dx += Wᵀ·dy and dB += Gᵀ·C; the row role's dC
+    += bf16(G)·B; the state terms from U = x·bf16(dS)ᵀ and V = B·bf16(dS) in
+    f32.  Partial sums are kept per warpgroup (every other partner tile) and
+    added warpgroup 0's first, U's dB term in warpgroup 0's; dcum is (−colsum
+    − q) + (the parts of rowsum in (tile, warp) order + the warps' sums of q
+    on the last row).  dx, dB and dC are rounded to bf16 at the end, as the
+    kernel stores them; dB and dC are per head (the caller sums a group)."""
+    cs, T = x.shape[-2], ssd_ops.TILE
+    n_tiles = -(-cs // T)
+    dyb, dSb = _bf16(dy), _bf16(dS)
+    ii = torch.arange(cs)
+    zero = torch.zeros(())
+    # per warpgroup: dx, dB, dC, ddt, colsum partials
+    dx, dB, dC = (torch.zeros((2,) + t.shape) for t in (x, B, C))
+    ddt, col = torch.zeros((2,) + dt.shape), torch.zeros((2,) + dt.shape)
+    rowpart = torch.zeros(dt.shape[:-1] + (n_tiles, 4, cs))  # (j tile, warp)
+    tile = lambda t: slice(t * T, min(cs, t * T + T))  # noqa: E731
+    for jt in range(n_tiles):  # the column role
+        j = tile(jt)
+        for it in range(jt, n_tiles):
+            i, w = tile(it), (it - jt) % 2
+            keep = ii[j, None] <= ii[None, i]  # (j, i): i >= j
+            s = B[..., j, :] @ C[..., i, :].transpose(-1, -2)
+            dw = x[..., j, :] @ dyb[..., i, :].transpose(-1, -2)
+            decay = torch.exp(torch.where(keep, cum[..., None, i] - cum[..., j, None], zero))
+            sl = s * decay
+            g = torch.where(keep, dw * decay * dt[..., j, None], zero)
+            m = g * s
+            ddt[w][..., j] += torch.where(keep, dw * sl, zero).sum(-1)
+            col[w][..., j] += m.sum(-1)
+            for warp in range(4):  # warp holds the tile's j rows 16·warp .. 16·warp + 15
+                rowpart[..., jt, warp, i] = m[..., 16 * warp:16 * warp + 16, :].sum(-2)
+            wt = torch.where(keep, sl * dt[..., j, None], zero)
+            dx[w][..., j, :] += _bf16(wt) @ dyb[..., i, :]
+            dB[w][..., j, :] += _bf16(g) @ C[..., i, :]
+    for it in range(n_tiles):  # the row role
+        i = tile(it)
+        for jt in range(it + 1):
+            j = tile(jt)
+            keep = ii[i, None] >= ii[None, j]
+            dw = dyb[..., i, :] @ x[..., j, :].transpose(-1, -2)
+            decay = torch.exp(torch.where(keep, cum[..., i, None] - cum[..., None, j], zero))
+            g = torch.where(keep, dw * decay * dt[..., None, j], zero)
+            dC[jt % 2][..., i, :] += _bf16(g) @ B[..., j, :]
+    e = torch.exp(cum[..., -1:] - cum)
+    coef = e * dt
+    U, V = x @ dSb.transpose(-1, -2), B @ dSb
+    bu = (B * U).sum(-1)
+    q = coef * bu
+    dx = (dx[0] + dx[1]) + coef[..., None] * V
+    dB = (dB[0] + coef[..., None] * U) + dB[1]
+    ddt = (ddt[0] + ddt[1]) + e * bu
+    rows = rowpart.flatten(-3, -2).sum(-2)
+    qw = torch.nn.functional.pad(q, (0, n_tiles * T - cs)).unflatten(-1, (n_tiles * 4, 16)).sum(-1)
+    rows[..., -1] += qw.sum(-1)
+    dcum = (-(col[0] + col[1]) - q) + rows
+    return _bf16(dx), ddt, dcum, _bf16(dB), _bf16(dC[0] + dC[1])
+
+
+def _bwd_within(got, want) -> bool:
+    return bool(((got - want).abs() <= BWD_ATOL * want.abs().max() + BWD_RTOL * want.abs()).all())
+
+
+@pytest.mark.parametrize(
+    "L,cs,dt_shift", [(2048, 256, -1.0), (512, 256, 3.0), (300, 100, -1.0), (5, 1, -1.0)],
+    ids=["train-shape", "strong-decay", "cs100", "cs1"],
+)
+def test_ssd_bwd_tensor_core_arithmetic_meets_the_kept_tolerance(L, cs, dt_shift):
+    """Rounding dy, dS, W and G once to bf16 keeps the bf16 backward route
+    inside the backward tolerance that is kept (2e-2·max|plain| +
+    2e-2·|plain|), at the train shape (cs 256, H 24, P 64, N 128, one
+    group), with a decay whose span inside a chunk passes 88 (every
+    gradient finite), and at cs 100 and cs 1; at cs 1 dcum cancels to
+    exactly 0."""
+    args = _ssd_bf16_chunks(L, cs, 24, 64, 128, seed=19, dt_shift=dt_shift)
+    cum = args[2]
+    if dt_shift > 0:
+        assert float((cum[..., 0] - cum[..., -1]).max()) > 88
+    rng = np.random.default_rng(20)
+    H, nc = args[0].shape[:2]
+    dy = torch.from_numpy(rng.standard_normal((H, nc, cs, 64)).astype(np.float32))
+    dS = torch.from_numpy(rng.standard_normal((H, nc, 128, 64)).astype(np.float32))
+    want = list(ssd_ops.ssd_chunk_bwd_ref(*args, dy, dS))
+    got = list(_ssd_bwd_tc_emulate(*args, dy, dS))
+    for k in (3, 4):  # one group: dB and dC sum the heads
+        want[k], got[k] = want[k].sum(0), got[k].sum(0)
+    for name, g, w in zip(("dx", "ddt", "dcum", "dB", "dC"), got, want):
+        assert torch.isfinite(g).all(), name
+        assert _bwd_within(g, w), name
+    if cs == 1:
+        assert torch.equal(got[2], torch.zeros_like(got[2]))
+
+
+@pytest.mark.parametrize("H,G", [(24, 1), (8, 8), (4, 1)], ids=["24/1", "8/8", "4/1"])
+@pytest.mark.parametrize("cs", [256, 100, 1])
+def test_ssd_bwd_tensor_core_plan_covers_every_pair_once(cs, H, G):
+    """In each role, every (head, i tile, j tile <= i tile) of a chunk is
+    computed by exactly one block, which walks its group's heads in
+    increasing order and deals its partner tiles between its two
+    warpgroups (the first never has fewer); the column blocks come first,
+    j tile 0 (the most work) first, then the row blocks from the last i
+    tile down; at the train shape (4 sequences of 8 chunks) the grid has at
+    least 128 blocks."""
+    n_tiles = -(-cs // ssd_ops.TILE)
+    plan = ssd_ops.bwd_tc_launch_plan(cs, H, G)
+    want = sorted((h, i, j) for h in range(H) for i in range(n_tiles) for j in range(i + 1))
+    for role in ("column", "row"):
+        blocks = [blk for blk in plan if blk.role == role]
+        assert len(blocks) == n_tiles * G
+        if role == "column":
+            got = [(h, i, blk.tile) for blk in blocks for h in blk.heads for i in blk.partners]
+        else:
+            got = [(h, blk.tile, j) for blk in blocks for h in blk.heads for j in blk.partners]
+        assert sorted(got) == want
+        for blk in blocks:
+            per = H // G
+            assert blk.heads == tuple(range(blk.group * per, (blk.group + 1) * per))
+            assert list(blk.partners) == sorted(blk.partners)
+            assert sorted(blk.warpgroups[0] + blk.warpgroups[1]) == list(blk.partners)
+            assert 0 <= len(blk.warpgroups[0]) - len(blk.warpgroups[1]) <= 1
+    assert [blk.y for blk in plan] == sorted(blk.y for blk in plan)
+    assert [(blk.role, blk.tile) for blk in plan[::G]] == (
+        [("column", t) for t in range(n_tiles)] + [("row", t) for t in reversed(range(n_tiles))])
+    if (cs, H, G) == (256, 24, 1):
+        assert len(plan) * 4 * 8 >= 128
+
+
 def test_ssd_model_views_meet_tensor_core_layout():
     """The x / B / C views that the mamba2 model hands the intra-chunk step
     in bfloat16 pass the tensor-core route's rule (bases and strides in
@@ -691,7 +833,7 @@ def test_cuda_request_without_card_raises():
 def test_kernel_sources_are_present():
     names = sorted(p.name for p in dispatch.CSRC.glob("*.cu"))
     assert names == ["decode_attention.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-                     "rmsnorm.cu", "ssd.cu", "ssd_bwd.cu"]
+                     "rmsnorm.cu", "ssd.cu", "ssd_bwd.cu", "ssd_bwd_wgmma.cu"]
 
 
 # ---------------------------------------------------------------------------
