@@ -89,7 +89,25 @@ Phases (any failure raises and the script exits non-zero):
               the restored state bit for bit the saved one, the resumed run
               equal to the unbroken one (or within two unbroken runs'
               spread); save, commit and restore times.  The checkpoint
-              directory (``_smoke_ckpt/``) is removed at the end.
+              directory (``_smoke_ckpt/``) is removed at the end;
+14. comm    — communication in the task graph, payloads of mamba2-130m's
+              parameter count in float32 (0.52 GB a rank), every result
+              bit for bit and on the card: (a) four ranks on one
+              ``ChannelHub`` (eager runtimes with a ``cuda`` worker, groups
+              on the card): ring all-reduce sum and mean with and without
+              4 MiB pipelining, the all-gather, the hierarchical all-reduce
+              at 2 × 2, a bf16 ring, and a tensor written behind a long
+              kernel that arrives as written (hub and sockets); (b) rank
+              processes over the socket transport: ``run_ring_reduce`` at
+              2 and 4 ranks, ``run_collective`` all-gather and hierarchical,
+              the legacy star at 2 ranks; wall time, bus bandwidth and the
+              D2H time apart; (c) ``run_elastic_ring`` and
+              ``run_elastic_train`` at 3 ranks with one SIGKILLed: the
+              survivors equal their oracles, detection latency, re-roll
+              time, the card's memory freed; (d) ``launch.train.main`` on
+              mamba2-130m at full width with ``--fail-at 2:1
+              --bench-out``: the one-device line, losses equal to a run
+              without the flag, the JSON, exact launch counts.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing of JAX.
@@ -2132,6 +2150,366 @@ def ckpt_phase(dev) -> dict:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 14. communication in the task graph
+# ---------------------------------------------------------------------------
+
+COMM_RANKS = 4
+COMM_DEVICE = "cuda"  # every payload's device; results anywhere else fail
+COMM_CHUNK = 4 << 20  # chunk pipelining: 4 MiB pieces
+COMM_BF16_N = 1 << 20
+COMM_LAUNCH = ["--arch", "mamba2-130m", "--steps", "3", "--batch", "8", "--seq", "1024",
+               "--microbatches", "2", "--log-every", "1"]
+
+
+def _comm_n() -> int:
+    """The payload: mamba2-130m's parameter count, the gradient a
+    data-parallel rank of that model reduces."""
+    from repro_torch.configs import get_config
+
+    return get_config("mamba2-130m").param_count()
+
+
+def _busbw(size: int, nbytes: int, wall_s: float) -> float:
+    """Ring all-reduce bus bandwidth, GB/s: 2·(S−1)/S of the bytes a rank
+    holds, over the wall time."""
+    return 2 * (size - 1) / size * nbytes / wall_s / 1e9
+
+
+def _hub_run(values, insert, *, device=None):
+    """One collective over one ``ChannelHub``: rank r an eager ``SpRuntime``
+    with one ``cuda`` worker, its group on ``device``, its cell holding
+    ``values[r]``; ``insert(graph, group, cell)`` inserts the collective.
+    Returns (each rank's result, wall seconds to the last result)."""
+    from repro_torch.core import ChannelHub, SpCommGroup, SpData, SpRuntime, SpWorkerTeam
+
+    size = len(values)
+    hub = ChannelHub()
+    rts = [SpRuntime(workers=SpWorkerTeam(["cuda"])) for _ in range(size)]
+    try:
+        groups = [SpCommGroup(r, size, hub, default_timeout=120.0, device=device or COMM_DEVICE)
+                  for r in range(size)]
+        cells = [SpData(v, f"x{r}") for r, v in enumerate(values)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        views = [insert(rt.graph, g, c) for rt, g, c in zip(rts, groups, cells)]
+        for rt in rts:
+            rt.graph.wait_all_tasks()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        assert hub.stats()["boxes"] == 0, hub.stats()
+        return [v.get_value() for v in views], wall
+    finally:
+        for rt in rts:
+            rt.stop()
+
+
+def _on_card(t, name: str) -> None:
+    for x in t if isinstance(t, list) else [t]:
+        if x.device.type != COMM_DEVICE:
+            raise AssertionError(f"{name}: a payload arrived on {x.device}, not on the card")
+
+
+def _sleeping_write(x, value: float) -> None:
+    torch.cuda._sleep(1_000_000_000)  # ~0.5 s of a kernel queued ahead of the write
+    x.fill_(value)
+
+
+def _comm_stream_order(dev) -> dict:
+    """A task on the card queues a long kernel, then a write, and returns at
+    once; the send after it runs on the comm thread.  Over the hub to a
+    group on the CPU (the receiver's comm thread copies the tensor to the
+    host) and over a socket pair to a group on the card (the sender's comm
+    thread copies it to the host, the receiver's back to the card), what
+    arrives is the written value."""
+    from repro_torch.core import (ChannelHub, SocketTransport, SpCommGroup, SpComputeEngine, SpData,
+                                  SpTaskGraph, SpWorkerTeam, SpWrite, mpi_recv, mpi_send)
+
+    out = {}
+    eng = SpComputeEngine(SpWorkerTeam(["cuda", "cuda"]))  # device workers
+    try:
+        for wire, recv_dev in (("hub", "cpu"), ("sockets", COMM_DEVICE)):
+            if wire == "sockets":
+                t0 = SocketTransport(0, 2)
+                hubs = [t0, SocketTransport(1, 2, port=t0.port)]
+            else:
+                hubs = [ChannelHub()] * 2
+            try:
+                g0 = SpCommGroup(0, 2, hubs[0], device=dev)
+                g1 = SpCommGroup(1, 2, hubs[1], device=recv_dev)
+                tg0, tg1 = SpTaskGraph().compute_on(eng), SpTaskGraph().compute_on(eng)
+                x, r = SpData(torch.zeros(1 << 24, device=dev), "x"), SpData(None, "r")
+                torch.cuda.synchronize()
+                t_start = time.perf_counter()
+                tg0.task(SpWrite(x), lambda ref: _sleeping_write(ref.value, 7.0))
+                mpi_send(tg0, g0, x, dest=1, tag="w")
+                mpi_recv(tg1, g1, r, src=0, tag="w", timeout=120.0)
+                tg0.wait_all_tasks()
+                tg1.wait_all_tasks()
+                arrived = time.perf_counter() - t_start
+                got = r.value
+                assert got.device.type == recv_dev, (wire, got.device)
+                ok = bool(torch.equal(got, torch.full_like(got, 7.0)))
+                log(f"[comm] stream order over the {wire} to a {recv_dev} group: 64 MiB written behind a "
+                    f"~0.5 s kernel arrived after {arrived:.3f} s holding the written value: {ok}")
+                assert ok, f"{wire}: the send overtook the kernel that writes the tensor"
+                out[wire] = arrived
+            finally:
+                for h in reversed(hubs):
+                    h.close()
+    finally:
+        eng.stop()
+    return out
+
+
+def _comm_in_process(dev, n: int) -> dict:
+    """(a) Four ranks on one hub, groups on the card, ``_det_grad`` payloads
+    of ``n`` float32: ring sum and mean with and without chunk pipelining,
+    the all-gather, the hierarchical all-reduce at 2 × 2, a bf16 case; every
+    result a CUDA tensor, bit for bit the card's own sum of the inputs."""
+    from repro_torch.dist import collectives as coll
+    from repro_torch.launch.rendezvous import _det_grad
+
+    S = COMM_RANKS
+    xs = [torch.from_numpy(_det_grad(r, 0, n)).to(dev) for r in range(S)]
+    total = xs[0] + xs[1] + xs[2] + xs[3]  # integer-valued below 2**24: exact in any order
+    nbytes = n * 4
+    out = {}
+    for op in ("sum", "mean"):
+        want = total if op == "sum" else total / S
+        for chunk in (None, COMM_CHUNK):
+            got, wall = _hub_run(xs, lambda g, grp, c: coll.ring_all_reduce(
+                g, grp, c, op=op, tag=0, chunk_bytes=chunk))
+            _on_card(got, "ring_all_reduce")
+            exact = all(torch.equal(v, want) for v in got)
+            key = f"ring {op} chunk {chunk}"
+            out[key] = dict(wall_s=wall, busbw=_busbw(S, nbytes, wall), exact=exact)
+            log(f"[comm] in-process {key}: {S} ranks x {n} float32 ({nbytes / 1e9:.3f} GB a rank): "
+                f"{wall * 1e3:.1f} ms, bus {_busbw(S, nbytes, wall):.2f} GB/s; bit for bit: {exact}")
+            assert exact, key
+            del got
+    got, wall = _hub_run(xs, lambda g, grp, c: coll.ring_all_gather(g, grp, c, tag=1))
+    exact = all(len(v) == S and all(torch.equal(a, b) for a, b in zip(v, xs)) for v in got)
+    for v in got:
+        _on_card(v, "ring_all_gather")
+    out["gather"] = dict(wall_s=wall, exact=exact)
+    log(f"[comm] in-process all-gather: {wall * 1e3:.1f} ms, {S} x {nbytes / 1e9:.3f} GB gathered "
+        f"a rank; bit for bit: {exact}")
+    assert exact, "ring_all_gather"
+    del got
+    got, wall = _hub_run(xs, lambda g, grp, c: coll.hierarchical_all_reduce(g, grp, c, pod_size=2, tag=2))
+    _on_card(got, "hierarchical_all_reduce")
+    exact = all(torch.equal(v, total) for v in got)
+    out["hier"] = dict(wall_s=wall, exact=exact)
+    log(f"[comm] in-process hierarchical all-reduce (2 pods x 2): {wall * 1e3:.1f} ms; bit for bit: {exact}")
+    assert exact, "hierarchical_all_reduce"
+    del got, xs, total
+    # bf16: integers below 64 a rank, so every partial sum (< 256) is exact
+    bs = [((torch.arange(COMM_BF16_N, device=dev) % 61) + r).to(torch.bfloat16) for r in range(S)]
+    btotal = bs[0] + bs[1] + bs[2] + bs[3]
+    for op, want in (("sum", btotal), ("mean", btotal / S)):
+        got, wall = _hub_run(bs, lambda g, grp, c: coll.ring_all_reduce(g, grp, c, op=op, tag=3))
+        _on_card(got, "bf16 ring")
+        exact = all(v.dtype == torch.bfloat16 and torch.equal(v.view(torch.int16), want.view(torch.int16))
+                    for v in got)
+        log(f"[comm] in-process bf16 ring {op} of {COMM_BF16_N} elements: {wall * 1e3:.1f} ms; bit for bit: "
+            f"{exact}")
+        assert exact, f"bf16 {op}"
+        out[f"bf16 {op}"] = dict(wall_s=wall, exact=exact)
+    out["stream_order"] = _comm_stream_order(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _digest_check(name, reports, key, want_digest) -> None:
+    for rank, rep in sorted(reports.items()):
+        if not rep["device"].startswith(COMM_DEVICE):
+            raise AssertionError(f"{name}: rank {rank}'s result lived on {rep['device']}, not on the card")
+        if rep[key] != want_digest:
+            raise AssertionError(f"{name}: rank {rank}'s {key} differs from the oracle")
+
+
+def _comm_processes(n: int) -> dict:
+    """(b) Rank processes over the socket transport, payloads on the card:
+    ``run_ring_reduce`` at 2 and 4 ranks, ``run_collective`` all-gather and
+    hierarchical (2 × 2), and the legacy star (``RouterTransport``) at 2
+    ranks as the baseline; each result bit for bit its NumPy oracle."""
+    from repro_torch.launch import rendezvous as rdv
+
+    inputs = [rdv._normal_input(r, n) for r in range(COMM_RANKS)]
+    nbytes = n * 4
+    out = {}
+    # the star at 2 ranks: each of its reduces moves 1 GB through rank 0's
+    # Python router (3 GB at 4 ranks, ~9 s a reduce)
+    for size, transport in ((2, "p2p"), (4, "p2p"), (2, "router")):
+        t0 = time.perf_counter()
+        steps = 3 if transport == "p2p" else 1
+        res = rdv.run_ring_reduce(size, n, steps=steps, device=COMM_DEVICE, transport=transport,
+                                  digest=True, timeout=600.0)
+        total_s = time.perf_counter() - t0
+        want = rdv.ring_order_sum(inputs[:size])
+        _digest_check(f"ring {size} {transport}", res, "sum", rdv.payload_digest(want))
+        _digest_check(f"ring {size} {transport}", res, "mean", rdv.payload_digest(want / np.float32(size)))
+        walls = [rep["wall_s"] for rep in res.values()]
+        d2h = [rep["d2h_s"] for rep in res.values()]
+        key = f"ring {size} {transport}"
+        out[key] = dict(walls=walls, busbw=[_busbw(size, nbytes, w) for w in walls], d2h_s=d2h,
+                        total_s=total_s, stats=res[0]["stats"])
+        log(f"[comm] {size} processes, {transport}: ring all-reduce of {nbytes / 1e9:.3f} GB a rank on the "
+            f"card, bit for bit (sum and mean); per rank (median of {steps} sums) "
+            + ", ".join(f"{w * 1e3:.1f} ms / {_busbw(size, nbytes, w):.2f} GB/s" for w in walls)
+            + f"; D2H of one payload apart " + ", ".join(f"{d * 1e3:.1f} ms" for d in d2h)
+            + f" ({nbytes / np.median(d2h) / 1e9:.2f} GB/s); {total_s:.1f} s with start-up; rank 0 "
+            f"{res[0]['stats']}")
+    del inputs
+    grads = [rdv._det_grad(r, 0, n) for r in range(COMM_RANKS)]
+    total = grads[0] + grads[1] + grads[2] + grads[3]
+    for kind, kw, want in (("gather", {}, grads), ("hier", {"pod_size": 2}, total)):
+        t0 = time.perf_counter()
+        res = rdv.run_collective(COMM_RANKS, n, kind=kind, device=COMM_DEVICE, digest=True, timeout=600.0, **kw)
+        total_s = time.perf_counter() - t0
+        _digest_check(kind, res, "value", rdv.payload_digest(want))
+        walls = [rep["wall_s"] for rep in res.values()]
+        out[kind] = dict(walls=walls, total_s=total_s)
+        log(f"[comm] {COMM_RANKS} processes, p2p: {kind} {kw} on the card, bit for bit; per rank "
+            + ", ".join(f"{w * 1e3:.1f} ms" for w in walls) + f"; {total_s:.1f} s with start-up")
+    return out
+
+
+def _comm_rank_death(n: int) -> dict:
+    """(c) Three rank processes on the card, the highest SIGKILLed inside a
+    step's all-reduce: the elastic ring's survivors finish every step bit
+    for bit (three-way ring order before the resume step, two-way after),
+    the elastic train's survivors hold ``elastic_train_oracle``'s
+    parameters bit for bit; the card's memory is back once the ranks are
+    gone."""
+    from repro_torch.launch import rendezvous as rdv
+
+    free0 = torch.cuda.mem_get_info()[0]
+    out = {}
+    t0 = time.perf_counter()
+    res, info = rdv.run_elastic_ring(size=3, n=n, steps=4, device=COMM_DEVICE, digest=True, timeout=600.0)
+    total_s = time.perf_counter() - t0
+    bases = [rdv._normal_input(r, n) for r in range(3)]
+    full = rdv.payload_digest(rdv.ring_order_sum(bases))
+    pair = rdv.payload_digest(rdv.ring_order_sum(bases[:2]))
+    (resume,) = {rep["resume_step"] for rep in res.values()}
+    for rank, rep in sorted(res.items()):
+        assert rep["dead"] == [2] and rep["members"] == [0, 1] and rep["device"].startswith(COMM_DEVICE), rep
+        for step, d in rep["steps"].items():
+            if d != (full if step < resume else pair):
+                raise AssertionError(f"elastic ring: rank {rank} step {step} differs from the oracle")
+    lat = {r: rep["detect_at"] - info["t_kill"] for r, rep in res.items()}
+    out["ring"] = dict(detect_s=lat, reroll_s={r: rep["reroll_s"] for r, rep in res.items()},
+                       resume=resume, total_s=total_s)
+    log(f"[comm] elastic ring, 3 processes, rank 2 SIGKILLed in step 2: survivors resumed at step {resume}, "
+        f"every step bit for bit; detection after the kill "
+        + ", ".join(f"rank {r} {v * 1e3:.1f} ms" for r, v in sorted(lat.items()))
+        + "; re-roll " + ", ".join(f"{rep['reroll_s'] * 1e3:.1f} ms" for rep in res.values())
+        + f"; {total_s:.1f} s in all")
+    del bases
+    t0 = time.perf_counter()
+    res, info = rdv.run_elastic_train(size=3, n=n, steps=5, device=COMM_DEVICE, digest=True, timeout=600.0)
+    total_s = time.perf_counter() - t0
+    (resume,) = {rep["resume_step"] for rep in res.values()}
+    want = rdv.payload_digest(rdv.elastic_train_oracle(3, n, 5, 0.01, resume_step=resume, dead=(2,)))
+    for rank, rep in sorted(res.items()):
+        assert rep["recoveries"] == 1 and rep["dead"] == [2] and rep["device"].startswith(COMM_DEVICE), rep
+        if rep["params"] != want:
+            raise AssertionError(f"elastic train: rank {rank}'s parameters differ from the oracle")
+    lat = {r: rep["detect_at"] - info["t_kill"] for r, rep in res.items()}
+    out["train"] = dict(detect_s=lat, reroll_s={r: rep["reroll_s"] for r, rep in res.items()},
+                        resume=resume, total_s=total_s)
+    log(f"[comm] elastic train, 3 processes, rank 2 SIGKILLed in step 2: resumed at step {resume}, the "
+        f"survivors' parameters bit for bit elastic_train_oracle's; detection "
+        + ", ".join(f"rank {r} {v * 1e3:.1f} ms" for r, v in sorted(lat.items()))
+        + "; re-roll " + ", ".join(f"{rep['reroll_s'] * 1e3:.1f} ms" for rep in res.values())
+        + f"; {total_s:.1f} s in all")
+    time.sleep(1.0)
+    free1 = torch.cuda.mem_get_info()[0]
+    log(f"[comm] free device memory {free0 / 2**30:.2f} GiB before the rank processes, "
+        f"{free1 / 2**30:.2f} GiB after they are gone")
+    assert free1 >= free0 - (256 << 20), "a killed rank's device memory was not freed"
+    return out
+
+
+def _comm_launcher(dev) -> dict:
+    """(d) ``launch.train.main`` on mamba2-130m at full width and depth with
+    ``--fail-at 2:1 --bench-out``: the one-device line, 3 finite losses equal
+    to a run without the flag (or within two such runs' spread), the JSON;
+    exact kernel launch counts."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+
+    cfg = get_config("mamba2-130m")
+    ops = _kernel_ops()
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        bench = Path(tmp) / "recovery.json"
+        # ---- the main path: counts from 0 just before, read just after ----
+        for c in ops.values():
+            c.reset()
+        argv = COMM_LAUNCH + ["--device", COMM_DEVICE]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            runs.append(launch_train.main(argv + ["--fail-at", "2:1", "--bench-out", str(bench)]))
+        printed = buf.getvalue()
+        runs.append(launch_train.main(argv))
+        launches = {name: c.count for name, c in ops.items()}
+        # ------------------------------------------------------------------
+        written = json.loads(bench.read_text())
+    for line in printed.splitlines():
+        log(f"[comm] launcher | {line}")
+    a, b = runs[0]["losses"], runs[1]["losses"]
+    assert "failure injected but only one device; continuing" in printed
+    assert written == {"recoveries": [], "final_step": 3}, written
+    assert len(a) == 3 and all(np.isfinite(a)), a
+    n_runs = 2
+    if a != b:  # not bitwise: hold the difference within two plain runs' spread
+        for c in ops.values():
+            c.reset()
+        c_losses = launch_train.main(argv)["losses"]
+        launches = {k: launches[k] + c.count for k, c in ops.items()}
+        n_runs = 3
+        spread = max(abs(x - y) for x, y in zip(b, c_losses))
+        assert max(abs(x - y) for x, y in zip(a, b)) <= spread, (a, b, c_losses)
+    want = {k: v * 3 * n_runs for k, v in _train_launches_per_step(cfg, 2).items()}
+    log(f"[comm] launcher --fail-at 2:1: losses {a}, without the flag {b}"
+        + (" (bitwise)" if a == b else "") + f"; wrote {written}; launches {launches}, expected {want}")
+    assert launches == want, "the launcher's train steps did not run through every kernel as expected"
+    return dict(losses=a, plain=b, launches=launches)
+
+
+def comm_phase(dev) -> dict:
+    """14. Communication in the task graph at mamba2-130m's gradient size:
+    (a) in-process, (b) across processes, (c) rank death, (d) the launcher."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = _comm_n()
+    t0 = time.perf_counter()
+    log(f"[comm] payload: mamba2-130m's {n} parameters as float32, {n * 4} bytes a rank")
+    out, parts = {"n": n}, {}
+    for key, part in (("in_process", lambda: _comm_in_process(dev, n)),
+                      ("processes", lambda: _comm_processes(n)),
+                      ("rank_death", lambda: _comm_rank_death(n)),
+                      ("launcher", lambda: _comm_launcher(dev))):
+        t1 = time.perf_counter()
+        out[key] = part()
+        parts[key] = time.perf_counter() - t1
+    out["launches"] = out["launcher"]["launches"]
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[comm] phase done in {out['seconds']:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2160,9 +2538,11 @@ def main() -> int:
     load = load_phase(dev, cfg, model)
     del model
     ckpt = ckpt_phase(dev)
-    for r in records:  # launches on every path: serving, train (both models), speculation, load, checkpoint
+    comm = comm_phase(dev)
+    # launches on every path: serving, train (both models), speculation, load, checkpoint, the launcher
+    for r in records:
         r["launches"] = sum(run["launches"][r["name"]]
-                            for run in (serve, serve_m, train, train_m2, spec, load, ckpt))
+                            for run in (serve, serve_m, train, train_m2, spec, load, ckpt, comm))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     kernels = [{k: r[k] for k in keys} for r in records]
@@ -2172,6 +2552,7 @@ def main() -> int:
         f"({train_m2['tokens_per_s']:.1f} tokens/s), examples {examples['seconds']:.1f} s, "
         f"self-draft accept rate {spec['self draft']['accept_rate']:.3f}, "
         f"load checksum {load['continuous']['output_checksum']}, checkpoint {ckpt['bytes']} bytes, "
+        f"comm phase {comm['seconds']:.1f} s, "
         f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,14 @@
 """The Specx task runtime, the port's own copy of ``repro.core``.
 
-Pure Python (no ``torch``, no ``jax``): sequential-task-flow graphs with the
-paper's five access modes, worker-thread compute engines with pluggable
-schedulers, commit/rollback speculation, the codelet frontend and the staged
-backend (``staged.py``: one policy-chosen order, run on the calling thread).
-What the copy leaves out until the distributed slice: the comm layer
-(``comm.py``) and the elastic runtime.  The device
-implementation kind is ``"cuda"`` (``repro`` says ``"pallas"``)::
+Sequential-task-flow graphs with the paper's five access modes,
+worker-thread compute engines with pluggable schedulers, commit/rollback
+speculation, the codelet frontend, the staged backend (``staged.py``: one
+policy-chosen order, run on the calling thread), communication as tasks
+(``comm.py``: the comm thread, the in-process and socket transports, whose
+payloads are torch tensors) and the elastic runtime
+(``SpRuntime(elastic=True)``).  Only ``comm.py`` imports ``torch``; none
+imports ``jax``.  The device implementation kind is ``"cuda"`` (``repro``
+says ``"pallas"``)::
 
     from repro_torch.core import SpData, SpRuntime, sp_task
 
@@ -40,7 +42,37 @@ from .access import (
     SpWriteArray,
     SpWriteRef,
 )
-from .api import SpCodelet, SpRuntime, SpSlot, current_graph, graph_scope, sp_task
+from .comm import (
+    ChannelHub,
+    RouterTransport,
+    SocketTransport,
+    SpCommAbortedError,
+    SpCommError,
+    SpCommGroup,
+    SpCommTimeoutError,
+    SpCommTransientError,
+    SpDeserializer,
+    SpRankDeadError,
+    SpSerializer,
+    SpTransport,
+    decode_message,
+    default_hub,
+    encode_message,
+    mpi_broadcast,
+    mpi_recv,
+    mpi_send,
+    register_wire_type,
+    reset_default_hub,
+)
+from .api import (
+    ElasticEvent,
+    SpCodelet,
+    SpRuntime,
+    SpSlot,
+    current_graph,
+    graph_scope,
+    sp_task,
+)
 from .engine import SpComputeEngine, SpWorker, SpWorkerTeam, SpWorkerTeamBuilder
 from .graph import SpSpeculativeModel, SpTaskGraph
 from .scheduler import (
@@ -61,7 +93,13 @@ __all__ = [
     "SpCommutativeWrite", "SpCommutativeWriteArray", "SpCpu", "SpCuda", "SpData",
     "SpHost", "SpImpl", "SpMaybeWrite", "SpMaybeWriteArray", "SpPriority", "SpRead",
     "SpReadArray", "SpRef", "SpWrite", "SpWriteArray", "SpWriteRef",
-    "SpCodelet", "SpRuntime", "SpSlot", "current_graph", "graph_scope", "sp_task",
+    "ChannelHub", "RouterTransport", "SocketTransport", "SpTransport", "SpCommGroup",
+    "SpCommError", "SpCommTimeoutError", "SpCommAbortedError",
+    "SpCommTransientError", "SpRankDeadError", "SpDeserializer", "SpSerializer",
+    "decode_message", "default_hub", "encode_message", "register_wire_type",
+    "reset_default_hub", "mpi_broadcast", "mpi_recv", "mpi_send",
+    "ElasticEvent", "SpCodelet", "SpRuntime", "SpSlot", "current_graph",
+    "graph_scope", "sp_task",
     "SpComputeEngine", "SpWorker", "SpWorkerTeam", "SpWorkerTeamBuilder",
     "SpSpeculativeModel", "SpTaskGraph", "CriticalPathScheduler", "FifoScheduler",
     "LifoScheduler", "PriorityScheduler", "SpAbstractScheduler",

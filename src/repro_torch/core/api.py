@@ -38,8 +38,7 @@ module is that frontend for the PyTorch port:
           view = axpy(a_cell, b_cell)
           print(view.result())
 
-  (The JAX package's elastic, rank-death-surviving mode is not part of this
-  copy: it comes with the distributed slice, ROADMAP.md Queue 1 item 5.)
+  ``SpRuntime(elastic=True)`` survives rank death: see its docstring.
 
   The runtime is a context manager; inside its scope (or an explicit
   :func:`graph_scope`) codelet calls insert tasks into the current graph and
@@ -55,6 +54,7 @@ import contextlib
 import contextvars
 import functools
 import inspect
+import time
 from typing import Any, Callable, Optional, Sequence
 
 from .access import (
@@ -548,6 +548,47 @@ def sp_task(
 # One runtime over both backends.
 # ---------------------------------------------------------------------------
 
+class ElasticEvent:
+    """What the runtime learned in one recovery, handed to ``on_reshard``.
+
+    ``group`` is the *shrunken* :class:`~repro_torch.core.comm.SpCommGroup` (None
+    for local/simulated elasticity), ``dead`` the agreed dead set,
+    ``payloads`` each survivor's re-roll payload keyed by physical rank,
+    ``resume_step`` the minimum exchanged next step (the hook may return an
+    int to override it), ``detect_at``/``reroll_s`` the detection timestamp
+    and agreement latency."""
+
+    __slots__ = (
+        "epoch", "dead", "payloads", "resume_step", "group",
+        "detect_at", "reroll_s",
+    )
+
+    def __init__(
+        self,
+        epoch: int,
+        dead: frozenset,
+        payloads: dict,
+        resume_step: int,
+        *,
+        group=None,
+        detect_at: float | None = None,
+        reroll_s: float | None = None,
+    ):
+        self.epoch = epoch
+        self.dead = dead
+        self.payloads = payloads
+        self.resume_step = resume_step
+        self.group = group
+        self.detect_at = detect_at
+        self.reroll_s = reroll_s
+
+    def __repr__(self) -> str:  # pragma: no cover - debug aid
+        return (
+            f"ElasticEvent(epoch={self.epoch}, dead={sorted(self.dead)}, "
+            f"resume_step={self.resume_step})"
+        )
+
+
 class SpRuntime:
     """Unified entry point (paper Code 1): one constructor, two backends.
 
@@ -563,9 +604,18 @@ class SpRuntime:
 
     Used as a context manager the runtime opens a graph scope: codelet calls
     inside the block target its graph.  ``SpRuntime(4)`` (a bare int) is the
-    legacy spelling for an eager runtime with 4 workers.  ``elastic=True``
-    (rank-death recovery) raises: it comes with the distributed slice
-    (ROADMAP.md, Queue 1 item 5).
+    legacy spelling for an eager runtime with 4 workers.
+
+    Elastic mode: ``SpRuntime(elastic=True, group=...)`` pushes rank-death
+    recovery *into* the runtime — :meth:`run_step` / :meth:`elastic_loop`
+    catch ``SpRankDeadError``/``SpCommError`` escaping a step, drive the
+    epoch-tagged :func:`~repro_torch.launch.rendezvous.reroll_ranks`
+    agreement, rebind ``self.group`` to the shrunken survivors, invoke the
+    ``on_reshard`` hook (live resharding: moving the surviving state where
+    the new layout wants it) and transparently re-execute from the agreed
+    resume step.  User code needs zero failure handling.  With
+    ``group=None`` the same loop serves *local* elasticity (simulated chip
+    loss): recovery is whatever ``on_reshard`` does.
     """
 
     def __init__(
@@ -580,16 +630,20 @@ class SpRuntime:
         trace: bool = True,
         n_threads: int | None = None,
         elastic: bool = False,
+        group=None,
+        on_reshard: Callable[["ElasticEvent"], Optional[int]] | None = None,
+        reroll_timeout: float = 30.0,
+        detect_grace: float = 10.0,
     ):
         if isinstance(backend, int):  # legacy SpRuntime(n_threads)
             n_threads = backend
             backend = "eager"
         if backend not in ("eager", "staged"):
             raise ValueError(f"unknown backend {backend!r}; use 'eager' or 'staged'")
-        if elastic:
-            raise NotImplementedError(
-                "SpRuntime(elastic=True) is not ported yet: rank-death recovery "
-                "comes with the distributed slice (ROADMAP.md, Queue 1 item 5)"
+        if elastic and backend != "eager":
+            raise ValueError(
+                "elastic=True needs the eager backend: recovery re-executes "
+                "steps on live worker threads"
             )
         self.backend = backend
         self.policy = policy
@@ -598,6 +652,13 @@ class SpRuntime:
         self._own_engine = False
         self._scope_token = None
         self._order = None  # last staged schedule (list of Tasks)
+        self.elastic = bool(elastic)
+        self.group = group
+        self.on_reshard = on_reshard
+        self.reroll_timeout = reroll_timeout
+        self.detect_grace = detect_grace
+        self.epoch = 0
+        self.recoveries: list[dict] = []  # one record per survived failure
 
         if backend == "eager":
             from .engine import SpComputeEngine, SpWorkerTeam, SpWorkerTeamBuilder
@@ -665,6 +726,200 @@ class SpRuntime:
         self.graph.wait_all_tasks(timeout, raise_errors=raise_errors)
 
     waitAllTasks = wait_all_tasks
+
+    # -------------------------------------------------------------- elasticity
+
+    def _begin_step(self) -> SpTaskGraph:
+        """Open a fresh per-step graph on the shared engine and make it the
+        insertion scope.  A step that fails mid-collective is abandoned
+        wholesale — its lingering receives time out harmlessly on the comm
+        thread while the next step inserts into a clean graph."""
+        self.graph = SpTaskGraph(trace=False).compute_on(self.engine)
+        if self._scope_token is not None:
+            _scope.reset(self._scope_token)
+            self._scope_token = _scope.set(self.graph)
+        return self.graph
+
+    def _await_step(self, tg: SpTaskGraph, timeout: float) -> bool:
+        """Wait for the step graph; ``False`` when a group member died
+        while we waited (the transport's dead set grew), re-raising
+        anything unrelated to rank death."""
+        from .comm import SpCommError
+
+        transport = self.group.hub if self.group is not None else None
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                tg.wait_all_tasks(timeout=0.1)
+                return True
+            except TimeoutError:
+                if transport is not None and (
+                    transport.dead_ranks & set(self.group.members)
+                ):
+                    return False
+                if time.monotonic() > deadline:
+                    raise
+            except SpCommError:
+                return False
+
+    def _recover(self, step: int) -> int:
+        """One recovery: agree on the dead set, shrink the group, call the
+        reshard hook, return the step to resume from."""
+        from .comm import SpCommError
+
+        t_fail = time.monotonic()
+        if self.group is None:
+            # local/simulated elasticity (launch/train.py): nothing to
+            # re-roll — recovery is whatever the reshard hook does
+            self.epoch += 1
+            resume = step
+            event = ElasticEvent(self.epoch, frozenset(), {}, step)
+            if self.on_reshard is not None:
+                override = self.on_reshard(event)
+                if override is not None:
+                    resume = int(override)
+            self.recoveries.append(
+                {
+                    "epoch": self.epoch,
+                    "mode": "local",
+                    "step": step,
+                    "resume": resume,
+                    "seconds": time.monotonic() - t_fail,
+                }
+            )
+            return resume
+
+        from ..launch.rendezvous import reroll_ranks
+
+        transport = self.group.hub
+        members = set(self.group.members)
+        # the task error can beat the router's death broadcast by a tick —
+        # give the failure detector a moment to learn who died
+        learn_by = time.monotonic() + self.detect_grace
+        while not (transport.dead_ranks & members):
+            if time.monotonic() > learn_by:
+                raise SpCommError(
+                    f"rank {self.group.rank}: step {step} failed but no rank "
+                    f"was declared dead within {self.detect_grace}s"
+                )
+            time.sleep(0.005)
+        dead_now = transport.dead_ranks & members
+        detect_at = min(
+            transport.death_detected_at(r) or time.monotonic() for r in dead_now
+        )
+        last_exc: Optional[BaseException] = None
+        for _ in range(5):
+            # a death landing between re-roll rounds diverges the dead set;
+            # the protocol says: re-roll with a fresh epoch
+            self.epoch += 1
+            t0 = time.monotonic()
+            try:
+                group, dead, payloads = reroll_ranks(
+                    self.group,
+                    epoch=self.epoch,
+                    payload={"next_step": step},
+                    timeout=self.reroll_timeout,
+                )
+                break
+            except SpCommError as e:
+                last_exc = e
+                time.sleep(0.01)
+        else:
+            raise last_exc  # type: ignore[misc]
+        reroll_s = time.monotonic() - t0
+        self.group = group
+        resume = min(p["next_step"] for p in payloads.values())
+        event = ElasticEvent(
+            self.epoch,
+            dead,
+            payloads,
+            resume,
+            group=group,
+            detect_at=detect_at,
+            reroll_s=reroll_s,
+        )
+        if self.on_reshard is not None:
+            override = self.on_reshard(event)
+            if override is not None:
+                resume = int(override)
+        self.recoveries.append(
+            {
+                "epoch": self.epoch,
+                "mode": "reroll",
+                "step": step,
+                "resume": resume,
+                "dead": sorted(dead),
+                "members": list(group.members),
+                "detect_at": detect_at,
+                "reroll_s": reroll_s,
+                "seconds": time.monotonic() - t_fail,
+            }
+        )
+        return resume
+
+    def barrier(self, timeout: float = 60.0) -> None:
+        """Wait for the current step graph to drain.  Raises
+        ``SpRankDeadError`` when a group member died while waiting — inside
+        :meth:`run_step` / :meth:`elastic_loop` that triggers transparent
+        recovery, so a step function can synchronize mid-step (e.g. to read
+        a collective's result) without any failure handling of its own."""
+        if not self._await_step(self.graph, timeout):
+            from .comm import SpRankDeadError
+
+            raise SpRankDeadError(
+                f"a member of {sorted(self.group.members)} died during the step"
+            )
+
+    def run_step(self, fn: Callable[[int], Any], *, step: int = 0,
+                 step_timeout: float = 60.0) -> Any:
+        """Execute ``fn(step)`` inside a fresh per-step graph, surviving
+        rank death: on failure the runtime re-rolls the group, reshards and
+        re-executes the *same* step.  ``fn`` must be re-runnable from its
+        inputs (use :meth:`elastic_loop` when survivors may need to rewind
+        to an earlier step)."""
+        if not self.elastic:
+            raise RuntimeError("run_step requires SpRuntime(elastic=True)")
+        from .comm import SpCommError, SpRankDeadError
+
+        while True:
+            tg = self._begin_step()
+            try:
+                out = fn(step)
+                failed = not self._await_step(tg, step_timeout)
+            except (SpRankDeadError, SpCommError):
+                failed = True
+            if not failed:
+                return out
+            self._recover(step)
+
+    def elastic_loop(self, fn: Callable[[int], Any], steps: int, *,
+                     start: int = 0, step_timeout: float = 60.0) -> dict[int, Any]:
+        """Drive ``fn(step)`` for ``step in range(start, steps)`` with
+        in-runtime failure recovery: each step gets a fresh graph; a rank
+        death re-rolls the group, reshards (``on_reshard``) and resumes
+        from the minimum step any survivor still needs — re-executing
+        completed steps when a peer was behind, so ``fn`` must be
+        deterministic given its step index.  Returns ``{step: result}``
+        with the *last* execution of each step."""
+        if not self.elastic:
+            raise RuntimeError("elastic_loop requires SpRuntime(elastic=True)")
+        from .comm import SpCommError, SpRankDeadError
+
+        results: dict[int, Any] = {}
+        step = start
+        while step < steps:
+            tg = self._begin_step()
+            try:
+                out = fn(step)
+                failed = not self._await_step(tg, step_timeout)
+            except (SpRankDeadError, SpCommError):
+                failed = True
+            if failed:
+                step = self._recover(step)
+                continue
+            results[step] = out
+            step += 1
+        return results
 
     def stop(self) -> None:
         if self._own_engine and self.engine is not None:

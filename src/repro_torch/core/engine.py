@@ -12,9 +12,9 @@ kernel implementation (falling back to ``ref`` where the kernel's probe
 fails), a ``host`` worker is meant for I/O-ish tasks.  Any worker may launch
 CUDA work from its thread: launches go to that thread's current stream.
 
-Communication tasks (MPI-style send/recv on a background comm thread, paper
-§4.4) are not part of this copy of the runtime yet; they come with the
-distributed slice of the port.
+Communication tasks never run on workers: a dedicated background thread
+starts non-blocking operations and polls for completion, releasing
+dependencies as early as possible (paper §4.4) — see ``comm.py``.
 """
 from __future__ import annotations
 
@@ -169,6 +169,7 @@ class SpComputeEngine:
         self._running = True
         self._workers: list[SpWorker] = []
         self._graphs: list = []
+        self._comm = None  # lazily created CommThread (comm.py)
         self._wd: Optional[_Watchdog] = None  # lazily created hung-task monitor
         self._stop_report: list[str] | None = None  # set by the first stop()
         if team is None:  # (SpWorkerTeam also defines __len__ — same trap)
@@ -196,14 +197,29 @@ class SpComputeEngine:
             if graph not in self._graphs:
                 self._graphs.append(graph)
 
+    @staticmethod
+    def _is_async_comm(task: Task) -> bool:
+        # only tasks with a non-blocking start protocol go to the comm
+        # thread; comm-*flagged* compute tasks (staged scheduling hints)
+        # run on normal workers
+        return task.is_comm and hasattr(task, "comm_start")
+
     def push_task(self, task: Task) -> None:
+        if self._is_async_comm(task):
+            self._comm_thread().submit(task)
+            return
         owner = self.scheduler.push(task)
         self._wake_one(owner)
 
     def push_many(self, tasks: list[Task]) -> None:
         if not tasks:
             return
-        owners = [self.scheduler.push(t) for t in tasks]
+        owners = []
+        for t in tasks:
+            if self._is_async_comm(t):
+                self._comm_thread().submit(t)
+            else:
+                owners.append(self.scheduler.push(t))
         for owner in owners:
             if not self._wake_one(owner):
                 break  # nobody parked; workers will find the tasks on poll
@@ -463,12 +479,22 @@ class SpComputeEngine:
             w.wakeup.set()
         return len(moved)
 
+    # ------------------------------------------------------------------ comm
+
+    def _comm_thread(self):
+        if self._comm is None:
+            from .comm import CommThread
+
+            self._comm = CommThread(self)
+            self._comm.start()
+        return self._comm
+
     # ------------------------------------------------------------------ stop
 
     def _drain_cancel_leftovers(self) -> int:
         """Cancel tasks still queued after the workers are gone — work
-        pushed in the stop() race window would otherwise strand
-        ``wait_all_tasks`` forever.
+        pushed in the stop() race window (or released by the comm thread's
+        grace period) would otherwise strand ``wait_all_tasks`` forever.
         Successors released by the cancellations are cancelled too."""
         stack: list[Task] = []
         while True:
@@ -492,8 +518,12 @@ class SpComputeEngine:
         return n
 
     def stop(self) -> list[str]:
-        """Stop workers, then cancel any stranded queued tasks.  Returns the
-        names of tasks quarantined by their failure policy.
+        """Stop workers, then the comm thread, then cancel any stranded
+        queued tasks.  Returns the names of comm tasks whose requests had
+        to be aborted (empty in a clean shutdown) plus the names of tasks
+        quarantined by their failure policy; aborted tasks carry an
+        ``SpCommAbortedError`` so their waiters see a real error instead of
+        hanging on a leaked daemon thread.
 
         Idempotent: a second call (recovery path + ``atexit``, or an
         explicit ``stop()`` followed by ``__exit__``) returns the first
@@ -511,10 +541,13 @@ class SpComputeEngine:
         for w in workers:
             if w is not me:
                 w.join(timeout=5.0)
+        aborted: list[str] = []
+        if self._comm is not None:
+            aborted = self._comm.stop()
         if self._wd is not None:
             self._wd.stop()
         self._drain_cancel_leftovers()
-        report = [
+        report = aborted + [
             t.name for g in self._graphs for t in getattr(g, "quarantined", ())
         ]
         with self._lock:

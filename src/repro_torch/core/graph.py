@@ -91,9 +91,10 @@ class SpTaskGraph:
         ``SpPriority``, ``SpAccess`` / ``SpArrayAccess`` (argument slots, in
         declaration order), and one or more callables / ``SpImpl`` variants.
 
-        ``comm=True`` marks a communication task: in the staged backend the
-        flag steers the ``overlap`` linearization policy (collectives issued
-        as early as possible); the eager comm thread is not ported yet.
+        ``comm=True`` marks a communication task: the eager engine routes it
+        to the background comm thread only when it carries a ``comm_start``
+        (see comm.py); in the staged backend the flag steers the ``overlap``
+        linearization policy (collectives issued as early as possible).
 
         This positional spelling is the compatibility form; the declarative
         codelet frontend (``repro_torch.core.api``) inserts through the same
@@ -159,8 +160,8 @@ class SpTaskGraph:
             seen.add(acc.data.uid)
 
     def _insert(self, task: Task) -> TaskView:
-        """Wire dependencies and dispatch if ready.  Internal: the speculation
-        layer calls this to bypass re-speculation."""
+        """Wire dependencies and dispatch if ready.  Internal: speculation and
+        comm layers call this to bypass re-speculation."""
         task.inserted_index = len(self.tasks)
         task.graph = self
         self.tasks.append(task)

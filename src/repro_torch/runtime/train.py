@@ -26,8 +26,10 @@ What differs from ``repro``:
   place** (``repro`` returns new trees and donates the old ones), so the
   returned :class:`TrainState` holds the same module and tensors with a new
   step counter;
-* there are no sharding or donation arguments: the step runs on one card
-  (sharded state waits for ROADMAP.md, Queue 1 item 5).
+* there are no sharding or donation arguments: the step runs on one card.
+  Data-parallel ranks can reduce gradients with ``dist.collectives``'
+  ring all-reduce over the comm layer (``core/comm.py``); sharded state on
+  a device mesh waits for ROADMAP.md, Queue 1 item 5.
 """
 from __future__ import annotations
 

@@ -10,6 +10,7 @@ equality is not expected where floating-point sums are compared.
 from __future__ import annotations
 
 import dataclasses
+import json
 
 import pytest
 
@@ -351,8 +352,10 @@ def test_staged_runtime_policies_match_repro():
 
     for policy in ("fifo", "priority", "critical_path", "overlap"):
         assert build(SpRuntime, SpData, sp_task, policy) == build(JSpRuntime, JSpData, jax_sp_task, policy)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        SpRuntime(elastic=True)
+    # the elastic runtime is ported: it builds and runs a local elastic loop
+    with SpRuntime(elastic=True, workers=1) as rt:
+        assert rt.elastic_loop(lambda step: step * step, 4) == {0: 0, 1: 1, 2: 4, 3: 9}
+    assert rt.recoveries == [] and rt.epoch == 0
 
 
 # ---------------------------------------------------------------------------
@@ -427,10 +430,22 @@ def test_launcher_loss_decreases_on_cpu():
     assert out["losses"][-1] < out["losses"][0] - 0.5
 
 
-def test_launcher_raises_without_a_card_or_for_unported_flags():
-    # checkpointing is ported now (tests/test_torch_checkpoint.py)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        launch_train.main(["--reduced", "--device", "cpu", "--fail-at", "5:4"])
+def test_launcher_raises_without_a_card_or_for_unported_flags(tmp_path, capsys):
+    """The fault flags are ported: ``--fail-at 2:1`` on one device prints the
+    one-device line and the run ends with the losses of a run without it;
+    ``--bench-out`` writes the recovery JSON.  Without a card the default
+    device raises."""
+    argv = ["--reduced", "--device", "cpu", "--steps", "3", "--batch", "4", "--seq", "16",
+            "--log-every", "0"]
+    out = tmp_path / "recovery.json"
+    got = launch_train.main(argv + ["--fail-at", "2:1", "--recovery", "live",
+                                    "--bench-out", str(out)])
+    assert "failure injected but only one device; continuing" in capsys.readouterr().out
+    want = launch_train.main(argv)
+    assert got["losses"] == want["losses"] and len(got["losses"]) == 3
+    assert json.loads(out.read_text()) == {"recoveries": [], "final_step": 3}
+    with pytest.raises(SystemExit):
+        launch_train.main(argv + ["--fail-at", "0:1"])  # STEP must be >= 1
     if dispatch.cuda_available():
         pytest.skip("a Hopper card is present: the default device runs")
     with pytest.raises(RuntimeError, match="no CUDA card"):
@@ -446,3 +461,38 @@ def test_launcher_mamba2_loss_decreases_on_cpu():
     assert out["final_step"] == 30 and len(out["losses"]) == 30
     assert all(np.isfinite(out["losses"]))
     assert out["losses"][-1] < out["losses"][0] - 0.5
+
+
+@pytest.mark.parametrize("recovery", ["live", "restore"])
+def test_launcher_recovers_from_a_rank_death_inside_the_runtime(tmp_path, monkeypatch, recovery):
+    """A step that raises ``SpRankDeadError`` (injected into the train-step
+    artifact's second call, before it touches the state) is recovered by
+    the elastic runtime through the launcher's ``on_reshard``: ``live``
+    keeps the in-memory state, ``restore`` reloads the checkpoint of step
+    1; either way the run ends with an unbroken run's losses and the
+    recovery is in the ``--bench-out`` JSON."""
+    from repro_torch.core import SpRankDeadError
+
+    build = launch_train.build_train_step
+
+    def flaky_build(*args, **kw):
+        art, calls = build(*args, **kw), []
+
+        def step(state, batch):
+            calls.append(1)
+            if len(calls) == 2:
+                raise SpRankDeadError("injected loss of a rank")
+            return art(state, batch)
+
+        return step
+
+    argv = ["--reduced", "--device", "cpu", "--steps", "3", "--batch", "4", "--seq", "16",
+            "--log-every", "0"]
+    want = launch_train.main(argv)
+    monkeypatch.setattr(launch_train, "build_train_step", flaky_build)
+    out = tmp_path / "recovery.json"
+    got = launch_train.main(argv + ["--recovery", recovery, "--bench-out", str(out),
+                                    "--ckpt-dir", str(tmp_path / "ck"), "--ckpt-every", "1"])
+    assert got == want
+    (rec,) = json.loads(out.read_text())["recoveries"]
+    assert (rec["mode"], rec["step"]) == (recovery, 1) and rec["seconds"] >= 0.0
