@@ -12,13 +12,16 @@ Phases (any failure raises and the script exits non-zero):
               have some, the f32 routes none), the registers and spills of
               the backward kernels; each kernel against its plain PyTorch version on
               the card, at the serving paths' shapes (deepseek-7b,
-              mamba2-130m; bf16) and at edge shapes (fp32 and bf16), with
+              mamba2-130m, gemma-7b's head dim 256; bf16) and at edge
+              shapes (fp32 and bf16; head dims up to 256), with
               kernel / plain / library times and bounds (rmsnorm also at both
-              paths' decode rows, decode also at short positions; decode is
+              paths' decode rows, decode also at short positions; flash and
+              decode at gemma-7b's heads too; decode is
               checked run to run identical and batch-invariant, the ssd bound
               is logged in both reckonings); the train path's backward
-              kernels (flash attention at the path's (1, 2048, 32, 128) and
-              edge shapes, with the forward's lse; rmsnorm at (2048, 4096),
+              kernels (flash attention at the paths' (1, 2048, 32, 128) and
+              (1, 2048, 16, 256) and edge shapes, with the forward's lse;
+              rmsnorm at (2048, 4096),
               (2048·32, 128) and the edge paths) against their plain
               versions, run to run identical, timed beside the backward of
               SDPA / F.rms_norm (the flash backward's dK/dV and dQ kernels
@@ -40,6 +43,9 @@ Phases (any failure raises and the script exits non-zero):
               three of its kernels; one greedy request is held against a
               sequential prefill + decode loop; a decode iteration and the
               2048-token prefill alone are profiled;
+   serving  — full-width gemma-7b (28 layers, 16 heads of 256, GeGLU,
+              tied embeddings, bf16, seeded random init), the same requests,
+              checks and profiles (``[serve-gemma]`` lines);
 6. serving  — full-width mamba2-130m (24 layers, bf16, seeded random init):
               prompts up to 4096 tokens, a sampled request and a duplicate
               (re-prefilled: ssm states are not paged); launch counts show the
@@ -49,19 +55,21 @@ Phases (any failure raises and the script exits non-zero):
               and caches);
 7. model    — full width cut in depth, fp32: the card's logits against the
               CPU port's (plain versions) for a prompt and decode steps, for
-              deepseek-7b (2 layers) and mamba2-130m (4 layers);
+              deepseek-7b (2 layers), mamba2-130m (4 layers) and gemma-7b
+              (2 layers: the f32 routes at head dim 256);
 8. train    — parity: deepseek-7b at full width and 2 layers, fp32, two
               staged train steps (B = 2, L = 256, 2 microbatches) with
               Adafactor and with AdamW on the card against the CPU port from
               the same state (loss, grad norm, parameters; exact launch
-              counts);
+              counts); gemma-7b the same with Adafactor at L = 128;
 9. train    — deepseek-7b at full width and depth (30 layers, bf16,
               Adafactor, remat "full", logits in chunks of 1024), global
               batch (2, 2048) in 2 microbatches, 4 staged steps: finite
               losses, the schedule, exact launch counts of the four train
               kernels, step time, tokens/s, model TFLOP/s, peak memory; one
               profiled step; a nonfinite step that leaves every bit as it
-              was;
+              was; then gemma-7b the same way at its full 28 layers
+              (``[train-gemma]``: no rollback);
 10. train   — mamba2-130m: parity at full width and 2 layers in fp32 (B =
               2, L = 512, 2 microbatches, AdamW) against the CPU port, then
               the full 24 layers in bf16 (AdamW, remat "full"), global
@@ -362,8 +370,10 @@ def check_hgmma() -> dict | None:
     tc = [k for k in counts if "wgmma" in k]
     simt = [k for k in counts if "wgmma" not in k]
     for prefix in ("ssd_chunk_wgmma", "flash_fwd_wgmma", "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma",
-                   "ssd_bwd_wgmma"):
+                   "ssd_bwd_wgmma", "flash_bwd_dkdv_wgmma256", "flash_bwd_dq_wgmma256"):
         assert any(k.startswith(prefix) for k in tc), (prefix, counts)
+    # the padded head dim 256 of the forward: flash_fwd_wgmma_kernel<256, 256>
+    assert any(k.startswith("flash_fwd_wgmma") and "256" in k for k in tc), counts
     for prefix in ("flash_bwd_dkdv_kernel", "ssd_bwd_kernel"):
         assert any(k.startswith(prefix) for k in simt), (prefix, counts)
     assert all(counts[k] > 0 for k in tc) and all(counts[k] == 0 for k in simt), counts
@@ -372,7 +382,9 @@ def check_hgmma() -> dict | None:
 
 # the kernels whose registers and spills the kernel phase prints
 RESOURCE_KERNELS = ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel", "ssd_bwd_kernel",
-                    "ssd_bwd_wgmma_kernel")
+                    "ssd_bwd_wgmma_kernel", "flash_fwd_wgmma_kernel", "flash_bwd_dkdv_wgmma256_kernel",
+                    "flash_bwd_dq_wgmma256_kernel", "flash_fwd_kernel", "flash_bwd_dkdv_kernel",
+                    "flash_bwd_dq_kernel", "decode_kernel")
 
 
 def resource_usage() -> dict:
@@ -408,6 +420,38 @@ def resource_usage() -> dict:
     return usage
 
 
+# gemma-7b's attention: 16 heads of 256 (MHA), the kernels' padded head dim 256
+G_HEADS, G_DIM = 16, 256
+
+
+def _flash_times(gen, dev, B, L, H, D) -> dict:
+    """Kernel, plain and SDPA times of the causal bf16 forward at (B, L, H,
+    D), the bound of the work this input needs, and whether two runs give
+    the same bits."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    dtype = torch.bfloat16
+    sets = [tuple(_randn(gen, (B, L, H, D), dtype, dev) for _ in range(3)) for _ in range(2)]
+    first = ops.flash_attention(*sets[0], causal=True)
+    same = all(torch.equal(ops.flash_attention(*sets[0], causal=True), first) for _ in range(2))
+    ms = time_ms(lambda q, k, v: ops.flash_attention(q, k, v, causal=True), sets)
+    plain = time_ms(lambda q, k, v: attention_ref(q, k, v, causal=True), sets)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = time_ms(
+        lambda q, k, v: sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True),
+        sets,
+    )
+    flops = 4 * B * H * D * _pairs(L, L, True, None, 0)
+    bound, by = _bound(4 * B * L * H * D * 2, flops, dtype)
+    log(f"[kernels] flash at ({B}, {L}, {H}, {D}) bf16 causal: {flops / 1e9:.2f} GFLOP, kernel {ms:.4f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s), SDPA {lib:.4f} ms (kernel / SDPA {ms / lib:.2f}), plain {plain:.4f} "
+        f"ms, bound {bound:.4f} ms ({by}, {bound / ms:.1%} of it); run to run identical: {same}")
+    assert same, f"flash at ({B}, {L}, {H}, {D}): not deterministic"
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+                shape=f"q/k/v ({B}, {L}, {H}, {D}) bf16 causal")
+
+
 def check_flash(dev) -> dict:
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -422,8 +466,15 @@ def check_flash(dev) -> dict:
         (2, 77, 77, 4, 1, 32, 32, True, 40, 0),
         (1, 1, 777, 8, 8, 128, 128, True, None, 776),  # one query row
         (1, 500, 500, 16, 16, 80, 80, True, None, 0),  # head dim padded to 128
+        # padded to 256: gemma-7b's path, then 256 / 192 / 136 with a ragged
+        # L, GQA, a window, offset queries, Dh != Dv
+        (1, 2048, 2048, G_HEADS, G_HEADS, G_DIM, G_DIM, True, None, 0),
+        (2, 777, 777, 8, 2, 256, 256, True, 300, 0),
+        (1, 333, 900, 8, 8, 192, 192, True, None, 567),
+        (1, 130, 130, 4, 1, 136, 136, False, None, 0),
+        (1, 65, 65, 4, 4, 256, 128, True, None, 0),
     ]
-    err = 0.0
+    err = err256 = 0.0
     for B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_off in cases:
         for dtype in (torch.bfloat16, torch.float32):
             q = _randn(gen, (B, Lq, H, Dh), dtype, dev)
@@ -435,26 +486,48 @@ def check_flash(dev) -> dict:
                 ops.flash_attention(q, k, v, **kw), attention_ref(q, k, v, **kw), dtype,
             )
             if Lq == 2048 and dtype == torch.bfloat16:
-                err = e
-    B, L, H, D, dtype = 1, 2048, 32, 128, torch.bfloat16
-    sets = [tuple(_randn(gen, (B, L, H, D), dtype, dev) for _ in range(3)) for _ in range(2)]
-    ms = time_ms(lambda q, k, v: ops.flash_attention(q, k, v, causal=True), sets)
-    plain = time_ms(lambda q, k, v: attention_ref(q, k, v, causal=True), sets)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = time_ms(
-        lambda q, k, v: sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True),
-        sets,
-    )
-    flops = 4 * B * H * D * _pairs(L, L, True, None, 0)
-    bound, by = _bound(4 * B * L * H * D * 2, flops, dtype)
-    log(f"[kernels] flash at ({B}, {L}, {H}, {D}) bf16 causal: {flops / 1e9:.2f} GFLOP, kernel "
-        f"{flops / ms / 1e9:.1f} TFLOP/s, kernel / SDPA {ms / lib:.2f}")
+                if Dh == G_DIM:
+                    err256 = e
+                else:
+                    err = e
+    main = _flash_times(gen, dev, 1, 2048, 32, 128)
+    d256 = _flash_times(gen, dev, 1, 2048, G_HEADS, G_DIM)
+    d256["max_abs_err"] = err256
     return dict(
         name="flash_attention", route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention/kernel.py:111", max_abs_err=err, ms=ms,
-        plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib,
-        shape=f"q/k/v ({B}, {L}, {H}, {D}) bf16 causal",
+        replaces="src/repro/kernels/flash_attention/kernel.py:111", max_abs_err=err, d256=d256, **main,
     )
+
+
+def _decode_times(gen, dev, H, D, pos_l) -> dict:
+    """Kernel, plain and SDPA (masked) times of bf16 decode against a (4,
+    MAX_SEQ, H, D) cache at positions ``pos_l``, and the bound of the bytes
+    these positions need."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    B, S, dtype = N_SLOTS, MAX_SEQ, torch.bfloat16
+    sets = [
+        (_randn(gen, (B, 1, H, D), dtype, dev), _randn(gen, (B, S, H, D), dtype, dev),
+         _randn(gen, (B, S, H, D), dtype, dev), torch.tensor(pos_l, dtype=torch.int32, device=dev))
+        for _ in range(2)
+    ]
+    pos = sets[0][3]
+    ms = time_ms(ops.decode_attention, sets)
+    plain = time_ms(decode_attention_ref, sets)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    valid = (torch.arange(S, device=dev)[None, :] <= pos[:, None])[:, None, None, :]
+    lib = time_ms(
+        lambda q, k, v, p: sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=valid),
+        sets,
+    )
+    n_valid = sum(min(p + 1, S) for p in pos_l)
+    bytes_moved = (2 * B * H * D + 2 * n_valid * H * D) * 2 + B * 4
+    bound, by = _bound(bytes_moved, 4 * n_valid * H * D, dtype)
+    log(f"[kernels] decode at pos {pos_l} (cache ({B}, {S}, {H}, {D}) bf16): kernel {ms:.4f} ms, SDPA "
+        f"{lib:.4f} ms, plain {plain:.4f} ms, bound {bound:.5f} ms ({by}, {bound / ms:.1%} of it)")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+                shape=f"q ({B}, 1, {H}, {D}), cache ({B}, {S}, {H}, {D}) bf16, pos {pos_l}")
 
 
 def check_decode(dev) -> dict:
@@ -469,8 +542,14 @@ def check_decode(dev) -> dict:
         (4, 256, 8, 2, 64, [1000, 10, 255, 256], (torch.bfloat16, torch.float32)),  # ring
         (3, 70, 4, 4, 16, [69, 0, 64], (torch.float32,)),
         (3, 300, 6, 2, 12, [299, 0, 130], (torch.bfloat16, torch.float32)),  # 24-byte bf16 rows
+        # padded to 256: gemma-7b's path, then GQA at 192, a ring at 136, and
+        # rows of 130 (260 bytes in bf16, 520 in f32: element-wise loads)
+        (N_SLOTS, MAX_SEQ, G_HEADS, G_HEADS, G_DIM, main_pos, (torch.bfloat16, torch.float32)),
+        (4, 1000, 16, 4, 192, [0, 999, 500, 63], (torch.bfloat16, torch.float32)),
+        (4, 256, 8, 2, 136, [1000, 10, 255, 256], (torch.bfloat16, torch.float32)),
+        (3, 300, 4, 2, 130, [299, 0, 130], (torch.bfloat16, torch.float32)),
     ]
-    err = 0.0
+    err = err256 = 0.0
     for B, S, H, KH, D, pos_l, dtypes in cases:
         for dtype in dtypes:
             q = _randn(gen, (B, 1, H, D), dtype, dev)
@@ -481,12 +560,16 @@ def check_decode(dev) -> dict:
                 f"decode {dtype} B={B} S={S} H={H} KH={KH} D={D} pos={pos_l}",
                 ops.decode_attention(q, k, v, pos), decode_attention_ref(q, k, v, pos), dtype,
             )
-            if S == MAX_SEQ:
-                err = e
+            if S == MAX_SEQ and dtype == torch.bfloat16:
+                if D == G_DIM:
+                    err256 = e
+                else:
+                    err = e
     # run to run identical, and batch-invariant: each sequence beside empty
-    # slots (positions 0) equals itself beside the live ones, bit for bit
-    B, S, H, D, dtype = N_SLOTS, MAX_SEQ, 32, 128, torch.bfloat16
-    for KH in (32, 8):
+    # slots (positions 0) equals itself beside the live ones, bit for bit;
+    # deepseek-7b's heads (and GQA), then gemma-7b's
+    B, S, dtype = N_SLOTS, MAX_SEQ, torch.bfloat16
+    for H, KH, D in ((32, 32, 128), (32, 8, 128), (G_HEADS, G_HEADS, G_DIM), (G_HEADS, 4, G_DIM)):
         q = _randn(gen, (B, 1, H, D), dtype, dev)
         k, v = (_randn(gen, (B, S, KH, D), dtype, dev) for _ in range(2))
         live = torch.tensor(main_pos, dtype=torch.int32, device=dev)
@@ -496,36 +579,16 @@ def check_decode(dev) -> dict:
             alone = torch.zeros_like(live)
             alone[b] = live[b]
             assert torch.equal(ops.decode_attention(q, k, v, alone)[b], first[b]), f"batch-variant at b={b}"
-        log(f"[kernels] decode KH={KH}: run to run identical and batch-invariant at pos {main_pos}")
-    # times at the path's positions and at short ones, same cache
-    short_pos = [15, 100, 31, 64]
-    cache_sets = [
-        (_randn(gen, (B, 1, H, D), dtype, dev), _randn(gen, (B, S, H, D), dtype, dev),
-         _randn(gen, (B, S, H, D), dtype, dev))
-        for _ in range(2)
-    ]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    rec = {}
-    for label, pos_l in (("main", main_pos), ("short", short_pos)):
-        pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
-        sets = [(q, k, v, pos) for q, k, v in cache_sets]
-        ms = time_ms(ops.decode_attention, sets)
-        plain = time_ms(decode_attention_ref, sets)
-        valid = (torch.arange(S, device=dev)[None, :] <= pos[:, None])[:, None, None, :]
-        lib = time_ms(
-            lambda q, k, v, p: sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=valid),
-            sets,
-        )
-        n_valid = sum(min(p + 1, S) for p in pos_l)
-        bytes_moved = (2 * B * H * D + 2 * n_valid * H * D) * 2 + B * 4
-        bound, by = _bound(bytes_moved, 4 * n_valid * H * D, dtype)
-        rec[label] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by)
-        log(f"[kernels] decode at pos {pos_l} (cache ({B}, {S}, {H}, {D}) bf16): kernel {ms:.4f} ms, SDPA "
-            f"{lib:.4f} ms, plain {plain:.4f} ms, bound {bound:.5f} ms ({by}, {bound / ms:.1%} of it)")
+        log(f"[kernels] decode H={H} KH={KH} D={D}: run to run identical and batch-invariant at pos {main_pos}")
+    # times at the path's positions and at short ones, then at gemma-7b's heads
+    main = _decode_times(gen, dev, 32, 128, main_pos)
+    short = _decode_times(gen, dev, 32, 128, [15, 100, 31, 64])
+    d256 = _decode_times(gen, dev, G_HEADS, G_DIM, main_pos)
+    d256["max_abs_err"] = err256
     return dict(
         name="decode_attention", route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
-        replaces="src/repro/kernels/decode_attention/kernel.py:81", max_abs_err=err, **rec["main"],
-        short=rec["short"], shape=f"q ({B}, 1, {H}, {D}), cache ({B}, {S}, {H}, {D}) bf16, pos {main_pos}",
+        replaces="src/repro/kernels/decode_attention/kernel.py:81", max_abs_err=err, **main,
+        short=short, d256=d256,
     )
 
 
@@ -666,48 +729,14 @@ def _compare_bwd(name, got, want, dtype) -> float:
                     dict(atol=atol * scale, rtol=rtol))
 
 
-def check_flash_bwd(dev) -> dict:
-    """The forward's lse and the backward kernel against the plain versions
-    on the same out and lse, run to run identical; times at the path's
-    shape (deepseek-7b train: one 2048-token sequence, 32 heads of 128)."""
+def _flash_bwd_times(gen, dev, B, L, H, D) -> dict:
+    """The causal bf16 backward at (B, L, H, D): kernel, plain and SDPA
+    backward times, the dK/dV and dQ kernels apart, the forward with and
+    without lse, and the bound of the 5 products the unmasked pairs need."""
     from repro_torch.kernels.flash_attention import ops
-    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_fwd_ref
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
 
-    gen = torch.Generator(device=dev).manual_seed(11)
-    cases = [  # (B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_offset)
-        (1, 2048, 2048, 32, 32, 128, 128, True, None, 0),  # the path's
-        (1, 1000, 1000, 32, 8, 128, 128, True, 256, 0),  # GQA + window
-        (2, 777, 777, 8, 8, 64, 64, True, None, 0),
-        (1, 65, 700, 8, 2, 128, 128, True, None, 635),  # offset queries, Lq != Lk
-        (1, 1, 65, 4, 4, 64, 64, True, None, 64),  # one query row
-        (1, 300, 300, 4, 4, 128, 128, False, None, 0),
-        (1, 500, 500, 8, 8, 96, 96, True, None, 0),  # head dim padded to 128
-    ]
-    err = 0.0
-    for B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_off in cases:
-        for dtype in (torch.bfloat16, torch.float32):
-            q = _randn(gen, (B, Lq, H, Dh), dtype, dev)
-            k = _randn(gen, (B, Lk, KH, Dh), dtype, dev)
-            v = _randn(gen, (B, Lk, KH, Dv), dtype, dev)
-            do = _randn(gen, (B, Lq, H, Dv), dtype, dev)
-            kw = dict(causal=causal, window=window, q_offset=q_off)
-            label = f"{dtype} B={B} Lq={Lq} Lk={Lk} H={H} KH={KH} Dh={Dh} {kw}"
-            out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
-            want_out, want_lse = attention_fwd_ref(q, k, v, **kw)
-            _compare(f"flash fwd lse {label}", lse, want_lse, torch.float32,
-                     dict(atol=1e-4 if dtype == torch.float32 else 1e-3, rtol=0))
-            _compare(f"flash fwd out (with lse) {label}", out, want_out, dtype)
-            got = ops.flash_attention_bwd(q, k, v, want_out, want_lse, do, **kw)
-            want = attention_bwd_ref(q, k, v, want_out, want_lse, do, **kw)
-            for name, g, w in zip(("dq", "dk", "dv"), got, want):
-                e = _compare_bwd(f"flash bwd {name} {label}", g, w, dtype)
-                if Lq == 2048 and dtype == torch.bfloat16:
-                    err = max(err, e)
-            again = ops.flash_attention_bwd(q, k, v, want_out, want_lse, do, **kw)
-            assert all(torch.equal(a, b) for a, b in zip(got, again)), f"flash bwd {label}: not deterministic"
-            del q, k, v, do, out, lse, want_out, want_lse, got, want, again
-    log("[kernels] flash bwd: run to run identical in every case")
-    B, L, H, D, dtype = 1, 2048, 32, 128, torch.bfloat16
+    dtype = torch.bfloat16
     sets = []
     for _ in range(2):
         q, k, v, do = (_randn(gen, (B, L, H, D), dtype, dev) for _ in range(4))
@@ -736,19 +765,78 @@ def check_flash_bwd(dev) -> dict:
     dkdv = sum(t for n, t in parts.items() if "dkdv" in n)
     dq = sum(t for n, t in parts.items() if "dq_" in n)
     dot = sum(t for n, t in parts.items() if "dot" in n)
-    log(f"[kernels] flash bwd kernels apart (profiler, 10 calls): dK/dV {dkdv:.4f} ms "
+    log(f"[kernels] flash bwd kernels apart at head dim {D} (profiler, 10 calls): dK/dV {dkdv:.4f} ms "
         f"({flops * 4 / 7 / dkdv / 1e9:.1f} TFLOP/s of its 4 products), dQ {dq:.4f} ms "
         f"({flops * 3 / 7 / dq / 1e9:.1f} TFLOP/s of its 3), D pass {dot:.4f} ms; "
         + ", ".join(f"{n[:60]} {t:.4f}" for n, t in parts.items()))
-    log(f"[kernels] flash fwd at the same shape: {fwd_ms:.4f} ms without lse (serving), "
+    log(f"[kernels] flash fwd at ({B}, {L}, {H}, {D}): {fwd_ms:.4f} ms without lse (serving), "
         f"{fwd_lse_ms:.4f} ms with it (train)")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib,
+                fwd_ms=fwd_ms, fwd_lse_ms=fwd_lse_ms, dkdv_ms=dkdv, dq_ms=dq, dot_ms=dot,
+                shape=f"q/k/v/out/dout ({B}, {L}, {H}, {D}) bf16 causal")
+
+
+def check_flash_bwd(dev) -> dict:
+    """The forward's lse and the backward kernel against the plain versions
+    on the same out and lse, run to run identical; times at the paths'
+    shapes (one 2048-token sequence: deepseek-7b's 32 heads of 128,
+    gemma-7b's 16 heads of 256)."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_fwd_ref
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cases = [  # (B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_offset)
+        (1, 2048, 2048, 32, 32, 128, 128, True, None, 0),  # the path's
+        (1, 1000, 1000, 32, 8, 128, 128, True, 256, 0),  # GQA + window
+        (2, 777, 777, 8, 8, 64, 64, True, None, 0),
+        (1, 65, 700, 8, 2, 128, 128, True, None, 635),  # offset queries, Lq != Lk
+        (1, 1, 65, 4, 4, 64, 64, True, None, 64),  # one query row
+        (1, 300, 300, 4, 4, 128, 128, False, None, 0),
+        (1, 500, 500, 8, 8, 96, 96, True, None, 0),  # head dim padded to 128
+        # padded to 256 (the role-split bf16 kernels, 32-row f32 tiles):
+        # gemma-7b's path, GQA + window at 192, offset queries, a ragged
+        # non-causal 136, Dv < Dh
+        (1, 2048, 2048, G_HEADS, G_HEADS, G_DIM, G_DIM, True, None, 0),
+        (1, 1000, 1000, 16, 4, 192, 192, True, 256, 0),
+        (1, 65, 700, 4, 1, 256, 256, True, None, 635),
+        (2, 333, 333, 4, 4, 136, 136, False, None, 0),
+        (1, 300, 300, 4, 2, 256, 64, True, None, 0),
+    ]
+    err = err256 = 0.0
+    for B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_off in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = _randn(gen, (B, Lq, H, Dh), dtype, dev)
+            k = _randn(gen, (B, Lk, KH, Dh), dtype, dev)
+            v = _randn(gen, (B, Lk, KH, Dv), dtype, dev)
+            do = _randn(gen, (B, Lq, H, Dv), dtype, dev)
+            kw = dict(causal=causal, window=window, q_offset=q_off)
+            label = f"{dtype} B={B} Lq={Lq} Lk={Lk} H={H} KH={KH} Dh={Dh} Dv={Dv} {kw}"
+            out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+            want_out, want_lse = attention_fwd_ref(q, k, v, **kw)
+            _compare(f"flash fwd lse {label}", lse, want_lse, torch.float32,
+                     dict(atol=1e-4 if dtype == torch.float32 else 1e-3, rtol=0))
+            _compare(f"flash fwd out (with lse) {label}", out, want_out, dtype)
+            got = ops.flash_attention_bwd(q, k, v, want_out, want_lse, do, **kw)
+            want = attention_bwd_ref(q, k, v, want_out, want_lse, do, **kw)
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                e = _compare_bwd(f"flash bwd {name} {label}", g, w, dtype)
+                if Lq == 2048 and dtype == torch.bfloat16:
+                    if Dh == G_DIM:
+                        err256 = max(err256, e)
+                    else:
+                        err = max(err, e)
+            again = ops.flash_attention_bwd(q, k, v, want_out, want_lse, do, **kw)
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), f"flash bwd {label}: not deterministic"
+            del q, k, v, do, out, lse, want_out, want_lse, got, want, again
+    log("[kernels] flash bwd: run to run identical in every case")
+    main = _flash_bwd_times(gen, dev, 1, 2048, 32, 128)
+    d256 = _flash_bwd_times(gen, dev, 1, 2048, G_HEADS, G_DIM)
+    d256["max_abs_err"] = err256
     return dict(
         name="flash_attention_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         replaces="src/repro/models/attention.py:139 (no Pallas kernel: JAX differentiates the jnp custom VJP)",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib,
-        fwd_ms=fwd_ms, fwd_lse_ms=fwd_lse_ms, dkdv_ms=dkdv, dq_ms=dq, dot_ms=dot,
-        shape=f"q/k/v/out/dout ({B}, {L}, {H}, {D}) bf16 causal",
+        max_abs_err=err, d256=d256, **main,
     )
 
 
@@ -943,12 +1031,15 @@ def kernel_phase(dev) -> list[dict]:
     records = [check_rmsnorm(dev), check_flash(dev), check_decode(dev), check_ssd(dev),
                check_flash_bwd(dev), check_rmsnorm_bwd(dev), check_ssd_bwd(dev)]
     for r in records:
-        lib = "none (no single PyTorch call)" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        log(
-            f"[kernels] {r['name']} at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {lib}, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
-        )
+        for t in (r, r.get("d256")):
+            if t is None:
+                continue
+            lib = "none (no single PyTorch call)" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+            log(
+                f"[kernels] {r['name']} at {t['shape']}: kernel {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, library {lib}, bound "
+                f"{t['bound_ms']:.4f} ms ({t['bound_by']})"
+            )
     return records
 
 
@@ -1153,18 +1244,26 @@ def _profile_prefill(model, cfg, prompt, dev, n_iter: int = 3) -> dict:
     return dict(wall_ms=sorted(walls)[n_iter // 2], **_device_rows(prof, prof_wall_ms, 1))
 
 
-def serving_phase(dev) -> dict:
+def serving_phase(dev, arch: str = "deepseek-7b", tag: str = "serve") -> dict:
+    """Full-width ``arch`` (seeded random bf16 weights made on the card)
+    through ``ServeEngine``: 4 slots, ``MAX_SEQ``; the ragged prompts and a
+    sampled one, then duplicates (prefix share, restore); exact launch
+    counts; one greedy stream against the sequential loop; a profiled
+    decode iteration and 2048-token prefill; peak memory."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     from repro_torch.serving import ServeEngine
 
-    cfg = get_config("deepseek-7b")
+    gc.collect()  # earlier phases' models and engines are cyclic garbage
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     model = init_params(cfg, 0, device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"[serve] deepseek-7b ({cfg.n_layers} layers, d_model {cfg.d_model}, {n_params / 1e9:.3f} B "
-        f"params, {cfg.dtype}) initialised on the card in {time.perf_counter() - t0:.1f} s")
+    log(f"[{tag}] {arch} ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.head_dim}, {n_params / 1e9:.3f} B params, {cfg.dtype}) initialised on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in PROMPT_LENS]
@@ -1180,7 +1279,7 @@ def serving_phase(dev) -> dict:
         for p in warm:
             eng.submit(p, 2)
         eng.run_until_drained()
-        log(f"[serve] warm-up wave ({len(warm)} requests, 2 tokens each) took {time.perf_counter() - t0:.2f} s")
+        log(f"[{tag}] warm-up wave ({len(warm)} requests, 2 tokens each) took {time.perf_counter() - t0:.2f} s")
         base = (eng.prefills, eng.decode_steps, eng.restores)
         # ---- the main path: counts from 0 just before, read just after ----
         for c in ops.values():
@@ -1210,46 +1309,37 @@ def serving_phase(dev) -> dict:
     assert all(r.done and len(r.out_tokens) == GEN for r in reqs), "a request did not finish"
     assert stats["restores"] == 1 and stats["prefills"] == 5, f"admission paths: {stats}"
     assert stats["pool"]["shared_hits"] >= 1, f"no prefix sharing: {stats}"
-    n_fwd = stats["prefills"] + stats["decode_steps"]
-    want = {
-        "flash_attention": cfg.n_layers * stats["prefills"],
-        "decode_attention": cfg.n_layers * stats["decode_steps"],
-        "rmsnorm": (2 * cfg.n_layers + 1) * n_fwd,
-        "ssd": 0,  # no ssm layer in this model
-        "flash_attention_bwd": 0,  # serving runs no backward
-        "rmsnorm_bwd": 0,
-        "ssd_bwd": 0,
-    }
-    log(f"[serve] launches on the main path {launches}; expected {want} from "
+    want = _serve_launches(cfg, prefills=stats["prefills"], decode_steps=stats["decode_steps"])
+    log(f"[{tag}] launches on the main path {launches}; expected {want} from "
         f"{stats['prefills']} prefills and {stats['decode_steps']} decode steps")
     assert launches == want, "the main path did not run through every kernel as expected"
     assert all(launches[k] > 0 for k in ("flash_attention", "decode_attention", "rmsnorm"))
 
     n_tok = sum(len(r.out_tokens) for r in reqs)
-    log(f"[serve] {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s ({n_tok / wall:.1f} tok/s, "
+    log(f"[{tag}] {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s ({n_tok / wall:.1f} tok/s, "
         f"first token included), {stats['steps']} engine iterations, {stats['prefills']} prefills, "
-        f"{stats['restores']} restores, peak device memory {peak / 2**30:.2f} GiB")
+        f"{stats['restores']} restores, peak device memory {peak / 2**30:.2f} GiB ({peak} bytes)")
     for r in reqs:
-        log(f"[serve]   prompt {len(r.prompt):5d} temp {r.temperature}: TTFT "
+        log(f"[{tag}]   prompt {len(r.prompt):5d} temp {r.temperature}: TTFT "
             f"{(r.t_first - r.t_arrival) * 1e3:.1f} ms, tokens {r.out_tokens[:8]}...")
-    log(f"[serve] duplicate (prefix-shared, re-prefilled) stream equals the original's: "
+    log(f"[{tag}] duplicate (prefix-shared, re-prefilled) stream equals the original's: "
         f"{dup.out_tokens == greedy[0].out_tokens}; restored request's first tokens {dup_restore.out_tokens[:8]}")
 
     want_toks = _sequential_greedy(model, cfg, prompts[1], 1, dev)[0]
-    log(f"[serve] sequential prefill + decode_step loop for prompt {PROMPT_LENS[1]}: {want_toks}")
+    log(f"[{tag}] sequential prefill + decode_step loop for prompt {PROMPT_LENS[1]}: {want_toks}")
     assert greedy[1].out_tokens == want_toks, (greedy[1].out_tokens, want_toks)
-    log("[serve] engine stream equals the sequential loop")
+    log(f"[{tag}] engine stream equals the sequential loop")
     sp = step_profile
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     sp["weights_bound_ms"] = weight_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"[profile] decode iteration with {N_SLOTS} busy slots: {sp['wall_ms']:.2f} ms wall "
+    log(f"[profile] {arch} decode iteration with {N_SLOTS} busy slots: {sp['wall_ms']:.2f} ms wall "
         f"({N_SLOTS / sp['wall_ms'] * 1e3:.1f} tok/s); under the profiler {sp['profiled_wall_ms']:.2f} ms "
         f"wall, {sp['device_ms']:.2f} ms device time, device busy {sp['busy']:.1%}; reading the "
         f"{weight_bytes / 1e9:.2f} GB of weights once takes {sp['weights_bound_ms']:.2f} ms")
     for name, ms in sp["top"]:
         log(f"[profile]   {ms:8.4f} ms  {name}")
     pp = prefill_profile
-    log(f"[profile] deepseek-7b prefill of {PROMPT_LENS[0]} tokens alone: {pp['wall_ms']:.2f} ms wall "
+    log(f"[profile] {arch} prefill of {PROMPT_LENS[0]} tokens alone: {pp['wall_ms']:.2f} ms wall "
         f"(median of 3); under the profiler {pp['profiled_wall_ms']:.2f} ms wall, "
         f"{pp['device_ms']:.2f} ms device time, device busy {pp['busy']:.1%}")
     for name, ms in pp["top"]:
@@ -1559,16 +1649,20 @@ def _parity_run(dev, cfg, *, tag: str, seq: int, steps: int = 2, n_mb: int = 2, 
 
 
 def train_parity_phase(dev) -> dict:
-    """deepseek-7b at full width and 2 layers, float32, B = 2, L = 256, two
-    microbatches, two steps, with Adafactor and with AdamW (``_parity_run``)."""
+    """Full width and 2 layers, float32, B = 2, two microbatches, two steps
+    (``_parity_run``): deepseek-7b (L = 256) with Adafactor and with AdamW,
+    gemma-7b (L = 128; head dim 256: the f32 routes of the flash forward
+    and backward at Dh 256) with Adafactor."""
     from repro_torch.configs import get_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
-    for opt in ("adafactor", "adamw"):
-        cfg = get_config("deepseek-7b").replace(n_layers=2, dtype="float32", logits_chunk=256,
-                                                optimizer=opt)
-        out[opt] = _parity_run(dev, cfg, tag="train-parity", seq=256)
+    # gemma-7b's CPU side (a 256000-row tied head) takes ~100 s at 256
+    # tokens a sequence: 128 halves it
+    for arch, opt, seq in (("deepseek-7b", "adafactor", 256), ("deepseek-7b", "adamw", 256),
+                           ("gemma-7b", "adafactor", 128)):
+        cfg = get_config(arch).replace(n_layers=2, dtype="float32", logits_chunk=seq, optimizer=opt)
+        out[opt if arch == "deepseek-7b" else arch] = _parity_run(dev, cfg, tag="train-parity", seq=seq)
     return out
 
 
@@ -1620,27 +1714,37 @@ def _profile_train_step(art, state, batch) -> tuple:
     return state, m, _device_rows(prof, wall_ms, 1)
 
 
-def train_phase(dev) -> dict:
-    """deepseek-7b at full width and depth (30 layers, bf16), Adafactor,
-    ``remat="full"``, logits in chunks of 1024, a global batch of (2, 2048)
-    in two microbatches: four steps on ``SpRuntime(backend="staged")``.
-    Then one profiled step and a nonfinite rollback on the card."""
+# the full-depth train runs: (arch, its layers, the phase's tag, nonfinite rollback)
+TRAIN_RUNS = {"deepseek-7b": (30, "train", True), "gemma-7b": (28, "train-gemma", False)}
+
+
+def train_phase(dev, arch: str = "deepseek-7b") -> dict:
+    """``arch`` (deepseek-7b, gemma-7b) at full width and depth (bf16),
+    Adafactor, ``remat="full"``, logits in chunks of 1024, a global batch of
+    (2, 2048) in two microbatches: four steps on
+    ``SpRuntime(backend="staged")``.  Then each task's device time, one
+    profiled step and (deepseek-7b) a nonfinite rollback on the card."""
     from repro_torch.configs import get_config
     from repro_torch.runtime.train import build_train_step, init_train_state
 
+    n_layers, tag, rollback = TRAIN_RUNS[arch]
     gc.collect()  # the serving phases' models and engines are cyclic garbage
     torch.cuda.empty_cache()
     mem_base = torch.cuda.memory_allocated()
-    cfg = get_config("deepseek-7b").replace(optimizer="adafactor")
-    assert (cfg.remat, cfg.logits_chunk, cfg.dtype, cfg.n_layers) == ("full", 1024, "bfloat16", 30)
+    cfg = get_config(arch).replace(optimizer="adafactor")
+    assert (cfg.remat, cfg.logits_chunk, cfg.dtype, cfg.n_layers) == ("full", 1024, "bfloat16", n_layers)
     t0 = time.perf_counter()
     state = init_train_state(cfg, 0, device=dev)
     torch.cuda.synchronize()
     params = dict(state.params.named_parameters())
     n_params = sum(p.numel() for p in params.values())
+    # parameters in matrix products: not the embedding gather nor the norm
+    # scales, but a tied embedding is also the logits product's matrix
     n_matmul = n_params - state.params.embedding.numel() - sum(
         p.numel() for n, p in params.items() if n.endswith("scale"))
-    log(f"[train] deepseek-7b ({cfg.n_layers} layers, {n_params / 1e9:.3f} B params, {n_matmul / 1e9:.3f} B "
+    if cfg.tie_embeddings:
+        n_matmul += cfg.vocab * cfg.d_model
+    log(f"[{tag}] {arch} ({cfg.n_layers} layers, {n_params / 1e9:.3f} B params, {n_matmul / 1e9:.3f} B "
         f"in matrix products, {cfg.dtype}, {cfg.optimizer}, remat {cfg.remat}, logits chunk "
         f"{cfg.logits_chunk}) initialised on the card in {time.perf_counter() - t0:.1f} s "
         f"({mem_base} bytes allocated before it)")
@@ -1664,7 +1768,7 @@ def train_phase(dev) -> dict:
     # ------------------------------------------------------------------
     peak = torch.cuda.max_memory_allocated()
     want = {k: v * TRAIN_STEPS for k, v in _train_launches_per_step(cfg, TRAIN_MB).items()}
-    log(f"[train] launches on the main path {launches}; expected {want} from {TRAIN_STEPS} steps of "
+    log(f"[{tag}] launches on the main path {launches}; expected {want} from {TRAIN_STEPS} steps of "
         f"{TRAIN_MB} microbatches")
     assert launches == want, "the train step did not run through every kernel as expected"
     assert all(np.isfinite(losses)) and all(np.isfinite(gnorms)), (losses, gnorms)
@@ -1675,21 +1779,29 @@ def train_phase(dev) -> dict:
     attn = 3 * 4 * cfg.n_heads * cfg.head_dim * _pairs(TRAIN_SEQ, TRAIN_SEQ, True, None, 0) * TRAIN_BATCH * cfg.n_layers
     model_flops = 6 * n_matmul * tokens + attn
     tflops = model_flops / (step_ms / 1e3) / 1e12
-    log(f"[train] losses {losses}, grad norms {gnorms}; schedule {art.schedule_names}")
-    log(f"[train] step wall ms {[round(w, 2) for w in walls]}; median of steps 2-{TRAIN_STEPS} {step_ms:.2f} ms, "
+    log(f"[{tag}] losses {losses}, grad norms {gnorms}; schedule {art.schedule_names}")
+    log(f"[{tag}] step wall ms {[round(w, 2) for w in walls]}; median of steps 2-{TRAIN_STEPS} {step_ms:.2f} ms, "
         f"{tokens / step_ms * 1e3:.1f} tokens/s, model {model_flops / 1e12:.1f} TFLOP a step "
         f"(6·N·tokens + attention, no recompute) = {tflops:.1f} TFLOP/s, {tflops / 989:.1%} of 989; "
         f"peak device memory {peak / 2**30:.2f} GiB ({peak} bytes)")
     state, spans = _codelet_times(art, state, batches[TRAIN_STEPS])
-    log("[train] device time of each task of one step: "
+    log(f"[{tag}] device time of each task of one step: "
         + ", ".join(f"{name} {ms:.1f} ms" for name, ms in spans))
     state, _, prof = _profile_train_step(art, state, batches[TRAIN_STEPS])
-    log(f"[profile] one train step under the profiler: {prof['profiled_wall_ms']:.2f} ms wall, "
+    log(f"[profile] one {arch} train step under the profiler: {prof['profiled_wall_ms']:.2f} ms wall, "
         f"{prof['device_ms']:.2f} ms device time, device busy {prof['busy']:.1%}")
     for name, ms in prof["top"]:
         log(f"[profile]   {ms:9.3f} ms  {name}")
     log("[profile] by kind: " + ", ".join(f"{k} {ms:.1f} ms ({ms / prof['device_ms']:.1%})"
                                           for k, ms in prof["kinds"]))
+    out = dict(launches=launches, losses=losses, grad_norms=gnorms, walls_ms=walls, step_ms=step_ms,
+               tokens_per_s=tokens / step_ms * 1e3, model_tflops=tflops, peak_bytes=peak, profile=prof,
+               task_ms=spans)
+    if not rollback:
+        del state, art, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
     # nonfinite rollback: a NaN in one ln1 scale; every bit stays, the step advances
     with torch.no_grad():
         state.params.layers[0].ln1.scale[0] = float("nan")
@@ -1705,14 +1817,12 @@ def train_phase(dev) -> dict:
     for k, v in state.opt.items():
         for kk, vv in v.items():
             assert torch.equal(_bits(vv), _bits(opt_before[k][kk])), f"rollback changed opt {k}/{kk}"
-    log(f"[train] nonfinite rollback: grad norm {gn}, every parameter ({len(before)} tensors) and "
+    log(f"[{tag}] nonfinite rollback: grad norm {gn}, every parameter ({len(before)} tensors) and "
         f"optimizer tensor bit-identical, step {step_before} -> {int(state.step)}")
     del state, art, batches, before, opt_before
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(launches=launches, losses=losses, grad_norms=gnorms, walls_ms=walls, step_ms=step_ms,
-                tokens_per_s=tokens / step_ms * 1e3, model_tflops=tflops, peak_bytes=peak, profile=prof,
-                task_ms=spans)
+    return out
 
 
 M2_BATCH, M2_SEQ, M2_MB, M2_STEPS = 8, 2048, 2, 4
@@ -1796,11 +1906,11 @@ LOAD_SPEC = dict(seed=0, n_requests=16, rate_rps=2.0, prompt_lens=(128, 512, 102
 
 def _serve_launches(cfg, *, prefills, decode_steps, draft_layers=0, primes=0, draft_feeds=0,
                     verify_substeps=0) -> dict:
-    """Kernel launches of a deepseek-7b serving run: per layer one flash
-    attention a prefill, one decode attention a decode step, verify sub-step
-    or draft feed, two norms per layer plus the final norm a forward; the
-    draft (``draft_layers`` deep) primes each speculative admission with a
-    prefill and feeds its own decode steps."""
+    """Kernel launches of a dense model's serving run (deepseek-7b,
+    gemma-7b): per layer one flash attention a prefill, one decode attention
+    a decode step, verify sub-step or draft feed, two norms per layer plus
+    the final norm a forward; the draft (``draft_layers`` deep) primes each
+    speculative admission with a prefill and feeds its own decode steps."""
     fwd = prefills + decode_steps + verify_substeps
     return {
         "flash_attention": cfg.n_layers * prefills + draft_layers * primes,
@@ -2524,14 +2634,17 @@ def main() -> int:
     examples = examples_phase(dev)
     serve = serving_phase(dev)
     serve_m = mamba2_serving_phase(dev)
+    serve_g = serving_phase(dev, "gemma-7b", "serve-gemma")
     model_err = model_phase(dev)
     from repro_torch.configs import get_config
 
     model_err_m = model_phase(
         dev, get_config("mamba2-130m").replace(n_layers=4, dtype="float32"), prompt_len=600
     )
+    model_err_g = model_phase(dev, get_config("gemma-7b").replace(n_layers=2, dtype="float32"))
     parity = train_parity_phase(dev)
     train = train_phase(dev)
+    train_g = train_phase(dev, "gemma-7b")
     train_m2 = train_m2_phase(dev)
     cfg, model = _deepseek(dev, "spec")
     spec = spec_phase(dev, cfg, model)
@@ -2539,16 +2652,19 @@ def main() -> int:
     del model
     ckpt = ckpt_phase(dev)
     comm = comm_phase(dev)
-    # launches on every path: serving, train (both models), speculation, load, checkpoint, the launcher
+    # launches on every path: serving and train (three models), speculation, load, checkpoint, the launcher
     for r in records:
         r["launches"] = sum(run["launches"][r["name"]]
-                            for run in (serve, serve_m, train, train_m2, spec, load, ckpt, comm))
+                            for run in (serve, serve_m, serve_g, train, train_g, train_m2, spec, load, ckpt, comm))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     kernels = [{k: r[k] for k in keys} for r in records]
     log(f"[done] {smi}: build {build_s:.1f} s, model checks {model_err:.2e} (deepseek-7b), "
-        f"{model_err_m:.2e} (mamba2-130m), train parity {parity}, train step {train['step_ms']:.1f} ms "
-        f"({train['tokens_per_s']:.1f} tokens/s), mamba2 train step {train_m2['step_ms']:.1f} ms "
+        f"{model_err_m:.2e} (mamba2-130m), {model_err_g:.2e} (gemma-7b), train parity {parity}, train step "
+        f"{train['step_ms']:.1f} ms ({train['tokens_per_s']:.1f} tokens/s), gemma-7b train step "
+        f"{train_g['step_ms']:.1f} ms ({train_g['tokens_per_s']:.1f} tokens/s, peak "
+        f"{train_g['peak_bytes'] / 2**30:.2f} GiB), gemma-7b serving {serve_g['tok_per_s']:.1f} tok/s "
+        f"(peak {serve_g['peak_bytes'] / 2**30:.2f} GiB), mamba2 train step {train_m2['step_ms']:.1f} ms "
         f"({train_m2['tokens_per_s']:.1f} tokens/s), examples {examples['seconds']:.1f} s, "
         f"self-draft accept rate {spec['self draft']['accept_rate']:.3f}, "
         f"load checksum {load['continuous']['output_checksum']}, checkpoint {ckpt['bytes']} bytes, "

@@ -22,10 +22,17 @@
 //     V rows, at once (cp.async into shared memory): the scores start when K
 //     has landed, while V is still in flight.  A block pays about one
 //     memory latency, not one per row.
-//   - Scores: 16 lanes x 8 elements cover a row of up to 128, two rows per
-//     warp per step; the G query heads of the group reuse each K row.
-//   - The chunk's softmax and P.V (8 row groups x 16 lanes x 8 elements,
-//     summed across the groups in a fixed order in shared memory).
+//   - Scores: 16 lanes x 8 elements cover 128 columns of a row, two rows
+//     per warp per step; a row of up to 256 takes each lane twice (columns
+//     8·lane and 128 + 8·lane, summed in the lane before the shuffles); the
+//     G query heads of the group reuse each K row.
+//   - The chunk's softmax and P.V (8 row groups x 16 lanes x 8 elements per
+//     128 columns, summed across the groups in a fixed order in shared
+//     memory).
+//   - The kernel is templated on the padded head dim DM = 128 or 256 (the
+//     wider of Dh, Dv rounded up; decode_attention_padded_dim): the K / V
+//     tiles, the query rows and the workspace rows are DM wide, so a head of
+//     128 or less keeps its shared memory and its arithmetic.
 //   - A sequence that fits one chunk writes its output at once.  Otherwise
 //     each chunk writes its (m, l, acc) to one workspace, and the block that
 //     takes the last ticket of its (sequence, KV head) from an atomic
@@ -47,8 +54,12 @@ namespace {
 constexpr int CS = 64;   // cache slots per chunk
 constexpr int NT = 128;  // threads per block: 4 warps
 constexpr int NW = NT / 32;
-constexpr int DMAX = 128;
+constexpr int DMAX = 256;     // the widest head dim taken
 constexpr int RG = NT / 16;  // row groups of the P.V and combine passes
+constexpr int LANE_COLS = 128;  // columns 16 lanes x 8 elements cover
+
+// the padded head dim of the kernel's tiles and workspace rows
+constexpr int padded_dim(int Dh, int Dv) { return Dh <= 128 && Dv <= 128 ? 128 : 256; }
 
 // v[e] = row[d0 + e] as f32, 0 where d0 + e >= D; row is 16-byte aligned
 __device__ __forceinline__ void load8(const __nv_bfloat16* row, int d0, int D, float (&v)[8]) {
@@ -83,8 +94,8 @@ __device__ __forceinline__ void store8(float* dst, const float (&a)[8]) {
   reinterpret_cast<float4*>(dst)[1] = make_float4(a[4], a[5], a[6], a[7]);
 }
 
-// rows [s0, s0 + ns) x D of a (B, S, KH, D) cache into `dst` (rows DMAX apart)
-template <typename T, bool VEC16>
+// rows [s0, s0 + ns) x D of a (B, S, KH, D) cache into `dst` (rows DM apart)
+template <typename T, bool VEC16, int DM>
 __device__ __forceinline__ void load_rows(T* dst, const T* src, long long row_stride, int ns, int D,
                                           int tid) {
   if constexpr (VEC16) {
@@ -92,12 +103,12 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, long long row_st
     const int units = D / E;           // D * sizeof(T) is a multiple of 16 here
     for (int i = tid; i < ns * units; i += NT) {
       const int r = i / units, u = i - r * units;
-      hop::cp_async16(hop::smem_addr(dst + r * DMAX + u * E), src + r * row_stride + u * E, true);
+      hop::cp_async16(hop::smem_addr(dst + r * DM + u * E), src + r * row_stride + u * E, true);
     }
   } else {
     for (int i = tid; i < ns * D; i += NT) {
       const int r = i / D, d = i - r * D;
-      dst[r * DMAX + d] = src[r * row_stride + d];
+      dst[r * DM + d] = src[r * row_stride + d];
     }
   }
 }
@@ -108,7 +119,7 @@ struct DecodeParams {
   const void* v;
   const int* pos;
   void* o;
-  float* ws_acc;  // (B, KH, n_chunks, G, DMAX)
+  float* ws_acc;  // (B, KH, n_chunks, G, DM)
   float* ws_ml;   // (B, KH, n_chunks, G, 2): chunk max, chunk sum
   int* tickets;   // (B, KH), 0 between calls
   int B, H, KH, S, Dh, Dv, n_chunks;
@@ -116,29 +127,30 @@ struct DecodeParams {
   float scale;
 };
 
-template <typename T>
+template <typename T, int DM>
 constexpr size_t smem_bytes(int G, int n_chunks, int B) {
-  return 2 * sizeof(T) * CS * DMAX +
-         sizeof(float) * (static_cast<size_t>(G) * (DMAX + CS + 2) + n_chunks) +
+  return 2 * sizeof(T) * CS * DM +
+         sizeof(float) * (static_cast<size_t>(G) * (DM + CS + 2) + n_chunks) +
          sizeof(int) * (static_cast<size_t>(B) + 1);
 }
 
-template <typename T, bool VEC16>
+template <typename T, bool VEC16, int DM>
 __global__ void __launch_bounds__(NT) decode_kernel(const DecodeParams p) {
+  constexpr int NU = DM / LANE_COLS;  // 8-element column groups a lane takes
   extern __shared__ float4 sm4[];
   __shared__ int is_last;
   const int G = p.H / p.KH;
-  T* Ks = reinterpret_cast<T*>(sm4);   // CS x DMAX
-  T* Vs = Ks + CS * DMAX;              // CS x DMAX
-  float* qs = reinterpret_cast<float*>(Vs + CS * DMAX);  // G x DMAX
-  float* ps = qs + G * DMAX;           // G x CS: scores, then probabilities
+  T* Ks = reinterpret_cast<T*>(sm4);   // CS x DM
+  T* Vs = Ks + CS * DM;                // CS x DM
+  float* qs = reinterpret_cast<float*>(Vs + CS * DM);  // G x DM
+  float* ps = qs + G * DM;             // G x CS: scores, then probabilities
   float* ml = ps + G * CS;             // G x 2: the chunk's (m, l), then the combined (M, L)
   float* sc = ml + 2 * G;              // n_chunks: exp(m_c - M) of the combine
   int* first = reinterpret_cast<int*>(sc + p.n_chunks);  // B + 1: first item of each sequence
-  float* red = reinterpret_cast<float*>(Ks);  // RG x DMAX partial sums, once K is consumed
+  float* red = reinterpret_cast<float*>(Ks);  // RG x DM partial sums, once K is consumed
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int l16 = tid & 15, d0 = 8 * l16, rg = tid >> 4;
+  const int l16 = tid & 15, d0 = 8 * l16, rg = tid >> 4;  // columns d0 + 128u, u < NU
 
   // The work list: sequence b has max(nc_b, 1) * KH items (chunk-major,
   // KV head fastest), nc_b = ceil(min(pos[b] + 1, S) / CS).  Block i takes
@@ -172,13 +184,13 @@ __global__ void __launch_bounds__(NT) decode_kernel(const DecodeParams p) {
   // every copy of the chunk in flight at once: K, then V
   const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + kh * p.k_sh + s0 * p.k_ss;
   const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + kh * p.v_sh + s0 * p.v_ss;
-  load_rows<T, VEC16>(Ks, kb, p.k_ss, ns, p.Dh, tid);
+  load_rows<T, VEC16, DM>(Ks, kb, p.k_ss, ns, p.Dh, tid);
   hop::cp_async_commit();
-  load_rows<T, VEC16>(Vs, vb, p.v_ss, ns, p.Dv, tid);
+  load_rows<T, VEC16, DM>(Vs, vb, p.v_ss, ns, p.Dv, tid);
   hop::cp_async_commit();
   const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + kh * G * p.q_sh;
-  for (int i = tid; i < G * DMAX; i += NT) {
-    const int g = i / DMAX, d = i - g * DMAX;
+  for (int i = tid; i < G * DM; i += NT) {
+    const int g = i / DM, d = i - g * DM;
     qs[i] = d < p.Dh ? rt::to_f32(qb[g * p.q_sh + d]) : 0.f;
   }
   hop::cp_async_wait<1>();  // K has landed; V may still be in flight
@@ -187,13 +199,18 @@ __global__ void __launch_bounds__(NT) decode_kernel(const DecodeParams p) {
   // scores: half-warp h of warp w takes rows 8 step + 2 w + h
   for (int r0 = 0; r0 < ns; r0 += 2 * NW) {
     const int j = r0 + 2 * warp + (lane >> 4);
-    float kv[8];
-    load8(Ks + (j < ns ? j : 0) * DMAX, d0, p.Dh, kv);
+    float kv[NU][8];
+#pragma unroll
+    for (int u = 0; u < NU; ++u) load8(Ks + (j < ns ? j : 0) * DM, d0 + LANE_COLS * u, p.Dh, kv[u]);
     for (int g = 0; g < G; ++g) {
-      const float4 qa = *reinterpret_cast<const float4*>(qs + g * DMAX + d0);
-      const float4 qb4 = *reinterpret_cast<const float4*>(qs + g * DMAX + d0 + 4);
-      float part = qa.x * kv[0] + qa.y * kv[1] + qa.z * kv[2] + qa.w * kv[3] +
-                   qb4.x * kv[4] + qb4.y * kv[5] + qb4.z * kv[6] + qb4.w * kv[7];
+      float part = 0.f;
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        const float4 qa = *reinterpret_cast<const float4*>(qs + g * DM + d0 + LANE_COLS * u);
+        const float4 qb4 = *reinterpret_cast<const float4*>(qs + g * DM + d0 + LANE_COLS * u + 4);
+        part += qa.x * kv[u][0] + qa.y * kv[u][1] + qa.z * kv[u][2] + qa.w * kv[u][3] +
+                qb4.x * kv[u][4] + qb4.y * kv[u][5] + qb4.z * kv[u][6] + qb4.w * kv[u][7];
+      }
 #pragma unroll
       for (int o = 8; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
       if (l16 == 0 && j < ns) ps[g * CS + j] = part * p.scale;
@@ -224,24 +241,28 @@ __global__ void __launch_bounds__(NT) decode_kernel(const DecodeParams p) {
   // unnormalised chunk output: row group rg sums rows rg, rg + 8, ...
   const long long row = (static_cast<long long>(b) * p.KH + kh) * p.n_chunks + c;
   for (int g = 0; g < G; ++g) {
-    float a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    float a[NU][8] = {};
     for (int j = rg; j < ns; j += RG) {
-      float vv[8];
-      load8(Vs + j * DMAX, d0, p.Dv, vv);
       const float pj = ps[g * CS + j];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) a[e] += pj * vv[e];
+      for (int u = 0; u < NU; ++u) {
+        float vv[8];
+        load8(Vs + j * DM, d0 + LANE_COLS * u, p.Dv, vv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) a[u][e] += pj * vv[e];
+      }
     }
-    store8(red + rg * DMAX + d0, a);
+#pragma unroll
+    for (int u = 0; u < NU; ++u) store8(red + rg * DM + d0 + LANE_COLS * u, a[u]);
     __syncthreads();
-    if (tid < p.Dv) {
+    for (int d = tid; d < p.Dv; d += NT) {
       float s = 0.f;
 #pragma unroll
-      for (int r = 0; r < RG; ++r) s += red[r * DMAX + tid];
+      for (int r = 0; r < RG; ++r) s += red[r * DM + d];
       if (nc == 1)
-        ob[g * p.o_sh + tid] = rt::from_f32<T>(s / fmaxf(ml[2 * g + 1], 1e-30f));
+        ob[g * p.o_sh + d] = rt::from_f32<T>(s / fmaxf(ml[2 * g + 1], 1e-30f));
       else
-        p.ws_acc[(row * G + g) * DMAX + tid] = s;
+        p.ws_acc[(row * G + g) * DM + d] = s;
     }
     __syncthreads();
   }
@@ -276,21 +297,26 @@ __global__ void __launch_bounds__(NT) decode_kernel(const DecodeParams p) {
       if (lane == 0) ml[2 * g + 1] = L;
     }
     __syncthreads();
-    float a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    float a[NU][8] = {};
     for (int k = rg; k < nc; k += RG) {
-      const float4* src = reinterpret_cast<const float4*>(p.ws_acc + ((row0 + k) * G + g) * DMAX + d0);
-      const float4 x0 = __ldcg(src), x1 = __ldcg(src + 1);
       const float w = sc[k];
-      a[0] += x0.x * w; a[1] += x0.y * w; a[2] += x0.z * w; a[3] += x0.w * w;
-      a[4] += x1.x * w; a[5] += x1.y * w; a[6] += x1.z * w; a[7] += x1.w * w;
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        const float4* src =
+            reinterpret_cast<const float4*>(p.ws_acc + ((row0 + k) * G + g) * DM + d0 + LANE_COLS * u);
+        const float4 x0 = __ldcg(src), x1 = __ldcg(src + 1);
+        a[u][0] += x0.x * w; a[u][1] += x0.y * w; a[u][2] += x0.z * w; a[u][3] += x0.w * w;
+        a[u][4] += x1.x * w; a[u][5] += x1.y * w; a[u][6] += x1.z * w; a[u][7] += x1.w * w;
+      }
     }
-    store8(red + rg * DMAX + d0, a);
+#pragma unroll
+    for (int u = 0; u < NU; ++u) store8(red + rg * DM + d0 + LANE_COLS * u, a[u]);
     __syncthreads();
-    if (tid < p.Dv) {
+    for (int d = tid; d < p.Dv; d += NT) {
       float s = 0.f;
 #pragma unroll
-      for (int r = 0; r < RG; ++r) s += red[r * DMAX + tid];
-      ob[g * p.o_sh + tid] = rt::from_f32<T>(s / fmaxf(ml[2 * g + 1], 1e-30f));
+      for (int r = 0; r < RG; ++r) s += red[r * DM + d];
+      ob[g * p.o_sh + d] = rt::from_f32<T>(s / fmaxf(ml[2 * g + 1], 1e-30f));
     }
     __syncthreads();
   }
@@ -305,37 +331,47 @@ bool aligned16(const void* ptr, long long sb, long long ss, long long sh, int d,
          d % e == 0;
 }
 
-template <typename T, bool VEC16>
+template <typename T, bool VEC16, int DM>
 int launch_as(const DecodeParams& p, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(p.H / p.KH, p.n_chunks, p.B);
+  const size_t smem = smem_bytes<T, DM>(p.H / p.KH, p.n_chunks, p.B);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_kernel<T, VEC16>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        decode_kernel<T, VEC16, DM>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   // one block for each item the work list can hold
   const unsigned items = static_cast<unsigned>(p.B) * p.KH * p.n_chunks;
-  decode_kernel<T, VEC16><<<items, NT, smem, stream>>>(p);
+  decode_kernel<T, VEC16, DM><<<items, NT, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int DM>
+int launch_dm(const DecodeParams& p, cudaStream_t stream) {
+  const int size = sizeof(T);
+  const bool vec = aligned16(p.k, p.k_sb, p.k_ss, p.k_sh, p.Dh, size) &&
+                   aligned16(p.v, p.v_sb, p.v_ss, p.v_sh, p.Dv, size);
+  return vec ? launch_as<T, true, DM>(p, stream) : launch_as<T, false, DM>(p, stream);
 }
 
 template <typename T>
 int launch(const DecodeParams& p, cudaStream_t stream) {
-  const int size = sizeof(T);
-  const bool vec = aligned16(p.k, p.k_sb, p.k_ss, p.k_sh, p.Dh, size) &&
-                   aligned16(p.v, p.v_sb, p.v_ss, p.v_sh, p.Dv, size);
-  return vec ? launch_as<T, true>(p, stream) : launch_as<T, false>(p, stream);
+  return padded_dim(p.Dh, p.Dv) == 128 ? launch_dm<T, 128>(p, stream) : launch_dm<T, 256>(p, stream);
 }
 
 }  // namespace
 
 extern "C" int decode_attention_chunk() { return CS; }
 
+// the width of a workspace row (and of the kernel's tiles) for these head dims
+extern "C" int decode_attention_padded_dim(int Dh, int Dv) { return padded_dim(Dh, Dv); }
+
 // q strides are (batch, head), cache strides (batch, slot, head), out strides
 // (batch, head), all in elements with a contiguous last dim.  The workspace
-// holds B*KH*n_chunks*G*(128 + 2) floats; tickets holds B*KH ints that are 0
+// holds B*KH*n_chunks*G*(DM + 2) floats, DM = decode_attention_padded_dim(Dh,
+// Dv); tickets holds B*KH ints that are 0
 // before the call and are 0 again after it, so one buffer serves every call
-// on one stream.  n_chunks = ceil(S / decode_attention_chunk()).
+// on one stream.  n_chunks = ceil(S / decode_attention_chunk()).  Head dims
+// up to 256.
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v, const int* pos,
                                     void* o, float* ws, int* tickets, int B, int H, int KH, int S,
                                     int Dh, int Dv, int n_chunks, const long long* q_strides,
@@ -353,7 +389,7 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
   p.o = o;
   const long long n_rows = static_cast<long long>(B) * KH * n_chunks * (H / KH);
   p.ws_acc = ws;
-  p.ws_ml = ws + n_rows * DMAX;
+  p.ws_ml = ws + n_rows * padded_dim(Dh, Dv);
   p.tickets = tickets;
   p.B = B;
   p.H = H;

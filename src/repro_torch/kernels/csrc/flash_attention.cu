@@ -31,8 +31,9 @@
 //   128-byte swizzle that the wgmma descriptors name, so the loads of tile
 //   j+1 overlap the products of tile j.  The copies zero-fill what lies
 //   past Lq / Lk or past the real head dim, so one kernel, templated on the
-//   padded head dims (64 or 128), takes any Dh, Dv <= 128 that is a
-//   multiple of 8 and any length.  Tiles wholly above the causal diagonal
+//   padded head dims (64 or 128, or 256 for both when either passes 128),
+//   takes any Dh, Dv <= 256 that is a multiple of 8 and any length.  Tiles
+//   wholly above the causal diagonal
 //   or before the window are never loaded; the mask (a select) runs only on
 //   tiles that cross an edge.  The heaviest causal query tiles launch first.
 //   96 KB of shared memory and 128 registers a thread, so two blocks share
@@ -41,9 +42,14 @@
 //   exponent and 2^x runs as one ex2.approx (MUFU), which took about a fifth
 //   off the kernel's time on an H100.  (A variant with one block an SM, a
 //   4-stage ring and each warpgroup's P·V running under its next softmax
-//   measured slower there.)
+//   measured slower there.)  At the padded head dim 256 the same tiles
+//   need 193 KB (Q 64 KB, the K / V ring 128 KB) and 128 f32 of O a thread
+//   (two m64n128 products over V's column halves): one block an SM, up to
+//   255 registers, the block's two warpgroups still overlapping each
+//   other's softmax and products.
 // f32: flash_fwd_kernel, on the SIMT cores: f32 tiles in shared memory and
-//   4x4 / 4x8 FMA register micro-tiles.  No serving path runs f32; it keeps
+//   4x4 / 4x8 FMA register micro-tiles (4x16 when Dv passes 128; 209 KB of
+//   shared memory at Dh = Dv = 256).  No serving path runs f32; it keeps
 //   f32 exact for the checks that need it (TF32 would not be).
 #include <cstdint>
 
@@ -59,10 +65,10 @@ namespace {
 constexpr int BQ = 64;   // query rows per block
 constexpr int BK = 64;   // keys per inner tile
 constexpr int NT = 256;  // threads: 16 (ty) x 16 (tx)
-constexpr int DMAX = 128;
-constexpr int NJ = DMAX / 16;  // output columns per thread
+constexpr int DMAX = 256;
 
-template <typename T>
+// NJ: output columns per thread (tx + 16j), 8 for Dv <= 128, else 16
+template <typename T, int NJ>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
     float* __restrict__ lse, int H, int KH, int Lq, int Lk, int Dh, int Dv,
@@ -210,11 +216,12 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
   const size_t smem = sizeof(float) *
       (static_cast<size_t>(BQ) * (Dh + 1) + static_cast<size_t>(BK) * (Dh + 1) +
        static_cast<size_t>(BK) * Dv + static_cast<size_t>(BQ) * (BK + 1));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  auto kernel = Dv <= 128 ? flash_fwd_kernel<T, 8> : flash_fwd_kernel<T, 16>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Lq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T><<<grid, NT, smem, stream>>>(
+  kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, H, KH, Lq, Lk, Dh, Dv, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2],
       vs[0], vs[1], vs[2], os[0], os[1], os[2], causal, window, q_offset, scale);
@@ -234,9 +241,10 @@ constexpr int BK = 64;       // keys per tile
 constexpr int NT = 256;      // threads
 constexpr int STAGES = 2;    // K/V ring
 
-// DP / DVP: the q·k and v head dims padded to 64 or 128
+// DP / DVP: the q·k and v head dims padded to 64 or 128, or both to 256
+// (193 KB of shared memory: one block an SM)
 template <int DP, int DVP>
-__global__ void __launch_bounds__(NT, 2) flash_fwd_wgmma_kernel(
+__global__ void __launch_bounds__(NT, DP > 128 || DVP > 128 ? 1 : 2) flash_fwd_wgmma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ o, float* __restrict__ lse, int H, int KH, int Lq, int Lk, int Dh, int Dv,
     long long q_sb, long long q_sl, long long q_sh,
@@ -371,7 +379,7 @@ __global__ void __launch_bounds__(NT, 2) flash_fwd_wgmma_kernel(
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs(acc, a[kk], desc128(vst + kk * (16 * ROW_BYTES), BK * ROW_BYTES, 1024));
+        wgmma_rs_mn<DVP>(acc, a[kk], vst + kk * (16 * ROW_BYTES), BK * ROW_BYTES);
       wgmma_commit();
       wgmma_wait0();
       fence_regs(acc);
@@ -444,6 +452,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse
 #define FLASH_TC_LAUNCH(DP, DVP)                                                                  \
   return launch<DP, DVP>(q, k, v, o, lse, B, H, KH, Lq, Lk, Dh, Dv, qs, ks, vs, os, causal, window, \
                          q_offset, scale, stream)
+  if (Dh > 128 || Dv > 128) FLASH_TC_LAUNCH(256, 256);
   if (Dh <= 64) {
     if (Dv <= 64) FLASH_TC_LAUNCH(64, 64);
     FLASH_TC_LAUNCH(64, 128);

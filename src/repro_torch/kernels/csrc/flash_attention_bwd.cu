@@ -50,10 +50,30 @@
 //   dQ += dS·K as an RS product with K MN-major.  Both take any Dh, Dv <=
 //   128 that is a multiple of 8 (templated on the padded 64 / 128; the
 //   copies zero-fill), one block an SM (~130 KB of shared memory each).
+// bf16 at a padded head dim of 256 (Dh or Dv in (128, 256], both padded to
+//   256): dK and dV of 64 keys are 2 × 128 f32 a thread of one warpgroup,
+//   over the 255-register limit, and the 128-key / 128-query tiles above
+//   need 256 KB of shared memory.  So each block's two warpgroups split
+//   the products by role instead of by rows:
+//   flash_bwd_dkdv_wgmma256_kernel: a block owns 64 keys.  Warpgroup 0
+//     forms Sᵀ = K·Qᵀ and Pᵀ, hands Pᵀ (f32) to warpgroup 1 through
+//     shared memory and runs dV += Pᵀ·dO; warpgroup 1 forms dPᵀ = V·dOᵀ,
+//     then dSᵀ from the handed Pᵀ, and runs dK += dSᵀ·Q.  Each holds one
+//     128-f32 accumulator; S and dP are formed once.  K and V 64 KB, the
+//     Q / dO ring 128 KB, Pᵀ 16 KB: 210 KB.
+//   flash_bwd_dq_wgmma256_kernel: a block owns 64 query rows.  Warpgroup 0
+//     forms S and P, warpgroup 1 dP; both hand theirs (f32) over through
+//     shared memory, both form the same dS, and warpgroup w runs dQ's
+//     columns [128w, 128w + 128) += dS·K.  Q and dO 64 KB, the K / V ring
+//     128 KB, P and dP 32 KB: 225 KB.
+//   The arithmetic is the 128 kernels' (P and dS in f32, rounded to bf16
+//   only as a product's A operand), and still no atomics.
 // f32: flash_bwd_dkdv_kernel and flash_bwd_dq_kernel on the SIMT cores (f32
 //   tiles in shared memory with odd row strides, 16 x 16 threads with 4 x 4
 //   score micro-tiles, as the forward's SIMT route), 64-key / 64-query
-//   tiles: f32 stays exact for the checks that need it.
+//   tiles: f32 stays exact for the checks that need it.  Above a head dim
+//   of 128 the query tiles are 32 rows (2 x 4 micro-tiles) and each thread
+//   keeps 16 columns, so the f32 tiles fit in 210 KB.
 #include <cstdint>
 
 #include "common.cuh"
@@ -61,20 +81,20 @@
 
 namespace {
 
-constexpr int BQ = 64;   // query rows per tile
+// f32 tiles: 16·MI query rows (MI = 4, or 2 above a head dim of 128), 64
+// keys, NJ head-dim columns a thread (8, or 16 above 128)
 constexpr int BK = 64;   // keys per tile
 constexpr int NT = 256;  // threads: 16 (ty) x 16 (tx)
-constexpr int DMAX = 128;
-constexpr int NJ = DMAX / 16;  // head-dim columns per thread
+constexpr int DMAX = 256;
 
 struct Strides {
   long long b, l, h;
 };
 
-template <typename T>
+template <int ROWS, typename T>
 __device__ __forceinline__ void load_rows(float* dst, int ld, const T* src, Strides s, int r0,
                                           int n_rows, int d, int tid) {
-  for (int idx = tid; idx < 64 * d; idx += NT) {
+  for (int idx = tid; idx < ROWS * d; idx += NT) {
     const int r = idx / d, c = idx - r * d, row = r0 + r;
     dst[r * ld + c] = row < n_rows ? rt::to_f32(src[row * s.l + c]) : 0.f;
   }
@@ -99,20 +119,21 @@ __global__ void __launch_bounds__(NT) flash_bwd_dot_kernel(const T* __restrict__
 }
 
 // s[i][j] = Σ_d A[(ty + 16i), d] · Bm[(tx + 16j), d] over d < n
-__device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* A, int lda, const float* Bm,
+template <int MI>
+__device__ __forceinline__ void tile_dot(float (&s)[MI][4], const float* A, int lda, const float* Bm,
                                          int ldb, int n, int ty, int tx) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
   for (int d = 0; d < n; ++d) {
-    float a[4], bv[4];
+    float a[MI], bv[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * lda + d];
+    for (int i = 0; i < MI; ++i) a[i] = A[(ty + 16 * i) * lda + d];
 #pragma unroll
     for (int j = 0; j < 4; ++j) bv[j] = Bm[(tx + 16 * j) * ldb + d];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] += a[i] * bv[j];
   }
@@ -120,11 +141,12 @@ __device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* A, int l
 
 // From the scores s and dP of rows q0 + ty + 16i, keys k0 + tx + 16j: P and
 // dS (P = 0 for rows past Lq and keys past Lk, which do not exist)
-__device__ __forceinline__ void probs(float (&s)[4][4], float (&dp)[4][4], const float* lse_s,
+template <int MI>
+__device__ __forceinline__ void probs(float (&s)[MI][4], float (&dp)[MI][4], const float* lse_s,
                                       const float* d_s, int q0, int k0, int Lq, int Lk, int causal,
                                       int window, int q_offset, float scale, int ty, int tx) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < MI; ++i) {
     const int r = ty + 16 * i, qpos = q_offset + q0 + r;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -140,13 +162,14 @@ __device__ __forceinline__ void probs(float (&s)[4][4], float (&dp)[4][4], const
   }
 }
 
-template <typename T>
+template <typename T, int MI, int NJ>
 __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dvec,
     T* __restrict__ dk, T* __restrict__ dv, int H, int KH, int Lq, int Lk, int Dh, int Dv,
     Strides qs, Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs, int causal,
     int window, int q_offset, float scale) {
+  constexpr int BQ = 16 * MI;
   extern __shared__ float smem[];
   const int DP = Dh + 1, VP = Dv + 1;
   float* Ks = smem;             // BK x DP
@@ -160,8 +183,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
 
   const int kh = blockIdx.x, k0 = blockIdx.y * BK, b = blockIdx.z;  // key tile 0 first: heaviest
   const int G = H / KH, tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  load_rows(Ks, DP, k + b * ks.b + kh * ks.h, ks, k0, Lk, Dh, tid);
-  load_rows(Vs, VP, v + b * vs.b + kh * vs.h, vs, k0, Lk, Dv, tid);
+  load_rows<BK>(Ks, DP, k + b * ks.b + kh * ks.h, ks, k0, Lk, Dh, tid);
+  load_rows<BK>(Vs, VP, v + b * vs.b + kh * vs.h, vs, k0, Lk, Dv, tid);
 
   // query rows that see some key of [k0, k0 + BK): [i_lo, i_hi)
   const int i_lo = causal ? max(0, k0 - q_offset) : 0;
@@ -179,19 +202,19 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
     const float* d_h = dvec + (static_cast<long long>(b) * H + h) * Lq;
     for (int q0 = (i_lo / BQ) * BQ; q0 < i_hi; q0 += BQ) {
       __syncthreads();  // the previous tile's Qs, dOs, Ps, dSs are consumed
-      load_rows(Qs, DP, q + b * qs.b + h * qs.h, qs, q0, Lq, Dh, tid);
-      load_rows(dOs, VP, dout + b * dos.b + h * dos.h, dos, q0, Lq, Dv, tid);
+      load_rows<BQ>(Qs, DP, q + b * qs.b + h * qs.h, qs, q0, Lq, Dh, tid);
+      load_rows<BQ>(dOs, VP, dout + b * dos.b + h * dos.h, dos, q0, Lq, Dv, tid);
       if (tid < BQ) {
         lse_s[tid] = q0 + tid < Lq ? lse_h[q0 + tid] : 0.f;
         d_s[tid] = q0 + tid < Lq ? d_h[q0 + tid] : 0.f;
       }
       __syncthreads();
-      float s[4][4], dp[4][4];
+      float s[MI][4], dp[MI][4];
       tile_dot(s, Qs, DP, Ks, DP, Dh, ty, tx);
       tile_dot(dp, dOs, VP, Vs, VP, Dv, ty, tx);
       probs(s, dp, lse_s, d_s, q0, k0, Lq, Lk, causal, window, q_offset, scale, ty, tx);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           Ps[(ty + 16 * i) * (BK + 1) + tx + 16 * j] = s[i][j];
@@ -237,12 +260,13 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
   }
 }
 
-template <typename T>
+template <typename T, int MI, int NJ>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dvec,
     T* __restrict__ dq, int H, int KH, int Lq, int Lk, int Dh, int Dv, Strides qs, Strides ks,
     Strides vs, Strides dos, Strides dqs, int causal, int window, int q_offset, float scale) {
+  constexpr int BQ = 16 * MI;
   extern __shared__ float smem[];
   const int DP = Dh + 1, VP = Dv + 1;
   float* Qs = smem;             // BQ x DP
@@ -256,8 +280,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   // heaviest causal query tiles first: blockIdx.y counts down the sequence
   const int h = blockIdx.x, q0 = (gridDim.y - 1 - blockIdx.y) * BQ, b = blockIdx.z;
   const int kh = h / (H / KH), tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  load_rows(Qs, DP, q + b * qs.b + h * qs.h, qs, q0, Lq, Dh, tid);
-  load_rows(dOs, VP, dout + b * dos.b + h * dos.h, dos, q0, Lq, Dv, tid);
+  load_rows<BQ>(Qs, DP, q + b * qs.b + h * qs.h, qs, q0, Lq, Dh, tid);
+  load_rows<BQ>(dOs, VP, dout + b * dos.b + h * dos.h, dos, q0, Lq, Dv, tid);
   if (tid < BQ) {
     const long long r = (static_cast<long long>(b) * H + h) * Lq + q0 + tid;
     lse_s[tid] = q0 + tid < Lq ? lse[r] : 0.f;
@@ -270,43 +294,43 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   const int k_hi = causal ? min(Lk, qpos_hi + 1) : Lk;
   const int k_lo = window > 0 ? max(0, qpos_lo - window + 1) : 0;
 
-  float acc[4][NJ];
+  float acc[MI][NJ];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < MI; ++a)
 #pragma unroll
     for (int c = 0; c < NJ; ++c) acc[a][c] = 0.f;
 
   for (int k0 = (k_lo / BK) * BK; k0 < k_hi; k0 += BK) {
     __syncthreads();  // Qs written / the previous tile's Ks, Vs, dSs consumed
-    load_rows(Ks, DP, k + b * ks.b + kh * ks.h, ks, k0, Lk, Dh, tid);
-    load_rows(Vs, VP, v + b * vs.b + kh * vs.h, vs, k0, Lk, Dv, tid);
+    load_rows<BK>(Ks, DP, k + b * ks.b + kh * ks.h, ks, k0, Lk, Dh, tid);
+    load_rows<BK>(Vs, VP, v + b * vs.b + kh * vs.h, vs, k0, Lk, Dv, tid);
     __syncthreads();
-    float s[4][4], dp[4][4];
+    float s[MI][4], dp[MI][4];
     tile_dot(s, Qs, DP, Ks, DP, Dh, ty, tx);
     tile_dot(dp, dOs, VP, Vs, VP, Dv, ty, tx);
     probs(s, dp, lse_s, d_s, q0, k0, Lq, Lk, causal, window, q_offset, scale, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) dSs[(ty + 16 * i) * (BK + 1) + tx + 16 * j] = dp[i][j];
     __syncthreads();
     // dQ[r][d] += Σ_j dS[r][j]·K[j][d] for rows ty + 16a, columns tx + 16c
     for (int j = 0; j < BK; ++j) {
-      float ds4[4];
+      float ds4[MI];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) ds4[a] = dSs[(ty + 16 * a) * (BK + 1) + j];
+      for (int a = 0; a < MI; ++a) ds4[a] = dSs[(ty + 16 * a) * (BK + 1) + j];
 #pragma unroll
       for (int c = 0; c < NJ; ++c) {
         const int col = tx + 16 * c;
         const float kv = col < Dh ? Ks[j * DP + col] : 0.f;
 #pragma unroll
-        for (int a = 0; a < 4; ++a) acc[a][c] += ds4[a] * kv;
+        for (int a = 0; a < MI; ++a) acc[a][c] += ds4[a] * kv;
       }
     }
   }
 
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < MI; ++a) {
     const int row = q0 + ty + 16 * a;
     if (row >= Lq) continue;
     T* dqrow = dq + b * dqs.b + row * dqs.l + h * dqs.h;
@@ -330,6 +354,40 @@ int launch_dot(const void* o, const void* dout, float* dvec, int B, int H, int L
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int MI, int NJ>
+int launch_simt(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                float* dvec, void* dq, void* dk, void* dv, int B, int H, int KH, int Lq, int Lk,
+                int Dh, int Dv, const long long* qs, const long long* ks, const long long* vs,
+                const long long* dos, const long long* dqs, const long long* dks,
+                const long long* dvs, int causal, int window, int q_offset, float scale,
+                cudaStream_t stream) {
+  constexpr int BQ = 16 * MI;
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  const T* dop = static_cast<const T*>(dout);
+  const size_t tiles = static_cast<size_t>(BK) * (Dh + 1) + static_cast<size_t>(BK) * (Dv + 1) +
+                       static_cast<size_t>(BQ) * (Dh + 1) + static_cast<size_t>(BQ) * (Dv + 1);
+  const size_t smem_kv = sizeof(float) * (tiles + 2 * BQ * (BK + 1) + 2 * BQ);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, MI, NJ>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_kv));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dkdv_kernel<T, MI, NJ><<<dim3(KH, (Lk + BK - 1) / BK, B), NT, smem_kv, stream>>>(
+      qp, kp, vp, dop, lse, dvec, static_cast<T*>(dk), static_cast<T*>(dv), H, KH, Lq, Lk, Dh, Dv,
+      st(qs), st(ks), st(vs), st(dos), st(dks), st(dvs), causal, window, q_offset, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const size_t smem_q = sizeof(float) * (tiles + BQ * (BK + 1) + 2 * BQ);
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, MI, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem_q));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq_kernel<T, MI, NJ><<<dim3(H, (Lq + BQ - 1) / BQ, B), NT, smem_q, stream>>>(
+      qp, kp, vp, dop, lse, dvec, static_cast<T*>(dq), H, KH, Lq, Lk, Dh, Dv, st(qs), st(ks),
+      st(vs), st(dos), st(dqs), causal, window, q_offset, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
            const float* lse, float* dvec, void* dq, void* dk, void* dv, int B, int H, int KH,
@@ -337,33 +395,14 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
            const long long* vs, const long long* os, const long long* dos, const long long* dqs,
            const long long* dks, const long long* dvs, int causal, int window, int q_offset,
            float scale, cudaStream_t stream) {
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const T* dop = static_cast<const T*>(dout);
-  cudaError_t err = static_cast<cudaError_t>(launch_dot<T>(o, dout, dvec, B, H, Lq, Dv, os, dos, stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const size_t tiles = static_cast<size_t>(BK) * (Dh + 1) + static_cast<size_t>(BK) * (Dv + 1) +
-                       static_cast<size_t>(BQ) * (Dh + 1) + static_cast<size_t>(BQ) * (Dv + 1);
-  const size_t smem_kv = sizeof(float) * (tiles + 2 * BQ * (BK + 1) + 2 * BQ);
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_kv));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkdv_kernel<T><<<dim3(KH, (Lk + BK - 1) / BK, B), NT, smem_kv, stream>>>(
-      qp, kp, vp, dop, lse, dvec, static_cast<T*>(dk), static_cast<T*>(dv), H, KH, Lq, Lk, Dh, Dv,
-      st(qs), st(ks), st(vs), st(dos), st(dks), st(dvs), causal, window, q_offset, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const size_t smem_q = sizeof(float) * (tiles + BQ * (BK + 1) + 2 * BQ);
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_q));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_kernel<T><<<dim3(H, (Lq + BQ - 1) / BQ, B), NT, smem_q, stream>>>(
-      qp, kp, vp, dop, lse, dvec, static_cast<T*>(dq), H, KH, Lq, Lk, Dh, Dv, st(qs), st(ks),
-      st(vs), st(dos), st(dqs), causal, window, q_offset, scale);
-  return static_cast<int>(cudaGetLastError());
+  const int err = launch_dot<T>(o, dout, dvec, B, H, Lq, Dv, os, dos, stream);
+  if (err != 0) return err;
+  // above a head dim of 128: 32-row query tiles and 16 columns a thread
+  if (Dh > 128 || Dv > 128)
+    return launch_simt<T, 2, 16>(q, k, v, dout, lse, dvec, dq, dk, dv, B, H, KH, Lq, Lk, Dh, Dv, qs, ks,
+                                 vs, dos, dqs, dks, dvs, causal, window, q_offset, scale, stream);
+  return launch_simt<T, 4, 8>(q, k, v, dout, lse, dvec, dq, dk, dv, B, H, KH, Lq, Lk, Dh, Dv, qs, ks, vs,
+                              dos, dqs, dks, dvs, causal, window, q_offset, scale, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -754,6 +793,328 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at the padded head dim 256: the two warpgroups split by role
+// ---------------------------------------------------------------------------
+
+constexpr int D256 = 256;
+constexpr int BR = 64;  // keys (dK/dV) or query rows (dQ) of a block: one warpgroup's rows
+
+// dK and dV of 64 keys: warpgroup 0 forms Pᵀ and runs dV += Pᵀ·dO,
+// warpgroup 1 forms dPᵀ, takes Pᵀ from shared memory and runs dK += dSᵀ·Q
+__global__ void __launch_bounds__(NT, 1) flash_bwd_dkdv_wgmma256_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dvec,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int KH, int Lq, int Lk, int Dh, int Dv,
+    Strides qs, Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs, int causal,
+    int window, int q_offset, float scale) {
+  constexpr int TILE = BR * D256 * 2;                // one 64 x 256 bf16 tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t s0 = smem_addr(smem_raw);
+  const uint32_t sK = (s0 + 1023u) & ~1023u;        // BR x 256
+  const uint32_t sV = sK + TILE;                     // BR x 256
+  const uint32_t sQ = sV + TILE;                     // 2 stages x BQT x 256
+  const uint32_t sO = sQ + 2 * TILE;                 // 2 stages x BQT x 256 (dO)
+  const uint32_t sL = sO + 2 * TILE;                 // 2 stages x (lse, D) x BQT f32
+  const uint32_t sP = sL + 2 * 2 * BQT * 4;          // Pᵀ: 32 f32 a thread of warpgroup 0
+  const float* lsd = reinterpret_cast<const float*>(smem_raw + (sL - s0));
+  float* pt = reinterpret_cast<float*>(smem_raw + (sP - s0));
+
+  // key tile 0 first: under the causal mask it sees the most queries
+  const int kh = blockIdx.x, k0 = blockIdx.y * BR, b = blockIdx.z;
+  const int G = H / KH, tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+
+  // query rows that see some key of [k0, k0 + BR): [i_lo, i_hi), in query
+  // tiles [t_lo, t_lo + n_qt) of each of the G heads
+  const int i_lo = causal ? max(0, k0 - q_offset) : 0;
+  const int i_hi = window > 0 ? min(Lq, k0 + BR - 1 + window - q_offset) : Lq;
+  const int t_lo = i_lo / BQT;
+  const int n_qt = i_hi > i_lo ? (i_hi + BQT - 1) / BQT - t_lo : 0;
+  const int n_it = G * n_qt;
+
+  // this thread's two rows of the accumulator layout (keys) and its columns (queries)
+  const int row0 = warp * 16 + (lane >> 2), col0 = 2 * (lane & 3);
+  const int kpos0 = k0 + row0;
+
+  auto load_q = [&](int it, int st) {  // query tile `it` of the loop into stage st
+    const int h = kh * G + it / n_qt, q0 = (t_lo + it % n_qt) * BQT;
+    load_tile<BQT, D256, NT>(sQ + st * TILE, q + b * qs.b + h * qs.h, qs.l, q0, Lq, Dh, tid);
+    load_tile<BQT, D256, NT>(sO + st * TILE, dout + b * dos.b + h * dos.h, dos.l, q0, Lq, Dv, tid);
+    if (tid < 2 * BQT) {  // threads 0-63 lse, 64-127 D; rows past Lq read as 0
+      const int r = tid & (BQT - 1);
+      const float* src = (tid < BQT ? lse : dvec) + (static_cast<long long>(b) * H + h) * Lq + q0 + r;
+      cp_async4(sL + st * (2 * BQT * 4) + tid * 4, q0 + r < Lq ? src : lse, q0 + r < Lq);
+    }
+  };
+
+  if (n_it > 0) {
+    load_tile<BR, D256, NT>(sK, k + b * ks.b + kh * ks.h, ks.l, k0, Lk, Dh, tid);
+    load_tile<BR, D256, NT>(sV, v + b * vs.b + kh * vs.h, vs.l, k0, Lk, Dv, tid);
+    load_q(0, 0);
+  }
+  cp_async_commit();
+
+  float acc[D256 / 2];  // warpgroup 0: dV, warpgroup 1: dK
+#pragma unroll
+  for (int i = 0; i < D256 / 2; ++i) acc[i] = 0.f;
+  const float scale_log2 = scale * LOG2E;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_it) load_q(it + 1, st ^ 1);  // the other stage, released last iteration
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the newest group of copies has landed
+    fence_async_shared();
+    __syncthreads();
+
+    const uint32_t qst = sQ + st * TILE, ost = sO + st * TILE;
+    const float* ls = lsd + st * (2 * BQT);
+    const int q0 = (t_lo + it % n_qt) * BQT;
+    float s[32];  // warpgroup 0: Sᵀ, then Pᵀ; warpgroup 1: dPᵀ, then dSᵀ
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    // K-major A and B, k steps of 16 inside each 64-column region
+    const uint32_t a_base = wg == 0 ? sK : sV, b_base = wg == 0 ? qst : ost;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D256 / 16; ++kk) {
+      const uint32_t off = (kk & 3) * 32;
+      wgmma_ss(s, desc128(a_base + (kk >> 2) * (BR * ROW_BYTES) + off, 16, 1024),
+               desc128(b_base + (kk >> 2) * (BQT * ROW_BYTES) + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(s);
+    if (wg == 0) {
+      // s[4n + 2r + e]: key kpos0 + 8r, query q0 + 8n + col0 + e.  Masked
+      // pairs and rows past Lq / Lk get the score −1e30 (P = 0).
+      const int qpos_lo = q_offset + q0;
+      const bool edge = q0 + BQT > Lq || k0 + BR > Lk || (causal && qpos_lo < k0 + BR - 1) ||
+                        (window > 0 && qpos_lo + BQT - 1 - k0 >= window);
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int qi = q0 + 8 * (i >> 2) + col0 + (i & 1), kpos = kpos0 + 8 * ((i >> 1) & 1);
+          bool ok = qi < Lq && kpos < Lk;
+          if (causal) ok = ok && q_offset + qi >= kpos;
+          if (window > 0) ok = ok && q_offset + qi - kpos < window;
+          s[i] = ok ? s[i] : rt::NEG_INF;
+        }
+      }
+      // Pᵀ = exp(Sᵀ·scale − lse), lse by column
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * n + col0);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          s[4 * n + j] = fast_exp2(fmaf(s[4 * n + j], scale_log2, -((j & 1) ? l2.y : l2.x) * LOG2E));
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) pt[i * 128 + t] = s[i];
+    }
+    __syncthreads();  // Pᵀ handed over
+    if (wg == 1) {
+      // dSᵀ = Pᵀ∘(dPᵀ − D)·scale, D by column, Pᵀ from warpgroup 0's thread t
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 d2 = *reinterpret_cast<const float2*>(ls + BQT + 8 * n + col0);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          s[4 * n + j] = pt[(4 * n + j) * 128 + t] * (s[4 * n + j] - ((j & 1) ? d2.y : d2.x)) * scale;
+      }
+    }
+    // warpgroup 0: dV += Pᵀ·dO; warpgroup 1: dK += dSᵀ·Q.  The A operand
+    // (bf16) from registers, 16 queries a k step; dO / Q MN-major, regions
+    // BQT rows apart
+    uint32_t fa[4][4];
+    to_frags(s, fa);
+    const uint32_t bm = wg == 0 ? ost : qst;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_mn<D256>(acc, fa[kk], bm + kk * (16 * ROW_BYTES), BQT * ROW_BYTES);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(acc);
+    __syncthreads();  // stage st and Pᵀ are released
+  }
+  cp_async_wait<0>();
+
+  if (k0 >= Lk) return;
+  if (wg == 0)
+    store_rows<D256>(dv + b * dvs.b + kh * dvs.h, dvs.l, acc, k0, Lk, Dv, row0, col0);
+  else
+    store_rows<D256>(dk + b * dks.b + kh * dks.h, dks.l, acc, k0, Lk, Dh, row0, col0);
+}
+
+// dQ of 64 query rows: warpgroup 0 forms P, warpgroup 1 dP; both hand
+// theirs over, form the same dS and run dQ's column half w += dS·K
+__global__ void __launch_bounds__(NT, 1) flash_bwd_dq_wgmma256_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dvec,
+    bf16* __restrict__ dq, int H, int KH, int Lq, int Lk, int Dh, int Dv, Strides qs, Strides ks,
+    Strides vs, Strides dos, Strides dqs, int causal, int window, int q_offset, float scale) {
+  constexpr int TILE = BR * D256 * 2;                         // one 64 x 256 bf16 tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t s0 = smem_addr(smem_raw);
+  const uint32_t sQ = (s0 + 1023u) & ~1023u;                 // BR x 256
+  const uint32_t sO = sQ + TILE;                              // BR x 256 (dO)
+  const uint32_t sK = sO + TILE;                              // 2 stages x BKT x 256
+  const uint32_t sV = sK + 2 * TILE;                          // 2 stages x BKT x 256
+  const uint32_t sX = sV + 2 * TILE;                          // P, then dP: 32 f32 a thread each
+  float* xs = reinterpret_cast<float*>(smem_raw + (sX - s0));
+
+  // heaviest causal query tiles first: blockIdx.y counts down the sequence
+  const int h = blockIdx.x, q0 = (gridDim.y - 1 - blockIdx.y) * BR, b = blockIdx.z;
+  const int kh = h / (H / KH);
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127, warp = (tid >> 5) & 3, lane = tid & 31;
+  const bf16* kb = k + b * ks.b + kh * ks.h;
+  const bf16* vb = v + b * vs.b + kh * vs.h;
+
+  // key tiles the block loads, the forward's: [t_lo, t_hi)
+  const int qpos_lo = q_offset + q0;
+  const int qpos_hi = q_offset + min(q0 + BR, Lq) - 1;
+  const int k_hi = causal ? min(Lk, qpos_hi + 1) : Lk;
+  const int k_lo = window > 0 ? max(0, qpos_lo - window + 1) : 0;
+  const int t_lo = k_lo / BKT, t_hi = (k_hi + BKT - 1) / BKT;
+
+  // this thread's two rows of the accumulator layout, r and r + 8: their
+  // lse (in log2 units) and D
+  const int row0 = warp * 16 + (lane >> 2), col0 = 2 * (lane & 3);
+  const int qpos0 = qpos_lo + row0, qpos1 = qpos0 + 8;
+  float lse2[2], dr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + row0 + 8 * r;
+    const long long i = (static_cast<long long>(b) * H + h) * Lq + row;
+    lse2[r] = row < Lq ? lse[i] * LOG2E : 0.f;
+    dr[r] = row < Lq ? dvec[i] : 0.f;
+  }
+
+  if (t_lo < t_hi) {
+    load_tile<BR, D256, NT>(sQ, q + b * qs.b + h * qs.h, qs.l, q0, Lq, Dh, tid);
+    load_tile<BR, D256, NT>(sO, dout + b * dos.b + h * dos.h, dos.l, q0, Lq, Dv, tid);
+    load_tile<BKT, D256, NT>(sK, kb, ks.l, t_lo * BKT, Lk, Dh, tid);
+    load_tile<BKT, D256, NT>(sV, vb, vs.l, t_lo * BKT, Lk, Dv, tid);
+  }
+  cp_async_commit();
+
+  float dqa[64];  // dQ's columns [128·wg, 128·wg + 128)
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dqa[i] = 0.f;
+  const float scale_log2 = scale * LOG2E;
+
+  for (int j = t_lo; j < t_hi; ++j) {
+    const int st = (j - t_lo) & 1;
+    if (j + 1 < t_hi) {  // the next tile goes into the other stage, released last iteration
+      load_tile<BKT, D256, NT>(sK + (st ^ 1) * TILE, kb, ks.l, (j + 1) * BKT, Lk, Dh, tid);
+      load_tile<BKT, D256, NT>(sV + (st ^ 1) * TILE, vb, vs.l, (j + 1) * BKT, Lk, Dv, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_async_shared();
+    __syncthreads();
+
+    const int k0 = j * BKT;
+    const uint32_t kst = sK + st * TILE, vst = sV + st * TILE;
+    float x[32];  // warpgroup 0: S, then P; warpgroup 1: dP
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[i] = 0.f;
+    // S = Q·Kᵀ (warpgroup 0), dP = dO·Vᵀ (warpgroup 1): K-major A and B
+    const uint32_t a_base = wg == 0 ? sQ : sO, b_base = wg == 0 ? kst : vst;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D256 / 16; ++kk) {
+      const uint32_t off = (kk & 3) * 32;
+      wgmma_ss(x, desc128(a_base + (kk >> 2) * (BR * ROW_BYTES) + off, 16, 1024),
+               desc128(b_base + (kk >> 2) * (BKT * ROW_BYTES) + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(x);
+    if (wg == 0) {
+      // x[4n + 2r + e]: row row0 + 8r, key k0 + 8n + col0 + e
+      const bool edge = k0 + BKT > Lk || (causal && k0 + BKT - 1 > qpos_lo) ||
+                        (window > 0 && k0 <= qpos_hi - window);
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int kpos = k0 + 8 * (i >> 2) + col0 + (i & 1);
+          const int qpos = (i & 2) ? qpos1 : qpos0;
+          bool ok = kpos < Lk;
+          if (causal) ok = ok && qpos >= kpos;
+          if (window > 0) ok = ok && qpos - kpos < window;
+          x[i] = ok ? x[i] : rt::NEG_INF;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) x[i] = fast_exp2(fmaf(x[i], scale_log2, -lse2[(i >> 1) & 1]));
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) xs[(wg * 32 + i) * 128 + t] = x[i];
+    __syncthreads();  // P and dP handed over
+    // dS = P∘(dP − D)·scale, the same bits in both warpgroups
+    float ds[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float y = xs[((wg ^ 1) * 32 + i) * 128 + t];
+      const float p = wg == 0 ? x[i] : y, dp = wg == 0 ? y : x[i];
+      ds[i] = p * (dp - dr[(i >> 1) & 1]) * scale;
+    }
+    // dQ[:, 128·wg ...] += dS·K: dS (bf16) the register A operand, 16 keys
+    // a k step; K MN-major, its columns from 128·wg on
+    uint32_t a[4][4];
+    to_frags(ds, a);
+    fence_regs(dqa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(dqa, a[kk], desc128(kst + kk * (16 * ROW_BYTES) + wg * (2 * BKT * ROW_BYTES), BKT * ROW_BYTES, 1024));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(dqa);
+    __syncthreads();  // stage st and the hand-over buffer are released
+  }
+  cp_async_wait<0>();
+
+  store_rows<128>(dq + b * dqs.b + h * dqs.h + 128 * wg, dqs.l, dqa, q0, Lq, Dh - 128 * wg, row0, col0);
+}
+
+int launch256(const void* q, const void* k, const void* v, const void* o, const void* dout,
+              const float* lse, float* dvec, void* dq, void* dk, void* dv, int B, int H, int KH,
+              int Lq, int Lk, int Dh, int Dv, const long long* qs, const long long* ks,
+              const long long* vs, const long long* os, const long long* dos, const long long* dqs,
+              const long long* dks, const long long* dvs, int causal, int window, int q_offset,
+              float scale, cudaStream_t stream) {
+  const bf16* qp = static_cast<const bf16*>(q);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  const bf16* dop = static_cast<const bf16*>(dout);
+  constexpr int TILE = BR * D256 * 2;
+  cudaError_t err = static_cast<cudaError_t>(launch_dot<bf16>(o, dout, dvec, B, H, Lq, Dv, os, dos, stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  constexpr int smem_kv = 1024 + 6 * TILE + 2 * 2 * BQT * 4 + 32 * 128 * 4;
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma256_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_kv);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dkdv_wgmma256_kernel<<<dim3(KH, (Lk + BR - 1) / BR, B), NT, smem_kv, stream>>>(
+      qp, kp, vp, dop, lse, dvec, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, KH, Lq, Lk,
+      Dh, Dv, st(qs), st(ks), st(vs), st(dos), st(dks), st(dvs), causal, window, q_offset, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  constexpr int smem_q = 1024 + 6 * TILE + 2 * 32 * 128 * 4;
+  err = cudaFuncSetAttribute(flash_bwd_dq_wgmma256_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_q);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq_wgmma256_kernel<<<dim3(H, (Lq + BR - 1) / BR, B), NT, smem_q, stream>>>(
+      qp, kp, vp, dop, lse, dvec, static_cast<bf16*>(dq), H, KH, Lq, Lk, Dh, Dv, st(qs), st(ks),
+      st(vs), st(dos), st(dqs), causal, window, q_offset, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The copies take 16-byte chunks: head dims, strides and bases in whole chunks.
 bool aligned16(const void* p, const long long* strides, int d) {
   if (reinterpret_cast<uintptr_t>(p) % 16 != 0 || d % 8 != 0) return false;
@@ -772,6 +1133,9 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o, cons
       !aligned16(dout, dos, Dv) || !aligned16(dq, dqs, Dh) || !aligned16(dk, dks, Dh) ||
       !aligned16(dv, dvs, Dv))
     return static_cast<int>(cudaErrorMisalignedAddress);
+  if (Dh > 128 || Dv > 128)
+    return launch256(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, H, KH, Lq, Lk, Dh, Dv, qs, ks, vs, os,
+                     dos, dqs, dks, dvs, causal, window, q_offset, scale, stream);
 #define FLASH_BWD_TC_LAUNCH(DP, DVP)                                                            \
   return launch<DP, DVP>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, H, KH, Lq, Lk, Dh, Dv, qs, \
                          ks, vs, os, dos, dqs, dks, dvs, causal, window, q_offset, scale, stream)

@@ -141,6 +141,22 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// D (64 x N) += A·B for N = 64, 128 or 256, A from registers, B MN-major
+// from shared memory at `addr` with its 64-column regions `region` bytes
+// apart; N = 256 is two m64n128 products, the second on columns 128 on
+// (d[64..127]: the accumulator layout of one m64n256 product)
+template <int N>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2], const uint32_t (&a)[4], uint32_t addr,
+                                            uint32_t region) {
+  static_assert(N == 64 || N == 128 || N == 256, "m64nNk16 with N 64, 128 or 256");
+  if constexpr (N <= 128) {
+    wgmma_rs(d, a, desc128(addr, region, 1024));
+  } else {
+    wgmma_rs(*reinterpret_cast<float(*)[64]>(&d[0]), a, desc128(addr, region, 1024));
+    wgmma_rs(*reinterpret_cast<float(*)[64]>(&d[64]), a, desc128(addr + 2 * region, region, 1024));
+  }
+}
+
 // 2^x on the MUFU unit; subnormal results flush to 0
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;

@@ -28,7 +28,7 @@ from .ref import decode_attention_ref
 #: launches of the kernel through :func:`decode_attention` (``.count``)
 launches = dispatch.LaunchCounter()
 
-_MAX_HEAD_DIM = 128
+_MAX_HEAD_DIM = 256
 #: cache slots per block (``decode_attention_chunk()`` of the kernel)
 CHUNK = 64
 
@@ -92,7 +92,10 @@ def decode_attention(
             f"v {tuple(v_cache.shape)} do not fit (B, 1, H, D) / (B, S, KH, D)"
         )
     if Dh > _MAX_HEAD_DIM or Dv > _MAX_HEAD_DIM:
-        raise ValueError(f"decode_attention: head dims {Dh}/{Dv} exceed {_MAX_HEAD_DIM}")
+        raise ValueError(
+            f"decode_attention: head dims {Dh}/{Dv} exceed {_MAX_HEAD_DIM}, the widest the kernel "
+            "takes (wider heads: ROADMAP.md, Queue 2)"
+        )
     if tuple(pos.shape) != (B,) or pos.dtype != torch.int32 or not pos.is_contiguous():
         raise ValueError(
             f"decode_attention: pos must be a contiguous ({B},) int32 tensor, "
@@ -109,8 +112,10 @@ def decode_attention(
     G = H // KH
     n_chunks = -(-S // CHUNK)
     out = torch.empty((B, H, Dv), dtype=q.dtype, device=q.device)
-    # one workspace: per chunk, G rows of 128 partial sums, then G (max, sum)
-    ws = torch.empty(B * KH * n_chunks * G * (_MAX_HEAD_DIM + 2), dtype=torch.float32, device=q.device)
+    # one workspace: per chunk, G rows of partial sums as wide as the
+    # kernel's padded head dim (128 or 256), then G (max, sum)
+    row = lib.decode_attention_padded_dim(Dh, Dv)
+    ws = torch.empty(B * KH * n_chunks * G * (row + 2), dtype=torch.float32, device=q.device)
     stream = dispatch.stream_handle(q)
     tickets = _ticket_buffer(B * KH, q.device, stream)
     rc = lib.decode_attention_fwd(

@@ -137,6 +137,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         P, P, P, P, P, P, P, I, I, I, I, I, I, I, S3, S3, S3, S3, F, I, P,
     ]
     lib.decode_attention_chunk.argtypes = []
+    lib.decode_attention_padded_dim.argtypes = [I, I]
     lib.ssd_intra_chunk_fwd.argtypes = [P] * 7 + [I] * 7 + [S3] * 7 + [I, P]
     lib.ssd_intra_chunk_bwd.argtypes = [P] * 16 + [I] * 7 + [S3] * 12 + [I, P]
     lib.ssd_intra_chunk_bwd_tc.argtypes = [P] * 16 + [I] * 7 + [S3] * 12 + [P]
@@ -144,6 +145,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.kernels_error_string.restype = ctypes.c_char_p
     for fn in (lib.rmsnorm_fwd, lib.rmsnorm_bwd, lib.flash_attention_fwd,
                lib.flash_attention_bwd, lib.decode_attention_fwd, lib.decode_attention_chunk,
+               lib.decode_attention_padded_dim,
                lib.ssd_intra_chunk_fwd, lib.ssd_intra_chunk_bwd, lib.ssd_intra_chunk_bwd_tc):
         fn.restype = I
     return lib

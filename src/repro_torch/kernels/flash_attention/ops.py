@@ -6,9 +6,10 @@ The forward replaces
 At prefill lengths the work is bound by operations (~4·L²·H·Dh/2 flops for
 ~4·L·H·Dh elements moved).  bfloat16 runs on the tensor cores (``wgmma``),
 128 queries per block over 64-key tiles that arrive by 16-byte asynchronous
-copies; float32 runs on the SIMT cores.  Both never load a tile that the
-causal diagonal or the window masks out, and read the model's (B, L, H, D)
-layout through strides, so nothing is transposed.  A CPU tensor takes the
+copies; float32 runs on the SIMT cores.  Both take head dims up to 256,
+never load a tile that the causal diagonal or the window masks out, and
+read the model's (B, L, H, D) layout through strides, so nothing is
+transposed.  A CPU tensor takes the
 plain version in ``ref.py``; a CUDA tensor launches the kernel or raises.
 
 The forward can also return each row's log-sum-exp (``return_lse``), the
@@ -36,7 +37,7 @@ launches = dispatch.LaunchCounter()
 #: launches of the backward kernels through :func:`flash_attention_bwd`
 bwd_launches = dispatch.LaunchCounter()
 
-_MAX_HEAD_DIM = 128
+_MAX_HEAD_DIM = 256  # bfloat16 pads to 64, 128 or 256
 
 
 def check_tensor_core_layout(**tensors: torch.Tensor) -> None:
@@ -109,7 +110,10 @@ def _check(name: str, q, k, v, *more):
         if tuple(t.shape) != (B, Lq, H, Dv):
             raise ValueError(f"{name}: {what} {tuple(t.shape)} is not (B, Lq, H, Dv) = {(B, Lq, H, Dv)}")
     if Dh > _MAX_HEAD_DIM or Dv > _MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head dims {Dh}/{Dv} exceed {_MAX_HEAD_DIM}")
+        raise ValueError(
+            f"{name}: head dims {Dh}/{Dv} exceed {_MAX_HEAD_DIM}, the widest the kernels take "
+            "(wider heads: ROADMAP.md, Queue 2)"
+        )
     ts = (q, k, v) + tuple(t for _, t in more)
     if any(t.dtype != q.dtype for t in ts):
         raise TypeError(f"{name}: mixed dtypes {[t.dtype for t in ts]}")

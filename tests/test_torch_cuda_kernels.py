@@ -131,6 +131,61 @@ def test_decode_chunk_matches_the_plan(cuda_device):
     assert dispatch.library().decode_attention_chunk() == decode_ops.CHUNK
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D,KH", [(256, 16), (192, 4), (136, 2)])
+def test_decode_kernel_at_head_dims_above_128(cuda_device, dtype, D, KH):
+    """gemma-7b's head dim (256, MHA) and two others padded to 256: the
+    kernel against the plain version at per-slot positions, the same bits
+    on a second run, and each sequence beside empty slots equal to itself
+    beside the live ones."""
+    tdt = DTYPES[dtype]
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    B, S, H = 4, 2304, 16
+    q = torch.randn(B, 1, H, D, generator=gen, device=cuda_device).to(tdt)
+    k = torch.randn(B, S, KH, D, generator=gen, device=cuda_device).to(tdt)
+    v = torch.randn(B, S, KH, D, generator=gen, device=cuda_device).to(tdt)
+    live = [2063, 792, 115, 336]
+    pos = torch.tensor(live, dtype=torch.int32, device=cuda_device)
+    before = decode_ops.launches.count
+    first = decode_ops.decode_attention(q, k, v, pos)
+    assert decode_ops.launches.count - before == 1
+    _close(first, decode_ops.decode_attention_ref(q, k, v, pos), dtype)
+    assert torch.equal(decode_ops.decode_attention(q, k, v, pos), first)
+    for b in range(B):
+        alone = torch.zeros_like(pos)
+        alone[b] = live[b]
+        assert torch.equal(decode_ops.decode_attention(q, k, v, alone)[b], first[b]), b
+
+
+@pytest.mark.cuda
+def test_kernels_reject_head_dims_above_256(cuda_device):
+    """Above 256 every attention wrapper raises, naming the ROADMAP, and
+    launches nothing; a bf16 head of 256 read from a 264-wide buffer is not
+    whole 16-byte rows for the tensor-core copies and raises too."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.zeros(1, 16, 2, 264, device=cuda_device, dtype=dtype)
+        lse = torch.zeros(1, 2, 16, device=cuda_device)
+        pos = torch.tensor([15], dtype=torch.int32, device=cuda_device)
+        counts = (flash_ops.launches.count, flash_ops.bwd_launches.count, decode_ops.launches.count)
+        with pytest.raises(ValueError, match="ROADMAP"):
+            flash_ops.flash_attention(x, x, x)
+        with pytest.raises(ValueError, match="ROADMAP"):
+            flash_ops.flash_attention_bwd(x, x, x, x, lse, x)
+        with pytest.raises(ValueError, match="ROADMAP"):
+            decode_ops.decode_attention(x[:, :1], x, x, pos)
+        assert (flash_ops.launches.count, flash_ops.bwd_launches.count, decode_ops.launches.count) == counts
+    wide = torch.zeros(1, 16, 2, 260, device=cuda_device, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 16, 2, 256, device=cuda_device, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 16, device=cuda_device)
+    before = (flash_ops.launches.count, flash_ops.bwd_launches.count)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_ops.flash_attention(wide[..., :256], kv, kv)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_ops.flash_attention_bwd(kv, kv, kv, kv, lse, wide[..., :256])
+    assert (flash_ops.launches.count, flash_ops.bwd_launches.count) == before
+
+
 def _close_to_scale(got, want) -> None:
     """ssd outputs are float32 sums of up to cs·N products whatever the input
     type, so the limit scales with the output (chip_smoke.py's ssd limit)."""
@@ -186,6 +241,12 @@ FLASH_BF16_CASES = [
     (1, 1, 777, 4, 4, 128, 128, True, None, 776),
     (1, 1, 1, 2, 2, 128, 128, True, None, 0),
     (2, 333, 65, 4, 1, 128, 128, False, None, 0),
+    # padded head dim 256: gemma-7b's 256, 192, 136, Dh != Dv
+    (1, 300, 300, 4, 4, 256, 256, True, None, 0),
+    (2, 130, 130, 4, 2, 192, 192, True, 64, 0),
+    (1, 65, 700, 4, 1, 136, 136, True, None, 635),
+    (2, 333, 65, 2, 2, 256, 128, False, None, 0),
+    (1, 1, 777, 2, 2, 256, 256, True, None, 776),
 ]
 
 
@@ -340,6 +401,14 @@ FLASH_BWD_CASES = [
     (1, 1024, 1024, 8, 8, 128, 128, True, None, 0),
     (1, 300, 200, 4, 2, 64, 64, True, None, 0),
     (1, 256, 256, 4, 4, 128, 128, False, 50, 0),
+    # padded head dim 256 (the role-split bf16 kernels, the 32-row f32
+    # tiles): gemma-7b's 256, GQA + window at 192, offset MQA, 136
+    # non-causal, Dv < Dh
+    (1, 256, 256, 4, 4, 256, 256, True, None, 0),
+    (2, 200, 200, 4, 2, 192, 192, True, 64, 0),
+    (1, 65, 777, 2, 1, 256, 256, True, None, 712),
+    (1, 130, 130, 2, 2, 136, 136, False, None, 0),
+    (1, 300, 300, 2, 2, 256, 64, True, None, 0),
 ]
 
 

@@ -65,6 +65,8 @@ def _close(got, want, dtype: str) -> None:
         (1, 4, 4, 64, 32, 16, 16),   # MHA
         (2, 8, 2, 128, 64, 32, 64),  # GQA, rectangular blocks
         (1, 4, 1, 64, 16, 64, 16),   # MQA, single q block
+        (1, 2, 2, 64, 256, 16, 16),  # gemma-7b's head dim
+        (1, 2, 1, 64, 256, 32, 32),
     ],
 )
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 40), (False, None)])
@@ -162,7 +164,7 @@ def test_flash_rejects_nonpositive_window():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("pos", [0, 17, 127, 255])
-@pytest.mark.parametrize("B,H,KH,S,D", [(2, 8, 2, 256, 64), (1, 4, 4, 128, 32)])
+@pytest.mark.parametrize("B,H,KH,S,D", [(2, 8, 2, 256, 64), (1, 4, 4, 128, 32), (1, 2, 2, 128, 256)])
 def test_decode_plain_matches_pallas_sweep(dtype, pos, B, H, KH, S, D):
     rng = np.random.default_rng(2)
     qn = rng.standard_normal((B, H, D), np.float32)

@@ -58,6 +58,12 @@ def _configs():
         jax_reduced_config("deepseek-7b").replace(**variant),
         reduced_config("deepseek-7b").replace(**variant),
     )
+    # gemma-7b at its full head dim (256), two heads
+    head256 = dict(dtype="float32", head_dim=256, n_heads=2, n_kv_heads=2)
+    out["gemma-7b+head256"] = (
+        jax_reduced_config("gemma-7b").replace(**head256),
+        reduced_config("gemma-7b").replace(**head256),
+    )
     return out
 
 

@@ -107,6 +107,25 @@ def test_preemption_roundtrip_matches_repro(served):
     assert streams[1] == streams[0]
 
 
+def test_gemma_head256_streams_match_repro():
+    """gemma-7b's layout at its head dim of 256 (two heads): staggered
+    greedy prompts give the same streams in both packages."""
+    over = dict(dtype="float32", head_dim=256, n_heads=2, n_kv_heads=2)
+    jcfg = jax_reduced_config("gemma-7b").replace(**over)
+    jparams = jax_init_params(jax.random.PRNGKey(0), jcfg)
+    cfg = reduced_config("gemma-7b").replace(**over)
+    model = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
+    prompts = _prompts(2, (5, 11, 7), cfg.vocab)
+    streams = []
+    for eng in _engines((jcfg, jparams, cfg, model), n_slots=4, max_seq=32, block_size=4):
+        with eng:
+            reqs = [eng.submit(p, max_new_tokens=6) for p in prompts]
+            eng.run_until_drained(max_iters=50)
+            assert all(r.done for r in reqs)
+            streams.append([r.out_tokens for r in reqs])
+    assert streams[1] == streams[0]
+
+
 def test_engine_matches_sequential_port_loop(served):
     """Inside the port: the engine's greedy stream equals prefill + a
     decode_step loop (``tests/test_serving.py``'s oracle)."""

@@ -70,13 +70,21 @@ def _tree_leaves(tree: dict) -> dict:
 # Plain backward versions against JAX's autodiff
 # ---------------------------------------------------------------------------
 
-# (Lq, Lk, H, KH, causal, window, q_offset); Lk a multiple of the 16-key blocks
+# (Lq, Lk, H, KH, causal, window, q_offset[, head dim, 16 if absent]); Lk a
+# multiple of the 16-key blocks
 ATTN_CASES = [
     (64, 64, 4, 4, True, None, 0),
     (64, 64, 4, 2, True, 20, 0),  # GQA + window
     (48, 64, 4, 1, True, None, 16),  # MQA, queries offset into the keys
     (32, 32, 4, 2, False, None, 0),
+    (64, 64, 2, 2, True, None, 0, 256),  # gemma-7b's head dim
+    (48, 64, 2, 1, True, 20, 16, 256),
 ]
+
+
+def _attn_case(case):
+    """→ (Lq, Lk, H, KH, causal, window, q_offset, head dim)."""
+    return (*case, 16) if len(case) == 7 else case
 
 
 @pytest.mark.parametrize("route", ["custom_vjp", "reference"])
@@ -86,10 +94,10 @@ def test_attention_bwd_ref_matches_jax_vjp(case, route):
     ``repro``'s custom-VJP flash attention and of its reference attention,
     within 2e-6 of each output's largest magnitude (f32 sums in other
     orders; observed ≤ 6e-7)."""
-    Lq, Lk, H, KH, causal, window, q_offset = case
+    Lq, Lk, H, KH, causal, window, q_offset, D = _attn_case(case)
     rng = np.random.default_rng(0)
     q, k, v, do = (rng.standard_normal(s).astype(np.float32) for s in
-                   ((2, Lq, H, 16), (2, Lk, KH, 16), (2, Lk, KH, 16), (2, Lq, H, 16)))
+                   ((2, Lq, H, D), (2, Lk, KH, D), (2, Lk, KH, D), (2, Lq, H, D)))
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     if route == "custom_vjp":
         fn = lambda q, k, v: blockwise_attention(q, k, v, block_kv=16, mode="masked", **kw)  # noqa: E731
@@ -110,10 +118,10 @@ def test_attention_lse_matches_custom_vjp_residual(case):
     """The plain forward's lse is the natural-log ``m + log(l)`` that
     ``repro``'s custom VJP keeps as its residual (within 1e-5 absolute: the
     values are O(log Lk))."""
-    Lq, Lk, H, KH, causal, window, q_offset = case
+    Lq, Lk, H, KH, causal, window, q_offset, D = _attn_case(case)
     rng = np.random.default_rng(1)
     q, k, v = (rng.standard_normal(s).astype(np.float32) for s in
-               ((2, Lq, H, 16), (2, Lk, KH, 16), (2, Lk, KH, 16)))
+               ((2, Lq, H, D), (2, Lk, KH, D), (2, Lk, KH, D)))
     _, res = _make_flash(causal, window, 16, q_offset, "masked").fwd(q, k, v)
     _, lse = attention_fwd_ref(*map(torch.from_numpy, (q, k, v)), causal=causal,
                                window=window, q_offset=q_offset)
@@ -152,6 +160,8 @@ GRAD_CASES = {
     # mamba2 (block kind ssm, chunks of 8): a padded 5-row tail, remat "full"
     "mamba2-L61": (dict(arch="mamba2-130m"), 61),
     "mamba2-remat-none-L64": (dict(arch="mamba2-130m", remat="none"), 64),
+    # gemma-7b's layout (GeGLU, tied and scaled embeddings) at its head dim 256
+    "gemma-head256-L64": (dict(arch="gemma-7b", head_dim=256, n_heads=2, n_kv_heads=2), 64),
 }
 
 
