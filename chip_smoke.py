@@ -31,8 +31,15 @@ Phases (any failure raises and the script exits non-zero):
               its limit; an unaligned input raises) and fp32 (SIMT), run to
               run identical, autograd through the scan on a ragged L, and
               timed at the mamba2 train path's shape with both reckonings
-              of its bound and its three kernels apart; then
-              one codelet per kernel on a device worker;
+              of its bound and its three kernels apart; the other
+              families' shapes: flash both ways at minicpm3-4b's MLA (1,
+              2048, 40, 96 / 64) and recurrentgemma-9b's windowed MQA
+              ((1, 4096 / 2048, 16, 256), 1 KV head, window 2048), decode
+              on its wrapped (8, 2048, 1, 256) ring (also against the
+              model's own rule on the CPU), rmsnorm at widths 256 and 768;
+              the F2 digests (``[f2]``: ``tools/ssd_grad_determinism.py``,
+              5 iterations); then one codelet per kernel on a device
+              worker;
 4. examples — the five examples of ``repro_torch.examples`` on the card
               at small step counts (the heterogeneous GEMM runs tasks on
               the card worker);
@@ -45,23 +52,33 @@ Phases (any failure raises and the script exits non-zero):
               2048-token prefill alone are profiled;
    serving  — full-width gemma-7b (28 layers, 16 heads of 256, GeGLU,
               tied embeddings, bf16, seeded random init), the same requests,
-              checks and profiles (``[serve-gemma]`` lines);
+              checks and profiles (``[serve-gemma]`` lines), then
+              minicpm3-4b (62 layers, MLA: latent rows paged, decode in
+              torch ops; ``[serve-minicpm3]``) and qwen3-moe-235b-a22b at
+              full width cut to 8 layers (einsum dispatch; at decode the
+              capacity 8 covers the 4 slots; ``[serve-moe]``);
 6. serving  — full-width mamba2-130m (24 layers, bf16, seeded random init):
               prompts up to 4096 tokens, a sampled request and a duplicate
               (re-prefilled: ssm states are not paged); launch counts show the
               path ran through the ssd and rmsnorm kernels; a request admitted
               beside 7 decoding ones is held against prefill (its installed
               caches) and against the sequential loop (tokens, last logits
-              and caches);
+              and caches); then recurrentgemma-9b (38 layers: 12 local
+              attention layers on a ring of the 2048 window, 26 RG-LRU
+              layers; ``[serve-rgemma]``), the same requests and checks;
 7. model    — full width cut in depth, fp32: the card's logits against the
               CPU port's (plain versions) for a prompt and decode steps, for
-              deepseek-7b (2 layers), mamba2-130m (4 layers) and gemma-7b
-              (2 layers: the f32 routes at head dim 256);
+              deepseek-7b (2 layers), mamba2-130m (4 layers), gemma-7b
+              (2 layers: the f32 routes at head dim 256), minicpm3-4b (2),
+              recurrentgemma-9b (3) and qwen3-moe-235b-a22b (1);
 8. train    — parity: deepseek-7b at full width and 2 layers, fp32, two
-              staged train steps (B = 2, L = 256, 2 microbatches) with
+              staged train steps (B = 2, L = 128, 2 microbatches) with
               Adafactor and with AdamW on the card against the CPU port from
               the same state (loss, grad norm, parameters; exact launch
-              counts); gemma-7b the same with Adafactor at L = 128;
+              counts); gemma-7b, minicpm3-4b (L = 256), recurrentgemma-9b
+              (3 layers) and qwen3-moe (1 layer; its gradients held
+              elementwise, its card optimizer fed the CPU's gradients) the
+              same with Adafactor;
 9. train    — deepseek-7b at full width and depth (30 layers, bf16,
               Adafactor, remat "full", logits in chunks of 1024), global
               batch (2, 2048) in 2 microbatches, 4 staged steps: finite
@@ -69,21 +86,23 @@ Phases (any failure raises and the script exits non-zero):
               kernels, step time, tokens/s, model TFLOP/s, peak memory; one
               profiled step; a nonfinite step that leaves every bit as it
               was; then gemma-7b the same way at its full 28 layers
-              (``[train-gemma]``: no rollback);
+              (``[train-gemma]``: no rollback), minicpm3-4b at its 62,
+              recurrentgemma-9b at its 38 layers and qwen3-moe cut to 2 (3
+              steps each; model FLOPs over the active parameters);
 10. train   — mamba2-130m: parity at full width and 2 layers in fp32 (B =
               2, L = 512, 2 microbatches, AdamW) against the CPU port, then
               the full 24 layers in bf16 (AdamW, remat "full"), global
               batch (8, 2048) in 2 microbatches, 4 staged steps: finite
               losses, exact ssd / ssd_bwd / rmsnorm / rmsnorm_bwd launch
               counts, step time, tokens/s, peak memory, one profiled step;
-11. spec    — full-width deepseek-7b again (seed 0), the serving phase's
+11. spec    — full-width deepseek-7b again (seed 0) cut to 12 layers, the serving phase's
               geometry and requests through ``ServeEngine`` with
               speculative decoding at k = 4: the 1-layer shrunken draft,
               the same with two forced rollbacks, and the target as its own
               draft; every stream (the sampled one too) equals the plain
               engine's, the self draft's greedy accept rate is 1.0, launch
               counts are exact (draft feeds × draft layers + verify
-              sub-steps × 30 decode attentions); accept rate, tokens a
+              sub-steps × 12 decode attentions); accept rate, tokens a
               round, round wall ms, tokens/s beside the plain engine's and
               one profiled round's device busy share;
 12. load    — ``run_load`` on the same model (16 requests at 2/s, prompts of
@@ -157,6 +176,9 @@ M_GEN = 32
 M_SLOTS = 8
 M_MAX_SEQ = 4352
 M_WARM_EXTRA = (256, 512, 64)  # the warm-up wave's last 3 prompts: all 8 slots busy
+# qwen3-moe-235b-a22b's fixed depth cuts (full width): it serves 8 of its 94
+# layers (21.15 B parameters, 42.3 GB in bf16) and trains 2
+MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS = 8, 2
 
 
 def log(msg: str) -> None:
@@ -284,7 +306,11 @@ def check_rmsnorm(dev) -> dict:
     # qk-norm rows (128), tiny rows, a D that is not a multiple of the vector
     # (37: the scalar path), one beyond the register path (12288: looped)
     cases = ((1, 4096), (100, 4096), (2048, 4096), (1, 768), (8, 768), (100, 768), (4096, 768),
-             (37, 128), (5, 16), (3, 37), (7, 12288))
+             (37, 128), (5, 16), (3, 37), (7, 12288),
+             # minicpm3-4b's latent norms: kv_norm (256) and q_norm (768) rows
+             (2048, 256), (2048, 768), (4, 256),
+             # qwen3-moe-235b-a22b's q-norm rows at a 2048-token prefill
+             (2048 * QWEN_HEADS, 128))
     for dtype in (torch.bfloat16, torch.float32):
         for T, D in cases:
             x = _randn(gen, (T, D), dtype, dev)
@@ -301,7 +327,7 @@ def check_rmsnorm(dev) -> dict:
     # decode rows of deepseek-7b (4 slots) and mamba2-130m (8 slots)
     dtype = torch.bfloat16
     times = {}
-    for T, D in ((2048, 4096), (4, 4096), (8, 768)):
+    for T, D in ((2048, 4096), (4, 4096), (8, 768), (2048, 256), (2048, 768)):
         sets = [(_randn(gen, (T, D), dtype, dev), _randn(gen, (D,), dtype, dev, 0.1)) for _ in range(4)]
         weights = [(x, (1.0 + s.float()).to(dtype)) for x, s in sets]
         bound, by = _bound(2 * T * D * 2 + D * 2, 4 * T * D, dtype)
@@ -314,11 +340,17 @@ def check_rmsnorm(dev) -> dict:
         log(f"[kernels] rmsnorm x ({T}, {D}) bf16: kernel {t['ms']:.4f} ms, F.rms_norm {t['library_ms']:.4f} ms "
             f"(kernel / library {t['ms'] / t['library_ms']:.2f}), plain {t['plain_ms']:.4f} ms, bound "
             f"{bound:.4f} ms ({by}, {bound / t['ms']:.1%} of it)")
+    for T, D in ((2048, 256), (2048, 768)):
+        times[(T, D)]["shape"] = f"x ({T}, {D}) bf16"
+        x = _randn(gen, (T, D), dtype, dev)
+        s = _randn(gen, (D,), dtype, dev, 0.1)
+        times[(T, D)]["max_abs_err"] = _compare(f"rmsnorm {dtype} T={T} D={D} (timed shape)", ops.rmsnorm(x, s),
+                                                rmsnorm_ref(x, s), dtype)
     T, D = 2048, 4096
     return dict(
         name="rmsnorm", route="cuda", source="src/repro_torch/kernels/csrc/rmsnorm.cu",
         replaces="src/repro/kernels/rmsnorm/kernel.py:27", max_abs_err=err, **times[(T, D)],
-        shape=f"x ({T}, {D}) bf16",
+        shape=f"x ({T}, {D}) bf16", kv_norm=times[(2048, 256)], q_norm=times[(2048, 768)],
     )
 
 
@@ -422,34 +454,66 @@ def resource_usage() -> dict:
 
 # gemma-7b's attention: 16 heads of 256 (MHA), the kernels' padded head dim 256
 G_HEADS, G_DIM = 16, 256
+# (B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_offset) of the new families'
+# flash paths: minicpm3-4b's MLA prefill, recurrentgemma-9b's 4096-token one
+MLA_FLASH = (1, 2048, 2048, 40, 40, 96, 64, True, None, 0)
+RG_FLASH = (1, 4096, 4096, 16, 1, 256, 256, True, 2048, 0)
+RG_FLASH_BWD = (1, 2048, 2048, 16, 1, 256, 256, True, 2048, 0)
+# qwen3-moe-235b-a22b's prefill and train path: 64 query heads on 4 KV heads
+# of 128 (a group of 16)
+QWEN_FLASH = (1, 2048, 2048, 64, 4, 128, 128, True, None, 0)
+QWEN_HEADS, QWEN_KV_HEADS = 64, 4
+# recurrentgemma-9b's decode ring (its window) and the serving phase's last
+# positions on it: 4096 + 31 and 2048 + 31 wrapped, 808 / 131 / 1031 not,
+# 4095, 2047 and 2500 beside them
+RG_RING = 2048
+RG_DECODE_POS = [4127, 2079, 808, 131, 1031, 4095, 2047, 2500]
 
 
-def _flash_times(gen, dev, B, L, H, D) -> dict:
+def _window_mask(L: int, window, dev) -> torch.Tensor:
+    """(L, L) bool: key j visible to query i (causal, within ``window``)."""
+    i = torch.arange(L, device=dev)[:, None]
+    j = torch.arange(L, device=dev)[None, :]
+    return (j <= i) & (i - j < window)
+
+
+def _flash_times(gen, dev, B, L, H, D, KH=None, Dv=None, window=None) -> dict:
     """Kernel, plain and SDPA times of the causal bf16 forward at (B, L, H,
-    D), the bound of the work this input needs, and whether two runs give
-    the same bits."""
+    D) with KH key / value heads of value dim Dv (``window`` keys at most),
+    the bound of the work this input needs, and whether two runs give the
+    same bits.  SDPA takes Dv != D as it is, GQA expanded and a window as
+    an explicit mask."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
+    KH, Dv = KH or H, Dv or D
     dtype = torch.bfloat16
-    sets = [tuple(_randn(gen, (B, L, H, D), dtype, dev) for _ in range(3)) for _ in range(2)]
-    first = ops.flash_attention(*sets[0], causal=True)
-    same = all(torch.equal(ops.flash_attention(*sets[0], causal=True), first) for _ in range(2))
-    ms = time_ms(lambda q, k, v: ops.flash_attention(q, k, v, causal=True), sets)
-    plain = time_ms(lambda q, k, v: attention_ref(q, k, v, causal=True), sets)
+    kw = dict(causal=True, window=window)
+    sets = [(_randn(gen, (B, L, H, D), dtype, dev), _randn(gen, (B, L, KH, D), dtype, dev),
+             _randn(gen, (B, L, KH, Dv), dtype, dev)) for _ in range(2)]
+    first = ops.flash_attention(*sets[0], **kw)
+    same = all(torch.equal(ops.flash_attention(*sets[0], **kw), first) for _ in range(2))
+    ms = time_ms(lambda q, k, v: ops.flash_attention(q, k, v, **kw), sets)
+    plain = time_ms(lambda q, k, v: attention_ref(q, k, v, **kw), sets)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = time_ms(
-        lambda q, k, v: sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True),
-        sets,
-    )
-    flops = 4 * B * H * D * _pairs(L, L, True, None, 0)
-    bound, by = _bound(4 * B * L * H * D * 2, flops, dtype)
-    log(f"[kernels] flash at ({B}, {L}, {H}, {D}) bf16 causal: {flops / 1e9:.2f} GFLOP, kernel {ms:.4f} ms "
+    heads = lambda t: t.transpose(1, 2).repeat_interleave(H // KH, dim=1) if KH != H else t.transpose(1, 2)  # noqa: E731
+    lib_sets = [(q.transpose(1, 2), heads(k), heads(v)) for q, k, v in sets]
+    if window is not None and window < L:
+        mask = _window_mask(L, window, dev)
+        lib = time_ms(lambda q, k, v: sdpa(q, k, v, attn_mask=mask), lib_sets)
+    else:
+        lib = time_ms(lambda q, k, v: sdpa(q, k, v, is_causal=True), lib_sets)
+    pairs = _pairs(L, L, True, window, 0)
+    flops = 2 * B * H * (D + Dv) * pairs
+    bound, by = _bound(B * L * (H * D + KH * D + KH * Dv + H * Dv) * 2, flops, dtype)
+    label = f"({B}, {L}, {H}, {D}" + (f" / {Dv}" if Dv != D else "") + ")" + (f", KH {KH}" if KH != H else "") \
+        + (f", window {window}" if window else "")
+    log(f"[kernels] flash at {label} bf16 causal: {flops / 1e9:.2f} GFLOP, kernel {ms:.4f} ms "
         f"({flops / ms / 1e9:.1f} TFLOP/s), SDPA {lib:.4f} ms (kernel / SDPA {ms / lib:.2f}), plain {plain:.4f} "
         f"ms, bound {bound:.4f} ms ({by}, {bound / ms:.1%} of it); run to run identical: {same}")
-    assert same, f"flash at ({B}, {L}, {H}, {D}): not deterministic"
+    assert same, f"flash at {label}: not deterministic"
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
-                shape=f"q/k/v ({B}, {L}, {H}, {D}) bf16 causal")
+                shape=f"q/k/v {label} bf16 causal")
 
 
 def check_flash(dev) -> dict:
@@ -473,8 +537,14 @@ def check_flash(dev) -> dict:
         (1, 333, 900, 8, 8, 192, 192, True, None, 567),
         (1, 130, 130, 4, 1, 136, 136, False, None, 0),
         (1, 65, 65, 4, 4, 256, 128, True, None, 0),
+        # the other families' paths: minicpm3-4b's MLA (Dk 96 != Dv 64, 40
+        # heads), recurrentgemma-9b's local attention (16 heads of 256 on 1
+        # KV head, window 2048) at its prefill and train lengths
+        MLA_FLASH, RG_FLASH, (1, 2048, 2048, 16, 1, 256, 256, True, 2048, 0),
+        QWEN_FLASH,  # qwen3-moe-235b-a22b's prefill
     ]
     err = err256 = 0.0
+    errs = {}
     for B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_off in cases:
         for dtype in (torch.bfloat16, torch.float32):
             q = _randn(gen, (B, Lq, H, Dh), dtype, dev)
@@ -485,49 +555,65 @@ def check_flash(dev) -> dict:
                 f"flash {dtype} B={B} Lq={Lq} Lk={Lk} H={H} KH={KH} Dh={Dh} Dv={Dv} {kw}",
                 ops.flash_attention(q, k, v, **kw), attention_ref(q, k, v, **kw), dtype,
             )
-            if Lq == 2048 and dtype == torch.bfloat16:
+            if dtype == torch.bfloat16:
+                errs[(B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_off)] = e
+            if Lq == 2048 and dtype == torch.bfloat16 and (H, KH) in ((32, 32), (G_HEADS, G_HEADS)):
                 if Dh == G_DIM:
                     err256 = e
                 else:
                     err = e
+    # an MLA-shaped call as the model makes it: q and k joined by torch.cat
+    # from the nope and rope parts, v from the latent's product
+    B, L, H = 1, 2048, 40
+    q = torch.cat([_randn(gen, (B, L, H, 64), torch.bfloat16, dev), _randn(gen, (B, L, H, 32), torch.bfloat16, dev)], -1)
+    kr = _randn(gen, (B, L, 1, 32), torch.bfloat16, dev).expand(B, L, H, 32)
+    k = torch.cat([_randn(gen, (B, L, H, 64), torch.bfloat16, dev), kr], -1)
+    v = (_randn(gen, (B, L, 256), torch.bfloat16, dev) @ _randn(gen, (256, H * 64), torch.bfloat16, dev, 0.0625)).view(B, L, H, 64)
+    _compare("flash bf16 MLA q / k from torch.cat, v a view of a product", ops.flash_attention(q, k, v, causal=True),
+             attention_ref(q, k, v, causal=True), torch.bfloat16)
     main = _flash_times(gen, dev, 1, 2048, 32, 128)
-    d256 = _flash_times(gen, dev, 1, 2048, G_HEADS, G_DIM)
-    d256["max_abs_err"] = err256
+    shapes = {"d256": _flash_times(gen, dev, 1, 2048, G_HEADS, G_DIM),
+              "mla": _flash_times(gen, dev, 1, 2048, 40, 96, Dv=64),
+              "rgemma": _flash_times(gen, dev, 1, 4096, 16, 256, KH=1, window=2048),
+              "qwen": _flash_times(gen, dev, 1, 2048, QWEN_HEADS, 128, KH=QWEN_KV_HEADS)}
+    shapes["d256"]["max_abs_err"] = err256
+    shapes["mla"]["max_abs_err"] = errs[MLA_FLASH]
+    shapes["rgemma"]["max_abs_err"] = errs[RG_FLASH]
+    shapes["qwen"]["max_abs_err"] = errs[QWEN_FLASH]
     return dict(
         name="flash_attention", route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention/kernel.py:111", max_abs_err=err, d256=d256, **main,
+        replaces="src/repro/kernels/flash_attention/kernel.py:111", max_abs_err=err, **shapes, **main,
     )
 
 
-def _decode_times(gen, dev, H, D, pos_l) -> dict:
-    """Kernel, plain and SDPA (masked) times of bf16 decode against a (4,
-    MAX_SEQ, H, D) cache at positions ``pos_l``, and the bound of the bytes
-    these positions need."""
+def _decode_times(gen, dev, H, D, pos_l, B=N_SLOTS, S=MAX_SEQ, KH=None) -> dict:
+    """Kernel, plain and SDPA (masked) times of bf16 decode against a (B, S,
+    KH, D) cache (a ring when a position passes S) at positions ``pos_l``,
+    and the bound of the bytes these positions need."""
     from repro_torch.kernels.decode_attention import ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
-    B, S, dtype = N_SLOTS, MAX_SEQ, torch.bfloat16
+    KH, dtype = KH or H, torch.bfloat16
     sets = [
-        (_randn(gen, (B, 1, H, D), dtype, dev), _randn(gen, (B, S, H, D), dtype, dev),
-         _randn(gen, (B, S, H, D), dtype, dev), torch.tensor(pos_l, dtype=torch.int32, device=dev))
+        (_randn(gen, (B, 1, H, D), dtype, dev), _randn(gen, (B, S, KH, D), dtype, dev),
+         _randn(gen, (B, S, KH, D), dtype, dev), torch.tensor(pos_l, dtype=torch.int32, device=dev))
         for _ in range(2)
     ]
     pos = sets[0][3]
     ms = time_ms(ops.decode_attention, sets)
     plain = time_ms(decode_attention_ref, sets)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    valid = (torch.arange(S, device=dev)[None, :] <= pos[:, None])[:, None, None, :]
-    lib = time_ms(
-        lambda q, k, v, p: sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=valid),
-        sets,
-    )
+    valid = (torch.arange(S, device=dev)[None, :] < torch.clamp(pos + 1, max=S)[:, None])[:, None, None, :]
+    heads = lambda t: t.transpose(1, 2).repeat_interleave(H // KH, dim=1)  # noqa: E731
+    lib_sets = [(q.transpose(1, 2), heads(k), heads(v), p) for q, k, v, p in sets]
+    lib = time_ms(lambda q, k, v, p: sdpa(q, k, v, attn_mask=valid), lib_sets)
     n_valid = sum(min(p + 1, S) for p in pos_l)
-    bytes_moved = (2 * B * H * D + 2 * n_valid * H * D) * 2 + B * 4
+    bytes_moved = (2 * B * H * D + 2 * n_valid * KH * D) * 2 + B * 4
     bound, by = _bound(bytes_moved, 4 * n_valid * H * D, dtype)
-    log(f"[kernels] decode at pos {pos_l} (cache ({B}, {S}, {H}, {D}) bf16): kernel {ms:.4f} ms, SDPA "
-        f"{lib:.4f} ms, plain {plain:.4f} ms, bound {bound:.5f} ms ({by}, {bound / ms:.1%} of it)")
+    log(f"[kernels] decode at pos {pos_l} (q ({B}, 1, {H}, {D}), cache ({B}, {S}, {KH}, {D}) bf16): kernel "
+        f"{ms:.4f} ms, SDPA {lib:.4f} ms, plain {plain:.4f} ms, bound {bound:.5f} ms ({by}, {bound / ms:.1%} of it)")
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
-                shape=f"q ({B}, 1, {H}, {D}), cache ({B}, {S}, {H}, {D}) bf16, pos {pos_l}")
+                shape=f"q ({B}, 1, {H}, {D}), cache ({B}, {S}, {KH}, {D}) bf16, pos {pos_l}")
 
 
 def check_decode(dev) -> dict:
@@ -548,6 +634,11 @@ def check_decode(dev) -> dict:
         (4, 1000, 16, 4, 192, [0, 999, 500, 63], (torch.bfloat16, torch.float32)),
         (4, 256, 8, 2, 136, [1000, 10, 255, 256], (torch.bfloat16, torch.float32)),
         (3, 300, 4, 2, 130, [299, 0, 130], (torch.bfloat16, torch.float32)),
+        # recurrentgemma-9b's ring: 8 slots of 2048 on 1 KV head of 256,
+        # positions that wrapped, one that did not, one at the boundary
+        (M_SLOTS, RG_RING, 16, 1, 256, RG_DECODE_POS, (torch.bfloat16, torch.float32)),
+        # qwen3-moe-235b-a22b's path: 64 query heads on 4 KV heads of 128
+        (N_SLOTS, MAX_SEQ, QWEN_HEADS, QWEN_KV_HEADS, 128, main_pos, (torch.bfloat16, torch.float32)),
     ]
     err = err256 = 0.0
     for B, S, H, KH, D, pos_l, dtypes in cases:
@@ -560,16 +651,28 @@ def check_decode(dev) -> dict:
                 f"decode {dtype} B={B} S={S} H={H} KH={KH} D={D} pos={pos_l}",
                 ops.decode_attention(q, k, v, pos), decode_attention_ref(q, k, v, pos), dtype,
             )
-            if S == MAX_SEQ and dtype == torch.bfloat16:
+            if S == MAX_SEQ and dtype == torch.bfloat16 and H != QWEN_HEADS:
                 if D == G_DIM:
                     err256 = e
                 else:
                     err = e
+            if S == RG_RING:
+                # the model's own rule on the CPU (models/attention.py::decode_attention)
+                from repro_torch.models.attention import decode_attention
+
+                cpu = decode_attention(q.cpu(), k.cpu(), v.cpu(), pos.cpu())
+                e = _compare(f"decode {dtype} ring of {S} at {pos_l} vs models.attention.decode_attention "
+                             "on the CPU", ops.decode_attention(q, k, v, pos), cpu.to(dev), dtype)
+                if dtype == torch.bfloat16:
+                    err_ring = e
+            if H == QWEN_HEADS and dtype == torch.bfloat16:
+                err_qwen = e
     # run to run identical, and batch-invariant: each sequence beside empty
     # slots (positions 0) equals itself beside the live ones, bit for bit;
-    # deepseek-7b's heads (and GQA), then gemma-7b's
+    # deepseek-7b's heads (and GQA), then gemma-7b's, then qwen3-moe's
     B, S, dtype = N_SLOTS, MAX_SEQ, torch.bfloat16
-    for H, KH, D in ((32, 32, 128), (32, 8, 128), (G_HEADS, G_HEADS, G_DIM), (G_HEADS, 4, G_DIM)):
+    for H, KH, D in ((32, 32, 128), (32, 8, 128), (G_HEADS, G_HEADS, G_DIM), (G_HEADS, 4, G_DIM),
+                     (QWEN_HEADS, QWEN_KV_HEADS, 128)):
         q = _randn(gen, (B, 1, H, D), dtype, dev)
         k, v = (_randn(gen, (B, S, KH, D), dtype, dev) for _ in range(2))
         live = torch.tensor(main_pos, dtype=torch.int32, device=dev)
@@ -585,10 +688,14 @@ def check_decode(dev) -> dict:
     short = _decode_times(gen, dev, 32, 128, [15, 100, 31, 64])
     d256 = _decode_times(gen, dev, G_HEADS, G_DIM, main_pos)
     d256["max_abs_err"] = err256
+    ring = _decode_times(gen, dev, 16, 256, RG_DECODE_POS, B=M_SLOTS, S=RG_RING, KH=1)
+    ring["max_abs_err"] = err_ring
+    qwen = _decode_times(gen, dev, QWEN_HEADS, 128, main_pos, KH=QWEN_KV_HEADS)
+    qwen["max_abs_err"] = err_qwen
     return dict(
         name="decode_attention", route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention/kernel.py:81", max_abs_err=err, **main,
-        short=short, d256=d256,
+        short=short, d256=d256, rgemma=ring, qwen=qwen,
     )
 
 
@@ -729,36 +836,53 @@ def _compare_bwd(name, got, want, dtype) -> float:
                     dict(atol=atol * scale, rtol=rtol))
 
 
-def _flash_bwd_times(gen, dev, B, L, H, D) -> dict:
-    """The causal bf16 backward at (B, L, H, D): kernel, plain and SDPA
-    backward times, the dK/dV and dQ kernels apart, the forward with and
-    without lse, and the bound of the 5 products the unmasked pairs need."""
+def _flash_bwd_times(gen, dev, B, L, H, D, KH=None, Dv=None, window=None) -> dict:
+    """The causal bf16 backward at (B, L, H, D) with KH key / value heads of
+    value dim Dv (``window`` keys at most): kernel, plain and SDPA backward
+    times, the dK/dV and dQ kernels apart, the forward with and without
+    lse, and the bound of the 5 products the unmasked pairs need."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
 
+    KH, Dv = KH or H, Dv or D
     dtype = torch.bfloat16
+    kw = dict(causal=True, window=window)
     sets = []
     for _ in range(2):
-        q, k, v, do = (_randn(gen, (B, L, H, D), dtype, dev) for _ in range(4))
-        out, lse = ops.flash_attention(q, k, v, causal=True, return_lse=True)
+        q, k = _randn(gen, (B, L, H, D), dtype, dev), _randn(gen, (B, L, KH, D), dtype, dev)
+        v, do = _randn(gen, (B, L, KH, Dv), dtype, dev), _randn(gen, (B, L, H, Dv), dtype, dev)
+        out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
         sets.append((q, k, v, out, lse, do))
-    ms = time_ms(lambda *a: ops.flash_attention_bwd(*a, causal=True), sets)
-    parts = dict(profiled_calls(lambda: ops.flash_attention_bwd(*sets[0], causal=True))["top"])
-    plain = time_ms(lambda *a: attention_bwd_ref(*a, causal=True), sets[:1], iters=3)
+    ms = time_ms(lambda *a: ops.flash_attention_bwd(*a, **kw), sets)
+    parts = dict(profiled_calls(lambda: ops.flash_attention_bwd(*sets[0], **kw))["top"])
+    plain = time_ms(lambda *a: attention_bwd_ref(*a, **kw), sets[:1], iters=3)
     # the serving forward (lse not asked for) against the train forward
     fwd_sets = [s[:3] for s in sets]
-    fwd_ms = time_ms(lambda q, k, v: ops.flash_attention(q, k, v, causal=True), fwd_sets)
-    fwd_lse_ms = time_ms(lambda q, k, v: ops.flash_attention(q, k, v, causal=True, return_lse=True), fwd_sets)
-    # PyTorch's call: the backward of SDPA alone (its forward built once)
+    fwd_ms = time_ms(lambda q, k, v: ops.flash_attention(q, k, v, **kw), fwd_sets)
+    fwd_lse_ms = time_ms(lambda q, k, v: ops.flash_attention(q, k, v, return_lse=True, **kw), fwd_sets)
+    # PyTorch's call: the backward of SDPA alone (its forward built once;
+    # GQA expanded, a window shorter than L as an explicit mask)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in sets[0][:3])
-    o = sdpa(qt, kt, vt, is_causal=True)
+    heads = lambda t: t.transpose(1, 2).repeat_interleave(H // KH, dim=1) if KH != H else t.transpose(1, 2)  # noqa: E731
+    qt = sets[0][0].transpose(1, 2).detach().requires_grad_()
+    kt, vt = (heads(t).detach().requires_grad_() for t in sets[0][1:3])
+    if window is not None and window < L:
+        o = sdpa(qt, kt, vt, attn_mask=_window_mask(L, window, dev))
+    else:
+        o = sdpa(qt, kt, vt, is_causal=True)
     dot = sets[0][5].transpose(1, 2)
     lib = profiled_calls(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True))["device_ms"]
-    pairs = _pairs(L, L, True, None, 0)
-    flops = 10 * B * H * D * pairs  # 5 products over the unmasked pairs (the kernels run 7)
-    bound, by = _bound(8 * B * L * H * D * 2 + B * H * L * 4, flops, dtype)
-    log(f"[kernels] flash bwd at ({B}, {L}, {H}, {D}) bf16 causal: {flops / 1e9:.2f} GFLOP, kernel "
+    pairs = _pairs(L, L, True, window, 0)
+    # 5 products over the unmasked pairs (the kernels run 7): S and dQ, dK
+    # at D; dP and dV at Dv
+    flops = 2 * B * H * (3 * D + 2 * Dv) * pairs
+    # q, k, v, out, dout read, dq, dk, dv written, lse read
+    bound, by = _bound(2 * B * L * (2 * H * D + 2 * KH * D + 2 * KH * Dv + 2 * H * Dv) + B * H * L * 4, flops,
+                       dtype)
+    label = f"({B}, {L}, {H}, {D}" + (f" / {Dv}" if Dv != D else "") + ")" + (f", KH {KH}" if KH != H else "") \
+        + (f", window {window}" if window else "")
+    D = f"{D} / {Dv}" if Dv != D else D
+    log(f"[kernels] flash bwd at {label} bf16 causal: {flops / 1e9:.2f} GFLOP, kernel "
         f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), SDPA backward {lib:.4f} ms (kernel / library "
         f"{ms / lib:.2f}), plain {plain:.4f} ms, bound {bound:.4f} ms ({by}, {bound / ms:.1%} of it)")
     # the dK/dV and dQ kernels apart: dK/dV runs 4 of the 7 products, dQ 3
@@ -773,7 +897,7 @@ def _flash_bwd_times(gen, dev, B, L, H, D) -> dict:
         f"{fwd_lse_ms:.4f} ms with it (train)")
     return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib,
                 fwd_ms=fwd_ms, fwd_lse_ms=fwd_lse_ms, dkdv_ms=dkdv, dq_ms=dq, dot_ms=dot,
-                shape=f"q/k/v/out/dout ({B}, {L}, {H}, {D}) bf16 causal")
+                shape=f"q/k/v/out/dout {label} bf16 causal")
 
 
 def check_flash_bwd(dev) -> dict:
@@ -801,8 +925,13 @@ def check_flash_bwd(dev) -> dict:
         (1, 65, 700, 4, 1, 256, 256, True, None, 635),
         (2, 333, 333, 4, 4, 136, 136, False, None, 0),
         (1, 300, 300, 4, 2, 256, 64, True, None, 0),
+        # the other families' train paths: minicpm3-4b's MLA, recurrentgemma-9b's
+        # local attention at (2, 2048) in 2 microbatches (the window covers L)
+        MLA_FLASH, RG_FLASH_BWD,
+        QWEN_FLASH,  # qwen3-moe-235b-a22b's, at (2, 2048) in 2 microbatches
     ]
     err = err256 = 0.0
+    errs: dict = {}
     for B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_off in cases:
         for dtype in (torch.bfloat16, torch.float32):
             q = _randn(gen, (B, Lq, H, Dh), dtype, dev)
@@ -820,7 +949,10 @@ def check_flash_bwd(dev) -> dict:
             want = attention_bwd_ref(q, k, v, want_out, want_lse, do, **kw)
             for name, g, w in zip(("dq", "dk", "dv"), got, want):
                 e = _compare_bwd(f"flash bwd {name} {label}", g, w, dtype)
-                if Lq == 2048 and dtype == torch.bfloat16:
+                case = (B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_off)
+                if dtype == torch.bfloat16:
+                    errs[case] = max(errs.get(case, 0.0), e)
+                if Lq == 2048 and dtype == torch.bfloat16 and (H, KH) in ((32, 32), (G_HEADS, G_HEADS)):
                     if Dh == G_DIM:
                         err256 = max(err256, e)
                     else:
@@ -830,13 +962,19 @@ def check_flash_bwd(dev) -> dict:
             del q, k, v, do, out, lse, want_out, want_lse, got, want, again
     log("[kernels] flash bwd: run to run identical in every case")
     main = _flash_bwd_times(gen, dev, 1, 2048, 32, 128)
-    d256 = _flash_bwd_times(gen, dev, 1, 2048, G_HEADS, G_DIM)
-    d256["max_abs_err"] = err256
+    shapes = {"d256": _flash_bwd_times(gen, dev, 1, 2048, G_HEADS, G_DIM),
+              "mla": _flash_bwd_times(gen, dev, 1, 2048, 40, 96, Dv=64),
+              "rgemma": _flash_bwd_times(gen, dev, 1, 2048, 16, 256, KH=1, window=2048),
+              "qwen": _flash_bwd_times(gen, dev, 1, 2048, QWEN_HEADS, 128, KH=QWEN_KV_HEADS)}
+    shapes["d256"]["max_abs_err"] = err256
+    shapes["mla"]["max_abs_err"] = errs[MLA_FLASH]
+    shapes["rgemma"]["max_abs_err"] = errs[RG_FLASH_BWD]
+    shapes["qwen"]["max_abs_err"] = errs[QWEN_FLASH]
     return dict(
         name="flash_attention_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         replaces="src/repro/models/attention.py:139 (no Pallas kernel: JAX differentiates the jnp custom VJP)",
-        max_abs_err=err, d256=d256, **main,
+        max_abs_err=err, **shapes, **main,
     )
 
 
@@ -849,7 +987,10 @@ def check_rmsnorm_bwd(dev) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(12)
     err = 0.0
-    cases = ((2048, 4096), (2048 * 32, 128), (333, 37), (7, 12288), (1, 4096), (100, 768))
+    # then minicpm3-4b's latent norms (kv_norm 256, q_norm 768) and
+    # qwen3-moe-235b-a22b's q-norm rows (64 heads of 128) at 2048 tokens
+    cases = ((2048, 4096), (2048 * 32, 128), (333, 37), (7, 12288), (1, 4096), (100, 768),
+             (2048, 256), (2048, 768), (2048 * QWEN_HEADS, 128))
     for dtype in (torch.bfloat16, torch.float32):
         for T, D in cases + ((50, -768),):
             if D < 0:  # rows one element into a buffer: the scalar path
@@ -1023,6 +1164,12 @@ def check_ssd_bwd(dev) -> dict:
     )
 
 
+def _sub_shapes(record: dict) -> dict:
+    """A kernel record's other timed shapes (the Dh 256, MLA, ring, ...
+    paths), each a dict with its own ``shape`` and times."""
+    return {k: v for k, v in record.items() if isinstance(v, dict) and "ms" in v and "shape" in v}
+
+
 def kernel_phase(dev) -> list[dict]:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1031,9 +1178,7 @@ def kernel_phase(dev) -> list[dict]:
     records = [check_rmsnorm(dev), check_flash(dev), check_decode(dev), check_ssd(dev),
                check_flash_bwd(dev), check_rmsnorm_bwd(dev), check_ssd_bwd(dev)]
     for r in records:
-        for t in (r, r.get("d256")):
-            if t is None:
-                continue
+        for t in (r, *_sub_shapes(r).values()):
             lib = "none (no single PyTorch call)" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
             log(
                 f"[kernels] {r['name']} at {t['shape']}: kernel {t['ms']:.4f} ms, plain "
@@ -1244,12 +1389,14 @@ def _profile_prefill(model, cfg, prompt, dev, n_iter: int = 3) -> dict:
     return dict(wall_ms=sorted(walls)[n_iter // 2], **_device_rows(prof, prof_wall_ms, 1))
 
 
-def serving_phase(dev, arch: str = "deepseek-7b", tag: str = "serve") -> dict:
-    """Full-width ``arch`` (seeded random bf16 weights made on the card)
-    through ``ServeEngine``: 4 slots, ``MAX_SEQ``; the ragged prompts and a
-    sampled one, then duplicates (prefix share, restore); exact launch
-    counts; one greedy stream against the sequential loop; a profiled
-    decode iteration and 2048-token prefill; peak memory."""
+def serving_phase(dev, arch: str = "deepseek-7b", tag: str = "serve", n_layers: int | None = None) -> dict:
+    """Full-width ``arch`` (seeded random bf16 weights made on the card;
+    ``n_layers`` cuts the depth) through ``ServeEngine``: 4 slots,
+    ``MAX_SEQ``; the ragged prompts and a sampled one, then duplicates
+    (prefix share, restore); exact launch counts; one greedy stream
+    against the sequential loop; a profiled decode iteration and 2048-token
+    prefill; peak memory.  Dense (deepseek-7b, gemma-7b), MLA
+    (minicpm3-4b: the latent rows are paged) and MoE (qwen3-moe)."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     from repro_torch.serving import ServeEngine
@@ -1257,13 +1404,28 @@ def serving_phase(dev, arch: str = "deepseek-7b", tag: str = "serve") -> dict:
     gc.collect()  # earlier phases' models and engines are cyclic garbage
     torch.cuda.empty_cache()
     cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
     t0 = time.perf_counter()
     model = init_params(cfg, 0, device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"[{tag}] {arch} ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
-        f"{cfg.head_dim}, {n_params / 1e9:.3f} B params, {cfg.dtype}) initialised on the card in "
-        f"{time.perf_counter() - t0:.1f} s")
+    cut = f" of {get_config(arch).n_layers}" if n_layers is not None else ""
+    heads = (f"MLA: {cfg.n_heads} heads, q / k {cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim}, v "
+             f"{cfg.mla.v_head_dim}, latent {cfg.mla.kv_lora_rank} + rope {cfg.mla.qk_rope_head_dim}"
+             if cfg.mla else f"{cfg.n_heads} heads of {cfg.head_dim}, {cfg.n_kv_heads} KV heads")
+    moe = (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of {cfg.moe.d_ff_expert}, {cfg.moe.dispatch} "
+           "dispatch" if cfg.moe else "")
+    log(f"[{tag}] {arch} ({cfg.n_layers}{cut} layers, d_model {cfg.d_model}, {heads}{moe}, "
+        f"{n_params / 1e9:.3f} B params, {cfg.dtype}) initialised on the card in {time.perf_counter() - t0:.1f} s")
+    if cfg.moe:
+        from repro_torch.models.moe import capacity
+
+        C = capacity(N_SLOTS, cfg)
+        log(f"[{tag}] decode routes {N_SLOTS} tokens a step with capacity C = {C} >= {N_SLOTS} slots: an "
+            "expert takes each token at most once, so none overflows and a slot's tokens do not depend on "
+            "the others' (the sequential-loop check holds)")
+        assert C >= N_SLOTS
 
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in PROMPT_LENS]
@@ -1310,10 +1472,13 @@ def serving_phase(dev, arch: str = "deepseek-7b", tag: str = "serve") -> dict:
     assert stats["restores"] == 1 and stats["prefills"] == 5, f"admission paths: {stats}"
     assert stats["pool"]["shared_hits"] >= 1, f"no prefix sharing: {stats}"
     want = _serve_launches(cfg, prefills=stats["prefills"], decode_steps=stats["decode_steps"])
+    per = _layer_launches(cfg)
     log(f"[{tag}] launches on the main path {launches}; expected {want} from "
-        f"{stats['prefills']} prefills and {stats['decode_steps']} decode steps")
+        f"{stats['prefills']} prefills and {stats['decode_steps']} decode steps (a prefill: {per['flash']} "
+        f"flash; a decode step: {per['decode']} decode attention; a forward: {per['norms']} rmsnorm)")
     assert launches == want, "the main path did not run through every kernel as expected"
-    assert all(launches[k] > 0 for k in ("flash_attention", "decode_attention", "rmsnorm"))
+    assert launches["flash_attention"] > 0 and launches["rmsnorm"] > 0
+    assert launches["decode_attention"] > 0 or cfg.mla is not None  # MLA decodes with torch ops
 
     n_tok = sum(len(r.out_tokens) for r in reqs)
     log(f"[{tag}] {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s ({n_tok / wall:.1f} tok/s, "
@@ -1383,25 +1548,36 @@ def _slot_run(eng, prompt, others) -> dict:
     return dict(req=req, slot=slot, installed=installed, logits=seen["logits"], caches=seen["caches"])
 
 
-def mamba2_serving_phase(dev) -> dict:
-    """Full-width mamba2-130m through ``ServeEngine``: the prefill runs the
-    ssd kernel once per layer and rmsnorm once per layer plus the final norm;
-    decode is plain torch besides rmsnorm.  The ssm caches are not pageable,
-    so the duplicate prompt re-prefills."""
+def recurrent_serving_phase(dev, arch: str = "mamba2-130m", tag: str = "mamba2") -> dict:
+    """Full-width mamba2-130m or recurrentgemma-9b through ``ServeEngine``,
+    8 slots of ``M_MAX_SEQ``.  mamba2: the prefill runs the ssd kernel
+    once per layer and rmsnorm once per layer plus the final norm; decode
+    is plain torch besides rmsnorm.  recurrentgemma: its 12 local-attention
+    layers run flash attention a prefill and decode attention a step on a
+    ring of the 2048-token window (the 4096-token prompt wraps both), its
+    26 rec layers torch ops, and every forward 77 norms.  Neither cache is
+    pageable, so the duplicate prompt re-prefills.  A request admitted
+    beside 7 decoding ones is held against prefill (its installed caches)
+    and against the sequential loop (tokens, last logits, caches)."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
+    from repro_torch.runtime.serve import prime_cache
     from repro_torch.serving import ServeEngine
 
-    cfg = get_config("mamba2-130m")
-    gc.collect()  # the deepseek-7b phase's engine and model are cyclic garbage
+    cfg = get_config(arch)
+    gc.collect()  # the earlier phases' engines and models are cyclic garbage
+    torch.cuda.empty_cache()
     mem_base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     model = init_params(cfg, 0, device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"[mamba2] mamba2-130m ({cfg.n_layers} layers, d_model {cfg.d_model}, d_state "
-        f"{cfg.ssm.d_state}, {n_params / 1e9:.3f} B params, {cfg.dtype}) initialised on the card in "
-        f"{time.perf_counter() - t0:.1f} s ({mem_base} bytes allocated before it)")
+    what = (f"d_state {cfg.ssm.d_state}" if cfg.ssm else
+            f"(rec, rec, attn) x {cfg.n_layers // 3} + 2 rec, lru width {cfg.hybrid.lru_width}, {cfg.n_heads} heads "
+            f"of {cfg.head_dim} on {cfg.n_kv_heads} KV head, window {cfg.hybrid.window}")
+    log(f"[{tag}] {arch} ({cfg.n_layers} layers, d_model {cfg.d_model}, {what}, {n_params / 1e9:.3f} B params, "
+        f"{cfg.dtype}) initialised on the card in {time.perf_counter() - t0:.1f} s ({mem_base} bytes "
+        "allocated before it)")
 
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in M_PROMPT_LENS]
@@ -1416,7 +1592,7 @@ def mamba2_serving_phase(dev) -> dict:
         for p in warm:
             eng.submit(p, 2)
         eng.run_until_drained()
-        log(f"[mamba2] warm-up wave ({len(warm)} requests, 2 tokens each) took {time.perf_counter() - t0:.2f} s")
+        log(f"[{tag}] warm-up wave ({len(warm)} requests, 2 tokens each) took {time.perf_counter() - t0:.2f} s")
         base = (eng.prefills, eng.decode_steps, eng.restores)
         # ---- the main path: counts from 0 just before, read just after ----
         for c in ops.values():
@@ -1443,28 +1619,23 @@ def mamba2_serving_phase(dev) -> dict:
     reqs = greedy + [sampled, dup]
     assert all(r.done and len(r.out_tokens) == M_GEN for r in reqs), "a request did not finish"
     assert (stats["prefills"], stats["restores"], stats["pageable"]) == (6, 0, False), stats
-    want = {
-        "flash_attention": 0,
-        "decode_attention": 0,
-        "rmsnorm": (cfg.n_layers + 1) * (stats["prefills"] + stats["decode_steps"]),
-        "ssd": cfg.n_layers * stats["prefills"],
-        "flash_attention_bwd": 0,
-        "rmsnorm_bwd": 0,
-        "ssd_bwd": 0,
-    }
-    log(f"[mamba2] launches on the main path {launches}; expected {want} from "
-        f"{stats['prefills']} prefills and {stats['decode_steps']} decode steps")
+    want = _serve_launches(cfg, prefills=stats["prefills"], decode_steps=stats["decode_steps"])
+    per = _layer_launches(cfg)
+    log(f"[{tag}] launches on the main path {launches}; expected {want} from "
+        f"{stats['prefills']} prefills and {stats['decode_steps']} decode steps (a prefill: {per['flash']} "
+        f"flash, {per['ssd']} ssd; a decode step: {per['decode']} decode attention; a forward: {per['norms']} "
+        "rmsnorm)")
     assert launches == want, "the main path did not run through every kernel as expected"
-    assert launches["ssd"] > 0 and launches["rmsnorm"] > 0
+    assert launches["rmsnorm"] > 0 and all(launches[k] > 0 for k, n in want.items() if n)
 
     n_tok = sum(len(r.out_tokens) for r in reqs)
-    log(f"[mamba2] {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s ({n_tok / wall:.1f} tok/s, "
+    log(f"[{tag}] {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s ({n_tok / wall:.1f} tok/s, "
         f"first token included), {stats['steps']} engine iterations, {stats['prefills']} prefills, "
         f"{stats['restores']} restores, peak device memory {peak / 2**30:.2f} GiB ({peak} bytes)")
     for r in reqs:
-        log(f"[mamba2]   prompt {len(r.prompt):5d} temp {r.temperature}: TTFT "
+        log(f"[{tag}]   prompt {len(r.prompt):5d} temp {r.temperature}: TTFT "
             f"{(r.t_first - r.t_arrival) * 1e3:.1f} ms, tokens {r.out_tokens[:8]}...")
-    log(f"[mamba2] duplicate (re-prefilled) stream equals the original's: "
+    log(f"[{tag}] duplicate (re-prefilled) stream equals the original's: "
         f"{dup.out_tokens == greedy[1].out_tokens}")
     assert dup.out_tokens == greedy[1].out_tokens
 
@@ -1473,38 +1644,40 @@ def mamba2_serving_phase(dev) -> dict:
     from repro_torch.models import prefill
 
     _, pre = prefill(model, {"tokens": torch.from_numpy(prompts[2][None, :]).to(dev)}, cfg)
-    for k in ("state", "conv"):
-        _compare_ssd(f"mamba2 slot {run['slot']} {k} installed by the engine vs prefill", run["installed"][k],
+    pre = prime_cache(cfg, pre, len(prompts[2]), M_MAX_SEQ)  # ssm / rec leaves pass; k / v into the ring
+    for k in pre:
+        _compare_ssd(f"{tag} slot {run['slot']} {k} installed by the engine vs prefill", run["installed"][k],
                      pre[k][:, 0])
     want_toks, want_logits, want_caches = _sequential_greedy(
         model, cfg, prompts[2], run["slot"], dev, M_SLOTS, M_MAX_SEQ, M_GEN
     )
-    log(f"[mamba2] sequential prefill + decode_step loop for prompt {M_PROMPT_LENS[2]}: {want_toks[:8]}...")
+    log(f"[{tag}] sequential prefill + decode_step loop for prompt {M_PROMPT_LENS[2]}: {want_toks[:8]}...")
     assert greedy[2].out_tokens == want_toks, (greedy[2].out_tokens, want_toks)
     assert run["req"].out_tokens == want_toks, (run["req"].out_tokens, want_toks)
     V = cfg.vocab
-    _compare("mamba2 last decode logits, engine vs sequential loop", run["logits"][:V], want_logits[:V],
+    _compare(f"{tag} last decode logits, engine vs sequential loop", run["logits"][:V], want_logits[:V],
              torch.bfloat16)
-    for k in ("state", "conv"):
-        _compare_ssd(f"mamba2 slot {k} after the last decode step, engine vs sequential loop",
+    for k in want_caches:
+        _compare_ssd(f"{tag} slot {k} after the last decode step, engine vs sequential loop",
                      run["caches"][k], want_caches[k])
-    log("[mamba2] engine stream, last logits and slot caches equal the sequential loop's")
+    log(f"[{tag}] engine stream, last logits and slot caches equal the sequential loop's")
     sp = step_profile
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     sp["weights_bound_ms"] = weight_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"[profile] mamba2 decode iteration with {M_SLOTS} busy slots: {sp['wall_ms']:.2f} ms wall "
+    log(f"[profile] {arch} decode iteration with {M_SLOTS} busy slots: {sp['wall_ms']:.2f} ms wall "
         f"({M_SLOTS / sp['wall_ms'] * 1e3:.1f} tok/s); under the profiler {sp['profiled_wall_ms']:.2f} ms "
         f"wall, {sp['device_ms']:.2f} ms device time, device busy {sp['busy']:.1%}; reading the "
         f"{weight_bytes / 1e9:.3f} GB of weights once takes {sp['weights_bound_ms']:.4f} ms")
     for name, ms in sp["top"]:
         log(f"[profile]   {ms:8.4f} ms  {name}")
     pp = prefill_profile
-    log(f"[profile] mamba2 prefill of {M_PROMPT_LENS[0]} tokens alone: {pp['wall_ms']:.2f} ms wall "
+    log(f"[profile] {arch} prefill of {M_PROMPT_LENS[0]} tokens alone: {pp['wall_ms']:.2f} ms wall "
         f"(median of 3); under the profiler {pp['profiled_wall_ms']:.2f} ms wall, "
         f"{pp['device_ms']:.2f} ms device time, device busy {pp['busy']:.1%}")
-    ssd_ms = sum(ms for name, ms in pp["top"] if "ssd_chunk" in name)
-    log(f"[profile] the ssd kernel takes {ssd_ms:.3f} ms of that prefill's {pp['device_ms']:.2f} ms of device "
-        f"time ({ssd_ms / pp['device_ms']:.1%})")
+    mixer = "ssd_chunk" if cfg.ssm else "flash_fwd"
+    mixer_ms = sum(ms for name, ms in pp["top"] if mixer in name)
+    log(f"[profile] the {mixer} kernel takes {mixer_ms:.3f} ms of that prefill's {pp['device_ms']:.2f} ms of "
+        f"device time ({mixer_ms / pp['device_ms']:.1%})")
     for name, ms in pp["top"]:
         log(f"[profile]   {ms:8.4f} ms  {name}")
     return dict(
@@ -1568,23 +1741,21 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB, TRAIN_STEPS = 2, 2048, 2, 4
 
 def _train_launches_per_step(cfg, n_mb: int) -> dict:
     """Kernel launches of one train step: per microbatch, each layer's
-    mixer (flash attention for the dense model, the ssd intra-chunk step
-    for mamba2) and norms (two, four with qk_norm; one for an ssm block)
-    plus the final norm forward, the layers' kernels once more when
-    ``remat="full"`` recomputes them (``torch.utils.checkpoint`` reruns the
-    layer's forward, the autograd functions' forwards included), and one
-    backward of each."""
+    mixer (flash attention for an attention or MLA layer, the ssd
+    intra-chunk step for an ssm layer; none for a rec layer) and norms
+    (``_layer_launches``) plus the final norm forward, the layers' kernels
+    once more when ``remat="full"`` recomputes them
+    (``torch.utils.checkpoint`` reruns the layer's forward, the autograd
+    functions' forwards included), and one backward of each."""
     remat = 2 if cfg.remat == "full" else 1
-    ssm = cfg.family == "ssm"
-    norms = 1 if ssm else 2 + (2 if cfg.qk_norm else 0)
-    mixer, other = ("ssd", "flash_attention") if ssm else ("flash_attention", "ssd")
+    c = _layer_launches(cfg)
     return {
-        mixer: n_mb * remat * cfg.n_layers,
-        mixer + "_bwd": n_mb * cfg.n_layers,
-        other: 0,
-        other + "_bwd": 0,
-        "rmsnorm": n_mb * (remat * norms * cfg.n_layers + 1),
-        "rmsnorm_bwd": n_mb * (norms * cfg.n_layers + 1),
+        "flash_attention": n_mb * remat * c["flash"],
+        "flash_attention_bwd": n_mb * c["flash"],
+        "ssd": n_mb * remat * c["ssd"],
+        "ssd_bwd": n_mb * c["ssd"],
+        "rmsnorm": n_mb * (remat * (c["norms"] - 1) + 1),
+        "rmsnorm_bwd": n_mb * c["norms"],
         "decode_attention": 0,
     }
 
@@ -1597,6 +1768,73 @@ def _batches(cfg, dev, n: int, batch: int, seq: int) -> list[dict]:
     return [{k: torch.from_numpy(v).to(dev) for k, v in ds.batch_for_step(i).items()} for i in range(n)]
 
 
+def _step_grads(model, cfg, batch: dict, n_mb: int) -> tuple[dict, float]:
+    """The train step's gradients, unstaged: ``loss_fn`` and
+    ``torch.autograd.grad`` on each of ``n_mb`` microbatches, added in
+    float32 and divided by ``n_mb``, as ``runtime/train.py``'s microbatch
+    and finalize codelets do.  → (gradients, mean loss)."""
+    from repro_torch.models import loss_fn
+
+    names, tensors = zip(*model.named_parameters())
+    acc = {n: torch.zeros(t.shape, dtype=torch.float32, device=t.device) for n, t in zip(names, tensors)}
+    mbs = {k: v.reshape((n_mb, v.shape[0] // n_mb) + tuple(v.shape[1:])) for k, v in batch.items()}
+    loss_sum = 0.0
+    for i in range(n_mb):
+        with torch.enable_grad():
+            loss, _ = loss_fn(model, {k: v[i] for k, v in mbs.items()}, cfg)
+            g = torch.autograd.grad(loss, tensors)
+        with torch.no_grad():
+            for n, t in zip(names, g):
+                acc[n].add_(t)
+        loss_sum += float(loss.detach())
+        del g
+    for t in acc.values():
+        t.div_(n_mb)
+    return acc, loss_sum / n_mb
+
+
+def _apply_update(state, grads: dict, update, lr: float):
+    """``make_optimizer``'s ``update`` on ``state`` from ``grads``, with the
+    optimizer codelet's clip (global norm 1.0) and nonfinite check."""
+    from repro_torch.optim import TrainState, global_norm
+
+    gnorm = global_norm(grads.values())
+    scale = torch.clamp(1.0 / torch.clamp(gnorm, min=1e-9), max=1.0)
+    lr_t = torch.tensor(lr, dtype=torch.float32, device=gnorm.device)
+    update(grads, state.opt, dict(state.params.named_parameters()), lr_t, state.step,
+           accept=torch.isfinite(gnorm), grad_scale=scale)
+    return TrainState(step=state.step + 1, params=state.params, opt=state.opt)
+
+
+def _moe_parity_step(cpu, gpu, cfg, batch: dict, n_mb: int, update, lr: float, tag: str):
+    """One step of a MoE model on both devices: each computes its gradients
+    (``_step_grads``), the card's are held elementwise against the CPU's
+    (each within 1e-4 of its leaf's largest magnitude, as
+    ``tests/test_torch_train.py`` holds the port's against ``repro``'s),
+    then both optimizers update from the CPU's.  → (cpu, gpu, card
+    metrics, CPU metrics)."""
+    from repro_torch.optim import global_norm
+
+    dev = next(gpu.params.parameters()).device
+    grads_c, loss_c = _step_grads(cpu.params, cfg, {k: v.cpu() for k, v in batch.items()}, n_mb)
+    grads_g, loss_g = _step_grads(gpu.params, cfg, batch, n_mb)
+    worst, at = -1.0, None
+    for n, t in grads_g.items():
+        w = grads_c[n].to(dev)
+        share = float((t - w).abs().max() / (1e-4 * w.abs().max() + 1e-12))
+        if share > worst:
+            worst, at = share, n
+    mg = dict(loss=loss_g, grad_norm=float(global_norm(grads_g.values())))
+    mc = dict(loss=loss_c, grad_norm=float(global_norm(grads_c.values())))
+    del grads_g, w
+    cpu = _apply_update(cpu, grads_c, update, lr)
+    gpu = _apply_update(gpu, {n: t.to(dev) for n, t in grads_c.items()}, update, lr)
+    log(f"[{tag}] step {int(gpu.step)}: the card's gradients within {worst:.3f} of the limit 1e-4·max|leaf| "
+        f"(worst {at}); both optimizers updated from the CPU's gradients")
+    assert worst <= 1.0, (worst, at)
+    return cpu, gpu, mg, mc
+
+
 def _parity_run(dev, cfg, *, tag: str, seq: int, steps: int = 2, n_mb: int = 2, lr: float = 3e-4) -> dict:
     """``steps`` staged train steps of ``cfg`` (batch 2 of ``seq`` tokens in
     ``n_mb`` microbatches) on the card (kernels) and on the CPU port (plain
@@ -1606,11 +1844,22 @@ def _parity_run(dev, cfg, *, tag: str, seq: int, steps: int = 2, n_mb: int = 2, 
     gradient, so an element whose gradient is float noise may move by up to
     lr differently on the two devices) and within 1e-6 for adafactor (its
     update is normalised by row and column statistics); exact launch
-    counts per step."""
-    from repro_torch.models import Transformer, set_trainable
-    from repro_torch.optim import TrainState
+    counts per step.
+
+    A MoE model's parity is held in two parts (``_moe_parity_step``, the
+    train step's arithmetic unstaged): the card's gradients elementwise
+    against the CPU's at every step, and the parameters after the card's
+    optimizer (``make_optimizer``'s update) has updated them from the CPU's
+    gradients.  Each expert's gradient comes from a few tokens, and some of
+    its elements are float noise, whose sign then differs between the
+    devices; Adafactor's update g / sqrt(v) does not scale with the
+    gradient and moves such elements by O(lr) (on an H100, two steps put
+    one expert weight 1.9 times its own CPU move away from the CPU's)."""
+    from repro_torch.models import Transformer, leaf_layout, set_trainable
+    from repro_torch.optim import TrainState, make_optimizer
     from repro_torch.runtime.train import build_train_step, init_train_state
 
+    t_start = time.perf_counter()
     ops = _kernel_ops()
     gpu = init_train_state(cfg, 3, device=dev)
     model = set_trainable(Transformer(cfg, device="cpu"))
@@ -1620,13 +1869,17 @@ def _parity_run(dev, cfg, *, tag: str, seq: int, steps: int = 2, n_mb: int = 2, 
     cpu = TrainState(step=gpu.step.cpu(), params=model, opt=copy(gpu.opt))
     batches = _batches(cfg, dev, steps, 2, seq)
     art_g, art_c = build_train_step(cfg, n_microbatches=n_mb), build_train_step(cfg, n_microbatches=n_mb)
+    _, update = make_optimizer(cfg.optimizer, cfg.opt_state_dtype, leaf_layout(cfg))
     want_launches = {k: v * steps for k, v in _train_launches_per_step(cfg, n_mb).items()}
     for c in ops.values():
         c.reset()
     worst = 0.0
     for b in batches:
-        gpu, mg = art_g(gpu, b)
-        cpu, mc = art_c(cpu, {k: v.cpu() for k, v in b.items()})
+        if cfg.moe is not None:
+            cpu, gpu, mg, mc = _moe_parity_step(cpu, gpu, cfg, b, n_mb, update, lr, tag)
+        else:
+            cpu, mc = art_c(cpu, {k: v.cpu() for k, v in b.items()})
+            gpu, mg = art_g(gpu, b)
         for key in ("loss", "grad_norm"):
             g, c = float(mg[key]), float(mc[key])
             assert np.isfinite(g), (cfg.optimizer, key, g)
@@ -1635,12 +1888,13 @@ def _parity_run(dev, cfg, *, tag: str, seq: int, steps: int = 2, n_mb: int = 2, 
     launches = {name: c.count for name, c in ops.items()}
     assert launches == want_launches, (cfg.optimizer, launches, want_launches)
     cpu_params = dict(cpu.params.named_parameters())
-    dp = max(float((p.detach().cpu() - cpu_params[n].detach()).abs().max())
-             for n, p in gpu.params.named_parameters())
+    dp, dp_at = max((float((p.detach().cpu() - cpu_params[n].detach()).abs().max()), n)
+                    for n, p in gpu.params.named_parameters())
     limit = 2 * steps * lr if cfg.optimizer == "adamw" else 1e-6
     log(f"[{tag}] {cfg.name} {cfg.optimizer}: {cfg.n_layers}-layer full-width fp32, {steps} steps of "
         f"{n_mb} microbatches of {seq} tokens: max relative loss / grad-norm error {worst:.3e} (limit "
-        f"1e-3), max parameter difference {dp:.3e} (limit {limit:.1e}); launches {launches}")
+        f"1e-3), max parameter difference {dp:.3e} at {dp_at} (limit {limit:.1e}); launches {launches}; "
+        f"{time.perf_counter() - t_start:.1f} s")
     assert worst <= 1e-3 and dp <= limit
     del gpu, cpu, model, art_g, art_c, batches
     gc.collect()
@@ -1649,19 +1903,26 @@ def _parity_run(dev, cfg, *, tag: str, seq: int, steps: int = 2, n_mb: int = 2, 
 
 
 def train_parity_phase(dev) -> dict:
-    """Full width and 2 layers, float32, B = 2, two microbatches, two steps
-    (``_parity_run``): deepseek-7b (L = 256) with Adafactor and with AdamW,
-    gemma-7b (L = 128; head dim 256: the f32 routes of the flash forward
-    and backward at Dh 256) with Adafactor."""
+    """Full width, depth cut, float32, B = 2, two microbatches, two steps
+    (``_parity_run``): deepseek-7b (2 layers, L = 256) with Adafactor and
+    with AdamW, gemma-7b (2 layers, L = 128; head dim 256: the f32 routes
+    of the flash forward and backward at Dh 256), minicpm3-4b (2 MLA
+    layers, L = 256), recurrentgemma-9b (3 layers, L = 128) and
+    qwen3-moe-235b-a22b (1 layer, L = 128) with Adafactor."""
     from repro_torch.configs import get_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
-    # gemma-7b's CPU side (a 256000-row tied head) takes ~100 s at 256
-    # tokens a sequence: 128 halves it
-    for arch, opt, seq in (("deepseek-7b", "adafactor", 256), ("deepseek-7b", "adamw", 256),
-                           ("gemma-7b", "adafactor", 128)):
-        cfg = get_config(arch).replace(n_layers=2, dtype="float32", logits_chunk=seq, optimizer=opt)
+    # the CPU side is most of this phase's time (gemma-7b's 256000-row tied
+    # head takes ~100 s at 256 tokens a sequence, recurrentgemma-9b's and
+    # qwen3-moe's are as slow): those three run at 128.  Depths:
+    # minicpm3-4b 2 MLA layers, recurrentgemma-9b one (rec, rec, attn)
+    # super-block, qwen3-moe one layer
+    for arch, opt, seq, n_layers in (("deepseek-7b", "adafactor", 256, 2), ("deepseek-7b", "adamw", 256, 2),
+                                     ("gemma-7b", "adafactor", 128, 2), ("minicpm3-4b", "adafactor", 256, 2),
+                                     ("recurrentgemma-9b", "adafactor", 128, 3),
+                                     ("qwen3-moe-235b-a22b", "adafactor", 128, 1)):
+        cfg = get_config(arch).replace(n_layers=n_layers, dtype="float32", logits_chunk=seq, optimizer=opt)
         out[opt if arch == "deepseek-7b" else arch] = _parity_run(dev, cfg, tag="train-parity", seq=seq)
     return out
 
@@ -1714,49 +1975,67 @@ def _profile_train_step(art, state, batch) -> tuple:
     return state, m, _device_rows(prof, wall_ms, 1)
 
 
-# the full-depth train runs: (arch, its layers, the phase's tag, nonfinite rollback)
-TRAIN_RUNS = {"deepseek-7b": (30, "train", True), "gemma-7b": (28, "train-gemma", False)}
+# the train runs: arch → (its layers here, the phase's tag, nonfinite rollback);
+# full depth but for qwen3-moe (the fixed cut above)
+TRAIN_RUNS = {"deepseek-7b": (30, "train", True), "gemma-7b": (28, "train-gemma", False),
+              "minicpm3-4b": (62, "train-minicpm3", False),
+              "recurrentgemma-9b": (38, "train-rgemma", False),
+              "qwen3-moe-235b-a22b": (MOE_TRAIN_LAYERS, "train-moe", False)}
+# timed steps a run: the other families' runs time 2 (the first is warm-up),
+# to keep the script inside its time limit
+TRAIN_STEPS_OF = {"minicpm3-4b": 3, "recurrentgemma-9b": 3, "qwen3-moe-235b-a22b": 3}
 
 
 def train_phase(dev, arch: str = "deepseek-7b") -> dict:
-    """``arch`` (deepseek-7b, gemma-7b) at full width and depth (bf16),
+    """``arch`` at full width (bf16) and the depth of ``TRAIN_RUNS``,
     Adafactor, ``remat="full"``, logits in chunks of 1024, a global batch of
-    (2, 2048) in two microbatches: four steps on
+    (2, 2048) in two microbatches: four steps (``TRAIN_STEPS_OF``: three) on
     ``SpRuntime(backend="staged")``.  Then each task's device time, one
-    profiled step and (deepseek-7b) a nonfinite rollback on the card."""
+    profiled step and (deepseek-7b) a nonfinite rollback on the card.
+    Model FLOPs count 6·N·tokens over the parameters in matrix products
+    (a MoE layer's experts at top_k / n_experts of theirs: the active
+    parameters) plus attention's 3 × 2·H·(Dk + Dv) a unmasked pair."""
     from repro_torch.configs import get_config
     from repro_torch.runtime.train import build_train_step, init_train_state
 
     n_layers, tag, rollback = TRAIN_RUNS[arch]
+    n_steps = TRAIN_STEPS_OF.get(arch, TRAIN_STEPS)
     gc.collect()  # the serving phases' models and engines are cyclic garbage
     torch.cuda.empty_cache()
     mem_base = torch.cuda.memory_allocated()
-    cfg = get_config(arch).replace(optimizer="adafactor")
-    assert (cfg.remat, cfg.logits_chunk, cfg.dtype, cfg.n_layers) == ("full", 1024, "bfloat16", n_layers)
+    full = get_config(arch)
+    cfg = full.replace(optimizer="adafactor", n_layers=n_layers)
+    assert (cfg.remat, cfg.logits_chunk, cfg.dtype) == ("full", 1024, "bfloat16")
     t0 = time.perf_counter()
     state = init_train_state(cfg, 0, device=dev)
     torch.cuda.synchronize()
     params = dict(state.params.named_parameters())
     n_params = sum(p.numel() for p in params.values())
-    # parameters in matrix products: not the embedding gather nor the norm
-    # scales, but a tied embedding is also the logits product's matrix
-    n_matmul = n_params - state.params.embedding.numel() - sum(
-        p.numel() for n, p in params.items() if n.endswith("scale"))
+    # parameters in matrix products: not the embedding gather, the norm
+    # scales, biases, gates' diagonals nor the rec layers' conv taps, but a
+    # tied embedding is also the logits product's matrix; a MoE layer's
+    # experts count at top_k / n_experts (the active parameters)
+    n_matmul = sum(p.numel() for n, p in params.items()
+                   if p.dim() >= 2 and not n.endswith("conv_w")) - state.params.embedding.numel()
     if cfg.tie_embeddings:
         n_matmul += cfg.vocab * cfg.d_model
-    log(f"[{tag}] {arch} ({cfg.n_layers} layers, {n_params / 1e9:.3f} B params, {n_matmul / 1e9:.3f} B "
-        f"in matrix products, {cfg.dtype}, {cfg.optimizer}, remat {cfg.remat}, logits chunk "
-        f"{cfg.logits_chunk}) initialised on the card in {time.perf_counter() - t0:.1f} s "
+    if cfg.moe:
+        experts = sum(p.numel() for n, p in params.items() if ".moe.w" in n)
+        n_matmul -= experts * (1 - cfg.moe.top_k / cfg.moe.n_experts)
+    cut = f" of {full.n_layers}" if n_layers != full.n_layers else ""
+    log(f"[{tag}] {arch} ({cfg.n_layers}{cut} layers, {n_params / 1e9:.3f} B params, {n_matmul / 1e9:.3f} B "
+        f"{'active ' if cfg.moe else ''}in matrix products, {cfg.dtype}, {cfg.optimizer}, remat {cfg.remat}, "
+        f"logits chunk {cfg.logits_chunk}) initialised on the card in {time.perf_counter() - t0:.1f} s "
         f"({mem_base} bytes allocated before it)")
     art = build_train_step(cfg, n_microbatches=TRAIN_MB, schedule_policy="overlap")
-    batches = _batches(cfg, dev, TRAIN_STEPS + 2, TRAIN_BATCH, TRAIN_SEQ)  # + timed / profiled and rollback steps
+    batches = _batches(cfg, dev, n_steps + 2, TRAIN_BATCH, TRAIN_SEQ)  # + timed / profiled and rollback steps
     ops = _kernel_ops()
     torch.cuda.reset_peak_memory_stats()
     # ---- the main path: counts from 0 just before, read just after ----
     for c in ops.values():
         c.reset()
     walls, losses, gnorms = [], [], []
-    for b in batches[:TRAIN_STEPS]:
+    for b in batches[:n_steps]:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = art(state, b)
@@ -1767,27 +2046,34 @@ def train_phase(dev, arch: str = "deepseek-7b") -> dict:
     launches = {name: c.count for name, c in ops.items()}
     # ------------------------------------------------------------------
     peak = torch.cuda.max_memory_allocated()
-    want = {k: v * TRAIN_STEPS for k, v in _train_launches_per_step(cfg, TRAIN_MB).items()}
-    log(f"[{tag}] launches on the main path {launches}; expected {want} from {TRAIN_STEPS} steps of "
+    want = {k: v * n_steps for k, v in _train_launches_per_step(cfg, TRAIN_MB).items()}
+    log(f"[{tag}] launches on the main path {launches}; expected {want} from {n_steps} steps of "
         f"{TRAIN_MB} microbatches")
     assert launches == want, "the train step did not run through every kernel as expected"
     assert all(np.isfinite(losses)) and all(np.isfinite(gnorms)), (losses, gnorms)
-    assert int(state.step) == TRAIN_STEPS
+    assert int(state.step) == n_steps
     assert art.schedule_names == ["mb0", "mb1", "grad_allreduce", "optimizer"], art.schedule_names
     tokens = TRAIN_BATCH * TRAIN_SEQ
     step_ms = float(np.median(walls[1:]))
-    attn = 3 * 4 * cfg.n_heads * cfg.head_dim * _pairs(TRAIN_SEQ, TRAIN_SEQ, True, None, 0) * TRAIN_BATCH * cfg.n_layers
+    dk, dv = ((cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim, cfg.mla.v_head_dim) if cfg.mla
+              else (cfg.head_dim, cfg.head_dim))
+    window = cfg.hybrid.window if cfg.hybrid else cfg.attn_window
+    attn = (3 * 2 * cfg.n_heads * (dk + dv) * _pairs(TRAIN_SEQ, TRAIN_SEQ, True, window, 0) * TRAIN_BATCH
+            * _layer_launches(cfg)["flash"])
     model_flops = 6 * n_matmul * tokens + attn
     tflops = model_flops / (step_ms / 1e3) / 1e12
     log(f"[{tag}] losses {losses}, grad norms {gnorms}; schedule {art.schedule_names}")
-    log(f"[{tag}] step wall ms {[round(w, 2) for w in walls]}; median of steps 2-{TRAIN_STEPS} {step_ms:.2f} ms, "
+    if cfg.moe:
+        log(f"[{tag}] aux metrics of the last step: moe_balance {float(m['moe_balance']):.4f}, moe_zloss "
+            f"{float(m['moe_zloss']):.4f}")
+    log(f"[{tag}] step wall ms {[round(w, 2) for w in walls]}; median of steps 2-{n_steps} {step_ms:.2f} ms, "
         f"{tokens / step_ms * 1e3:.1f} tokens/s, model {model_flops / 1e12:.1f} TFLOP a step "
-        f"(6·N·tokens + attention, no recompute) = {tflops:.1f} TFLOP/s, {tflops / 989:.1%} of 989; "
-        f"peak device memory {peak / 2**30:.2f} GiB ({peak} bytes)")
-    state, spans = _codelet_times(art, state, batches[TRAIN_STEPS])
+        f"(6·N{'_active' if cfg.moe else ''}·tokens + attention, no recompute) = {tflops:.1f} TFLOP/s, "
+        f"{tflops / 989:.1%} of 989; peak device memory {peak / 2**30:.2f} GiB ({peak} bytes)")
+    state, spans = _codelet_times(art, state, batches[n_steps])
     log(f"[{tag}] device time of each task of one step: "
         + ", ".join(f"{name} {ms:.1f} ms" for name, ms in spans))
-    state, _, prof = _profile_train_step(art, state, batches[TRAIN_STEPS])
+    state, _, prof = _profile_train_step(art, state, batches[n_steps])
     log(f"[profile] one {arch} train step under the profiler: {prof['profiled_wall_ms']:.2f} ms wall, "
         f"{prof['device_ms']:.2f} ms device time, device busy {prof['busy']:.1%}")
     for name, ms in prof["top"]:
@@ -1808,7 +2094,7 @@ def train_phase(dev, arch: str = "deepseek-7b") -> dict:
     before = {n: _bits(p).cpu() for n, p in state.params.named_parameters()}
     opt_before = {k: {kk: vv.clone() for kk, vv in v.items()} for k, v in state.opt.items()}
     step_before = int(state.step)
-    state, m = art(state, batches[TRAIN_STEPS + 1])
+    state, m = art(state, batches[n_steps + 1])
     gn = float(m["grad_norm"])
     assert not np.isfinite(gn), gn
     assert int(state.step) == step_before + 1
@@ -1900,23 +2186,44 @@ def train_m2_phase(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 SPEC_K = 4
+# the speculation and load phases' deepseek-7b, cut in depth to keep the
+# script inside its time limit (the serving and train phases run all 30)
+SPEC_LAYERS = 12
 LOAD_SPEC = dict(seed=0, n_requests=16, rate_rps=2.0, prompt_lens=(128, 512, 1024, 2048),
                  out_lens=(16, 32), vocab=32000, dup_frac=0.25)
 
 
+def _layer_launches(cfg) -> dict:
+    """Kernel calls of one forward of ``cfg``: flash attention a prefill and
+    decode attention a decode step for each attention layer (``attn`` and
+    ``moe``; MLA decodes in latent space with torch ops, ``rec`` and ``ssm``
+    layers run none), the ssd kernel per ssm layer a prefill, and the norms
+    (two per layer, four with qk_norm or MLA's latent norms, one for an
+    ssm block) plus the final norm."""
+    from repro_torch.models import layer_kinds
+
+    kinds = layer_kinds(cfg)
+    norms = {"ssm": 1, "rec": 2, "mla": 4, "attn": 2 + 2 * cfg.qk_norm, "moe": 2 + 2 * cfg.qk_norm}
+    return dict(flash=sum(k in ("attn", "moe", "mla") for k in kinds),
+                decode=sum(k in ("attn", "moe") for k in kinds),
+                ssd=sum(k == "ssm" for k in kinds),
+                norms=sum(norms[k] for k in kinds) + 1)
+
+
 def _serve_launches(cfg, *, prefills, decode_steps, draft_layers=0, primes=0, draft_feeds=0,
                     verify_substeps=0) -> dict:
-    """Kernel launches of a dense model's serving run (deepseek-7b,
-    gemma-7b): per layer one flash attention a prefill, one decode attention
-    a decode step, verify sub-step or draft feed, two norms per layer plus
-    the final norm a forward; the draft (``draft_layers`` deep) primes each
-    speculative admission with a prefill and feeds its own decode steps."""
+    """Kernel launches of a serving run (``_layer_launches`` a forward): the
+    target's prefills, decode steps and verify sub-steps; the draft
+    (``draft_layers`` deep) primes each speculative admission with a
+    prefill and feeds its own decode steps."""
+    c = _layer_launches(cfg)
+    d = _layer_launches(cfg.replace(n_layers=draft_layers)) if draft_layers else dict.fromkeys(c, 0)
     fwd = prefills + decode_steps + verify_substeps
     return {
-        "flash_attention": cfg.n_layers * prefills + draft_layers * primes,
-        "decode_attention": cfg.n_layers * (decode_steps + verify_substeps) + draft_layers * draft_feeds,
-        "rmsnorm": (2 * cfg.n_layers + 1) * fwd + (2 * draft_layers + 1) * (primes + draft_feeds),
-        "ssd": 0, "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_bwd": 0,
+        "flash_attention": c["flash"] * prefills + d["flash"] * primes,
+        "decode_attention": c["decode"] * (decode_steps + verify_substeps) + d["decode"] * draft_feeds,
+        "rmsnorm": c["norms"] * fwd + d["norms"] * (primes + draft_feeds),
+        "ssd": c["ssd"] * prefills, "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_bwd": 0,
     }
 
 
@@ -2004,12 +2311,12 @@ def _deepseek(dev, tag: str):
 
     gc.collect()  # earlier phases' models and engines are cyclic garbage
     torch.cuda.empty_cache()
-    cfg = get_config("deepseek-7b")
+    cfg = get_config("deepseek-7b").replace(n_layers=SPEC_LAYERS)
     t0 = time.perf_counter()
     model = init_params(cfg, 0, device=dev)
     torch.cuda.synchronize()
-    log(f"[{tag}] deepseek-7b ({cfg.n_layers} layers, {cfg.dtype}, seed 0) initialised on the card in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[{tag}] deepseek-7b ({cfg.n_layers} of 30 layers, full width, {cfg.dtype}, seed 0) initialised on the "
+        f"card in {time.perf_counter() - t0:.1f} s")
     return cfg, model
 
 
@@ -2620,51 +2927,94 @@ def comm_phase(dev) -> dict:
     return out
 
 
+def f2_digests() -> dict:
+    """ROADMAP F2: ``tools/ssd_grad_determinism.py``'s loop, short (5
+    iterations, no test file), so every run prints each stage's digest of
+    the ssd gradient's bits beside its card.  Logged, not asserted: F2 is
+    the card test's own check."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tools" / "ssd_grad_determinism.py"
+    spec = importlib.util.spec_from_file_location("ssd_grad_determinism", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t0 = time.perf_counter()
+    out = mod.run_loop(5)
+    log(f"[f2] {out['iters']} iterations: stages that differ from the first {sorted(out['differing']) or 'none'}, "
+        f"elements outside the card test's tolerance {out['elements_outside_the_test_tolerance']}, worst share "
+        f"of the limit {out['worst_share_of_the_limit']:.3f}; TF32 {mod.tf32_state()}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[f2] first-iteration digests {json.dumps(out['first_iteration_digest'])}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    phase_s: dict = {}
+
+    def phase(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        phase_s[name] = time.perf_counter() - t0
+        log(f"[time] {name}: {phase_s[name]:.1f} s ({time.perf_counter() - t_start:.1f} s in all)")
+        return out
+
     smi = header()
     launch_cost()
     dev = torch.device("cuda")
     build_s = build_kernels()
-    records = kernel_phase(dev)
-    codelet_phase(dev)
-    examples = examples_phase(dev)
-    serve = serving_phase(dev)
-    serve_m = mamba2_serving_phase(dev)
-    serve_g = serving_phase(dev, "gemma-7b", "serve-gemma")
-    model_err = model_phase(dev)
+    records = phase("kernels", kernel_phase, dev)
+    phase("f2", f2_digests)
+    phase("codelets", codelet_phase, dev)
+    examples = phase("examples", examples_phase, dev)
+    serve = phase("serve", serving_phase, dev)
+    serve_m = phase("mamba2", recurrent_serving_phase, dev)
+    serve_g = phase("serve-gemma", serving_phase, dev, "gemma-7b", "serve-gemma")
+    serve_c = phase("serve-minicpm3", serving_phase, dev, "minicpm3-4b", "serve-minicpm3")
+    serve_r = phase("serve-rgemma", recurrent_serving_phase, dev, "recurrentgemma-9b", "serve-rgemma")
+    serve_q = phase("serve-moe", serving_phase, dev, "qwen3-moe-235b-a22b", "serve-moe", n_layers=MOE_SERVE_LAYERS)
     from repro_torch.configs import get_config
 
-    model_err_m = model_phase(
-        dev, get_config("mamba2-130m").replace(n_layers=4, dtype="float32"), prompt_len=600
-    )
-    model_err_g = model_phase(dev, get_config("gemma-7b").replace(n_layers=2, dtype="float32"))
-    parity = train_parity_phase(dev)
-    train = train_phase(dev)
-    train_g = train_phase(dev, "gemma-7b")
-    train_m2 = train_m2_phase(dev)
+    model_errs = {}
+    for arch, n_layers, prompt_len in (("deepseek-7b", 2, 256), ("mamba2-130m", 4, 600), ("gemma-7b", 2, 256),
+                                       ("minicpm3-4b", 2, 256), ("recurrentgemma-9b", 3, 256),
+                                       ("qwen3-moe-235b-a22b", 1, 256)):
+        cfg = get_config(arch).replace(n_layers=n_layers, dtype="float32")
+        model_errs[arch] = phase(f"model {arch}", model_phase, dev, cfg, prompt_len=prompt_len)
+    parity = phase("train-parity", train_parity_phase, dev)
+    trains = {arch: phase(TRAIN_RUNS[arch][1], train_phase, dev, arch) for arch in TRAIN_RUNS}
+    train, train_g = trains["deepseek-7b"], trains["gemma-7b"]
+    train_m2 = phase("train-m2", train_m2_phase, dev)
     cfg, model = _deepseek(dev, "spec")
-    spec = spec_phase(dev, cfg, model)
-    load = load_phase(dev, cfg, model)
+    spec = phase("spec", spec_phase, dev, cfg, model)
+    load = phase("load", load_phase, dev, cfg, model)
     del model
-    ckpt = ckpt_phase(dev)
-    comm = comm_phase(dev)
-    # launches on every path: serving and train (three models), speculation, load, checkpoint, the launcher
+    ckpt = phase("ckpt", ckpt_phase, dev)
+    comm = phase("comm", comm_phase, dev)
+    # launches on every path: serving and train (every model), speculation, load, checkpoint, the launcher
+    runs = (serve, serve_m, serve_g, serve_c, serve_r, serve_q, *trains.values(), train_m2, spec, load, ckpt, comm)
     for r in records:
-        r["launches"] = sum(run["launches"][r["name"]]
-                            for run in (serve, serve_m, serve_g, train, train_g, train_m2, spec, load, ckpt, comm))
+        r["launches"] = sum(run["launches"][r["name"]] for run in runs)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    kernels = [{k: r[k] for k in keys} for r in records]
-    log(f"[done] {smi}: build {build_s:.1f} s, model checks {model_err:.2e} (deepseek-7b), "
-        f"{model_err_m:.2e} (mamba2-130m), {model_err_g:.2e} (gemma-7b), train parity {parity}, train step "
-        f"{train['step_ms']:.1f} ms ({train['tokens_per_s']:.1f} tokens/s), gemma-7b train step "
-        f"{train_g['step_ms']:.1f} ms ({train_g['tokens_per_s']:.1f} tokens/s, peak "
-        f"{train_g['peak_bytes'] / 2**30:.2f} GiB), gemma-7b serving {serve_g['tok_per_s']:.1f} tok/s "
-        f"(peak {serve_g['peak_bytes'] / 2**30:.2f} GiB), mamba2 train step {train_m2['step_ms']:.1f} ms "
+    shape_keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels = [dict({k: r[k] for k in keys}, shape=r["shape"],
+                    other_shapes={n: {k: t.get(k) for k in shape_keys} for n, t in _sub_shapes(r).items()})
+               for r in records]
+    log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
+    news = ", ".join(
+        f"{arch} train step {t['step_ms']:.1f} ms ({t['tokens_per_s']:.1f} tokens/s, peak "
+        f"{t['peak_bytes'] / 2**30:.2f} GiB)" for arch, t in trains.items() if arch not in ("deepseek-7b",))
+    log(f"[done] {smi}: build {build_s:.1f} s, model checks "
+        + ", ".join(f"{e:.2e} ({a})" for a, e in model_errs.items())
+        + f", train parity {parity}, train step {train['step_ms']:.1f} ms ({train['tokens_per_s']:.1f} tokens/s), "
+        f"{news}, gemma-7b serving {serve_g['tok_per_s']:.1f} tok/s (peak {serve_g['peak_bytes'] / 2**30:.2f} GiB), "
+        f"minicpm3-4b serving {serve_c['tok_per_s']:.1f} tok/s, recurrentgemma-9b serving "
+        f"{serve_r['tok_per_s']:.1f} tok/s, qwen3-moe ({MOE_SERVE_LAYERS} layers) serving "
+        f"{serve_q['tok_per_s']:.1f} tok/s, mamba2 train step {train_m2['step_ms']:.1f} ms "
         f"({train_m2['tokens_per_s']:.1f} tokens/s), examples {examples['seconds']:.1f} s, "
         f"self-draft accept rate {spec['self draft']['accept_rate']:.3f}, "
         f"load checksum {load['continuous']['output_checksum']}, checkpoint {ckpt['bytes']} bytes, "

@@ -5,7 +5,8 @@ the parity tests give both packages the same weights by copying them.
 :func:`params_from_numpy` takes ``repro``'s parameter tree as nested dicts of
 numpy arrays (``jax.tree.map(np.asarray, params)``) and fills a
 :class:`~repro_torch.models.Transformer`: the stacked layer axis 0 is split
-across the ``ModuleList`` and every other key is the module attribute of the
+across the ``ModuleList`` (a hybrid's super-block leaves and tail by the
+model's ``leaf_layout``) and every other key is the module attribute of the
 same name.  The port keeps JAX's weight layouts, so each leaf is a copy, not
 a transpose.
 
@@ -28,7 +29,6 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import RMSNorm
 from repro_torch.models.transformer import Transformer, set_trainable
 from repro_torch.optim import TrainState, leaf_path, param_leaves
 
@@ -45,45 +45,37 @@ def tensor_from_numpy(arr, device="cpu") -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _at(tree: dict, path: str):
+    for key in path.split("/"):
+        tree = tree[key]
+    return tree
+
+
 @torch.no_grad()
-def _assign(module: torch.nn.Module, tree: dict, filled: set, layer=None) -> None:
-    for name, value in tree.items():
-        if name == "layers":
-            for i, layer_module in enumerate(module.layers):
-                _assign(layer_module, value, filled, layer=i)
+def params_from_numpy(tree: dict, cfg: ArchConfig, device="cuda") -> Transformer:
+    """``repro``'s parameter tree (numpy leaves) → the port's model on
+    ``device``.  Each parameter is found by its leaf path
+    (``optim.leaf_path`` under the model's ``leaf_layout``): a stacked
+    leaf gives its layer's slice."""
+    model = Transformer(cfg, device=device)
+    missing = []
+    for name, target in model.named_parameters():
+        path, layer = leaf_path(name, model.leaf_layout)
+        try:
+            arr = _at(tree, path)
+        except KeyError:
+            missing.append(name)
             continue
-        if isinstance(value, dict):
-            _assign(getattr(module, name), value, filled, layer)
-            continue
-        target = getattr(module, name)
-        if isinstance(target, RMSNorm):
-            target = target.scale
-        arr = value if layer is None else np.asarray(value)[layer]
-        src = tensor_from_numpy(arr, target.device)
+        src = tensor_from_numpy(arr if layer is None else np.asarray(arr)[layer], target.device)
         if tuple(src.shape) != tuple(target.shape) or src.dtype != target.dtype:
             raise ValueError(
                 f"{name}: {tuple(src.shape)} {src.dtype} does not fit "
                 f"{tuple(target.shape)} {target.dtype}"
             )
         target.copy_(src)
-        filled.add(id(target))
-
-
-def params_from_numpy(tree: dict, cfg: ArchConfig, device="cuda") -> Transformer:
-    """``repro``'s parameter tree (numpy leaves) → the port's model on ``device``."""
-    model = Transformer(cfg, device=device)
-    filled: set = set()
-    _assign(model, tree, filled)
-    missing = [n for n, t in model.named_parameters() if id(t) not in filled]
     if missing:
         raise ValueError(f"parameter tree lacks {missing}")
     return model
-
-
-def _at(tree: dict, path: str):
-    for key in path.split("/"):
-        tree = tree[key]
-    return tree
 
 
 def _put(tree: dict, path: str, value) -> None:
@@ -99,18 +91,19 @@ def train_state_from_numpy(params_tree: dict, opt_tree: dict, step, cfg: ArchCon
     ...)``) → the port's, trainable, on ``device``."""
     model = set_trainable(params_from_numpy(params_tree, cfg, device))
     names = [n for n, _ in model.named_parameters()]
+    layout = model.leaf_layout
     if cfg.optimizer == "adamw":
         opt = {}
         for k in ("m", "v"):
             opt[k] = {}
             for n in names:
-                path, layer = leaf_path(n)
+                path, layer = leaf_path(n, layout)
                 arr = _at(opt_tree[k], path)
                 opt[k][n] = tensor_from_numpy(arr if layer is None else np.asarray(arr)[layer], device)
     else:
         opt = {
             leaf.path: {k: tensor_from_numpy(v, device) for k, v in _at(opt_tree, leaf.path).items()}
-            for leaf in param_leaves(names)
+            for leaf in param_leaves(names, layout)
         }
     step_t = torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=model.device)
     return TrainState(step=step_t, params=model, opt=opt)
@@ -128,7 +121,7 @@ def train_state_to_numpy(state: TrainState) -> tuple[dict, dict, int]:
     as ``repro``'s, with numpy leaves (layer parameters stacked on axis 0;
     bfloat16 as raw ``BF16_RAW`` records, the form a checkpoint stores)."""
     params = dict(state.params.named_parameters())
-    leaves = param_leaves(params)
+    leaves = param_leaves(params, state.params.leaf_layout)
     p_tree: dict = {}
     for leaf in leaves:
         parts = [_np(params[n]) for n in leaf.names]

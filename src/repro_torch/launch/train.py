@@ -89,8 +89,10 @@ def train_loop(cfg, state, *, steps: int, batch: int, seq: int, microbatches: in
         s = int(st["state"].step)
         if log_every and s % log_every == 0:
             dt = (time.perf_counter() - st["t0"]) / st["n"]
+            aux = "".join(f" {k} {float(metrics[k]):.4f}" for k in ("moe_balance", "moe_zloss")
+                          if k in metrics)
             print(f"[train] step {s:5d} loss {loss:8.4f} "
-                  f"gnorm {float(metrics['grad_norm']):7.3f} {dt * 1e3:7.1f} ms/step",
+                  f"gnorm {float(metrics['grad_norm']):7.3f}{aux} {dt * 1e3:7.1f} ms/step",
                   flush=True)
         if mgr is not None and ckpt_every and s % ckpt_every == 0:
             mgr.save(s, st["state"])  # async commit

@@ -1,6 +1,6 @@
-"""The dense transformer (block kind ``"attn"``) and the Mamba-2 stack (block
-kind ``"ssm"``) as ``nn.Module``s, with the JAX package's weight layouts and
-function names."""
+"""Every block kind of ``repro`` (``attn``, ``mla``, ``moe``, ``ssm``, ``rec``
+and the recurrentgemma hybrid) as ``nn.Module``s, with the JAX package's
+weight layouts and function names."""
 from repro_torch.models.config import (
     ArchConfig,
     HybridConfig,
@@ -13,14 +13,18 @@ from repro_torch.models.config import (
 )
 from repro_torch.models.transformer import (
     Block,
+    RecBlock,
     SSMBlock,
     Transformer,
+    block_kind,
     cache_defs,
     cache_layout,
     decode_step,
     forward,
     init_cache,
     init_params,
+    layer_kinds,
+    leaf_layout,
     loss_fn,
     model_defs,
     prefill,
@@ -30,7 +34,7 @@ from repro_torch.models.transformer import (
 
 __all__ = [
     "ArchConfig", "HybridConfig", "MLAConfig", "MoEConfig", "SHAPES", "ShapeSpec",
-    "SSMConfig", "applicable_shapes", "Block", "SSMBlock", "Transformer", "cache_defs",
+    "SSMConfig", "applicable_shapes", "Block", "RecBlock", "SSMBlock", "Transformer", "block_kind", "cache_defs",
     "cache_layout", "decode_step", "forward", "init_cache", "init_params",
-    "loss_fn", "model_defs", "prefill", "set_trainable", "verify_step",
+    "layer_kinds", "leaf_layout", "loss_fn", "model_defs", "prefill", "set_trainable", "verify_step",
 ]

@@ -112,8 +112,9 @@ def kv_cache_shape(cfg: ArchConfig, batch: int, max_seq: int) -> tuple[int, ...]
 
 
 def kv_cache_update(cache: torch.Tensor, new: torch.Tensor, slot: Pos) -> torch.Tensor:
-    """Write ``new`` (B, 1, KH, Dh) at ``slot`` of ``cache`` (B, S, KH, Dh)
-    **in place** and return it.  ``slot`` is an int (every sequence) or a
+    """Write ``new`` (B, 1, ...) at ``slot`` of ``cache`` (B, S, ...) **in
+    place** and return it: a KV cache (B, S, KH, Dh), or MLA's latent
+    caches (B, S, r).  ``slot`` is an int (every sequence) or a
     (B,) tensor (continuous batching: sequences at different positions)."""
     if isinstance(slot, torch.Tensor) and slot.ndim == 1:
         rows = torch.arange(cache.shape[0], device=cache.device)

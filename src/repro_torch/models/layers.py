@@ -97,10 +97,13 @@ def make_params(module: nn.Module, defs: dict, *, dtype: torch.dtype, device) ->
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: ArchConfig, *, dtype: torch.dtype, device):
+    """The gated MLP of width ``d_ff`` (``cfg.d_ff`` unless given: a MoE's
+    shared expert is wider)."""
+
+    def __init__(self, cfg: ArchConfig, *, dtype: torch.dtype, device, d_ff: Optional[int] = None):
         super().__init__()
         self.act = cfg.act
-        make_params(self, mlp_defs(cfg.d_model, cfg.d_ff, cfg.act), dtype=dtype, device=device)
+        make_params(self, mlp_defs(cfg.d_model, d_ff or cfg.d_ff, cfg.act), dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.act in ("swiglu", "geglu"):

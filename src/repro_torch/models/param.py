@@ -5,7 +5,7 @@ A port of ``repro.models.param``.  Each model module exposes
 weight layouts (e.g. ``wq (D, H, Dh)``), so a parameter tree carries across
 by copying (``repro_torch.bridge``).  :func:`stack_defs` prepends the layer
 axis as in ``repro``; the port's modules hold the layers unstacked in a
-``ModuleList`` and :func:`init_` draws each layer's slice.
+``ModuleList`` and :func:`init_` draws each layer's tensors.
 
 Initialisation follows ``repro.models.param.init_tree``: ``normal`` with
 stddev 1/sqrt(fan_in), ``embed`` with stddev 1, ``zeros`` for the norm
@@ -45,13 +45,6 @@ def stack_defs(defs, n: int):
     if isinstance(defs, ParamDef):
         return ParamDef((n,) + defs.shape, ("layers",) + defs.axes, defs.init, defs.dtype, defs.scale)
     return {k: stack_defs(v, n) for k, v in defs.items()}
-
-
-def unstack_def(d: ParamDef) -> ParamDef:
-    """One layer's slice of a stacked leaf."""
-    if not d.axes or d.axes[0] != "layers":
-        raise ValueError(f"not a stacked ParamDef: {d}")
-    return ParamDef(d.shape[1:], d.axes[1:], d.init, d.dtype, d.scale)
 
 
 def _stddev(d: ParamDef) -> float:

@@ -15,6 +15,13 @@ leaves, so both packages compute the same update.  A leaf whose per-layer
 tensors have two or more dims is factored per layer (only the RMS spans the
 layers: it is taken in a first pass and applied in a second); a stacked
 leaf of 1-D tensors (the norms) is stacked, being small.
+
+A hybrid model stacks its layers in ``repro`` by super-block position
+(``layers/rec_0/...`` over the super-blocks, ``tail_0/...`` unstacked):
+``layout`` (``models.leaf_layout(cfg)``, also the model's ``leaf_layout``)
+carries that map into :func:`leaf_path`, :func:`param_leaves` and the
+optimizers.  Expert weights are (E, D, F) a layer: factored over their last
+two dims, per expert and layer, as ``repro`` factors its (L, E, D, F) leaf.
 """
 from __future__ import annotations
 
@@ -39,23 +46,26 @@ class Leaf(NamedTuple):
     stacked: bool
 
 
-def leaf_path(name: str) -> tuple[str, Optional[int]]:
-    """Port parameter name → (repro tree path, layer index or None).  An
-    ``RMSNorm`` holds its offset under ``scale``; ``repro`` keys it by the
-    norm's own name."""
+def leaf_path(name: str, layout=None) -> tuple[str, Optional[int]]:
+    """Port parameter name → (repro tree path, index on the leaf's stacked
+    layer axis or None).  An ``RMSNorm`` holds its offset under ``scale``;
+    ``repro`` keys it by the norm's own name.  ``layout`` (None: layer i is
+    index i of ``layers/...``) gives each layer's (path prefix, index)."""
     parts = name.split(".")
     if parts[-1] == "scale":
         parts = parts[:-1]
     if parts[0] == "layers":
-        return "/".join(["layers"] + parts[2:]), int(parts[1])
+        i = int(parts[1])
+        prefix, index = ("layers", i) if layout is None else layout[i]
+        return "/".join([prefix] + parts[2:]), index
     return "/".join(parts), None
 
 
-def param_leaves(names) -> list[Leaf]:
+def param_leaves(names, layout=None) -> list[Leaf]:
     """Group parameter names (in order) into ``repro``'s leaves."""
     groups: dict[str, list[tuple[Optional[int], str]]] = {}
     for n in names:
-        path, layer = leaf_path(n)
+        path, layer = leaf_path(n, layout)
         groups.setdefault(path, []).append((layer, n))
     out = []
     for path, members in groups.items():
@@ -87,9 +97,10 @@ def clip_by_global_norm(grads: dict, max_norm: float):
 
 @torch.no_grad()
 def _store(dst: torch.Tensor, new: torch.Tensor, accept: Optional[torch.Tensor]) -> None:
-    """dst ← new where ``accept`` holds, else dst (bit for bit)."""
+    """dst ← new where ``accept`` holds, else dst (bit for bit).  ``new`` is
+    a scratch tensor of the caller's: the select may overwrite it."""
     new = new.to(dst.dtype)
-    dst.copy_(new if accept is None else torch.where(accept, new, dst))
+    dst.copy_(new if accept is None else torch.where(accept, new, dst, out=new))
 
 
 def _grad(g: torch.Tensor, grad_scale) -> torch.Tensor:
@@ -119,13 +130,19 @@ def adamw_update(grads: dict, state: dict, params: dict, *, lr, step, accept=Non
     c1 = 1.0 - b1**t
     c2 = 1.0 - b2**t
     for n, p in params.items():
-        gf = _grad(grads[n], grad_scale)
+        gf = _grad(grads[n], grad_scale)  # may be the gradient itself: read only
         m, v = state["m"][n], state["v"][n]
-        mf = m.float() * b1 + gf * (1 - b1)
-        vf = v.float() * b2 + gf * gf * (1 - b2)
+        # repro's expressions, each pass written into a scratch tensor (one
+        # allocation saved a pass; the same operations, so the same bits)
+        tmp = gf * (1 - b1)
+        mf = (m.float() * b1).add_(tmp)  # m·b1 + g·(1 - b1)
+        torch.mul(gf, gf, out=tmp)
+        vf = (v.float() * b2).add_(tmp.mul_(1 - b2))  # v·b2 + g·g·(1 - b2)
         pf = p.float()
-        delta = (mf / c1) / (torch.sqrt(vf / c2) + eps) + weight_decay * pf
-        _store(p, pf - lr * delta, accept)
+        torch.div(vf, c2, out=tmp).sqrt_().add_(eps)
+        delta = torch.div(mf, c1).div_(tmp)
+        delta.add_(torch.mul(pf, weight_decay, out=tmp))  # (m / c1) / (sqrt(v / c2) + eps) + wd·p
+        _store(p, torch.sub(pf, delta.mul_(lr), out=delta), accept)  # p - lr·delta
         _store(m, mf, accept)
         _store(v, vf, accept)
     return params, state
@@ -144,11 +161,11 @@ def _leaf_shape(leaf: Leaf, params: dict) -> tuple[int, ...]:
     return ((len(leaf.names),) + shape) if leaf.stacked else shape
 
 
-def adafactor_init(params: dict) -> dict:
+def adafactor_init(params: dict, layout=None) -> dict:
     """{leaf path: {"vr", "vc"} or {"v"}}, float32, shaped as ``repro``'s
     (the layer axis first for stacked leaves)."""
     out = {}
-    for leaf in param_leaves(params):
+    for leaf in param_leaves(params, layout):
         shape = _leaf_shape(leaf, params)
         dev = params[leaf.names[0]].device
         z = lambda s: torch.zeros(s, dtype=torch.float32, device=dev)  # noqa: E731
@@ -161,41 +178,50 @@ def adafactor_init(params: dict) -> dict:
 
 def _factored_denom(vr: torch.Tensor, vc: torch.Tensor, eps: float) -> torch.Tensor:
     mean_vr = torch.clamp(torch.mean(vr, dim=-1, keepdim=True)[..., None], min=eps)
-    return torch.sqrt(vr[..., None] * vc[..., None, :] / mean_vr)
+    return (vr[..., None] * vc[..., None, :]).div_(mean_vr).sqrt_()
+
+
+def _factored_update(gf: torch.Tensor, vr: torch.Tensor, vc: torch.Tensor, eps: float) -> torch.Tensor:
+    """g / max(sqrt(vr·vcᵀ / mean(vr)), eps), in one new tensor."""
+    den = _factored_denom(vr, vc, eps).clamp_(min=eps)
+    return torch.div(gf, den, out=den)
 
 
 @torch.no_grad()
 def adafactor_update(grads: dict, state: dict, params: dict, *, lr, step, accept=None,
                      grad_scale=None, d: float = 1.0, eps: float = 1e-30,
-                     weight_decay: float = 0.0):
+                     weight_decay: float = 0.0, layout=None):
     """In place, leaf by leaf (see the module docstring for the layer axis)."""
     t = (step + 1).float()
     beta2 = 1.0 - t ** (-0.8)
 
-    def new_param(p, upd, rms):
-        upd = upd / torch.clamp(rms / d, min=1.0)
+    def new_param(p, upd, rms, scratch):
+        """p - lr·(upd / max(rms / d, 1) + wd·p), written into ``scratch``
+        (``upd`` is scaled in place)."""
+        upd.div_(torch.clamp(rms / d, min=1.0))
         pf = p.float()
-        return pf - lr * (upd + weight_decay * pf)
+        out = torch.mul(pf, weight_decay, out=scratch).add_(upd).mul_(lr)
+        return torch.sub(pf, out, out=out)
 
-    for leaf in param_leaves(params):
+    for leaf in param_leaves(params, layout):
         s = state[leaf.path]
         ps = [params[n] for n in leaf.names]
         per_part = leaf.stacked and "vr" in s and ps[0].dim() >= 2
         if not per_part:  # one tensor (stacked when the leaf is): repro's arithmetic
             stack = (lambda ts: torch.stack(ts)) if leaf.stacked else (lambda ts: ts[0])  # noqa: E731
             gf = stack([_grad(grads[n], grad_scale) for n in leaf.names])
-            g2 = gf * gf + eps
+            g2 = (gf * gf).add_(eps)
             if "vr" in s:
                 vr = beta2 * s["vr"] + (1 - beta2) * torch.mean(g2, dim=-1)
                 vc = beta2 * s["vc"] + (1 - beta2) * torch.mean(g2, dim=-2)
-                upd = gf / torch.clamp(_factored_denom(vr, vc, eps), min=eps)
+                upd = _factored_update(gf, vr, vc, eps)
                 new_s = {"vr": vr, "vc": vc}
             else:
                 v = beta2 * s["v"] + (1 - beta2) * g2
-                upd = gf / torch.sqrt(torch.clamp(v, min=eps))
+                upd = torch.div(gf, torch.sqrt(torch.clamp(v, min=eps)))
                 new_s = {"v": v}
-            rms = torch.sqrt(torch.mean(torch.square(upd)) + eps)
-            new_p = new_param(stack([p.float() for p in ps]) if leaf.stacked else ps[0], upd, rms)
+            rms = torch.sqrt(torch.mean(torch.square(upd, out=g2)) + eps)
+            new_p = new_param(stack([p.float() for p in ps]) if leaf.stacked else ps[0], upd, rms, g2)
             for i, p in enumerate(ps):
                 _store(p, new_p[i] if leaf.stacked else new_p, accept)
         else:  # factored within each layer; only the RMS spans the layers
@@ -203,18 +229,18 @@ def adafactor_update(grads: dict, state: dict, params: dict, *, lr, step, accept
             sumsq = torch.zeros((), dtype=torch.float32, device=ps[0].device)
             for i, n in enumerate(leaf.names):
                 gf = _grad(grads[n], grad_scale)
-                g2 = gf * gf + eps
+                g2 = (gf * gf).add_(eps)
                 new_s["vr"][i] = beta2 * s["vr"][i] + (1 - beta2) * torch.mean(g2, dim=-1)
                 new_s["vc"][i] = beta2 * s["vc"][i] + (1 - beta2) * torch.mean(g2, dim=-2)
-                del g2
-                upd = gf / torch.clamp(_factored_denom(new_s["vr"][i], new_s["vc"][i], eps), min=eps)
-                sumsq = sumsq + torch.sum(torch.square(upd))
+                upd = _factored_update(gf, new_s["vr"][i], new_s["vc"][i], eps)
+                sumsq = sumsq + torch.sum(torch.square(upd, out=g2))
+                del g2, upd
             numel = sum(p.numel() for p in ps)
             rms = torch.sqrt(sumsq / numel + eps)
             for i, n in enumerate(leaf.names):
                 gf = _grad(grads[n], grad_scale)
-                upd = gf / torch.clamp(_factored_denom(new_s["vr"][i], new_s["vc"][i], eps), min=eps)
-                _store(ps[i], new_param(ps[i], upd, rms), accept)
+                upd = _factored_update(gf, new_s["vr"][i], new_s["vc"][i], eps)
+                _store(ps[i], new_param(ps[i], upd, rms, torch.empty_like(upd)), accept)
         for k, v in new_s.items():
             _store(s[k], v, accept)
     return params, state
@@ -224,9 +250,10 @@ def adafactor_update(grads: dict, state: dict, params: dict, *, lr, step, accept
 # Factory
 # ---------------------------------------------------------------------------
 
-def make_optimizer(kind: str, opt_state_dtype: str = "float32"):
+def make_optimizer(kind: str, opt_state_dtype: str = "float32", layout=None):
     """→ (init_fn(params), update_fn(grads, opt, params, lr, step, accept,
-    grad_scale)); both take ``dict(model.named_parameters())``."""
+    grad_scale)); both take ``dict(model.named_parameters())``.  ``layout``
+    is the model's ``leaf_layout`` (Adafactor groups by it)."""
     if kind == "adamw":
         return (
             lambda params: adamw_init(params, opt_state_dtype),
@@ -235,8 +262,8 @@ def make_optimizer(kind: str, opt_state_dtype: str = "float32"):
         )
     if kind == "adafactor":
         return (
-            adafactor_init,
+            lambda params: adafactor_init(params, layout),
             lambda g, s, p, lr, step, accept=None, grad_scale=None: adafactor_update(
-                g, s, p, lr=lr, step=step, accept=accept, grad_scale=grad_scale),
+                g, s, p, lr=lr, step=step, accept=accept, grad_scale=grad_scale, layout=layout),
         )
     raise ValueError(f"unknown optimizer {kind!r}")

@@ -12,11 +12,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.transformer import verify_step
+from repro_torch.models.transformer import layer_cfg, verify_step
 
 
 def _pad_kv(kv: torch.Tensor, size: int, window) -> torch.Tensor:
-    """Place prefill K/V (B, T0, KH, Dh) into a fresh cache of ``size`` slots.
+    """Place prefill rows (B, T0, ...) into a fresh cache of ``size`` slots.
 
     Full cache: copy into [0:T0].  Ring cache (windowed): position p lives in
     slot p % size; only the last ``size`` positions matter."""
@@ -32,20 +32,27 @@ def _pad_kv(kv: torch.Tensor, size: int, window) -> torch.Tensor:
 
 
 def prime_cache(cfg: ArchConfig, prefill_caches: dict, prompt_len: int, max_seq: int) -> dict:
-    """Turn ``prefill(...)``'s stacked caches (n_layers, B, prompt_len, KH,
-    Dh) into decode-ready caches of capacity ``max_seq`` (ring-aware).  The
-    ssm ``state`` / ``conv`` leaves are already decode-ready and pass
-    through, as in ``repro``."""
-    if "k" not in prefill_caches:
-        return dict(prefill_caches)
-    W = cfg.attn_window
-    size = min(max_seq, W) if W is not None else max_seq
+    """Turn ``prefill(...)``'s stacked caches (sequence axis 2 = the prompt)
+    into decode-ready caches of capacity ``max_seq``, as ``repro``'s:
+    attention ``k`` / ``v`` (n, B, prompt_len, KH, Dh) into a cache of
+    ``max_seq`` rows or, windowed (the hybrid's attention layers), a ring
+    of ``min(max_seq, window)`` slots; MLA's latent ``c_kv`` / ``k_rope``
+    (n, B, prompt_len, r) into ``max_seq`` rows.  The recurrent leaves
+    (ssm ``state`` / ``conv``, rec ``h`` / ``conv``) are already
+    decode-ready and pass through."""
+    W = layer_cfg(cfg).attn_window
+    sizes = {"k": min(max_seq, W) if W is not None else max_seq, "c_kv": max_seq}
+    sizes.update(v=sizes["k"], k_rope=max_seq)
     out = {}
     for name, c in prefill_caches.items():
+        if name not in sizes:
+            out[name] = c
+            continue
         if c.shape[2] != prompt_len:
             raise ValueError(f"cache {name}: {c.shape[2]} rows, prompt of {prompt_len}")
         n_layers, B = c.shape[:2]
-        flat = _pad_kv(c.reshape((n_layers * B,) + tuple(c.shape[2:])), size, W)
+        window = W if name in ("k", "v") else None
+        flat = _pad_kv(c.reshape((n_layers * B,) + tuple(c.shape[2:])), sizes[name], window)
         out[name] = flat.reshape((n_layers, B) + tuple(flat.shape[1:]))
     return out
 

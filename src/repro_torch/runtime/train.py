@@ -39,7 +39,7 @@ import torch
 
 from repro_torch.core import SpData, SpRuntime, sp_task
 from repro_torch.dist.collectives import compress_int8, decompress_int8, int8_scale
-from repro_torch.models import init_params, loss_fn, set_trainable
+from repro_torch.models import init_params, leaf_layout, loss_fn, set_trainable
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.param import DTYPES
 from repro_torch.optim import TrainState, global_norm, make_optimizer, param_leaves
@@ -61,10 +61,8 @@ def _microbatch_codelet(params, mb, grads, metrics, *, cfg):
         for n, gg in zip(names, g):
             acc[n].add_(gg)
     del g
-    metrics.value = {
-        "loss": metrics.value["loss"] + loss.detach().float(),
-        "ce_loss": metrics.value["ce_loss"] + m["ce_loss"].detach().float(),
-    }
+    m = dict(m, loss=loss)
+    metrics.value = {k: v + m[k].detach().float() for k, v in metrics.value.items()}
     return loss.detach()
 
 
@@ -115,7 +113,7 @@ def init_train_state(cfg: ArchConfig, seed: int = 0, *, device="cuda") -> TrainS
     """Seeded parameters (``repro``'s init rules, drawn on ``device``), made
     trainable, with a zero step counter and fresh optimizer state."""
     model = set_trainable(init_params(cfg, seed, device=device))
-    opt_init, _ = make_optimizer(cfg.optimizer, cfg.opt_state_dtype)
+    opt_init, _ = make_optimizer(cfg.optimizer, cfg.opt_state_dtype, leaf_layout(cfg))
     opt = opt_init(dict(model.named_parameters()))
     return TrainState(step=torch.zeros((), dtype=torch.int32, device=model.device),
                       params=model, opt=opt)
@@ -132,12 +130,16 @@ def build_train_step(
     grad_compression: bool = False,
 ) -> TrainStepArtifacts:
     """Build the staged train step: ``art(state, batch) → (state, metrics)``
-    with ``metrics`` = {"loss", "ce_loss", "grad_norm"} as device tensors.
+    with ``metrics`` = {"loss", "ce_loss", "grad_norm"} as device tensors,
+    and for a MoE model ``loss_fn``'s "moe_balance" / "moe_zloss" (each the
+    mean over the microbatches, as the losses are).
     ``batch`` holds ``tokens`` and ``labels`` (B, L) on the model's device;
     B must divide into ``n_microbatches``."""
     lr_schedule = lr_schedule or (
         lambda step: torch.tensor(3e-4, dtype=torch.float32, device=step.device))
-    _, opt_update = make_optimizer(cfg.optimizer, cfg.opt_state_dtype)
+    layout = leaf_layout(cfg)
+    _, opt_update = make_optimizer(cfg.optimizer, cfg.opt_state_dtype, layout)
+    metric_keys = ("loss", "ce_loss") + (("moe_balance", "moe_zloss") if cfg.family == "moe" else ())
     accum_dtype = DTYPES[grad_accum_dtype]
     schedule_names: list[str] = []
     accum: dict = {}  # the gradient accumulator, kept between steps
@@ -158,13 +160,13 @@ def build_train_step(
         n_mb = n_microbatches
         grads_c = SpData(zero_grads(model), "grads")
         zero = torch.zeros((), dtype=torch.float32, device=model.device)
-        metrics_c = SpData({"loss": zero, "ce_loss": zero}, "metrics")
+        metrics_c = SpData(dict.fromkeys(metric_keys, zero), "metrics")
         params_c = SpData(model, "params")
         opt_c = SpData(state.opt, "opt")
         new_step_c = SpData(None, "new_step")
         mb_batch = {k: t.reshape((n_mb, t.shape[0] // n_mb) + tuple(t.shape[1:]))
                     for k, t in batch.items()}
-        leaves = param_leaves(n for n, _ in model.named_parameters())
+        leaves = param_leaves((n for n, _ in model.named_parameters()), layout)
 
         with SpRuntime(backend="staged", policy=schedule_policy) as rt:
             for i in range(n_mb):

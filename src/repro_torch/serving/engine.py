@@ -27,13 +27,17 @@ verify, a commit (``spec.py``).
 
 On the card the codelets launch the CUDA kernels (flash attention in
 prefill, decode attention in decode, rmsnorm in both; for an ssm model the
-ssd kernel in prefill and rmsnorm in both) from the engine's worker threads,
-each on its thread's current stream.  The KV cache (or the ssm state and
-conv caches) and the batch's last tokens live on the device and are updated
-**in place**; per step there is one device→host copy (the sampled tokens, in
-collect) and one host→device copy (the per-slot positions, in decode).  An
-ssm cache has no per-token rows to page (``cache_layout`` is None): a
-duplicate prompt or a preempted sequence is prefilled again.
+ssd kernel in prefill and rmsnorm in both; an MLA model decodes in latent
+space with torch ops; a hybrid runs flash and decode attention in its
+attention layers only) from the engine's worker threads, each on its
+thread's current stream.  The caches (one flat dict of leaves with the
+batch slot on axis 1: KV rows, MLA's latent rows, ssm / rec states, a
+hybrid's both) and the batch's last tokens live on the device and are
+updated **in place**; per step there is one device→host copy (the sampled
+tokens, in collect) and one host→device copy (the per-slot positions, in
+decode).  MLA's latent rows page like KV rows.  An ssm or hybrid cache has
+no per-token rows to page (``cache_layout`` is None): a duplicate prompt or
+a preempted sequence is prefilled again.
 
 Memory is managed by the paged KV cache (``kvcache.py``); admission control
 and backpressure live in ``scheduler.py``.

@@ -225,6 +225,28 @@ def test_ssd_kernel_matches_plain(cuda_device, dtype):
     assert ssd_ops.launches.count - before == 2
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_on_a_wrapped_ring(cuda_device, dtype):
+    """recurrentgemma-9b's decode: 8 slots on a ring of 2048 (its window),
+    one KV head of 256, positions that wrapped, did not, and sit on the
+    boundary; against the plain version and the model's own rule on the
+    CPU (``models.attention.decode_attention``)."""
+    from repro_torch.models.attention import decode_attention
+
+    tdt = DTYPES[dtype]
+    gen = torch.Generator(device=cuda_device).manual_seed(15)
+    B, S, H, KH, D = 8, 2048, 16, 1, 256
+    q = torch.randn(B, 1, H, D, generator=gen, device=cuda_device).to(tdt)
+    k = torch.randn(B, S, KH, D, generator=gen, device=cuda_device).to(tdt)
+    v = torch.randn(B, S, KH, D, generator=gen, device=cuda_device).to(tdt)
+    pos = torch.tensor([4127, 2079, 808, 131, 1031, 4095, 2047, 2048], dtype=torch.int32, device=cuda_device)
+    got = decode_ops.decode_attention(q, k, v, pos)
+    _close(got, decode_ops.decode_attention_ref(q, k, v, pos), dtype)
+    _close(got, decode_attention(q.cpu(), k.cpu(), v.cpu(), pos.cpu()), dtype)
+    assert torch.equal(decode_ops.decode_attention(q, k, v, pos), got)
+
+
 # (B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_offset): the tensor-core route
 # at every padded head dim (64: Dh 8 / 32 / 64; 128: Dh 80 / 96 / 128), GQA
 # and MQA, window, offset, non-causal, and ragged lengths around the 64-key
@@ -247,6 +269,10 @@ FLASH_BF16_CASES = [
     (1, 65, 700, 4, 1, 136, 136, True, None, 635),
     (2, 333, 65, 2, 2, 256, 128, False, None, 0),
     (1, 1, 777, 2, 2, 256, 256, True, None, 776),
+    # minicpm3-4b's MLA (Dk 96 != Dv 64, 40 heads); recurrentgemma-9b's
+    # local attention (16 heads of 256 on one KV head, a window)
+    (1, 300, 300, 40, 40, 96, 64, True, None, 0),
+    (1, 600, 600, 16, 1, 256, 256, True, 256, 0),
 ]
 
 
@@ -283,11 +309,11 @@ def test_flash_tensor_core_route_rejects_unaligned_heads(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [16, 37, 128, 768, 4096, 12288])
+@pytest.mark.parametrize("D", [16, 37, 128, 256, 768, 4096, 12288])
 def test_rmsnorm_kernel_matches_plain(cuda_device, dtype, D):
-    """Register path (16 / 128 / 768 / 4096), scalar path (37) and looped
-    path (12288) against the plain version, at decode and prefill row
-    counts."""
+    """Register path (16 / 128 / 256 / 768 / 4096), scalar path (37) and
+    looped path (12288) against the plain version, at decode and prefill
+    row counts."""
     tdt = DTYPES[dtype]
     gen = torch.Generator(device=cuda_device).manual_seed(4)
     for T in (1, 8, 333):
@@ -409,6 +435,9 @@ FLASH_BWD_CASES = [
     (1, 65, 777, 2, 1, 256, 256, True, None, 712),
     (1, 130, 130, 2, 2, 136, 136, False, None, 0),
     (1, 300, 300, 2, 2, 256, 64, True, None, 0),
+    # minicpm3-4b's MLA and recurrentgemma-9b's windowed MQA at 256
+    (1, 300, 300, 40, 40, 96, 64, True, None, 0),
+    (1, 600, 600, 16, 1, 256, 256, True, 256, 0),
 ]
 
 
@@ -715,3 +744,47 @@ def test_checkpoint_round_trip_on_the_card(cuda_device, tmp_path):
         assert b.device.type == "cuda" and a.dtype == b.dtype
         assert torch.equal(a.view(torch.int16) if a.element_size() == 2 else a.view(torch.int32),
                            b.view(torch.int16) if b.element_size() == 2 else b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "recurrentgemma-9b", "qwen3-moe-235b-a22b"])
+def test_other_families_on_the_card(cuda_device, arch):
+    """Reduced MLA, RG-LRU hybrid and MoE models in float32: prefill logits
+    and 20 decode steps (past the hybrid's window of 16) on the card
+    against the CPU port within 1e-4, then one staged train step's loss
+    and grad norm within 1e-4 relative; the kernels of each path ran."""
+    from repro_torch import models as tm
+    from repro_torch.configs import reduced_config
+    from repro_torch.runtime.serve import prime_cache
+    from repro_torch.runtime.train import build_train_step, init_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config(arch).replace(dtype="float32")
+    gpu = init_train_state(cfg, 0, device=cuda_device)
+    cpu = init_train_state(cfg, 0, device="cpu")
+    with torch.no_grad():
+        for p, q in zip(gpu.params.parameters(), cpu.params.parameters()):
+            q.copy_(p.cpu())
+    gen = torch.Generator(device=cuda_device).manual_seed(16)
+    tokens = torch.randint(0, cfg.vocab, (2, 21), generator=gen, device=cuda_device, dtype=torch.int32)
+    before = (flash_ops.launches.count, decode_ops.launches.count, rmsnorm_ops.launches.count)
+    with torch.no_grad():
+        lg, cg = tm.prefill(gpu.params, {"tokens": tokens}, cfg)
+        lc, cc = tm.prefill(cpu.params, {"tokens": tokens.cpu()}, cfg)
+        _close(lg, lc, "float32")
+        cg, cc = prime_cache(cfg, cg, 21, 48), prime_cache(cfg, cc, 21, 48)
+        tok = torch.argmax(lc[:, 0], dim=-1).to(torch.int32)[:, None]
+        for s in range(20):
+            lg, cg = tm.decode_step(gpu.params, tok.to(cuda_device), cg, 21 + s, cfg)
+            lc, cc = tm.decode_step(cpu.params, tok, cc, 21 + s, cfg)
+            _close(lg, lc, "float32")
+            tok = torch.argmax(lc[:, 0], dim=-1).to(torch.int32)[:, None]
+    ran = (flash_ops.launches.count - before[0], decode_ops.launches.count - before[1],
+           rmsnorm_ops.launches.count - before[2])
+    assert ran[0] > 0 and ran[2] > 0 and (ran[1] > 0) == (cfg.mla is None), ran
+    batch = {"tokens": tokens, "labels": tokens}
+    gpu, mg = build_train_step(cfg, n_microbatches=2)(gpu, batch)
+    cpu, mc = build_train_step(cfg, n_microbatches=2)(cpu, {k: v.cpu() for k, v in batch.items()})
+    for key in ("loss", "grad_norm"):
+        g, c = float(mg[key]), float(mc[key])
+        assert abs(g - c) <= 1e-4 * abs(c), (key, g, c)

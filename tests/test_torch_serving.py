@@ -186,3 +186,15 @@ def test_launch_serve_cpu_returns_dict():
                 "--requests", "3", "--slots", "2", "--gen", "4"])
     assert out["stats"]["prefills"] == 3 and out["tok_per_s"] > 0
     assert out["reject_reasons"] == {}
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "recurrentgemma-9b", "qwen3-moe-235b-a22b"])
+def test_launch_serve_other_families_cpu_returns_dict(arch):
+    """MLA (pageable latent rows), the RG-LRU hybrid (not pageable) and MoE
+    through the serve launcher on the CPU."""
+    from repro_torch.launch.serve import main
+
+    out = main(["--arch", arch, "--reduced", "--device", "cpu",
+                "--requests", "3", "--slots", "2", "--gen", "4"])
+    assert out["stats"]["prefills"] == 3 and out["tok_per_s"] > 0
+    assert out["stats"]["pageable"] == (arch != "recurrentgemma-9b")

@@ -462,6 +462,17 @@ def test_launcher_raises_without_a_card_or_for_unported_flags(tmp_path, capsys):
         launch_train.main(["--reduced", "--steps", "1"])
 
 
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "recurrentgemma-9b", "qwen3-moe-235b-a22b"])
+def test_launcher_other_families_on_cpu(arch):
+    """MLA, the RG-LRU hybrid and MoE through the train launcher on the CPU:
+    a few steps return finite losses and the final step."""
+    out = launch_train.main(["--arch", arch, "--reduced", "--device", "cpu",
+                             "--steps", "3", "--batch", "4", "--seq", "32",
+                             "--microbatches", "2", "--log-every", "0"])
+    assert out["final_step"] == 3 and len(out["losses"]) == 3
+    assert all(np.isfinite(out["losses"]))
+
+
 def test_launcher_mamba2_loss_decreases_on_cpu():
     """Reduced mamba2-130m (block kind ssm, chunks of 8) through the
     launcher on the CPU: 30 steps lower the loss by more than 0.5."""
