@@ -134,13 +134,43 @@ Phases (any failure raises and the script exits non-zero):
               time, the card's memory freed; (d) ``launch.train.main`` on
               mamba2-130m at full width with ``--fail-at 2:1
               --bench-out``: the one-device line, losses equal to a run
-              without the flag, the JSON, exact launch counts.
+              without the flag, the JSON, exact launch counts;
+15. pipeline — ``runtime.pipeline`` at deepseek-7b's full width: 4 stages
+              on 4 ``cuda`` worker threads, 4 microbatches of (1, 2048),
+              the head the final norm and the chunked cross-entropy over
+              the 102400 vocab, under 1F1B and FIFO: fp32 at 4 layers, then
+              bf16 at 16 (remat off: what fits beside 4 microbatches' held
+              activations); loss and every gradient against the port's
+              monolithic autograd on the same weights and batch (within
+              1e-5 / 2e-2 of each leaf's largest |gradient|), exact flash
+              and rmsnorm launch counts both ways; wall ms, the bubble
+              (``trace_metrics``), device busy share and peak memory;
+16. chaos   — ``dist.chaos`` with groups and payloads on the card, 3 seeds
+              x 20 iterations: ring all-reduce under link faults over a hub
+              and over 3 and 2 socket ranks (bit-exact every iteration),
+              a rank dying under the elastic loop, the serve engine
+              (reduced deepseek-7b) under deadlines, cancels and
+              preemptions (its invariants, exact flash / decode / rmsnorm
+              launches); injected fault counts and seconds;
+17. mesh    — ``launch.mesh`` / ``dist.sharding`` on ``torch.distributed``:
+              a one-rank NCCL group on the card runs the axis= collectives
+              and ``hierarchical_psum`` on a (1, 1) pod x data mesh (bit for
+              bit, timed) and two data-parallel train steps of reduced
+              deepseek-7b, bit for bit the off-mesh steps (exact launch
+              counts); gloo rank processes (CPU tensors) run the
+              collectives at 4 ranks on (2, 2) and the data-parallel step
+              at 2 and 4 ranks against one process (within 1e-6), and
+              record whether gloo takes CUDA tensors.  NCCL across cards
+              needs more than one card.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import functools
 import gc
 import json
 import re
@@ -1818,9 +1848,10 @@ def _moe_parity_step(cpu, gpu, cfg, batch: dict, n_mb: int, update, lr: float, t
     dev = next(gpu.params.parameters()).device
     grads_c, loss_c = _step_grads(cpu.params, cfg, {k: v.cpu() for k, v in batch.items()}, n_mb)
     grads_g, loss_g = _step_grads(gpu.params, cfg, batch, n_mb)
+    on_card = {n: t.to(dev) for n, t in grads_c.items()}  # the CPU's gradients, copied once
     worst, at = -1.0, None
     for n, t in grads_g.items():
-        w = grads_c[n].to(dev)
+        w = on_card[n]
         share = float((t - w).abs().max() / (1e-4 * w.abs().max() + 1e-12))
         if share > worst:
             worst, at = share, n
@@ -1828,7 +1859,7 @@ def _moe_parity_step(cpu, gpu, cfg, batch: dict, n_mb: int, update, lr: float, t
     mc = dict(loss=loss_c, grad_norm=float(global_norm(grads_c.values())))
     del grads_g, w
     cpu = _apply_update(cpu, grads_c, update, lr)
-    gpu = _apply_update(gpu, {n: t.to(dev) for n, t in grads_c.items()}, update, lr)
+    gpu = _apply_update(gpu, on_card, update, lr)
     log(f"[{tag}] step {int(gpu.step)}: the card's gradients within {worst:.3f} of the limit 1e-4·max|leaf| "
         f"(worst {at}); both optimizers updated from the CPU's gradients")
     assert worst <= 1.0, (worst, at)
@@ -1902,6 +1933,29 @@ def _parity_run(dev, cfg, *, tag: str, seq: int, steps: int = 2, n_mb: int = 2, 
     return dict(rel_err=worst, param_diff=dp, launches=launches)
 
 
+@contextlib.contextmanager
+def _host_memory_kept():
+    """While the block runs, glibc keeps the host memory that is freed (no
+    blocks of their own mapped for large allocations, no trimming), and
+    hands it back at the end.  The CPU side of a parity run allocates and
+    frees tensors of gigabytes at every op; on a fresh mapping each page
+    faults in first, which on the H100 machine's host made a 4 GiB
+    elementwise op ~5x slower and gemma-7b's two-step parity 97.3 s
+    against 50.1.  Afterwards the thresholds are where glibc's dynamic
+    rule tops out (mmap above 32 MiB, trim above twice that)."""
+    libc = ctypes.CDLL("libc.so.6")
+    m_trim_threshold, m_mmap_threshold, m_mmap_max = -1, -3, -4
+    libc.mallopt(m_mmap_max, 0)
+    libc.mallopt(m_trim_threshold, -1)
+    try:
+        yield libc
+    finally:
+        libc.mallopt(m_mmap_max, 65536)
+        libc.mallopt(m_mmap_threshold, 32 << 20)
+        libc.mallopt(m_trim_threshold, 64 << 20)
+        libc.malloc_trim(0)
+
+
 def train_parity_phase(dev) -> dict:
     """Full width, depth cut, float32, B = 2, two microbatches, two steps
     (``_parity_run``): deepseek-7b (2 layers, L = 256) with Adafactor and
@@ -1917,13 +1971,20 @@ def train_parity_phase(dev) -> dict:
     # head takes ~100 s at 256 tokens a sequence, recurrentgemma-9b's and
     # qwen3-moe's are as slow): those three run at 128.  Depths:
     # minicpm3-4b 2 MLA layers, recurrentgemma-9b one (rec, rec, attn)
-    # super-block, qwen3-moe one layer
-    for arch, opt, seq, n_layers in (("deepseek-7b", "adafactor", 256, 2), ("deepseek-7b", "adamw", 256, 2),
-                                     ("gemma-7b", "adafactor", 128, 2), ("minicpm3-4b", "adafactor", 256, 2),
-                                     ("recurrentgemma-9b", "adafactor", 128, 3),
-                                     ("qwen3-moe-235b-a22b", "adafactor", 128, 1)):
-        cfg = get_config(arch).replace(n_layers=n_layers, dtype="float32", logits_chunk=seq, optimizer=opt)
-        out[opt if arch == "deepseek-7b" else arch] = _parity_run(dev, cfg, tag="train-parity", seq=seq)
+    # super-block, qwen3-moe one layer.  Host memory is kept between ops
+    # within a run and handed back after it (qwen3-moe's CPU side holds
+    # ~68 GB of the host's 96 GiB then)
+    with _host_memory_kept() as libc:
+        for arch, opt, seq, n_layers in (("deepseek-7b", "adafactor", 256, 2), ("deepseek-7b", "adamw", 256, 2),
+                                         ("gemma-7b", "adafactor", 128, 2), ("minicpm3-4b", "adafactor", 256, 2),
+                                         ("recurrentgemma-9b", "adafactor", 128, 3),
+                                         ("qwen3-moe-235b-a22b", "adafactor", 128, 1)):
+            cfg = get_config(arch).replace(n_layers=n_layers, dtype="float32", logits_chunk=seq, optimizer=opt)
+            out[opt if arch == "deepseek-7b" else arch] = _parity_run(dev, cfg, tag="train-parity", seq=seq)
+            rss = next((line.split(":")[1].strip() for line in open("/proc/self/status")
+                        if line.startswith("VmRSS")), "unknown")
+            log(f"[train-parity] host memory held after {arch} {opt}: {rss}")
+            libc.malloc_trim(0)
     return out
 
 
@@ -2903,8 +2964,8 @@ def _comm_launcher(dev) -> dict:
 
 
 def comm_phase(dev) -> dict:
-    """14. Communication in the task graph at mamba2-130m's gradient size:
-    (a) in-process, (b) across processes, (c) rank death, (d) the launcher."""
+    """14. Communication in the task graph at mamba2-130m's gradient size: (a) in-process, (b) across processes, (c) rank death,
+    (d) the launcher."""
     gc.collect()
     torch.cuda.empty_cache()
     n = _comm_n()
@@ -2924,6 +2985,354 @@ def comm_phase(dev) -> dict:
         + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 15. pipeline parallelism: F / L / B tasks on worker threads of the card
+# ---------------------------------------------------------------------------
+
+PIPE_STAGES = 4
+PIPE_MB = 4  # microbatches of (1, PIPE_SEQ)
+PIPE_SEQ = 2048
+PIPE_LAYERS = 16  # of deepseek-7b's 30: what fits beside 4 microbatches' activations (remat off)
+PIPE_FP32_LAYERS = 4  # the fp32 parity's cut: one layer a stage
+PIPE_TOL = {"bfloat16": 2e-2, "float32": 1e-5}  # of each leaf's largest |gradient|
+
+
+def _pipeline_launches(n_layers: int) -> dict:
+    """One pipelined forward + backward of ``PIPE_MB`` microbatches (remat
+    off): per microbatch and layer a flash forward and backward and two
+    norms each way, plus the head's final norm each way."""
+    per = dict(flash_attention=n_layers, flash_attention_bwd=n_layers,
+               rmsnorm=2 * n_layers + 1, rmsnorm_bwd=2 * n_layers + 1)
+    return {k: PIPE_MB * per.get(k, 0) for k in _kernel_ops()}
+
+
+def _pipeline_reference(model, cfg, mbs) -> tuple:
+    """The port's monolithic autograd, microbatch by microbatch: the mean
+    loss and every parameter's gradient summed into float32."""
+    from repro_torch.models import loss_fn
+
+    names, params = zip(*model.named_parameters())
+    grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in params]
+    loss = torch.zeros((), dtype=torch.float32, device=params[0].device)
+    for mb in mbs:
+        lm, _ = loss_fn(model, mb, cfg)
+        for acc, g in zip(grads, torch.autograd.grad(lm / len(mbs), params)):
+            acc.add_(g)
+        loss += lm.detach().float() / len(mbs)
+    return loss, dict(zip(names, grads))
+
+
+def _pipeline_case(dev, dtype: str, n_layers: int, timed: bool) -> dict:
+    """deepseek-7b at full width, ``n_layers`` deep, as ``PIPE_STAGES``
+    stages on as many ``cuda`` workers; each schedule's loss and gradients
+    against the monolithic autograd (each leaf within PIPE_TOL of its
+    largest |gradient|), exact launch counts; with ``timed`` a second run
+    timed (wall, peak memory, the bubble from ``trace_metrics``) and a
+    third profiled (device busy share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import SpComputeEngine, SpWorkerTeam, trace_metrics
+    from repro_torch.models import init_params, set_trainable
+    from repro_torch.runtime.pipeline import model_stages, named_grads, pipeline_value_and_grad
+
+    cfg = get_config("deepseek-7b").replace(n_layers=n_layers, dtype=dtype, remat="none")
+    model = set_trainable(init_params(cfg, 0, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab, (PIPE_MB, PIPE_SEQ + 1), generator=gen, device=dev, dtype=torch.int32)
+    assert 0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab, "token ids out of range"
+    mbs = [{"x": tokens[m:m + 1, :-1], "tokens": tokens[m:m + 1, :-1], "labels": tokens[m:m + 1, 1:]}
+           for m in range(PIPE_MB)]
+    ref_loss, ref = _pipeline_reference(model, cfg, mbs)
+    stage_fns, stage_params, head_fn, head_params = model_stages(model, cfg, PIPE_STAGES)
+    tol = PIPE_TOL[dtype]
+    ops = _kernel_ops()
+    want = _pipeline_launches(n_layers)
+    eng = SpComputeEngine(SpWorkerTeam(["cuda"] * PIPE_STAGES))
+    out = {"launches": dict.fromkeys(ops, 0), "layers": n_layers, "dtype": dtype,
+           "resident_bytes": torch.cuda.memory_allocated()}  # the weights and the reference's gradients
+
+    def run(schedule):
+        return pipeline_value_and_grad(stage_fns, head_fn, stage_params, head_params, mbs, eng,
+                                       schedule=schedule)
+
+    try:
+        for schedule in ("1f1b", "fifo"):
+            # ---- the main path: counts from 0 just before, read just after ----
+            for c in ops.values():
+                c.reset()
+            loss, g_stages, g_head, tg = run(schedule)
+            torch.cuda.synchronize()
+            launches = {k: c.count for k, c in ops.items()}
+            # -------------------------------------------------------------------
+            got = named_grads(g_stages, g_head, n_layers)
+            assert set(got) == set(ref), sorted(set(got) ^ set(ref))
+            worst = max(float((got[n] - r).abs().max() / r.abs().max().clamp_min(1e-30)) for n, r in ref.items())
+            loss_err = abs(float(loss) - float(ref_loss))
+            assert torch.isfinite(loss) and loss_err <= tol * abs(float(ref_loss)), (float(loss), float(ref_loss))
+            assert worst <= tol, f"{schedule}: a gradient is {worst:.3e} of its leaf's max from the monolithic one"
+            assert launches == want, f"{schedule}: launches {launches}, expected {want}"
+            for k, v in launches.items():
+                out["launches"][k] += v
+            rec = dict(loss=float(loss), ref_loss=float(ref_loss), worst_share=worst, launches=launches)
+            del g_stages, g_head, got
+            if timed:
+                tg = None
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                _, gs, gh, tg = run(schedule)
+                torch.cuda.synchronize()
+                rec["wall_ms"] = (time.perf_counter() - t0) * 1e3
+                rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+                m = trace_metrics(tg)
+                rec["bubble"] = 1.0 - m["utilization"]
+                rec["span_ms"] = m["span_s"] * 1e3
+                del gs, gh, tg
+                gc.collect()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    _, gs, gh, _ = run(schedule)
+                    torch.cuda.synchronize()
+                    prof_ms = (time.perf_counter() - t0) * 1e3
+                del gs, gh
+                rec["device"] = _device_rows(prof, prof_ms, 1)
+            out[schedule] = rec
+            log(f"[pipeline] deepseek-7b {n_layers} layers {dtype}, {PIPE_STAGES} stages x {PIPE_MB} microbatches "
+                f"of (1, {PIPE_SEQ}), {schedule}: loss {float(loss):.6f} (monolithic {float(ref_loss):.6f}), "
+                f"worst gradient {worst:.3e} of its leaf's max (limit {tol}); launches {launches}"
+                + (f"; wall {rec['wall_ms']:.1f} ms, bubble {rec['bubble']:.3f} (host-side task spans, "
+                   f"{rec['span_ms']:.1f} ms), device busy {rec['device']['busy']:.3f} "
+                   f"({rec['device']['device_ms']:.1f} ms in {rec['device']['profiled_wall_ms']:.1f} ms profiled), "
+                   f"peak {rec['peak_bytes'] / 2**30:.2f} GiB (weights and the reference's gradients "
+                   f"{out['resident_bytes'] / 2**30:.2f} GiB); device time by kind "
+                   + ", ".join(f"{k} {v:.1f} ms" for k, v in rec["device"]["kinds"]) if timed else ""))
+    finally:
+        eng.stop()
+    del model, ref, stage_params, head_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipeline_phase(dev) -> dict:
+    """15. ``runtime.pipeline`` on the card: deepseek-7b at full width as 4
+    stages on 4 ``cuda`` worker threads, 4 microbatches of (1, 2048), under
+    1F1B and FIFO; fp32 at a cut depth first, then bf16 at PIPE_LAYERS."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    f32 = _pipeline_case(dev, "float32", PIPE_FP32_LAYERS, timed=False)
+    bf16 = _pipeline_case(dev, "bfloat16", PIPE_LAYERS, timed=True)
+    launches = {k: f32["launches"][k] + bf16["launches"][k] for k in f32["launches"]}
+    return dict(fp32=f32, bf16=bf16, launches=launches, seconds=time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
+# 16. chaos soak on the card
+# ---------------------------------------------------------------------------
+
+CHAOS_SEEDS = 3
+CHAOS_ITERS = 20
+
+
+def chaos_phase(dev) -> dict:
+    """16. ``dist.chaos`` with every group and payload on the card: ring
+    all-reduce under link faults over a hub and over 3 and 2 socket ranks
+    (bit-exact each iteration), a rank dying under the elastic loop, and
+    the serve engine (reduced deepseek-7b) under deadlines, cancels and
+    preemptions, its flash / decode / rmsnorm launches exact (counted over
+    the serve runs)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.dist import chaos
+
+    out = {"launches": dict.fromkeys(_kernel_ops(), 0)}
+    t_all = time.perf_counter()
+    runs = [("collectives", chaos.chaos_collectives, {}), ("collectives_p2p", chaos.chaos_collectives_p2p, {}),
+            ("collectives_p2p", chaos.chaos_collectives_p2p, {"size": 2}), ("elastic", chaos.chaos_elastic, {}),
+            ("serve", chaos.chaos_serve, {})]
+    ops = _kernel_ops()
+    cfg = reduced_config("deepseek-7b")
+    for name, fn, kw in runs:
+        for seed in range(CHAOS_SEEDS):
+            if name == "serve":
+                # ---- the main path: counts from 0 just before, read just after ----
+                for c in ops.values():
+                    c.reset()
+            t0 = time.perf_counter()
+            stats = fn(seed, CHAOS_ITERS, device=COMM_DEVICE, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if name == "serve":
+                launches = {k: c.count for k, c in ops.items()}
+                # -------------------------------------------------------------------
+                want = _serve_launches(cfg, prefills=stats["prefills"], decode_steps=stats["decode_steps"])
+                assert launches == want, f"chaos serve seed {seed}: launches {launches}, expected {want}"
+                assert stats["requests"] == stats["completed"] + stats["deadline_shed"] + stats["shed"] \
+                    + stats["cancels"] + stats["cancelled_q"], stats
+                assert all(launches[k] > 0 for k in ("flash_attention", "decode_attention", "rmsnorm")), launches
+                for k, v in launches.items():
+                    out["launches"][k] += v
+            key = f"{name}{kw.get('size', '')}/seed{seed}"
+            out[key] = dict(stats, seconds=dt)
+            log(f"[chaos] {name}{' size ' + str(kw['size']) if kw else ''} seed {seed}, {CHAOS_ITERS} iterations "
+                f"on the card: {dt:.2f} s; {stats}")
+    out["seconds"] = time.perf_counter() - t_all
+    log(f"[chaos] {CHAOS_SEEDS} seeds x {CHAOS_ITERS} iterations of every scenario on the card passed in "
+        f"{out['seconds']:.1f} s; serve launches {out['launches']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 17. the device mesh: axis= collectives, hierarchical_psum, data parallel
+# ---------------------------------------------------------------------------
+
+MESH_N = 1 << 24  # float32 elements a collective
+
+
+def _mesh_gloo_rank(n: int) -> dict:
+    """One rank of a (2, 2) pod × data gloo mesh (CPU tensors): the axis=
+    collectives and hierarchical_psum against the flat sums, bit for bit;
+    whether gloo takes CUDA tensors for all_reduce and reduce_scatter here
+    (recorded, not required); then the data-parallel train steps
+    (``launch.mesh.dp_train``)."""
+    from repro_torch.launch.mesh import dp_train
+
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist.sharding import current_mesh
+
+    mesh = current_mesh()
+    rank = dist.get_rank()
+    xs = [(torch.arange(n, dtype=torch.float32) % 13.0) + 7.0 * (r + 1) for r in range(4)]
+    x = xs[rank]
+    pod, data = mesh.get_local_rank("pod"), mesh.get_local_rank("data")
+    same_pod = [r for r in range(4) if r // 2 == pod]
+    checks = {
+        "sum data": (coll.all_reduce(x, axis="data"), sum(xs[r] for r in same_pod)),
+        "mean pod x data": (coll.all_reduce(x, axis=("pod", "data"), op="mean"), sum(xs) / 4),
+        "gather data": (coll.all_gather(x, axis="data"), torch.stack([xs[r] for r in same_pod])),
+        "hierarchical": (coll.hierarchical_psum(x), sum(xs)),
+    }
+    bad = [k for k, (got, want) in checks.items() if not torch.equal(got, want)]
+    cuda = {}
+    for what in ("all_reduce", "reduce_scatter"):
+        try:
+            t = torch.ones(8, device="cuda") * (rank + 1)
+            if what == "all_reduce":
+                dist.all_reduce(t)
+                cuda[what] = bool(torch.equal(t.cpu(), torch.full((8,), 10.0)))
+            else:
+                piece = torch.empty(2, device="cuda")
+                dist.reduce_scatter_tensor(piece, t)
+                cuda[what] = bool(torch.equal(piece.cpu(), torch.full((2,), 10.0)))
+        except Exception as e:  # recorded: the probe asks what this build's gloo takes
+            cuda[what] = f"refused: {type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    return {"bad": bad, "cuda": cuda, "dp": dp_train("cpu")}
+
+
+def _mesh_nccl(dev) -> dict:
+    """A one-rank NCCL group on the card: the axis= collectives and
+    hierarchical_psum on a (1, 1) pod × data mesh (each the input, bit for
+    bit, timed), then ``launch.mesh.DP_STEPS`` data-parallel train steps of reduced
+    deepseek-7b on that mesh, bit for bit the off-mesh steps, launch counts
+    exact."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.launch.mesh import DP_STEPS, dp_train, free_port, init_group
+
+    out = {}
+    x = (torch.arange(MESH_N, device=dev, dtype=torch.float32) % 251.0) + 3.0
+    off = dp_train(dev)  # one process, off-mesh
+    ops = _kernel_ops()
+    init_group(0, 1, free_port(), "nccl")
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("pod", "data"))
+        with use_mesh(mesh):
+            for name, fn, want in (("all_reduce sum", lambda: coll.all_reduce(x, axis="data"), x),
+                                   ("all_reduce mean", lambda: coll.all_reduce(x, axis=("pod", "data"), op="mean"), x),
+                                   ("all_gather", lambda: coll.all_gather(x, axis="pod"), x[None]),
+                                   ("hierarchical_psum", lambda: coll.hierarchical_psum(x), x)):
+                got = fn()
+                assert got.device == x.device and torch.equal(got, want), name
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    fn()
+                torch.cuda.synchronize()
+                out[name] = (time.perf_counter() - t0) / 5 * 1e3
+            # ---- the main path: counts from 0 just before, read just after ----
+            for c in ops.values():
+                c.reset()
+            t0 = time.perf_counter()
+            on = dp_train(dev)
+            torch.cuda.synchronize()
+            on_s = time.perf_counter() - t0
+            launches = {k: c.count for k, c in ops.items()}
+            # -------------------------------------------------------------------
+    finally:
+        dist.destroy_process_group()
+    want = {k: v * DP_STEPS for k, v in _train_launches_per_step(reduced_config("deepseek-7b"), 1).items()}
+    assert launches == want, f"mesh train steps: launches {launches}, expected {want}"
+    assert on["losses"] == off["losses"] and on["grad_norms"] == off["grad_norms"], \
+        (on["losses"], off["losses"], on["grad_norms"], off["grad_norms"])
+    same = all(np.array_equal(on["params"][n], p) for n, p in off["params"].items())
+    assert same, "the one-rank mesh step differs from the off-mesh step"
+    log(f"[mesh] one-rank NCCL group, (1, 1) pod x data mesh on the card: {MESH_N} float32 a call, each "
+        "collective bit for bit its input; ms a call " + ", ".join(f"{k} {v:.3f}" for k, v in out.items())
+        + f"; {DP_STEPS} data-parallel train steps of reduced deepseek-7b bit for bit the off-mesh steps "
+        f"(losses {on['losses']}), {on_s:.2f} s with the first-call set-up; launches {launches}")
+    return dict(collective_ms=out, losses=on["losses"], launches=launches)
+
+
+def mesh_phase(dev) -> dict:
+    """17. The device mesh: (a) a one-rank NCCL group on the card; (b) gloo
+    rank processes (CPU tensors) — the axis= collectives and
+    hierarchical_psum at 4 ranks on a (2, 2) pod × data mesh, the
+    data-parallel step at 2 (data) and 4 (pod × data) ranks against one
+    process's step (within 1e-6), and whether gloo takes CUDA tensors.
+    Multi-card NCCL needs more than this machine's one card."""
+    from repro_torch.launch import mesh as launch_mesh
+
+    t_all = time.perf_counter()
+    out = {"nccl": _mesh_nccl(dev)}
+    one = launch_mesh.dp_train("cpu")
+    for size, shape, axes in ((4, (2, 2), ("pod", "data")), (2, (2,), ("data",))):
+        t0 = time.perf_counter()
+        if size == 4:
+            res = launch_mesh.spawn_mesh(_mesh_gloo_rank, 4, shape, axes, 1001, timeout=300.0)
+            assert all(not r["bad"] for r in res), [r["bad"] for r in res]
+            out["gloo_cuda"] = res[0]["cuda"]
+            log(f"[mesh] 4 gloo processes, (2, 2) pod x data: the axis= collectives and hierarchical_psum bit "
+                f"for bit the flat sums; gloo with CUDA tensors: {res[0]['cuda']}")
+            ranks = [r["dp"] for r in res]
+        else:
+            ranks = launch_mesh.spawn_mesh(functools.partial(launch_mesh.dp_train, "cpu"), size, shape, axes,
+                                           timeout=300.0)
+        dt = time.perf_counter() - t0
+        worst = max(float(np.abs(r["params"][n] - p).max()) for r in ranks for n, p in one["params"].items())
+        agree = all(np.array_equal(r["params"][n], ranks[0]["params"][n]) for r in ranks for n in one["params"])
+        # the optimizer and the clip do not see a constant gradient scale: the
+        # grad norms show that the ranks' gradients were averaged, not summed
+        gn = max(abs(g - w) / w for r in ranks for g, w in zip(r["grad_norms"], one["grad_norms"]))
+        assert worst <= 1e-6 and agree and gn <= 1e-6, (size, worst, agree, gn)
+        out[f"dp{size}"] = dict(worst=worst, grad_norm_rel=gn, seconds=dt)
+        log(f"[mesh] {size} gloo processes {dict(zip(axes, shape))}: {launch_mesh.DP_STEPS} data-parallel steps "
+            f"of reduced deepseek-7b (fp32, CPU), every rank's parameters equal, {worst:.3e} from one process's step, "
+            f"grad norms {ranks[0]['grad_norms']} ({gn:.3e} relative from one process's {one['grad_norms']}); "
+            f"{dt:.1f} s with start-up")
+    out["launches"] = out["nccl"]["launches"]
+    out["seconds"] = time.perf_counter() - t_all
     return out
 
 
@@ -2994,8 +3403,13 @@ def main() -> int:
     del model
     ckpt = phase("ckpt", ckpt_phase, dev)
     comm = phase("comm", comm_phase, dev)
-    # launches on every path: serving and train (every model), speculation, load, checkpoint, the launcher
-    runs = (serve, serve_m, serve_g, serve_c, serve_r, serve_q, *trains.values(), train_m2, spec, load, ckpt, comm)
+    pipe = phase("pipeline", pipeline_phase, dev)
+    chaos = phase("chaos", chaos_phase, dev)
+    mesh = phase("mesh", mesh_phase, dev)
+    # launches on every path: serving and train (every model), speculation, load, checkpoint, the launcher,
+    # the pipeline, the chaos soak's serve runs and the mesh's train steps
+    runs = (serve, serve_m, serve_g, serve_c, serve_r, serve_q, *trains.values(), train_m2, spec, load, ckpt, comm,
+            pipe, chaos, mesh)
     for r in records:
         r["launches"] = sum(run["launches"][r["name"]] for run in runs)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -3018,7 +3432,10 @@ def main() -> int:
         f"({train_m2['tokens_per_s']:.1f} tokens/s), examples {examples['seconds']:.1f} s, "
         f"self-draft accept rate {spec['self draft']['accept_rate']:.3f}, "
         f"load checksum {load['continuous']['output_checksum']}, checkpoint {ckpt['bytes']} bytes, "
-        f"comm phase {comm['seconds']:.1f} s, "
+        f"comm phase {comm['seconds']:.1f} s, pipeline {PIPE_LAYERS} layers 1f1b / fifo "
+        f"{pipe['bf16']['1f1b']['wall_ms']:.1f} / {pipe['bf16']['fifo']['wall_ms']:.1f} ms (bubble "
+        f"{pipe['bf16']['1f1b']['bubble']:.3f} / {pipe['bf16']['fifo']['bubble']:.3f}), chaos {chaos['seconds']:.1f} s, "
+        f"mesh {mesh['seconds']:.1f} s, "
         f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

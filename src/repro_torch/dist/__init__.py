@@ -1,6 +1,11 @@
-"""Distributed pieces of the port: communication folded into the task graph
-(paper §4.4).
+"""The port's distributed layer: sharding, collectives, fault tolerance and
+the chaos soak — communication folded into the task graph (paper §4.4).
 
+* :mod:`repro_torch.dist.sharding` — mesh context (:func:`use_mesh` /
+  :func:`current_mesh`) and logical-axis sharding rules
+  (:func:`default_rules`, :func:`safe_spec`, :func:`named_sharding`,
+  :func:`shard`) on ``torch.distributed``'s ``DeviceMesh``; off-mesh every
+  helper is the identity.
 * :mod:`repro_torch.dist.collectives` — ring :func:`ring_all_reduce` /
   :func:`ring_all_gather` and :func:`hierarchical_all_reduce` built from
   ``mpi_send`` / ``mpi_recv`` communication tasks over any
@@ -8,15 +13,29 @@
   :class:`~repro_torch.core.ChannelHub`, the cross-process
   :class:`~repro_torch.core.SocketTransport`), on torch tensors that may
   live on the card; gradient compression (:func:`compress_int8` /
-  :func:`compress_tree` with error-feedback residuals).
+  :func:`compress_tree` with error-feedback residuals); on a mesh, the
+  ``axis=`` spelling of :func:`all_reduce` / :func:`all_gather` and the
+  pod-aware :func:`hierarchical_psum` run ``torch.distributed`` collectives
+  on the mesh axes' process groups (NCCL on cards, gloo on the CPU).
 * :mod:`repro_torch.dist.fault` — duplicated tasks, failure injection
   (:class:`FaultyTransport`), bounded retry (:class:`RetryingTransport`),
   :class:`FailureSimulator` and :func:`remesh_plan`.
+* :mod:`repro_torch.dist.chaos` — the seeded chaos soak over the three
+  recovery surfaces (:func:`chaos_collectives`, :func:`chaos_elastic`,
+  :func:`chaos_serve`; ``python -m repro_torch.dist.chaos``).
 
 ``launch/rendezvous.py`` spawns one OS process per rank over the socket
-transport.  Still to port (ROADMAP.md, Queue 1 item 5): ``dist/chaos.py``,
-``dist/sharding.py`` and the ``axis=`` collectives on a device mesh.
+transport; ``launch/mesh.py`` builds device meshes over an initialised
+process group.
 """
+from .sharding import (
+    current_mesh,
+    default_rules,
+    named_sharding,
+    safe_spec,
+    shard,
+    use_mesh,
+)
 from .collectives import (
     all_gather,
     all_reduce,
@@ -30,6 +49,7 @@ from .collectives import (
     ring_all_gather,
     ring_all_reduce,
 )
+from .chaos import chaos_collectives, chaos_elastic, chaos_serve
 from .fault import (
     CancelToken,
     FailureSimulator,
@@ -41,9 +61,11 @@ from .fault import (
 )
 
 __all__ = [
-    "all_gather", "all_reduce", "compress_int8", "compress_tree",
+    "current_mesh", "default_rules", "named_sharding", "safe_spec", "shard",
+    "use_mesh", "all_gather", "all_reduce", "compress_int8", "compress_tree",
     "decompress_int8", "hierarchical_all_reduce", "hierarchical_psum",
     "init_residuals", "int8_scale", "ring_all_gather", "ring_all_reduce",
     "CancelToken", "FailureSimulator", "FaultyTransport", "RetryingTransport",
     "RemeshPlan", "remesh_plan", "run_duplicated",
+    "chaos_collectives", "chaos_elastic", "chaos_serve",
 ]

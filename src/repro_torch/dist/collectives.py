@@ -18,10 +18,14 @@ port's copy of ``repro.dist.collectives``, on torch tensors.
   (``torch.tensor_split`` of the flat tensor), so the sums' order — and
   with it every bit — matches ``repro``'s.
 
-* **Staged** — the ``axis=`` spelling (``jax.lax`` collectives inside
-  ``shard_map`` in ``repro``) and :func:`hierarchical_psum` need a device
-  mesh on ``torch.distributed``; they raise ``NotImplementedError`` until
-  then (ROADMAP.md, Queue 1 item 5).
+* **Mesh** — the ``axis=`` spelling (``jax.lax`` collectives inside
+  ``shard_map`` in ``repro``) runs ``torch.distributed`` collectives on the
+  process group of one axis of the active mesh (``dist.sharding.use_mesh``;
+  NCCL on cards, gloo on the CPU); :func:`hierarchical_psum` is the
+  pod-aware three-stage variant (intra-pod reduce-scatter → inter-pod
+  all-reduce on the scattered shards → intra-pod all-gather) that keeps the
+  slow inter-pod links moving ``1/inner`` of the bytes.  Like ``jax.lax``'s,
+  they return new tensors and leave their input as it was.
 
 Gradient compression (:func:`compress_int8` … :func:`compress_tree`):
 symmetric per-tensor int8 with error-feedback residuals.  Trees are dicts
@@ -42,12 +46,7 @@ from repro_torch.core.api import sp_task
 from repro_torch.core.comm import SpCommGroup, mpi_recv, mpi_send
 from repro_torch.core.graph import SpTaskGraph
 from repro_torch.core.task import TaskView
-
-_STAGED = (
-    "the axis= (staged, inside a device mesh) collectives wait for a mesh on "
-    "torch.distributed (ROADMAP.md, Queue 1 item 5); use graph= and group="
-)
-
+from repro_torch.dist.sharding import current_mesh
 
 # ---------------------------------------------------------------------------
 # Ring collectives over a transport (eager task-graph substrate).
@@ -324,6 +323,57 @@ def hierarchical_all_reduce(
 
 
 # ---------------------------------------------------------------------------
+# Mesh collectives (torch.distributed on the active mesh's axis groups).
+# ---------------------------------------------------------------------------
+
+def _axis_group(axis: str):
+    mesh = current_mesh()
+    if mesh is None:
+        raise ValueError(
+            f"axis={axis!r} needs an active mesh: wrap the call in `with use_mesh(mesh):`"
+        )
+    return mesh.get_group(axis)
+
+
+def mesh_psum_(x: torch.Tensor, axes) -> int:
+    """Sum ``x`` in place over the mesh axes ``axes`` (a name or a tuple of
+    names, reduced one after another); → the number of ranks summed."""
+    import torch.distributed as dist
+
+    n = 1
+    for a in (axes,) if isinstance(axes, str) else axes:
+        group = _axis_group(a)
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+        n *= dist.get_world_size(group)
+    return n
+
+
+def hierarchical_psum(x: torch.Tensor, *, pod_axis: str = "pod", inner_axis: str = "data"):
+    """Pod-aware psum: reduce-scatter over ``inner_axis``, all-reduce the
+    scattered shards over ``pod_axis``, all-gather over ``inner_axis``.
+
+    Equal to the sum over both axes, but the slow inter-pod hop carries
+    ``1/inner`` of the bytes.  Needs an active mesh with both axes;
+    :func:`hierarchical_all_reduce` is its task-graph counterpart."""
+    import torch.distributed as dist
+
+    inner_g, pod_g = _axis_group(inner_axis), _axis_group(pod_axis)
+    inner = dist.get_world_size(inner_g)
+    n = x.numel()
+    flat = x.reshape(-1)
+    pad = (-n) % inner
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    flat = flat.contiguous()
+    piece = flat.new_empty(flat.numel() // inner)
+    dist.reduce_scatter_tensor(piece, flat, op=dist.ReduceOp.SUM, group=inner_g)
+    dist.all_reduce(piece, op=dist.ReduceOp.SUM, group=pod_g)
+    full = torch.empty_like(flat)
+    dist.all_gather_into_tensor(full, piece, group=inner_g)
+    return full[:n].reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
 # Substrate-dispatching spellings.
 # ---------------------------------------------------------------------------
 
@@ -337,15 +387,20 @@ def all_reduce(
     tag: int = 0,
 ):
     """Substrate-dispatching all-reduce: with (graph, group) → the ring
-    over the group's transport; ``axis`` (a mesh axis) raises until the
-    port has a device mesh."""
+    over the group's transport; with ``axis`` (a mesh axis name, or a tuple
+    of them) → ``torch.distributed`` on the active mesh: the sum, or the
+    mean as ``jax.lax.pmean`` gives it."""
     if graph is not None:
         if group is None:
             raise ValueError("hub all_reduce needs both graph and group")
         return ring_all_reduce(graph, group, x, op=op, tag=tag)
     if axis is None:
-        raise ValueError("all_reduce needs graph= and group=")
-    raise NotImplementedError(_STAGED)
+        raise ValueError("all_reduce needs graph= and group=, or axis=<mesh axis name>")
+    if op not in ("sum", "mean"):
+        raise ValueError(f"unsupported op {op!r}; use 'sum' or 'mean'")
+    y = x.clone()
+    n = mesh_psum_(y, axis)
+    return y.div_(n) if op == "mean" else y
 
 
 def all_gather(
@@ -356,21 +411,22 @@ def all_gather(
     group: Optional[SpCommGroup] = None,
     tag: int = 0,
 ):
-    """Substrate-dispatching all-gather (see :func:`all_reduce`)."""
+    """Substrate-dispatching all-gather (see :func:`all_reduce`); on a mesh
+    axis every rank's ``x`` stacked on a new leading axis, in the axis's
+    rank order, as untiled ``jax.lax.all_gather``."""
     if graph is not None:
         if group is None:
             raise ValueError("hub all_gather needs both graph and group")
         return ring_all_gather(graph, group, x, tag=tag)
     if axis is None:
-        raise ValueError("all_gather needs graph= and group=")
-    raise NotImplementedError(_STAGED)
+        raise ValueError("all_gather needs graph= and group=, or axis=<mesh axis name>")
+    import torch.distributed as dist
 
-
-def hierarchical_psum(x, *, pod_axis: str = "pod", inner_axis: str = "data"):
-    """The pod-aware psum of the staged substrate: waits for a device mesh
-    on ``torch.distributed``.  :func:`hierarchical_all_reduce` is its
-    task-graph counterpart."""
-    raise NotImplementedError(_STAGED)
+    g = _axis_group(axis)
+    n = dist.get_world_size(g)
+    out = x.new_empty(n * x.numel())
+    dist.all_gather_into_tensor(out, x.contiguous().reshape(-1), group=g)
+    return out.reshape((n,) + tuple(x.shape))
 
 
 # ---------------------------------------------------------------------------

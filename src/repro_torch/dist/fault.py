@@ -64,9 +64,10 @@ Fault tolerance & recovery
     re-runnable given its step index, tags collectives with
     ``(rt.epoch, step)``, and contains **no failure handling**.
 
-  The port trains on one card, so its launcher's re-mesh is the
-  one-device case (``launch/train.py``); the re-mesh over several cards
-  and the chaos soak (``dist/chaos.py``) wait (ROADMAP.md, Queue 1 item 5).
+  The port's launcher trains on one card, so its re-mesh is the
+  one-device case (``launch/train.py``); ``dist/chaos.py`` soaks this
+  runtime with in-process ranks, and the re-mesh of sharded state over
+  several cards waits (ROADMAP.md, Queue 1 item 5.5).
 """
 from __future__ import annotations
 

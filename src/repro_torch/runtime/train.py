@@ -26,19 +26,37 @@ What differs from ``repro``:
   place** (``repro`` returns new trees and donates the old ones), so the
   returned :class:`TrainState` holds the same module and tensors with a new
   step counter;
-* there are no sharding or donation arguments: the step runs on one card.
-  Data-parallel ranks can reduce gradients with ``dist.collectives``'
-  ring all-reduce over the comm layer (``core/comm.py``); sharded state on
-  a device mesh waits for ROADMAP.md, Queue 1 item 5.
+* there are no sharding or donation arguments.  Built inside
+  ``dist.sharding.use_mesh(mesh)`` (a ``torch.distributed`` device mesh,
+  one rank a process), the step is **data-parallel**: every rank is given
+  the same global batch and computes on its own rows of it along the
+  batch's mesh axes (``pod`` × ``data`` where they divide it, as
+  ``safe_spec`` decides), and ``grad_finalize`` averages the gradients
+  across those ranks before the optimizer (``all_reduce(axis=…)``'s mean,
+  or ``hierarchical_psum`` over the rank count with a ``pod`` axis), so
+  every rank ends the step with the same parameters; the metrics are
+  means over the ranks too.  Parameters and optimizer state stay whole on
+  every rank: a ``model`` axis larger than 1 (sharded state) raises,
+  naming ROADMAP.md, Queue 1 item 5.5.  Off-mesh the step runs on one
+  card as before.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import torch
 
 from repro_torch.core import SpData, SpRuntime, sp_task
-from repro_torch.dist.collectives import compress_int8, decompress_int8, int8_scale
+from repro_torch.dist.collectives import (
+    all_reduce,
+    compress_int8,
+    decompress_int8,
+    hierarchical_psum,
+    int8_scale,
+    mesh_psum_,
+)
+from repro_torch.dist.sharding import current_mesh, mesh_shape, safe_spec, use_mesh
 from repro_torch.models import init_params, leaf_layout, loss_fn, set_trainable
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.param import DTYPES
@@ -66,16 +84,31 @@ def _microbatch_codelet(params, mb, grads, metrics, *, cfg):
     return loss.detach()
 
 
+def _rank_mean_(t: torch.Tensor, axes: tuple) -> None:
+    """Replace ``t`` by its mean over the ranks of the mesh axes ``axes``:
+    over ``pod`` and ``data`` the pod-aware ``hierarchical_psum`` over their
+    rank count, else an in-place sum over the axes over the rank count."""
+    if len(axes) == 2 and axes[0] == "pod":
+        sizes = mesh_shape(current_mesh())
+        t.copy_(hierarchical_psum(t, pod_axis="pod", inner_axis=axes[1])).div_(sizes["pod"] * sizes[axes[1]])
+    else:
+        t.div_(mesh_psum_(t, axes))
+
+
 @sp_task(write=("grads",), name="grad_allreduce", cost=3.0, comm=True)
-def _grad_finalize_codelet(grads, *, n_mb, compress, leaves):
-    """Mean + (optional) int8 quantize-dequantize, in place.  Each of
-    ``repro``'s leaves (a layer parameter stacked over the layers) is
-    quantized with one scale, as ``repro``'s ``compress_tree`` does; the
-    error-feedback residuals are zero inside one step, as there."""
+def _grad_finalize_codelet(grads, *, n_mb, compress, leaves, dp_axes):
+    """Mean over the microbatches, then over the data-parallel ranks of
+    the mesh axes ``dp_axes`` (none off-mesh), + (optional) int8
+    quantize-dequantize, in place.  Each of ``repro``'s leaves (a layer
+    parameter stacked over the layers) is quantized with one scale, as
+    ``repro``'s ``compress_tree`` does; the error-feedback residuals are
+    zero inside one step, as there."""
     g = grads.value
     with torch.no_grad():
         for t in g.values():
             t.div_(n_mb)
+            if dp_axes:
+                _rank_mean_(t, dp_axes)
         if compress:
             for leaf in leaves:
                 parts = [g[n] for n in leaf.names]
@@ -134,7 +167,17 @@ def build_train_step(
     and for a MoE model ``loss_fn``'s "moe_balance" / "moe_zloss" (each the
     mean over the microbatches, as the losses are).
     ``batch`` holds ``tokens`` and ``labels`` (B, L) on the model's device;
-    B must divide into ``n_microbatches``."""
+    B must divide into ``n_microbatches``.  Built inside ``use_mesh(mesh)``
+    the step is data-parallel over the mesh (module docstring): B must
+    then divide into the ranks of the batch's mesh axes × ``n_microbatches``
+    (axes that do not divide it are dropped, as ``safe_spec`` drops them)."""
+    mesh = current_mesh()
+    if mesh is not None and mesh_shape(mesh).get("model", 1) > 1:
+        raise NotImplementedError(
+            f"a mesh with a 'model' axis of {mesh_shape(mesh)['model']} needs sharded parameters "
+            "and optimizer state (ROADMAP.md, Queue 1 item 5.5); the port's data-parallel step "
+            "keeps them whole on every rank: use a model axis of 1"
+        )
     lr_schedule = lr_schedule or (
         lambda step: torch.tensor(3e-4, dtype=torch.float32, device=step.device))
     layout = leaf_layout(cfg)
@@ -155,9 +198,25 @@ def build_train_step(
                 t.zero_()
         return accum["grads"]
 
+    def local_rows(batch: dict) -> tuple[dict, tuple]:
+        """This rank's rows of the global batch and the mesh axes they are
+        spread over (the whole batch and () off-mesh)."""
+        if mesh is None:
+            return batch, ()
+        B = next(iter(batch.values())).shape[0]
+        entry = safe_spec((B,), ("batch",), mesh=mesh)[0]
+        axes = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+        sizes = mesh_shape(mesh)
+        index, n = 0, 1
+        for a in axes:
+            index, n = index * sizes[a] + mesh.get_local_rank(a), n * sizes[a]
+        rows = B // n
+        return {k: t[index * rows:(index + 1) * rows] for k, t in batch.items()}, axes
+
     def train_step(state: TrainState, batch: dict):
         model = state.params
         n_mb = n_microbatches
+        batch, dp_axes = local_rows(batch)
         grads_c = SpData(zero_grads(model), "grads")
         zero = torch.zeros((), dtype=torch.float32, device=model.device)
         metrics_c = SpData(dict.fromkeys(metric_keys, zero), "metrics")
@@ -168,21 +227,26 @@ def build_train_step(
                     for k, t in batch.items()}
         leaves = param_leaves((n for n, _ in model.named_parameters()), layout)
 
-        with SpRuntime(backend="staged", policy=schedule_policy) as rt:
+        # the mesh the step was built under, wherever it is called from
+        with use_mesh(mesh) if mesh is not None else contextlib.nullcontext(), \
+                SpRuntime(backend="staged", policy=schedule_policy) as rt:
             for i in range(n_mb):
                 mb_c = SpData({k: t[i] for k, t in mb_batch.items()}, f"mb{i}")
                 _microbatch_codelet(params_c, mb_c, grads_c, metrics_c, cfg=cfg, name=f"mb{i}")
-            _grad_finalize_codelet(grads_c, n_mb=n_mb, compress=grad_compression, leaves=leaves)
+            _grad_finalize_codelet(grads_c, n_mb=n_mb, compress=grad_compression, leaves=leaves,
+                                   dp_axes=dp_axes)
             gnorm_view = _optimizer_codelet(
                 grads_c, params_c, opt_c, new_step_c,
                 opt_update=opt_update, lr_schedule=lr_schedule, clip_norm=clip_norm,
                 step=state.step,
             )
             order = rt.run()
+            metrics = {k: v / n_mb for k, v in metrics_c.value.items()}
+            if dp_axes:
+                metrics = {k: all_reduce(v, axis=dp_axes, op="mean") for k, v in metrics.items()}
         if not schedule_names:
             schedule_names.extend(t.name for t in order)
 
-        metrics = {k: v / n_mb for k, v in metrics_c.value.items()}
         metrics["grad_norm"] = gnorm_view.result()
         return TrainState(step=new_step_c.value, params=params_c.value, opt=opt_c.value), metrics
 

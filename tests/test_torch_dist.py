@@ -2,7 +2,7 @@
 ``repro``'s, bit for bit, over a ``ChannelHub``: ``ring_all_reduce`` (sum
 and mean, 1–4 ranks, with and without chunk pipelining, an int32 mean, a
 group shrunk after a death), ``ring_all_gather`` and
-``hierarchical_all_reduce``; the ``axis=`` spelling raises."""
+``hierarchical_all_reduce``; the ``axis=`` spelling on a one-rank mesh."""
 from __future__ import annotations
 
 import numpy as np
@@ -150,8 +150,17 @@ def test_sent_chunks_are_never_written_in_place():
 
 def test_substrate_spellings():
     """``all_reduce`` / ``all_gather`` with ``graph=``/``group=`` are the
-    rings; the ``axis=`` spelling and ``hierarchical_psum`` need a device
-    mesh the port does not have yet, and say so."""
+    rings; with ``axis=`` they run on the active mesh's axis groups, as
+    ``hierarchical_psum`` does (here a one-rank gloo group and a (1, 1)
+    ``pod`` × ``data`` mesh; the multi-rank results are in
+    ``test_torch_sharding.py``); without a mesh, or without either
+    spelling, they raise ``ValueError``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.launch.mesh import free_port, init_group
+
     xs = [torch.ones(3) * (r + 1) for r in range(2)]
     eng = core.SpComputeEngine(core.SpWorkerTeamBuilder.team_of_cpu_workers(2))
     try:
@@ -169,9 +178,23 @@ def test_substrate_spellings():
     finally:
         eng.stop()
     for fn in (coll.all_reduce, coll.all_gather):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        with pytest.raises(ValueError, match="mesh"):
             fn(xs[0], axis="data")
         with pytest.raises(ValueError, match="group"):
             fn(xs[0])
-    with pytest.raises(NotImplementedError, match="device mesh"):
+    with pytest.raises(ValueError, match="mesh"):
         coll.hierarchical_psum(xs[0])
+    x = torch.arange(5, dtype=torch.float32) + 0.5
+    init_group(0, 1, free_port(), "gloo")
+    try:
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("pod", "data"))
+        with use_mesh(mesh):
+            for got, want in ((coll.all_reduce(x, axis="data"), x),
+                              (coll.all_reduce(x, axis=("pod", "data"), op="mean"), x),
+                              (coll.all_gather(x, axis="pod"), x[None]),
+                              (coll.hierarchical_psum(x), x)):
+                assert got is not x and torch.equal(got, want)
+            with pytest.raises(ValueError, match="unsupported op"):
+                coll.all_reduce(x, axis="data", op="max")
+    finally:
+        dist.destroy_process_group()

@@ -23,7 +23,8 @@ import repro_torch.optim, repro_torch.data, repro_torch.runtime.train, repro_tor
 import repro_torch.dist.collectives, repro_torch.core.staged
 import repro_torch.checkpoint, repro_torch.serving.spec, repro_torch.serving.loadgen
 import repro_torch.core.comm, repro_torch.dist, repro_torch.dist.fault
-import repro_torch.launch.rendezvous
+import repro_torch.launch.rendezvous, repro_torch.launch.mesh, repro_torch.dist.chaos
+import repro_torch.dist.sharding, repro_torch.runtime.pipeline
 bad = sorted(
     name for name, mod in sys.modules.items()
     if mod is not None and (name == "repro" or name.startswith(("repro.", "jax")))
