@@ -66,6 +66,20 @@ Phases (any failure raises and the script exits non-zero):
               and caches); then recurrentgemma-9b (38 layers: 12 local
               attention layers on a ring of the 2048 window, 26 RG-LRU
               layers; ``[serve-rgemma]``), the same requests and checks;
+   frontends — hubert-xlarge at full width (48 layers, 16 heads of 80,
+              bf16; ``[serve-hubert]``): the encoder forward and head over
+              (2, 4096) seeded frame embeddings, every 4th frame masked,
+              one non-causal flash call a layer (exact launch counts), run
+              to run identical, wall / device ms, busy share, peak; then
+              internvl2-2b (24 layers, 16 / 8 heads of 128;
+              ``[serve-internvl]``): 4 sequences of 256 seeded patch
+              embeddings + 1792 tokens prefilled together, ``prime_cache``
+              at ``MAX_SEQ``, 16 greedy decode steps from position 2048
+              (exact launch counts, the stream identical on a second run),
+              prefill and decode wall / device ms, peak; each with a
+              2-layer fp32 check within 1e-3 (hubert's logits against the
+              CPU port; internvl's prefill and teacher-forced decode
+              against the card's full forward and the CPU port);
 7. model    — full width cut in depth, fp32: the card's logits against the
               CPU port's (plain versions) for a prompt and decode steps, for
               deepseek-7b (2 layers), mamba2-130m (4 layers), gemma-7b
@@ -78,7 +92,9 @@ Phases (any failure raises and the script exits non-zero):
               counts); gemma-7b, minicpm3-4b (L = 256), recurrentgemma-9b
               (3 layers) and qwen3-moe (1 layer; its gradients held
               elementwise, its card optimizer fed the CPU's gradients) the
-              same with Adafactor;
+              same with Adafactor; hubert-xlarge (2 layers, 256 frames)
+              and internvl2-2b (2 layers, 256 patches + 128 tokens) with
+              their config's AdamW;
 9. train    — deepseek-7b at full width and depth (30 layers, bf16,
               Adafactor, remat "full", logits in chunks of 1024), global
               batch (2, 2048) in 2 microbatches, 4 staged steps: finite
@@ -89,12 +105,23 @@ Phases (any failure raises and the script exits non-zero):
               (``[train-gemma]``: no rollback), minicpm3-4b at its 62,
               recurrentgemma-9b at its 38 layers and qwen3-moe cut to 2 (3
               steps each; model FLOPs over the active parameters);
+              hubert-xlarge (48, ``[train-hubert]``) and internvl2-2b (24,
+              ``[train-internvl]``) at (2, 4096) with their config's AdamW
+              (internvl: 256 patches + 3840 tokens, logits in 5 chunks of
+              768; model FLOPs count each projection over the positions it
+              multiplies, hubert's attention over every pair);
 10. train   — mamba2-130m: parity at full width and 2 layers in fp32 (B =
               2, L = 512, 2 microbatches, AdamW) against the CPU port, then
               the full 24 layers in bf16 (AdamW, remat "full"), global
               batch (8, 2048) in 2 microbatches, 4 staged steps: finite
               losses, exact ssd / ssd_bwd / rmsnorm / rmsnorm_bwd launch
               counts, step time, tokens/s, peak memory, one profiled step;
+    remat   — ``[remat]``: deepseek-7b at full width and depth (bf16,
+              Adafactor, (2, 2048) in 2 microbatches) under
+              ``remat="dots_saveable"`` against ``"full"``: each
+              microbatch's loss and every gradient bit for bit, then 3
+              staged steps a mode (full / dots_saveable / full): step ms,
+              peak, exact launch counts;
 11. spec    — full-width deepseek-7b again (seed 0) cut to 12 layers, the serving phase's
               geometry and requests through ``ServeEngine`` with
               speculative decoding at k = 4: the 1-layer shrunken draft,
@@ -340,7 +367,11 @@ def check_rmsnorm(dev) -> dict:
              # minicpm3-4b's latent norms: kv_norm (256) and q_norm (768) rows
              (2048, 256), (2048, 768), (4, 256),
              # qwen3-moe-235b-a22b's q-norm rows at a 2048-token prefill
-             (2048 * QWEN_HEADS, 128))
+             (2048 * QWEN_HEADS, 128),
+             # the frontends' rows: hubert-xlarge (1280) and internvl2-2b (2048) at a
+             # 4096-position microbatch and at their serving calls (2 x 4096 frames,
+             # 4 x 2048 positions), internvl's 4 decode rows
+             (4096, 1280), (4096, 2048), (8192, 1280), (8192, 2048), (4, 2048))
     for dtype in (torch.bfloat16, torch.float32):
         for T, D in cases:
             x = _randn(gen, (T, D), dtype, dev)
@@ -357,20 +388,21 @@ def check_rmsnorm(dev) -> dict:
     # decode rows of deepseek-7b (4 slots) and mamba2-130m (8 slots)
     dtype = torch.bfloat16
     times = {}
-    for T, D in ((2048, 4096), (4, 4096), (8, 768), (2048, 256), (2048, 768)):
+    frontends = ((4096, 1280), (4096, 2048), (8192, 1280), (8192, 2048), (4, 2048))
+    for T, D in ((2048, 4096), (4, 4096), (8, 768), (2048, 256), (2048, 768)) + frontends:
         sets = [(_randn(gen, (T, D), dtype, dev), _randn(gen, (D,), dtype, dev, 0.1)) for _ in range(4)]
         weights = [(x, (1.0 + s.float()).to(dtype)) for x, s in sets]
         bound, by = _bound(2 * T * D * 2 + D * 2, 4 * T * D, dtype)
         times[(T, D)] = dict(
             ms=time_ms(ops.rmsnorm, sets), plain_ms=time_ms(rmsnorm_ref, sets),
             library_ms=time_ms(lambda x, w: torch.nn.functional.rms_norm(x, (w.shape[0],), w, 1e-6), weights),
-            bound_ms=bound, bound_by=by,
+            bound_ms=bound, bound_by=by, key=(T, D),
         )
         t = times[(T, D)]
         log(f"[kernels] rmsnorm x ({T}, {D}) bf16: kernel {t['ms']:.4f} ms, F.rms_norm {t['library_ms']:.4f} ms "
             f"(kernel / library {t['ms'] / t['library_ms']:.2f}), plain {t['plain_ms']:.4f} ms, bound "
             f"{bound:.4f} ms ({by}, {bound / t['ms']:.1%} of it)")
-    for T, D in ((2048, 256), (2048, 768)):
+    for T, D in ((2048, 256), (2048, 768)) + frontends:
         times[(T, D)]["shape"] = f"x ({T}, {D}) bf16"
         x = _randn(gen, (T, D), dtype, dev)
         s = _randn(gen, (D,), dtype, dev, 0.1)
@@ -381,6 +413,8 @@ def check_rmsnorm(dev) -> dict:
         name="rmsnorm", route="cuda", source="src/repro_torch/kernels/csrc/rmsnorm.cu",
         replaces="src/repro/kernels/rmsnorm/kernel.py:27", max_abs_err=err, **times[(T, D)],
         shape=f"x ({T}, {D}) bf16", kv_norm=times[(2048, 256)], q_norm=times[(2048, 768)],
+        hubert=times[(4096, 1280)], internvl=times[(4096, 2048)], hubert_serve=times[(8192, 1280)],
+        internvl_prefill=times[(8192, 2048)], internvl_decode=times[(4, 2048)],
     )
 
 
@@ -498,6 +532,19 @@ QWEN_HEADS, QWEN_KV_HEADS = 64, 4
 # 4095, 2047 and 2500 beside them
 RG_RING = 2048
 RG_DECODE_POS = [4127, 2079, 808, 131, 1031, 4095, 2047, 2500]
+# the frontends' paths: hubert-xlarge's non-causal attention over 4096 frames
+# (16 heads of 80, padded to 128 in the kernels) and internvl2-2b's causal GQA
+# over 256 patches + 3840 text tokens (16 heads on 8 KV heads of 128), each a
+# microbatch of (2, 4096) in 2; their serving calls (hubert's encode of 2 x
+# 4096 frames, internvl's prefill of 4 x 2048 positions); internvl's decode on
+# its 4-sequence cache of MAX_SEQ rows at the serving phase's last position
+# (256 + 1792 + 16 - 1)
+HUBERT_FLASH = (1, 4096, 4096, 16, 16, 80, 80, False, None, 0)
+INTERNVL_FLASH = (1, 4096, 4096, 16, 8, 128, 128, True, None, 0)
+HUBERT_SERVE_FLASH = (2, 4096, 4096, 16, 16, 80, 80, False, None, 0)
+INTERNVL_PREFILL_FLASH = (4, 2048, 2048, 16, 8, 128, 128, True, None, 0)
+IVL_DECODE_POS = [2063, 2063, 2063, 2063]
+IVL_HEADS, IVL_KV_HEADS = 16, 8
 
 
 def _window_mask(L: int, window, dev) -> torch.Tensor:
@@ -507,18 +554,19 @@ def _window_mask(L: int, window, dev) -> torch.Tensor:
     return (j <= i) & (i - j < window)
 
 
-def _flash_times(gen, dev, B, L, H, D, KH=None, Dv=None, window=None) -> dict:
-    """Kernel, plain and SDPA times of the causal bf16 forward at (B, L, H,
-    D) with KH key / value heads of value dim Dv (``window`` keys at most),
-    the bound of the work this input needs, and whether two runs give the
-    same bits.  SDPA takes Dv != D as it is, GQA expanded and a window as
-    an explicit mask."""
+def _flash_times(gen, dev, B, L, H, D, KH=None, Dv=None, window=None, causal=True) -> dict:
+    """Kernel, plain and SDPA times of the bf16 forward (causal unless
+    told) at (B, L, H, D) with KH key / value heads of value dim Dv
+    (``window`` keys at most), the bound of the work this input needs (at
+    the head dim D, not the kernels' padded one), and whether two runs give
+    the same bits.  SDPA takes Dv != D as it is, GQA expanded and a window
+    as an explicit mask."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     KH, Dv = KH or H, Dv or D
     dtype = torch.bfloat16
-    kw = dict(causal=True, window=window)
+    kw = dict(causal=causal, window=window)
     sets = [(_randn(gen, (B, L, H, D), dtype, dev), _randn(gen, (B, L, KH, D), dtype, dev),
              _randn(gen, (B, L, KH, Dv), dtype, dev)) for _ in range(2)]
     first = ops.flash_attention(*sets[0], **kw)
@@ -532,18 +580,19 @@ def _flash_times(gen, dev, B, L, H, D, KH=None, Dv=None, window=None) -> dict:
         mask = _window_mask(L, window, dev)
         lib = time_ms(lambda q, k, v: sdpa(q, k, v, attn_mask=mask), lib_sets)
     else:
-        lib = time_ms(lambda q, k, v: sdpa(q, k, v, is_causal=True), lib_sets)
-    pairs = _pairs(L, L, True, window, 0)
+        lib = time_ms(lambda q, k, v: sdpa(q, k, v, is_causal=causal), lib_sets)
+    pairs = _pairs(L, L, causal, window, 0)
     flops = 2 * B * H * (D + Dv) * pairs
     bound, by = _bound(B * L * (H * D + KH * D + KH * Dv + H * Dv) * 2, flops, dtype)
     label = f"({B}, {L}, {H}, {D}" + (f" / {Dv}" if Dv != D else "") + ")" + (f", KH {KH}" if KH != H else "") \
         + (f", window {window}" if window else "")
-    log(f"[kernels] flash at {label} bf16 causal: {flops / 1e9:.2f} GFLOP, kernel {ms:.4f} ms "
+    mode = "causal" if causal else "non-causal"
+    log(f"[kernels] flash at {label} bf16 {mode}: {flops / 1e9:.2f} GFLOP, kernel {ms:.4f} ms "
         f"({flops / ms / 1e9:.1f} TFLOP/s), SDPA {lib:.4f} ms (kernel / SDPA {ms / lib:.2f}), plain {plain:.4f} "
         f"ms, bound {bound:.4f} ms ({by}, {bound / ms:.1%} of it); run to run identical: {same}")
     assert same, f"flash at {label}: not deterministic"
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
-                shape=f"q/k/v {label} bf16 causal")
+                shape=f"q/k/v {label} bf16 {mode}", key=(B, L, L, H, KH, D, Dv))
 
 
 def check_flash(dev) -> dict:
@@ -572,6 +621,8 @@ def check_flash(dev) -> dict:
         # KV head, window 2048) at its prefill and train lengths
         MLA_FLASH, RG_FLASH, (1, 2048, 2048, 16, 1, 256, 256, True, 2048, 0),
         QWEN_FLASH,  # qwen3-moe-235b-a22b's prefill
+        HUBERT_FLASH, INTERNVL_FLASH,  # the frontends' train microbatch, then their serving calls
+        HUBERT_SERVE_FLASH, INTERNVL_PREFILL_FLASH,
     ]
     err = err256 = 0.0
     errs = {}
@@ -605,11 +656,19 @@ def check_flash(dev) -> dict:
     shapes = {"d256": _flash_times(gen, dev, 1, 2048, G_HEADS, G_DIM),
               "mla": _flash_times(gen, dev, 1, 2048, 40, 96, Dv=64),
               "rgemma": _flash_times(gen, dev, 1, 4096, 16, 256, KH=1, window=2048),
-              "qwen": _flash_times(gen, dev, 1, 2048, QWEN_HEADS, 128, KH=QWEN_KV_HEADS)}
+              "qwen": _flash_times(gen, dev, 1, 2048, QWEN_HEADS, 128, KH=QWEN_KV_HEADS),
+              "hubert": _flash_times(gen, dev, 1, 4096, 16, 80, causal=False),
+              "internvl": _flash_times(gen, dev, 1, 4096, IVL_HEADS, 128, KH=IVL_KV_HEADS),
+              "hubert_serve": _flash_times(gen, dev, 2, 4096, 16, 80, causal=False),
+              "internvl_prefill": _flash_times(gen, dev, 4, 2048, IVL_HEADS, 128, KH=IVL_KV_HEADS)}
     shapes["d256"]["max_abs_err"] = err256
     shapes["mla"]["max_abs_err"] = errs[MLA_FLASH]
     shapes["rgemma"]["max_abs_err"] = errs[RG_FLASH]
     shapes["qwen"]["max_abs_err"] = errs[QWEN_FLASH]
+    shapes["hubert"]["max_abs_err"] = errs[HUBERT_FLASH]
+    shapes["internvl"]["max_abs_err"] = errs[INTERNVL_FLASH]
+    shapes["hubert_serve"]["max_abs_err"] = errs[HUBERT_SERVE_FLASH]
+    shapes["internvl_prefill"]["max_abs_err"] = errs[INTERNVL_PREFILL_FLASH]
     return dict(
         name="flash_attention", route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:111", max_abs_err=err, **shapes, **main,
@@ -643,7 +702,8 @@ def _decode_times(gen, dev, H, D, pos_l, B=N_SLOTS, S=MAX_SEQ, KH=None) -> dict:
     log(f"[kernels] decode at pos {pos_l} (q ({B}, 1, {H}, {D}), cache ({B}, {S}, {KH}, {D}) bf16): kernel "
         f"{ms:.4f} ms, SDPA {lib:.4f} ms, plain {plain:.4f} ms, bound {bound:.5f} ms ({by}, {bound / ms:.1%} of it)")
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
-                shape=f"q ({B}, 1, {H}, {D}), cache ({B}, {S}, {KH}, {D}) bf16, pos {pos_l}")
+                shape=f"q ({B}, 1, {H}, {D}), cache ({B}, {S}, {KH}, {D}) bf16, pos {pos_l}",
+                key=(B, S, H, KH, D, D))
 
 
 def check_decode(dev) -> dict:
@@ -669,6 +729,8 @@ def check_decode(dev) -> dict:
         (M_SLOTS, RG_RING, 16, 1, 256, RG_DECODE_POS, (torch.bfloat16, torch.float32)),
         # qwen3-moe-235b-a22b's path: 64 query heads on 4 KV heads of 128
         (N_SLOTS, MAX_SEQ, QWEN_HEADS, QWEN_KV_HEADS, 128, main_pos, (torch.bfloat16, torch.float32)),
+        # internvl2-2b's: 16 query heads on 8 KV heads of 128, past its 256 patch rows
+        (N_SLOTS, MAX_SEQ, IVL_HEADS, IVL_KV_HEADS, 128, IVL_DECODE_POS, (torch.bfloat16, torch.float32)),
     ]
     err = err256 = 0.0
     for B, S, H, KH, D, pos_l, dtypes in cases:
@@ -681,7 +743,7 @@ def check_decode(dev) -> dict:
                 f"decode {dtype} B={B} S={S} H={H} KH={KH} D={D} pos={pos_l}",
                 ops.decode_attention(q, k, v, pos), decode_attention_ref(q, k, v, pos), dtype,
             )
-            if S == MAX_SEQ and dtype == torch.bfloat16 and H != QWEN_HEADS:
+            if S == MAX_SEQ and dtype == torch.bfloat16 and H != QWEN_HEADS and (H, KH) != (IVL_HEADS, IVL_KV_HEADS):
                 if D == G_DIM:
                     err256 = e
                 else:
@@ -697,12 +759,14 @@ def check_decode(dev) -> dict:
                     err_ring = e
             if H == QWEN_HEADS and dtype == torch.bfloat16:
                 err_qwen = e
+            if (H, KH) == (IVL_HEADS, IVL_KV_HEADS) and dtype == torch.bfloat16:
+                err_ivl = e
     # run to run identical, and batch-invariant: each sequence beside empty
     # slots (positions 0) equals itself beside the live ones, bit for bit;
     # deepseek-7b's heads (and GQA), then gemma-7b's, then qwen3-moe's
     B, S, dtype = N_SLOTS, MAX_SEQ, torch.bfloat16
     for H, KH, D in ((32, 32, 128), (32, 8, 128), (G_HEADS, G_HEADS, G_DIM), (G_HEADS, 4, G_DIM),
-                     (QWEN_HEADS, QWEN_KV_HEADS, 128)):
+                     (QWEN_HEADS, QWEN_KV_HEADS, 128), (IVL_HEADS, IVL_KV_HEADS, 128)):
         q = _randn(gen, (B, 1, H, D), dtype, dev)
         k, v = (_randn(gen, (B, S, KH, D), dtype, dev) for _ in range(2))
         live = torch.tensor(main_pos, dtype=torch.int32, device=dev)
@@ -722,10 +786,12 @@ def check_decode(dev) -> dict:
     ring["max_abs_err"] = err_ring
     qwen = _decode_times(gen, dev, QWEN_HEADS, 128, main_pos, KH=QWEN_KV_HEADS)
     qwen["max_abs_err"] = err_qwen
+    ivl = _decode_times(gen, dev, IVL_HEADS, 128, IVL_DECODE_POS, KH=IVL_KV_HEADS)
+    ivl["max_abs_err"] = err_ivl
     return dict(
         name="decode_attention", route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention/kernel.py:81", max_abs_err=err, **main,
-        short=short, d256=d256, rgemma=ring, qwen=qwen,
+        short=short, d256=d256, rgemma=ring, qwen=qwen, internvl=ivl,
     )
 
 
@@ -866,17 +932,18 @@ def _compare_bwd(name, got, want, dtype) -> float:
                     dict(atol=atol * scale, rtol=rtol))
 
 
-def _flash_bwd_times(gen, dev, B, L, H, D, KH=None, Dv=None, window=None) -> dict:
-    """The causal bf16 backward at (B, L, H, D) with KH key / value heads of
-    value dim Dv (``window`` keys at most): kernel, plain and SDPA backward
-    times, the dK/dV and dQ kernels apart, the forward with and without
-    lse, and the bound of the 5 products the unmasked pairs need."""
+def _flash_bwd_times(gen, dev, B, L, H, D, KH=None, Dv=None, window=None, causal=True) -> dict:
+    """The bf16 backward (causal unless told) at (B, L, H, D) with KH key /
+    value heads of value dim Dv (``window`` keys at most): kernel, plain
+    and SDPA backward times, the dK/dV and dQ kernels apart, the forward
+    with and without lse, and the bound of the 5 products the unmasked
+    pairs need (at the head dim D, not the kernels' padded one)."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
 
     KH, Dv = KH or H, Dv or D
     dtype = torch.bfloat16
-    kw = dict(causal=True, window=window)
+    kw = dict(causal=causal, window=window)
     sets = []
     for _ in range(2):
         q, k = _randn(gen, (B, L, H, D), dtype, dev), _randn(gen, (B, L, KH, D), dtype, dev)
@@ -899,10 +966,10 @@ def _flash_bwd_times(gen, dev, B, L, H, D, KH=None, Dv=None, window=None) -> dic
     if window is not None and window < L:
         o = sdpa(qt, kt, vt, attn_mask=_window_mask(L, window, dev))
     else:
-        o = sdpa(qt, kt, vt, is_causal=True)
+        o = sdpa(qt, kt, vt, is_causal=causal)
     dot = sets[0][5].transpose(1, 2)
     lib = profiled_calls(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True))["device_ms"]
-    pairs = _pairs(L, L, True, window, 0)
+    pairs = _pairs(L, L, causal, window, 0)
     # 5 products over the unmasked pairs (the kernels run 7): S and dQ, dK
     # at D; dP and dV at Dv
     flops = 2 * B * H * (3 * D + 2 * Dv) * pairs
@@ -911,8 +978,9 @@ def _flash_bwd_times(gen, dev, B, L, H, D, KH=None, Dv=None, window=None) -> dic
                        dtype)
     label = f"({B}, {L}, {H}, {D}" + (f" / {Dv}" if Dv != D else "") + ")" + (f", KH {KH}" if KH != H else "") \
         + (f", window {window}" if window else "")
-    D = f"{D} / {Dv}" if Dv != D else D
-    log(f"[kernels] flash bwd at {label} bf16 causal: {flops / 1e9:.2f} GFLOP, kernel "
+    Dh, D = D, f"{D} / {Dv}" if Dv != D else D
+    mode = "causal" if causal else "non-causal"
+    log(f"[kernels] flash bwd at {label} bf16 {mode}: {flops / 1e9:.2f} GFLOP, kernel "
         f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), SDPA backward {lib:.4f} ms (kernel / library "
         f"{ms / lib:.2f}), plain {plain:.4f} ms, bound {bound:.4f} ms ({by}, {bound / ms:.1%} of it)")
     # the dK/dV and dQ kernels apart: dK/dV runs 4 of the 7 products, dQ 3
@@ -927,7 +995,7 @@ def _flash_bwd_times(gen, dev, B, L, H, D, KH=None, Dv=None, window=None) -> dic
         f"{fwd_lse_ms:.4f} ms with it (train)")
     return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib,
                 fwd_ms=fwd_ms, fwd_lse_ms=fwd_lse_ms, dkdv_ms=dkdv, dq_ms=dq, dot_ms=dot,
-                shape=f"q/k/v/out/dout {label} bf16 causal")
+                shape=f"q/k/v/out/dout {label} bf16 {mode}", key=(B, L, L, H, KH, Dh, Dv))
 
 
 def check_flash_bwd(dev) -> dict:
@@ -959,6 +1027,7 @@ def check_flash_bwd(dev) -> dict:
         # local attention at (2, 2048) in 2 microbatches (the window covers L)
         MLA_FLASH, RG_FLASH_BWD,
         QWEN_FLASH,  # qwen3-moe-235b-a22b's, at (2, 2048) in 2 microbatches
+        HUBERT_FLASH, INTERNVL_FLASH,  # the frontends', at (2, 4096) in 2 microbatches
     ]
     err = err256 = 0.0
     errs: dict = {}
@@ -995,11 +1064,15 @@ def check_flash_bwd(dev) -> dict:
     shapes = {"d256": _flash_bwd_times(gen, dev, 1, 2048, G_HEADS, G_DIM),
               "mla": _flash_bwd_times(gen, dev, 1, 2048, 40, 96, Dv=64),
               "rgemma": _flash_bwd_times(gen, dev, 1, 2048, 16, 256, KH=1, window=2048),
-              "qwen": _flash_bwd_times(gen, dev, 1, 2048, QWEN_HEADS, 128, KH=QWEN_KV_HEADS)}
+              "qwen": _flash_bwd_times(gen, dev, 1, 2048, QWEN_HEADS, 128, KH=QWEN_KV_HEADS),
+              "hubert": _flash_bwd_times(gen, dev, 1, 4096, 16, 80, causal=False),
+              "internvl": _flash_bwd_times(gen, dev, 1, 4096, IVL_HEADS, 128, KH=IVL_KV_HEADS)}
     shapes["d256"]["max_abs_err"] = err256
     shapes["mla"]["max_abs_err"] = errs[MLA_FLASH]
     shapes["rgemma"]["max_abs_err"] = errs[RG_FLASH_BWD]
     shapes["qwen"]["max_abs_err"] = errs[QWEN_FLASH]
+    shapes["hubert"]["max_abs_err"] = errs[HUBERT_FLASH]
+    shapes["internvl"]["max_abs_err"] = errs[INTERNVL_FLASH]
     return dict(
         name="flash_attention_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -1020,7 +1093,7 @@ def check_rmsnorm_bwd(dev) -> dict:
     # then minicpm3-4b's latent norms (kv_norm 256, q_norm 768) and
     # qwen3-moe-235b-a22b's q-norm rows (64 heads of 128) at 2048 tokens
     cases = ((2048, 4096), (2048 * 32, 128), (333, 37), (7, 12288), (1, 4096), (100, 768),
-             (2048, 256), (2048, 768), (2048 * QWEN_HEADS, 128))
+             (2048, 256), (2048, 768), (2048 * QWEN_HEADS, 128), (4096, 1280), (4096, 2048))
     for dtype in (torch.bfloat16, torch.float32):
         for T, D in cases + ((50, -768),):
             if D < 0:  # rows one element into a buffer: the scalar path
@@ -1198,6 +1271,19 @@ def _sub_shapes(record: dict) -> dict:
     """A kernel record's other timed shapes (the Dh 256, MLA, ring, ...
     paths), each a dict with its own ``shape`` and times."""
     return {k: v for k, v in record.items() if isinstance(v, dict) and "ms" in v and "shape" in v}
+
+
+def _frontend_shape_launches(records: list, paths: dict) -> None:
+    """Each frontend shape's row (``hubert*`` / ``internvl*``) gets its
+    launches at that very shape on its family's ``paths`` (serving and
+    training runs, each holding ``launches_by_shape``); every such row must
+    have been launched there."""
+    for r in records:
+        for sub, t in _sub_shapes(r).items():
+            family = sub.split("_")[0]
+            if family in paths:
+                t["launches"] = sum(p["launches_by_shape"][r["name"]].get(t["key"], 0) for p in paths[family])
+                assert t["launches"] > 0, f"{r['name']} at {t['shape']}: no launch at that shape on {family}'s paths"
 
 
 def kernel_phase(dev) -> list[dict]:
@@ -1395,28 +1481,37 @@ def _device_rows(prof, prof_wall_ms: float, n_iter: int) -> dict:
                 kinds=sorted(kinds.items(), key=lambda r: -r[1]))
 
 
-def _profile_prefill(model, cfg, prompt, dev, n_iter: int = 3) -> dict:
-    """One prefill of ``prompt`` with nothing else running: wall time (host
-    clock around a synchronised call, median of ``n_iter``), then device time
-    by kernel and the busy share of one profiled call."""
+def _profile_call(fn, n_iter: int = 3, n_prof: int = 1) -> dict:
+    """``fn()`` (a prefill, an encode, a decode step) with nothing else
+    running: wall time (host clock around a synchronised call, median of
+    ``n_iter``), then device time by kernel and the busy share of
+    ``n_prof`` profiled calls."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models import prefill
-
-    batch = {"tokens": torch.from_numpy(prompt[None, :]).to(dev)}
     walls = []
     for _ in range(n_iter):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        prefill(model, batch, cfg)
+        fn()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        prefill(model, batch, cfg)
         torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    return dict(wall_ms=sorted(walls)[n_iter // 2], **_device_rows(prof, prof_wall_ms, 1))
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            fn()
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3 / n_prof
+    return dict(wall_ms=sorted(walls)[n_iter // 2], **_device_rows(prof, prof_wall_ms, n_prof))
+
+
+def _log_profile(what: str, p: dict) -> None:
+    """The ``[profile]`` lines of a :func:`_profile_call` result."""
+    log(f"[profile] {what}: {p['wall_ms']:.2f} ms wall (median of 3); under the profiler "
+        f"{p['profiled_wall_ms']:.2f} ms wall, {p['device_ms']:.2f} ms device time, device busy {p['busy']:.1%}")
+    for name, ms in p["top"]:
+        log(f"[profile]   {ms:8.4f} ms  {name}")
+    log("[profile] by kind: " + ", ".join(f"{k} {ms:.2f} ms ({ms / p['device_ms']:.1%})" for k, ms in p["kinds"]))
 
 
 def serving_phase(dev, arch: str = "deepseek-7b", tag: str = "serve", n_layers: int | None = None) -> dict:
@@ -1428,7 +1523,7 @@ def serving_phase(dev, arch: str = "deepseek-7b", tag: str = "serve", n_layers: 
     prefill; peak memory.  Dense (deepseek-7b, gemma-7b), MLA
     (minicpm3-4b: the latent rows are paged) and MoE (qwen3-moe)."""
     from repro_torch.configs import get_config
-    from repro_torch.models import init_params
+    from repro_torch.models import init_params, prefill
     from repro_torch.serving import ServeEngine
 
     gc.collect()  # earlier phases' models and engines are cyclic garbage
@@ -1495,7 +1590,8 @@ def serving_phase(dev, arch: str = "deepseek-7b", tag: str = "serve", n_layers: 
                      restores=eng.restores - base[2])
         peak = torch.cuda.max_memory_allocated()
         step_profile = _profile_decode(eng, warm)
-    prefill_profile = _profile_prefill(model, cfg, prompts[0], dev)
+    prefill_profile = _profile_call(functools.partial(
+        prefill, model, {"tokens": torch.from_numpy(prompts[0][None, :]).to(dev)}, cfg))
 
     reqs = greedy + [sampled, dup, dup_restore]
     assert all(r.done and len(r.out_tokens) == GEN for r in reqs), "a request did not finish"
@@ -1534,11 +1630,7 @@ def serving_phase(dev, arch: str = "deepseek-7b", tag: str = "serve", n_layers: 
     for name, ms in sp["top"]:
         log(f"[profile]   {ms:8.4f} ms  {name}")
     pp = prefill_profile
-    log(f"[profile] {arch} prefill of {PROMPT_LENS[0]} tokens alone: {pp['wall_ms']:.2f} ms wall "
-        f"(median of 3); under the profiler {pp['profiled_wall_ms']:.2f} ms wall, "
-        f"{pp['device_ms']:.2f} ms device time, device busy {pp['busy']:.1%}")
-    for name, ms in pp["top"]:
-        log(f"[profile]   {ms:8.4f} ms  {name}")
+    _log_profile(f"{arch} prefill of {PROMPT_LENS[0]} tokens alone", pp)
     return dict(
         launches=launches, tok_per_s=n_tok / wall, wall_s=wall, peak_bytes=peak, stats=stats,
         ttft_ms=[(r.t_first - r.t_arrival) * 1e3 for r in reqs], decode_profile=sp,
@@ -1590,7 +1682,7 @@ def recurrent_serving_phase(dev, arch: str = "mamba2-130m", tag: str = "mamba2")
     beside 7 decoding ones is held against prefill (its installed caches)
     and against the sequential loop (tokens, last logits, caches)."""
     from repro_torch.configs import get_config
-    from repro_torch.models import init_params
+    from repro_torch.models import init_params, prefill
     from repro_torch.runtime.serve import prime_cache
     from repro_torch.serving import ServeEngine
 
@@ -1644,7 +1736,8 @@ def recurrent_serving_phase(dev, arch: str = "mamba2-130m", tag: str = "mamba2")
         # the 777-token prompt again, admitted beside 7 decoding requests
         run = _slot_run(eng, prompts[2], warm[: M_SLOTS - 1])
         step_profile = _profile_decode(eng, warm)
-    prefill_profile = _profile_prefill(model, cfg, prompts[0], dev)
+    prefill_profile = _profile_call(functools.partial(
+        prefill, model, {"tokens": torch.from_numpy(prompts[0][None, :]).to(dev)}, cfg))
 
     reqs = greedy + [sampled, dup]
     assert all(r.done and len(r.out_tokens) == M_GEN for r in reqs), "a request did not finish"
@@ -1701,15 +1794,11 @@ def recurrent_serving_phase(dev, arch: str = "mamba2-130m", tag: str = "mamba2")
     for name, ms in sp["top"]:
         log(f"[profile]   {ms:8.4f} ms  {name}")
     pp = prefill_profile
-    log(f"[profile] {arch} prefill of {M_PROMPT_LENS[0]} tokens alone: {pp['wall_ms']:.2f} ms wall "
-        f"(median of 3); under the profiler {pp['profiled_wall_ms']:.2f} ms wall, "
-        f"{pp['device_ms']:.2f} ms device time, device busy {pp['busy']:.1%}")
+    _log_profile(f"{arch} prefill of {M_PROMPT_LENS[0]} tokens alone", pp)
     mixer = "ssd_chunk" if cfg.ssm else "flash_fwd"
     mixer_ms = sum(ms for name, ms in pp["top"] if mixer in name)
     log(f"[profile] the {mixer} kernel takes {mixer_ms:.3f} ms of that prefill's {pp['device_ms']:.2f} ms of "
         f"device time ({mixer_ms / pp['device_ms']:.1%})")
-    for name, ms in pp["top"]:
-        log(f"[profile]   {ms:8.4f} ms  {name}")
     return dict(
         launches=launches, tok_per_s=n_tok / wall, wall_s=wall, peak_bytes=peak, stats=stats,
         ttft_ms=[(r.t_first - r.t_arrival) * 1e3 for r in reqs], decode_profile=sp,
@@ -1720,6 +1809,251 @@ def recurrent_serving_phase(dev, arch: str = "mamba2-130m", tag: str = "mamba2")
 # ---------------------------------------------------------------------------
 # 7. whole model: card against CPU
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# 6b. the frontends: hubert-xlarge (audio encoder) and internvl2-2b (vision)
+# ---------------------------------------------------------------------------
+
+HUBERT_B, HUBERT_L = 2, 4096  # frames a serving call; every 4th masked
+IVL_TEXT = 1792  # text tokens after internvl's 256 patches: 2048 a sequence
+IVL_GEN = 16  # greedy decode steps
+
+
+def _audio_batch(cfg, B: int, L: int, dev, seed: int) -> dict:
+    """Seeded frame embeddings (B, L, 512) float32 and a mask of every 4th
+    frame (``repro``'s smoke test)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mask = torch.zeros((B, L), dtype=torch.bool, device=dev)
+    mask[:, ::4] = True
+    return {"embeds": torch.randn((B, L, 512), generator=gen, device=dev), "mask": mask}
+
+
+def _rel_err(got, want, n_classes: int) -> float:
+    """max |got - want| / max |want| over the first ``n_classes`` logits (a
+    vision model's padded classes hold -1e30)."""
+    got, want = got[..., :n_classes].float().cpu(), want[..., :n_classes].float().cpu()
+    assert torch.isfinite(got).all()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _encode(model, batch, cfg):
+    """hubert's serving call: the encoder forward and the head over every
+    frame (``forward`` + ``head_logits``, the entry points)."""
+    from repro_torch.models import forward, head_logits
+
+    with torch.no_grad():
+        x, _, _ = forward(model, batch, cfg)
+        return head_logits(model, x, cfg)
+
+
+def encoder_serving_phase(dev, arch: str = "hubert-xlarge", tag: str = "serve-hubert") -> dict:
+    """Full-width hubert-xlarge (48 layers, 16 heads of 80, bf16, seeded
+    random init): the encoder forward and the head over (2, 4096) seeded
+    frame embeddings, every 4th frame masked: exact launch counts (one
+    non-causal flash call a layer, two norms a layer and the final one),
+    finite logits of (2, 4096, 512), run to run identical; wall and device
+    ms, busy share, peak memory.  Then 2 layers in float32: the card's
+    logits against the CPU port's (plain versions) within 1e-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer, init_params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
+    assert cfg.frontend == "audio" and cfg.is_encoder
+    t0 = time.perf_counter()
+    model = init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[{tag}] {arch} ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, "
+        f"{cfg.vocab} classes padded to {cfg.padded_vocab}, {n_params / 1e9:.3f} B params, {cfg.dtype}) initialised "
+        f"on the card in {time.perf_counter() - t0:.1f} s")
+    batch = _audio_batch(cfg, HUBERT_B, HUBERT_L, dev, 0)
+    _encode(model, batch, cfg)  # warm-up: first-use costs of each shape
+    ops = _kernel_ops()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts from 0 just before, read just after ----
+    for c in ops.values():
+        c.reset()
+    logits = _encode(model, batch, cfg)
+    torch.cuda.synchronize()
+    launches = {name: c.count for name, c in ops.items()}
+    by_shape = {name: dict(c.by_shape) for name, c in ops.items()}
+    # --------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    want = _serve_launches(cfg, prefills=1, decode_steps=0)
+    log(f"[{tag}] launches on the main path {launches}; expected {want} (one encoder forward)")
+    assert launches == want, "the encoder did not run through every kernel as expected"
+    assert logits.shape == (HUBERT_B, HUBERT_L, cfg.padded_vocab) and bool(torch.isfinite(logits).all())
+    same = torch.equal(_encode(model, batch, cfg), logits)
+    log(f"[{tag}] logits {tuple(logits.shape)} finite; run to run identical: {same}")
+    assert same
+    frames = HUBERT_B * HUBERT_L
+    prof = _profile_call(lambda: _encode(model, batch, cfg))
+    wall = prof["wall_ms"]
+    log(f"[{tag}] {HUBERT_B} x {HUBERT_L} frames in {wall:.2f} ms ({frames / wall * 1e3:.1f} frames/s), peak "
+        f"device memory {peak / 2**30:.2f} GiB ({peak} bytes)")
+    _log_profile(f"{arch} encoder forward + head of {HUBERT_B} x {HUBERT_L} frames", prof)
+    del model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    # fp32 at 2 layers: the card (kernels) against the CPU port (plain versions)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small = cfg.replace(n_layers=2, dtype="float32")
+    gpu = init_params(small, 1, device=dev)
+    cpu = Transformer(small, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    b = _audio_batch(small, 2, 512, dev, 1)
+    err = _rel_err(_encode(gpu, b, small), _encode(cpu, {k: v.cpu() for k, v in b.items()}, small), small.padded_vocab)
+    log(f"[{tag}] {small.n_layers}-layer full-width fp32, 2 x 512 frames, card vs CPU: max relative logit error "
+        f"{err:.3e} (limit 1e-3)")
+    assert err <= 1e-3
+    del gpu, cpu
+    return dict(launches=launches, launches_by_shape=by_shape, wall_ms=wall, frames_per_s=frames / wall * 1e3,
+                peak_bytes=peak, profile=prof, fp32_err=err)
+
+
+def _vision_inputs(cfg, B: int, n_text: int, dev, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Seeded patch embeddings (B, n_patches, 1024) float32 and text tokens
+    (B, n_text) int32 in [0, vocab)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    patches = torch.randn((B, cfg.n_patches, 1024), generator=gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (B, n_text), generator=gen, device=dev, dtype=torch.int32)
+    assert int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab  # as drawn (ROADMAP F3)
+    return patches, tokens
+
+
+def _vision_greedy(model, cfg, patches, tokens, max_seq: int, n_steps: int, times: list | None = None):
+    """Prefill of the patches and text, ``prime_cache`` at ``max_seq`` rows,
+    then ``n_steps`` greedy ``decode_step``s at positions ``n_patches +
+    text + s``.  → the stream (B, 1 + n_steps); each step's host-clock ms
+    appended to ``times``."""
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.runtime.serve import prime_cache
+
+    start = cfg.n_patches + tokens.shape[1]
+    logits, caches = prefill(model, {"tokens": tokens, "patch_embeds": patches}, cfg)
+    caches = prime_cache(cfg, caches, start, max_seq)
+    out = [torch.argmax(logits[:, -1], dim=-1).to(torch.int32)]
+    for s in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = decode_step(model, out[-1][:, None], caches, start + s, cfg)
+        out.append(torch.argmax(logits[:, -1], dim=-1).to(torch.int32))
+        torch.cuda.synchronize()
+        if times is not None:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return torch.stack(out, dim=1)
+
+
+def _vision_check(dev, cfg, steps: int = 4, text: int = 256) -> float:
+    """internvl at 2 layers, float32: prefill of 256 patches + ``text``
+    tokens and ``steps`` - 1 teacher-forced decode steps at positions
+    ``n_patches + text + s`` on the card, each within 1e-3 of the card's
+    full forward at that position and of the CPU port's prefill / decode.
+    → the worst relative error."""
+    from repro_torch.models import Transformer, decode_step, forward, head_logits, init_params, prefill
+    from repro_torch.runtime.serve import prime_cache
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gpu = init_params(cfg, 1, device=dev)
+    cpu = Transformer(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    patches, tokens = _vision_inputs(cfg, 2, text + steps, dev, 2)
+    off, V = cfg.n_patches, cfg.vocab
+    with torch.no_grad():
+        x, _, _ = forward(gpu, {"tokens": tokens, "patch_embeds": patches}, cfg)
+        full = head_logits(gpu, x, cfg)
+    pb = {"tokens": tokens[:, :text], "patch_embeds": patches}
+    lg, cg = prefill(gpu, pb, cfg)
+    lc, cc = prefill(cpu, {k: v.cpu() for k, v in pb.items()}, cfg)
+    worst = max(_rel_err(lg[:, 0], full[:, off + text - 1], V), _rel_err(lg, lc, V))
+    size = off + text + 8
+    cg, cc = prime_cache(cfg, cg, off + text, size), prime_cache(cfg, cc, off + text, size)
+    for s in range(steps - 1):
+        pos, tok = off + text + s, tokens[:, text + s:text + s + 1]
+        lg, cg = decode_step(gpu, tok, cg, pos, cfg)
+        lc, cc = decode_step(cpu, tok.cpu(), cc, pos, cfg)
+        worst = max(worst, _rel_err(lg[:, 0], full[:, pos], V), _rel_err(lg, lc, V))
+    del gpu, cpu
+    return worst
+
+
+def vision_serving_phase(dev, arch: str = "internvl2-2b", tag: str = "serve-internvl") -> dict:
+    """Full-width internvl2-2b (24 layers, 16 / 8 heads of 128, bf16,
+    seeded random init): 4 sequences of 256 seeded patch embeddings and
+    1792 text tokens prefilled together, ``prime_cache`` at ``MAX_SEQ``
+    rows, then ``IVL_GEN`` greedy ``decode_step``s from position 2048:
+    exact launch counts, the stream identical on a second run; prefill and
+    decode-iteration wall and device ms, peak memory.  Then 2 layers in
+    float32 (``_vision_check``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, prefill
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
+    assert cfg.frontend == "vision" and cfg.n_patches + IVL_TEXT + IVL_GEN <= MAX_SEQ
+    t0 = time.perf_counter()
+    model = init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[{tag}] {arch} ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim} on "
+        f"{cfg.n_kv_heads} KV heads, vocab {cfg.vocab}, {cfg.n_patches} patches, {n_params / 1e9:.3f} B params, "
+        f"{cfg.dtype}) initialised on the card in {time.perf_counter() - t0:.1f} s")
+    patches, tokens = _vision_inputs(cfg, N_SLOTS, IVL_TEXT, dev, 0)
+    _vision_greedy(model, cfg, patches, tokens, MAX_SEQ, 2)  # warm-up
+    ops = _kernel_ops()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts from 0 just before, read just after ----
+    for c in ops.values():
+        c.reset()
+    step_ms: list = []
+    stream = _vision_greedy(model, cfg, patches, tokens, MAX_SEQ, IVL_GEN, step_ms)
+    launches = {name: c.count for name, c in ops.items()}
+    by_shape = {name: dict(c.by_shape) for name, c in ops.items()}
+    # --------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    want = _serve_launches(cfg, prefills=1, decode_steps=IVL_GEN)
+    log(f"[{tag}] launches on the main path {launches}; expected {want} (one prefill of {N_SLOTS} sequences, "
+        f"{IVL_GEN} decode steps)")
+    assert launches == want, "the vision path did not run through every kernel as expected"
+    assert int(stream.min()) >= 0 and int(stream.max()) < cfg.vocab, "a token in the padded classes"
+    again = _vision_greedy(model, cfg, patches, tokens, MAX_SEQ, IVL_GEN)
+    log(f"[{tag}] streams (first 8 of each) {stream[:, :8].tolist()}; identical on a second run: "
+        f"{torch.equal(again, stream)}")
+    assert torch.equal(again, stream)
+    batch = {"tokens": tokens, "patch_embeds": patches}
+    pre_prof = _profile_call(lambda: prefill(model, batch, cfg))
+    pre_wall = pre_prof["wall_ms"]
+    _log_profile(f"{arch} prefill of {N_SLOTS} x ({cfg.n_patches} patches + {IVL_TEXT} tokens)", pre_prof)
+    from repro_torch.models import decode_step
+    from repro_torch.runtime.serve import prime_cache
+
+    _, caches = prefill(model, batch, cfg)
+    caches = prime_cache(cfg, caches, cfg.n_patches + IVL_TEXT, MAX_SEQ)
+    tok = stream[:, :1].contiguous()
+    pos = cfg.n_patches + IVL_TEXT
+    dec_prof = _profile_call(lambda: decode_step(model, tok, caches, pos, cfg), n_prof=4)
+    dec_wall = float(np.median(step_ms))
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    _log_profile(f"{arch} decode iteration of {N_SLOTS} sequences at position {pos}", dec_prof)
+    log(f"[{tag}] decode step wall ms {[round(t, 2) for t in step_ms]}: median {dec_wall:.2f} ms "
+        f"({N_SLOTS / dec_wall * 1e3:.1f} tok/s); reading the {weight_bytes / 1e9:.2f} GB of weights once takes "
+        f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms; peak device memory {peak / 2**30:.2f} GiB ({peak} bytes)")
+    del model, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = cfg.replace(n_layers=2, dtype="float32")
+    err = _vision_check(dev, small)
+    log(f"[{tag}] {small.n_layers}-layer full-width fp32, {small.n_patches} patches + 256 tokens, prefill and 3 "
+        f"decode steps: max relative logit error {err:.3e} against the card's full forward and the CPU port "
+        "(limit 1e-3)")
+    assert err <= 1e-3
+    return dict(launches=launches, launches_by_shape=by_shape, prefill_ms=pre_wall, prefill_profile=pre_prof,
+                decode_ms=dec_wall, decode_profile=dec_prof, tok_per_s=N_SLOTS / dec_wall * 1e3, peak_bytes=peak,
+                fp32_err=err)
+
 
 def model_phase(dev, cfg=None, prompt_len: int = 256, limit: float = 1e-3) -> float:
     """Full width, depth cut (deepseek-7b: 2 layers), float32: logits of a
@@ -1776,8 +2110,9 @@ def _train_launches_per_step(cfg, n_mb: int) -> dict:
     (``_layer_launches``) plus the final norm forward, the layers' kernels
     once more when ``remat="full"`` recomputes them
     (``torch.utils.checkpoint`` reruns the layer's forward, the autograd
-    functions' forwards included), and one backward of each."""
-    remat = 2 if cfg.remat == "full" else 1
+    functions' forwards included; ``"dots_saveable"`` too: it keeps only
+    the matrix products' outputs), and one backward of each."""
+    remat = 2 if cfg.remat in ("full", "dots_saveable") else 1
     c = _layer_launches(cfg)
     return {
         "flash_attention": n_mb * remat * c["flash"],
@@ -1962,7 +2297,9 @@ def train_parity_phase(dev) -> dict:
     with AdamW, gemma-7b (2 layers, L = 128; head dim 256: the f32 routes
     of the flash forward and backward at Dh 256), minicpm3-4b (2 MLA
     layers, L = 256), recurrentgemma-9b (3 layers, L = 128) and
-    qwen3-moe-235b-a22b (1 layer, L = 128) with Adafactor."""
+    qwen3-moe-235b-a22b (1 layer, L = 128) with Adafactor; hubert-xlarge
+    (2 layers, 256 frames, non-causal) and internvl2-2b (2 layers, 256
+    patches + 128 text tokens) with their config's AdamW."""
     from repro_torch.configs import get_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1978,8 +2315,12 @@ def train_parity_phase(dev) -> dict:
         for arch, opt, seq, n_layers in (("deepseek-7b", "adafactor", 256, 2), ("deepseek-7b", "adamw", 256, 2),
                                          ("gemma-7b", "adafactor", 128, 2), ("minicpm3-4b", "adafactor", 256, 2),
                                          ("recurrentgemma-9b", "adafactor", 128, 3),
-                                         ("qwen3-moe-235b-a22b", "adafactor", 128, 1)):
-            cfg = get_config(arch).replace(n_layers=n_layers, dtype="float32", logits_chunk=seq, optimizer=opt)
+                                         ("qwen3-moe-235b-a22b", "adafactor", 128, 1),
+                                         ("hubert-xlarge", "adamw", 256, 2), ("internvl2-2b", "adamw", 384, 2)):
+            cfg = get_config(arch)
+            # one logits chunk: a vision model's over its text positions; audio reads none
+            chunk = None if cfg.frontend == "audio" else seq - (cfg.n_patches if cfg.frontend == "vision" else 0)
+            cfg = cfg.replace(n_layers=n_layers, dtype="float32", logits_chunk=chunk, optimizer=opt)
             out[opt if arch == "deepseek-7b" else arch] = _parity_run(dev, cfg, tag="train-parity", seq=seq)
             rss = next((line.split(":")[1].strip() for line in open("/proc/self/status")
                         if line.startswith("VmRSS")), "unknown")
@@ -2036,15 +2377,53 @@ def _profile_train_step(art, state, batch) -> tuple:
     return state, m, _device_rows(prof, wall_ms, 1)
 
 
+def _model_flops(cfg, params: dict, seq: int) -> tuple[float, float]:
+    """Model FLOPs of one train step of (TRAIN_BATCH, seq) — 6 a parameter
+    and position it multiplies, no recompute — plus attention's 3 ×
+    2·H·(Dk + Dv) an unmasked pair (every pair for an encoder), and the
+    parameters in matrix products.  Not the embedding gather, the norm
+    scales, biases, gates' diagonals nor the rec layers' conv taps, but a
+    tied embedding is also the logits product's matrix; a MoE layer's
+    experts count at top_k / n_experts (the active parameters).  A vision
+    model's patch projection multiplies its patches, its logits product
+    the text positions; an audio model's frame projection and head every
+    frame."""
+    positions = TRAIN_BATCH * seq
+    patches = TRAIN_BATCH * cfg.n_patches if cfg.frontend == "vision" else 0
+    per_param = {"patch_proj": patches, "unembed": positions - patches}
+    flops = n_matmul = 0.0
+    for n, p in params.items():
+        if p.dim() < 2 or n.endswith("conv_w") or (n == "embedding" and not cfg.tie_embeddings):
+            continue
+        k = p.numel() * (cfg.moe.top_k / cfg.moe.n_experts if cfg.moe and ".moe.w" in n else 1.0)
+        n_matmul += k
+        flops += 6 * k * per_param.get("unembed" if n == "embedding" else n, positions)
+    if cfg.tie_embeddings:  # the gather of a tied table is not a product; its logits are
+        n_matmul -= params["embedding"].numel() - cfg.vocab * cfg.d_model
+        flops -= 6 * (params["embedding"].numel() - cfg.vocab * cfg.d_model) * positions
+    dk, dv = ((cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim, cfg.mla.v_head_dim) if cfg.mla
+              else (cfg.head_dim, cfg.head_dim))
+    window = cfg.hybrid.window if cfg.hybrid else cfg.attn_window
+    attn = (3 * 2 * cfg.n_heads * (dk + dv) * _pairs(seq, seq, not cfg.is_encoder, window, 0) * TRAIN_BATCH
+            * _layer_launches(cfg)["flash"])
+    return flops + attn, n_matmul
+
+
 # the train runs: arch → (its layers here, the phase's tag, nonfinite rollback);
 # full depth but for qwen3-moe (the fixed cut above)
 TRAIN_RUNS = {"deepseek-7b": (30, "train", True), "gemma-7b": (28, "train-gemma", False),
               "minicpm3-4b": (62, "train-minicpm3", False),
               "recurrentgemma-9b": (38, "train-rgemma", False),
-              "qwen3-moe-235b-a22b": (MOE_TRAIN_LAYERS, "train-moe", False)}
+              "qwen3-moe-235b-a22b": (MOE_TRAIN_LAYERS, "train-moe", False),
+              "hubert-xlarge": (48, "train-hubert", False), "internvl2-2b": (24, "train-internvl", False)}
 # timed steps a run: the other families' runs time 2 (the first is warm-up),
 # to keep the script inside its time limit
-TRAIN_STEPS_OF = {"minicpm3-4b": 3, "recurrentgemma-9b": 3, "qwen3-moe-235b-a22b": 3}
+TRAIN_STEPS_OF = {"minicpm3-4b": 3, "recurrentgemma-9b": 3, "qwen3-moe-235b-a22b": 3, "hubert-xlarge": 3,
+                  "internvl2-2b": 3}
+# the frontends train at their own sequence (4096 positions: internvl's 256
+# patches + 3840 text tokens, 5 logits chunks of 768) with their config's
+# optimizer (AdamW); the others at TRAIN_SEQ with Adafactor
+FRONTEND_TRAIN_SEQ = 4096
 
 
 def train_phase(dev, arch: str = "deepseek-7b") -> dict:
@@ -2065,31 +2444,27 @@ def train_phase(dev, arch: str = "deepseek-7b") -> dict:
     torch.cuda.empty_cache()
     mem_base = torch.cuda.memory_allocated()
     full = get_config(arch)
-    cfg = full.replace(optimizer="adafactor", n_layers=n_layers)
-    assert (cfg.remat, cfg.logits_chunk, cfg.dtype) == ("full", 1024, "bfloat16")
+    if full.frontend:
+        seq, cfg = FRONTEND_TRAIN_SEQ, full.replace(n_layers=n_layers)
+        assert (cfg.remat, cfg.dtype, cfg.optimizer) == ("full", "bfloat16", "adamw")
+        assert cfg.logits_chunk == (768 if cfg.frontend == "vision" else None)
+    else:
+        seq, cfg = TRAIN_SEQ, full.replace(optimizer="adafactor", n_layers=n_layers)
+        assert (cfg.remat, cfg.logits_chunk, cfg.dtype) == ("full", 1024, "bfloat16")
     t0 = time.perf_counter()
     state = init_train_state(cfg, 0, device=dev)
     torch.cuda.synchronize()
     params = dict(state.params.named_parameters())
     n_params = sum(p.numel() for p in params.values())
-    # parameters in matrix products: not the embedding gather, the norm
-    # scales, biases, gates' diagonals nor the rec layers' conv taps, but a
-    # tied embedding is also the logits product's matrix; a MoE layer's
-    # experts count at top_k / n_experts (the active parameters)
-    n_matmul = sum(p.numel() for n, p in params.items()
-                   if p.dim() >= 2 and not n.endswith("conv_w")) - state.params.embedding.numel()
-    if cfg.tie_embeddings:
-        n_matmul += cfg.vocab * cfg.d_model
-    if cfg.moe:
-        experts = sum(p.numel() for n, p in params.items() if ".moe.w" in n)
-        n_matmul -= experts * (1 - cfg.moe.top_k / cfg.moe.n_experts)
+    tokens = TRAIN_BATCH * seq
+    model_flops, n_matmul = _model_flops(cfg, params, seq)
     cut = f" of {full.n_layers}" if n_layers != full.n_layers else ""
     log(f"[{tag}] {arch} ({cfg.n_layers}{cut} layers, {n_params / 1e9:.3f} B params, {n_matmul / 1e9:.3f} B "
         f"{'active ' if cfg.moe else ''}in matrix products, {cfg.dtype}, {cfg.optimizer}, remat {cfg.remat}, "
         f"logits chunk {cfg.logits_chunk}) initialised on the card in {time.perf_counter() - t0:.1f} s "
         f"({mem_base} bytes allocated before it)")
     art = build_train_step(cfg, n_microbatches=TRAIN_MB, schedule_policy="overlap")
-    batches = _batches(cfg, dev, n_steps + 2, TRAIN_BATCH, TRAIN_SEQ)  # + timed / profiled and rollback steps
+    batches = _batches(cfg, dev, n_steps + 2, TRAIN_BATCH, seq)  # + timed / profiled and rollback steps
     ops = _kernel_ops()
     torch.cuda.reset_peak_memory_stats()
     # ---- the main path: counts from 0 just before, read just after ----
@@ -2105,6 +2480,7 @@ def train_phase(dev, arch: str = "deepseek-7b") -> dict:
         losses.append(float(m["loss"]))
         gnorms.append(float(m["grad_norm"]))
     launches = {name: c.count for name, c in ops.items()}
+    by_shape = {name: dict(c.by_shape) for name, c in ops.items()}
     # ------------------------------------------------------------------
     peak = torch.cuda.max_memory_allocated()
     want = {k: v * n_steps for k, v in _train_launches_per_step(cfg, TRAIN_MB).items()}
@@ -2114,21 +2490,15 @@ def train_phase(dev, arch: str = "deepseek-7b") -> dict:
     assert all(np.isfinite(losses)) and all(np.isfinite(gnorms)), (losses, gnorms)
     assert int(state.step) == n_steps
     assert art.schedule_names == ["mb0", "mb1", "grad_allreduce", "optimizer"], art.schedule_names
-    tokens = TRAIN_BATCH * TRAIN_SEQ
     step_ms = float(np.median(walls[1:]))
-    dk, dv = ((cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim, cfg.mla.v_head_dim) if cfg.mla
-              else (cfg.head_dim, cfg.head_dim))
-    window = cfg.hybrid.window if cfg.hybrid else cfg.attn_window
-    attn = (3 * 2 * cfg.n_heads * (dk + dv) * _pairs(TRAIN_SEQ, TRAIN_SEQ, True, window, 0) * TRAIN_BATCH
-            * _layer_launches(cfg)["flash"])
-    model_flops = 6 * n_matmul * tokens + attn
     tflops = model_flops / (step_ms / 1e3) / 1e12
     log(f"[{tag}] losses {losses}, grad norms {gnorms}; schedule {art.schedule_names}")
     if cfg.moe:
         log(f"[{tag}] aux metrics of the last step: moe_balance {float(m['moe_balance']):.4f}, moe_zloss "
             f"{float(m['moe_zloss']):.4f}")
     log(f"[{tag}] step wall ms {[round(w, 2) for w in walls]}; median of steps 2-{n_steps} {step_ms:.2f} ms, "
-        f"{tokens / step_ms * 1e3:.1f} tokens/s, model {model_flops / 1e12:.1f} TFLOP a step "
+        f"{tokens / step_ms * 1e3:.1f} {'frames' if cfg.frontend == 'audio' else 'tokens'}/s, model "
+        f"{model_flops / 1e12:.1f} TFLOP a step "
         f"(6·N{'_active' if cfg.moe else ''}·tokens + attention, no recompute) = {tflops:.1f} TFLOP/s, "
         f"{tflops / 989:.1%} of 989; peak device memory {peak / 2**30:.2f} GiB ({peak} bytes)")
     state, spans = _codelet_times(art, state, batches[n_steps])
@@ -2141,9 +2511,9 @@ def train_phase(dev, arch: str = "deepseek-7b") -> dict:
         log(f"[profile]   {ms:9.3f} ms  {name}")
     log("[profile] by kind: " + ", ".join(f"{k} {ms:.1f} ms ({ms / prof['device_ms']:.1%})"
                                           for k, ms in prof["kinds"]))
-    out = dict(launches=launches, losses=losses, grad_norms=gnorms, walls_ms=walls, step_ms=step_ms,
-               tokens_per_s=tokens / step_ms * 1e3, model_tflops=tflops, peak_bytes=peak, profile=prof,
-               task_ms=spans)
+    out = dict(launches=launches, launches_by_shape=by_shape, losses=losses, grad_norms=gnorms, walls_ms=walls,
+               step_ms=step_ms, tokens_per_s=tokens / step_ms * 1e3, model_tflops=tflops, peak_bytes=peak,
+               profile=prof, task_ms=spans)
     if not rollback:
         del state, art, batches
         gc.collect()
@@ -2245,6 +2615,108 @@ def train_m2_phase(dev) -> dict:
 # ---------------------------------------------------------------------------
 # 11-12. speculative decoding and the load generator at full width
 # ---------------------------------------------------------------------------
+
+REMAT_STEPS = 3  # staged steps a mode (the first is warm-up)
+
+
+def _mb_grads(model, cfg, mb: dict) -> tuple:
+    """One microbatch's loss and every parameter's gradient, as the train
+    step's microbatch codelet forms them (``loss_fn``, ``torch.autograd.grad``)."""
+    from repro_torch.models import loss_fn
+
+    with torch.enable_grad():
+        loss, _ = loss_fn(model, mb, cfg)
+        grads = torch.autograd.grad(loss, [p for p in model.parameters()])
+    return loss.detach(), grads
+
+
+def remat_phase(dev, arch: str = "deepseek-7b", tag: str = "remat") -> dict:
+    """deepseek-7b at full width and depth (30 layers, bf16, Adafactor),
+    (2, 2048) in 2 microbatches, under ``remat="dots_saveable"`` against
+    ``"full"``: each microbatch's loss and every parameter's gradient bit
+    for bit from the same weights (the step's float32 accumulator adds
+    these in the same order, so its gradients are too); then
+    ``REMAT_STEPS`` staged steps a mode from one state, full /
+    dots_saveable / full (median of the steps after the first, peak device
+    memory; one profiled step's device time and busy share of the first
+    two), exact launch counts of every mode's steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.train import build_train_step, init_train_state
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = get_config(arch).replace(optimizer="adafactor")
+    assert (base.remat, base.logits_chunk, base.dtype) == ("full", 1024, "bfloat16")
+    modes = {r: base.replace(remat=r) for r in ("full", "dots_saveable")}
+    state = init_train_state(base, 0, device=dev)
+    batches = _batches(base, dev, REMAT_STEPS, TRAIN_BATCH, TRAIN_SEQ)
+    names = [n for n, _ in state.params.named_parameters()]
+    rows = TRAIN_BATCH // TRAIN_MB
+    differing, worst, losses = [], 0.0, []
+    for i in range(TRAIN_MB):
+        mb = {k: v[i * rows:(i + 1) * rows] for k, v in batches[0].items()}
+        lf, gf = _mb_grads(state.params, modes["full"], mb)
+        ld, gd = _mb_grads(state.params, modes["dots_saveable"], mb)
+        losses.append((float(lf), float(ld), torch.equal(_bits(lf), _bits(ld))))
+        for n, a, b in zip(names, gf, gd):
+            if not torch.equal(_bits(a), _bits(b)):
+                differing.append(f"mb{i}:{n}")
+                worst = max(worst, float((a.float() - b.float()).abs().max()))
+        del gf, gd
+    log(f"[{tag}] {arch} ({base.n_layers} layers, bf16): microbatch losses full / dots_saveable {losses}; "
+        f"gradients of {len(names)} parameters x {TRAIN_MB} microbatches bit for bit equal: "
+        f"{not differing} (differing {differing[:8]}, worst |difference| {worst:.3e})")
+    assert all(same for _, _, same in losses) and not differing, (losses, differing[:8], worst)
+    ops = _kernel_ops()
+    runs = []
+    for remat in ("full", "dots_saveable", "full"):
+        profiled = len(runs) < 2  # a profiled deepseek step costs ~15 s of the script's time
+        gc.collect()
+        torch.cuda.empty_cache()
+        art = build_train_step(modes[remat], n_microbatches=TRAIN_MB, schedule_policy="overlap")
+        torch.cuda.reset_peak_memory_stats()
+        for c in ops.values():
+            c.reset()
+        walls = []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = art(state, b)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
+        launches = {name: c.count for name, c in ops.items()}
+        want = {k: v * REMAT_STEPS for k, v in _train_launches_per_step(modes[remat], TRAIN_MB).items()}
+        assert launches == want, (remat, launches, want)
+        peak = torch.cuda.max_memory_allocated()
+        runs.append(dict(remat=remat, walls_ms=walls, step_ms=float(np.median(walls[1:])), peak_bytes=peak,
+                         launches=launches))
+        log(f"[{tag}] remat {remat}: step wall ms {[round(w, 2) for w in walls]}, median of steps "
+            f"2-{REMAT_STEPS} {runs[-1]['step_ms']:.2f} ms, peak device memory {peak / 2**30:.2f} GiB ({peak} "
+            f"bytes); launches {launches} (as expected)")
+        if profiled:
+            state, _, prof = _profile_train_step(art, state, batches[0])
+            runs[-1]["profile"] = prof
+            log(f"[{tag}] remat {remat}: a profiled step {prof['profiled_wall_ms']:.2f} ms wall, "
+                f"{prof['device_ms']:.2f} ms device, busy {prof['busy']:.1%}; by kind "
+                + ", ".join(f"{k} {ms:.1f} ms" for k, ms in prof["kinds"]))
+        del art
+    full = [r for r in runs if r["remat"] == "full"]
+    dots = runs[1]
+    full_ms = float(np.mean([r["step_ms"] for r in full]))
+    full_dev = full[0]["profile"]["device_ms"]
+    log(f"[{tag}] dots_saveable against full (the two full runs' mean): step {dots['step_ms']:.2f} against "
+        f"{full_ms:.2f} ms ({dots['step_ms'] - full_ms:+.2f} ms), device time of a profiled step (the first full "
+        f"run's) "
+        f"{dots['profile']['device_ms']:.2f} against {full_dev:.2f} ms "
+        f"({dots['profile']['device_ms'] - full_dev:+.2f} ms), peak {dots['peak_bytes'] / 2**30:.2f} against "
+        f"{full[0]['peak_bytes'] / 2**30:.2f} GiB ({(dots['peak_bytes'] - full[0]['peak_bytes']) / 2**30:+.2f} GiB)")
+    del state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=dots["launches"], runs=runs, full_ms=full_ms, dots_ms=dots["step_ms"],
+                full_peak=full[0]["peak_bytes"], dots_peak=dots["peak_bytes"], losses=losses)
+
 
 SPEC_K = 4
 # the speculation and load phases' deepseek-7b, cut in depth to keep the
@@ -3385,6 +3857,8 @@ def main() -> int:
     serve_c = phase("serve-minicpm3", serving_phase, dev, "minicpm3-4b", "serve-minicpm3")
     serve_r = phase("serve-rgemma", recurrent_serving_phase, dev, "recurrentgemma-9b", "serve-rgemma")
     serve_q = phase("serve-moe", serving_phase, dev, "qwen3-moe-235b-a22b", "serve-moe", n_layers=MOE_SERVE_LAYERS)
+    serve_h = phase("serve-hubert", encoder_serving_phase, dev)
+    serve_v = phase("serve-internvl", vision_serving_phase, dev)
     from repro_torch.configs import get_config
 
     model_errs = {}
@@ -3397,6 +3871,7 @@ def main() -> int:
     trains = {arch: phase(TRAIN_RUNS[arch][1], train_phase, dev, arch) for arch in TRAIN_RUNS}
     train, train_g = trains["deepseek-7b"], trains["gemma-7b"]
     train_m2 = phase("train-m2", train_m2_phase, dev)
+    remat = phase("remat", remat_phase, dev)
     cfg, model = _deepseek(dev, "spec")
     spec = phase("spec", spec_phase, dev, cfg, model)
     load = phase("load", load_phase, dev, cfg, model)
@@ -3408,15 +3883,18 @@ def main() -> int:
     mesh = phase("mesh", mesh_phase, dev)
     # launches on every path: serving and train (every model), speculation, load, checkpoint, the launcher,
     # the pipeline, the chaos soak's serve runs and the mesh's train steps
-    runs = (serve, serve_m, serve_g, serve_c, serve_r, serve_q, *trains.values(), train_m2, spec, load, ckpt, comm,
-            pipe, chaos, mesh)
+    runs = (serve, serve_m, serve_g, serve_c, serve_r, serve_q, serve_h, serve_v, *trains.values(), train_m2, remat,
+            spec, load, ckpt, comm, pipe, chaos, mesh)
     for r in records:
         r["launches"] = sum(run["launches"][r["name"]] for run in runs)
+    _frontend_shape_launches(records, {"hubert": (serve_h, trains["hubert-xlarge"]),
+                                       "internvl": (serve_v, trains["internvl2-2b"])})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     shape_keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [dict({k: r[k] for k in keys}, shape=r["shape"],
-                    other_shapes={n: {k: t.get(k) for k in shape_keys} for n, t in _sub_shapes(r).items()})
+                    other_shapes={n: {k: t.get(k) for k in shape_keys + (("launches",) if "launches" in t else ())}
+                                  for n, t in _sub_shapes(r).items()})
                for r in records]
     log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
     news = ", ".join(
@@ -3435,7 +3913,12 @@ def main() -> int:
         f"comm phase {comm['seconds']:.1f} s, pipeline {PIPE_LAYERS} layers 1f1b / fifo "
         f"{pipe['bf16']['1f1b']['wall_ms']:.1f} / {pipe['bf16']['fifo']['wall_ms']:.1f} ms (bubble "
         f"{pipe['bf16']['1f1b']['bubble']:.3f} / {pipe['bf16']['fifo']['bubble']:.3f}), chaos {chaos['seconds']:.1f} s, "
-        f"mesh {mesh['seconds']:.1f} s, "
+        f"mesh {mesh['seconds']:.1f} s, hubert-xlarge encoder {serve_h['wall_ms']:.1f} ms a 2 x 4096 call "
+        f"({serve_h['frames_per_s']:.1f} frames/s, peak {serve_h['peak_bytes'] / 2**30:.2f} GiB, fp32 "
+        f"{serve_h['fp32_err']:.2e}), internvl2-2b prefill {serve_v['prefill_ms']:.1f} ms and decode "
+        f"{serve_v['decode_ms']:.2f} ms a step (peak {serve_v['peak_bytes'] / 2**30:.2f} GiB, fp32 "
+        f"{serve_v['fp32_err']:.2e}), remat dots_saveable / full {remat['dots_ms']:.1f} / {remat['full_ms']:.1f} ms "
+        f"(peak {remat['dots_peak'] / 2**30:.2f} / {remat['full_peak'] / 2**30:.2f} GiB, bit for bit), "
         f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

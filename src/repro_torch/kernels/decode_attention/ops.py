@@ -127,7 +127,7 @@ def decode_attention(
         1.0 / math.sqrt(Dh), code, stream,
     )
     dispatch.check(rc, "decode_attention")
-    launches.add()
+    launches.add((B, S, H, KH, Dh, Dv))
     return out[:, None]
 
 

@@ -206,17 +206,21 @@ def check(rc: int, name: str) -> None:
 
 class LaunchCounter:
     """Launches of one kernel wrapper, counted where the kernel is launched
-    and nowhere else.  Wrappers run on the serve engine's worker threads, so
-    the increment takes a lock."""
+    and nowhere else, in all (``count``) and by the launch's problem shape
+    (``by_shape``, keyed by the tuple the wrapper names).  Wrappers run on
+    the serve engine's worker threads, so the increment takes a lock."""
 
     def __init__(self) -> None:
         self.count = 0
+        self.by_shape: dict = {}
         self._lock = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, shape: tuple) -> None:
         with self._lock:
             self.count += 1
+            self.by_shape[shape] = self.by_shape.get(shape, 0) + 1
 
     def reset(self) -> None:
         with self._lock:
             self.count = 0
+            self.by_shape = {}

@@ -89,7 +89,7 @@ def flash_attention(
         1.0 / math.sqrt(Dh), code, dispatch.stream_handle(q),
     )
     dispatch.check(rc, "flash_attention")
-    launches.add()
+    launches.add((B, Lq, Lk, H, KH, Dh, Dv))
     return (out, lse) if return_lse else out
 
 
@@ -175,7 +175,7 @@ def flash_attention_bwd(
         1.0 / math.sqrt(Dh), code, dispatch.stream_handle(q),
     )
     dispatch.check(rc, "flash_attention_bwd")
-    bwd_launches.add()
+    bwd_launches.add((B, Lq, Lk, H, KH, Dh, Dv))
     return dq, dk, dv
 
 

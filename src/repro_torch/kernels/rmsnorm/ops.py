@@ -131,7 +131,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
         x_code, s_code, *plan, dispatch.stream_handle(x),
     )
     dispatch.check(rc, "rmsnorm")
-    launches.add()
+    launches.add((rows, D))
     return out
 
 
@@ -167,7 +167,7 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, eps: flo
         dispatch.stream_handle(x),
     )
     dispatch.check(rc, "rmsnorm_bwd")
-    bwd_launches.add()
+    bwd_launches.add((rows, D))
     return dx, dscale
 
 

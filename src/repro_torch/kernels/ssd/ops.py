@@ -180,7 +180,7 @@ def _intra_chunk_kernel(x, dt, cum, B, C):
         dispatch.strides(state, (0, 1, 2)), code, dispatch.stream_handle(x),
     )
     dispatch.check(rc, "ssd_intra_chunk")
-    launches.add()
+    launches.add((Bsz, H, nc, cs, P, G, N))
     return y, state
 
 
@@ -278,7 +278,7 @@ def ssd_intra_chunk_bwd(x, dt, cum, B, C, dy, dS):
     else:
         rc = lib.ssd_intra_chunk_bwd(*args, code, dispatch.stream_handle(x))
     dispatch.check(rc, name)
-    bwd_launches.add()
+    bwd_launches.add((Bsz, H, nc, cs, P, G, N))
     return dx, ddt, dcum, dB, dC
 
 

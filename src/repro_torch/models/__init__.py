@@ -1,6 +1,8 @@
 """Every block kind of ``repro`` (``attn``, ``mla``, ``moe``, ``ssm``, ``rec``
-and the recurrentgemma hybrid) as ``nn.Module``s, with the JAX package's
-weight layouts and function names."""
+and the recurrentgemma hybrid) and its audio and vision frontends as
+``nn.Module``s, with the JAX package's weight layouts and function names
+(all of ``repro.models``' but ``param_shardings``, which waits for the
+``model`` mesh axis)."""
 from repro_torch.models.config import (
     ArchConfig,
     HybridConfig,
@@ -13,6 +15,12 @@ from repro_torch.models.config import (
 )
 from repro_torch.models.transformer import (
     Block,
+    abstract_cache,
+    abstract_inputs,
+    abstract_params,
+    embed_inputs,
+    head_logits,
+    input_defs,
     RecBlock,
     SSMBlock,
     Transformer,
@@ -34,7 +42,8 @@ from repro_torch.models.transformer import (
 
 __all__ = [
     "ArchConfig", "HybridConfig", "MLAConfig", "MoEConfig", "SHAPES", "ShapeSpec",
-    "SSMConfig", "applicable_shapes", "Block", "RecBlock", "SSMBlock", "Transformer", "block_kind", "cache_defs",
+    "SSMConfig", "applicable_shapes", "abstract_cache", "abstract_inputs", "abstract_params",
+    "embed_inputs", "head_logits", "input_defs", "Block", "RecBlock", "SSMBlock", "Transformer", "block_kind", "cache_defs",
     "cache_layout", "decode_step", "forward", "init_cache", "init_params",
     "layer_kinds", "leaf_layout", "loss_fn", "model_defs", "prefill", "set_trainable", "verify_step",
 ]

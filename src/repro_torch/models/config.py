@@ -5,9 +5,10 @@ assigned input shapes as :class:`ShapeSpec`.  Configs are pure data, kept
 identical to the JAX package's so one config names the same model in both.
 
 The port reads the model fields (widths, heads, vocab, activation, biases,
-norms, RoPE, window, softcap, dtype) and three training knobs: ``remat``
-(``"full"`` recomputes each layer in the backward, ``"none"`` keeps its
-activations; ``"dots_saveable"`` raises), ``logits_chunk`` (the chunked
+norms, RoPE, window, softcap, frontend and n_patches, dtype) and three training knobs: ``remat``
+(``"full"`` recomputes each layer in the backward, ``"dots_saveable"``
+recomputes it but keeps its matrix products' outputs, ``"none"`` keeps its
+activations), ``logits_chunk`` (the chunked
 cross-entropy, each chunk's logits recomputed in the backward) and
 ``optimizer`` / ``opt_state_dtype``.  The JAX package's XLA / Pallas knobs
 (``use_pallas``, ``attn_blockwise_min_seq``, ``attn_mode``, block sizes,

@@ -25,6 +25,8 @@ from typing import Optional
 import torch
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+#: the dtypes an input or cache ParamDef may name besides DTYPES'
+INPUT_DTYPES = {**DTYPES, "int32": torch.int32, "bool": torch.bool}
 
 
 @dataclass
@@ -71,3 +73,12 @@ def init_(t: torch.Tensor, d: ParamDef, gen: torch.Generator) -> None:
         draw = torch.randn(d.shape, generator=gen, device=t.device, dtype=torch.float32)
         t.copy_(draw.mul_(_stddev(d)))
 
+
+
+def abstract_tree(defs, dtype: str):
+    """A ParamDef tree → the same tree of ``meta`` tensors (shape and dtype,
+    no storage; ``dtype`` where a def names none), as ``repro``'s
+    ``abstract_tree`` gives ``ShapeDtypeStruct``s."""
+    if isinstance(defs, ParamDef):
+        return torch.empty(defs.shape, dtype=INPUT_DTYPES[defs.dtype or dtype], device="meta")
+    return {k: abstract_tree(v, dtype) for k, v in defs.items()}

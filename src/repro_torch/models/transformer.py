@@ -15,23 +15,37 @@ for ``lax.scan`` (a hybrid stacks its (rec, rec, attn) super-blocks, keyed
 in layer order and loops.  The functions take the model where ``repro``'s
 take the parameter tree.
 
+The modality frontends are ``repro``'s stubs (:func:`embed_inputs`): an
+audio model (hubert-xlarge, an encoder) projects precomputed frame
+embeddings (B, L, 512) through ``frontend_proj``, puts ``mask_emb`` where
+``batch["mask"]`` is set, and reads its logits through ``head`` (no
+embedding table); a vision model (internvl2-2b) projects patch embeddings
+(B, n_patches, 1024) through ``patch_proj`` and puts them before the
+embedded text, so its text and its decode positions start at
+``n_patches``.
+
 Training: :func:`loss_fn` is ``repro``'s, the MoE aux terms included.
 Parameters are created frozen, for serving (which also runs under
 ``torch.no_grad``); :func:`set_trainable` turns them on for a train step.
 ``cfg.remat`` takes effect when autograd records: ``"full"`` recomputes each
-layer in the backward (``torch.utils.checkpoint``), ``"none"`` keeps its
-activations.
+layer in the backward (``torch.utils.checkpoint``), ``"dots_saveable"``
+recomputes it but keeps the outputs of its matrix products (selective
+activation checkpointing: :func:`dots_saveable_policy`), ``"none"`` keeps
+its activations.
 
-The audio and vision frontends (hubert-xlarge, internvl2-2b) raise
-``NotImplementedError`` naming their ROADMAP item.
+:func:`input_defs`, :func:`abstract_inputs`, :func:`abstract_params` and
+:func:`abstract_cache` describe a batch, the parameters and the caches as
+``ParamDef`` trees and as tensors on the ``meta`` device (shapes and dtypes,
+no storage), as ``repro``'s do with ``ShapeDtypeStruct``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -39,7 +53,7 @@ from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rec_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.config import ArchConfig
+from repro_torch.models.config import ArchConfig, ShapeSpec
 from repro_torch.models.layers import (
     MLP,
     RMSNorm,
@@ -52,7 +66,7 @@ from repro_torch.models.layers import (
     rmsnorm_def,
     softmax_xent,
 )
-from repro_torch.models.param import DTYPES, ParamDef, init_, stack_defs
+from repro_torch.models.param import DTYPES, ParamDef, abstract_tree, init_, stack_defs
 
 #: each block kind's decode-cache leaves
 CACHE_KEYS = {"attn": ("k", "v"), "moe": ("k", "v"), "mla": ("c_kv", "k_rope"),
@@ -70,15 +84,6 @@ def block_kind(cfg: ArchConfig) -> str:
     if cfg.mla is not None:
         return "mla"
     return "attn"
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """The port runs every block kind with a token frontend."""
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: frontend {cfg.frontend!r} is not ported yet (ROADMAP.md, port "
-            "queue: 'Other families')"
-        )
 
 
 def hybrid_layout(cfg: ArchConfig) -> tuple[int, tuple[str, ...]]:
@@ -128,10 +133,24 @@ def block_defs(cfg: ArchConfig, kind: Optional[str] = None) -> dict:
     return {"ln1": rmsnorm_def(D), mixer[0]: mixer[1](cfg), "ln2": rmsnorm_def(D), ffn[0]: ffn[1]}
 
 
+def frontend_defs(cfg: ArchConfig) -> dict:
+    """The parameters before the layers, in ``repro``'s order: an audio
+    model's frame projection, mask embedding and head (no embedding table),
+    a vision model's patch projection and the token embeddings, else the
+    token embeddings."""
+    D = cfg.d_model
+    if cfg.frontend == "audio":
+        return {"frontend_proj": ParamDef((512, D), (None, "embed")),
+                "mask_emb": ParamDef((D,), (None,)),
+                "head": ParamDef((D, cfg.padded_vocab), ("embed", "vocab"))}
+    if cfg.frontend == "vision":
+        return {"patch_proj": ParamDef((1024, D), (None, "embed")), **embed_defs(cfg)}
+    return dict(embed_defs(cfg))
+
+
 def model_defs(cfg: ArchConfig) -> dict:
     """``repro``'s parameter tree of ParamDefs (layers stacked)."""
-    check_supported(cfg)
-    defs: dict = dict(embed_defs(cfg))
+    defs = frontend_defs(cfg)
     if cfg.family == "hybrid":
         hcfg = layer_cfg(cfg)
         n_super, rem = hybrid_layout(cfg)
@@ -230,16 +249,19 @@ def _make_block(cfg: ArchConfig, kind: str, *, dtype, device) -> nn.Module:
 
 class Transformer(nn.Module):
     """Uninitialised (``torch.empty``) parameters; see :func:`init_params`.
-    ``leaf_layout`` maps the layers onto ``repro``'s tree (:func:`leaf_layout`)."""
+    ``leaf_layout`` maps the layers onto ``repro``'s tree (:func:`leaf_layout`).
+    ``device="meta"`` builds the module of shapes alone (a dry run): nothing
+    launches there, since a kernel wrapper given a ``meta`` tensor raises."""
 
     def __init__(self, cfg: ArchConfig, *, device="cuda"):
         super().__init__()
-        check_supported(cfg)
-        device = resolve_device(device)
+        device = torch.device(device)
+        if device.type != "meta":
+            device = resolve_device(device)
         dtype = DTYPES[cfg.dtype]
         self.cfg = cfg
         self.leaf_layout = leaf_layout(cfg)
-        make_params(self, embed_defs(cfg), dtype=dtype, device=device)
+        make_params(self, frontend_defs(cfg), dtype=dtype, device=device)
         lcfg = layer_cfg(cfg)
         self.layers = nn.ModuleList(
             _make_block(lcfg, kind, dtype=dtype, device=device) for kind in layer_kinds(cfg)
@@ -248,7 +270,7 @@ class Transformer(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.embedding.device
+        return self.final_norm.scale.device  # an audio model has no embedding
 
 
 def _target(module: nn.Module, name: str) -> torch.Tensor:
@@ -278,8 +300,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda") -> Transformer
     from a ``torch.Generator`` seeded with ``seed``."""
     model = Transformer(cfg, device=device)
     gen = torch.Generator(device=model.device).manual_seed(seed)
-    # repro's tree order: embeddings, the layers in order, the final norm
-    _walk_init(model, embed_defs(cfg), gen)
+    # repro's tree order: the frontend and embeddings, the layers in order, the final norm
+    _walk_init(model, frontend_defs(cfg), gen)
     lcfg = layer_cfg(cfg)
     for layer, kind in zip(model.layers, layer_kinds(cfg)):
         _walk_init(layer, block_defs(lcfg, kind), gen)
@@ -291,16 +313,30 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda") -> Transformer
 # Forward (prefill) and decode
 # ---------------------------------------------------------------------------
 
+#: the matrix products whose outputs ``remat="dots_saveable"`` keeps: every
+#: ``x @ w`` and einsum of the port reaches one of these
+DOT_OPS = frozenset({torch.ops.aten.mm, torch.ops.aten.addmm, torch.ops.aten.bmm, torch.ops.aten.baddbmm})
+
+
+def dots_saveable_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``jax.checkpoint_policies.dots_saveable``: keep the output of every
+    matrix product, recompute everything else.  The CUDA kernels launch
+    through ctypes inside ``autograd.Function``s, not as aten ops, so they
+    are recomputed (on the TPU a ``pallas_call``'s output is not a dot
+    either)."""
+    return CheckpointPolicy.MUST_SAVE if op.overloadpacket in DOT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _remat(layer: nn.Module, cfg: ArchConfig):
     """The layer as the forward calls it: recomputed in the backward under
-    ``remat="full"`` when autograd records, as it is otherwise."""
+    ``remat="full"`` (``torch.utils.checkpoint``), recomputed but for its
+    matrix products' outputs under ``"dots_saveable"``, when autograd
+    records; as it is otherwise."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return layer
     if cfg.remat == "dots_saveable":
-        raise NotImplementedError(
-            "remat='dots_saveable' is not ported yet (ROADMAP.md, port queue: "
-            "'remat=\"dots_saveable\"'); use 'full' or 'none'"
-        )
+        context_fn = functools.partial(create_selective_checkpoint_contexts, dots_saveable_policy)
+        return lambda *args, **kw: checkpoint(layer, *args, use_reentrant=False, context_fn=context_fn, **kw)
     if cfg.remat != "full":
         raise ValueError(f"unknown remat {cfg.remat!r}; use 'none', 'full' or 'dots_saveable'")
     return lambda *args, **kw: checkpoint(layer, *args, use_reentrant=False, **kw)
@@ -312,8 +348,42 @@ def _add_aux(total: Optional[dict], aux: Optional[dict]) -> Optional[dict]:
     return aux if total is None else {k: total[k] + aux[k] for k in total}
 
 
+def embed_inputs(model: Transformer, batch: dict, cfg: ArchConfig):
+    """→ (x (B, L, D), positions (B, L)), as ``repro``'s: the embedded
+    tokens; for an audio model the frame embeddings ``batch["embeds"]`` (B,
+    L, 512) projected, with ``mask_emb`` where ``batch["mask"]`` is set;
+    for a vision model the projected ``batch["patch_embeds"]`` (B,
+    n_patches, 1024) followed by the embedded text.  Positions count over
+    the whole sequence."""
+    dtype = DTYPES[cfg.dtype]
+    if cfg.frontend == "audio":
+        x = batch["embeds"].to(dtype) @ model.frontend_proj
+        if "mask" in batch:
+            x = torch.where(batch["mask"][..., None], model.mask_emb.to(x.dtype), x)
+    elif cfg.frontend == "vision":
+        patches = batch["patch_embeds"].to(dtype) @ model.patch_proj
+        x = torch.cat([patches, embed_apply(model, batch["tokens"], cfg)], dim=1)
+    else:
+        x = embed_apply(model, batch["tokens"], cfg)
+    B, L = x.shape[:2]
+    positions = torch.arange(L, dtype=torch.int32, device=x.device).expand(B, L)
+    return x, positions
+
+
+def head_logits(model: Transformer, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Logits of hidden states ``x`` (..., D): an audio model's ``x @
+    head`` over the padded classes (``repro`` masks no padding class and
+    applies no softcap there), else :func:`~repro_torch.models.layers.logits_apply`."""
+    if cfg.frontend == "audio":
+        return x @ model.head
+    return logits_apply(model, x, cfg)
+
+
 def forward(model: Transformer, batch: dict, cfg: ArchConfig, *, want_cache: bool = False):
-    """→ (hidden (B, L, D), caches | None, aux).  ``caches`` is one flat
+    """→ (hidden (B, L, D), caches | None, aux).  ``batch`` is
+    :func:`embed_inputs`'s (``tokens``; ``embeds`` / ``mask`` for audio;
+    ``patch_embeds`` and ``tokens`` for vision, L = n_patches + tokens).
+    ``caches`` is one flat
     dict of leaves stacked over the layers of the kind that owns them, in
     layer order (:func:`cache_defs`'s shapes with the prompt's L for the
     sequence axis): ``{'k', 'v'}: (n, B, L, KH, Dh)`` for attention,
@@ -321,10 +391,7 @@ def forward(model: Transformer, batch: dict, cfg: ArchConfig, *, want_cache: boo
     ``{'state', 'conv'}`` for ssm, ``{'h': (n, B, W) float32, 'conv': (n,
     B, 3, W)}`` for rec; a hybrid's dict holds both its kinds' leaves.
     ``aux`` is the MoE aux losses summed over the layers ({} without MoE)."""
-    tokens = batch["tokens"]
-    x = embed_apply(model, tokens, cfg)
-    B, L = tokens.shape
-    positions = torch.arange(L, dtype=torch.int32, device=tokens.device).expand(B, L)
+    x, positions = embed_inputs(model, batch, cfg)
     causal = not cfg.is_encoder
     lcfg = layer_cfg(cfg)
     layer_caches, aux = [], None
@@ -342,14 +409,21 @@ def forward(model: Transformer, batch: dict, cfg: ArchConfig, *, want_cache: boo
 
 
 def loss_fn(model: Transformer, batch: dict, cfg: ArchConfig):
-    """→ (total loss, metrics): mean next-token cross-entropy over
-    ``batch["labels"]`` (masked by ``batch["mask"]`` when present), chunked
-    over the sequence when ``cfg.logits_chunk`` is set; a MoE model adds
-    ``AUX_WEIGHTS``-weighted aux losses averaged over the layers.  Metrics:
-    ``ce_loss``, and ``moe_balance`` / ``moe_zloss`` for MoE."""
+    """→ (total loss, metrics): mean cross-entropy over ``batch["labels"]``
+    (masked by ``batch["mask"]`` when present): an audio model's over every
+    frame through ``head`` (masked prediction), a vision model's over the
+    text positions (the last ``labels.shape[1]``), chunked over the
+    sequence when ``cfg.logits_chunk`` is set (not for audio, as in
+    ``repro``); a MoE model adds ``AUX_WEIGHTS``-weighted aux losses
+    averaged over the layers.  Metrics: ``ce_loss``, and ``moe_balance`` /
+    ``moe_zloss`` for MoE."""
     x, _, aux = forward(model, batch, cfg)
     labels, mask = batch["labels"], batch.get("mask")
-    if cfg.logits_chunk:
+    if cfg.frontend == "vision":
+        x = x[:, -labels.shape[1]:]
+    if cfg.frontend == "audio":
+        loss = softmax_xent(head_logits(model, x, cfg), labels, mask)
+    elif cfg.logits_chunk:
         loss = chunked_softmax_xent(x, labels, model, cfg, mask, chunk=cfg.logits_chunk)
     else:
         loss = softmax_xent(logits_apply(model, x, cfg), labels, mask)
@@ -363,10 +437,10 @@ def loss_fn(model: Transformer, batch: dict, cfg: ArchConfig):
 
 @torch.no_grad()
 def prefill(model: Transformer, batch: dict, cfg: ArchConfig):
-    """→ (last-token logits (B, 1, V), caches).  Only the final position's
-    logits are computed."""
+    """→ (last-position logits (B, 1, V), caches).  Only the final
+    position's logits are computed."""
     x, caches, _ = forward(model, batch, cfg, want_cache=True)
-    return logits_apply(model, x[:, -1:], cfg), caches
+    return head_logits(model, x[:, -1:], cfg), caches
 
 
 def _pos_vector(pos, batch: int, device) -> torch.Tensor:
@@ -438,7 +512,6 @@ def cache_defs(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
     layers of the kind that owns them (axis 0), with the batch slot on axis
     1.  A hybrid's ``h`` / ``conv`` stack its rec layers and its ``k`` /
     ``v`` (rings of the window) its attention layers."""
-    check_supported(cfg)
     lcfg = layer_cfg(cfg)
     kinds = layer_kinds(cfg)
     out: dict = {}
@@ -454,7 +527,6 @@ def cache_layout(cfg: ArchConfig) -> Optional[dict]:
     (``c_kv``, ``k_rope``).  None for an ssm or rec state (one vector per
     sequence, not per token), for a ring-buffered (windowed) cache, whose
     slots fold positions modulo the window, and so for a hybrid."""
-    check_supported(cfg)
     kind = block_kind(cfg)
     if cfg.family == "hybrid" or kind == "ssm" or cfg.attn_window is not None:
         return None
@@ -467,3 +539,52 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *, device="cuda") -> d
         name: torch.zeros(d.shape, dtype=DTYPES[d.dtype], device=device)
         for name, d in cache_defs(cfg, batch, max_seq).items()
     }
+
+
+def abstract_cache(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
+    """:func:`cache_defs` as ``meta`` tensors."""
+    return abstract_tree(cache_defs(cfg, batch, max_seq), cfg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Abstract parameters and input specs
+# ---------------------------------------------------------------------------
+
+def abstract_params(cfg: ArchConfig) -> dict:
+    """:func:`model_defs` as ``meta`` tensors (``repro``'s tree, layers
+    stacked).  ``Transformer(cfg, device="meta")`` is the module form."""
+    return abstract_tree(model_defs(cfg), cfg.dtype)
+
+
+def input_defs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
+    """ParamDef tree for one batch of inputs under ``shape``, as
+    ``repro``'s: tokens (and labels for train); an audio model's frame
+    embeddings, mask and labels; a vision model's text tokens, patch
+    embeddings (and text labels), n_patches + text = ``shape.seq_len``."""
+    B, L = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        return {"tokens": ParamDef((B, 1), ("batch", None), dtype="int32")}
+    if cfg.frontend == "audio":
+        return {
+            "embeds": ParamDef((B, L, 512), ("batch", None, None), dtype=cfg.dtype),
+            "mask": ParamDef((B, L), ("batch", None), dtype="bool"),
+            "labels": ParamDef((B, L), ("batch", None), dtype="int32"),
+        }
+    if cfg.frontend == "vision":
+        lt = L - cfg.n_patches
+        out = {
+            "tokens": ParamDef((B, lt), ("batch", None), dtype="int32"),
+            "patch_embeds": ParamDef((B, cfg.n_patches, 1024), ("batch", None, None), dtype=cfg.dtype),
+        }
+        if shape.kind == "train":
+            out["labels"] = ParamDef((B, lt), ("batch", None), dtype="int32")
+        return out
+    out = {"tokens": ParamDef((B, L), ("batch", None), dtype="int32")}
+    if shape.kind == "train":
+        out["labels"] = ParamDef((B, L), ("batch", None), dtype="int32")
+    return out
+
+
+def abstract_inputs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
+    """:func:`input_defs` as ``meta`` tensors."""
+    return abstract_tree(input_defs(cfg, shape), cfg.dtype)

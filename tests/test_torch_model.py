@@ -202,9 +202,23 @@ def test_init_params_follows_repro_init_rules():
 
 
 def test_other_block_kinds_name_their_roadmap_item():
-    """Every block kind is ported; the audio and vision frontends are not."""
-    for name in ("hubert-xlarge", "internvl2-2b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*Other families"):
-            tm.model_defs(reduced_config(name))
-    for name in ("qwen3-moe-235b-a22b", "llama4-scout-17b-a16e", "minicpm3-4b", "recurrentgemma-9b"):
-        tm.model_defs(reduced_config(name))
+    """Every config in ``configs/`` builds: its ParamDef tree, the full
+    model on the ``meta`` device (shapes alone) and a reduced model on the
+    CPU whose parameters are the defs' leaves, unstacked; nothing refuses
+    a block kind or a frontend any more."""
+    from repro_torch.configs import ARCH_NAMES, get_config
+    from repro_torch.models.param import ParamDef
+
+    def leaves(defs):
+        for v in defs.values():
+            yield from leaves(v) if isinstance(v, dict) else (v,)
+
+    for name in ARCH_NAMES:
+        full = tm.Transformer(get_config(name), device="meta")
+        assert sum(p.numel() for p in full.parameters()) == sum(
+            int(np.prod(d.shape)) for d in leaves(tm.model_defs(get_config(name))))
+        cfg = reduced_config(name)
+        defs = tm.model_defs(cfg)
+        assert all(isinstance(d, ParamDef) for d in leaves(defs))
+        model = tm.init_params(cfg, 0, device="cpu")
+        assert sum(p.numel() for p in model.parameters()) == sum(int(np.prod(d.shape)) for d in leaves(defs))

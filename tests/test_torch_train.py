@@ -204,13 +204,25 @@ def test_loss_and_grads_match_repro(name):
 
 
 def test_remat_dots_saveable_names_its_roadmap_line():
-    cfg = reduced_config("deepseek-7b").replace(dtype="float32", remat="dots_saveable")
-    model = tm.set_trainable(tm.init_params(cfg, 0, device="cpu"))
-    toks = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.loss_fn(model, {"tokens": toks, "labels": toks}, cfg)
+    """``remat="dots_saveable"`` trains: a staged step's loss and grad norm
+    are those of ``"full"`` bit for bit; serving never reads the knob (an
+    unknown value passes under ``torch.no_grad`` and raises in training)."""
+    cfg = reduced_config("deepseek-7b").replace(dtype="float32")
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (2, 9)).astype(np.int32))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    metrics = {}
+    for remat in ("full", "dots_saveable"):
+        c = cfg.replace(remat=remat)
+        state, m = build_train_step(c)(init_train_state(c, 0, device="cpu"), batch)
+        metrics[remat] = (m["loss"], m["grad_norm"])
+    assert all(torch.equal(a, b) for a, b in zip(metrics["full"], metrics["dots_saveable"]))
+    bad = cfg.replace(remat="everything")
+    model = tm.set_trainable(tm.init_params(bad, 0, device="cpu"))
     with torch.no_grad():  # serving never remats: the knob is not read there
-        tm.prefill(model, {"tokens": toks}, cfg)
+        logits, _ = tm.prefill(model, {"tokens": batch["tokens"]}, bad)
+    assert torch.isfinite(logits).all()
+    with pytest.raises(ValueError, match="unknown remat"):
+        tm.loss_fn(model, batch, bad)
 
 
 # ---------------------------------------------------------------------------
