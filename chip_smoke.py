@@ -101,12 +101,14 @@ Phases (any failure raises and the script exits non-zero):
               losses, the schedule, exact launch counts of the four train
               kernels, step time, tokens/s, model TFLOP/s, peak memory; one
               profiled step; a nonfinite step that leaves every bit as it
-              was; then gemma-7b the same way at its full 28 layers
-              (``[train-gemma]``: no rollback), minicpm3-4b at its 62,
-              recurrentgemma-9b at its 38 layers and qwen3-moe cut to 2 (3
-              steps each; model FLOPs over the active parameters);
-              hubert-xlarge (48, ``[train-hubert]``) and internvl2-2b (24,
-              ``[train-internvl]``) at (2, 4096) with their config's AdamW
+              was; then, at half depth for the script's time limit,
+              gemma-7b the same way at 14 of its 28 layers
+              (``[train-gemma]``: no rollback), minicpm3-4b at 31 of its
+              62 layers, recurrentgemma-9b at 19 of its 38 and qwen3-moe
+              cut to 2 (3 steps each; model FLOPs over the active
+              parameters); hubert-xlarge (24 of 48, ``[train-hubert]``)
+              and internvl2-2b (12 of 24, ``[train-internvl]``) at (2,
+              4096) with their config's AdamW
               (internvl: 256 patches + 3840 tokens, logits in 5 chunks of
               768; model FLOPs count each projection over the positions it
               multiplies, hubert's attention over every pair);
@@ -116,7 +118,7 @@ Phases (any failure raises and the script exits non-zero):
               batch (8, 2048) in 2 microbatches, 4 staged steps: finite
               losses, exact ssd / ssd_bwd / rmsnorm / rmsnorm_bwd launch
               counts, step time, tokens/s, peak memory, one profiled step;
-    remat   — ``[remat]``: deepseek-7b at full width and depth (bf16,
+    remat   — ``[remat]``: deepseek-7b at full width cut to 15 layers (bf16,
               Adafactor, (2, 2048) in 2 microbatches) under
               ``remat="dots_saveable"`` against ``"full"``: each
               microbatch's loss and every gradient bit for bit, then 3
@@ -188,7 +190,21 @@ Phases (any failure raises and the script exits non-zero):
               collectives at 4 ranks on (2, 2) and the data-parallel step
               at 2 and 4 ranks against one process (within 1e-6), and
               record whether gloo takes CUDA tensors.  NCCL across cards
-              needs more than one card.
+              needs more than one card;
+18. tp      — the ``model`` mesh axis: two gloo rank processes share the
+              card on a (data=1, model=2) mesh, every tensor on ``cuda:0``
+              (gloo takes CUDA tensors: all_reduce, MAX too).  fp32:
+              deepseek-7b at full width cut to 2 layers, 2 staged
+              Adafactor steps on one seeded (2, 2048) batch in 2
+              microbatches, against one off-mesh process on the card (loss
+              and grad norm within 1e-5 relative, every weight's parts
+              within 1e-5 of its max and the norm offsets' within 5e-7,
+              replicated leaves and the Adafactor state
+              the same bits on both ranks); bf16 at 4 layers, the same
+              steps: each rank's step ms, peak, state bytes, and exact
+              flash / rmsnorm launch counts (off-mesh's per layer, every
+              flash call at the 16 local heads).  The kernel phase holds
+              the flash forward and backward at that (1, 2048, 16, 128).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing of JAX.
@@ -543,6 +559,8 @@ HUBERT_FLASH = (1, 4096, 4096, 16, 16, 80, 80, False, None, 0)
 INTERNVL_FLASH = (1, 4096, 4096, 16, 8, 128, 128, True, None, 0)
 HUBERT_SERVE_FLASH = (2, 4096, 4096, 16, 16, 80, 80, False, None, 0)
 INTERNVL_PREFILL_FLASH = (4, 2048, 2048, 16, 8, 128, 128, True, None, 0)
+# deepseek-7b's heads on one rank of a model axis of 2 (the [tp] phase)
+TP_FLASH = (1, 2048, 2048, 16, 16, 128, 128, True, None, 0)
 IVL_DECODE_POS = [2063, 2063, 2063, 2063]
 IVL_HEADS, IVL_KV_HEADS = 16, 8
 
@@ -623,6 +641,7 @@ def check_flash(dev) -> dict:
         QWEN_FLASH,  # qwen3-moe-235b-a22b's prefill
         HUBERT_FLASH, INTERNVL_FLASH,  # the frontends' train microbatch, then their serving calls
         HUBERT_SERVE_FLASH, INTERNVL_PREFILL_FLASH,
+        TP_FLASH,  # the tensor-parallel step's local heads
     ]
     err = err256 = 0.0
     errs = {}
@@ -660,7 +679,9 @@ def check_flash(dev) -> dict:
               "hubert": _flash_times(gen, dev, 1, 4096, 16, 80, causal=False),
               "internvl": _flash_times(gen, dev, 1, 4096, IVL_HEADS, 128, KH=IVL_KV_HEADS),
               "hubert_serve": _flash_times(gen, dev, 2, 4096, 16, 80, causal=False),
-              "internvl_prefill": _flash_times(gen, dev, 4, 2048, IVL_HEADS, 128, KH=IVL_KV_HEADS)}
+              "internvl_prefill": _flash_times(gen, dev, 4, 2048, IVL_HEADS, 128, KH=IVL_KV_HEADS),
+              "tp": _flash_times(gen, dev, 1, 2048, 16, 128)}
+    shapes["tp"]["max_abs_err"] = errs[TP_FLASH]
     shapes["d256"]["max_abs_err"] = err256
     shapes["mla"]["max_abs_err"] = errs[MLA_FLASH]
     shapes["rgemma"]["max_abs_err"] = errs[RG_FLASH]
@@ -1028,6 +1049,7 @@ def check_flash_bwd(dev) -> dict:
         MLA_FLASH, RG_FLASH_BWD,
         QWEN_FLASH,  # qwen3-moe-235b-a22b's, at (2, 2048) in 2 microbatches
         HUBERT_FLASH, INTERNVL_FLASH,  # the frontends', at (2, 4096) in 2 microbatches
+        TP_FLASH,  # deepseek-7b's local heads at model=2
     ]
     err = err256 = 0.0
     errs: dict = {}
@@ -1066,7 +1088,9 @@ def check_flash_bwd(dev) -> dict:
               "rgemma": _flash_bwd_times(gen, dev, 1, 2048, 16, 256, KH=1, window=2048),
               "qwen": _flash_bwd_times(gen, dev, 1, 2048, QWEN_HEADS, 128, KH=QWEN_KV_HEADS),
               "hubert": _flash_bwd_times(gen, dev, 1, 4096, 16, 80, causal=False),
-              "internvl": _flash_bwd_times(gen, dev, 1, 4096, IVL_HEADS, 128, KH=IVL_KV_HEADS)}
+              "internvl": _flash_bwd_times(gen, dev, 1, 4096, IVL_HEADS, 128, KH=IVL_KV_HEADS),
+              "tp": _flash_bwd_times(gen, dev, 1, 2048, 16, 128)}
+    shapes["tp"]["max_abs_err"] = errs[TP_FLASH]
     shapes["d256"]["max_abs_err"] = err256
     shapes["mla"]["max_abs_err"] = errs[MLA_FLASH]
     shapes["rgemma"]["max_abs_err"] = errs[RG_FLASH_BWD]
@@ -2410,12 +2434,14 @@ def _model_flops(cfg, params: dict, seq: int) -> tuple[float, float]:
 
 
 # the train runs: arch → (its layers here, the phase's tag, nonfinite rollback);
-# full depth but for qwen3-moe (the fixed cut above)
-TRAIN_RUNS = {"deepseek-7b": (30, "train", True), "gemma-7b": (28, "train-gemma", False),
-              "minicpm3-4b": (62, "train-minicpm3", False),
-              "recurrentgemma-9b": (38, "train-rgemma", False),
+# deepseek-7b at full depth, qwen3-moe at the fixed cut above
+TRAIN_RUNS = {"deepseek-7b": (30, "train", True),
+              # the others at half depth: the script's time limit
+              "gemma-7b": (14, "train-gemma", False),
+              "minicpm3-4b": (31, "train-minicpm3", False),
+              "recurrentgemma-9b": (19, "train-rgemma", False),
               "qwen3-moe-235b-a22b": (MOE_TRAIN_LAYERS, "train-moe", False),
-              "hubert-xlarge": (48, "train-hubert", False), "internvl2-2b": (24, "train-internvl", False)}
+              "hubert-xlarge": (24, "train-hubert", False), "internvl2-2b": (12, "train-internvl", False)}
 # timed steps a run: the other families' runs time 2 (the first is warm-up),
 # to keep the script inside its time limit
 TRAIN_STEPS_OF = {"minicpm3-4b": 3, "recurrentgemma-9b": 3, "qwen3-moe-235b-a22b": 3, "hubert-xlarge": 3,
@@ -2630,8 +2656,13 @@ def _mb_grads(model, cfg, mb: dict) -> tuple:
     return loss.detach(), grads
 
 
+# of deepseek-7b's 30 layers: half, for the script's time limit ([train] reads
+# the full-depth peak of remat="full" on the same config)
+REMAT_LAYERS = 15
+
+
 def remat_phase(dev, arch: str = "deepseek-7b", tag: str = "remat") -> dict:
-    """deepseek-7b at full width and depth (30 layers, bf16, Adafactor),
+    """deepseek-7b at full width cut to ``REMAT_LAYERS`` (bf16, Adafactor),
     (2, 2048) in 2 microbatches, under ``remat="dots_saveable"`` against
     ``"full"``: each microbatch's loss and every parameter's gradient bit
     for bit from the same weights (the step's float32 accumulator adds
@@ -2645,7 +2676,7 @@ def remat_phase(dev, arch: str = "deepseek-7b", tag: str = "remat") -> dict:
 
     gc.collect()
     torch.cuda.empty_cache()
-    base = get_config(arch).replace(optimizer="adafactor")
+    base = get_config(arch).replace(optimizer="adafactor", n_layers=REMAT_LAYERS)
     assert (base.remat, base.logits_chunk, base.dtype) == ("full", 1024, "bfloat16")
     modes = {r: base.replace(remat=r) for r in ("full", "dots_saveable")}
     state = init_train_state(base, 0, device=dev)
@@ -3721,13 +3752,13 @@ def _mesh_nccl(dev) -> dict:
     from repro_torch.configs import reduced_config
     from repro_torch.dist import collectives as coll
     from repro_torch.dist.sharding import use_mesh
-    from repro_torch.launch.mesh import DP_STEPS, dp_train, free_port, init_group
+    from repro_torch.launch.mesh import DP_STEPS, dp_train, join_group
 
     out = {}
     x = (torch.arange(MESH_N, device=dev, dtype=torch.float32) % 251.0) + 3.0
     off = dp_train(dev)  # one process, off-mesh
     ops = _kernel_ops()
-    init_group(0, 1, free_port(), "nccl")
+    join_group(0, 1, "nccl")
     try:
         mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("pod", "data"))
         with use_mesh(mesh):
@@ -3808,6 +3839,190 @@ def mesh_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 18. the model axis: tensor-parallel training, two gloo processes on one card
+# ---------------------------------------------------------------------------
+
+TP_SEQ = 2048
+TP_BATCH = 2  # in 2 microbatches: every flash call at (1, 2048, 16 local heads, 128)
+TP_LAYERS = {"float32": 2, "bfloat16": 4}
+TP_STEPS = 2
+TP_OFFSET_ATOL = 5e-7  # the fp32 norm offsets' |difference| from one process (see tp_phase)
+TP_DIR = Path(__file__).resolve().parent / "_smoke_tp"  # the off-mesh fp32 parameters, removed at the end
+
+
+def _tp_cfg(dtype: str):
+    from repro_torch.configs import get_config
+
+    return get_config("deepseek-7b").replace(n_layers=TP_LAYERS[dtype], dtype=dtype, optimizer="adafactor")
+
+
+def _tp_run(cfg, dev) -> tuple:
+    """``TP_STEPS`` staged Adafactor steps of ``cfg`` from the state seeded
+    with 0 on one seeded (``TP_BATCH``, ``TP_SEQ``) batch in 2 microbatches
+    (tensor-parallel under the active mesh) → (state, art, losses, grad
+    norms, each step's wall ms)."""
+    from repro_torch.runtime.train import build_train_step, init_train_state
+
+    state = init_train_state(cfg, 0, device=dev)
+    art = build_train_step(cfg, n_microbatches=2)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab, (TP_BATCH, TP_SEQ + 1), generator=gen, device=dev, dtype=torch.int32)
+    assert 0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab, "token draw out of range (F3)"
+    batch = {"tokens": tokens[:, :-1].contiguous(), "labels": tokens[:, 1:].contiguous()}
+    losses, norms, ms = [], [], []
+    for _ in range(TP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = art(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return state, art, losses, norms, ms
+
+
+def _digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha1(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def _tp_rank(ref_dir: str, device: str = "cuda") -> dict:
+    """One rank of the (1, 2) data × model mesh, every tensor on the card:
+    the fp32 run's parts against the off-mesh parameters in ``ref_dir``
+    (each part's worst |difference|), digests of its replicated leaves and
+    Adafactor state; then the bf16 run's step ms, peak, state bytes and
+    launch counts (all 0 just before each run, read just after)."""
+    import torch.distributed as dist
+
+    from repro_torch.runtime.train import state_bytes
+
+    dev = torch.device(device)
+    ops = _kernel_ops()
+    out = {"rank": dist.get_rank()}
+    for dtype in ("float32", "bfloat16"):
+        cfg = _tp_cfg(dtype)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for c in ops.values():
+            c.reset()
+        # ---- the main path: counts from 0 just before, read just after ----
+        state, art, losses, norms, ms = _tp_run(cfg, dev)
+        launches = {k: c.count for k, c in ops.items()}
+        by_shape = {k: dict(c.by_shape) for k, c in ops.items() if c.count}
+        # -------------------------------------------------------------------
+        r = dict(losses=losses, grad_norms=norms, step_ms=ms, launches=launches, by_shape=by_shape,
+                 peak=torch.cuda.max_memory_allocated(), bytes=state_bytes(state, art))
+        model = state.params
+        if dtype == "float32":
+            r["err"], r["digests"] = {}, {}
+            for name, p in model.named_parameters():
+                sh = model.shards[name]
+                want = np.load(Path(ref_dir) / f"{name}.npy", mmap_mode="r")[sh.index]
+                r["err"][name] = float(np.abs(p.detach().cpu().numpy() - want).max())
+                if not sh.sharded:
+                    r["digests"][name] = _digest(p)
+            for path, leaf in state.opt.items():
+                for k, v in leaf.items():
+                    r["digests"][f"opt {path}/{k}"] = _digest(v)
+        out[dtype] = r
+        del state, art, model
+    return out
+
+
+def tp_phase(dev) -> dict:
+    """18. The ``model`` mesh axis on one card: the off-mesh fp32 run here
+    (its parameters to ``TP_DIR``), then two gloo rank processes on a (1, 2)
+    data × model mesh sharing the card (``_tp_rank``): fp32 against it, bf16
+    timed and counted.  One process group."""
+    from repro_torch.launch import mesh as launch_mesh
+
+    t_all = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = _tp_cfg("float32")
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    TP_DIR.mkdir()
+    try:
+        state, art, losses, norms, _ = _tp_run(cfg32, dev)
+        leaf_max = {}
+        for name, p in state.params.named_parameters():
+            a = p.detach().cpu().numpy()
+            np.save(TP_DIR / f"{name}.npy", a)
+            leaf_max[name] = float(np.abs(a).max())
+        del state, art
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = launch_mesh.spawn_mesh(_tp_rank, 2, (1, 2), ("data", "model"), str(TP_DIR), str(dev),
+                                       timeout=600.0)
+        spawn_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(TP_DIR, ignore_errors=True)
+    # fp32: each rank against the one process
+    f32 = [r["float32"] for r in ranks]
+    for r in f32:
+        for got, want, what in ((r["losses"], losses, "loss"), (r["grad_norms"], norms, "grad norm")):
+            rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+            assert rel <= 1e-5, f"[tp] fp32 {what} {got} against one process's {want} ({rel:.2e} relative)"
+    # every weight within 1e-5 of its leaf's max.  The norm offsets start at
+    # zero, so their values are the two updates; Adafactor factors a stacked
+    # (layers, D) offset leaf over its 2 layers, which normalises each
+    # column's update over 2 values: a sign-like step that turns float noise
+    # in a near-zero gradient into a share of the step, as AdamW's does
+    # (tests/test_torch_tp.py).  They are held within TP_OFFSET_ATOL
+    # absolute, about three times the worst difference read on the H100
+    # (1.46e-7, on values of 1.64e-3 at most).
+    err = {n: max(r["err"][n] for r in f32) for n in leaf_max}
+    offsets = [n for n in leaf_max if n.endswith(".scale")]
+    worst = {n: err[n] / max(leaf_max[n], 1e-30) for n in leaf_max if n not in offsets}
+    worst_name = max(worst, key=worst.get)
+    worst_offset = max(offsets, key=err.get)
+    top = sorted(leaf_max, key=lambda n: -err[n] / max(leaf_max[n], 1e-30))[:4]
+    log("[tp] fp32 worst leaves (|difference| / the leaf's max, |difference|): " + ", ".join(
+        f"{n} {err[n] / max(leaf_max[n], 1e-30):.2e} {err[n]:.2e}" for n in top))
+    assert worst[worst_name] <= 1e-5, f"[tp] fp32 {worst_name}: {worst[worst_name]:.2e} of its leaf's max"
+    assert err[worst_offset] <= TP_OFFSET_ATOL, \
+        f"[tp] fp32 {worst_offset}: {err[worst_offset]:.2e} from one process"
+    assert f32[0]["digests"] == f32[1]["digests"], \
+        [k for k in f32[0]["digests"] if f32[0]["digests"][k] != f32[1]["digests"].get(k)]
+    want32 = {k: v * TP_STEPS for k, v in _train_launches_per_step(cfg32, 2).items()}
+    for r in f32:
+        assert r["launches"] == want32, f"[tp] fp32 launches {r['launches']}, expected {want32}"
+    log(f"[tp] fp32, deepseek-7b full width, {TP_LAYERS['float32']} layers, 2 gloo ranks on one card (data 1 x "
+        f"model 2): losses {f32[0]['losses']} / {f32[1]['losses']}, one process {losses}; grad norms "
+        f"{f32[0]['grad_norms']}, one process {norms}; worst weight {worst_name} {worst[worst_name]:.2e} of its "
+        f"max, worst norm offset {worst_offset} {err[worst_offset]:.2e} (values {leaf_max[worst_offset]:.2e} at "
+        f"most); {len(f32[0]['digests'])} replicated leaves and Adafactor state tensors the same bits on both ranks; "
+        f"launches a rank {f32[0]['launches']}")
+    # bf16: times, memory, exact launch counts
+    cfg16 = _tp_cfg("bfloat16")
+    b16 = [r["bfloat16"] for r in ranks]
+    want16 = {k: v * TP_STEPS for k, v in _train_launches_per_step(cfg16, 2).items()}
+    local_key = TP_FLASH[:7]
+    for r in b16:
+        assert all(np.isfinite(r["losses"])), r["losses"]
+        assert r["launches"] == want16, f"[tp] bf16 launches {r['launches']}, expected {want16}"
+        for kind in ("flash_attention", "flash_attention_bwd"):
+            assert r["by_shape"][kind] == {local_key: want16[kind]}, (kind, r["by_shape"][kind])
+    for r in b16:
+        log(f"[tp] bf16, {TP_LAYERS['bfloat16']} layers, rank {b16.index(r)}: step ms {r['step_ms']}, losses "
+            f"{r['losses']}, peak {r['peak'] / 2**30:.2f} GiB, state bytes {r['bytes']} (params + grads + opt "
+            f"{sum(r['bytes'].values()) / 2**30:.3f} GiB), launches {r['launches']} (every flash call at "
+            f"{local_key})")
+    launches = {k: sum(r[dt]["launches"][k] for r in ranks for dt in TP_LAYERS) for k in want16}
+    seconds = time.perf_counter() - t_all
+    log(f"[tp] {seconds:.1f} s, the rank processes {spawn_s:.1f} s with start-up")
+    return dict(launches=launches, seconds=seconds, fp32_worst=worst[worst_name], fp32_offset=err[worst_offset],
+                step_ms=[r["step_ms"] for r in b16], peak=[r["peak"] for r in b16],
+                bytes=[r["bytes"] for r in b16],
+                flash_per_step=want16["flash_attention"] // TP_STEPS,
+                flash_bwd_per_step=want16["flash_attention_bwd"] // TP_STEPS,
+                launches_by_shape={k: {local_key: sum(r[dt]["by_shape"].get(k, {}).get(local_key, 0)
+                                                       for r in ranks for dt in TP_LAYERS)}
+                                   for k in ("flash_attention", "flash_attention_bwd")})
+
+
 def f2_digests() -> dict:
     """ROADMAP F2: ``tools/ssd_grad_determinism.py``'s loop, short (5
     iterations, no test file), so every run prints each stage's digest of
@@ -3881,14 +4096,15 @@ def main() -> int:
     pipe = phase("pipeline", pipeline_phase, dev)
     chaos = phase("chaos", chaos_phase, dev)
     mesh = phase("mesh", mesh_phase, dev)
+    tp = phase("tp", tp_phase, dev)
     # launches on every path: serving and train (every model), speculation, load, checkpoint, the launcher,
-    # the pipeline, the chaos soak's serve runs and the mesh's train steps
+    # the pipeline, the chaos soak's serve runs, the mesh's train steps and the tensor-parallel ranks' steps
     runs = (serve, serve_m, serve_g, serve_c, serve_r, serve_q, serve_h, serve_v, *trains.values(), train_m2, remat,
-            spec, load, ckpt, comm, pipe, chaos, mesh)
+            spec, load, ckpt, comm, pipe, chaos, mesh, tp)
     for r in records:
         r["launches"] = sum(run["launches"][r["name"]] for run in runs)
     _frontend_shape_launches(records, {"hubert": (serve_h, trains["hubert-xlarge"]),
-                                       "internvl": (serve_v, trains["internvl2-2b"])})
+                                       "internvl": (serve_v, trains["internvl2-2b"]), "tp": (tp,)})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     shape_keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3913,7 +4129,8 @@ def main() -> int:
         f"comm phase {comm['seconds']:.1f} s, pipeline {PIPE_LAYERS} layers 1f1b / fifo "
         f"{pipe['bf16']['1f1b']['wall_ms']:.1f} / {pipe['bf16']['fifo']['wall_ms']:.1f} ms (bubble "
         f"{pipe['bf16']['1f1b']['bubble']:.3f} / {pipe['bf16']['fifo']['bubble']:.3f}), chaos {chaos['seconds']:.1f} s, "
-        f"mesh {mesh['seconds']:.1f} s, hubert-xlarge encoder {serve_h['wall_ms']:.1f} ms a 2 x 4096 call "
+        f"mesh {mesh['seconds']:.1f} s, tp (2 ranks, model 2) bf16 step ms {tp['step_ms']} (fp32 worst weight "
+        f"{tp['fp32_worst']:.2e} of its max), hubert-xlarge encoder {serve_h['wall_ms']:.1f} ms a 2 x 4096 call "
         f"({serve_h['frames_per_s']:.1f} frames/s, peak {serve_h['peak_bytes'] / 2**30:.2f} GiB, fp32 "
         f"{serve_h['fp32_err']:.2e}), internvl2-2b prefill {serve_v['prefill_ms']:.1f} ms and decode "
         f"{serve_v['decode_ms']:.2f} ms a step (peak {serve_v['peak_bytes'] / 2**30:.2f} GiB, fp32 "

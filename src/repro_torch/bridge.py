@@ -16,6 +16,11 @@ neither JAX nor ``ml_dtypes`` on this side.  Without ``ml_dtypes`` numpy
 holds bfloat16 as raw 2-byte records (dtype ``V2``, as ``repro``'s
 checkpoints load it): such arrays cross the same way.
 
+On a ``model`` mesh axis (a model built under ``use_mesh``) a leaf given at
+its whole shape is cut to this rank's part (the model's ``shards``); one
+given at the part's shape is taken as it is (a sharded checkpoint's
+restore), and :func:`train_state_to_numpy` gives each rank's parts.
+
 :func:`train_state_from_numpy` and :func:`train_state_to_numpy` carry a
 whole train state (parameters, optimizer state, step) both ways, so the two
 packages' train steps can be compared after any number of steps.  The
@@ -45,6 +50,17 @@ def tensor_from_numpy(arr, device="cpu") -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _part(arr, model, name: str, layer):
+    """The leaf ``arr`` (the layer's slice of a stacked one) as ``name``
+    holds it: this rank's part when the model is sharded and ``arr`` is
+    whole."""
+    a = arr if layer is None else np.asarray(arr)[layer]
+    sh = None if model.shards is None else model.shards[name]
+    if sh is not None and sh.sharded and tuple(np.shape(a)) == sh.full:
+        a = np.asarray(a)[sh.index]
+    return a
+
+
 def _at(tree: dict, path: str):
     for key in path.split("/"):
         tree = tree[key]
@@ -66,7 +82,7 @@ def params_from_numpy(tree: dict, cfg: ArchConfig, device="cuda") -> Transformer
         except KeyError:
             missing.append(name)
             continue
-        src = tensor_from_numpy(arr if layer is None else np.asarray(arr)[layer], target.device)
+        src = tensor_from_numpy(_part(arr, model, name, layer), target.device)
         if tuple(src.shape) != tuple(target.shape) or src.dtype != target.dtype:
             raise ValueError(
                 f"{name}: {tuple(src.shape)} {src.dtype} does not fit "
@@ -99,7 +115,7 @@ def train_state_from_numpy(params_tree: dict, opt_tree: dict, step, cfg: ArchCon
             for n in names:
                 path, layer = leaf_path(n, layout)
                 arr = _at(opt_tree[k], path)
-                opt[k][n] = tensor_from_numpy(arr if layer is None else np.asarray(arr)[layer], device)
+                opt[k][n] = tensor_from_numpy(_part(arr, model, n, layer), device)
     else:
         opt = {
             leaf.path: {k: tensor_from_numpy(v, device) for k, v in _at(opt_tree, leaf.path).items()}

@@ -27,6 +27,18 @@ port's copy of ``repro.dist.collectives``, on torch tensors.
   slow inter-pod links moving ``1/inner`` of the bytes.  Like ``jax.lax``'s,
   they return new tensors and leave their input as it was.
 
+* **The model axis** — the tensor-parallel operators of a model built on
+  a mesh with a ``model`` axis (``dist.sharding.ModelAxis``), as
+  ``torch.autograd.Function``s: :func:`copy_to_model` (the identity
+  forward, a sum over ``model`` backward: where a replicated activation
+  enters a sharded region) and :func:`reduce_from_model` (a sum over
+  ``model`` forward, the identity backward: where the region's partial
+  results leave it); :func:`model_max_` and :func:`model_sum_` reduce in
+  place, untracked (a softmax's row max, a norm's squares).
+  ``torch.distributed.nn.functional.all_reduce`` is not used: its backward
+  sums again, which is wrong for :func:`reduce_from_model`.  GSPMD puts the
+  same collectives into ``repro``'s programs.
+
 Gradient compression (:func:`compress_int8` … :func:`compress_tree`):
 symmetric per-tensor int8 with error-feedback residuals.  Trees are dicts
 (nested or flat) of tensors; each tensor is one leaf with its own scale.
@@ -374,6 +386,59 @@ def hierarchical_psum(x: torch.Tensor, *, pod_axis: str = "pod", inner_axis: str
 
 
 # ---------------------------------------------------------------------------
+# The model axis: tensor-parallel operators (dist.sharding.ModelAxis).
+# ---------------------------------------------------------------------------
+
+def model_sum_(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``x`` in place over the ranks of ``group`` (untracked)."""
+    import torch.distributed as dist
+
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
+
+
+def model_max_(x: torch.Tensor, group) -> torch.Tensor:
+    """Max of ``x`` in place over the ranks of ``group`` (untracked)."""
+    import torch.distributed as dist
+
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    return x
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return model_sum_(g.contiguous().clone(), ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return model_sum_(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as it is; its gradient summed over ``group`` (each rank's
+    sharded region contributes a part of it)."""
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``; its gradient passed through (the
+    sum is replicated, so is its gradient)."""
+    return _ReduceFromModel.apply(x, group)
+
+
+# ---------------------------------------------------------------------------
 # Substrate-dispatching spellings.
 # ---------------------------------------------------------------------------
 
@@ -433,9 +498,13 @@ def all_gather(
 # Gradient compression with error feedback.
 # ---------------------------------------------------------------------------
 
-def int8_scale(*tensors: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
-    """max|g| / 127 over all ``tensors`` (float32), at least ``eps`` / 127."""
+def int8_scale(*tensors: torch.Tensor, eps: float = 1e-8, group=None) -> torch.Tensor:
+    """max|g| / 127 over all ``tensors`` (float32), at least ``eps`` / 127;
+    with ``group`` the max is also taken over its ranks (a leaf sharded
+    over the ``model`` axis quantizes with the scale of the whole leaf)."""
     amax = torch.stack([t.detach().abs().amax().float() for t in tensors]).amax()
+    if group is not None:
+        amax = model_max_(amax.reshape(1), group)[0]
     return torch.clamp(amax, min=eps) / 127.0
 
 

@@ -64,10 +64,13 @@ Fault tolerance & recovery
     re-runnable given its step index, tags collectives with
     ``(rt.epoch, step)``, and contains **no failure handling**.
 
-  The port's launcher trains on one card, so its re-mesh is the
-  one-device case (``launch/train.py``); ``dist/chaos.py`` soaks this
-  runtime with in-process ranks, and the re-mesh of sharded state over
-  several cards waits (ROADMAP.md, Queue 1 item 5.5).
+  ``launch/train.py::train_loop`` run by every rank of a mesh shrinks it
+  by :func:`remesh_plan` (the ``model`` axis kept, so each survivor keeps
+  its parts of the sharded state), re-forms the process group over the
+  survivors (``launch.mesh.shrink_mesh``) and restores the last checkpoint
+  onto the new mesh; on one card it logs the loss and goes on, as
+  ``repro`` does with one device.  ``dist/chaos.py`` soaks this runtime
+  with in-process ranks.
 """
 from __future__ import annotations
 

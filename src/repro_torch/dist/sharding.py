@@ -18,7 +18,11 @@ mesh is active:
 * :func:`named_sharding` gives that spec as DTensor placements
   (``Shard(d)`` / ``Replicate()``, one per mesh axis) on the active mesh;
 * off-mesh (no ``use_mesh`` active) every helper is the identity, so the
-  same model code runs unsharded on one card.
+  same model code runs unsharded on one card;
+* :func:`model_axis` gives the ``model`` axis of a mesh as a
+  :class:`ModelAxis` (its size, this rank's place on it and its process
+  group), or None when the mesh has no ``model`` axis larger than 1: the
+  tensor-parallel model code asks it once, when a model is built.
 
 A mesh here is a ``DeviceMesh`` with ``mesh_dim_names``; :func:`safe_spec`
 also takes any object whose ``.shape`` maps axis names to sizes, so plans
@@ -94,6 +98,41 @@ def default_rules() -> dict:
         "head_dim": None,
         "layers": None,
     }
+
+
+class ModelAxis:
+    """The ``model`` axis of the mesh a model was built on.  It keeps the
+    mesh, not the group: the backward (and a checkpointed layer's recompute)
+    may run on autograd's device thread, which sees no ``use_mesh``."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.size = mesh_shape(mesh)["model"]
+
+    @property
+    def rank(self) -> int:
+        """This rank's coordinate on the axis."""
+        return self.mesh.get_local_rank("model")
+
+    @property
+    def group(self):
+        """The axis' process group (the ranks that share every other
+        coordinate)."""
+        return self.mesh.get_group("model")
+
+
+def model_axis(mesh=None) -> Optional[ModelAxis]:
+    """The ``model`` axis of ``mesh`` (default: :func:`current_mesh`), or
+    None off-mesh and when the axis is absent or of size 1."""
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is None or mesh_shape(mesh).get("model", 1) <= 1:
+        return None
+    return ModelAxis(mesh)
+
+
+def spec_axes(entry) -> tuple:
+    """A spec entry's mesh axes, major to minor: () for None."""
+    return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
 
 
 def _axis_product(shape: dict, axes: Sequence[str]) -> int:

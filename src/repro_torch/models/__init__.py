@@ -1,8 +1,7 @@
 """Every block kind of ``repro`` (``attn``, ``mla``, ``moe``, ``ssm``, ``rec``
 and the recurrentgemma hybrid) and its audio and vision frontends as
 ``nn.Module``s, with the JAX package's weight layouts and function names
-(all of ``repro.models``' but ``param_shardings``, which waits for the
-``model`` mesh axis)."""
+(all of ``repro.models``')."""
 from repro_torch.models.config import (
     ArchConfig,
     HybridConfig,
@@ -35,6 +34,7 @@ from repro_torch.models.transformer import (
     leaf_layout,
     loss_fn,
     model_defs,
+    param_shardings,
     prefill,
     set_trainable,
     verify_step,
@@ -45,5 +45,5 @@ __all__ = [
     "SSMConfig", "applicable_shapes", "abstract_cache", "abstract_inputs", "abstract_params",
     "embed_inputs", "head_logits", "input_defs", "Block", "RecBlock", "SSMBlock", "Transformer", "block_kind", "cache_defs",
     "cache_layout", "decode_step", "forward", "init_cache", "init_params",
-    "layer_kinds", "leaf_layout", "loss_fn", "model_defs", "prefill", "set_trainable", "verify_step",
+    "layer_kinds", "leaf_layout", "loss_fn", "model_defs", "param_shardings", "prefill", "set_trainable", "verify_step",
 ]

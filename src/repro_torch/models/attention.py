@@ -23,10 +23,11 @@ from typing import Optional, Union
 import torch
 from torch import nn
 
+from repro_torch.dist.collectives import copy_to_model, reduce_from_model
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import RMSNorm, apply_rope, make_params, rmsnorm
+from repro_torch.models.layers import RMSNorm, apply_rope, make_params, rmsnorm, sharded_axis
 from repro_torch.models.param import ParamDef
 
 Pos = Union[int, torch.Tensor]
@@ -50,6 +51,19 @@ def attn_defs(cfg: ArchConfig) -> dict:
     return out
 
 
+def local_kv_heads(H: int, KH: int, m: int, r: int):
+    """The KV heads rank ``r`` of ``m`` reads for its query heads ``[r·H/m,
+    (r+1)·H/m)`` (query head h reads KV head h // (H / KH)): a ``slice``
+    when they form a block the local heads map onto as GQA does, else a
+    list with one KV head per local query head."""
+    hl, g = H // m, H // KH
+    idx = [h // g for h in range(r * hl, (r + 1) * hl)]
+    n = idx[-1] - idx[0] + 1
+    if hl % n == 0 and all(i - idx[0] == j // (hl // n) for j, i in enumerate(idx)):
+        return slice(idx[0], idx[0] + n)
+    return idx
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: ArchConfig, *, dtype: torch.dtype, device):
         super().__init__()
@@ -58,6 +72,21 @@ class Attention(nn.Module):
         make_params(self, defs, dtype=dtype, device=device)
         for name in norms:
             setattr(self, name, RMSNorm(cfg.head_dim, cfg.norm_eps, dtype=dtype, device=device))
+        self.tp = sharded_axis(defs["wq"], 1)  # heads sharded: a tensor-parallel region
+        self.kv_sharded = self.tp is not None and sharded_axis(defs["wk"], 1) is not None
+        self.heads = (cfg.n_heads, cfg.n_kv_heads)
+
+
+def partial_grad_names(p: Attention) -> tuple[str, ...]:
+    """Parameters (names under ``p``) replicated over ``model`` but used
+    inside the tensor-parallel region: each rank's gradient is a part of
+    theirs."""
+    if p.tp is None:
+        return ()
+    names = [f"{n}.scale" for n in ("q_norm", "k_norm") if hasattr(p, n)]
+    if not p.kv_sharded:
+        names += [n for n in ("wk", "wv", "bk", "bv") if hasattr(p, n)]
+    return tuple(names)
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -66,15 +95,28 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(D, n * Dh)).reshape(*x.shape[:-1], n, Dh)
 
 
+def _kv_params(p: Attention, w: torch.Tensor, axis: int) -> torch.Tensor:
+    """``w`` (a KV weight or bias) restricted to the KV heads this rank
+    reads (on axis ``axis``): all of it unless the heads are sharded and
+    the KV heads replicated (:func:`local_kv_heads`)."""
+    if p.tp is None or p.kv_sharded:
+        return w
+    sel = local_kv_heads(*p.heads, p.tp.size, p.tp.rank)
+    if isinstance(sel, slice):
+        return w.narrow(axis, sel.start, sel.stop - sel.start)
+    return w.index_select(axis, torch.tensor(sel, device=w.device))
+
+
 def qkv_project(p: Attention, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig):
-    """x (B, L, D) → q (B, L, H, Dh), k/v (B, L, KH, Dh), RoPE applied."""
+    """x (B, L, D) → q (B, L, H, Dh), k/v (B, L, KH, Dh), RoPE applied (the
+    local heads under a ``model`` axis)."""
     q = _project(x, p.wq)
-    k = _project(x, p.wk)
-    v = _project(x, p.wv)
+    k = _project(x, _kv_params(p, p.wk, 1))
+    v = _project(x, _kv_params(p, p.wv, 1))
     if cfg.qkv_bias:
         q = q + p.bq
-        k = k + p.bk
-        v = v + p.bv
+        k = k + _kv_params(p, p.bk, 0)
+        v = v + _kv_params(p, p.bv, 0)
     if cfg.qk_norm:
         q = rmsnorm(q, p.q_norm.scale, cfg.norm_eps)
         k = rmsnorm(k, p.k_norm.scale, cfg.norm_eps)
@@ -171,8 +213,13 @@ def attention_apply(
     causal: bool = True,
     want_cache: bool = False,
 ):
-    """Prefill attention over the full sequence → (y (B, L, D), {'k','v'} | None)."""
+    """Prefill attention over the full sequence → (y (B, L, D), {'k','v'} | None);
+    tensor-parallel over the local heads when ``p.tp`` is set."""
+    if p.tp is not None:
+        x = copy_to_model(x, p.tp.group)
     q, k, v = qkv_project(p, x, positions, cfg)
     out = full_attention(q, k, v, causal=causal, window=cfg.attn_window)
     y = _out_project(out, p.wo)
+    if p.tp is not None:
+        y = reduce_from_model(y, p.tp.group)
     return y, ({"k": k, "v": v} if want_cache else None)

@@ -5,6 +5,16 @@ A port of ``repro.models.layers``.  Weights keep the JAX package's layouts;
 functions take the owning module.  RMSNorm goes through the CUDA kernels
 (``kernels/rmsnorm``, forward and, when autograd records, backward) on the
 card and their plain versions on the CPU — ``repro`` computes it in jnp.
+
+On a mesh with a ``model`` axis (``dist.sharding.model_axis``) the layers
+are tensor-parallel where ``safe_spec`` shards their weights, as GSPMD runs
+``repro``'s: the MLP's ``wi_*`` by columns (``ff``) and ``wo`` by rows, its
+output summed over ``model``; the embedding and the logits by ``vocab``
+(rows outside a rank's shard embed to zero and the sum over ``model`` fills
+them; each rank's logits are its own classes, masked and soft-capped by
+their global index) and the cross-entropy over those shards: the row max
+and the sum of exponentials are reduced over ``model`` and the label's
+logit comes from the rank that holds it, so no rank holds the full logits.
 """
 from __future__ import annotations
 
@@ -15,9 +25,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.collectives import copy_to_model, model_max_, reduce_from_model
+from repro_torch.dist.sharding import current_mesh, model_axis, safe_spec
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.param import DTYPES, ParamDef
+from repro_torch.models.param import DTYPES, ParamDef, local_shape
 
 
 # ---------------------------------------------------------------------------
@@ -88,24 +100,40 @@ def mlp_defs(d_model: int, d_ff: int, act: str) -> dict:
 
 
 def make_params(module: nn.Module, defs: dict, *, dtype: torch.dtype, device) -> None:
-    """Register one empty, frozen parameter per ParamDef leaf of ``defs``."""
+    """Register one empty, frozen parameter per ParamDef leaf of ``defs``,
+    at this rank's part of its shape under the active mesh (``safe_spec``;
+    the whole shape off-mesh)."""
+    mesh = current_mesh()
     for name, d in defs.items():
         dt = DTYPES[d.dtype] if d.dtype else dtype
+        shape = d.shape if mesh is None else local_shape(d.shape, safe_spec(d.shape, d.axes, mesh=mesh), mesh)
         module.register_parameter(
-            name, nn.Parameter(torch.empty(d.shape, dtype=dt, device=device), requires_grad=False)
+            name, nn.Parameter(torch.empty(shape, dtype=dt, device=device), requires_grad=False)
         )
+
+
+def sharded_axis(d: ParamDef, dim: int):
+    """The active mesh's ``model`` axis (``ModelAxis``) when ``safe_spec``
+    shards dimension ``dim`` of ``d`` over it, else None."""
+    tp = model_axis()
+    return tp if tp is not None and safe_spec(d.shape, d.axes)[dim] is not None else None
 
 
 class MLP(nn.Module):
     """The gated MLP of width ``d_ff`` (``cfg.d_ff`` unless given: a MoE's
-    shared expert is wider)."""
+    shared expert is wider); tensor-parallel over ``ff`` when the mesh's
+    ``model`` axis shards it (``self.tp``)."""
 
     def __init__(self, cfg: ArchConfig, *, dtype: torch.dtype, device, d_ff: Optional[int] = None):
         super().__init__()
         self.act = cfg.act
-        make_params(self, mlp_defs(cfg.d_model, d_ff or cfg.d_ff, cfg.act), dtype=dtype, device=device)
+        defs = mlp_defs(cfg.d_model, d_ff or cfg.d_ff, cfg.act)
+        make_params(self, defs, dtype=dtype, device=device)
+        self.tp = sharded_axis(defs["wo"], 0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x = copy_to_model(x, self.tp.group)
         if self.act in ("swiglu", "geglu"):
             g = x @ self.wi_gate
             u = x @ self.wi_up
@@ -113,7 +141,8 @@ class MLP(nn.Module):
             h = g * u
         else:
             h = F.gelu(x @ self.wi, approximate="tanh")
-        return h @ self.wo
+        out = h @ self.wo
+        return out if self.tp is None else reduce_from_model(out, self.tp.group)
 
 
 # ---------------------------------------------------------------------------
@@ -130,13 +159,26 @@ def embed_defs(cfg: ArchConfig) -> dict:
 
 
 def embed_apply(model: nn.Module, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    x = model.embedding[tokens]
+    tp = getattr(model, "vocab_tp", None)
+    if tp is None:
+        x = model.embedding[tokens]
+    else:  # this rank's rows; the others' tokens embed to zero, the sum fills them
+        v = model.embedding.shape[0]
+        local = tokens.long() - tp.rank * v
+        inside = (local >= 0) & (local < v)
+        rows = model.embedding[local.clamp(0, v - 1)]
+        x = reduce_from_model(torch.where(inside[..., None], rows, torch.zeros_like(rows)), tp.group)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
     return x.to(DTYPES[cfg.dtype])
 
 
 def logits_apply(model: nn.Module, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Logits over the padded vocab, or over this rank's shard of it when
+    the ``model`` axis shards ``vocab`` (``model.vocab_tp``)."""
+    tp = getattr(model, "vocab_tp", None)
+    if tp is not None:
+        x = copy_to_model(x, tp.group)
     if getattr(model, "unembed", None) is not None:
         logits = x @ model.unembed
     else:
@@ -145,7 +187,9 @@ def logits_apply(model: nn.Module, x: torch.Tensor, cfg: ArchConfig) -> torch.Te
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c
     if cfg.padded_vocab != cfg.vocab:  # mask padding classes out of softmax
-        pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab
+        v = logits.shape[-1]
+        lo = 0 if tp is None else tp.rank * v  # global class index of column 0
+        pad = torch.arange(lo, lo + v, device=x.device) >= cfg.vocab
         logits = logits.masked_fill(pad, -1e30)
     return logits
 
@@ -154,13 +198,33 @@ def logits_apply(model: nn.Module, x: torch.Tensor, cfg: ArchConfig) -> torch.Te
 # Losses
 # ---------------------------------------------------------------------------
 
-def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
-                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean cross-entropy over (optionally masked) positions; fp32 math."""
-    lg = logits.float()
+def vocab_parallel_nll(lg: torch.Tensor, labels: torch.Tensor, tp) -> torch.Tensor:
+    """Per-position cross-entropy of float32 logits ``lg`` that hold this
+    rank's classes of the ``model`` axis ``tp``: the row max (untracked: a
+    shift) and the sum of exponentials reduced over ``model``, the label's
+    logit from the rank whose classes hold it."""
+    v = lg.shape[-1]
+    mx = model_max_(lg.detach().amax(dim=-1).contiguous(), tp.group)
+    lse = torch.log(reduce_from_model(torch.exp(lg - mx[..., None]).sum(dim=-1), tp.group)) + mx
+    local = labels.long() - tp.rank * v
+    inside = (local >= 0) & (local < v)
+    gold = torch.gather(lg, -1, local.clamp(0, v - 1)[..., None])[..., 0]
+    return lse - reduce_from_model(torch.where(inside, gold, torch.zeros_like(gold)), tp.group)
+
+
+def _nll(lg: torch.Tensor, labels: torch.Tensor, tp) -> torch.Tensor:
+    if tp is not None:
+        return vocab_parallel_nll(lg, labels, tp)
     lse = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
-    nll = lse - gold
+    return lse - torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None, tp=None) -> torch.Tensor:
+    """Mean cross-entropy over (optionally masked) positions; fp32 math.
+    With ``tp`` (a ``ModelAxis``) ``logits`` are this rank's vocab shard
+    (:func:`vocab_parallel_nll`)."""
+    nll = _nll(logits.float(), labels, tp)
     if mask is not None:
         m = mask.float()
         return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
@@ -169,9 +233,7 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
 
 def _chunk_nll(xc, lc, mc, model, cfg):
     logits = logits_apply(model, xc, cfg).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
-    return torch.sum((lse - gold) * mc)
+    return torch.sum(_nll(logits, lc, getattr(model, "vocab_tp", None)) * mc)
 
 
 def chunked_softmax_xent(x: torch.Tensor, labels: torch.Tensor, model: nn.Module, cfg: ArchConfig,

@@ -33,6 +33,19 @@ recomputes it but keeps the outputs of its matrix products (selective
 activation checkpointing: :func:`dots_saveable_policy`), ``"none"`` keeps
 its activations.
 
+Tensor parallelism: a :class:`Transformer` built under ``use_mesh(mesh)``
+with a ``model`` axis of m > 1 holds only this rank's part of each
+parameter (``safe_spec`` of its ``ParamDef`` axes: ``heads``, ``kv_heads``,
+``ff`` and ``vocab`` go to ``model`` where m divides them;
+:func:`param_shardings` gives the specs), and its forward is
+tensor-parallel over those parts (``models/attention.py``,
+``models/layers.py``).  :func:`init_params` draws each leaf at its full
+shape and keeps this rank's part, so a rank's tensors are bit for bit the
+slices of the off-mesh init.  That slice of the port covers block kind
+``"attn"`` in training: the other block kinds, the frontends, the hybrid
+layout and serving (``prefill``, ``decode_step``, ``verify_step``,
+``ServeEngine``) raise under such a mesh (ROADMAP.md, Queue 1 item 5.6).
+
 :func:`input_defs`, :func:`abstract_inputs`, :func:`abstract_params` and
 :func:`abstract_cache` describe a batch, the parameters and the caches as
 ``ParamDef`` trees and as tensors on the ``meta`` device (shapes and dtypes,
@@ -47,6 +60,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
+from repro_torch.dist.sharding import model_axis, safe_spec
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mla as mla_mod
@@ -64,9 +78,19 @@ from repro_torch.models.layers import (
     make_params,
     mlp_defs,
     rmsnorm_def,
+    sharded_axis,
     softmax_xent,
 )
-from repro_torch.models.param import DTYPES, ParamDef, abstract_tree, init_, stack_defs
+from repro_torch.models.param import (
+    DTYPES,
+    ParamDef,
+    Shard,
+    abstract_tree,
+    init_,
+    local_index,
+    sharding_tree,
+    stack_defs,
+)
 
 #: each block kind's decode-cache leaves
 CACHE_KEYS = {"attn": ("k", "v"), "moe": ("k", "v"), "mla": ("c_kv", "k_rope"),
@@ -133,6 +157,35 @@ def block_defs(cfg: ArchConfig, kind: Optional[str] = None) -> dict:
     return {"ln1": rmsnorm_def(D), mixer[0]: mixer[1](cfg), "ln2": rmsnorm_def(D), ffn[0]: ffn[1]}
 
 
+MODEL_AXIS_ITEM = "ROADMAP.md, Queue 1 item 5.6"
+
+
+def check_model_axis(cfg: ArchConfig, mesh=None) -> None:
+    """Raise ``NotImplementedError`` (naming Queue 1 item 5.6) for a config
+    the port cannot run tensor-parallel on ``mesh``'s (default: the active
+    mesh's) ``model`` axis of m > 1: anything but a stack of ``"attn"``
+    blocks over token embeddings."""
+    tp = model_axis(mesh)
+    if tp is None:
+        return
+    kinds = set(layer_kinds(cfg))
+    if kinds != {"attn"} or cfg.frontend is not None:
+        what = f"frontend {cfg.frontend!r}" if cfg.frontend is not None else f"block kinds {sorted(kinds)}"
+        raise NotImplementedError(
+            f"{cfg.name}: {what} on a 'model' mesh axis of {tp.size} is not ported; the port runs "
+            f"block kind 'attn' tensor-parallel ({MODEL_AXIS_ITEM})"
+        )
+
+
+def refuse_model_axis(model, what: str) -> None:
+    """Raise for serving on a model built on a ``model`` axis of m > 1."""
+    if getattr(model, "tp", None) is not None:
+        raise NotImplementedError(
+            f"{what} on a model built on a 'model' mesh axis of {model.tp.size} (sharded KV "
+            f"caches, serving) is not ported ({MODEL_AXIS_ITEM})"
+        )
+
+
 def frontend_defs(cfg: ArchConfig) -> dict:
     """The parameters before the layers, in ``repro``'s order: an audio
     model's frame projection, mask embedding and head (no embedding table),
@@ -146,6 +199,12 @@ def frontend_defs(cfg: ArchConfig) -> dict:
     if cfg.frontend == "vision":
         return {"patch_proj": ParamDef((1024, D), (None, "embed")), **embed_defs(cfg)}
     return dict(embed_defs(cfg))
+
+
+def param_shardings(cfg: ArchConfig, mesh=None) -> dict:
+    """The ``PartitionSpec`` of every leaf of :func:`model_defs` on ``mesh``
+    (default: the active mesh), ``repro``'s ``param_shardings``."""
+    return sharding_tree(model_defs(cfg), mesh)
 
 
 def model_defs(cfg: ArchConfig) -> dict:
@@ -251,40 +310,86 @@ class Transformer(nn.Module):
     """Uninitialised (``torch.empty``) parameters; see :func:`init_params`.
     ``leaf_layout`` maps the layers onto ``repro``'s tree (:func:`leaf_layout`).
     ``device="meta"`` builds the module of shapes alone (a dry run): nothing
-    launches there, since a kernel wrapper given a ``meta`` tensor raises."""
+    launches there, since a kernel wrapper given a ``meta`` tensor raises.
+
+    Built under a mesh with a ``model`` axis of m > 1 (module docstring),
+    ``tp`` is that axis (``dist.sharding.ModelAxis``; None otherwise),
+    ``vocab_tp`` is it when ``vocab`` is sharded, and ``shards`` maps each
+    parameter name to its :class:`~repro_torch.models.param.Shard` (full
+    shape, spec, this rank's index; the index is None on a mesh-like
+    object without ranks)."""
 
     def __init__(self, cfg: ArchConfig, *, device="cuda"):
         super().__init__()
+        check_model_axis(cfg)
         device = torch.device(device)
         if device.type != "meta":
             device = resolve_device(device)
         dtype = DTYPES[cfg.dtype]
         self.cfg = cfg
         self.leaf_layout = leaf_layout(cfg)
-        make_params(self, frontend_defs(cfg), dtype=dtype, device=device)
+        self.tp = model_axis()
+        fdefs = frontend_defs(cfg)
+        make_params(self, fdefs, dtype=dtype, device=device)
+        self.vocab_tp = sharded_axis(fdefs["embedding"], 0) if "embedding" in fdefs else None
         lcfg = layer_cfg(cfg)
         self.layers = nn.ModuleList(
             _make_block(lcfg, kind, dtype=dtype, device=device) for kind in layer_kinds(cfg)
         )
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
+        self.shards = None
+        if self.tp is not None:
+            mesh = self.tp.mesh
+            ranked = hasattr(mesh, "get_local_rank")
+            self.shards = {}
+            for name, _, d in named_defs(self):
+                spec = safe_spec(d.shape, d.axes, mesh=mesh)
+                self.shards[name] = Shard(tuple(d.shape), spec,
+                                          local_index(d.shape, spec, mesh) if ranked else None)
 
     @property
     def device(self) -> torch.device:
         return self.final_norm.scale.device  # an audio model has no embedding
 
 
-def _target(module: nn.Module, name: str) -> torch.Tensor:
-    """The tensor a JAX tree key names under ``module`` (norms hold ``scale``)."""
+def _target(module: nn.Module, name: str) -> tuple[str, torch.Tensor]:
+    """The parameter a JAX tree key names under ``module`` (norms hold
+    ``scale``): (its name under ``module``, the tensor)."""
     t = getattr(module, name)
-    return t.scale if isinstance(t, RMSNorm) else t
+    return (f"{name}.scale", t.scale) if isinstance(t, RMSNorm) else (name, t)
 
 
-def _walk_init(module: nn.Module, defs: dict, gen: torch.Generator) -> None:
+def _walk(module: nn.Module, defs: dict, prefix: str = ""):
     for name, d in defs.items():
         if isinstance(d, ParamDef):
-            init_(_target(module, name), d, gen)
+            local, t = _target(module, name)
+            yield prefix + local, t, d
         else:
-            _walk_init(getattr(module, name), d, gen)
+            yield from _walk(getattr(module, name), d, f"{prefix}{name}.")
+
+
+def named_defs(model: Transformer):
+    """(parameter name, tensor, its unstacked ``ParamDef``) for every
+    parameter, in ``repro``'s tree order: the frontend and embeddings, the
+    layers in order, the final norm (the order the init draws them)."""
+    cfg = model.cfg
+    yield from _walk(model, frontend_defs(cfg))
+    lcfg = layer_cfg(cfg)
+    for i, (layer, kind) in enumerate(zip(model.layers, layer_kinds(cfg))):
+        yield from _walk(layer, block_defs(lcfg, kind), f"layers.{i}.")
+    yield from _walk(model, {"final_norm": rmsnorm_def(cfg.d_model)})
+
+
+def partial_grad_names(model: Transformer) -> tuple[str, ...]:
+    """Parameters replicated over the ``model`` axis whose gradient each
+    rank holds a part of (``attention.partial_grad_names``): the train step
+    sums them over ``model``.  Empty off a ``model`` axis."""
+    out = []
+    for i, layer in enumerate(model.layers):
+        attn = getattr(layer, "attn", None)
+        if isinstance(attn, attn_mod.Attention):
+            out += [f"layers.{i}.attn.{n}" for n in attn_mod.partial_grad_names(attn)]
+    return tuple(out)
 
 
 def set_trainable(model: nn.Module) -> nn.Module:
@@ -297,15 +402,13 @@ def set_trainable(model: nn.Module) -> nn.Module:
 
 def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda") -> Transformer:
     """A :class:`Transformer` with ``repro``'s init rules, drawn on ``device``
-    from a ``torch.Generator`` seeded with ``seed``."""
+    from a ``torch.Generator`` seeded with ``seed``, one leaf at a time in
+    ``repro``'s tree order; on a ``model`` axis each leaf is drawn whole and
+    this rank's part kept (bit for bit the off-mesh init's slice)."""
     model = Transformer(cfg, device=device)
     gen = torch.Generator(device=model.device).manual_seed(seed)
-    # repro's tree order: the frontend and embeddings, the layers in order, the final norm
-    _walk_init(model, frontend_defs(cfg), gen)
-    lcfg = layer_cfg(cfg)
-    for layer, kind in zip(model.layers, layer_kinds(cfg)):
-        _walk_init(layer, block_defs(lcfg, kind), gen)
-    _walk_init(model, {"final_norm": rmsnorm_def(cfg.d_model)}, gen)
+    for name, t, d in named_defs(model):
+        init_(t, d, gen, None if model.shards is None else model.shards[name].index)
     return model
 
 
@@ -426,7 +529,7 @@ def loss_fn(model: Transformer, batch: dict, cfg: ArchConfig):
     elif cfg.logits_chunk:
         loss = chunked_softmax_xent(x, labels, model, cfg, mask, chunk=cfg.logits_chunk)
     else:
-        loss = softmax_xent(logits_apply(model, x, cfg), labels, mask)
+        loss = softmax_xent(logits_apply(model, x, cfg), labels, mask, tp=model.vocab_tp)
     total, metrics = loss, {"ce_loss": loss}
     if cfg.family == "moe":
         for k, w in AUX_WEIGHTS.items():
@@ -439,6 +542,7 @@ def loss_fn(model: Transformer, batch: dict, cfg: ArchConfig):
 def prefill(model: Transformer, batch: dict, cfg: ArchConfig):
     """→ (last-position logits (B, 1, V), caches).  Only the final
     position's logits are computed."""
+    refuse_model_axis(model, "prefill")
     x, caches, _ = forward(model, batch, cfg, want_cache=True)
     return head_logits(model, x[:, -1:], cfg), caches
 
@@ -456,6 +560,7 @@ def decode_step(model: Transformer, tokens: torch.Tensor, caches: dict, pos, cfg
     """One decode step.  tokens (B, 1) int; pos a scalar or a (B,) tensor of
     current positions; caches stacked on the layer axis (:func:`cache_defs`),
     **updated in place**.  → (logits (B, 1, V), caches)."""
+    refuse_model_axis(model, "decode_step")
     x = embed_apply(model, tokens, cfg)
     pos_b = _pos_vector(pos, tokens.shape[0], tokens.device)
     lcfg = layer_cfg(cfg)
@@ -481,6 +586,7 @@ def verify_step(model: Transformer, tokens: torch.Tensor, caches: dict, pos, cfg
     batching the T positions into one forward would change the matrix
     products' shapes, and with them the bits.  The positions are formed on
     the device from one (B,) ``pos`` and ``advance``."""
+    refuse_model_axis(model, "verify_step")
     B, T = tokens.shape
     pos_b = _pos_vector(pos, B, tokens.device)
     adv = torch.ones_like(pos_b) if advance is None else _pos_vector(advance, B, tokens.device)

@@ -28,17 +28,26 @@ What differs from ``repro``:
   step counter;
 * there are no sharding or donation arguments.  Built inside
   ``dist.sharding.use_mesh(mesh)`` (a ``torch.distributed`` device mesh,
-  one rank a process), the step is **data-parallel**: every rank is given
-  the same global batch and computes on its own rows of it along the
-  batch's mesh axes (``pod`` × ``data`` where they divide it, as
+  one rank a process), the step is **data-parallel** over the batch's mesh
+  axes: every rank is given the same global batch and computes on its own
+  rows of it along ``pod`` × ``data`` (where they divide it, as
   ``safe_spec`` decides), and ``grad_finalize`` averages the gradients
   across those ranks before the optimizer (``all_reduce(axis=…)``'s mean,
-  or ``hierarchical_psum`` over the rank count with a ``pod`` axis), so
-  every rank ends the step with the same parameters; the metrics are
-  means over the ranks too.  Parameters and optimizer state stay whole on
-  every rank: a ``model`` axis larger than 1 (sharded state) raises,
-  naming ROADMAP.md, Queue 1 item 5.5.  Off-mesh the step runs on one
-  card as before.
+  or ``hierarchical_psum`` over the rank count with a ``pod`` axis); the
+  metrics are means over the ranks too.
+* with a ``model`` axis of m > 1 the step is also **tensor-parallel**: the
+  model (built under the same mesh) holds this rank's part of each
+  parameter (``safe_spec`` of its ``ParamDef`` axes), its forward and
+  backward run over those parts (``models/attention.py``,
+  ``models/layers.py``), the gradients stay local but for the parameters
+  replicated inside a sharded region (``models.partial_grad_names``), which
+  ``grad_finalize`` sums over ``model``, as GSPMD does in ``repro``; AdamW's
+  ``m`` / ``v`` are local parts and Adafactor's state is whole on every rank
+  (:func:`train_state_shardings`); the global norm sums the sharded
+  gradients' squares over ``model``.  Each metric is the same on every
+  ``model`` rank.  Block kinds other than ``"attn"`` raise there
+  (``models.check_model_axis``).  Off-mesh the step runs on one card as
+  before.
 """
 from __future__ import annotations
 
@@ -55,11 +64,13 @@ from repro_torch.dist.collectives import (
     hierarchical_psum,
     int8_scale,
     mesh_psum_,
+    model_sum_,
 )
-from repro_torch.dist.sharding import current_mesh, mesh_shape, safe_spec, use_mesh
-from repro_torch.models import init_params, leaf_layout, loss_fn, set_trainable
+from repro_torch.dist.sharding import PartitionSpec, current_mesh, mesh_shape, safe_spec, use_mesh
+from repro_torch.models import abstract_params, init_params, leaf_layout, loss_fn, model_defs, set_trainable
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.param import DTYPES
+from repro_torch.models.param import DTYPES, sharding_tree
+from repro_torch.models.transformer import check_model_axis, partial_grad_names
 from repro_torch.optim import TrainState, global_norm, make_optimizer, param_leaves
 
 
@@ -96,33 +107,43 @@ def _rank_mean_(t: torch.Tensor, axes: tuple) -> None:
 
 
 @sp_task(write=("grads",), name="grad_allreduce", cost=3.0, comm=True)
-def _grad_finalize_codelet(grads, *, n_mb, compress, leaves, dp_axes):
+def _grad_finalize_codelet(grads, *, n_mb, compress, leaves, dp_axes, tp):
     """Mean over the microbatches, then over the data-parallel ranks of
-    the mesh axes ``dp_axes`` (none off-mesh), + (optional) int8
+    the mesh axes ``dp_axes`` (none off-mesh), the sum over ``model`` of the
+    gradients each rank holds a part of (``tp``: the model's
+    :class:`_ModelAxisPlan`, None off a ``model`` axis), + (optional) int8
     quantize-dequantize, in place.  Each of ``repro``'s leaves (a layer
     parameter stacked over the layers) is quantized with one scale, as
-    ``repro``'s ``compress_tree`` does; the error-feedback residuals are
-    zero inside one step, as there."""
+    ``repro``'s ``compress_tree`` does (over ``model`` too for a sharded
+    leaf); the error-feedback residuals are zero inside one step, as
+    there."""
     g = grads.value
     with torch.no_grad():
         for t in g.values():
             t.div_(n_mb)
             if dp_axes:
                 _rank_mean_(t, dp_axes)
+        if tp is not None:
+            for n in tp.partial:
+                model_sum_(g[n], tp.group)
         if compress:
             for leaf in leaves:
                 parts = [g[n] for n in leaf.names]
-                scale = int8_scale(*parts)
+                sharded = tp is not None and tp.shards[leaf.names[0]].sharded
+                scale = int8_scale(*parts, group=tp.group if sharded else None)
                 for t in parts:
                     t.copy_(decompress_int8(*compress_int8(t, scale=scale)))
     grads.value = g
 
 
 @sp_task(read=("grads",), write=("params", "opt", "new_step"), name="optimizer", cost=5.0)
-def _optimizer_codelet(grads, params, opt, new_step, *, opt_update, lr_schedule, clip_norm, step):
+def _optimizer_codelet(grads, params, opt, new_step, *, opt_update, lr_schedule, clip_norm, step, tp):
     """Clip + nonfinite check + branchless speculative update: the update is
     computed unconditionally; rollback = keep the old bits."""
-    gnorm = global_norm(grads.values())
+    if tp is None:
+        gnorm = global_norm(grads.values())
+    else:
+        gnorm = global_norm(grads.values(), sharded=[tp.shards[n].sharded for n in grads], group=tp.group)
     finite = torch.isfinite(gnorm)
     scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     opt_update(grads, opt.value, dict(params.value.named_parameters()), lr_schedule(step), step,
@@ -132,21 +153,98 @@ def _optimizer_codelet(grads, params, opt, new_step, *, opt_update, lr_schedule,
 
 
 class TrainStepArtifacts:
-    """The step function and the schedule it ran (``schedule_names``)."""
+    """The step function, the schedule it ran (``schedule_names``) and the
+    gradient accumulator it keeps between steps (``grads()``: name →
+    tensor, None before the first step)."""
 
-    def __init__(self, step_fn, schedule_names):
+    def __init__(self, step_fn, schedule_names, accum=None):
         self.step_fn = step_fn
         self.schedule_names = schedule_names
+        self._accum = accum if accum is not None else {}
+
+    def grads(self):
+        return self._accum.get("grads")
 
     def __call__(self, state, batch):
         return self.step_fn(state, batch)
 
 
+class _ModelAxisPlan:
+    """What the step needs of a model built on a ``model`` axis: the axis'
+    group, each parameter's ``Shard`` and the gradients to sum over it."""
+
+    def __init__(self, model):
+        self.group = model.tp.group
+        self.shards = model.shards
+        self.partial = partial_grad_names(model)
+
+
+def train_state_shardings(cfg: ArchConfig, mesh=None) -> TrainState:
+    """The ``PartitionSpec`` of every leaf of the train state in ``repro``'s
+    tree (:func:`abstract_train_state`) on ``mesh`` (default: the active
+    mesh): the parameters by their ``ParamDef`` axes, AdamW's ``m`` / ``v``
+    mirroring them, Adafactor's state and the step replicated — ``repro``'s
+    ``train_state_shardings``."""
+    p_sh = sharding_tree(model_defs(cfg), mesh)
+    if cfg.optimizer == "adamw":
+        opt_sh = {"m": p_sh, "v": p_sh}
+    else:
+        opt_sh = _map_leaves(lambda _: PartitionSpec(), abstract_train_state(cfg).opt)
+    return TrainState(step=PartitionSpec(), params=p_sh, opt=opt_sh)
+
+
+def _map_leaves(fn, tree):
+    return {k: _map_leaves(fn, v) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+
+
+def abstract_train_state(cfg: ArchConfig) -> TrainState:
+    """The train state in ``repro``'s tree as ``meta`` tensors at their whole
+    shapes (no storage): the parameters (layers stacked), the optimizer
+    state keyed as ``repro`` keys it, an int32 step.  On a mesh each rank
+    holds the part :func:`train_state_shardings` gives."""
+    params = abstract_params(cfg)
+    meta = lambda shape: torch.empty(shape, dtype=torch.float32, device="meta")  # noqa: E731
+    if cfg.optimizer == "adamw":
+        dt = DTYPES[cfg.opt_state_dtype]
+        opt = {k: _map_leaves(lambda t: torch.empty(t.shape, dtype=dt, device="meta"), params)
+               for k in ("m", "v")}
+    else:  # adafactor: repro's factoring of each (stacked) leaf
+        opt = _map_leaves(lambda t: ({"vr": meta(t.shape[:-1]), "vc": meta(t.shape[:-2] + t.shape[-1:])}
+                                     if t.dim() >= 2 and t.shape[-1] > 1 and t.shape[-2] > 1
+                                     else {"v": meta(t.shape)}), params)
+    return TrainState(step=torch.empty((), dtype=torch.int32, device="meta"), params=params, opt=opt)
+
+
+def _nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def state_bytes(state: TrainState, art: Optional[TrainStepArtifacts] = None) -> dict:
+    """Bytes this rank holds of the parameters, the optimizer state and
+    (with ``art``, after a step) the gradient accumulator."""
+    out = {"params": sum(p.numel() * p.element_size() for p in state.params.parameters()),
+           "opt": _nbytes(state.opt)}
+    if art is not None and art.grads() is not None:
+        out["grads"] = _nbytes(art.grads())
+    return out
+
+
+def _model_optimizer(cfg: ArchConfig, model):
+    """make_optimizer for ``model``: its leaf layout, and its shards and
+    ``model`` axis group when it was built on one."""
+    tp = model.tp
+    return make_optimizer(cfg.optimizer, cfg.opt_state_dtype, leaf_layout(cfg), shards=model.shards,
+                          group=None if tp is None else tp.group)
+
+
 def init_train_state(cfg: ArchConfig, seed: int = 0, *, device="cuda") -> TrainState:
     """Seeded parameters (``repro``'s init rules, drawn on ``device``), made
-    trainable, with a zero step counter and fresh optimizer state."""
+    trainable, with a zero step counter and fresh optimizer state.  Under a
+    mesh with a ``model`` axis each rank holds its part of them."""
     model = set_trainable(init_params(cfg, seed, device=device))
-    opt_init, _ = make_optimizer(cfg.optimizer, cfg.opt_state_dtype, leaf_layout(cfg))
+    opt_init, _ = _model_optimizer(cfg, model)
     opt = opt_init(dict(model.named_parameters()))
     return TrainState(step=torch.zeros((), dtype=torch.int32, device=model.device),
                       params=model, opt=opt)
@@ -172,16 +270,10 @@ def build_train_step(
     then divide into the ranks of the batch's mesh axes × ``n_microbatches``
     (axes that do not divide it are dropped, as ``safe_spec`` drops them)."""
     mesh = current_mesh()
-    if mesh is not None and mesh_shape(mesh).get("model", 1) > 1:
-        raise NotImplementedError(
-            f"a mesh with a 'model' axis of {mesh_shape(mesh)['model']} needs sharded parameters "
-            "and optimizer state (ROADMAP.md, Queue 1 item 5.5); the port's data-parallel step "
-            "keeps them whole on every rank: use a model axis of 1"
-        )
+    check_model_axis(cfg, mesh)
     lr_schedule = lr_schedule or (
         lambda step: torch.tensor(3e-4, dtype=torch.float32, device=step.device))
     layout = leaf_layout(cfg)
-    _, opt_update = make_optimizer(cfg.optimizer, cfg.opt_state_dtype, layout)
     metric_keys = ("loss", "ce_loss") + (("moe_balance", "moe_zloss") if cfg.family == "moe" else ())
     accum_dtype = DTYPES[grad_accum_dtype]
     schedule_names: list[str] = []
@@ -193,6 +285,8 @@ def build_train_step(
             accum["model"] = model
             accum["grads"] = {n: torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
                               for n, p in model.named_parameters()}
+            accum["opt_update"] = _model_optimizer(cfg, model)[1]
+            accum["tp"] = None if model.tp is None else _ModelAxisPlan(model)
         else:
             for t in accum["grads"].values():
                 t.zero_()
@@ -234,11 +328,11 @@ def build_train_step(
                 mb_c = SpData({k: t[i] for k, t in mb_batch.items()}, f"mb{i}")
                 _microbatch_codelet(params_c, mb_c, grads_c, metrics_c, cfg=cfg, name=f"mb{i}")
             _grad_finalize_codelet(grads_c, n_mb=n_mb, compress=grad_compression, leaves=leaves,
-                                   dp_axes=dp_axes)
+                                   dp_axes=dp_axes, tp=accum["tp"])
             gnorm_view = _optimizer_codelet(
                 grads_c, params_c, opt_c, new_step_c,
-                opt_update=opt_update, lr_schedule=lr_schedule, clip_norm=clip_norm,
-                step=state.step,
+                opt_update=accum["opt_update"], lr_schedule=lr_schedule, clip_norm=clip_norm,
+                step=state.step, tp=accum["tp"],
             )
             order = rt.run()
             metrics = {k: v / n_mb for k, v in metrics_c.value.items()}
@@ -250,4 +344,4 @@ def build_train_step(
         metrics["grad_norm"] = gnorm_view.result()
         return TrainState(step=new_step_c.value, params=params_c.value, opt=opt_c.value), metrics
 
-    return TrainStepArtifacts(train_step, schedule_names)
+    return TrainStepArtifacts(train_step, schedule_names, accum)

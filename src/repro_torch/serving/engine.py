@@ -68,6 +68,7 @@ from repro_torch.core import (
 )
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import cache_layout, decode_step, init_cache, prefill
+from repro_torch.models.transformer import refuse_model_axis
 from repro_torch.models.config import ArchConfig
 from repro_torch.runtime.serve import (
     concat_cache_rows,
@@ -283,6 +284,7 @@ class ServeEngine:
         engine: Optional[SpComputeEngine] = None,
         device="cuda",
     ):
+        refuse_model_axis(params, "ServeEngine")
         self.device = resolve_device(device)
         if params.device.type != self.device.type:
             raise ValueError(f"model lives on {params.device}, engine asked for {self.device}")

@@ -159,7 +159,7 @@ def test_substrate_spellings():
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.dist.sharding import use_mesh
-    from repro_torch.launch.mesh import free_port, init_group
+    from repro_torch.launch.mesh import join_group
 
     xs = [torch.ones(3) * (r + 1) for r in range(2)]
     eng = core.SpComputeEngine(core.SpWorkerTeamBuilder.team_of_cpu_workers(2))
@@ -185,7 +185,7 @@ def test_substrate_spellings():
     with pytest.raises(ValueError, match="mesh"):
         coll.hierarchical_psum(xs[0])
     x = torch.arange(5, dtype=torch.float32) + 0.5
-    init_group(0, 1, free_port(), "gloo")
+    join_group(0, 1, "gloo")
     try:
         mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("pod", "data"))
         with use_mesh(mesh):
