@@ -53,10 +53,14 @@ Phases (any failure raises and the script exits non-zero):
    serving  — full-width gemma-7b (28 layers, 16 heads of 256, GeGLU,
               tied embeddings, bf16, seeded random init), the same requests,
               checks and profiles (``[serve-gemma]`` lines), then
-              minicpm3-4b (62 layers, MLA: latent rows paged, decode in
+              minicpm3-4b (31 of its 62 layers, MLA: latent rows paged, decode in
               torch ops; ``[serve-minicpm3]``) and qwen3-moe-235b-a22b at
               full width cut to 8 layers (einsum dispatch; at decode the
-              capacity 8 covers the 4 slots; ``[serve-moe]``);
+              capacity 8 covers the 4 slots; ``[serve-moe]``); after the
+              frontends, qwen1.5-110b (GQA 64 : 8, the QKV bias;
+              ``[serve-qwen110b]``) and llama4-scout-17b-a16e (16 experts
+              top-1 and a shared expert; ``[serve-llama4]``), each at full
+              width cut to 8 layers;
 6. serving  — full-width mamba2-130m (24 layers, bf16, seeded random init):
               prompts up to 4096 tokens, a sampled request and a duplicate
               (re-prefilled: ssm states are not paged); launch counts show the
@@ -84,57 +88,63 @@ Phases (any failure raises and the script exits non-zero):
               CPU port's (plain versions) for a prompt and decode steps, for
               deepseek-7b (2 layers), mamba2-130m (4 layers), gemma-7b
               (2 layers: the f32 routes at head dim 256), minicpm3-4b (2),
-              recurrentgemma-9b (3) and qwen3-moe-235b-a22b (1);
-8. train    — parity: deepseek-7b at full width and 2 layers, fp32, two
-              staged train steps (B = 2, L = 128, 2 microbatches) with
-              Adafactor and with AdamW on the card against the CPU port from
-              the same state (loss, grad norm, parameters; exact launch
-              counts); gemma-7b, minicpm3-4b (L = 256), recurrentgemma-9b
-              (3 layers) and qwen3-moe (1 layer; its gradients held
-              elementwise, its card optimizer fed the CPU's gradients) the
-              same with Adafactor; hubert-xlarge (2 layers, 256 frames)
-              and internvl2-2b (2 layers, 256 patches + 128 tokens) with
-              their config's AdamW;
+              recurrentgemma-9b (3), qwen3-moe-235b-a22b (1), and
+              qwen1.5-110b and llama4-scout-17b-a16e (1 each, 128-token
+              prompts: the QKV bias, GQA 8:1 at 64 heads, top-1 routing
+              with a shared expert);
+8. train    — parity: deepseek-7b at full width and 1 layer, fp32, one
+              staged train step (B = 2, L = 256, 2 microbatches) with
+              Adafactor and with AdamW on the card against the CPU port
+              from the same state (loss, grad norm, parameters; exact
+              launch counts); gemma-7b (1 layer, one step), minicpm3-4b (1
+              layer, L = 256, two steps), recurrentgemma-9b (3 layers, one
+              step) and qwen3-moe (1 layer, one step; its gradients held
+              elementwise, its card optimizer fed the CPU's gradients) with
+              Adafactor; hubert-xlarge (1 layer, 256 frames) and
+              internvl2-2b (1 layer, 256 patches + 128 tokens) with their
+              config's AdamW, two steps each;
 9. train    — deepseek-7b at full width and depth (30 layers, bf16,
               Adafactor, remat "full", logits in chunks of 1024), global
               batch (2, 2048) in 2 microbatches, 4 staged steps: finite
               losses, the schedule, exact launch counts of the four train
               kernels, step time, tokens/s, model TFLOP/s, peak memory; one
               profiled step; a nonfinite step that leaves every bit as it
-              was; then, at half depth for the script's time limit,
-              gemma-7b the same way at 14 of its 28 layers
-              (``[train-gemma]``: no rollback), minicpm3-4b at 31 of its
-              62 layers, recurrentgemma-9b at 19 of its 38 and qwen3-moe
+              was; then, at a quarter of their depth for the script's time
+              limit, gemma-7b the same way at 7 of its 28 layers
+              (``[train-gemma]``: no rollback), minicpm3-4b at 16 of its
+              62 layers, recurrentgemma-9b at 10 of its 38 and qwen3-moe
               cut to 2 (3 steps each; model FLOPs over the active
-              parameters); hubert-xlarge (24 of 48, ``[train-hubert]``)
-              and internvl2-2b (12 of 24, ``[train-internvl]``) at (2,
+              parameters); hubert-xlarge (12 of 48, ``[train-hubert]``)
+              and internvl2-2b (6 of 24, ``[train-internvl]``) at (2,
               4096) with their config's AdamW
               (internvl: 256 patches + 3840 tokens, logits in 5 chunks of
               768; model FLOPs count each projection over the positions it
               multiplies, hubert's attention over every pair);
+              qwen1.5-110b and llama4-scout-17b-a16e at 2 layers with
+              Adafactor (``[train-qwen110b]``, ``[train-llama4]``);
 10. train   — mamba2-130m: parity at full width and 2 layers in fp32 (B =
               2, L = 512, 2 microbatches, AdamW) against the CPU port, then
               the full 24 layers in bf16 (AdamW, remat "full"), global
               batch (8, 2048) in 2 microbatches, 4 staged steps: finite
               losses, exact ssd / ssd_bwd / rmsnorm / rmsnorm_bwd launch
               counts, step time, tokens/s, peak memory, one profiled step;
-    remat   — ``[remat]``: deepseek-7b at full width cut to 15 layers (bf16,
+    remat   — ``[remat]``: deepseek-7b at full width cut to 8 layers (bf16,
               Adafactor, (2, 2048) in 2 microbatches) under
               ``remat="dots_saveable"`` against ``"full"``: each
               microbatch's loss and every gradient bit for bit, then 3
               staged steps a mode (full / dots_saveable / full): step ms,
               peak, exact launch counts;
-11. spec    — full-width deepseek-7b again (seed 0) cut to 12 layers, the serving phase's
+11. spec    — full-width deepseek-7b again (seed 0) cut to 6 layers, the serving phase's
               geometry and requests through ``ServeEngine`` with
               speculative decoding at k = 4: the 1-layer shrunken draft,
               the same with two forced rollbacks, and the target as its own
               draft; every stream (the sampled one too) equals the plain
               engine's, the self draft's greedy accept rate is 1.0, launch
               counts are exact (draft feeds × draft layers + verify
-              sub-steps × 12 decode attentions); accept rate, tokens a
+              sub-steps × 6 decode attentions); accept rate, tokens a
               round, round wall ms, tokens/s beside the plain engine's and
               one profiled round's device busy share;
-12. load    — ``run_load`` on the same model (16 requests at 2/s, prompts of
+12. load    — ``run_load`` on the same model (8 requests at 2/s, prompts of
               128-2048 tokens, a quarter duplicates): continuous, drain, and
               continuous with the 1-layer draft; equal output checksums,
               exact launch counts; TTFT and ITL p50 / p99, tokens/s;
@@ -168,7 +178,7 @@ Phases (any failure raises and the script exits non-zero):
               on 4 ``cuda`` worker threads, 4 microbatches of (1, 2048),
               the head the final norm and the chunked cross-entropy over
               the 102400 vocab, under 1F1B and FIFO: fp32 at 4 layers, then
-              bf16 at 16 (remat off: what fits beside 4 microbatches' held
+              bf16 at 8 (remat off; 16 fit beside 4 microbatches' held
               activations); loss and every gradient against the port's
               monolithic autograd on the same weights and batch (within
               1e-5 / 2e-2 of each leaf's largest |gradient|), exact flash
@@ -204,7 +214,15 @@ Phases (any failure raises and the script exits non-zero):
               steps: each rank's step ms, peak, state bytes, and exact
               flash / rmsnorm launch counts (off-mesh's per layer, every
               flash call at the 16 local heads).  The kernel phase holds
-              the flash forward and backward at that (1, 2048, 16, 128).
+              the flash forward and backward at that (1, 2048, 16, 128);
+19. dryrun  — ``launch/dryrun.py``'s model (on ``meta``, on the CPU) of
+              cells measured above: ``[train]``'s deepseek-7b, the two new
+              configs' train cells, ``[tp]``'s bf16 cell at (data 1, model
+              2): its argument bytes must equal the card's state, step and
+              input bytes (each ``[tp]`` rank's); its peak, FLOPs and the
+              terms live at the peak are logged beside the card's
+              ``max_memory_allocated`` (less what was allocated before the
+              run) and step time.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing of JAX.
@@ -249,6 +267,11 @@ M_GEN = 32
 M_SLOTS = 8
 M_MAX_SEQ = 4352
 M_WARM_EXTRA = (256, 512, 64)  # the warm-up wave's last 3 prompts: all 8 slots busy
+# minicpm3-4b serves 31 of its 62 layers (full width): the script's time limit
+MINICPM3_SERVE_LAYERS = 31
+# qwen1.5-110b's and llama4-scout's depth cuts (full width): each serves 8
+# layers (~27 and ~40 GB of bf16 weights) and trains 2 with Adafactor
+NEW_SERVE_LAYERS, NEW_TRAIN_LAYERS = 8, 2
 # qwen3-moe-235b-a22b's fixed depth cuts (full width): it serves 8 of its 94
 # layers (21.15 B parameters, 42.3 GB in bf16) and trains 2
 MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS = 8, 2
@@ -561,6 +584,11 @@ HUBERT_SERVE_FLASH = (2, 4096, 4096, 16, 16, 80, 80, False, None, 0)
 INTERNVL_PREFILL_FLASH = (4, 2048, 2048, 16, 8, 128, 128, True, None, 0)
 # deepseek-7b's heads on one rank of a model axis of 2 (the [tp] phase)
 TP_FLASH = (1, 2048, 2048, 16, 16, 128, 128, True, None, 0)
+# qwen1.5-110b's and llama4-scout's prefill and train paths: 64 and 40 query
+# heads on 8 KV heads of 128 (GQA 8:1 and 5:1), one 2048-token sequence
+Q110_FLASH = (1, 2048, 2048, 64, 8, 128, 128, True, None, 0)
+L4_FLASH = (1, 2048, 2048, 40, 8, 128, 128, True, None, 0)
+Q110_HEADS, L4_HEADS, NEW_KV_HEADS = 64, 40, 8
 IVL_DECODE_POS = [2063, 2063, 2063, 2063]
 IVL_HEADS, IVL_KV_HEADS = 16, 8
 
@@ -642,6 +670,7 @@ def check_flash(dev) -> dict:
         HUBERT_FLASH, INTERNVL_FLASH,  # the frontends' train microbatch, then their serving calls
         HUBERT_SERVE_FLASH, INTERNVL_PREFILL_FLASH,
         TP_FLASH,  # the tensor-parallel step's local heads
+        Q110_FLASH, L4_FLASH,  # qwen1.5-110b's and llama4-scout's prefill
     ]
     err = err256 = 0.0
     errs = {}
@@ -680,8 +709,12 @@ def check_flash(dev) -> dict:
               "internvl": _flash_times(gen, dev, 1, 4096, IVL_HEADS, 128, KH=IVL_KV_HEADS),
               "hubert_serve": _flash_times(gen, dev, 2, 4096, 16, 80, causal=False),
               "internvl_prefill": _flash_times(gen, dev, 4, 2048, IVL_HEADS, 128, KH=IVL_KV_HEADS),
-              "tp": _flash_times(gen, dev, 1, 2048, 16, 128)}
+              "tp": _flash_times(gen, dev, 1, 2048, 16, 128),
+              "qwen110b": _flash_times(gen, dev, 1, 2048, Q110_HEADS, 128, KH=NEW_KV_HEADS),
+              "llama4": _flash_times(gen, dev, 1, 2048, L4_HEADS, 128, KH=NEW_KV_HEADS)}
     shapes["tp"]["max_abs_err"] = errs[TP_FLASH]
+    shapes["qwen110b"]["max_abs_err"] = errs[Q110_FLASH]
+    shapes["llama4"]["max_abs_err"] = errs[L4_FLASH]
     shapes["d256"]["max_abs_err"] = err256
     shapes["mla"]["max_abs_err"] = errs[MLA_FLASH]
     shapes["rgemma"]["max_abs_err"] = errs[RG_FLASH]
@@ -752,8 +785,12 @@ def check_decode(dev) -> dict:
         (N_SLOTS, MAX_SEQ, QWEN_HEADS, QWEN_KV_HEADS, 128, main_pos, (torch.bfloat16, torch.float32)),
         # internvl2-2b's: 16 query heads on 8 KV heads of 128, past its 256 patch rows
         (N_SLOTS, MAX_SEQ, IVL_HEADS, IVL_KV_HEADS, 128, IVL_DECODE_POS, (torch.bfloat16, torch.float32)),
+        # qwen1.5-110b's and llama4-scout's: 64 and 40 query heads on 8 KV heads of 128
+        (N_SLOTS, MAX_SEQ, Q110_HEADS, NEW_KV_HEADS, 128, main_pos, (torch.bfloat16, torch.float32)),
+        (N_SLOTS, MAX_SEQ, L4_HEADS, NEW_KV_HEADS, 128, main_pos, (torch.bfloat16, torch.float32)),
     ]
     err = err256 = 0.0
+    errs = {}
     for B, S, H, KH, D, pos_l, dtypes in cases:
         for dtype in dtypes:
             q = _randn(gen, (B, 1, H, D), dtype, dev)
@@ -764,7 +801,9 @@ def check_decode(dev) -> dict:
                 f"decode {dtype} B={B} S={S} H={H} KH={KH} D={D} pos={pos_l}",
                 ops.decode_attention(q, k, v, pos), decode_attention_ref(q, k, v, pos), dtype,
             )
-            if S == MAX_SEQ and dtype == torch.bfloat16 and H != QWEN_HEADS and (H, KH) != (IVL_HEADS, IVL_KV_HEADS):
+            if dtype == torch.bfloat16:
+                errs[(H, KH, D)] = e
+            if S == MAX_SEQ and dtype == torch.bfloat16 and (H, KH) in ((32, 32), (G_HEADS, G_HEADS)):
                 if D == G_DIM:
                     err256 = e
                 else:
@@ -778,7 +817,7 @@ def check_decode(dev) -> dict:
                              "on the CPU", ops.decode_attention(q, k, v, pos), cpu.to(dev), dtype)
                 if dtype == torch.bfloat16:
                     err_ring = e
-            if H == QWEN_HEADS and dtype == torch.bfloat16:
+            if (H, KH) == (QWEN_HEADS, QWEN_KV_HEADS) and dtype == torch.bfloat16:
                 err_qwen = e
             if (H, KH) == (IVL_HEADS, IVL_KV_HEADS) and dtype == torch.bfloat16:
                 err_ivl = e
@@ -787,7 +826,8 @@ def check_decode(dev) -> dict:
     # deepseek-7b's heads (and GQA), then gemma-7b's, then qwen3-moe's
     B, S, dtype = N_SLOTS, MAX_SEQ, torch.bfloat16
     for H, KH, D in ((32, 32, 128), (32, 8, 128), (G_HEADS, G_HEADS, G_DIM), (G_HEADS, 4, G_DIM),
-                     (QWEN_HEADS, QWEN_KV_HEADS, 128), (IVL_HEADS, IVL_KV_HEADS, 128)):
+                     (QWEN_HEADS, QWEN_KV_HEADS, 128), (IVL_HEADS, IVL_KV_HEADS, 128),
+                     (Q110_HEADS, NEW_KV_HEADS, 128), (L4_HEADS, NEW_KV_HEADS, 128)):
         q = _randn(gen, (B, 1, H, D), dtype, dev)
         k, v = (_randn(gen, (B, S, KH, D), dtype, dev) for _ in range(2))
         live = torch.tensor(main_pos, dtype=torch.int32, device=dev)
@@ -809,10 +849,14 @@ def check_decode(dev) -> dict:
     qwen["max_abs_err"] = err_qwen
     ivl = _decode_times(gen, dev, IVL_HEADS, 128, IVL_DECODE_POS, KH=IVL_KV_HEADS)
     ivl["max_abs_err"] = err_ivl
+    q110 = _decode_times(gen, dev, Q110_HEADS, 128, main_pos, KH=NEW_KV_HEADS)
+    q110["max_abs_err"] = errs[(Q110_HEADS, NEW_KV_HEADS, 128)]
+    l4 = _decode_times(gen, dev, L4_HEADS, 128, main_pos, KH=NEW_KV_HEADS)
+    l4["max_abs_err"] = errs[(L4_HEADS, NEW_KV_HEADS, 128)]
     return dict(
         name="decode_attention", route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention/kernel.py:81", max_abs_err=err, **main,
-        short=short, d256=d256, rgemma=ring, qwen=qwen, internvl=ivl,
+        short=short, d256=d256, rgemma=ring, qwen=qwen, internvl=ivl, qwen110b=q110, llama4=l4,
     )
 
 
@@ -1050,6 +1094,7 @@ def check_flash_bwd(dev) -> dict:
         QWEN_FLASH,  # qwen3-moe-235b-a22b's, at (2, 2048) in 2 microbatches
         HUBERT_FLASH, INTERNVL_FLASH,  # the frontends', at (2, 4096) in 2 microbatches
         TP_FLASH,  # deepseek-7b's local heads at model=2
+        Q110_FLASH, L4_FLASH,  # qwen1.5-110b's and llama4-scout's, at (2, 2048) in 2 microbatches
     ]
     err = err256 = 0.0
     errs: dict = {}
@@ -1089,8 +1134,12 @@ def check_flash_bwd(dev) -> dict:
               "qwen": _flash_bwd_times(gen, dev, 1, 2048, QWEN_HEADS, 128, KH=QWEN_KV_HEADS),
               "hubert": _flash_bwd_times(gen, dev, 1, 4096, 16, 80, causal=False),
               "internvl": _flash_bwd_times(gen, dev, 1, 4096, IVL_HEADS, 128, KH=IVL_KV_HEADS),
-              "tp": _flash_bwd_times(gen, dev, 1, 2048, 16, 128)}
+              "tp": _flash_bwd_times(gen, dev, 1, 2048, 16, 128),
+              "qwen110b": _flash_bwd_times(gen, dev, 1, 2048, Q110_HEADS, 128, KH=NEW_KV_HEADS),
+              "llama4": _flash_bwd_times(gen, dev, 1, 2048, L4_HEADS, 128, KH=NEW_KV_HEADS)}
     shapes["tp"]["max_abs_err"] = errs[TP_FLASH]
+    shapes["qwen110b"]["max_abs_err"] = errs[Q110_FLASH]
+    shapes["llama4"]["max_abs_err"] = errs[L4_FLASH]
     shapes["d256"]["max_abs_err"] = err256
     shapes["mla"]["max_abs_err"] = errs[MLA_FLASH]
     shapes["rgemma"]["max_abs_err"] = errs[RG_FLASH_BWD]
@@ -1608,6 +1657,7 @@ def serving_phase(dev, arch: str = "deepseek-7b", tag: str = "serve", n_layers: 
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: c.count for name, c in ops.items()}
+        by_shape = {name: dict(c.by_shape) for name, c in ops.items()}
         # --------------------------------------------------------------------
         stats = eng.stats()
         stats.update(prefills=eng.prefills - base[0], decode_steps=eng.decode_steps - base[1],
@@ -1656,7 +1706,8 @@ def serving_phase(dev, arch: str = "deepseek-7b", tag: str = "serve", n_layers: 
     pp = prefill_profile
     _log_profile(f"{arch} prefill of {PROMPT_LENS[0]} tokens alone", pp)
     return dict(
-        launches=launches, tok_per_s=n_tok / wall, wall_s=wall, peak_bytes=peak, stats=stats,
+        launches=launches, launches_by_shape=by_shape, tok_per_s=n_tok / wall, wall_s=wall, peak_bytes=peak,
+        stats=stats,
         ttft_ms=[(r.t_first - r.t_arrival) * 1e3 for r in reqs], decode_profile=sp,
         prefill_profile=pp,
     )
@@ -2316,36 +2367,39 @@ def _host_memory_kept():
 
 
 def train_parity_phase(dev) -> dict:
-    """Full width, depth cut, float32, B = 2, two microbatches, two steps
-    (``_parity_run``): deepseek-7b (2 layers, L = 256) with Adafactor and
-    with AdamW, gemma-7b (2 layers, L = 128; head dim 256: the f32 routes
-    of the flash forward and backward at Dh 256), minicpm3-4b (2 MLA
-    layers, L = 256), recurrentgemma-9b (3 layers, L = 128) and
-    qwen3-moe-235b-a22b (1 layer, L = 128) with Adafactor; hubert-xlarge
-    (2 layers, 256 frames, non-causal) and internvl2-2b (2 layers, 256
-    patches + 128 text tokens) with their config's AdamW."""
+    """Full width, depth cut, float32, B = 2, two microbatches, one or two
+    steps (``_parity_run``; cut for the script's time limit): deepseek-7b
+    (1 layer, L = 256, one step) with Adafactor and with AdamW,
+    gemma-7b (1 layer, L = 128, one step; head dim 256: the f32 routes
+    of the flash forward and backward at Dh 256), minicpm3-4b (1 MLA
+    layer, L = 256, two steps), recurrentgemma-9b (3 layers, L = 128,
+    one step) and qwen3-moe-235b-a22b (1 layer, L = 128, one step) with
+    Adafactor; hubert-xlarge (1 layer, 256 frames, non-causal) and
+    internvl2-2b (1 layer, 256 patches + 128 text tokens) with their
+    config's AdamW, two steps each."""
     from repro_torch.configs import get_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
     # the CPU side is most of this phase's time (gemma-7b's 256000-row tied
     # head takes ~100 s at 256 tokens a sequence, recurrentgemma-9b's and
-    # qwen3-moe's are as slow): those three run at 128.  Depths:
-    # minicpm3-4b 2 MLA layers, recurrentgemma-9b one (rec, rec, attn)
-    # super-block, qwen3-moe one layer.  Host memory is kept between ops
+    # qwen3-moe's are as slow): those three run at 128, one step each.
+    # Depths: one layer, but recurrentgemma-9b's one (rec, rec, attn)
+    # super-block.  Host memory is kept between ops
     # within a run and handed back after it (qwen3-moe's CPU side holds
     # ~68 GB of the host's 96 GiB then)
     with _host_memory_kept() as libc:
-        for arch, opt, seq, n_layers in (("deepseek-7b", "adafactor", 256, 2), ("deepseek-7b", "adamw", 256, 2),
-                                         ("gemma-7b", "adafactor", 128, 2), ("minicpm3-4b", "adafactor", 256, 2),
-                                         ("recurrentgemma-9b", "adafactor", 128, 3),
-                                         ("qwen3-moe-235b-a22b", "adafactor", 128, 1),
-                                         ("hubert-xlarge", "adamw", 256, 2), ("internvl2-2b", "adamw", 384, 2)):
+        for arch, opt, seq, n_layers, steps in (
+                ("deepseek-7b", "adafactor", 256, 1, 1), ("deepseek-7b", "adamw", 256, 1, 1),
+                ("gemma-7b", "adafactor", 128, 1, 1), ("minicpm3-4b", "adafactor", 256, 1, 2),
+                ("recurrentgemma-9b", "adafactor", 128, 3, 1), ("qwen3-moe-235b-a22b", "adafactor", 128, 1, 1),
+                ("hubert-xlarge", "adamw", 256, 1, 2), ("internvl2-2b", "adamw", 384, 1, 2)):
             cfg = get_config(arch)
             # one logits chunk: a vision model's over its text positions; audio reads none
             chunk = None if cfg.frontend == "audio" else seq - (cfg.n_patches if cfg.frontend == "vision" else 0)
             cfg = cfg.replace(n_layers=n_layers, dtype="float32", logits_chunk=chunk, optimizer=opt)
-            out[opt if arch == "deepseek-7b" else arch] = _parity_run(dev, cfg, tag="train-parity", seq=seq)
+            out[opt if arch == "deepseek-7b" else arch] = _parity_run(dev, cfg, tag="train-parity", seq=seq,
+                                                                      steps=steps)
             rss = next((line.split(":")[1].strip() for line in open("/proc/self/status")
                         if line.startswith("VmRSS")), "unknown")
             log(f"[train-parity] host memory held after {arch} {opt}: {rss}")
@@ -2436,16 +2490,18 @@ def _model_flops(cfg, params: dict, seq: int) -> tuple[float, float]:
 # the train runs: arch → (its layers here, the phase's tag, nonfinite rollback);
 # deepseek-7b at full depth, qwen3-moe at the fixed cut above
 TRAIN_RUNS = {"deepseek-7b": (30, "train", True),
-              # the others at half depth: the script's time limit
-              "gemma-7b": (14, "train-gemma", False),
-              "minicpm3-4b": (31, "train-minicpm3", False),
-              "recurrentgemma-9b": (19, "train-rgemma", False),
+              # the others at a quarter of their depth: the script's time limit
+              "gemma-7b": (7, "train-gemma", False),
+              "minicpm3-4b": (16, "train-minicpm3", False),
+              "recurrentgemma-9b": (10, "train-rgemma", False),
               "qwen3-moe-235b-a22b": (MOE_TRAIN_LAYERS, "train-moe", False),
-              "hubert-xlarge": (24, "train-hubert", False), "internvl2-2b": (12, "train-internvl", False)}
+              "hubert-xlarge": (12, "train-hubert", False), "internvl2-2b": (6, "train-internvl", False),
+              "qwen1.5-110b": (NEW_TRAIN_LAYERS, "train-qwen110b", False),
+              "llama4-scout-17b-a16e": (NEW_TRAIN_LAYERS, "train-llama4", False)}
 # timed steps a run: the other families' runs time 2 (the first is warm-up),
 # to keep the script inside its time limit
 TRAIN_STEPS_OF = {"minicpm3-4b": 3, "recurrentgemma-9b": 3, "qwen3-moe-235b-a22b": 3, "hubert-xlarge": 3,
-                  "internvl2-2b": 3}
+                  "internvl2-2b": 3, "qwen1.5-110b": 3, "llama4-scout-17b-a16e": 3}
 # the frontends train at their own sequence (4096 positions: internvl's 256
 # patches + 3840 text tokens, 5 logits chunks of 768) with their config's
 # optimizer (AdamW); the others at TRAIN_SEQ with Adafactor
@@ -2462,7 +2518,7 @@ def train_phase(dev, arch: str = "deepseek-7b") -> dict:
     (a MoE layer's experts at top_k / n_experts of theirs: the active
     parameters) plus attention's 3 × 2·H·(Dk + Dv) a unmasked pair."""
     from repro_torch.configs import get_config
-    from repro_torch.runtime.train import build_train_step, init_train_state
+    from repro_torch.runtime.train import build_train_step, init_train_state, state_bytes
 
     n_layers, tag, rollback = TRAIN_RUNS[arch]
     n_steps = TRAIN_STEPS_OF.get(arch, TRAIN_STEPS)
@@ -2509,6 +2565,13 @@ def train_phase(dev, arch: str = "deepseek-7b") -> dict:
     by_shape = {name: dict(c.by_shape) for name, c in ops.items()}
     # ------------------------------------------------------------------
     peak = torch.cuda.max_memory_allocated()
+    # what the dry run's argument bytes count: the state, the step, one batch
+    sb = state_bytes(state)
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    arg_bytes = sb["params"] + sb["opt"] + nbytes([state.step]) + nbytes(batches[0].values())
+    # allocated besides one step's arguments and temporaries: what was there
+    # before the init, and the other batches
+    extra_bytes = mem_base + sum(nbytes(b.values()) for b in batches[1:])
     want = {k: v * n_steps for k, v in _train_launches_per_step(cfg, TRAIN_MB).items()}
     log(f"[{tag}] launches on the main path {launches}; expected {want} from {n_steps} steps of "
         f"{TRAIN_MB} microbatches")
@@ -2539,7 +2602,7 @@ def train_phase(dev, arch: str = "deepseek-7b") -> dict:
                                           for k, ms in prof["kinds"]))
     out = dict(launches=launches, launches_by_shape=by_shape, losses=losses, grad_norms=gnorms, walls_ms=walls,
                step_ms=step_ms, tokens_per_s=tokens / step_ms * 1e3, model_tflops=tflops, peak_bytes=peak,
-               profile=prof, task_ms=spans)
+               profile=prof, task_ms=spans, cfg=cfg, arg_bytes=arg_bytes, extra_bytes=extra_bytes)
     if not rollback:
         del state, art, batches
         gc.collect()
@@ -2658,7 +2721,7 @@ def _mb_grads(model, cfg, mb: dict) -> tuple:
 
 # of deepseek-7b's 30 layers: half, for the script's time limit ([train] reads
 # the full-depth peak of remat="full" on the same config)
-REMAT_LAYERS = 15
+REMAT_LAYERS = 8
 
 
 def remat_phase(dev, arch: str = "deepseek-7b", tag: str = "remat") -> dict:
@@ -2752,8 +2815,8 @@ def remat_phase(dev, arch: str = "deepseek-7b", tag: str = "remat") -> dict:
 SPEC_K = 4
 # the speculation and load phases' deepseek-7b, cut in depth to keep the
 # script inside its time limit (the serving and train phases run all 30)
-SPEC_LAYERS = 12
-LOAD_SPEC = dict(seed=0, n_requests=16, rate_rps=2.0, prompt_lens=(128, 512, 1024, 2048),
+SPEC_LAYERS = 6
+LOAD_SPEC = dict(seed=0, n_requests=8, rate_rps=2.0, prompt_lens=(128, 512, 1024, 2048),
                  out_lens=(16, 32), vocab=32000, dup_frac=0.25)
 
 
@@ -3498,7 +3561,7 @@ def comm_phase(dev) -> dict:
 PIPE_STAGES = 4
 PIPE_MB = 4  # microbatches of (1, PIPE_SEQ)
 PIPE_SEQ = 2048
-PIPE_LAYERS = 16  # of deepseek-7b's 30: what fits beside 4 microbatches' activations (remat off)
+PIPE_LAYERS = 8  # of deepseek-7b's 30: 2 a stage (16 fit beside 4 microbatches' activations, remat off)
 PIPE_FP32_LAYERS = 4  # the fp32 parity's cut: one layer a stage
 PIPE_TOL = {"bfloat16": 2e-2, "float32": 1e-5}  # of each leaf's largest |gradient|
 
@@ -3861,7 +3924,7 @@ def _tp_run(cfg, dev) -> tuple:
     """``TP_STEPS`` staged Adafactor steps of ``cfg`` from the state seeded
     with 0 on one seeded (``TP_BATCH``, ``TP_SEQ``) batch in 2 microbatches
     (tensor-parallel under the active mesh) → (state, art, losses, grad
-    norms, each step's wall ms)."""
+    norms, each step's wall ms, the batch)."""
     from repro_torch.runtime.train import build_train_step, init_train_state
 
     state = init_train_state(cfg, 0, device=dev)
@@ -3879,7 +3942,7 @@ def _tp_run(cfg, dev) -> tuple:
         norms.append(float(m["grad_norm"]))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-    return state, art, losses, norms, ms
+    return state, art, losses, norms, ms, batch
 
 
 def _digest(t) -> str:
@@ -3905,15 +3968,19 @@ def _tp_rank(ref_dir: str, device: str = "cuda") -> dict:
         cfg = _tp_cfg(dtype)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()  # what the run before left allocated
         for c in ops.values():
             c.reset()
         # ---- the main path: counts from 0 just before, read just after ----
-        state, art, losses, norms, ms = _tp_run(cfg, dev)
+        state, art, losses, norms, ms, batch = _tp_run(cfg, dev)
         launches = {k: c.count for k, c in ops.items()}
         by_shape = {k: dict(c.by_shape) for k, c in ops.items() if c.count}
         # -------------------------------------------------------------------
+        sb = state_bytes(state, art)
+        nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
         r = dict(losses=losses, grad_norms=norms, step_ms=ms, launches=launches, by_shape=by_shape,
-                 peak=torch.cuda.max_memory_allocated(), bytes=state_bytes(state, art))
+                 peak=torch.cuda.max_memory_allocated(), base=base, bytes=sb,
+                 arg_bytes=sb["params"] + sb["opt"] + nbytes([state.step]) + nbytes(batch.values()))
         model = state.params
         if dtype == "float32":
             r["err"], r["digests"] = {}, {}
@@ -3944,7 +4011,7 @@ def tp_phase(dev) -> dict:
     shutil.rmtree(TP_DIR, ignore_errors=True)
     TP_DIR.mkdir()
     try:
-        state, art, losses, norms, _ = _tp_run(cfg32, dev)
+        state, art, losses, norms, _, _ = _tp_run(cfg32, dev)
         leaf_max = {}
         for name, p in state.params.named_parameters():
             a = p.detach().cpu().numpy()
@@ -4007,7 +4074,8 @@ def tp_phase(dev) -> dict:
             assert r["by_shape"][kind] == {local_key: want16[kind]}, (kind, r["by_shape"][kind])
     for r in b16:
         log(f"[tp] bf16, {TP_LAYERS['bfloat16']} layers, rank {b16.index(r)}: step ms {r['step_ms']}, losses "
-            f"{r['losses']}, peak {r['peak'] / 2**30:.2f} GiB, state bytes {r['bytes']} (params + grads + opt "
+            f"{r['losses']}, peak {r['peak'] / 2**30:.2f} GiB ({r['base'] / 2**30:.2f} GiB of it allocated "
+            f"before the run), state bytes {r['bytes']} (params + grads + opt "
             f"{sum(r['bytes'].values()) / 2**30:.3f} GiB), launches {r['launches']} (every flash call at "
             f"{local_key})")
     launches = {k: sum(r[dt]["launches"][k] for r in ranks for dt in TP_LAYERS) for k in want16}
@@ -4015,12 +4083,64 @@ def tp_phase(dev) -> dict:
     log(f"[tp] {seconds:.1f} s, the rank processes {spawn_s:.1f} s with start-up")
     return dict(launches=launches, seconds=seconds, fp32_worst=worst[worst_name], fp32_offset=err[worst_offset],
                 step_ms=[r["step_ms"] for r in b16], peak=[r["peak"] for r in b16],
-                bytes=[r["bytes"] for r in b16],
+                base=[r["base"] for r in b16], bytes=[r["bytes"] for r in b16],
+                arg_bytes=[r["arg_bytes"] for r in b16],
                 flash_per_step=want16["flash_attention"] // TP_STEPS,
                 flash_bwd_per_step=want16["flash_attention_bwd"] // TP_STEPS,
                 launches_by_shape={k: {local_key: sum(r[dt]["by_shape"].get(k, {}).get(local_key, 0)
                                                        for r in ranks for dt in TP_LAYERS)}
                                    for k in ("flash_attention", "flash_attention_bwd")})
+
+
+# [dryrun]: the train runs whose cells the dry run models on one device
+DRYRUN_ARCHS = ("deepseek-7b", "qwen1.5-110b", "llama4-scout-17b-a16e")
+
+
+def dryrun_phase(trains: dict, tp: dict) -> dict:
+    """19. The port's dry run (``launch/dryrun.py``: the step run on ``meta``
+    tensors, on the CPU) of cells this script measures: ``[train]``'s
+    deepseek-7b (its 30 layers, (2, 2048) in 2 microbatches, Adafactor,
+    remat "full", logits chunks of 1024) on one device, the two new
+    configs' ``[train-*]`` cells the same way, and ``[tp]``'s bf16 cell on a
+    (data 1, model 2) mesh.  Its argument bytes (state, step, inputs) must
+    equal the card's (each ``[tp]`` rank's); its peak is logged beside
+    ``max_memory_allocated`` less what was allocated besides one step
+    (earlier phases' leftovers, the other batches), with the terms live at
+    the predicted peak, and its FLOPs a step over the step's wall time."""
+    from repro_torch.dist.sharding import DryRunMesh
+    from repro_torch.launch.dryrun import model_cell
+    from repro_torch.models import ShapeSpec
+
+    t0 = time.perf_counter()
+    train_shape = ShapeSpec("smoke_train", "train", TRAIN_SEQ, TRAIN_BATCH)
+    cells = [(arch, trains[arch]["cfg"], train_shape, None, TRAIN_MB, [trains[arch]["arg_bytes"]],
+              [trains[arch]["peak_bytes"] - trains[arch]["extra_bytes"]], trains[arch]["step_ms"])
+             for arch in DRYRUN_ARCHS]
+    cells.append(("tp", _tp_cfg("bfloat16"), ShapeSpec("tp", "train", TP_SEQ, TP_BATCH),
+                  DryRunMesh({"data": 1, "model": 2}), 2, tp["arg_bytes"],
+                  [p - b for p, b in zip(tp["peak"], tp["base"])], float(np.median(tp["step_ms"][0][1:]))))
+    out = {}
+    for name, cfg, shape, mesh, n_mb, measured_args, measured_peaks, step_ms in cells:
+        t1 = time.perf_counter()
+        rec = model_cell(cfg, shape, mesh, n_microbatches=n_mb)
+        m, c = rec["memory"], rec["collectives"]
+        where = "one device" if mesh is None else f"mesh {mesh.shape}, rank 0"
+        log(f"[dryrun] {name} ({cfg.n_layers} layers, {where}): argument bytes {m['argument_size_in_bytes']} "
+            f"predicted, {measured_args} on the card; peak {m['peak_bytes'] / 2**30:.3f} GiB predicted "
+            f"(temp {m['temp_size_in_bytes'] / 2**30:.3f}), "
+            + ", ".join(f"{p / 2**30:.3f} GiB ({p / m['peak_bytes'] - 1:+.1%})" for p in measured_peaks)
+            + f" on the card; {rec['cost']['flops'] / 1e12:.2f} TFLOP a step ("
+            f"{rec['cost']['flops'] / (step_ms / 1e3) / 1e12:.1f} TFLOP/s at {step_ms:.1f} ms a step); "
+            f"collectives {c['total_count']} ({c['total_bytes']} bytes); {time.perf_counter() - t1:.1f} s")
+        log(f"[dryrun] {name} live at the predicted peak: "
+            + ", ".join(f"{term} {b / 2**30:.3f} GiB" for term, b in rec["peak_terms"][:6]))
+        out[name] = dict(predicted=m, measured_args=measured_args, measured_peaks=measured_peaks,
+                         flops=rec["cost"]["flops"], peak_terms=rec["peak_terms"])
+    wrong = {k: (v["predicted"]["argument_size_in_bytes"], v["measured_args"]) for k, v in out.items()
+             if any(a != v["predicted"]["argument_size_in_bytes"] for a in v["measured_args"])}
+    assert not wrong, f"[dryrun] argument bytes predicted / measured: {wrong}"
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def f2_digests() -> dict:
@@ -4069,17 +4189,23 @@ def main() -> int:
     serve = phase("serve", serving_phase, dev)
     serve_m = phase("mamba2", recurrent_serving_phase, dev)
     serve_g = phase("serve-gemma", serving_phase, dev, "gemma-7b", "serve-gemma")
-    serve_c = phase("serve-minicpm3", serving_phase, dev, "minicpm3-4b", "serve-minicpm3")
+    serve_c = phase("serve-minicpm3", serving_phase, dev, "minicpm3-4b", "serve-minicpm3",
+                    n_layers=MINICPM3_SERVE_LAYERS)
     serve_r = phase("serve-rgemma", recurrent_serving_phase, dev, "recurrentgemma-9b", "serve-rgemma")
     serve_q = phase("serve-moe", serving_phase, dev, "qwen3-moe-235b-a22b", "serve-moe", n_layers=MOE_SERVE_LAYERS)
     serve_h = phase("serve-hubert", encoder_serving_phase, dev)
     serve_v = phase("serve-internvl", vision_serving_phase, dev)
+    serve_q110 = phase("serve-qwen110b", serving_phase, dev, "qwen1.5-110b", "serve-qwen110b",
+                       n_layers=NEW_SERVE_LAYERS)
+    serve_l4 = phase("serve-llama4", serving_phase, dev, "llama4-scout-17b-a16e", "serve-llama4",
+                     n_layers=NEW_SERVE_LAYERS)
     from repro_torch.configs import get_config
 
     model_errs = {}
     for arch, n_layers, prompt_len in (("deepseek-7b", 2, 256), ("mamba2-130m", 4, 600), ("gemma-7b", 2, 256),
                                        ("minicpm3-4b", 2, 256), ("recurrentgemma-9b", 3, 256),
-                                       ("qwen3-moe-235b-a22b", 1, 256)):
+                                       ("qwen3-moe-235b-a22b", 1, 256), ("qwen1.5-110b", 1, 128),
+                                       ("llama4-scout-17b-a16e", 1, 128)):
         cfg = get_config(arch).replace(n_layers=n_layers, dtype="float32")
         model_errs[arch] = phase(f"model {arch}", model_phase, dev, cfg, prompt_len=prompt_len)
     parity = phase("train-parity", train_parity_phase, dev)
@@ -4097,14 +4223,18 @@ def main() -> int:
     chaos = phase("chaos", chaos_phase, dev)
     mesh = phase("mesh", mesh_phase, dev)
     tp = phase("tp", tp_phase, dev)
+    dry = phase("dryrun", dryrun_phase, trains, tp)
     # launches on every path: serving and train (every model), speculation, load, checkpoint, the launcher,
     # the pipeline, the chaos soak's serve runs, the mesh's train steps and the tensor-parallel ranks' steps
-    runs = (serve, serve_m, serve_g, serve_c, serve_r, serve_q, serve_h, serve_v, *trains.values(), train_m2, remat,
+    runs = (serve, serve_m, serve_g, serve_c, serve_r, serve_q, serve_h, serve_v, serve_q110, serve_l4,
+            *trains.values(), train_m2, remat,
             spec, load, ckpt, comm, pipe, chaos, mesh, tp)
     for r in records:
         r["launches"] = sum(run["launches"][r["name"]] for run in runs)
     _frontend_shape_launches(records, {"hubert": (serve_h, trains["hubert-xlarge"]),
-                                       "internvl": (serve_v, trains["internvl2-2b"]), "tp": (tp,)})
+                                       "internvl": (serve_v, trains["internvl2-2b"]), "tp": (tp,),
+                                       "qwen110b": (serve_q110, trains["qwen1.5-110b"]),
+                                       "llama4": (serve_l4, trains["llama4-scout-17b-a16e"])})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     shape_keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -4122,7 +4252,9 @@ def main() -> int:
         f"{news}, gemma-7b serving {serve_g['tok_per_s']:.1f} tok/s (peak {serve_g['peak_bytes'] / 2**30:.2f} GiB), "
         f"minicpm3-4b serving {serve_c['tok_per_s']:.1f} tok/s, recurrentgemma-9b serving "
         f"{serve_r['tok_per_s']:.1f} tok/s, qwen3-moe ({MOE_SERVE_LAYERS} layers) serving "
-        f"{serve_q['tok_per_s']:.1f} tok/s, mamba2 train step {train_m2['step_ms']:.1f} ms "
+        f"{serve_q['tok_per_s']:.1f} tok/s, qwen1.5-110b / llama4-scout ({NEW_SERVE_LAYERS} layers) serving "
+        f"{serve_q110['tok_per_s']:.1f} / {serve_l4['tok_per_s']:.1f} tok/s, dry run "
+        f"{dry['seconds']:.1f} s, mamba2 train step {train_m2['step_ms']:.1f} ms "
         f"({train_m2['tokens_per_s']:.1f} tokens/s), examples {examples['seconds']:.1f} s, "
         f"self-draft accept rate {spec['self draft']['accept_rate']:.3f}, "
         f"load checksum {load['continuous']['output_checksum']}, checkpoint {ckpt['bytes']} bytes, "

@@ -39,6 +39,14 @@ port's copy of ``repro.dist.collectives``, on torch tensors.
   sums again, which is wrong for :func:`reduce_from_model`.  GSPMD puts the
   same collectives into ``repro``'s programs.
 
+* **The dry run's seam** — every ``torch.distributed`` collective above
+  goes through :func:`comm_backend` of its group: ``torch.distributed``
+  itself for a real process group (the same calls and bits as ever), or a
+  :class:`RecordingGroup`, a dry run's stand-in that a
+  ``dist.sharding.DryRunMesh`` hands out, which records the collective
+  into a :class:`CollectiveLog` (kind, payload and ring wire bytes by
+  ``repro``'s convention, group size) and leaves the tensors as they are.
+
 Gradient compression (:func:`compress_int8` … :func:`compress_tree`):
 symmetric per-tensor int8 with error-feedback residuals.  Trees are dicts
 (nested or flat) of tensors; each tensor is one leaf with its own scale.
@@ -338,6 +346,61 @@ def hierarchical_all_reduce(
 # Mesh collectives (torch.distributed on the active mesh's axis groups).
 # ---------------------------------------------------------------------------
 
+class CollectiveLog:
+    """The collectives a dry run's step would make: one record a call, as
+    ``repro``'s ``launch/dryrun.py::collective_stats`` counts an HLO
+    instruction: ``bytes`` is the payload (the result; a reduce-scatter's
+    operand), ``wire_bytes`` a ring's traffic a device (all-gather and
+    reduce-scatter (g − 1)/g of the payload, all-reduce twice that).
+    ``region`` (set by the dry run) names the part of the step each record
+    falls in."""
+
+    def __init__(self) -> None:
+        self.records: list[dict] = []
+        self.region = lambda: None
+
+    def add(self, kind: str, nbytes: int, size: int, axis: str) -> None:
+        wire = (2 if kind == "all-reduce" else 1) * nbytes * (size - 1) // max(size, 1)
+        self.records.append(dict(kind=kind, bytes=nbytes, wire_bytes=wire, group_size=size, axis=axis,
+                                 region=self.region()))
+
+
+class RecordingGroup:
+    """A dry run's stand-in for the process group of one mesh axis: it
+    answers the ``torch.distributed`` calls this module makes on a group
+    (:func:`comm_backend`), recording each collective into ``log`` and
+    leaving every tensor as it is."""
+
+    class ReduceOp:
+        SUM = "sum"
+        MAX = "max"
+
+    def __init__(self, axis: str, size: int, log: CollectiveLog):
+        self.axis, self.size, self.log = axis, size, log
+
+    def get_world_size(self, group=None) -> int:
+        return self.size
+
+    def all_reduce(self, x, op=None, group=None) -> None:
+        self.log.add("all-reduce", x.numel() * x.element_size(), self.size, self.axis)
+
+    def reduce_scatter_tensor(self, out, inp, op=None, group=None) -> None:
+        self.log.add("reduce-scatter", inp.numel() * inp.element_size(), self.size, self.axis)
+
+    def all_gather_into_tensor(self, out, inp, group=None) -> None:
+        self.log.add("all-gather", out.numel() * out.element_size(), self.size, self.axis)
+
+
+def comm_backend(group):
+    """What runs a collective on ``group``: the group itself when it is a
+    dry run's :class:`RecordingGroup`, else ``torch.distributed``."""
+    if isinstance(group, RecordingGroup):
+        return group
+    import torch.distributed as dist
+
+    return dist
+
+
 def _axis_group(axis: str):
     mesh = current_mesh()
     if mesh is None:
@@ -350,11 +413,10 @@ def _axis_group(axis: str):
 def mesh_psum_(x: torch.Tensor, axes) -> int:
     """Sum ``x`` in place over the mesh axes ``axes`` (a name or a tuple of
     names, reduced one after another); → the number of ranks summed."""
-    import torch.distributed as dist
-
     n = 1
     for a in (axes,) if isinstance(axes, str) else axes:
         group = _axis_group(a)
+        dist = comm_backend(group)
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
         n *= dist.get_world_size(group)
     return n
@@ -367,9 +429,8 @@ def hierarchical_psum(x: torch.Tensor, *, pod_axis: str = "pod", inner_axis: str
     Equal to the sum over both axes, but the slow inter-pod hop carries
     ``1/inner`` of the bytes.  Needs an active mesh with both axes;
     :func:`hierarchical_all_reduce` is its task-graph counterpart."""
-    import torch.distributed as dist
-
     inner_g, pod_g = _axis_group(inner_axis), _axis_group(pod_axis)
+    dist, pod_dist = comm_backend(inner_g), comm_backend(pod_g)
     inner = dist.get_world_size(inner_g)
     n = x.numel()
     flat = x.reshape(-1)
@@ -379,7 +440,7 @@ def hierarchical_psum(x: torch.Tensor, *, pod_axis: str = "pod", inner_axis: str
     flat = flat.contiguous()
     piece = flat.new_empty(flat.numel() // inner)
     dist.reduce_scatter_tensor(piece, flat, op=dist.ReduceOp.SUM, group=inner_g)
-    dist.all_reduce(piece, op=dist.ReduceOp.SUM, group=pod_g)
+    pod_dist.all_reduce(piece, op=pod_dist.ReduceOp.SUM, group=pod_g)
     full = torch.empty_like(flat)
     dist.all_gather_into_tensor(full, piece, group=inner_g)
     return full[:n].reshape(x.shape)
@@ -391,16 +452,14 @@ def hierarchical_psum(x: torch.Tensor, *, pod_axis: str = "pod", inner_axis: str
 
 def model_sum_(x: torch.Tensor, group) -> torch.Tensor:
     """Sum ``x`` in place over the ranks of ``group`` (untracked)."""
-    import torch.distributed as dist
-
+    dist = comm_backend(group)
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x
 
 
 def model_max_(x: torch.Tensor, group) -> torch.Tensor:
     """Max of ``x`` in place over the ranks of ``group`` (untracked)."""
-    import torch.distributed as dist
-
+    dist = comm_backend(group)
     dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
     return x
 
@@ -485,9 +544,8 @@ def all_gather(
         return ring_all_gather(graph, group, x, tag=tag)
     if axis is None:
         raise ValueError("all_gather needs graph= and group=, or axis=<mesh axis name>")
-    import torch.distributed as dist
-
     g = _axis_group(axis)
+    dist = comm_backend(g)
     n = dist.get_world_size(g)
     out = x.new_empty(n * x.numel())
     dist.all_gather_into_tensor(out, x.contiguous().reshape(-1), group=g)

@@ -26,7 +26,10 @@ mesh is active:
 
 A mesh here is a ``DeviceMesh`` with ``mesh_dim_names``; :func:`safe_spec`
 also takes any object whose ``.shape`` maps axis names to sizes, so plans
-can be checked without a process group.
+can be checked without a process group.  :class:`DryRunMesh` is such an
+object that a model and a train step can also be built and run on (on the
+``meta`` device): rank 0 of every axis, with groups that record their
+collectives instead of running them (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -119,6 +122,31 @@ class ModelAxis:
         """The axis' process group (the ranks that share every other
         coordinate)."""
         return self.mesh.get_group("model")
+
+
+class DryRunMesh:
+    """A mesh without processes, for a dry run: ``shape`` maps axis names to
+    sizes, :meth:`get_local_rank` answers rank 0 of every axis, and
+    :meth:`get_group` gives each axis a recording stand-in
+    (``dist.collectives.RecordingGroup``) whose collectives go into
+    ``log`` (a ``CollectiveLog``) and leave their tensors as they are."""
+
+    def __init__(self, shape: dict):
+        from repro_torch.dist.collectives import CollectiveLog, RecordingGroup
+
+        self.shape = dict(shape)
+        self.log = CollectiveLog()
+        self._groups = {a: RecordingGroup(a, n, self.log) for a, n in self.shape.items()}
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def get_local_rank(self, axis: str) -> int:
+        return 0
+
+    def get_group(self, axis: str):
+        return self._groups[axis]
 
 
 def model_axis(mesh=None) -> Optional[ModelAxis]:

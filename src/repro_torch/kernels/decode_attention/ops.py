@@ -12,7 +12,8 @@ each sequence's output depends on its own position only
 (:func:`chunk_plan`).
 It reads the cache in the model's (B, S, KH, D) layout through strides.  A
 CPU tensor takes the plain version in ``ref.py``; a CUDA tensor launches the
-kernel or raises.
+kernel or raises; ``meta`` tensors take the meta route (``dispatch``): the
+output alone, and :func:`flops` over every slot.
 """
 from __future__ import annotations
 
@@ -73,6 +74,13 @@ def _ticket_buffer(n: int, device: torch.device, stream: int) -> torch.Tensor:
     return buf
 
 
+def flops(B: int, n_valid: int, H: int, Dh: int, Dv: int) -> int:
+    """Operations of one call over ``n_valid`` valid slots a sequence (the
+    scores at Dh, the weighted values at Dv).  The meta route cannot read
+    ``pos`` and counts every slot of the cache: the most a call can need."""
+    return 2 * B * n_valid * H * (Dh + Dv)
+
+
 def decode_attention(
     q: torch.Tensor,        # (B, 1, H, Dh) — model layout
     k_cache: torch.Tensor,  # (B, S, KH, Dh)
@@ -82,7 +90,7 @@ def decode_attention(
     tensors = (q, k_cache, v_cache, pos)
     if all(t.device.type == "cpu" for t in tensors):
         return decode_attention_ref(q, k_cache, v_cache, pos)
-    dispatch.check_cuda_tensors("decode_attention", *tensors)
+    meta = dispatch.check_kernel_tensors("decode_attention", *tensors)
     B, one, H, Dh = q.shape
     Bk, S, KH, Dk = k_cache.shape
     Dv = v_cache.shape[-1]
@@ -108,6 +116,10 @@ def decode_attention(
     if q.stride(-1) != 1 or k_cache.stride(-1) != 1 or v_cache.stride(-1) != 1:
         raise ValueError("decode_attention: the head dim must be contiguous")
     code = dispatch.dtype_code("decode_attention", q)
+    if meta:
+        out = torch.empty((B, H, Dv), dtype=q.dtype, device=q.device)
+        dispatch.meta_launch("decode_attention", (B, S, H, KH, Dh, Dv), flops(B, S, H, Dh, Dv))
+        return out[:, None]
     lib = dispatch.library()
     G = H // KH
     n_chunks = -(-S // CHUNK)

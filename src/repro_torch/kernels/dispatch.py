@@ -8,9 +8,16 @@ and flags, and loads it with ``ctypes``.
 
 There is no switch that routes a CUDA tensor to the plain PyTorch versions:
 a wrapper given a CUDA tensor launches its kernel or raises.
+
+A wrapper given only ``meta`` tensors (a dry run, ``launch/dryrun.py``)
+takes its *meta route*: it allocates exactly what its kernel returns, on
+``meta``, and reports the kernel's operation count to the callbacks of
+:func:`meta_kernel_calls` (:func:`meta_launch`), since no FLOP counter sees
+a ctypes launch.  It launches nothing and counts no launch.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -224,3 +231,40 @@ class LaunchCounter:
         with self._lock:
             self.count = 0
             self.by_shape = {}
+
+
+# ---------------------------------------------------------------------------
+# The meta route (a dry run: launch/dryrun.py)
+# ---------------------------------------------------------------------------
+
+_meta_callbacks: list = []
+
+
+def check_kernel_tensors(name: str, *tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on ``meta`` (the meta route, module
+    docstring); else every tensor must lie on one Hopper card
+    (:func:`check_cuda_tensors`), and False."""
+    if all(t.device.type == "meta" for t in tensors):
+        return True
+    check_cuda_tensors(name, *tensors)
+    return False
+
+
+@contextlib.contextmanager
+def meta_kernel_calls(callback):
+    """Within the block, every meta route calls ``callback(name, shape,
+    flops, info)``: the kernel's name, the problem shape its counter would
+    key, the operations it does on that input and a dict of what else
+    describes the call (the mask of an attention)."""
+    _meta_callbacks.append(callback)
+    try:
+        yield
+    finally:
+        _meta_callbacks.remove(callback)
+
+
+def meta_launch(name: str, shape: tuple, flops: int, **info) -> None:
+    """Report one meta-route call of kernel ``name`` (see
+    :func:`meta_kernel_calls`)."""
+    for cb in list(_meta_callbacks):
+        cb(name, shape, flops, info)

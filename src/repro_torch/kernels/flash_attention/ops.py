@@ -10,7 +10,10 @@ copies; float32 runs on the SIMT cores.  Both take head dims up to 256,
 never load a tile that the causal diagonal or the window masks out, and
 read the model's (B, L, H, D) layout through strides, so nothing is
 transposed.  A CPU tensor takes the
-plain version in ``ref.py``; a CUDA tensor launches the kernel or raises.
+plain version in ``ref.py``; a CUDA tensor launches the kernel or raises;
+``meta`` tensors take the meta route (``dispatch``): the outputs alone, and
+:func:`fwd_flops` / :func:`bwd_flops` over the :func:`mask_pairs` the mask
+keeps.
 
 The forward can also return each row's log-sum-exp (``return_lse``), the
 residual that :func:`flash_attention_bwd` recomputes the probabilities
@@ -55,6 +58,26 @@ def check_tensor_core_layout(**tensors: torch.Tensor) -> None:
             )
 
 
+def mask_pairs(Lq: int, Lk: int, causal: bool, window: Optional[int], q_offset: int) -> int:
+    """(query, key) pairs the mask keeps: the work one (batch, head) needs."""
+    qpos = torch.arange(Lq, dtype=torch.int64) + q_offset
+    hi = torch.clamp(qpos + 1, max=Lk) if causal else torch.full_like(qpos, Lk)
+    lo = torch.clamp(qpos - window + 1, min=0) if window else torch.zeros_like(qpos)
+    return int(torch.clamp(hi - lo, min=0).sum())
+
+
+def fwd_flops(B: int, H: int, Dh: int, Dv: int, pairs: int) -> int:
+    """The forward's operations: S = QKᵀ at Dh and O = PV at Dv over the
+    kept pairs."""
+    return 2 * B * H * (Dh + Dv) * pairs
+
+
+def bwd_flops(B: int, H: int, Dh: int, Dv: int, pairs: int) -> int:
+    """The backward's operations: 5 products over the kept pairs (S, dQ and
+    dK at Dh; dP and dV at Dv; the kernels run 7)."""
+    return 2 * B * H * (3 * Dh + 2 * Dv) * pairs
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, Lq, H, Dh) — model layout
     k: torch.Tensor,  # (B, Lk, KH, Dh)
@@ -72,12 +95,16 @@ def flash_attention(
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
         return attention_fwd_ref(q, k, v, **kw) if return_lse else attention_ref(q, k, v, **kw)
-    B, Lq, H, Dh, Lk, KH, Dv, code = _check("flash_attention", q, k, v)
+    B, Lq, H, Dh, Lk, KH, Dv, code, meta = _check("flash_attention", q, k, v)
     out = torch.empty((B, Lq, H, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device) if return_lse else None
     if out.numel() == 0 or Lk == 0:
         out.zero_()
         return (out, lse.fill_(-1e30)) if return_lse else out
+    if meta:
+        dispatch.meta_launch("flash_attention", (B, Lq, Lk, H, KH, Dh, Dv),
+                             fwd_flops(B, H, Dh, Dv, mask_pairs(Lq, Lk, causal, window, q_offset)), **kw)
+        return (out, lse) if return_lse else out
     lib = dispatch.library()
     rc = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -95,9 +122,9 @@ def flash_attention(
 
 def _check(name: str, q, k, v, *more):
     """Shapes, dtypes and layouts both kernels take; → (B, Lq, H, Dh, Lk,
-    KH, Dv, dtype code).  ``more``: (name, tensor) pairs shaped like the
-    output (out, dout), held to the same rules."""
-    dispatch.check_cuda_tensors(name, q, k, v, *(t for _, t in more))
+    KH, Dv, dtype code, meta route).  ``more``: (name, tensor) pairs shaped
+    like the output (out, dout), held to the same rules."""
+    meta = dispatch.check_kernel_tensors(name, q, k, v, *(t for _, t in more))
     B, Lq, H, Dh = q.shape
     Bk, Lk, KH, Dk = k.shape
     Dv = v.shape[-1]
@@ -122,7 +149,7 @@ def _check(name: str, q, k, v, *more):
     code = dispatch.dtype_code(name, q)
     if q.dtype == torch.bfloat16:
         check_tensor_core_layout(q=q, k=k, v=v, **dict(more))
-    return B, Lq, H, Dh, Lk, KH, Dv, code
+    return B, Lq, H, Dh, Lk, KH, Dv, code, meta
 
 
 def flash_attention_bwd(
@@ -150,10 +177,10 @@ def flash_attention_bwd(
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     if all(t.device.type == "cpu" for t in (q, k, v, out, lse, dout)):
         return attention_bwd_ref(q, k, v, out, lse, dout, **kw)
-    B, Lq, H, Dh, Lk, KH, Dv, code = _check(
+    B, Lq, H, Dh, Lk, KH, Dv, code, meta = _check(
         "flash_attention_bwd", q, k, v, ("out", out), ("dout", dout)
     )
-    dispatch.check_cuda_tensors("flash_attention_bwd", q, lse)
+    dispatch.check_kernel_tensors("flash_attention_bwd", q, lse)
     if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, Lq) or not lse.is_contiguous():
         raise ValueError(
             f"flash_attention_bwd: lse {tuple(lse.shape)} {lse.dtype} is not a contiguous "
@@ -164,6 +191,10 @@ def flash_attention_bwd(
         check_tensor_core_layout(dq=dq, dk=dk, dv=dv)
     if Lq == 0 or Lk == 0 or B == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    if meta:
+        dispatch.meta_launch("flash_attention_bwd", (B, Lq, Lk, H, KH, Dh, Dv),
+                             bwd_flops(B, H, Dh, Dv, mask_pairs(Lq, Lk, causal, window, q_offset)), **kw)
+        return dq, dk, dv
     dvec = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
     lib = dispatch.library()
     rc = lib.flash_attention_bwd(

@@ -7,7 +7,7 @@ the output): the kernel reads 16 bytes a thread and holds the row in
 registers between the reduction and the scaling.  :func:`launch_plan`
 chooses how many threads share a row and how many rows share a block.  A
 CPU tensor takes the plain version in ``ref.py``; a CUDA tensor launches the
-kernel or raises.
+kernel or raises; ``meta`` tensors take the meta route (``dispatch``).
 
 The backward (:func:`rmsnorm_bwd`) has no Pallas counterpart: JAX
 differentiates the jnp ``repro.models.layers.rmsnorm``.  It covers a row
@@ -107,11 +107,22 @@ def bwd_launch_plan(rows: int, D: int, itemsize: int, aligned: bool,
     return LaunchPlan(fwd.vec, fwd.vpt, fwd.tpr, rpb, blocks)
 
 
+def fwd_flops(rows: int, D: int) -> int:
+    """The forward's operations: squares, their sum, the scaling and the
+    (1 + scale) product, one each an element."""
+    return 4 * rows * D
+
+
+def bwd_flops(rows: int, D: int) -> int:
+    """The backward's operations: twice the forward's (dx and dscale)."""
+    return 8 * rows * D
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """x (..., D), scale (D,) -> x * rsqrt(mean(x^2) + eps) * (1 + scale)."""
     if x.device.type == "cpu" and scale.device.type == "cpu":
         return rmsnorm_ref(x, scale, eps)
-    dispatch.check_cuda_tensors("rmsnorm", x, scale)
+    meta = dispatch.check_kernel_tensors("rmsnorm", x, scale)
     D = x.shape[-1]
     if tuple(scale.shape) != (D,):
         raise ValueError(f"rmsnorm: scale shape {tuple(scale.shape)} != ({D},)")
@@ -122,6 +133,9 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
     out = torch.empty_like(x)
     rows = x.numel() // D if D else 0
     if rows == 0:
+        return out
+    if meta:
+        dispatch.meta_launch("rmsnorm", (rows, D), fwd_flops(rows, D))
         return out
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, scale, out))
     plan = launch_plan(rows, D, x.element_size(), aligned, dispatch.sm_count(x.device))
@@ -140,7 +154,7 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, eps: flo
     ``x``; rstd is recomputed from x.  dy has x's shape and dtype."""
     if all(t.device.type == "cpu" for t in (x, scale, dy)):
         return rmsnorm_bwd_ref(x, scale, dy, eps)
-    dispatch.check_cuda_tensors("rmsnorm_bwd", x, scale, dy)
+    meta = dispatch.check_kernel_tensors("rmsnorm_bwd", x, scale, dy)
     D = x.shape[-1]
     if tuple(scale.shape) != (D,) or dy.shape != x.shape:
         raise ValueError(
@@ -157,6 +171,9 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, eps: flo
     if rows == 0:
         return dx, torch.zeros_like(scale)
     dscale = torch.empty_like(scale)
+    if meta:
+        dispatch.meta_launch("rmsnorm_bwd", (rows, D), bwd_flops(rows, D))
+        return dx, dscale
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, scale, dy, dx))
     plan = bwd_launch_plan(rows, D, x.element_size(), aligned, dispatch.sm_count(x.device))
     partial = torch.empty((plan.blocks, D), dtype=torch.float32, device=x.device)

@@ -11,7 +11,9 @@ the f32 accuracy is kept; float32 runs on the SIMT cores.  Both never
 compute the masked triangle, whose decay may be inf, and read the model's
 (B, L, H, ·) layout, and B/C by group, through strides, so nothing is
 transposed or expanded.  A CPU tensor takes the plain version in ``ref.py``;
-a CUDA tensor launches the kernel or raises.
+a CUDA tensor launches the kernel or raises; ``meta`` tensors take the meta
+route (``dispatch``): the outputs alone, and :func:`fwd_flops` /
+:func:`bwd_flops`.
 
 The backward has no Pallas counterpart: ``repro`` trains mamba2 through
 ``jax.grad`` of the jnp ``ssd_chunked``.  :func:`ssd_intra_chunk_bwd` runs
@@ -20,7 +22,7 @@ group's heads in a fixed order (no atomics): bfloat16 on the tensor cores
 (``csrc/ssd_bwd_wgmma.cu``: two warpgroups a block in a column role (dx,
 dB, ddt, dcum) or a row role (dC), walking its group's heads in order with
 dB / dC in f32 registers; the plan is :func:`bwd_tc_launch_plan`), float32
-on the SIMT cores (``csrc/ssd_bwd.cu``).  On CUDA tensors
+on the SIMT cores (``csrc/ssd_bwd.cu``).  On CUDA (and meta) tensors
 :func:`ssd_intra_chunk` always goes through :class:`SsdIntraChunkFn`, whose
 backward launches that kernel; under ``torch.no_grad`` (serving) it
 records nothing.
@@ -131,10 +133,26 @@ def check_tensor_core_layout(cs: int, **tensors: torch.Tensor) -> None:
             )
 
 
+def fwd_flops(b: int, H: int, nc: int, cs: int, P: int, N: int) -> int:
+    """The forward's operations: per (sequence, head, chunk) the scores C·Bᵀ
+    (N) and y (P) over the causal pairs, and the state (N × P) over every
+    row."""
+    pairs = cs * (cs + 1) // 2
+    return b * H * nc * (2 * pairs * (N + P) + 2 * cs * N * P)
+
+
+def bwd_flops(b: int, H: int, nc: int, cs: int, P: int, N: int) -> int:
+    """The backward's operations: per (sequence, head, chunk) s (N), dW (P),
+    dx (P), dC (N) and dB (N) over the causal pairs, and u = dS·x, v =
+    dSᵀ·B over every row."""
+    pairs = cs * (cs + 1) // 2
+    return b * H * nc * (2 * pairs * (3 * N + 2 * P) + 4 * cs * N * P)
+
+
 def _check(name: str, x, dt, cum, B, C) -> tuple:
     """Shapes, dtypes and layouts both kernels take; → (b, H, nc, cs, P, G,
-    N, dtype code)."""
-    dispatch.check_cuda_tensors(name, x, dt, cum, B, C)
+    N, dtype code, meta route)."""
+    meta = dispatch.check_kernel_tensors(name, x, dt, cum, B, C)
     if x.ndim != 5:
         raise ValueError(f"{name}: x must be (b, H, nc, cs, P), got {tuple(x.shape)}")
     Bsz, H, nc, cs, P = x.shape
@@ -157,12 +175,12 @@ def _check(name: str, x, dt, cum, B, C) -> tuple:
         raise TypeError(f"{name}: dt and cum must be float32, got {dt.dtype}, {cum.dtype}")
     if any(t.shape[-1] > 1 and t.stride(-1) != 1 for t in (x, B, C)):
         raise ValueError(f"{name}: the last dim of x, B and C must be contiguous")
-    return Bsz, H, nc, cs, P, G, N, dispatch.dtype_code(name, x)
+    return Bsz, H, nc, cs, P, G, N, dispatch.dtype_code(name, x), meta
 
 
 def _intra_chunk_kernel(x, dt, cum, B, C):
     """The forward launch: → (y, state) written by ``csrc/ssd.cu``."""
-    Bsz, H, nc, cs, P, G, N, code = _check("ssd_intra_chunk", x, dt, cum, B, C)
+    Bsz, H, nc, cs, P, G, N, code, meta = _check("ssd_intra_chunk", x, dt, cum, B, C)
     if x.dtype == torch.bfloat16:
         check_tensor_core_layout(cs, x=x, B=B, C=C)
     # y in the model's (b, nc, cs, H, P) order, seen as (b, H, nc, cs, P)
@@ -170,6 +188,9 @@ def _intra_chunk_kernel(x, dt, cum, B, C):
     state = torch.empty((Bsz, H, nc, N, P), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y, state.zero_()
+    if meta:
+        dispatch.meta_launch("ssd_intra_chunk", (Bsz, H, nc, cs, P, G, N), fwd_flops(Bsz, H, nc, cs, P, N))
+        return y, state
     lib = dispatch.library()
     dims = (0, 1, 2, 3)
     rc = lib.ssd_intra_chunk_fwd(
@@ -228,8 +249,8 @@ def ssd_intra_chunk_bwd(x, dt, cum, B, C, dy, dS):
     if all(t.device.type == "cpu" for t in (x, dt, cum, B, C, dy, dS)):
         return ssd_chunk_bwd_ref(x, dt, cum, B, C, dy, dS)
     name = "ssd_intra_chunk_bwd"
-    Bsz, H, nc, cs, P, G, N, code = _check(name, x, dt, cum, B, C)
-    dispatch.check_cuda_tensors(name, x, dy, dS)
+    Bsz, H, nc, cs, P, G, N, code, meta = _check(name, x, dt, cum, B, C)
+    dispatch.check_kernel_tensors(name, x, dy, dS)
     tc = x.dtype == torch.bfloat16
     if tc:
         check_tensor_core_layout(cs, x=x, B=B, C=C)
@@ -256,6 +277,9 @@ def ssd_intra_chunk_bwd(x, dt, cum, B, C, dy, dS):
     dB, dC = heads_last((G, N), B.dtype), heads_last((G, N), C.dtype)
     if dx.numel() == 0:
         return tuple(t.zero_() for t in (dx, ddt, dcum, dB, dC))
+    if meta:
+        dispatch.meta_launch(name, (Bsz, H, nc, cs, P, G, N), bwd_flops(Bsz, H, nc, cs, P, N))
+        return dx, ddt, dcum, dB, dC
     tiles = -(-cs // TILE)
     f32 = dict(dtype=torch.float32, device=dev)
     if tc:  # bf16 copies of dy and dS; rowsum(M) and the last row's sum in parts by (j tile, warp)

@@ -309,8 +309,9 @@ def _make_block(cfg: ArchConfig, kind: str, *, dtype, device) -> nn.Module:
 class Transformer(nn.Module):
     """Uninitialised (``torch.empty``) parameters; see :func:`init_params`.
     ``leaf_layout`` maps the layers onto ``repro``'s tree (:func:`leaf_layout`).
-    ``device="meta"`` builds the module of shapes alone (a dry run): nothing
-    launches there, since a kernel wrapper given a ``meta`` tensor raises.
+    ``device="meta"`` builds the module of shapes alone (a dry run,
+    ``launch/dryrun.py``): nothing launches there, since a kernel wrapper
+    given ``meta`` tensors takes its meta route (``kernels/dispatch.py``).
 
     Built under a mesh with a ``model`` axis of m > 1 (module docstring),
     ``tp`` is that axis (``dist.sharding.ModelAxis``; None otherwise),

@@ -1,0 +1,458 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) against ``repro``'s.
+
+* ``config_for_dryrun`` equals ``repro``'s for every config, with flat and
+  nested overrides;
+* deepseek-7b ``train_4k`` on both production meshes: the argument and
+  alias bytes of ``repro``'s checked-in records exactly, ``flops_scan_once``
+  within 5% of their FLOPs, and the port's checked-in records reproduced;
+* a ``repro`` lowering of reduced deepseek-7b on a (data 2, model 2) host
+  mesh (a subprocess with 4 host devices) against the port's dry run of
+  the same cell: argument and alias bytes exact, ``flops_scan_once`` within
+  5%.  Float32: in bfloat16 XLA's host lowering converts every product's
+  operands to float32 and counts those converts (PERF.md, PR 26);
+* the dry run's ``model``-axis collectives against the calls a real
+  2-rank gloo step makes (``launch.mesh.spawn_mesh``), call by call, and
+  one layer body's sums; a real group's sum through the same seam;
+* every prefill, decode and non-``"attn"`` cell on the production mesh
+  refused naming Queue 1 item 5.6, and recorded as ``ok: false``;
+* the recording seam's bytes by ``repro``'s HLO convention, and the
+  kernels' meta routes (the outputs alone, their operation counts, no
+  launch);
+* the CLI writes under ``--outdir`` and nowhere else.
+
+The rank function is module-level (the children unpickle it by importing
+this file).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import ARCH_NAMES, get_config, reduced_config  # noqa: E402
+from repro_torch.dist.collectives import (  # noqa: E402
+    CollectiveLog,
+    RecordingGroup,
+    comm_backend,
+    hierarchical_psum,
+    mesh_psum_,
+    model_sum_,
+)
+from repro_torch.dist.sharding import DryRunMesh, current_mesh, use_mesh  # noqa: E402
+from repro_torch.kernels import dispatch  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import mesh as lm  # noqa: E402
+from repro_torch.models import SHAPES, ShapeSpec, applicable_shapes, layer_kinds  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+RECORDS = ROOT / "experiments" / "dryrun"
+PORT_RECORDS = ROOT / "experiments" / "dryrun_torch"
+MESH_NAMES = ("pod_16x16", "multipod_2x16x16")
+
+
+# ---------------------------------------------------------------------------
+# config_for_dryrun
+# ---------------------------------------------------------------------------
+
+def _nested_override(arch: str) -> dict:
+    """A nested override of the config's first sub-config (a dense config
+    has none: both packages raise)."""
+    cfg = get_config(arch)
+    for head, field, value in (("moe", "dispatch", "scatter"), ("mla", "kv_lora_rank", 64),
+                               ("ssm", "chunk_size", 128), ("hybrid", "window", 1024)):
+        if getattr(cfg, head) is not None:
+            return {f"{head}.{field}": value}
+    return {"moe.dispatch": "scatter"}
+
+
+@pytest.mark.parametrize("case", ["none", "flat", "nested"])
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_config_for_dryrun_equals_repro(arch, case):
+    from repro.launch.dryrun import config_for_dryrun as jax_config_for_dryrun
+
+    overrides = {"none": None, "flat": {"n_layers": 4, "remat": "none"}, "nested": _nested_override(arch)}[case]
+    try:
+        want = dataclasses.asdict(jax_config_for_dryrun(arch, overrides))
+    except Exception as e:  # noqa: BLE001 - the port must raise the same
+        with pytest.raises(type(e)):
+            dryrun.config_for_dryrun(arch, overrides)
+        return
+    assert dataclasses.asdict(dryrun.config_for_dryrun(arch, overrides)) == want
+
+
+# ---------------------------------------------------------------------------
+# deepseek-7b train_4k against repro's checked-in records
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def deepseek_records(tmp_path_factory):
+    out = tmp_path_factory.mktemp("dryrun")
+    return {name: dryrun.run_cell("deepseek-7b", "train_4k", name.startswith("multipod"), outdir=str(out))
+            for name in MESH_NAMES}
+
+
+@pytest.mark.parametrize("mesh", MESH_NAMES)
+def test_argument_and_alias_bytes_equal_the_records(deepseek_records, mesh):
+    want = json.loads((RECORDS / f"deepseek-7b__train_4k__{mesh}.json").read_text())["memory"]
+    got = deepseek_records[mesh]
+    assert got["ok"], got.get("error")
+    assert got["memory"]["argument_size_in_bytes"] == want["argument_size_in_bytes"]
+    assert got["memory"]["alias_size_in_bytes"] == want["alias_size_in_bytes"]
+
+
+@pytest.mark.parametrize("mesh", MESH_NAMES)
+def test_flops_scan_once_within_5_percent_of_the_records(deepseek_records, mesh):
+    want = json.loads((RECORDS / f"deepseek-7b__train_4k__{mesh}.json").read_text())["cost"]["flops"]
+    got = deepseek_records[mesh]["cost"]["flops_scan_once"]
+    assert abs(got / want - 1) <= 0.05, (got, want)
+
+
+@pytest.mark.parametrize("mesh", MESH_NAMES)
+def test_checked_in_records_are_reproduced(deepseek_records, mesh):
+    want = json.loads((PORT_RECORDS / f"deepseek-7b__train_4k__{mesh}.json").read_text())
+    got = json.loads(json.dumps(deepseek_records[mesh]))  # the file's own round trip
+    for key in ("memory", "cost", "collectives", "peak_terms", "kernels"):
+        assert got[key] == want[key], key
+
+
+# ---------------------------------------------------------------------------
+# A repro lowering of a reduced cell on a (2, 2) host mesh.
+# ---------------------------------------------------------------------------
+
+# the cell: reduced deepseek-7b (float32), global batch (8, 128), logits in
+# chunks of 32 — attention above cfg.attn_blockwise_min_seq, so repro scans
+# its key blocks too
+_REDUCED = dict(dtype="float32", logits_chunk=32)
+_REDUCED_SHAPE = (128, 8)
+
+_LOWER = r"""
+import json, sys
+import jax
+from jax.sharding import AxisType
+from repro.configs import reduced_config
+from repro.dist.sharding import use_mesh
+from repro.models import abstract_inputs
+from repro.models.config import ShapeSpec
+from repro.runtime.train import abstract_train_state, build_train_step
+
+kw = json.loads(sys.argv[1])
+cfg = reduced_config("deepseek-7b").replace(**kw["cfg"])
+# Auto axes: this JAX makes Explicit ones by default, on which repro's
+# vocab-sharded embedding gather does not lower
+mesh = jax.make_mesh((2, 2), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+with use_mesh(mesh):
+    art = build_train_step(cfg, n_microbatches=1)
+    shape = ShapeSpec("t", "train", kw["seq"], kw["batch"])
+    compiled = art.step_fn.lower(abstract_train_state(cfg), abstract_inputs(cfg, shape)).compile()
+ma = compiled.memory_analysis()
+ca = compiled.cost_analysis()
+ca = ca[0] if isinstance(ca, (list, tuple)) else ca
+print(json.dumps({"argument": ma.argument_size_in_bytes, "alias": ma.alias_size_in_bytes, "flops": ca["flops"]}))
+"""
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])
+def test_a_reduced_cell_against_a_repro_lowering(optimizer):
+    cfg_kw = dict(_REDUCED, optimizer=optimizer)
+    seq, batch = _REDUCED_SHAPE
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4", JAX_PLATFORMS="cpu",
+               PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _LOWER, json.dumps({"cfg": cfg_kw, "seq": seq, "batch": batch})],
+                         capture_output=True, text=True, env=env, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    want = json.loads(out.stdout.strip().splitlines()[-1])
+    got = dryrun.model_cell(reduced_config("deepseek-7b").replace(**cfg_kw), ShapeSpec("t", "train", seq, batch),
+                            DryRunMesh({"data": 2, "model": 2}))
+    assert got["memory"]["argument_size_in_bytes"] == want["argument"]
+    assert got["memory"]["alias_size_in_bytes"] == want["alias"]
+    assert abs(got["cost"]["flops_scan_once"] / want["flops"] - 1) <= 0.05, (got["cost"], want)
+
+
+# ---------------------------------------------------------------------------
+# The model axis' collectives against a real 2-rank gloo step.
+# ---------------------------------------------------------------------------
+
+SUM_SEQ, SUM_BATCH = 32, 2  # each rank's rows: the whole batch on data 1
+SUM_CASES = [(variant, n_layers) for variant in ("dense", "gqa") for n_layers in (1, 2)]
+
+
+def _sum_cfg(variant: str, n_layers: int):
+    return lm.tp_config(variant, "adafactor").replace(n_layers=n_layers, logits_chunk=SUM_SEQ // 2)
+
+
+def _count_rank() -> dict:
+    """One train step of each ``SUM_CASES`` config on this rank of a (1, 2)
+    mesh, counting every ``torch.distributed.all_reduce`` on the ``model``
+    group (payload bytes, in call order); then a sum through
+    ``model_sum_`` of a tensor that differs by rank."""
+    import torch.distributed as dist
+
+    from repro_torch.runtime.train import build_train_step, init_train_state
+
+    group = current_mesh().get_group("model")
+    calls: list = []
+    real = dist.all_reduce
+
+    def counting(x, op=dist.ReduceOp.SUM, group=None, async_op=False):
+        if group is not None and dist.get_world_size(group) == 2:
+            calls.append(x.numel() * x.element_size())
+        return real(x, op=op, group=group, async_op=async_op)
+
+    dist.all_reduce = counting
+    out: dict = {}
+    try:
+        for variant, n_layers in SUM_CASES:
+            cfg = _sum_cfg(variant, n_layers)
+            state = init_train_state(cfg, 0, device="cpu")
+            art = build_train_step(cfg, n_microbatches=1)
+            gen = torch.Generator().manual_seed(1)
+            tokens = torch.randint(0, cfg.vocab, (SUM_BATCH, SUM_SEQ + 1), generator=gen, dtype=torch.int32)
+            calls.clear()
+            art(state, {"tokens": tokens[:, :-1].contiguous(), "labels": tokens[:, 1:].contiguous()})
+            out[f"{variant}-{n_layers}"] = list(calls)
+    finally:
+        dist.all_reduce = real
+    x = torch.linspace(-1.0, 1.0, 7) * (dist.get_rank() + 1.25)
+    out["sum"] = model_sum_(x.clone(), group).numpy().tobytes()
+    return out
+
+
+@pytest.fixture(scope="module")
+def gloo_counts():
+    return lm.spawn_mesh(_count_rank, 2, (1, 2), ("data", "model"), timeout=300.0)
+
+
+def _dry_model_calls(variant: str, n_layers: int) -> tuple[list, dict]:
+    """The dry run of the same step as rank 0 of (data 2, model 2), twice
+    the global batch (the same rows a rank): its model-axis records' bytes
+    in call order, and the record's collectives."""
+    mesh = DryRunMesh({"data": 2, "model": 2})
+    rec = dryrun.model_cell(_sum_cfg(variant, n_layers), ShapeSpec("t", "train", SUM_SEQ, 2 * SUM_BATCH), mesh)
+    return [r["bytes"] for r in mesh.log.records if r["axis"] == "model"], rec["collectives"]
+
+
+@pytest.mark.parametrize("case", SUM_CASES, ids=[f"{v}-{n}" for v, n in SUM_CASES])
+def test_model_axis_collectives_equal_a_gloo_step(gloo_counts, case):
+    want = [r[f"{case[0]}-{case[1]}"] for r in gloo_counts]
+    assert want[0] == want[1]
+    got, _ = _dry_model_calls(*case)
+    assert got == want[0]
+
+
+@pytest.mark.parametrize("variant", ["dense", "gqa"])
+def test_one_layer_body_sums_equal_a_gloo_layer(gloo_counts, variant):
+    """The layer body's all-reduces (``by_part``) are activation sums (a
+    rank's (rows, seq, d_model) in float32), as many as a second layer adds
+    to the gloo step's sums of that size."""
+    act = SUM_BATCH * SUM_SEQ * _sum_cfg(variant, 1).d_model * 4
+    one, two = ([b for b in gloo_counts[0][f"{variant}-{n}"] if b == act] for n in (1, 2))
+    _, coll = _dry_model_calls(variant, 2)
+    body = coll["by_part"]["layer_body"]["all-reduce"]
+    assert body["count"] == len(two) - len(one) > 0
+    assert body["bytes"] == body["count"] * act
+
+
+def test_a_real_group_sums_through_the_seam(gloo_counts):
+    import numpy as np
+
+    want = sum(torch.linspace(-1.0, 1.0, 7) * (r + 1.25) for r in range(2)).numpy()
+    for r in gloo_counts:
+        assert np.frombuffer(r["sum"], dtype=np.float32).tobytes() == want.astype(np.float32).tobytes()
+    assert comm_backend(None) is torch.distributed
+
+
+# ---------------------------------------------------------------------------
+# Cells the port refuses, and the record of a refusal.
+# ---------------------------------------------------------------------------
+
+def _attn_only(arch: str) -> bool:
+    cfg = get_config(arch)
+    return set(layer_kinds(cfg)) == {"attn"} and cfg.frontend is None
+
+
+REFUSED = [(arch, s.name) for arch in ARCH_NAMES for s in applicable_shapes(get_config(arch))
+           if not (s.kind == "train" and _attn_only(arch))]
+
+
+def test_refused_cells_are_every_cell_but_the_dense_train_ones():
+    ok = {(arch, s.name) for arch in ARCH_NAMES for s in applicable_shapes(get_config(arch))} - set(REFUSED)
+    assert ok == {("deepseek-7b", "train_4k"), ("gemma-7b", "train_4k"), ("qwen1.5-110b", "train_4k")}
+
+
+@pytest.mark.parametrize("arch,shape", REFUSED)
+def test_refused_cells_name_item_5_6(arch, shape):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5.6"):
+        dryrun.model_cell(dryrun.config_for_dryrun(arch), SHAPES[shape], DryRunMesh(dryrun.MESHES["pod_16x16"]))
+
+
+def test_a_refused_cell_is_recorded_not_raised(tmp_path):
+    rec = dryrun.run_cell("llama4-scout-17b-a16e", "decode_32k", True, outdir=str(tmp_path))
+    assert rec["ok"] is False and "Queue 1 item 5.6" in rec["error"]
+    saved = json.loads((tmp_path / "llama4-scout-17b-a16e__decode_32k__multipod_2x16x16.json").read_text())
+    assert saved["ok"] is False and saved["error"] == rec["error"]
+
+
+# ---------------------------------------------------------------------------
+# The recording seam and the meta routes.
+# ---------------------------------------------------------------------------
+
+def test_recorded_bytes_follow_repros_hlo_convention():
+    """``hierarchical_psum`` (reduce-scatter, all-reduce, all-gather) and a
+    ``model`` sum on a dry-run mesh record what ``repro``'s HLO parser
+    counts for the same collectives; the tensors are left as they were."""
+    from repro.launch.dryrun import collective_stats as jax_collective_stats
+
+    mesh = DryRunMesh({"pod": 2, "data": 4, "model": 2})
+    x = torch.arange(64, dtype=torch.float32).reshape(8, 8)
+    with use_mesh(mesh):
+        y = hierarchical_psum(x.clone())
+        z = x.clone()
+        mesh_psum_(z, "model")
+    assert torch.equal(z, x) and y.shape == x.shape
+    hlo = """
+  %rs = f32[16]{0} reduce-scatter(%a), channel_id=1, replica_groups=[4,4]<=[16], dimensions={0}
+  %ar = f32[16]{0} all-reduce(%b), channel_id=2, replica_groups=[8,2]<=[16], to_apply=%add
+  %ag = f32[64]{0} all-gather(%c), channel_id=3, replica_groups=[4,4]<=[16], dimensions={0}
+  %ar2 = f32[8,8]{1,0} all-reduce(%d), channel_id=4, replica_groups=[8,2]<=[16], to_apply=%add
+"""
+    want = jax_collective_stats(hlo)
+    got = dryrun.collective_stats(mesh.log.records)
+    for kind in ("reduce-scatter", "all-reduce", "all-gather"):
+        assert got[kind] == want[kind], kind
+    assert [r["group_size"] for r in mesh.log.records] == [4, 2, 4, 2]
+
+
+def test_recording_group_answers_for_its_axis():
+    log = CollectiveLog()
+    g = RecordingGroup("model", 4, log)
+    assert comm_backend(g) is g and g.get_world_size() == 4
+    x = torch.ones(3)
+    model_sum_(x, g)
+    assert torch.equal(x, torch.ones(3))
+    assert log.records == [dict(kind="all-reduce", bytes=12, wire_bytes=18, group_size=4, axis="model",
+                                region=None)]
+
+
+def _meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _kernel_calls():
+    """Each wrapper on meta inputs: (kernel name, a thunk of the call, the
+    operation count it must report, the plain version's outputs on CPU
+    tensors of the same shapes)."""
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as fl
+    from repro_torch.kernels.rmsnorm import ops as rms
+    from repro_torch.kernels.ssd import ops as ssd
+
+    B, L, H, KH, D = 2, 64, 4, 2, 16
+    pairs = fl.mask_pairs(L, L, True, None, 0)
+    cpu = lambda *s, dtype=torch.float32: torch.randn(s, dtype=dtype)  # noqa: E731
+    q, k, v, o, do = cpu(B, L, H, D), cpu(B, L, KH, D), cpu(B, L, KH, D), cpu(B, L, H, D), cpu(B, L, H, D)
+    lse = cpu(B, H, L)
+    x, sc = cpu(B * L, 32), cpu(32)
+    xs, dt, cum = cpu(1, 4, 2, 8, 16), cpu(1, 4, 2, 8), cpu(1, 4, 2, 8)
+    bs, dy, ds = cpu(1, 1, 2, 8, 16), cpu(1, 4, 2, 8, 16), cpu(1, 4, 2, 16, 16)
+    pos = torch.tensor([3, 40], dtype=torch.int32)
+    m = lambda *ts: [_meta(*t.shape, dtype=t.dtype) for t in ts]  # noqa: E731
+    return {
+        "flash_attention": (lambda: fl.flash_attention(*m(q, k, v), return_lse=True),
+                            fl.fwd_flops(B, H, D, D, pairs), fl.flash_attention(q, k, v, return_lse=True)),
+        "flash_attention_bwd": (lambda: fl.flash_attention_bwd(*m(q, k, v, o, lse, do)),
+                                fl.bwd_flops(B, H, D, D, pairs), fl.flash_attention_bwd(q, k, v, o, lse, do)),
+        "decode_attention": (lambda: dec.decode_attention(*m(q[:, :1], k, v, pos)),
+                             dec.flops(B, L, H, D, D), dec.decode_attention(q[:, :1], k, v, pos)),
+        "rmsnorm": (lambda: rms.rmsnorm(*m(x, sc)), rms.fwd_flops(B * L, 32), rms.rmsnorm(x, sc)),
+        "rmsnorm_bwd": (lambda: rms.rmsnorm_bwd(*m(x, sc, x)), rms.bwd_flops(B * L, 32), rms.rmsnorm_bwd(x, sc, x)),
+        "ssd_intra_chunk": (lambda: ssd.ssd_intra_chunk(*m(xs, dt, cum, bs, bs)),
+                            ssd.fwd_flops(1, 4, 2, 8, 16, 16), ssd.ssd_intra_chunk(xs, dt, cum, bs, bs)),
+        "ssd_intra_chunk_bwd": (lambda: ssd.ssd_intra_chunk_bwd(*m(xs, dt, cum, bs, bs, dy, ds)),
+                                ssd.bwd_flops(1, 4, 2, 8, 16, 16), ssd.ssd_intra_chunk_bwd(xs, dt, cum, bs, bs, dy, ds)),
+    }
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_bwd", "decode_attention", "rmsnorm",
+                                  "rmsnorm_bwd", "ssd_intra_chunk", "ssd_intra_chunk_bwd"])
+def test_meta_route_returns_the_outputs_and_reports_the_operations(name):
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as fl
+    from repro_torch.kernels.rmsnorm import ops as rms
+    from repro_torch.kernels.ssd import ops as ssd
+
+    counters = [fl.launches, fl.bwd_launches, dec.launches, rms.launches, rms.bwd_launches, ssd.launches,
+                ssd.bwd_launches]
+    before = [c.count for c in counters]
+    call, flops, plain = _kernel_calls()[name]
+    seen = []
+    with dispatch.meta_kernel_calls(lambda *a: seen.append(a)):
+        got = call()
+    got, plain = (got if isinstance(got, tuple) else (got,)), (plain if isinstance(plain, tuple) else (plain,))
+    assert [(t.device.type, t.shape, t.dtype) for t in got] == [("meta", p.shape, p.dtype) for p in plain]
+    assert [(n, f) for n, _, f, _ in seen] == [(name, flops)]
+    assert [c.count for c in counters] == before  # nothing launched, nothing counted
+
+
+def test_meta_route_takes_only_meta_tensors():
+    from repro_torch.kernels.flash_attention import ops as fl
+    from repro_torch.kernels.rmsnorm import ops as rms
+
+    with pytest.raises(ValueError, match="tensors on"):
+        fl.flash_attention(_meta(1, 8, 2, 16), torch.zeros(1, 8, 2, 16, dtype=torch.bfloat16),
+                           _meta(1, 8, 2, 16))
+    with pytest.raises(ValueError, match="tensors on"):
+        rms.rmsnorm(_meta(4, 8), torch.zeros(8, dtype=torch.bfloat16))
+
+
+def test_a_train_cell_models_memory_and_flops_off_mesh():
+    """One device (no mesh): the arguments are the state, the step and the
+    batch; the peak holds at least the gradient accumulator; the FLOPs hold
+    6 a parameter and token at least, and the scan-once count is less."""
+    cfg = reduced_config("deepseek-7b").replace(logits_chunk=32, optimizer="adamw", dtype="float32")
+    rec = dryrun.model_cell(cfg, ShapeSpec("t", "train", 64, 4), None, n_microbatches=2)
+    mem, cost = rec["memory"], rec["cost"]
+    from repro_torch.models import model_defs
+    from repro_torch.models.param import ParamDef
+
+    def count(d):
+        return math.prod(d.shape) if isinstance(d, ParamDef) else sum(count(v) for v in d.values())
+
+    n = count(model_defs(cfg))
+    assert mem["argument_size_in_bytes"] == 3 * 4 * n + 4 + 2 * 4 * 4 * 64  # params, m, v, step, tokens + labels
+    assert mem["temp_size_in_bytes"] >= 4 * n  # the float32 gradient accumulator
+    assert mem["total_per_device_bytes"] == (mem["argument_size_in_bytes"] + mem["output_size_in_bytes"]
+                                             + mem["temp_size_in_bytes"] - mem["alias_size_in_bytes"])
+    assert cost["flops"] >= 6 * (n - cfg.padded_vocab * cfg.d_model) * 4 * 64
+    assert cost["flops_scan_once"] < cost["flops"]
+    assert rec["collectives"]["total_count"] == 0
+    assert rec["kernels"]["flash_attention"]["calls"] == 2 * 2 * cfg.n_layers  # forward and remat, 2 microbatches
+
+
+# ---------------------------------------------------------------------------
+# The CLI.
+# ---------------------------------------------------------------------------
+
+def _tree(path: Path) -> dict:
+    return {str(p.relative_to(path)): p.stat().st_mtime_ns for p in path.rglob("*")} if path.exists() else {}
+
+
+def test_cli_writes_only_under_its_outdir(tmp_path, monkeypatch):
+    cwd = tmp_path / "cwd"
+    cwd.mkdir()
+    monkeypatch.chdir(cwd)
+    before = _tree(ROOT / "experiments")
+    recs = dryrun.main(["--arch", "deepseek-7b", "--shape", "train_4k", "--single-pod", "--set", "n_layers=2",
+                        "--tag", "t", "--outdir", str(tmp_path / "out")])
+    assert [r["ok"] for r in recs] == [True]
+    assert recs[0]["overrides"] == {"n_layers": 2, "n_microbatches": 1}
+    assert sorted(p.name for p in (tmp_path / "out").iterdir()) == ["deepseek-7b__train_4k__pod_16x16__t.json"]
+    assert list(cwd.iterdir()) == []
+    assert _tree(ROOT / "experiments") == before

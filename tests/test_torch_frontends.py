@@ -398,8 +398,9 @@ def test_abstract_params_match_repro(arch):
 def test_meta_device_builds_but_never_launches():
     """``meta`` passes for building a model; caches on ``meta`` come from
     ``abstract_cache`` alone, with ``init_cache``'s shapes and dtypes; a
-    kernel wrapper given a meta tensor raises, and ``cuda`` without a card
-    still raises."""
+    kernel wrapper given meta tensors takes its meta route (its output on
+    ``meta``, no launch counted) and raises for meta mixed with another
+    device, and ``cuda`` without a card still raises."""
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 
@@ -411,8 +412,11 @@ def test_meta_device_builds_but_never_launches():
             == {k: (tuple(v.shape), v.dtype) for k, v in made.items()})
     with pytest.raises(ValueError, match="unsupported device"):
         tm.init_cache(small, 2, 64, device="meta")
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        rmsnorm_ops.rmsnorm(torch.empty(3, 8, device="meta"), torch.empty(8, device="meta"))
+    before = rmsnorm_ops.launches.count
+    out = rmsnorm_ops.rmsnorm(torch.empty(3, 8, device="meta"), torch.empty(8, device="meta"))
+    assert out.device.type == "meta" and out.shape == (3, 8) and rmsnorm_ops.launches.count == before
+    with pytest.raises(ValueError, match="tensors on meta and cpu"):
+        rmsnorm_ops.rmsnorm(torch.empty(3, 8, device="meta"), torch.empty(8))
     with pytest.raises(ValueError, match="unsupported device"):
         dispatch.resolve_device("meta")
     if not dispatch.cuda_available():

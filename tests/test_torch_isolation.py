@@ -25,6 +25,10 @@ import repro_torch.checkpoint, repro_torch.serving.spec, repro_torch.serving.loa
 import repro_torch.core.comm, repro_torch.dist, repro_torch.dist.fault
 import repro_torch.launch.rendezvous, repro_torch.launch.mesh, repro_torch.dist.chaos
 import repro_torch.dist.sharding, repro_torch.runtime.pipeline
+import os
+flags = os.environ.get("XLA_FLAGS")
+import repro_torch.launch.dryrun
+assert os.environ.get("XLA_FLAGS") == flags, "importing the dry run changed XLA_FLAGS"
 bad = sorted(
     name for name, mod in sys.modules.items()
     if mod is not None and (name == "repro" or name.startswith(("repro.", "jax")))

@@ -713,16 +713,18 @@ def _ssd_small_inputs(requires_grad: bool, device="cpu"):
 
 def test_ssd_card_route_records_the_autograd_function(monkeypatch):
     """Off the CPU, ``ssd_intra_chunk`` goes through ``SsdIntraChunkFn``
-    whether or not autograd records.  Meta tensors (no card needed) stop at
-    the forward's device check; with the forward launch stubbed, their
-    outputs carry the Function's node as ``grad_fn``, and the backward
-    reaches the backward kernel's wrapper, which stops at its own device
-    check.  Under ``torch.no_grad`` nothing is recorded.  No launch is
-    counted."""
+    whether or not autograd records.  Meta tensors (no card needed) take
+    the wrappers' meta routes: the forward's outputs carry the Function's
+    node as ``grad_fn``, and the backward reaches the backward kernel's
+    wrapper, whose meta route gives each input its gradient's shape; with
+    the forward launch stubbed, the same.  Under ``torch.no_grad`` nothing
+    is recorded.  No launch is counted."""
     before = (ssd_ops.launches.count, ssd_ops.bwd_launches.count)
     ts = _ssd_small_inputs(True, device="meta")
-    with pytest.raises(ValueError, match="ssd_intra_chunk: the kernel takes CUDA tensors"):
-        ssd_ops.ssd_intra_chunk(*ts)
+    y, state = ssd_ops.ssd_intra_chunk(*ts)
+    assert type(y.grad_fn).__name__ == "SsdIntraChunkFnBackward" and y.device.type == "meta"
+    grads = torch.autograd.grad(y.sum() + state.sum(), ts)
+    assert [(g.device.type, g.shape) for g in grads] == [("meta", t.shape) for t in ts]
     calls = []
 
     def stub(x, dt, cum, B, C):
@@ -734,8 +736,8 @@ def test_ssd_card_route_records_the_autograd_function(monkeypatch):
     y, state = ssd_ops.ssd_intra_chunk(*ts)
     assert type(y.grad_fn).__name__ == "SsdIntraChunkFnBackward"
     assert type(state.grad_fn) is type(y.grad_fn)
-    with pytest.raises(ValueError, match="ssd_intra_chunk_bwd: the kernel takes CUDA tensors"):
-        torch.autograd.grad(y.sum() + state.sum(), ts)
+    grads = torch.autograd.grad(y.sum() + state.sum(), ts)
+    assert [(g.device.type, g.shape) for g in grads] == [("meta", t.shape) for t in ts]
     with torch.no_grad():
         y, state = ssd_ops.ssd_intra_chunk(*ts)
     assert y.grad_fn is None and state.grad_fn is None
