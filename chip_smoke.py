@@ -37,6 +37,10 @@ Phases (any failure raises and the script exits non-zero):
               ((1, 4096 / 2048, 16, 256), 1 KV head, window 2048), decode
               on its wrapped (8, 2048, 1, 256) ring (also against the
               model's own rule on the CPU), rmsnorm at widths 256 and 768;
+              decode's partial route (a sequence-sharded cache's slice) on
+              2 and 4 slices of (4, 2304, 32, 128) bf16 against its plain
+              version (lse within 2e-5), combined against the whole-cache
+              kernel, empty slices weight 0, run to run identical, timed;
               the F2 digests (``[f2]``: ``tools/ssd_grad_determinism.py``,
               5 iterations); then one codelet per kernel on a device
               worker;
@@ -157,7 +161,8 @@ Phases (any failure raises and the script exits non-zero):
               spread); save, commit and restore times.  The checkpoint
               directory (``_smoke_ckpt/``) is removed at the end;
 14. comm    — communication in the task graph, payloads of mamba2-130m's
-              parameter count in float32 (0.52 GB a rank), every result
+              parameter count at 12 of its 24 layers in float32 (0.34 GB a
+              rank; ``COMM_LAYERS``), every result
               bit for bit and on the card: (a) four ranks on one
               ``ChannelHub`` (eager runtimes with a ``cuda`` worker, groups
               on the card): ring all-reduce sum and mean with and without
@@ -214,13 +219,24 @@ Phases (any failure raises and the script exits non-zero):
               steps: each rank's step ms, peak, state bytes, and exact
               flash / rmsnorm launch counts (off-mesh's per layer, every
               flash call at the 16 local heads).  The kernel phase holds
-              the flash forward and backward at that (1, 2048, 16, 128);
-19. dryrun  — ``launch/dryrun.py``'s model (on ``meta``, on the CPU) of
+              the flash forward and backward at that (1, 2048, 16, 128).
+              The same ranks then run ``[tp-serve]``'s serving runs;
+19. tp-serve — dense serving on that mesh: deepseek-7b at full width cut
+              to 4 layers, 4 prompts (2048 / 777 / 100 / 321 tokens)
+              prefilled and primed into 2304 rows, 16 greedy
+              ``build_serve_step`` steps; fp32 under ``kv_shard="seq"`` and
+              ``"heads"`` (tokens equal one process's on the card, logits
+              within 1e-5 of the row's largest), bf16 ``"seq"`` timed (ms a
+              decode step, busy share, each rank's peak, the tokens'
+              agreement with one process's) and each collective of a step
+              timed alone; exact launch counts (decode's partial route:
+              layers x steps);
+20. dryrun  — ``launch/dryrun.py``'s model (on ``meta``, on the CPU) of
               cells measured above: ``[train]``'s deepseek-7b, the two new
-              configs' train cells, ``[tp]``'s bf16 cell at (data 1, model
-              2): its argument bytes must equal the card's state, step and
-              input bytes (each ``[tp]`` rank's); its peak, FLOPs and the
-              terms live at the peak are logged beside the card's
+              configs' train cells, ``[tp]``'s bf16 cell and ``[tp-serve]``'s
+              bf16 decode step at (data 1, model 2): its argument bytes must
+              equal the card's (each rank's); its peak, FLOPs and the terms
+              live at the peak are logged beside the card's
               ``max_memory_allocated`` (less what was allocated before the
               run) and step time.
 
@@ -760,6 +776,83 @@ def _decode_times(gen, dev, H, D, pos_l, B=N_SLOTS, S=MAX_SEQ, KH=None) -> dict:
                 key=(B, S, H, KH, D, D))
 
 
+TPS_SLICES = (2, 4)  # the partial route's slice counts (the [tp-serve] cache is split in 2)
+LSE_ATOL = 2e-5  # the partial route's log-sum-exp against the plain one's (float32, natural log)
+
+
+def _decode_partial(dev, gen, main_pos) -> dict:
+    """The partial route (a sequence-sharded cache's slice) at (4, 2304,
+    32, 128) bf16, the cache split into 2 and 4 slices at the path's
+    positions and at positions that leave slices empty: each slice against
+    the plain version (output within the bf16 tolerance, lse within
+    ``LSE_ATOL``), run to run identical, an empty slice's lse -inf and
+    output 0 (weight 0 in the combine); the slices combined
+    (``combine_partials``) within the bf16 tolerance of the whole-cache
+    kernel's output.  Then the time of the 2-slice split's slices (the
+    [tp-serve] ranks' calls) beside the bound of the bytes of each slice's
+    valid rows."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    B, S, H, D, dtype = N_SLOTS, MAX_SEQ, 32, 128, torch.bfloat16
+    q = _randn(gen, (B, 1, H, D), dtype, dev)
+    k, v = (_randn(gen, (B, S, H, D), dtype, dev) for _ in range(2))
+    err = 0.0
+    for pos_l in (main_pos, [S - 1, 100, S // 4 - 1, S // 2]):
+        pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+        whole = ops.decode_attention(q, k, v, pos)
+        for n in TPS_SLICES:
+            Sl, outs, lses = S // n, [], []
+            for i in range(n):
+                ks, vs = k[:, i * Sl:(i + 1) * Sl], v[:, i * Sl:(i + 1) * Sl]
+                out, lse = ops.decode_attention(q, ks, vs, pos, i * Sl, partial=True)
+                again = ops.decode_attention(q, ks, vs, pos, i * Sl, partial=True)
+                assert torch.equal(again[0], out) and torch.equal(again[1], lse), \
+                    f"decode partial slice {i} of {n}: not deterministic"
+                ref_out, ref_lse = decode_attention_ref(q, ks, vs, pos, i * Sl, partial=True)
+                empty = pos < i * Sl  # the slice holds no valid slot of these sequences
+                assert torch.equal(torch.isinf(lse), empty[:, None].expand(B, H)), f"slice {i} of {n}: lse -inf"
+                assert not out[empty].any(), f"slice {i} of {n}: an empty slice's output is not 0"
+                live = ~empty
+                if live.any():
+                    err = max(err, _compare(f"decode partial slice {i} of {n} at {pos_l}", out[live], ref_out[live],
+                                            dtype))
+                    lse_err = float((lse[live] - ref_lse[live]).abs().max())
+                    assert lse_err <= LSE_ATOL, f"slice {i} of {n}: lse {lse_err:.2e} from the plain one's"
+                    log(f"[kernels] decode partial slice {i} of {n} at {pos_l}: lse within {lse_err:.2e} of the "
+                        f"plain one's (limit {LSE_ATOL}); run to run identical; empty for {int(empty.sum())} of {B}")
+                outs.append(out)
+                lses.append(lse)
+            combined = ops.combine_partials(torch.stack(outs), torch.stack(lses)).to(dtype)
+            _compare(f"decode partial, {n} slices combined at {pos_l}, against the whole-cache kernel", combined,
+                     whole, dtype)
+    # times: the 2-slice split at the path's positions, each slice as its rank calls it
+    pos = torch.tensor(main_pos, dtype=torch.int32, device=dev)
+    Sl = S // 2
+    sets = [[(_randn(gen, (B, 1, H, D), dtype, dev), _randn(gen, (B, Sl, H, D), dtype, dev),
+              _randn(gen, (B, Sl, H, D), dtype, dev), pos) for _ in range(2)] for _ in range(2)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    slices = []
+    for i in range(2):
+        ms = time_ms(lambda q, k, v, p, i=i: ops.decode_attention(q, k, v, p, i * Sl, partial=True), sets[i])
+        plain = time_ms(lambda q, k, v, p, i=i: decode_attention_ref(q, k, v, p, i * Sl, partial=True), sets[i])
+        valid = (torch.arange(Sl, device=dev)[None, :] < (pos + 1 - i * Sl)[:, None])[:, None, None, :]
+        lib_sets = [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), p) for q, k, v, p in sets[i]]
+        lib = time_ms(lambda q, k, v, p: sdpa(q, k, v, attn_mask=valid), lib_sets)
+        n_valid = sum(max(0, min(p + 1 - i * Sl, Sl)) for p in main_pos)
+        bytes_moved = B * H * D * 2 + 2 * n_valid * H * D * 2 + B * H * (D + 1) * 4 + B * 4
+        bound, by = _bound(bytes_moved, 4 * n_valid * H * D, dtype)
+        log(f"[kernels] decode partial slice {i} of 2 (cache ({B}, {Sl}, {H}, {D}) from slot {i * Sl}, {n_valid} "
+            f"valid rows) at pos {main_pos}: kernel {ms:.4f} ms, masked SDPA (output only) {lib:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {bound:.5f} ms ({by}, {bound / ms:.1%} of it)")
+        slices.append(dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by, n_valid=n_valid))
+    first = slices[0]
+    return dict(first, max_abs_err=err, slices=slices,
+                shape=f"partial route: q ({B}, 1, {H}, {D}), cache slice ({B}, {Sl}, {H}, {D}) from slot 0 of "
+                      f"{S} bf16, pos {main_pos}",
+                key=(B, Sl, H, H, D, D, "partial"))
+
+
 def check_decode(dev) -> dict:
     from repro_torch.kernels.decode_attention import ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -853,10 +946,12 @@ def check_decode(dev) -> dict:
     q110["max_abs_err"] = errs[(Q110_HEADS, NEW_KV_HEADS, 128)]
     l4 = _decode_times(gen, dev, L4_HEADS, 128, main_pos, KH=NEW_KV_HEADS)
     l4["max_abs_err"] = errs[(L4_HEADS, NEW_KV_HEADS, 128)]
+    partial = _decode_partial(dev, gen, main_pos)
     return dict(
         name="decode_attention", route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention/kernel.py:81", max_abs_err=err, **main,
         short=short, d256=d256, rgemma=ring, qwen=qwen, internvl=ivl, qwen110b=q110, llama4=l4,
+        tpserve_partial=partial,
     )
 
 
@@ -1355,7 +1450,8 @@ def _frontend_shape_launches(records: list, paths: dict) -> None:
         for sub, t in _sub_shapes(r).items():
             family = sub.split("_")[0]
             if family in paths:
-                t["launches"] = sum(p["launches_by_shape"][r["name"]].get(t["key"], 0) for p in paths[family])
+                t["launches"] = sum(p["launches_by_shape"].get(r["name"], {}).get(t["key"], 0)
+                                    for p in paths[family])
                 assert t["launches"] > 0, f"{r['name']} at {t['shape']}: no launch at that shape on {family}'s paths"
 
 
@@ -3206,12 +3302,16 @@ COMM_LAUNCH = ["--arch", "mamba2-130m", "--steps", "3", "--batch", "8", "--seq",
                "--microbatches", "2", "--log-every", "1"]
 
 
+COMM_LAYERS = 12  # of mamba2-130m's 24: the payload's depth (the script's time limit)
+
+
 def _comm_n() -> int:
-    """The payload: mamba2-130m's parameter count, the gradient a
-    data-parallel rank of that model reduces."""
+    """The payload: the parameter count of mamba2-130m cut to
+    ``COMM_LAYERS`` layers, the gradient a data-parallel rank of that model
+    reduces."""
     from repro_torch.configs import get_config
 
-    return get_config("mamba2-130m").param_count()
+    return get_config("mamba2-130m").replace(n_layers=COMM_LAYERS).param_count()
 
 
 def _busbw(size: int, nbytes: int, wall_s: float) -> float:
@@ -3530,13 +3630,15 @@ def _comm_launcher(dev) -> dict:
 
 
 def comm_phase(dev) -> dict:
-    """14. Communication in the task graph at mamba2-130m's gradient size: (a) in-process, (b) across processes, (c) rank death,
-    (d) the launcher."""
+    """14. Communication in the task graph at the gradient size of
+    mamba2-130m cut to ``COMM_LAYERS`` layers: (a) in-process, (b) across
+    processes, (c) rank death, (d) the launcher."""
     gc.collect()
     torch.cuda.empty_cache()
     n = _comm_n()
     t0 = time.perf_counter()
-    log(f"[comm] payload: mamba2-130m's {n} parameters as float32, {n * 4} bytes a rank")
+    log(f"[comm] payload: the {n} parameters of mamba2-130m at {COMM_LAYERS} layers as float32, {n * 4} bytes "
+        f"a rank")
     out, parts = {"n": n}, {}
     for key, part in (("in_process", lambda: _comm_in_process(dev, n)),
                       ("processes", lambda: _comm_processes(n)),
@@ -3995,6 +4097,9 @@ def _tp_rank(ref_dir: str, device: str = "cuda") -> dict:
                     r["digests"][f"opt {path}/{k}"] = _digest(v)
         out[dtype] = r
         del state, art, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["serve"] = _tps_rank(device)  # [tp-serve]'s runs, in the same process group
     return out
 
 
@@ -4002,7 +4107,9 @@ def tp_phase(dev) -> dict:
     """18. The ``model`` mesh axis on one card: the off-mesh fp32 run here
     (its parameters to ``TP_DIR``), then two gloo rank processes on a (1, 2)
     data × model mesh sharing the card (``_tp_rank``): fp32 against it, bf16
-    timed and counted.  One process group."""
+    timed and counted.  One process group, which then runs ``[tp-serve]``'s
+    serving runs (``_tps_rank``; checked by ``tp_serve_phase``): a group
+    takes ~20 s to start."""
     from repro_torch.launch import mesh as launch_mesh
 
     t_all = time.perf_counter()
@@ -4026,6 +4133,7 @@ def tp_phase(dev) -> dict:
         spawn_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(TP_DIR, ignore_errors=True)
+    serve_ranks = [r.pop("serve") for r in ranks]
     # fp32: each rank against the one process
     f32 = [r["float32"] for r in ranks]
     for r in f32:
@@ -4082,6 +4190,7 @@ def tp_phase(dev) -> dict:
     seconds = time.perf_counter() - t_all
     log(f"[tp] {seconds:.1f} s, the rank processes {spawn_s:.1f} s with start-up")
     return dict(launches=launches, seconds=seconds, fp32_worst=worst[worst_name], fp32_offset=err[worst_offset],
+                serve_ranks=serve_ranks,
                 step_ms=[r["step_ms"] for r in b16], peak=[r["peak"] for r in b16],
                 base=[r["base"] for r in b16], bytes=[r["bytes"] for r in b16],
                 arg_bytes=[r["arg_bytes"] for r in b16],
@@ -4092,37 +4201,285 @@ def tp_phase(dev) -> dict:
                                    for k in ("flash_attention", "flash_attention_bwd")})
 
 
+# ---------------------------------------------------------------------------
+# 19. the model axis: dense serving, two gloo processes on one card
+# ---------------------------------------------------------------------------
+
+TPS_PROMPTS = (2048, 777, 100, 321)  # [serve]'s ragged prompts and its sampled one
+TPS_MAX_SEQ = MAX_SEQ
+TPS_STEPS = 16
+TPS_LAYERS = 4
+TPS_RUNS = (("float32", "seq"), ("float32", "heads"), ("bfloat16", "seq"))
+TPS_PROFILED = 2  # decode steps under the profiler (bf16)
+TPS_LOGIT_RTOL = 1e-5  # fp32 logits against one process's, of the row's largest magnitude
+
+
+def _tps_cfg(dtype: str, kv_shard: str = "seq"):
+    from repro_torch.configs import get_config
+
+    return get_config("deepseek-7b").replace(n_layers=TPS_LAYERS, dtype=dtype, kv_shard=kv_shard)
+
+
+def _tps_shape():
+    from repro_torch.models import ShapeSpec
+
+    return ShapeSpec("tp-serve", "decode", TPS_MAX_SEQ, len(TPS_PROMPTS))
+
+
+def _nbytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _tps_run(cfg, dev, profile: bool = False) -> dict:
+    """Greedy serving of ``cfg`` from the weights seeded with 0
+    (tensor-parallel under the active mesh, one process off it): the
+    ``TPS_PROMPTS`` prompts (seeded) prefilled one by one
+    (``build_prefill_fn``), primed (``prime_cache``) into a pool of 4 slots
+    of ``TPS_MAX_SEQ`` rows (``init_cache``), then ``TPS_STEPS`` greedy
+    ``build_serve_step`` steps at each slot's position.  Launch counts are
+    0 just before and read just after that main path; then one more decode
+    step gives the whole logits, one step's memory is read, and with
+    ``profile`` ``TPS_PROFILED`` steps run under the profiler."""
+    from repro_torch.models import decode_step, gather_logits, init_cache, init_params
+    from repro_torch.runtime.serve import build_prefill_fn, build_serve_step, prime_cache
+
+    ops = _kernel_ops()
+    model = init_params(cfg, 0, device=dev)
+    gen = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(0, cfg.vocab, (1, L), generator=gen, dtype=torch.int32).to(dev) for L in TPS_PROMPTS]
+    prefill_fn = build_prefill_fn(cfg)
+    step = build_serve_step(cfg, _tps_shape())
+    caches = init_cache(cfg, len(prompts), TPS_MAX_SEQ, device=dev)
+    pos = torch.tensor(TPS_PROMPTS, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for c in ops.values():
+        c.reset()
+    # ---- the main path: counts from 0 just before, read just after ----
+    t0 = time.perf_counter()
+    first = []
+    for b, prompt in enumerate(prompts):
+        tok, pc = prefill_fn(model, {"tokens": prompt})
+        primed = prime_cache(cfg, pc, prompt.shape[1], TPS_MAX_SEQ)
+        for name in caches:
+            caches[name][:, b:b + 1] = primed[name]
+        first.append(tok)
+        del pc, primed
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    tok, toks, step_ms = torch.cat(first), [], []
+    toks.append(tok)
+    for i in range(TPS_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, caches = step(model, tok, caches, pos + i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        toks.append(tok)
+    launches = {k: c.count for k, c in ops.items()}
+    by_shape = {k: dict(c.by_shape) for k, c in ops.items() if c.count}
+    # -------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    arg_bytes = _nbytes(model.parameters()) + _nbytes([tok, pos]) + _nbytes(caches.values())
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    lg, _ = decode_step(model, tok, caches, pos + TPS_STEPS, cfg)
+    logits = gather_logits(model, lg)[:, 0].float().cpu().numpy()
+    step_temp = torch.cuda.max_memory_allocated() - before
+    out = dict(tokens=torch.cat(toks, dim=1).cpu().numpy(), step_ms=step_ms, prefill_ms=prefill_ms,
+               launches=launches, by_shape=by_shape, peak=peak, base=base, arg_bytes=arg_bytes,
+               step_temp=step_temp, logits=logits, cache_shapes={k: tuple(v.shape) for k, v in caches.items()})
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for j in range(TPS_PROFILED):
+                step(model, tok, caches, pos + TPS_STEPS + 1 + j)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / TPS_PROFILED
+        out["profile"] = _device_rows(prof, wall, TPS_PROFILED)
+    return out
+
+
+TPS_COLL_ITERS = 50  # calls timed of each of a decode step's collectives
+
+
+def _tps_collective_ms(dev) -> dict:
+    """Host ms of one call of each collective a bf16 decode step makes on
+    the ``model`` group (the shapes of deepseek-7b's step at 4 slots): the
+    q / k / v all-gather, the (out, lse) all-gather, an activation sum and
+    the greedy argmax's all-gather; median of ``TPS_COLL_ITERS``."""
+    from repro_torch.dist.collectives import model_all_gather, model_sum_
+    from repro_torch.dist.sharding import current_mesh
+
+    group = current_mesh().get_group("model")
+    B, H, Dh, D = len(TPS_PROMPTS), 32, 128, 4096
+    calls = {"qkv all-gather": lambda: model_all_gather(torch.zeros(B, 1, 3 * H // 2, Dh, dtype=torch.bfloat16,
+                                                                    device=dev), group),
+             "(out, lse) all-gather": lambda: model_all_gather(torch.zeros(B, H, Dh + 1, device=dev), group),
+             "activation sum": lambda: model_sum_(torch.zeros(B, 1, D, dtype=torch.bfloat16, device=dev), group),
+             "argmax all-gather": lambda: model_all_gather(torch.zeros(B, 1, 2, dtype=torch.float64, device=dev),
+                                                           group)}
+    out = {}
+    for name, fn in calls.items():
+        ms = []
+        for _ in range(TPS_COLL_ITERS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[name] = float(np.median(ms))
+    return out
+
+
+def _tps_rank(device: str = "cuda") -> dict:
+    """One rank of the (1, 2) data × model mesh, every tensor on the card
+    (run by ``[tp]``'s ranks, ``_tp_rank``): the ``TPS_RUNS`` serving runs
+    (``_tps_run``; the bf16 one profiled), then the decode step's
+    collectives timed alone."""
+    import torch.distributed as dist
+
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    out = {"rank": dist.get_rank()}
+    for dtype, kv_shard in TPS_RUNS:
+        r = _tps_run(_tps_cfg(dtype, kv_shard), dev, profile=dtype == "bfloat16")
+        out[f"{dtype}-{kv_shard}"] = r
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["collective_ms"] = _tps_collective_ms(dev)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def tp_serve_phase(dev, tp: dict) -> dict:
+    """19. Dense serving on the ``model`` mesh axis on one card: one
+    process's fp32 and bf16 runs here (``_tps_run``) against the two gloo
+    rank processes' on a (1, 2) data × model mesh sharing the card
+    (``_tps_rank``, run in ``[tp]``'s process group: ``tp["serve_ranks"]``):
+    fp32 under ``kv_shard="seq"`` (the sequence-sharded cache: decode's
+    partial route and the combine) and ``"heads"``, each rank's tokens
+    equal to one process's and its logits within ``TPS_LOGIT_RTOL`` of the
+    row's largest; bf16 ``"seq"`` timed (ms a decode step, its device-busy
+    share), each rank's peak, exact launch counts, and its tokens'
+    agreement with one process's logged."""
+    t_all = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one = {dtype: _tps_run(_tps_cfg(dtype), dev) for dtype in ("float32", "bfloat16")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = tp["serve_ranks"]
+    B, S = len(TPS_PROMPTS), TPS_MAX_SEQ
+    for dtype, kv_shard in TPS_RUNS:
+        run = f"{dtype}-{kv_shard}"
+        cfg = _tps_cfg(dtype, kv_shard)
+        want = _serve_launches(cfg, prefills=B, decode_steps=TPS_STEPS)
+        # seq: every head against the rank's rows (the partial route); heads: the rank's heads, whole rows
+        H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        dec_key = (B, S // 2, H, KH, Dh, Dh, "partial") if kv_shard == "seq" else (B, S, H // 2, KH // 2, Dh, Dh)
+        for r in ranks:
+            got = r[run]
+            assert got["launches"] == want, f"[tp-serve] {run} rank {r['rank']}: launches {got['launches']}, {want}"
+            assert got["by_shape"]["decode_attention"] == {dec_key: want["decode_attention"]}, \
+                (run, got["by_shape"]["decode_attention"])
+            assert np.isfinite(got["logits"]).all(), run
+            assert got["tokens"].min() >= 0 and got["tokens"].max() < cfg.vocab, run
+        if dtype == "float32":
+            base = one["float32"]
+            scale = np.abs(base["logits"]).max(axis=-1, keepdims=True)
+            for r in ranks:
+                got = r[run]
+                assert np.array_equal(got["tokens"], base["tokens"]), \
+                    f"[tp-serve] {run} rank {r['rank']}: tokens {got['tokens'].tolist()} != {base['tokens'].tolist()}"
+                rel = float((np.abs(got["logits"] - base["logits"]) / scale).max())
+                assert rel <= TPS_LOGIT_RTOL, f"[tp-serve] {run} rank {r['rank']}: logits {rel:.2e} of the row max"
+                got["logit_rel"] = rel
+            log(f"[tp-serve] fp32 kv_shard={kv_shard!r}, deepseek-7b full width, {TPS_LAYERS} layers, 2 gloo ranks "
+                f"on one card (data 1 x model 2), prompts {TPS_PROMPTS} into {S} rows, {TPS_STEPS} greedy steps: "
+                f"tokens equal one process's on both ranks; logits within "
+                f"{max(r[run]['logit_rel'] for r in ranks):.2e} of the row's largest (limit {TPS_LOGIT_RTOL}); "
+                f"cache parts {ranks[0][run]['cache_shapes']}; launches a rank {ranks[0][run]['launches']}, "
+                f"decode at {dec_key}")
+    b16 = [r["bfloat16-seq"] for r in ranks]
+    agree = [float((r["tokens"][:, 1:] == one["bfloat16"]["tokens"][:, 1:]).mean()) for r in b16]
+    for i, r in enumerate(b16):
+        prof = r["profile"]
+        log(f"[tp-serve] bf16 kv_shard='seq', rank {i}: decode ms a step {np.median(r['step_ms']):.2f} (median of "
+            f"{TPS_STEPS}; {[round(x, 2) for x in r['step_ms']]}), 4 prefills + primes {r['prefill_ms']:.1f} ms; "
+            f"under the profiler {prof['profiled_wall_ms']:.2f} ms a step, device {prof['device_ms']:.2f} ms, busy "
+            f"{prof['busy']:.1%} (this rank's kernels); peak {r['peak'] / 2**30:.2f} GiB ({r['base'] / 2**30:.2f} "
+            f"GiB allocated before), argument bytes {r['arg_bytes']}; launches {r['launches']}; tokens equal to "
+            f"one process's bf16 run: {agree[i]:.3f} of {B * TPS_STEPS}")
+        log("[tp-serve] bf16 device time by kind: " + ", ".join(f"{k} {ms:.3f} ms" for k, ms in prof["kinds"]))
+    log(f"[tp-serve] one process on the card: bf16 decode ms a step {np.median(one['bfloat16']['step_ms']):.2f}, "
+        f"fp32 {np.median(one['float32']['step_ms']):.2f}")
+    n_coll = {"qkv all-gather": TPS_LAYERS, "(out, lse) all-gather": TPS_LAYERS,
+              "activation sum": 2 * TPS_LAYERS + 1, "argmax all-gather": 1}  # a bf16 "seq" decode step's calls
+    for r in ranks:
+        c = r["collective_ms"]
+        log(f"[tp-serve] rank {r['rank']}: one gloo call on CUDA tensors, median of {TPS_COLL_ITERS}: "
+            + ", ".join(f"{k} {v:.3f} ms (x{n_coll[k]} a step)" for k, v in c.items())
+            + f"; {sum(c[k] * n for k, n in n_coll.items()):.2f} ms of collectives a decode step")
+    launches = {k: sum(r[f"{dt}-{ks}"]["launches"][k] for r in ranks for dt, ks in TPS_RUNS) for k in want}
+    by_shape: dict = {}
+    for r in ranks:
+        for dt, ks in TPS_RUNS:
+            for kern, shapes in r[f"{dt}-{ks}"]["by_shape"].items():
+                for key, n in shapes.items():
+                    by_shape.setdefault(kern, {})[key] = by_shape.setdefault(kern, {}).get(key, 0) + n
+    seconds = time.perf_counter() - t_all
+    log(f"[tp-serve] {seconds:.1f} s here; the ranks' runs {sum(r['seconds'] for r in ranks) / len(ranks):.1f} s "
+        f"a rank, inside [tp]'s")
+    return dict(launches=launches, launches_by_shape=by_shape, seconds=seconds, agree=agree,
+                collective_ms=[r["collective_ms"] for r in ranks],
+                step_ms=[r["step_ms"] for r in b16], busy=[r["profile"]["busy"] for r in b16],
+                peak=[r["peak"] for r in b16], base=[r["base"] for r in b16],
+                arg_bytes=[r["arg_bytes"] for r in b16], step_temp=[r["step_temp"] for r in b16])
+
+
 # [dryrun]: the train runs whose cells the dry run models on one device
 DRYRUN_ARCHS = ("deepseek-7b", "qwen1.5-110b", "llama4-scout-17b-a16e")
 
 
-def dryrun_phase(trains: dict, tp: dict) -> dict:
-    """19. The port's dry run (``launch/dryrun.py``: the step run on ``meta``
+def dryrun_phase(trains: dict, tp: dict, tp_serve: dict) -> dict:
+    """20. The port's dry run (``launch/dryrun.py``: the step run on ``meta``
     tensors, on the CPU) of cells this script measures: ``[train]``'s
     deepseek-7b (its 30 layers, (2, 2048) in 2 microbatches, Adafactor,
     remat "full", logits chunks of 1024) on one device, the two new
-    configs' ``[train-*]`` cells the same way, and ``[tp]``'s bf16 cell on a
-    (data 1, model 2) mesh.  Its argument bytes (state, step, inputs) must
-    equal the card's (each ``[tp]`` rank's); its peak is logged beside
-    ``max_memory_allocated`` less what was allocated besides one step
-    (earlier phases' leftovers, the other batches), with the terms live at
-    the predicted peak, and its FLOPs a step over the step's wall time."""
+    configs' ``[train-*]`` cells the same way, ``[tp]``'s bf16 cell on a
+    (data 1, model 2) mesh, and ``[tp-serve]``'s bf16 decode step there
+    (its per-slot positions).  Its argument bytes (state, step, inputs;
+    parameters, tokens, caches and positions) must equal the card's (each
+    rank's); its peak is logged beside ``max_memory_allocated`` less what
+    was allocated besides one step (earlier phases' leftovers, the other
+    batches; for the decode step, the arguments plus the step's own rise),
+    with the terms live at the predicted peak, and its FLOPs a step over
+    the step's wall time."""
     from repro_torch.dist.sharding import DryRunMesh
     from repro_torch.launch.dryrun import model_cell
     from repro_torch.models import ShapeSpec
 
     t0 = time.perf_counter()
     train_shape = ShapeSpec("smoke_train", "train", TRAIN_SEQ, TRAIN_BATCH)
-    cells = [(arch, trains[arch]["cfg"], train_shape, None, TRAIN_MB, [trains[arch]["arg_bytes"]],
+    cells = [(arch, trains[arch]["cfg"], train_shape, None, dict(n_microbatches=TRAIN_MB), [trains[arch]["arg_bytes"]],
               [trains[arch]["peak_bytes"] - trains[arch]["extra_bytes"]], trains[arch]["step_ms"])
              for arch in DRYRUN_ARCHS]
     cells.append(("tp", _tp_cfg("bfloat16"), ShapeSpec("tp", "train", TP_SEQ, TP_BATCH),
-                  DryRunMesh({"data": 1, "model": 2}), 2, tp["arg_bytes"],
+                  DryRunMesh({"data": 1, "model": 2}), dict(n_microbatches=2), tp["arg_bytes"],
                   [p - b for p, b in zip(tp["peak"], tp["base"])], float(np.median(tp["step_ms"][0][1:]))))
+    cells.append(("tp-serve", _tps_cfg("bfloat16"), _tps_shape(), DryRunMesh({"data": 1, "model": 2}),
+                  dict(pos_per_sequence=True), tp_serve["arg_bytes"],
+                  [a + t for a, t in zip(tp_serve["arg_bytes"], tp_serve["step_temp"])],
+                  float(np.median(tp_serve["step_ms"][0]))))
     out = {}
-    for name, cfg, shape, mesh, n_mb, measured_args, measured_peaks, step_ms in cells:
+    for name, cfg, shape, mesh, kw, measured_args, measured_peaks, step_ms in cells:
         t1 = time.perf_counter()
-        rec = model_cell(cfg, shape, mesh, n_microbatches=n_mb)
+        rec = model_cell(cfg, shape, mesh, **kw)
         m, c = rec["memory"], rec["collectives"]
         where = "one device" if mesh is None else f"mesh {mesh.shape}, rank 0"
         log(f"[dryrun] {name} ({cfg.n_layers} layers, {where}): argument bytes {m['argument_size_in_bytes']} "
@@ -4223,16 +4580,19 @@ def main() -> int:
     chaos = phase("chaos", chaos_phase, dev)
     mesh = phase("mesh", mesh_phase, dev)
     tp = phase("tp", tp_phase, dev)
-    dry = phase("dryrun", dryrun_phase, trains, tp)
+    tp_serve = phase("tp-serve", tp_serve_phase, dev, tp)
+    dry = phase("dryrun", dryrun_phase, trains, tp, tp_serve)
     # launches on every path: serving and train (every model), speculation, load, checkpoint, the launcher,
-    # the pipeline, the chaos soak's serve runs, the mesh's train steps and the tensor-parallel ranks' steps
+    # the pipeline, the chaos soak's serve runs, the mesh's train steps, the tensor-parallel ranks' steps and
+    # their serving runs
     runs = (serve, serve_m, serve_g, serve_c, serve_r, serve_q, serve_h, serve_v, serve_q110, serve_l4,
             *trains.values(), train_m2, remat,
-            spec, load, ckpt, comm, pipe, chaos, mesh, tp)
+            spec, load, ckpt, comm, pipe, chaos, mesh, tp, tp_serve)
     for r in records:
         r["launches"] = sum(run["launches"][r["name"]] for run in runs)
     _frontend_shape_launches(records, {"hubert": (serve_h, trains["hubert-xlarge"]),
-                                       "internvl": (serve_v, trains["internvl2-2b"]), "tp": (tp,),
+                                       "internvl": (serve_v, trains["internvl2-2b"]), "tp": (tp, tp_serve),
+                                       "tpserve": (tp_serve,),
                                        "qwen110b": (serve_q110, trains["qwen1.5-110b"]),
                                        "llama4": (serve_l4, trains["llama4-scout-17b-a16e"])})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -4262,7 +4622,9 @@ def main() -> int:
         f"{pipe['bf16']['1f1b']['wall_ms']:.1f} / {pipe['bf16']['fifo']['wall_ms']:.1f} ms (bubble "
         f"{pipe['bf16']['1f1b']['bubble']:.3f} / {pipe['bf16']['fifo']['bubble']:.3f}), chaos {chaos['seconds']:.1f} s, "
         f"mesh {mesh['seconds']:.1f} s, tp (2 ranks, model 2) bf16 step ms {tp['step_ms']} (fp32 worst weight "
-        f"{tp['fp32_worst']:.2e} of its max), hubert-xlarge encoder {serve_h['wall_ms']:.1f} ms a 2 x 4096 call "
+        f"{tp['fp32_worst']:.2e} of its max), tp-serve bf16 decode ms a step "
+        f"{[round(float(np.median(m)), 2) for m in tp_serve['step_ms']]} (busy "
+        f"{[round(b, 3) for b in tp_serve['busy']]}, tokens agreeing with one process {tp_serve['agree']}), hubert-xlarge encoder {serve_h['wall_ms']:.1f} ms a 2 x 4096 call "
         f"({serve_h['frames_per_s']:.1f} frames/s, peak {serve_h['peak_bytes'] / 2**30:.2f} GiB, fp32 "
         f"{serve_h['fp32_err']:.2e}), internvl2-2b prefill {serve_v['prefill_ms']:.1f} ms and decode "
         f"{serve_v['decode_ms']:.2f} ms a step (peak {serve_v['peak_bytes'] / 2**30:.2f} GiB, fp32 "

@@ -34,7 +34,9 @@ port's copy of ``repro.dist.collectives``, on torch tensors.
   enters a sharded region) and :func:`reduce_from_model` (a sum over
   ``model`` forward, the identity backward: where the region's partial
   results leave it); :func:`model_max_` and :func:`model_sum_` reduce in
-  place, untracked (a softmax's row max, a norm's squares).
+  place, untracked (a softmax's row max, a norm's squares), and
+  :func:`model_all_gather` stacks every rank's tensor (serving: a new
+  token's heads, the decode slices' partial results, the greedy argmax).
   ``torch.distributed.nn.functional.all_reduce`` is not used: its backward
   sums again, which is wrong for :func:`reduce_from_model`.  GSPMD puts the
   same collectives into ``repro``'s programs.
@@ -464,6 +466,16 @@ def model_max_(x: torch.Tensor, group) -> torch.Tensor:
     return x
 
 
+def model_all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` over ``group``, stacked on a new leading axis in
+    the group's rank order (untracked): (m, *x.shape)."""
+    dist = comm_backend(group)
+    n = dist.get_world_size(group)
+    out = x.new_empty(n * x.numel())
+    dist.all_gather_into_tensor(out, x.contiguous().reshape(-1), group=group)
+    return out.reshape((n,) + tuple(x.shape))
+
+
 class _CopyToModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -544,12 +556,7 @@ def all_gather(
         return ring_all_gather(graph, group, x, tag=tag)
     if axis is None:
         raise ValueError("all_gather needs graph= and group=, or axis=<mesh axis name>")
-    g = _axis_group(axis)
-    dist = comm_backend(g)
-    n = dist.get_world_size(g)
-    out = x.new_empty(n * x.numel())
-    dist.all_gather_into_tensor(out, x.contiguous().reshape(-1), group=g)
-    return out.reshape((n,) + tuple(x.shape))
+    return model_all_gather(x, _axis_group(axis))
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,13 @@
 //           no flag here (only the writer folds pos % S).
 // Layout:   the cache stays in the model's (B, S, KH, D) layout and is read
 //           through strides: no transpose per decode step.
+// Partial route (a cache slice, for a sequence-sharded cache): the S slots
+//           given are global slots [slot_offset, slot_offset + S), valid
+//           where slot_offset + s < pos[b] + 1.  Given an lse buffer, the
+//           kernel writes out in f32, normalised within the slice, and
+//           lse = M + log L, the log-sum-exp of the slice's scaled scores
+//           (-inf and zeros where the slice holds no valid slot), so the
+//           slices combine exactly as the chunks of one call do.
 //
 // Bound: device-memory bytes (each valid K/V row is read once for ~4·G·D
 // flops, about one flop per byte at G = 1), so the kernel stays on the SIMT
@@ -118,14 +125,29 @@ struct DecodeParams {
   const void* k;
   const void* v;
   const int* pos;
-  void* o;
+  void* o;        // T, or float on the partial route
+  float* lse;     // (B, H) contiguous: the partial route; null otherwise
   float* ws_acc;  // (B, KH, n_chunks, G, DM)
   float* ws_ml;   // (B, KH, n_chunks, G, 2): chunk max, chunk sum
   int* tickets;   // (B, KH), 0 between calls
-  int B, H, KH, S, Dh, Dv, n_chunks;
+  int B, H, KH, S, Dh, Dv, n_chunks, slot_offset;
   long long q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh;
   float scale;
 };
+
+// output element i (an offset in elements): f32 on the partial route
+template <typename T>
+__device__ __forceinline__ void store_out(const DecodeParams& p, long long i, float x) {
+  if (p.lse != nullptr)
+    static_cast<float*>(p.o)[i] = x;
+  else
+    static_cast<T*>(p.o)[i] = rt::from_f32<T>(x);
+}
+
+// the slice's valid slots of sequence b (may be <= 0)
+__device__ __forceinline__ int valid_slots(const DecodeParams& p, int b) {
+  return min(p.pos[b] + 1 - p.slot_offset, p.S);
+}
 
 template <typename T, int DM>
 constexpr size_t smem_bytes(int G, int n_chunks, int B) {
@@ -157,7 +179,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(const DecodeParams p) {
   // item i; the blocks past the list (chunks past some pos[b]) come last
   // and exit at once.
   for (int b = tid; b < p.B; b += NT) {
-    const int n_valid = min(p.pos[b] + 1, p.S);
+    const int n_valid = valid_slots(p, b);
     first[b + 1] = max((n_valid + CS - 1) / CS, 1) * p.KH;
   }
   __syncthreads();
@@ -172,11 +194,13 @@ __global__ void __launch_bounds__(NT) decode_kernel(const DecodeParams p) {
   int b = 0;
   while (first[b + 1] <= item) ++b;
   const int c = (item - first[b]) / p.KH, kh = item - first[b] - c * p.KH;
-  const int n_valid = min(p.pos[b] + 1, p.S);
+  const int n_valid = valid_slots(p, b);
   const int nc = n_valid > 0 ? (n_valid + CS - 1) / CS : 0;
-  T* ob = static_cast<T*>(p.o) + b * p.o_sb + kh * G * p.o_sh;
-  if (nc == 0) {  // nothing valid (pos < 0): zeros
-    for (int i = tid; i < G * p.Dv; i += NT) ob[(i / p.Dv) * p.o_sh + i % p.Dv] = rt::from_f32<T>(0.f);
+  const long long ob = b * p.o_sb + kh * G * p.o_sh;  // the group's first output element
+  float* lse = p.lse != nullptr ? p.lse + static_cast<long long>(b) * p.H + kh * G : nullptr;
+  if (nc == 0) {  // nothing valid (pos < 0, or a slice past pos): zeros, lse -inf
+    for (int i = tid; i < G * p.Dv; i += NT) store_out<T>(p, ob + (i / p.Dv) * p.o_sh + i % p.Dv, 0.f);
+    if (lse != nullptr && tid < G) lse[tid] = -__int_as_float(0x7f800000);
     return;
   }
   const int s0 = c * CS, ns = min(CS, n_valid - s0);
@@ -260,13 +284,16 @@ __global__ void __launch_bounds__(NT) decode_kernel(const DecodeParams p) {
 #pragma unroll
       for (int r = 0; r < RG; ++r) s += red[r * DM + d];
       if (nc == 1)
-        ob[g * p.o_sh + d] = rt::from_f32<T>(s / fmaxf(ml[2 * g + 1], 1e-30f));
+        store_out<T>(p, ob + g * p.o_sh + d, s / fmaxf(ml[2 * g + 1], 1e-30f));
       else
         p.ws_acc[(row * G + g) * DM + d] = s;
     }
     __syncthreads();
   }
-  if (nc == 1) return;
+  if (nc == 1) {
+    if (lse != nullptr && tid < G) lse[tid] = ml[2 * tid] + logf(ml[2 * tid + 1]);
+    return;
+  }
   for (int i = tid; i < 2 * G; i += NT) p.ws_ml[row * G * 2 + i] = ml[i];
 
   // the last chunk of (b, kh) to finish combines them all, in chunk order;
@@ -294,7 +321,10 @@ __global__ void __launch_bounds__(NT) decode_kernel(const DecodeParams p) {
         L += __ldcg(mlk + 1) * w;
       }
       L = rt::warp_sum(L);
-      if (lane == 0) ml[2 * g + 1] = L;
+      if (lane == 0) {
+        ml[2 * g] = M;
+        ml[2 * g + 1] = L;
+      }
     }
     __syncthreads();
     float a[NU][8] = {};
@@ -316,8 +346,9 @@ __global__ void __launch_bounds__(NT) decode_kernel(const DecodeParams p) {
       float s = 0.f;
 #pragma unroll
       for (int r = 0; r < RG; ++r) s += red[r * DM + d];
-      ob[g * p.o_sh + d] = rt::from_f32<T>(s / fmaxf(ml[2 * g + 1], 1e-30f));
+      store_out<T>(p, ob + g * p.o_sh + d, s / fmaxf(ml[2 * g + 1], 1e-30f));
     }
+    if (lse != nullptr && tid == 0) lse[g] = ml[2 * g] + logf(ml[2 * g + 1]);
     __syncthreads();
   }
   if (tid == 0) *ticket = 0;  // ready for the next call on this stream
@@ -366,15 +397,18 @@ extern "C" int decode_attention_chunk() { return CS; }
 extern "C" int decode_attention_padded_dim(int Dh, int Dv) { return padded_dim(Dh, Dv); }
 
 // q strides are (batch, head), cache strides (batch, slot, head), out strides
-// (batch, head), all in elements with a contiguous last dim.  The workspace
+// (batch, head), all in elements with a contiguous last dim.  With lse (a
+// contiguous (B, H) f32 buffer) the call takes the partial route: o is f32,
+// and the cache's S slots are the global slots from slot_offset (header).  The workspace
 // holds B*KH*n_chunks*G*(DM + 2) floats, DM = decode_attention_padded_dim(Dh,
 // Dv); tickets holds B*KH ints that are 0
 // before the call and are 0 again after it, so one buffer serves every call
 // on one stream.  n_chunks = ceil(S / decode_attention_chunk()).  Head dims
 // up to 256.
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v, const int* pos,
-                                    void* o, float* ws, int* tickets, int B, int H, int KH, int S,
-                                    int Dh, int Dv, int n_chunks, const long long* q_strides,
+                                    void* o, float* lse, float* ws, int* tickets, int B, int H,
+                                    int KH, int S, int Dh, int Dv, int n_chunks, int slot_offset,
+                                    const long long* q_strides,
                                     const long long* k_strides, const long long* v_strides,
                                     const long long* o_strides, float scale, int dtype,
                                     void* stream) {
@@ -387,6 +421,7 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
   p.v = v;
   p.pos = pos;
   p.o = o;
+  p.lse = lse;
   const long long n_rows = static_cast<long long>(B) * KH * n_chunks * (H / KH);
   p.ws_acc = ws;
   p.ws_ml = ws + n_rows * padded_dim(Dh, Dv);
@@ -398,6 +433,7 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
   p.Dh = Dh;
   p.Dv = Dv;
   p.n_chunks = n_chunks;
+  p.slot_offset = slot_offset;
   p.q_sb = q_strides[0];
   p.q_sh = q_strides[1];
   p.k_sb = k_strides[0];

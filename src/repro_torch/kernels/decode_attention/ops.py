@@ -14,6 +14,15 @@ It reads the cache in the model's (B, S, KH, D) layout through strides.  A
 CPU tensor takes the plain version in ``ref.py``; a CUDA tensor launches the
 kernel or raises; ``meta`` tensors take the meta route (``dispatch``): the
 output alone, and :func:`flops` over every slot.
+
+The partial route (``partial=True``) serves a sequence-sharded cache: the
+cache given is a slice of the global one whose slot 0 is global slot
+``slot_offset``, and the call returns the slice's output in float32,
+normalised within the slice, and its log-sum-exp (B, H) (``-inf`` where the
+slice holds no valid slot, whose output is then 0), so a caller combines
+the slices as the kernel combines its chunks (:func:`combine_partials`).
+The same kernel and launch: its last chunk writes lse = M + log L of the
+(M, L) it forms anyway, and skips the cast.
 """
 from __future__ import annotations
 
@@ -38,26 +47,27 @@ CHUNK = 64
 _tickets: dict[tuple[int, int], torch.Tensor] = {}
 
 
-def chunk_plan(pos, S: int) -> list[list[tuple[int, int]]]:
+def chunk_plan(pos, S: int, slot_offset: int = 0) -> list[list[tuple[int, int]]]:
     """The slot ranges ``[start, end)`` the kernel's blocks take for each
-    sequence, as it indexes them: 64-slot chunks from slot 0 up to
-    ``min(pos[b] + 1, S)``.  A function of ``pos[b]`` and ``S`` alone, so a
-    sequence's split (and so its output) does not depend on the batch."""
+    sequence, as it indexes them (slots of the cache given): 64-slot chunks
+    from slot 0 up to ``min(pos[b] + 1 - slot_offset, S)``.  A function of
+    ``pos[b]``, ``S`` and the slice's offset alone, so a sequence's split
+    (and so its output) does not depend on the batch."""
     plan = []
     for p in pos:
-        n_valid = min(int(p) + 1, S)
+        n_valid = min(int(p) + 1 - slot_offset, S)
         plan.append([(s0, min(s0 + CHUNK, n_valid)) for s0 in range(0, max(n_valid, 0), CHUNK)])
     return plan
 
 
-def work_list(pos, S: int, KH: int) -> list[tuple[int, int, int]]:
+def work_list(pos, S: int, KH: int, slot_offset: int = 0) -> list[tuple[int, int, int]]:
     """The (sequence, chunk, KV head) items of the kernel's work list, in
     its order (block i takes item i): sequence by sequence, chunk-major, KV
-    head fastest.  A sequence with no valid slot (pos < 0) has one item per
-    KV head, which writes zeros."""
+    head fastest.  A sequence with no valid slot (pos < 0, or a slice past
+    pos) has one item per KV head, which writes zeros (and lse -inf)."""
     return [
         (b, c, kh)
-        for b, chunks in enumerate(chunk_plan(pos, S))
+        for b, chunks in enumerate(chunk_plan(pos, S, slot_offset))
         for c in range(max(len(chunks), 1))
         for kh in range(KH)
     ]
@@ -81,15 +91,37 @@ def flops(B: int, n_valid: int, H: int, Dh: int, Dv: int) -> int:
     return 2 * B * n_valid * H * (Dh + Dv)
 
 
+def combine_partials(out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """Slices' partial-route results → the whole cache's output: ``out``
+    (n, B, 1, H, Dv) and ``lse`` (n, B, H), float32, slice by slice in
+    slot order; each slice weighted by exp(lse - max lse), summed in slice
+    order, divided by the weights' sum.  A slice with lse -inf weighs 0; a
+    row with no valid slot anywhere gives 0, never NaN."""
+    M = lse.amax(dim=0)
+    M = torch.where(torch.isfinite(M), M, torch.zeros_like(M))
+    w = torch.exp(lse - M)[..., None, :, None]  # (n, B, 1, H, 1)
+    num, den = out[0] * w[0], w[0]
+    for i in range(1, out.shape[0]):
+        num = num + out[i] * w[i]
+        den = den + w[i]
+    return num / torch.where(den > 0, den, torch.ones_like(den))
+
+
 def decode_attention(
     q: torch.Tensor,        # (B, 1, H, Dh) — model layout
     k_cache: torch.Tensor,  # (B, S, KH, Dh)
     v_cache: torch.Tensor,  # (B, S, KH, Dv)
-    pos: torch.Tensor,      # (B,) int32: slots < min(pos + 1, S) are valid
-) -> torch.Tensor:
+    pos: torch.Tensor,      # (B,) int32: slots < min(pos + 1 - slot_offset, S) are valid
+    slot_offset: int = 0,
+    partial: bool = False,
+):
+    """One-token attention against a KV cache → out (B, 1, H, Dv) in q's
+    dtype; with ``partial`` the cache is the slice from global slot
+    ``slot_offset`` and the result is (out (B, 1, H, Dv) float32, lse (B, H)
+    float32) (module docstring)."""
     tensors = (q, k_cache, v_cache, pos)
     if all(t.device.type == "cpu" for t in tensors):
-        return decode_attention_ref(q, k_cache, v_cache, pos)
+        return decode_attention_ref(q, k_cache, v_cache, pos, slot_offset, partial)
     meta = dispatch.check_kernel_tensors("decode_attention", *tensors)
     B, one, H, Dh = q.shape
     Bk, S, KH, Dk = k_cache.shape
@@ -116,14 +148,15 @@ def decode_attention(
     if q.stride(-1) != 1 or k_cache.stride(-1) != 1 or v_cache.stride(-1) != 1:
         raise ValueError("decode_attention: the head dim must be contiguous")
     code = dispatch.dtype_code("decode_attention", q)
+    key = (B, S, H, KH, Dh, Dv) + (("partial",) if partial else ())
+    out = torch.empty((B, H, Dv), dtype=torch.float32 if partial else q.dtype, device=q.device)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if partial else None
     if meta:
-        out = torch.empty((B, H, Dv), dtype=q.dtype, device=q.device)
-        dispatch.meta_launch("decode_attention", (B, S, H, KH, Dh, Dv), flops(B, S, H, Dh, Dv))
-        return out[:, None]
+        dispatch.meta_launch("decode_attention", key, flops(B, S, H, Dh, Dv))
+        return (out[:, None], lse) if partial else out[:, None]
     lib = dispatch.library()
     G = H // KH
     n_chunks = -(-S // CHUNK)
-    out = torch.empty((B, H, Dv), dtype=q.dtype, device=q.device)
     # one workspace: per chunk, G rows of partial sums as wide as the
     # kernel's padded head dim (128 or 256), then G (max, sum)
     row = lib.decode_attention_padded_dim(Dh, Dv)
@@ -132,15 +165,15 @@ def decode_attention(
     tickets = _ticket_buffer(B * KH, q.device, stream)
     rc = lib.decode_attention_fwd(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
-        B, H, KH, S, Dh, Dv, n_chunks,
+        out.data_ptr(), lse.data_ptr() if partial else None, ws.data_ptr(), tickets.data_ptr(),
+        B, H, KH, S, Dh, Dv, n_chunks, int(slot_offset),
         dispatch.strides(q, (0, 2)), dispatch.strides(k_cache, (0, 1, 2)),
         dispatch.strides(v_cache, (0, 1, 2)), dispatch.strides(out, (0, 1)),
         1.0 / math.sqrt(Dh), code, stream,
     )
     dispatch.check(rc, "decode_attention")
-    launches.add((B, S, H, KH, Dh, Dv))
-    return out[:, None]
+    launches.add(key)
+    return (out[:, None], lse) if partial else out[:, None]
 
 
 # -- codelet registration (SpCpu/SpCuda selection, paper §4.3) ---------------

@@ -141,7 +141,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     ]
     lib.flash_attention_bwd.argtypes = [P] * 10 + [I] * 7 + [S3] * 8 + [I, I, I, F, I, P]
     lib.decode_attention_fwd.argtypes = [
-        P, P, P, P, P, P, P, I, I, I, I, I, I, I, S3, S3, S3, S3, F, I, P,
+        P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, S3, S3, S3, S3, F, I, P,
     ]
     lib.decode_attention_chunk.argtypes = []
     lib.decode_attention_padded_dim.argtypes = [I, I]

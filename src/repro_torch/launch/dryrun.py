@@ -51,16 +51,26 @@ step on ``meta`` tensors, as rank 0 of a :class:`~repro_torch.dist.sharding.DryR
   ``scan_once`` counted as XLA's text counts them.
 
 The parts of a step are told apart as it runs: a layer (a ``Block`` of the
-model) and a logits chunk (the loss's checkpointed chunk function) mark
-their forward, their remat recompute and, through the autograd nodes their
-forward made, their backward.
+model: its forward, or its ``decode`` in a decode step) and a logits chunk
+(the loss's checkpointed chunk function) mark their forward, their remat
+recompute and, through the autograd nodes their forward made, their
+backward.
 
-Prefill and decode cells run ``prefill`` / ``decode_step`` on ``meta``; on
-a ``model`` axis of m > 1 they, and every block kind but ``"attn"``, raise
-the port's own ``NotImplementedError`` (ROADMAP.md, Queue 1 item 5.6),
-which :func:`run_cell` records as ``ok: false``, as ``repro``'s records a
-failed lowering.  Nothing here imports JAX or ``repro``, or sets
-``XLA_FLAGS``.
+Prefill and decode cells run the port's serving steps on ``meta``, as
+``repro``'s dry run lowers its own: ``runtime.serve.build_prefill_fn`` on
+this rank's rows of the prompts, and ``build_serve_step`` (one greedy
+decode step) on its rows of the tokens, its parts of the caches
+(``abstract_cache`` under the mesh: ``repro``'s ``cache_shardings``) and
+one position (a scalar, as ``repro``'s; ``pos_per_sequence``: a (B,)
+vector, as the serving engine feeds).  Their arguments are the local
+parameters and inputs (and caches and position); a decode step updates the
+caches in place, so they are its alias bytes.  On a ``model`` axis of m > 1
+the sequence-sharded decode's all-gathers (q / k / v, then (out, lse)) and
+the greedy argmax's are recorded like the sums.  Every block kind but
+``"attn"`` (and a frontend) raises the port's own ``NotImplementedError``
+on such an axis (ROADMAP.md, Queue 1 item 5.6), which :func:`run_cell`
+records as ``ok: false``, as ``repro``'s records a failed lowering.
+Nothing here imports JAX or ``repro``, or sets ``XLA_FLAGS``.
 """
 from __future__ import annotations
 
@@ -196,6 +206,22 @@ class _Parts:
             part = self.stack.pop()
             if output is not None:
                 self.tag(tree_flatten(output)[0], tree_flatten(args)[0], part)
+
+    def decode_method(self, fn):
+        """``Block.decode``, marking its layer's part: a decode step calls
+        it, not the module, so no forward hook sees the layer."""
+
+        def decode(module, *args, **kw):
+            i = self.layer_of.get(id(module))
+            if i is not None:
+                self.stack.append(("layer", i))
+            try:
+                return fn(module, *args, **kw)
+            finally:
+                if i is not None:
+                    self.stack.pop()
+
+        return decode
 
     def chunk_fn(self, fn):
         """The loss's chunk function, marking its part: a new chunk index in
@@ -338,14 +364,15 @@ def _run_instrumented(model: Transformer, n_chunks: int, known: list, log, fn):
         log.region = parts.current
     hooks = (torch.nn.modules.module.register_module_forward_pre_hook(parts.pre_hook),
              torch.nn.modules.module.register_module_forward_hook(parts.post_hook, always_call=True))
-    chunk_nll = layers_mod._chunk_nll
+    chunk_nll, decode = layers_mod._chunk_nll, Block.decode
     layers_mod._chunk_nll = parts.chunk_fn(chunk_nll)
+    Block.decode = parts.decode_method(decode)
     try:
         with dispatch.meta_kernel_calls(tracker.kernel_call), tracker:
             result = fn()
         tracker.finish()
     finally:
-        layers_mod._chunk_nll = chunk_nll
+        layers_mod._chunk_nll, Block.decode = chunk_nll, decode
         for h in hooks:
             h.remove()
     return result, tracker
@@ -357,14 +384,17 @@ def _first_of_scan(part) -> bool:
     return part is None or part[1] == 0
 
 
-def model_cell(cfg: ArchConfig, shape: ShapeSpec, mesh: Optional[DryRunMesh], n_microbatches: int = 1) -> dict:
+def model_cell(cfg: ArchConfig, shape: ShapeSpec, mesh: Optional[DryRunMesh], n_microbatches: int = 1,
+               pos_per_sequence: bool = False) -> dict:
     """Model one cell on ``meta`` as rank 0 of ``mesh`` (None: one device,
     no mesh): → ``{"memory", "cost", "collectives", "peak_terms",
-    "kernels"}`` (module docstring).  Raises what the port raises for a cell
-    it cannot run (a model axis of m > 1 outside block kind ``"attn"``
-    training: ``NotImplementedError`` naming Queue 1 item 5.6)."""
-    from repro_torch.models import abstract_cache, abstract_inputs, decode_step, prefill, set_trainable
+    "kernels"}`` (module docstring).  A decode cell's position is a scalar
+    unless ``pos_per_sequence``.  Raises what the port raises for a cell
+    it cannot run (a model axis of m > 1 outside block kind ``"attn"``:
+    ``NotImplementedError`` naming Queue 1 item 5.6)."""
+    from repro_torch.models import abstract_cache, abstract_inputs, set_trainable
     from repro_torch.optim import TrainState
+    from repro_torch.runtime.serve import build_prefill_fn, build_serve_step
     from repro_torch.runtime.train import _model_optimizer, build_train_step, state_bytes
 
     log = mesh.log if mesh is not None else None
@@ -386,18 +416,21 @@ def model_cell(cfg: ArchConfig, shape: ShapeSpec, mesh: Optional[DryRunMesh], n_
             outputs = state_total + _nbytes(metrics.values())
             alias = state_total
         elif shape.kind == "prefill":
+            rows = _local_rows(inputs, mesh)
             known = list(model.parameters()) + list(inputs.values())
-            _, tr = _run_instrumented(model, 1, known, log, lambda: prefill(model, inputs, cfg))
-            arguments = _nbytes(model.parameters()) + _nbytes(inputs.values())
+            _, tr = _run_instrumented(model, 1, known, log, lambda: build_prefill_fn(cfg)(model, rows))
+            arguments = _nbytes(model.parameters()) + _nbytes(rows.values())
             outputs, alias = 0, 0
-        else:  # decode: one step against a cache of the shape's length
-            caches = abstract_cache(cfg, shape.global_batch, shape.seq_len)
-            pos = torch.zeros((shape.global_batch,), dtype=torch.int32, device="meta")
+        else:  # decode: one greedy step against caches of the shape's length
+            rows = _local_rows(inputs, mesh)
+            caches = abstract_cache(cfg, shape.global_batch, shape.seq_len)  # this rank's parts
+            B = rows["tokens"].shape[0]
+            pos = torch.zeros((B,) if pos_per_sequence else (), dtype=torch.int32, device="meta")
             cache_leaves = _leaves(caches)
             known = list(model.parameters()) + list(inputs.values()) + cache_leaves + [pos]
-            _, tr = _run_instrumented(model, 1, known, log,
-                                      lambda: decode_step(model, inputs["tokens"], caches, pos, cfg))
-            arguments = _nbytes(model.parameters()) + _nbytes(inputs.values()) + _nbytes(cache_leaves) + 4 * len(pos)
+            step = build_serve_step(cfg, shape)
+            _, tr = _run_instrumented(model, 1, known, log, lambda: step(model, rows["tokens"], caches, pos))
+            arguments = _nbytes(model.parameters()) + _nbytes(rows.values()) + _nbytes(cache_leaves) + _nbytes([pos])
             outputs, alias = 0, _nbytes(cache_leaves)
     temp = tr.peak
     memory = {

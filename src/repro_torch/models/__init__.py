@@ -12,8 +12,10 @@ from repro_torch.models.config import (
     SSMConfig,
     applicable_shapes,
 )
+from repro_torch.models.layers import gather_logits, greedy_tokens
 from repro_torch.models.transformer import (
     Block,
+    MeshCaches,
     abstract_cache,
     abstract_inputs,
     abstract_params,
@@ -44,6 +46,7 @@ __all__ = [
     "ArchConfig", "HybridConfig", "MLAConfig", "MoEConfig", "SHAPES", "ShapeSpec",
     "SSMConfig", "applicable_shapes", "abstract_cache", "abstract_inputs", "abstract_params",
     "embed_inputs", "head_logits", "input_defs", "Block", "RecBlock", "SSMBlock", "Transformer", "block_kind", "cache_defs",
-    "cache_layout", "decode_step", "forward", "init_cache", "init_params",
+    "cache_layout", "decode_step", "forward", "gather_logits", "greedy_tokens", "init_cache", "init_params",
+    "MeshCaches",
     "layer_kinds", "leaf_layout", "loss_fn", "model_defs", "param_shardings", "prefill", "set_trainable", "verify_step",
 ]

@@ -15,6 +15,9 @@ them; each rank's logits are its own classes, masked and soft-capped by
 their global index) and the cross-entropy over those shards: the row max
 and the sum of exponentials are reduced over ``model`` and the label's
 logit comes from the rank that holds it, so no rank holds the full logits.
+Serving reads them the same way: :func:`greedy_tokens` takes the argmax
+over the whole vocabulary from each rank's (max, global index), and
+:func:`gather_logits` puts a row together where a caller wants it whole.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.dist.collectives import copy_to_model, model_max_, reduce_from_model
+from repro_torch.dist.collectives import copy_to_model, model_all_gather, model_max_, reduce_from_model
 from repro_torch.dist.sharding import current_mesh, model_axis, safe_spec
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 from repro_torch.models.config import ArchConfig
@@ -192,6 +195,32 @@ def logits_apply(model: nn.Module, x: torch.Tensor, cfg: ArchConfig) -> torch.Te
         pad = torch.arange(lo, lo + v, device=x.device) >= cfg.vocab
         logits = logits.masked_fill(pad, -1e30)
     return logits
+
+
+def gather_logits(model: nn.Module, logits: torch.Tensor) -> torch.Tensor:
+    """Logits (..., V) whole from each rank's vocab part (..., V/m) (one
+    all-gather over ``model``); as they are off a vocab-sharded axis."""
+    tp = getattr(model, "vocab_tp", None)
+    if tp is None:
+        return logits
+    got = model_all_gather(logits, tp.group)  # (m, ..., V/m), the ranks' classes in order
+    return torch.cat(list(got.unbind(0)), dim=-1)
+
+
+def greedy_tokens(model: nn.Module, logits: torch.Tensor) -> torch.Tensor:
+    """``jnp.argmax(logits, -1)`` as int32 over the whole vocabulary, the
+    first index of a tie: with vocab-sharded logits each rank's (max, global
+    index of its first max) is all-gathered (one collective, float64: exact
+    for both) and the first rank holding the largest max wins, whose classes
+    come first."""
+    tp = getattr(model, "vocab_tp", None)
+    if tp is None:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    mx, idx = logits.max(dim=-1)  # the first index of the rank's max
+    idx = idx + tp.rank * logits.shape[-1]
+    got = model_all_gather(torch.stack([mx.double(), idx.double()], dim=-1), tp.group)  # (m, ..., 2)
+    best = torch.argmax(got[..., 0], dim=0, keepdim=True)  # the first rank with the largest max
+    return torch.gather(got[..., 1], 0, best)[0].to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -42,9 +42,15 @@ tensor-parallel over those parts (``models/attention.py``,
 ``models/layers.py``).  :func:`init_params` draws each leaf at its full
 shape and keeps this rank's part, so a rank's tensors are bit for bit the
 slices of the off-mesh init.  That slice of the port covers block kind
-``"attn"`` in training: the other block kinds, the frontends, the hybrid
-layout and serving (``prefill``, ``decode_step``, ``verify_step``,
-``ServeEngine``) raise under such a mesh (ROADMAP.md, Queue 1 item 5.6).
+``"attn"`` over token embeddings, in training and in serving:
+:func:`prefill`, :func:`decode_step` and :func:`verify_step` run
+tensor-parallel, their caches (:func:`init_cache`, :func:`abstract_cache`,
+``prefill``'s) are this rank's parts of ``repro``'s global caches
+(:class:`MeshCaches`; the KV caches sequence-sharded under
+``kv_shard="seq"``: ``models/attention.py``) and their logits this rank's
+vocab part (``layers.gather_logits``, ``layers.greedy_tokens``).  The other
+block kinds, the frontends, the hybrid layout and ``ServeEngine`` raise
+under such a mesh (ROADMAP.md, Queue 1 item 5.6).
 
 :func:`input_defs`, :func:`abstract_inputs`, :func:`abstract_params` and
 :func:`abstract_cache` describe a batch, the parameters and the caches as
@@ -60,7 +66,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
-from repro_torch.dist.sharding import model_axis, safe_spec
+from repro_torch.dist.sharding import current_mesh, model_axis, safe_spec
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mla as mla_mod
@@ -86,8 +92,10 @@ from repro_torch.models.param import (
     ParamDef,
     Shard,
     abstract_tree,
+    INPUT_DTYPES,
     init_,
     local_index,
+    local_shape,
     sharding_tree,
     stack_defs,
 )
@@ -178,11 +186,12 @@ def check_model_axis(cfg: ArchConfig, mesh=None) -> None:
 
 
 def refuse_model_axis(model, what: str) -> None:
-    """Raise for serving on a model built on a ``model`` axis of m > 1."""
+    """Raise for ``what`` (the serving engine) on a model built on a
+    ``model`` axis of m > 1: ``repro``'s engine takes no mesh."""
     if getattr(model, "tp", None) is not None:
         raise NotImplementedError(
-            f"{what} on a model built on a 'model' mesh axis of {model.tp.size} (sharded KV "
-            f"caches, serving) is not ported ({MODEL_AXIS_ITEM})"
+            f"{what} on a model built on a 'model' mesh axis of {model.tp.size} is not ported "
+            f"({MODEL_AXIS_ITEM})"
         )
 
 
@@ -252,9 +261,11 @@ class Block(nn.Module):
         h, aux = self._ffn(x, cfg)
         return x + h, cache, aux
 
-    def decode(self, x, cache: dict, pos: torch.Tensor, cfg: ArchConfig):
+    def decode(self, x, cache: dict, pos: torch.Tensor, cfg: ArchConfig, part=None):
+        """``part``: the KV cache's place on the ``model`` axis
+        (``attention.KVPart``; None off it)."""
         step = mla_mod.mla_decode_step if self.kind == "mla" else attn_mod.attention_decode_step
-        h, cache = step(self.attn, self.ln1(x), cache, pos, cfg)
+        h, cache = step(self.attn, self.ln1(x), cache, pos, cfg, *(() if part is None else (part,)))
         x = x + h
         return x + self._ffn(x, cfg)[0], cache
 
@@ -539,12 +550,28 @@ def loss_fn(model: Transformer, batch: dict, cfg: ArchConfig):
     return total, metrics
 
 
+class MeshCaches(dict):
+    """Decode caches on a ``model`` axis of m > 1: this rank's part of each
+    leaf of ``repro``'s global caches, and ``seq_len``, the global rows of
+    the KV leaves' sequence axis, which places each rank's part
+    (``attention.kv_part``): a local shape alone cannot tell a
+    sequence-sharded cache from a whole one of fewer rows."""
+
+    def __init__(self, leaves: dict, seq_len: int):
+        super().__init__(leaves)
+        self.seq_len = seq_len
+
+
 @torch.no_grad()
 def prefill(model: Transformer, batch: dict, cfg: ArchConfig):
     """→ (last-position logits (B, 1, V), caches).  Only the final
-    position's logits are computed."""
-    refuse_model_axis(model, "prefill")
+    position's logits are computed.  On a ``model`` axis the logits are
+    this rank's vocab part and the caches a :class:`MeshCaches` of the
+    prompt's rows."""
     x, caches, _ = forward(model, batch, cfg, want_cache=True)
+    tp = getattr(model, "tp", None)  # (a speculative draft shares a model's modules without one)
+    if tp is not None:
+        caches = MeshCaches(caches, x.shape[1])
     return head_logits(model, x[:, -1:], cfg), caches
 
 
@@ -560,15 +587,23 @@ def _pos_vector(pos, batch: int, device) -> torch.Tensor:
 def decode_step(model: Transformer, tokens: torch.Tensor, caches: dict, pos, cfg: ArchConfig):
     """One decode step.  tokens (B, 1) int; pos a scalar or a (B,) tensor of
     current positions; caches stacked on the layer axis (:func:`cache_defs`),
-    **updated in place**.  → (logits (B, 1, V), caches)."""
-    refuse_model_axis(model, "decode_step")
+    **updated in place**.  → (logits (B, 1, V), caches).  On a ``model``
+    axis ``caches`` is a :class:`MeshCaches` and the logits are this rank's
+    vocab part."""
     x = embed_apply(model, tokens, cfg)
     pos_b = _pos_vector(pos, tokens.shape[0], tokens.device)
     lcfg = layer_cfg(cfg)
+    kw = {}
+    tp = getattr(model, "tp", None)
+    if tp is not None:
+        if not isinstance(caches, MeshCaches):
+            raise ValueError("decode on a 'model' axis takes the MeshCaches that init_cache, prefill or "
+                             "runtime.serve.prime_cache make: their global rows place each rank's part")
+        kw["part"] = attn_mod.kv_part(lcfg, caches.seq_len, tp)
     seen: dict = {}  # layers of each kind so far: the index into its leaves
     for layer, kind in zip(model.layers, layer_kinds(cfg)):
         j = seen[kind] = seen.get(kind, -1) + 1
-        x, _ = layer.decode(x, {k: caches[k][j] for k in CACHE_KEYS[kind]}, pos_b, lcfg)
+        x, _ = layer.decode(x, {k: caches[k][j] for k in CACHE_KEYS[kind]}, pos_b, lcfg, **kw)
     x = model.final_norm(x)
     return logits_apply(model, x, cfg), caches
 
@@ -587,7 +622,6 @@ def verify_step(model: Transformer, tokens: torch.Tensor, caches: dict, pos, cfg
     batching the T positions into one forward would change the matrix
     products' shapes, and with them the bits.  The positions are formed on
     the device from one (B,) ``pos`` and ``advance``."""
-    refuse_model_axis(model, "verify_step")
     B, T = tokens.shape
     pos_b = _pos_vector(pos, B, tokens.device)
     adv = torch.ones_like(pos_b) if advance is None else _pos_vector(advance, B, tokens.device)
@@ -610,7 +644,7 @@ def _cache_leaf_defs(cfg: ArchConfig, kind: str, batch: int, max_seq: int) -> di
     if kind == "mla":
         return mla_mod.mla_cache_defs(cfg, batch, max_seq)
     sh = attn_mod.kv_cache_shape(cfg, batch, max_seq)  # a ring of the window when windowed
-    ax = ("batch", "kv_seq", "kv_heads", None)
+    ax = attn_mod.kv_cache_axes(cfg)
     return {"k": ParamDef(sh, ax, dtype=cfg.dtype), "v": ParamDef(sh, ax, dtype=cfg.dtype)}
 
 
@@ -640,17 +674,32 @@ def cache_layout(cfg: ArchConfig) -> Optional[dict]:
     return {k: (1, 2) for k in CACHE_KEYS[kind]}
 
 
+def _local_caches(cfg: ArchConfig, batch: int, max_seq: int, make) -> dict:
+    """``make(shape, dtype)`` for each leaf of :func:`cache_defs`, at this
+    rank's part of its shape under the active mesh (``safe_spec``: the first
+    dimension wins, what the mesh cannot divide is replicated), as
+    :class:`MeshCaches` on a ``model`` axis of m > 1."""
+    mesh = current_mesh()
+    out = {}
+    for name, d in cache_defs(cfg, batch, max_seq).items():
+        shape = d.shape if mesh is None else local_shape(d.shape, safe_spec(d.shape, d.axes, mesh=mesh), mesh)
+        out[name] = make(shape, INPUT_DTYPES[d.dtype or cfg.dtype])
+    if model_axis(mesh) is None:
+        return out
+    return MeshCaches(out, attn_mod.kv_cache_shape(layer_cfg(cfg), batch, max_seq)[1])
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *, device="cuda") -> dict:
+    """Zeroed decode caches on ``device``: :func:`cache_defs`' shapes, this
+    rank's parts under a mesh (:func:`_local_caches`)."""
     device = resolve_device(device)
-    return {
-        name: torch.zeros(d.shape, dtype=DTYPES[d.dtype], device=device)
-        for name, d in cache_defs(cfg, batch, max_seq).items()
-    }
+    return _local_caches(cfg, batch, max_seq, lambda shape, dtype: torch.zeros(shape, dtype=dtype, device=device))
 
 
 def abstract_cache(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
-    """:func:`cache_defs` as ``meta`` tensors."""
-    return abstract_tree(cache_defs(cfg, batch, max_seq), cfg.dtype)
+    """:func:`cache_defs` as ``meta`` tensors (this rank's parts under a
+    mesh)."""
+    return _local_caches(cfg, batch, max_seq, lambda shape, dtype: torch.empty(shape, dtype=dtype, device="meta"))
 
 
 # ---------------------------------------------------------------------------

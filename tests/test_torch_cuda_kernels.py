@@ -247,6 +247,48 @@ def test_decode_kernel_on_a_wrapped_ring(cuda_device, dtype):
     assert torch.equal(decode_ops.decode_attention(q, k, v, pos), got)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_slices", [2, 4])
+def test_decode_partial_route_on_cache_slices(cuda_device, dtype, n_slices):
+    """A sequence-sharded cache's decode: each slice of (4, 2304, 8, 128)
+    through the partial route (one launch each) against the plain version
+    (output within the dtype's tolerance, lse within 2e-5 absolute), run
+    to run identical; the slices combined equal the whole-cache kernel's
+    output within the same tolerance.  Positions put every slice's share
+    in play: one past the last slot, one inside the first slice (later
+    slices empty: lse -inf, output 0), one on a slice boundary, one past
+    it by one."""
+    tdt = DTYPES[dtype]
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    B, S, H, KH, D = 4, 2304, 8, 8, 128
+    q = torch.randn(B, 1, H, D, generator=gen, device=cuda_device).to(tdt)
+    k = torch.randn(B, S, KH, D, generator=gen, device=cuda_device).to(tdt)
+    v = torch.randn(B, S, KH, D, generator=gen, device=cuda_device).to(tdt)
+    Sl = S // n_slices
+    pos = torch.tensor([S + 40, 100, Sl - 1, Sl], dtype=torch.int32, device=cuda_device)
+    outs, lses = [], []
+    for i in range(n_slices):
+        ks, vs = k[:, i * Sl:(i + 1) * Sl], v[:, i * Sl:(i + 1) * Sl]
+        before = decode_ops.launches.count
+        out, lse = decode_ops.decode_attention(q, ks, vs, pos, i * Sl, partial=True)
+        assert decode_ops.launches.count - before == 1
+        assert out.dtype == lse.dtype == torch.float32
+        ref_out, ref_lse = decode_ops.decode_attention_ref(q, ks, vs, pos, i * Sl, partial=True)
+        _close(out, ref_out, dtype)
+        finite = torch.isfinite(ref_lse)
+        assert torch.equal(torch.isfinite(lse), finite)
+        torch.testing.assert_close(lse[finite], ref_lse[finite], rtol=0, atol=2e-5)
+        assert not out[~finite.cpu().to(cuda_device)[:, None, :]].any()  # an empty slice's output is 0
+        again = decode_ops.decode_attention(q, ks, vs, pos, i * Sl, partial=True)
+        assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+        outs.append(out)
+        lses.append(lse)
+    assert not torch.isfinite(lses[-1][1]).any()  # pos 100: the last slice holds nothing
+    combined = decode_ops.combine_partials(torch.stack(outs), torch.stack(lses))
+    _close(combined.to(tdt), decode_ops.decode_attention(q, k, v, pos), dtype)
+
+
 # (B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_offset): the tensor-core route
 # at every padded head dim (64: Dh 8 / 32 / 64; 128: Dh 80 / 96 / 128), GQA
 # and MQA, window, offset, non-causal, and ragged lengths around the 64-key

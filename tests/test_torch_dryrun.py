@@ -8,13 +8,20 @@
 * a ``repro`` lowering of reduced deepseek-7b on a (data 2, model 2) host
   mesh (a subprocess with 4 host devices) against the port's dry run of
   the same cell: argument and alias bytes exact, ``flops_scan_once`` within
-  5%.  Float32: in bfloat16 XLA's host lowering converts every product's
-  operands to float32 and counts those converts (PERF.md, PR 26);
+  5%; the same for a prefill and a decode cell (``repro``'s
+  ``lower_cell``: its prefill function and ``build_serve_step``), argument
+  and alias bytes exact.  Float32: in bfloat16 XLA's host lowering converts
+  every product's operands to float32 and counts those converts (PERF.md
+  §6);
 * the dry run's ``model``-axis collectives against the calls a real
   2-rank gloo step makes (``launch.mesh.spawn_mesh``), call by call, and
-  one layer body's sums; a real group's sum through the same seam;
-* every prefill, decode and non-``"attn"`` cell on the production mesh
-  refused naming Queue 1 item 5.6, and recorded as ``ok: false``;
+  one layer body's sums; the same for a prefill and a decode step (sums and
+  all-gathers); a real group's sum through the same seam;
+* the ``prefill_32k`` and ``decode_32k`` cells of the dense ``"attn"``
+  configs on both production meshes: ``ok``, their argument bytes the local
+  parameters, inputs and caches;
+* every other prefill, decode and non-``"attn"`` cell on the production
+  mesh refused naming Queue 1 item 5.6, and recorded as ``ok: false``;
 * the recording seam's bytes by ``repro``'s HLO convention, and the
   kernels' meta routes (the outputs alone, their operation counts, no
   launch);
@@ -159,6 +166,45 @@ print(json.dumps({"argument": ma.argument_size_in_bytes, "alias": ma.alias_size_
 """
 
 
+_LOWER_SERVE = r"""
+import json, sys
+import jax
+from jax.sharding import AxisType
+from repro.configs import reduced_config
+from repro.launch.dryrun import lower_cell
+from repro.models.config import ShapeSpec
+
+kw = json.loads(sys.argv[1])
+cfg = reduced_config("deepseek-7b").replace(**kw["cfg"])
+mesh = jax.make_mesh((2, 2), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+compiled = lower_cell(cfg, ShapeSpec("t", kw["kind"], kw["seq"], kw["batch"]), mesh).compile()
+ma = compiled.memory_analysis()
+print(json.dumps({"argument": ma.argument_size_in_bytes, "alias": ma.alias_size_in_bytes}))
+"""
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_a_reduced_serving_cell_against_a_repro_lowering(kind):
+    """``repro``'s prefill function and ``build_serve_step`` lowered on a
+    (data 2, model 2) host mesh (its sequence-sharded caches: decode's
+    argument bytes hold them, its alias bytes are them) against the port's
+    dry run of the same cell: argument and alias bytes exact."""
+    cfg_kw = dict(_REDUCED)
+    seq, batch = 64, 8
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4", JAX_PLATFORMS="cpu",
+               PYTHONPATH=str(ROOT / "src"))
+    args = json.dumps({"cfg": cfg_kw, "kind": kind, "seq": seq, "batch": batch})
+    out = subprocess.run([sys.executable, "-c", _LOWER_SERVE, args], capture_output=True, text=True, env=env,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    want = json.loads(out.stdout.strip().splitlines()[-1])
+    got = dryrun.model_cell(reduced_config("deepseek-7b").replace(**cfg_kw), ShapeSpec("t", kind, seq, batch),
+                            DryRunMesh({"data": 2, "model": 2}))
+    assert got["memory"]["argument_size_in_bytes"] == want["argument"]
+    assert got["memory"]["alias_size_in_bytes"] == want["alias"]
+    assert want["alias"] > 0 if kind == "decode" else want["alias"] == 0
+
+
 @pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])
 def test_a_reduced_cell_against_a_repro_lowering(optimizer):
     cfg_kw = dict(_REDUCED, optimizer=optimizer)
@@ -182,29 +228,58 @@ def test_a_reduced_cell_against_a_repro_lowering(optimizer):
 
 SUM_SEQ, SUM_BATCH = 32, 2  # each rank's rows: the whole batch on data 1
 SUM_CASES = [(variant, n_layers) for variant in ("dense", "gqa") for n_layers in (1, 2)]
+# the serving steps: (variant, kind) on caches of SERVE_SEQ rows, SERVE_BATCH sequences
+SERVE_SEQ, SERVE_BATCH = 32, 2
+SERVE_CASES = [(variant, kind) for variant in ("dense", "gqa") for kind in ("prefill", "decode")]
 
 
 def _sum_cfg(variant: str, n_layers: int):
     return lm.tp_config(variant, "adafactor").replace(n_layers=n_layers, logits_chunk=SUM_SEQ // 2)
 
 
+def _serve_step_on_rank(variant: str, kind: str) -> None:
+    """One greedy prefill of (``SERVE_BATCH``, ``SERVE_SEQ``) prompts, or
+    one greedy decode step against caches of that many rows at per-sequence
+    positions, of the variant's 2-layer config on the active mesh."""
+    from repro_torch.models import ShapeSpec, init_cache, init_params
+    from repro_torch.runtime.serve import build_prefill_fn, build_serve_step
+
+    cfg = _sum_cfg(variant, 2)
+    model = init_params(cfg, 0, device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    if kind == "prefill":
+        tokens = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_SEQ), generator=gen, dtype=torch.int32)
+        build_prefill_fn(cfg)(model, {"tokens": tokens})
+        return
+    tokens = torch.randint(0, cfg.vocab, (SERVE_BATCH, 1), generator=gen, dtype=torch.int32)
+    caches = init_cache(cfg, SERVE_BATCH, SERVE_SEQ, device="cpu")
+    pos = torch.tensor([SERVE_SEQ - 1, 3], dtype=torch.int32)
+    build_serve_step(cfg, ShapeSpec("t", "decode", SERVE_SEQ, SERVE_BATCH))(model, tokens, caches, pos)
+
+
 def _count_rank() -> dict:
     """One train step of each ``SUM_CASES`` config on this rank of a (1, 2)
     mesh, counting every ``torch.distributed.all_reduce`` on the ``model``
-    group (payload bytes, in call order); then a sum through
-    ``model_sum_`` of a tensor that differs by rank."""
+    group (payload bytes, in call order); the ``SERVE_CASES`` steps,
+    counting its all-reduces and all-gathers ((kind, bytes) in call order);
+    then a sum through ``model_sum_`` of a tensor that differs by rank."""
     import torch.distributed as dist
 
     from repro_torch.runtime.train import build_train_step, init_train_state
 
     group = current_mesh().get_group("model")
     calls: list = []
-    real = dist.all_reduce
+    real, real_gather = dist.all_reduce, dist.all_gather_into_tensor
 
     def counting(x, op=dist.ReduceOp.SUM, group=None, async_op=False):
         if group is not None and dist.get_world_size(group) == 2:
             calls.append(x.numel() * x.element_size())
         return real(x, op=op, group=group, async_op=async_op)
+
+    def counting_gather(out, x, group=None, async_op=False):
+        if group is not None and dist.get_world_size(group) == 2:
+            calls.append(("all-gather", out.numel() * out.element_size()))
+        return real_gather(out, x, group=group, async_op=async_op)
 
     dist.all_reduce = counting
     out: dict = {}
@@ -218,8 +293,13 @@ def _count_rank() -> dict:
             calls.clear()
             art(state, {"tokens": tokens[:, :-1].contiguous(), "labels": tokens[:, 1:].contiguous()})
             out[f"{variant}-{n_layers}"] = list(calls)
+        dist.all_gather_into_tensor = counting_gather
+        for variant, kind in SERVE_CASES:
+            calls.clear()
+            _serve_step_on_rank(variant, kind)
+            out[f"{variant}-{kind}"] = [c if isinstance(c, tuple) else ("all-reduce", c) for c in calls]
     finally:
-        dist.all_reduce = real
+        dist.all_reduce, dist.all_gather_into_tensor = real, real_gather
     x = torch.linspace(-1.0, 1.0, 7) * (dist.get_rank() + 1.25)
     out["sum"] = model_sum_(x.clone(), group).numpy().tobytes()
     return out
@@ -260,6 +340,24 @@ def test_one_layer_body_sums_equal_a_gloo_layer(gloo_counts, variant):
     assert body["bytes"] == body["count"] * act
 
 
+@pytest.mark.parametrize("case", SERVE_CASES, ids=[f"{v}-{k}" for v, k in SERVE_CASES])
+def test_serving_collectives_equal_a_gloo_step(gloo_counts, case):
+    """The dry run of a prefill and of a decode cell (the same config,
+    shape and per-sequence positions, rank 0 of (data 1, model 2)) records
+    the ``model``-axis all-reduces and all-gathers a real gloo step makes,
+    call by call: the sums, the decode's q / k / v and (out, lse) gathers
+    (or, prefill, the K/V gathered over heads) and the greedy argmax's."""
+    variant, kind = case
+    want = [r[f"{variant}-{kind}"] for r in gloo_counts]
+    assert want[0] == want[1]
+    assert any(k == "all-gather" for k, _ in want[0])
+    mesh = DryRunMesh({"data": 1, "model": 2})
+    dryrun.model_cell(_sum_cfg(variant, 2), ShapeSpec("t", kind, SERVE_SEQ, SERVE_BATCH), mesh,
+                      pos_per_sequence=True)
+    got = [(r["kind"], r["bytes"]) for r in mesh.log.records if r["axis"] == "model"]
+    assert got == [tuple(c) for c in want[0]]
+
+
 def test_a_real_group_sums_through_the_seam(gloo_counts):
     import numpy as np
 
@@ -279,12 +377,60 @@ def _attn_only(arch: str) -> bool:
 
 
 REFUSED = [(arch, s.name) for arch in ARCH_NAMES for s in applicable_shapes(get_config(arch))
-           if not (s.kind == "train" and _attn_only(arch))]
+           if not _attn_only(arch)]
+DENSE_SERVING = [(arch, s.name) for arch in ARCH_NAMES for s in applicable_shapes(get_config(arch))
+                 if _attn_only(arch) and s.kind != "train"]
 
 
 def test_refused_cells_are_every_cell_but_the_dense_train_ones():
+    """Every cell of the dense ``"attn"`` configs runs (train, prefill and
+    decode); every other config's is refused."""
     ok = {(arch, s.name) for arch in ARCH_NAMES for s in applicable_shapes(get_config(arch))} - set(REFUSED)
-    assert ok == {("deepseek-7b", "train_4k"), ("gemma-7b", "train_4k"), ("qwen1.5-110b", "train_4k")}
+    assert ok == {(arch, shape) for arch in ("deepseek-7b", "gemma-7b", "qwen1.5-110b")
+                  for shape in ("train_4k", "prefill_32k", "decode_32k")}
+    assert len(DENSE_SERVING) == 6
+
+
+def _local_bytes(defs, mesh, dtype_bytes) -> int:
+    from repro_torch.models.param import ParamDef, local_shape
+    from repro_torch.dist.sharding import safe_spec
+
+    if isinstance(defs, ParamDef):
+        return math.prod(local_shape(defs.shape, safe_spec(defs.shape, defs.axes, mesh=mesh), mesh)) * \
+            dtype_bytes(defs.dtype)
+    return sum(_local_bytes(d, mesh, dtype_bytes) for d in defs.values())
+
+
+@pytest.mark.parametrize("arch,shape", DENSE_SERVING)
+def test_dense_serving_cells_run_on_both_production_meshes(arch, shape, tmp_path):
+    """Each runs ``ok`` and reproduces its checked-in record; its argument
+    bytes are the local parameters, this rank's rows of the inputs and,
+    decoding, the local caches (decode_32k on pod_16x16: (8, 2048, KH, Dh)
+    a layer) and the scalar position; a decode step's alias bytes are the
+    caches."""
+    from repro_torch.models import cache_defs, input_defs, model_defs
+
+    cfg = dryrun.config_for_dryrun(arch)
+    spec = SHAPES[shape]
+    size = {"bfloat16": 2, "float32": 4, "int32": 4, None: {"bfloat16": 2, "float32": 4}[cfg.dtype]}
+    nbytes = lambda dt: size[dt]  # noqa: E731
+    for mesh_name in MESH_NAMES:
+        rec = dryrun.run_cell(arch, shape, mesh_name.startswith("multipod"), outdir=str(tmp_path))
+        assert rec["ok"], rec.get("error")
+        mesh = DryRunMesh(dryrun.MESHES[mesh_name])
+        params = _local_bytes(model_defs(cfg), mesh, nbytes)
+        inputs = _local_bytes(input_defs(cfg, spec), mesh, nbytes)
+        caches = _local_bytes(cache_defs(cfg, spec.global_batch, spec.seq_len), mesh, nbytes) \
+            if spec.kind == "decode" else 0
+        want = json.loads((PORT_RECORDS / f"{arch}__{shape}__{mesh_name}.json").read_text())
+        got = json.loads(json.dumps(rec))  # the file's own round trip
+        for key in ("memory", "cost", "collectives", "peak_terms", "kernels"):
+            assert got[key] == want[key], (mesh_name, key)  # the checked-in record
+        mem = rec["memory"]
+        assert mem["argument_size_in_bytes"] == params + inputs + caches + (4 if spec.kind == "decode" else 0)
+        assert mem["alias_size_in_bytes"] == caches
+        if spec.kind == "decode" and mesh_name == "pod_16x16":
+            assert caches == cfg.n_layers * 2 * 8 * 2048 * cfg.n_kv_heads * cfg.head_dim * 2
 
 
 @pytest.mark.parametrize("arch,shape", REFUSED)

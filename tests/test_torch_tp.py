@@ -12,7 +12,8 @@ the elastic re-mesh.
   padded-vocab variant, an unsharded (odd) vocab, and the chunked
   cross-entropy over 2 microbatches; against ``repro``'s
   unsharded step on bridged weights; each rank's state bytes; an off-mesh
-  checkpoint restored onto the mesh; serving refused;
+  checkpoint restored onto the mesh; the serving engine refused (prefill
+  runs: tests/test_torch_tp_serve.py);
 * 4 spawned processes on (2, 2): the step against one process, then
   ``launch.train.train_loop`` saving every 2 steps, losing 2 ranks after
   step 3, re-meshing to ``remesh_plan(4, 2, model_parallel=2)``'s (1, 2),
@@ -204,7 +205,7 @@ def _two_rank_cases(ckpt_dir, repro_pack):
     template = TrainState(step=torch.zeros((), dtype=torch.int32), params=Transformer(cfg, device="meta"), opt=None)
     _, restored = CheckpointManager(ckpt_dir).restore(template)
     out["restored"] = _state_parts(restored)
-    # serving is 5.6's
+    # prefill runs on the mesh; the serving engine is 5.6's
     model = restored.params
     tokens = torch.zeros((1, 4), dtype=torch.int64)
     for what, call in (("prefill", lambda: prefill(model, {"tokens": tokens}, cfg)),
@@ -350,8 +351,10 @@ def test_off_mesh_checkpoint_restores_onto_the_mesh(two_ranks):
 
 
 def test_serving_refuses_a_model_axis(two_ranks):
+    """``prefill`` runs on the mesh (tests/test_torch_tp_serve.py); the
+    serving engine, which takes no mesh in ``repro`` either, refuses it."""
     for r in two_ranks["ranks"]:
-        assert r["refused"] == ["prefill", "ServeEngine"]
+        assert r["refused"] == ["ServeEngine"]
 
 
 def test_tp_step_matches_repro_on_bridged_weights(two_ranks):
