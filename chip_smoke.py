@@ -41,6 +41,9 @@ Phases (any failure raises and the script exits non-zero):
               2 and 4 slices of (4, 2304, 32, 128) bf16 against its plain
               version (lse within 2e-5), combined against the whole-cache
               kernel, empty slices weight 0, run to run identical, timed;
+              flash both ways at one rank's heads on a model axis of 2:
+              qwen3-moe's (1, 2048, 32 on 2 KV heads, 128) and
+              minicpm3-4b's MLA (1, 2048, 20, 96 / 64);
               the F2 digests (``[f2]``: ``tools/ssd_grad_determinism.py``,
               5 iterations); then one codelet per kernel on a device
               worker;
@@ -218,27 +221,37 @@ Phases (any failure raises and the script exits non-zero):
               the same bits on both ranks); bf16 at 4 layers, the same
               steps: each rank's step ms, peak, state bytes, and exact
               flash / rmsnorm launch counts (off-mesh's per layer, every
-              flash call at the 16 local heads).  The kernel phase holds
-              the flash forward and backward at that (1, 2048, 16, 128).
-              The same ranks then run ``[tp-serve]``'s serving runs;
-19. tp-serve — dense serving on that mesh: deepseek-7b at full width cut
-              to 4 layers, 4 prompts (2048 / 777 / 100 / 321 tokens)
+              flash call at the 16 local heads).  Then qwen3-moe at full
+              width (128 experts top-8: 64 a rank, expert parallelism; 32
+              of its 64 query heads on 2 of its 4 KV heads), fp32 at 1
+              layer under the same limits plus its MoE metrics and every
+              router call's ``top_i`` the same bits on both ranks, bf16
+              at 2 layers timed (2.42 GB of expert weights a layer a
+              rank).  The kernel phase holds the flash forward and
+              backward at those (1, 2048, 16, 128) and (1, 2048, 32 on 2
+              KV heads, 128).  The same ranks then run ``[tp-serve]``'s
+              serving runs;
+19. tp-serve — serving on that mesh, each config at full width cut to 4
+              layers: 4 prompts (2048 / 777 / 100 / 321 tokens)
               prefilled and primed into 2304 rows, 16 greedy
-              ``build_serve_step`` steps; fp32 under ``kv_shard="seq"`` and
-              ``"heads"`` (tokens equal one process's on the card, logits
-              within 1e-5 of the row's largest), bf16 ``"seq"`` timed (ms a
-              decode step, busy share, each rank's peak, the tokens'
-              agreement with one process's) and each collective of a step
-              timed alone; exact launch counts (decode's partial route:
-              layers x steps);
+              ``build_serve_step`` steps; deepseek-7b fp32 under
+              ``kv_shard="seq"`` and ``"heads"``, qwen3-moe (expert
+              parallelism) and minicpm3-4b (MLA's 20 heads a rank, its
+              latent cache by rows) fp32 under ``"seq"`` (tokens equal one
+              process's on the card, logits within 1e-5 of the row's
+              largest); bf16 ``"seq"`` timed (ms a decode step, each
+              rank's peak, the tokens' agreement with one process's;
+              deepseek-7b's busy share and each collective of its step
+              timed alone); exact launch counts (decode's partial route:
+              layers x steps; MLA decodes in torch ops);
 20. dryrun  — ``launch/dryrun.py``'s model (on ``meta``, on the CPU) of
               cells measured above: ``[train]``'s deepseek-7b, the two new
-              configs' train cells, ``[tp]``'s bf16 cell and ``[tp-serve]``'s
-              bf16 decode step at (data 1, model 2): its argument bytes must
-              equal the card's (each rank's); its peak, FLOPs and the terms
-              live at the peak are logged beside the card's
-              ``max_memory_allocated`` (less what was allocated before the
-              run) and step time.
+              configs' train cells, ``[tp]``'s bf16 cells and
+              ``[tp-serve]``'s bf16 decode steps at (data 1, model 2):
+              their argument bytes must equal the card's (each rank's);
+              their peak, FLOPs and the terms live at the peak are logged
+              beside the card's ``max_memory_allocated`` (less what was
+              allocated before the run) and step time.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing of JAX.
@@ -600,6 +613,11 @@ HUBERT_SERVE_FLASH = (2, 4096, 4096, 16, 16, 80, 80, False, None, 0)
 INTERNVL_PREFILL_FLASH = (4, 2048, 2048, 16, 8, 128, 128, True, None, 0)
 # deepseek-7b's heads on one rank of a model axis of 2 (the [tp] phase)
 TP_FLASH = (1, 2048, 2048, 16, 16, 128, 128, True, None, 0)
+# on one rank of a model axis of 2: qwen3-moe's 32 of 64 query heads on 2 of
+# its 4 KV heads ([tp]'s train steps, [tp-serve]'s 2048-token prefill) and
+# minicpm3-4b's 20 of 40 MLA heads ([tp-serve]'s prefill)
+TP_MOE_FLASH = (1, 2048, 2048, 32, 2, 128, 128, True, None, 0)
+TP_MLA_FLASH = (1, 2048, 2048, 20, 20, 96, 64, True, None, 0)
 # qwen1.5-110b's and llama4-scout's prefill and train paths: 64 and 40 query
 # heads on 8 KV heads of 128 (GQA 8:1 and 5:1), one 2048-token sequence
 Q110_FLASH = (1, 2048, 2048, 64, 8, 128, 128, True, None, 0)
@@ -687,6 +705,7 @@ def check_flash(dev) -> dict:
         HUBERT_SERVE_FLASH, INTERNVL_PREFILL_FLASH,
         TP_FLASH,  # the tensor-parallel step's local heads
         Q110_FLASH, L4_FLASH,  # qwen1.5-110b's and llama4-scout's prefill
+        TP_MOE_FLASH, TP_MLA_FLASH,  # qwen3-moe's and minicpm3-4b's local heads at model=2
     ]
     err = err256 = 0.0
     errs = {}
@@ -727,8 +746,12 @@ def check_flash(dev) -> dict:
               "internvl_prefill": _flash_times(gen, dev, 4, 2048, IVL_HEADS, 128, KH=IVL_KV_HEADS),
               "tp": _flash_times(gen, dev, 1, 2048, 16, 128),
               "qwen110b": _flash_times(gen, dev, 1, 2048, Q110_HEADS, 128, KH=NEW_KV_HEADS),
-              "llama4": _flash_times(gen, dev, 1, 2048, L4_HEADS, 128, KH=NEW_KV_HEADS)}
+              "llama4": _flash_times(gen, dev, 1, 2048, L4_HEADS, 128, KH=NEW_KV_HEADS),
+              "tp_moe": _flash_times(gen, dev, 1, 2048, 32, 128, KH=2),
+              "tp_mla": _flash_times(gen, dev, 1, 2048, 20, 96, Dv=64)}
     shapes["tp"]["max_abs_err"] = errs[TP_FLASH]
+    shapes["tp_moe"]["max_abs_err"] = errs[TP_MOE_FLASH]
+    shapes["tp_mla"]["max_abs_err"] = errs[TP_MLA_FLASH]
     shapes["qwen110b"]["max_abs_err"] = errs[Q110_FLASH]
     shapes["llama4"]["max_abs_err"] = errs[L4_FLASH]
     shapes["d256"]["max_abs_err"] = err256
@@ -1190,6 +1213,7 @@ def check_flash_bwd(dev) -> dict:
         HUBERT_FLASH, INTERNVL_FLASH,  # the frontends', at (2, 4096) in 2 microbatches
         TP_FLASH,  # deepseek-7b's local heads at model=2
         Q110_FLASH, L4_FLASH,  # qwen1.5-110b's and llama4-scout's, at (2, 2048) in 2 microbatches
+        TP_MOE_FLASH, TP_MLA_FLASH,  # qwen3-moe's and minicpm3-4b's local heads at model=2
     ]
     err = err256 = 0.0
     errs: dict = {}
@@ -1231,8 +1255,13 @@ def check_flash_bwd(dev) -> dict:
               "internvl": _flash_bwd_times(gen, dev, 1, 4096, IVL_HEADS, 128, KH=IVL_KV_HEADS),
               "tp": _flash_bwd_times(gen, dev, 1, 2048, 16, 128),
               "qwen110b": _flash_bwd_times(gen, dev, 1, 2048, Q110_HEADS, 128, KH=NEW_KV_HEADS),
-              "llama4": _flash_bwd_times(gen, dev, 1, 2048, L4_HEADS, 128, KH=NEW_KV_HEADS)}
+              "llama4": _flash_bwd_times(gen, dev, 1, 2048, L4_HEADS, 128, KH=NEW_KV_HEADS),
+              "tp_moe": _flash_bwd_times(gen, dev, 1, 2048, 32, 128, KH=2),
+              # MLA's local heads: timed, not on a path here ([tp] trains no MLA model)
+              "mla_tp": _flash_bwd_times(gen, dev, 1, 2048, 20, 96, Dv=64)}
     shapes["tp"]["max_abs_err"] = errs[TP_FLASH]
+    shapes["tp_moe"]["max_abs_err"] = errs[TP_MOE_FLASH]
+    shapes["mla_tp"]["max_abs_err"] = errs[TP_MLA_FLASH]
     shapes["qwen110b"]["max_abs_err"] = errs[Q110_FLASH]
     shapes["llama4"]["max_abs_err"] = errs[L4_FLASH]
     shapes["d256"]["max_abs_err"] = err256
@@ -4009,24 +4038,80 @@ def mesh_phase(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 TP_SEQ = 2048
-TP_BATCH = 2  # in 2 microbatches: every flash call at (1, 2048, 16 local heads, 128)
-TP_LAYERS = {"float32": 2, "bfloat16": 4}
+TP_BATCH = 2  # in 2 microbatches: every flash call at (1, 2048, the local heads, 128)
+TP_MOE = "qwen3-moe-235b-a22b"
+TP_ARCHS = ("deepseek-7b", TP_MOE)
+# depths: deepseek-7b 2 (fp32) / 4 (bf16); qwen3-moe 1 / 2: its 128 experts
+# are 4.83 GB a layer in bf16 (2.42 GB a rank), 9.66 GB in fp32
+TP_LAYERS = {"deepseek-7b": {"float32": 2, "bfloat16": 4}, TP_MOE: {"float32": 1, "bfloat16": 2}}
 TP_STEPS = 2
 TP_OFFSET_ATOL = 5e-7  # the fp32 norm offsets' |difference| from one process (see tp_phase)
-TP_DIR = Path(__file__).resolve().parent / "_smoke_tp"  # the off-mesh fp32 parameters, removed at the end
 
 
-def _tp_cfg(dtype: str):
+def _tp_cfg(dtype: str, arch: str = "deepseek-7b"):
     from repro_torch.configs import get_config
 
-    return get_config("deepseek-7b").replace(n_layers=TP_LAYERS[dtype], dtype=dtype, optimizer="adafactor")
+    return get_config(arch).replace(n_layers=TP_LAYERS[arch][dtype], dtype=dtype, optimizer="adafactor")
+
+
+TIE_RTOL = 1e-4  # a flipped choice: its and the replaced choice's probabilities within this share of the largest
+
+
+class _Routing:
+    """Every MoE router call's ``top_i`` while active (the MoE layers look
+    ``_router`` up in their module at each call): a digest of each
+    (``digests``) and the arrays on the host (``top_i``).  With ``replay``
+    (another run's ``top_i``, one a call) each call routes by the replayed
+    choices in place of its own, their probabilities renormalised as
+    ``_router`` renormalises its own, so that a run whose float sums differ
+    in the last bits makes the other run's choices; ``flips`` lists each
+    call whose own choices differed: (call, tokens that differ, the largest
+    gap between a token's own and replayed choices' probabilities over its
+    largest probability)."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_mod
+
+        self.digests, self.top_i, self.flips = [], [], []
+        self.mod, self.real = moe_mod, moe_mod._router
+
+        def router(p, xt, cfg, *rest):
+            top_p, top_i, aux = self.real(p, xt, cfg, *rest)
+            if self.replay is not None:
+                top_p, top_i = self._replayed(p, xt, top_p, top_i)
+            self.digests.append(_digest(top_i))
+            self.top_i.append(top_i.cpu().numpy())
+            return top_p, top_i, aux
+
+        moe_mod._router = router
+        return self
+
+    def _replayed(self, p, xt, top_p, own):
+        call = len(self.digests)
+        want = torch.from_numpy(self.replay[call]).to(own.device)
+        if torch.equal(want, own):
+            return top_p, own
+        probs = torch.softmax(xt.float() @ p.router.float(), dim=-1)  # _router's
+        differ = (want != own).any(dim=-1)
+        gap = (probs.gather(-1, own) - probs.gather(-1, want)).abs().amax(dim=-1) / probs.amax(dim=-1)
+        self.flips.append((call, int(differ.sum()), float(gap[differ].max())))
+        top_p = probs.gather(-1, want)
+        return top_p / torch.clamp(torch.sum(top_p, dim=-1, keepdim=True), min=1e-9), want
+
+    def __exit__(self, *exc):
+        self.mod._router = self.real
+        if self.replay is not None and exc[0] is None:
+            assert len(self.digests) == len(self.replay), (len(self.digests), len(self.replay))
 
 
 def _tp_run(cfg, dev) -> tuple:
     """``TP_STEPS`` staged Adafactor steps of ``cfg`` from the state seeded
     with 0 on one seeded (``TP_BATCH``, ``TP_SEQ``) batch in 2 microbatches
     (tensor-parallel under the active mesh) → (state, art, losses, grad
-    norms, each step's wall ms, the batch)."""
+    norms, each step's wall ms, the batch, the steps' MoE metrics)."""
     from repro_torch.runtime.train import build_train_step, init_train_state
 
     state = init_train_state(cfg, 0, device=dev)
@@ -4035,7 +4120,7 @@ def _tp_run(cfg, dev) -> tuple:
     tokens = torch.randint(0, cfg.vocab, (TP_BATCH, TP_SEQ + 1), generator=gen, device=dev, dtype=torch.int32)
     assert 0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab, "token draw out of range (F3)"
     batch = {"tokens": tokens[:, :-1].contiguous(), "labels": tokens[:, 1:].contiguous()}
-    losses, norms, ms = [], [], []
+    losses, norms, ms, aux = [], [], [], []
     for _ in range(TP_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4044,7 +4129,8 @@ def _tp_run(cfg, dev) -> tuple:
         norms.append(float(m["grad_norm"]))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-    return state, art, losses, norms, ms, batch
+        aux.append({k: float(m[k]) for k in ("moe_balance", "moe_zloss") if k in m})
+    return state, art, losses, norms, ms, batch, aux
 
 
 def _digest(t) -> str:
@@ -4053,12 +4139,15 @@ def _digest(t) -> str:
     return hashlib.sha1(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
 
 
-def _tp_rank(ref_dir: str, device: str = "cuda") -> dict:
-    """One rank of the (1, 2) data × model mesh, every tensor on the card:
-    the fp32 run's parts against the off-mesh parameters in ``ref_dir``
-    (each part's worst |difference|), digests of its replicated leaves and
-    Adafactor state; then the bf16 run's step ms, peak, state bytes and
-    launch counts (all 0 just before each run, read just after)."""
+def _tp_rank(refs: dict, device: str = "cuda") -> dict:
+    """One rank of the (1, 2) data × model mesh, every tensor on the card,
+    for each of ``TP_ARCHS``: the fp32 run's parts against the off-mesh
+    parameters ``refs[arch]`` (the parent's tensors on the card, shared
+    with this process through CUDA IPC; each part's worst |difference|),
+    digests of its replicated leaves and Adafactor state (and, MoE, of
+    every router call's ``top_i``); then the bf16 run's step ms, peak,
+    state bytes and launch counts (all 0 just before each run, read just
+    after)."""
     import torch.distributed as dist
 
     from repro_torch.runtime.train import state_bytes
@@ -4066,139 +4155,206 @@ def _tp_rank(ref_dir: str, device: str = "cuda") -> dict:
     dev = torch.device(device)
     ops = _kernel_ops()
     out = {"rank": dist.get_rank()}
-    for dtype in ("float32", "bfloat16"):
-        cfg = _tp_cfg(dtype)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()  # what the run before left allocated
-        for c in ops.values():
-            c.reset()
-        # ---- the main path: counts from 0 just before, read just after ----
-        state, art, losses, norms, ms, batch = _tp_run(cfg, dev)
-        launches = {k: c.count for k, c in ops.items()}
-        by_shape = {k: dict(c.by_shape) for k, c in ops.items() if c.count}
-        # -------------------------------------------------------------------
-        sb = state_bytes(state, art)
-        nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
-        r = dict(losses=losses, grad_norms=norms, step_ms=ms, launches=launches, by_shape=by_shape,
-                 peak=torch.cuda.max_memory_allocated(), base=base, bytes=sb,
-                 arg_bytes=sb["params"] + sb["opt"] + nbytes([state.step]) + nbytes(batch.values()))
-        model = state.params
-        if dtype == "float32":
-            r["err"], r["digests"] = {}, {}
-            for name, p in model.named_parameters():
-                sh = model.shards[name]
-                want = np.load(Path(ref_dir) / f"{name}.npy", mmap_mode="r")[sh.index]
-                r["err"][name] = float(np.abs(p.detach().cpu().numpy() - want).max())
-                if not sh.sharded:
-                    r["digests"][name] = _digest(p)
-            for path, leaf in state.opt.items():
-                for k, v in leaf.items():
-                    r["digests"][f"opt {path}/{k}"] = _digest(v)
-        out[dtype] = r
-        del state, art, model
+    for arch in TP_ARCHS:
+        out[arch] = {}
+        for dtype in ("float32", "bfloat16"):
+            cfg = _tp_cfg(dtype, arch)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()  # what the run before left allocated
+            for c in ops.values():
+                c.reset()
+            # ---- the main path: counts from 0 just before, read just after ----
+            # fp32: a digest of each MoE router call's top_i (the bf16 runs are timed without)
+            with _Routing() if dtype == "float32" else contextlib.nullcontext() as routing:
+                state, art, losses, norms, ms, batch, aux = _tp_run(cfg, dev)
+            launches = {k: c.count for k, c in ops.items()}
+            by_shape = {k: dict(c.by_shape) for k, c in ops.items() if c.count}
+            # -------------------------------------------------------------------
+            sb = state_bytes(state, art)
+            nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+            r = dict(losses=losses, grad_norms=norms, aux=aux, step_ms=ms, launches=launches, by_shape=by_shape,
+                     peak=torch.cuda.max_memory_allocated(), base=base, bytes=sb,
+                     routing=getattr(routing, "digests", []),
+                     arg_bytes=sb["params"] + sb["opt"] + nbytes([state.step]) + nbytes(batch.values()))
+            model = state.params
+            if dtype == "float32":
+                r["err"], r["digests"] = {}, {}
+                for name, p in model.named_parameters():
+                    sh = model.shards[name]
+                    r["err"][name] = float((p.detach() - refs[arch][name][sh.index]).abs().max())
+                    if not sh.sharded:
+                        r["digests"][name] = _digest(p)
+                for path, leaf in state.opt.items():
+                    for k, v in leaf.items():
+                        r["digests"][f"opt {path}/{k}"] = _digest(v)
+                # release the shared tensors now: the parent frees them (and
+                # checks that every consumer let go) when the ranks return
+                refs.pop(arch).clear()
+            out[arch][dtype] = r
+            del state, art, model
+            gc.collect()
     gc.collect()
     torch.cuda.empty_cache()
     out["serve"] = _tps_rank(device)  # [tp-serve]'s runs, in the same process group
     return out
 
 
-def tp_phase(dev) -> dict:
-    """18. The ``model`` mesh axis on one card: the off-mesh fp32 run here
-    (its parameters to ``TP_DIR``), then two gloo rank processes on a (1, 2)
-    data × model mesh sharing the card (``_tp_rank``): fp32 against it, bf16
-    timed and counted.  One process group, which then runs ``[tp-serve]``'s
-    serving runs (``_tps_rank``; checked by ``tp_serve_phase``): a group
-    takes ~20 s to start."""
-    from repro_torch.launch import mesh as launch_mesh
+def _tp_reference(arch: str, dev) -> dict:
+    """The off-mesh fp32 run of ``arch`` on the card → losses, grad norms,
+    MoE metrics, each leaf's largest magnitude and the parameters (kept on
+    the card for the ranks; the state's other tensors freed)."""
+    cfg = _tp_cfg("float32", arch)
+    state, art, losses, norms, _, _, aux = _tp_run(cfg, dev)
+    params = {name: p.detach() for name, p in state.params.named_parameters()}
+    leaf_max = {name: float(p.abs().max()) for name, p in params.items()}
+    del state, art
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, grad_norms=norms, aux=aux, leaf_max=leaf_max, params=params)
 
-    t_all = time.perf_counter()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg32 = _tp_cfg("float32")
-    shutil.rmtree(TP_DIR, ignore_errors=True)
-    TP_DIR.mkdir()
-    try:
-        state, art, losses, norms, _, _ = _tp_run(cfg32, dev)
-        leaf_max = {}
-        for name, p in state.params.named_parameters():
-            a = p.detach().cpu().numpy()
-            np.save(TP_DIR / f"{name}.npy", a)
-            leaf_max[name] = float(np.abs(a).max())
-        del state, art
-        gc.collect()
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        ranks = launch_mesh.spawn_mesh(_tp_rank, 2, (1, 2), ("data", "model"), str(TP_DIR), str(dev),
-                                       timeout=600.0)
-        spawn_s = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(TP_DIR, ignore_errors=True)
-    serve_ranks = [r.pop("serve") for r in ranks]
-    # fp32: each rank against the one process
-    f32 = [r["float32"] for r in ranks]
+
+def _tp_check_fp32(arch: str, one: dict, f32: list) -> dict:
+    """Each rank's fp32 run against the one process's: losses, grad norms
+    (and MoE metrics) within 1e-5 relative, every weight's parts within
+    1e-5 of its leaf's max and the norm offsets' within ``TP_OFFSET_ATOL``,
+    replicated leaves, the Adafactor state and every router call's
+    ``top_i`` the same bits on both ranks."""
     for r in f32:
-        for got, want, what in ((r["losses"], losses, "loss"), (r["grad_norms"], norms, "grad norm")):
+        pairs = [(r["losses"], one["losses"], "loss"), (r["grad_norms"], one["grad_norms"], "grad norm")]
+        pairs += [([a[k] for a in r["aux"]], [a[k] for a in one["aux"]], k) for k in (r["aux"][0] if r["aux"] else {})]
+        for got, want, what in pairs:
             rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
-            assert rel <= 1e-5, f"[tp] fp32 {what} {got} against one process's {want} ({rel:.2e} relative)"
+            assert rel <= 1e-5, f"[tp] {arch} fp32 {what} {got} against one process's {want} ({rel:.2e} relative)"
     # every weight within 1e-5 of its leaf's max.  The norm offsets start at
     # zero, so their values are the two updates; Adafactor factors a stacked
-    # (layers, D) offset leaf over its 2 layers, which normalises each
-    # column's update over 2 values: a sign-like step that turns float noise
-    # in a near-zero gradient into a share of the step, as AdamW's does
-    # (tests/test_torch_tp.py).  They are held within TP_OFFSET_ATOL
-    # absolute, about three times the worst difference read on the H100
-    # (1.46e-7, on values of 1.64e-3 at most).
+    # (layers, D) offset leaf over its layers (at 1 layer it does not
+    # factor), which normalises each column's update over those values: a
+    # sign-like step that turns float noise in a near-zero gradient into a
+    # share of the step, as AdamW's does (tests/test_torch_tp.py).  They are
+    # held within TP_OFFSET_ATOL absolute, about three times the worst
+    # difference read on the H100 for deepseek-7b (1.46e-7, on values of
+    # 1.64e-3 at most).
+    leaf_max = one["leaf_max"]
     err = {n: max(r["err"][n] for r in f32) for n in leaf_max}
     offsets = [n for n in leaf_max if n.endswith(".scale")]
     worst = {n: err[n] / max(leaf_max[n], 1e-30) for n in leaf_max if n not in offsets}
     worst_name = max(worst, key=worst.get)
     worst_offset = max(offsets, key=err.get)
     top = sorted(leaf_max, key=lambda n: -err[n] / max(leaf_max[n], 1e-30))[:4]
-    log("[tp] fp32 worst leaves (|difference| / the leaf's max, |difference|): " + ", ".join(
+    log(f"[tp] {arch} fp32 worst leaves (|difference| / the leaf's max, |difference|): " + ", ".join(
         f"{n} {err[n] / max(leaf_max[n], 1e-30):.2e} {err[n]:.2e}" for n in top))
-    assert worst[worst_name] <= 1e-5, f"[tp] fp32 {worst_name}: {worst[worst_name]:.2e} of its leaf's max"
+    assert worst[worst_name] <= 1e-5, f"[tp] {arch} fp32 {worst_name}: {worst[worst_name]:.2e} of its leaf's max"
     assert err[worst_offset] <= TP_OFFSET_ATOL, \
-        f"[tp] fp32 {worst_offset}: {err[worst_offset]:.2e} from one process"
+        f"[tp] {arch} fp32 {worst_offset}: {err[worst_offset]:.2e} from one process"
     assert f32[0]["digests"] == f32[1]["digests"], \
         [k for k in f32[0]["digests"] if f32[0]["digests"][k] != f32[1]["digests"].get(k)]
-    want32 = {k: v * TP_STEPS for k, v in _train_launches_per_step(cfg32, 2).items()}
-    for r in f32:
-        assert r["launches"] == want32, f"[tp] fp32 launches {r['launches']}, expected {want32}"
-    log(f"[tp] fp32, deepseek-7b full width, {TP_LAYERS['float32']} layers, 2 gloo ranks on one card (data 1 x "
-        f"model 2): losses {f32[0]['losses']} / {f32[1]['losses']}, one process {losses}; grad norms "
-        f"{f32[0]['grad_norms']}, one process {norms}; worst weight {worst_name} {worst[worst_name]:.2e} of its "
-        f"max, worst norm offset {worst_offset} {err[worst_offset]:.2e} (values {leaf_max[worst_offset]:.2e} at "
-        f"most); {len(f32[0]['digests'])} replicated leaves and Adafactor state tensors the same bits on both ranks; "
-        f"launches a rank {f32[0]['launches']}")
-    # bf16: times, memory, exact launch counts
-    cfg16 = _tp_cfg("bfloat16")
-    b16 = [r["bfloat16"] for r in ranks]
-    want16 = {k: v * TP_STEPS for k, v in _train_launches_per_step(cfg16, 2).items()}
-    local_key = TP_FLASH[:7]
-    for r in b16:
-        assert all(np.isfinite(r["losses"])), r["losses"]
-        assert r["launches"] == want16, f"[tp] bf16 launches {r['launches']}, expected {want16}"
-        for kind in ("flash_attention", "flash_attention_bwd"):
-            assert r["by_shape"][kind] == {local_key: want16[kind]}, (kind, r["by_shape"][kind])
-    for r in b16:
-        log(f"[tp] bf16, {TP_LAYERS['bfloat16']} layers, rank {b16.index(r)}: step ms {r['step_ms']}, losses "
-            f"{r['losses']}, peak {r['peak'] / 2**30:.2f} GiB ({r['base'] / 2**30:.2f} GiB of it allocated "
-            f"before the run), state bytes {r['bytes']} (params + grads + opt "
-            f"{sum(r['bytes'].values()) / 2**30:.3f} GiB), launches {r['launches']} (every flash call at "
-            f"{local_key})")
-    launches = {k: sum(r[dt]["launches"][k] for r in ranks for dt in TP_LAYERS) for k in want16}
+    assert f32[0]["routing"] == f32[1]["routing"], f"[tp] {arch}: the ranks routed differently"
+    return dict(worst_name=worst_name, worst=worst[worst_name], worst_offset=worst_offset,
+                offset_err=err[worst_offset], offset_max=leaf_max[worst_offset])
+
+
+def _release_shared(refs: dict, shared: int, held: int) -> None:
+    """Free the parameters the ranks read through CUDA IPC, now that they
+    have exited: empty ``refs`` itself (the rank processes' objects hold it
+    as an argument), then collect the blocks torch keeps for a consumer
+    until it lets go, until the ``shared`` bytes are freed from the ``held``
+    ones.  A block still held fails here, where torch would warn and could
+    crash while it tears down at exit."""
+    for leaves in refs.values():
+        leaves.clear()
+    refs.clear()
+    gc.collect()
+    for attempt in range(20):
+        torch.cuda.ipc_collect()
+        freed = held - torch.cuda.memory_allocated()
+        if freed >= shared:
+            break
+        time.sleep(0.5)
+    log(f"[tp] CUDA IPC: {shared / 1e9:.2f} GB of parameters shared with the ranks, {freed / 1e9:.2f} GB freed "
+        f"after {attempt + 1} collect(s)")
+    assert freed >= shared, f"[tp] {(shared - freed) / 1e9:.2f} GB shared through CUDA IPC still held"
+    torch.cuda.empty_cache()
+
+
+def tp_phase(dev) -> dict:
+    """18. The ``model`` mesh axis on one card: the off-mesh fp32 runs here
+    (their parameters kept on the card and handed to the ranks through
+    CUDA IPC: 19.9 GB, which a disk round trip took ~20 s to move), then
+    two gloo rank processes on a (1, 2) data × model mesh sharing the card
+    (``_tp_rank``): for deepseek-7b
+    and qwen3-moe (expert parallelism: 64 of its 128 experts a rank), fp32
+    against the one process, bf16 timed and counted.  One process group,
+    which then runs ``[tp-serve]``'s serving runs (``_tps_rank``; checked
+    by ``tp_serve_phase``): a group takes ~20 s to start."""
+    from repro_torch.launch import mesh as launch_mesh
+
+    import torch.multiprocessing  # noqa: F401  (registers the CUDA tensors' IPC pickling for the ranks)
+
+    t_all = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one = {arch: _tp_reference(arch, dev) for arch in TP_ARCHS}
+    refs = {arch: one[arch].pop("params") for arch in TP_ARCHS}
+    shared = sum(st.nbytes() for st in {t.untyped_storage().data_ptr(): t.untyped_storage()
+                                        for leaves in refs.values() for t in leaves.values()}.values())
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ranks = launch_mesh.spawn_mesh(_tp_rank, 2, (1, 2), ("data", "model"), refs, str(dev), timeout=900.0)
+    spawn_s = time.perf_counter() - t0
+    _release_shared(refs, shared, held)
+    serve_ranks = [r.pop("serve") for r in ranks]
+    out = dict(serve_ranks=serve_ranks, launches_by_shape={}, arch={})
+    launches: dict = {}
+    for arch in TP_ARCHS:
+        f32 = [r[arch]["float32"] for r in ranks]
+        chk = _tp_check_fp32(arch, one[arch], f32)
+        cfg32, cfg16 = _tp_cfg("float32", arch), _tp_cfg("bfloat16", arch)
+        want32 = {k: v * TP_STEPS for k, v in _train_launches_per_step(cfg32, 2).items()}
+        for r in f32:
+            assert r["launches"] == want32, f"[tp] {arch} fp32 launches {r['launches']}, expected {want32}"
+        log(f"[tp] {arch} fp32, full width, {cfg32.n_layers} layers, 2 gloo ranks on one card (data 1 x model 2): "
+            f"losses {f32[0]['losses']} / {f32[1]['losses']}, one process {one[arch]['losses']}; grad norms "
+            f"{f32[0]['grad_norms']}, one process {one[arch]['grad_norms']}"
+            + (f"; MoE metrics {f32[0]['aux']}, one process {one[arch]['aux']}; every router call's top_i the same "
+               f"bits on both ranks ({len(f32[0]['routing'])} calls)" if f32[0]["routing"] else "")
+            + f"; worst weight {chk['worst_name']} {chk['worst']:.2e} of its max, worst norm offset "
+            f"{chk['worst_offset']} {chk['offset_err']:.2e} (values {chk['offset_max']:.2e} at most); "
+            f"{len(f32[0]['digests'])} replicated leaves and Adafactor state tensors the same bits on both ranks; "
+            f"launches a rank {f32[0]['launches']}")
+        # bf16: times, memory, exact launch counts
+        b16 = [r[arch]["bfloat16"] for r in ranks]
+        want16 = {k: v * TP_STEPS for k, v in _train_launches_per_step(cfg16, 2).items()}
+        local = cfg16.n_heads // 2, cfg16.n_kv_heads // 2 if cfg16.n_kv_heads % 2 == 0 else cfg16.n_kv_heads
+        local_key = (1, TP_SEQ, TP_SEQ, *local, cfg16.head_dim, cfg16.head_dim)
+        for r in b16:
+            assert all(np.isfinite(r["losses"])), r["losses"]
+            assert r["launches"] == want16, f"[tp] {arch} bf16 launches {r['launches']}, expected {want16}"
+            for kind in ("flash_attention", "flash_attention_bwd"):
+                assert r["by_shape"][kind] == {local_key: want16[kind]}, (arch, kind, r["by_shape"][kind])
+        for i, r in enumerate(b16):
+            log(f"[tp] {arch} bf16, {cfg16.n_layers} layers, rank {i}: step ms {[round(x, 2) for x in r['step_ms']]}, "
+                f"losses {r['losses']}, peak {r['peak'] / 2**30:.2f} GiB ({r['base'] / 2**30:.2f} GiB of it "
+                f"allocated before the run), state bytes {r['bytes']} (params + grads + opt "
+                f"{sum(r['bytes'].values()) / 2**30:.3f} GiB), launches {r['launches']} (every flash call at "
+                f"{local_key})")
+        for k in want16:
+            launches[k] = launches.get(k, 0) + sum(r[arch][dt]["launches"][k] for r in ranks for dt in ("float32",
+                                                                                                            "bfloat16"))
+        for k in ("flash_attention", "flash_attention_bwd"):
+            n = sum(r[arch][dt]["by_shape"].get(k, {}).get(local_key, 0) for r in ranks for dt in ("float32",
+                                                                                                  "bfloat16"))
+            out["launches_by_shape"].setdefault(k, {})[local_key] = n
+        out["arch"][arch] = dict(fp32_worst=chk["worst"], fp32_offset=chk["offset_err"],
+                                 step_ms=[r["step_ms"] for r in b16], peak=[r["peak"] for r in b16],
+                                 base=[r["base"] for r in b16], bytes=[r["bytes"] for r in b16],
+                                 arg_bytes=[r["arg_bytes"] for r in b16],
+                                 flash_per_step=want16["flash_attention"] // TP_STEPS,
+                                 flash_bwd_per_step=want16["flash_attention_bwd"] // TP_STEPS)
     seconds = time.perf_counter() - t_all
     log(f"[tp] {seconds:.1f} s, the rank processes {spawn_s:.1f} s with start-up")
-    return dict(launches=launches, seconds=seconds, fp32_worst=worst[worst_name], fp32_offset=err[worst_offset],
-                serve_ranks=serve_ranks,
-                step_ms=[r["step_ms"] for r in b16], peak=[r["peak"] for r in b16],
-                base=[r["base"] for r in b16], bytes=[r["bytes"] for r in b16],
-                arg_bytes=[r["arg_bytes"] for r in b16],
-                flash_per_step=want16["flash_attention"] // TP_STEPS,
-                flash_bwd_per_step=want16["flash_attention_bwd"] // TP_STEPS,
-                launches_by_shape={k: {local_key: sum(r[dt]["by_shape"].get(k, {}).get(local_key, 0)
-                                                       for r in ranks for dt in TP_LAYERS)}
-                                   for k in ("flash_attention", "flash_attention_bwd")})
+    dense = out["arch"]["deepseek-7b"]
+    return dict(out, launches=launches, seconds=seconds, fp32_worst=dense["fp32_worst"], step_ms=dense["step_ms"],
+                moe_step_ms=out["arch"][TP_MOE]["step_ms"])
 
 
 # ---------------------------------------------------------------------------
@@ -4209,15 +4365,25 @@ TPS_PROMPTS = (2048, 777, 100, 321)  # [serve]'s ragged prompts and its sampled 
 TPS_MAX_SEQ = MAX_SEQ
 TPS_STEPS = 16
 TPS_LAYERS = 4
-TPS_RUNS = (("float32", "seq"), ("float32", "heads"), ("bfloat16", "seq"))
+TPS_MLA = "minicpm3-4b"
+# (arch, dtype, kv_shard) of each serving run on the mesh; the bf16 deepseek-7b
+# run is profiled
+TPS_RUNS = (("deepseek-7b", "float32", "seq"), ("deepseek-7b", "float32", "heads"), ("deepseek-7b", "bfloat16", "seq"),
+            (TP_MOE, "float32", "seq"), (TP_MOE, "bfloat16", "seq"),
+            (TPS_MLA, "float32", "seq"), (TPS_MLA, "bfloat16", "seq"))
+TPS_ARCHS = ("deepseek-7b", TP_MOE, TPS_MLA)
 TPS_PROFILED = 2  # decode steps under the profiler (bf16)
 TPS_LOGIT_RTOL = 1e-5  # fp32 logits against one process's, of the row's largest magnitude
 
 
-def _tps_cfg(dtype: str, kv_shard: str = "seq"):
+def _tps_cfg(dtype: str, kv_shard: str = "seq", arch: str = "deepseek-7b"):
     from repro_torch.configs import get_config
 
-    return get_config("deepseek-7b").replace(n_layers=TPS_LAYERS, dtype=dtype, kv_shard=kv_shard)
+    return get_config(arch).replace(n_layers=TPS_LAYERS, dtype=dtype, kv_shard=kv_shard)
+
+
+def _tps_run_name(arch: str, dtype: str, kv_shard: str) -> str:
+    return f"{arch}-{dtype}-{kv_shard}"
 
 
 def _tps_shape():
@@ -4230,7 +4396,7 @@ def _nbytes(ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def _tps_run(cfg, dev, profile: bool = False) -> dict:
+def _tps_run(cfg, dev, profile: bool = False, replay=None) -> dict:
     """Greedy serving of ``cfg`` from the weights seeded with 0
     (tensor-parallel under the active mesh, one process off it): the
     ``TPS_PROMPTS`` prompts (seeded) prefilled one by one
@@ -4239,7 +4405,9 @@ def _tps_run(cfg, dev, profile: bool = False) -> dict:
     ``build_serve_step`` steps at each slot's position.  Launch counts are
     0 just before and read just after that main path; then one more decode
     step gives the whole logits, one step's memory is read, and with
-    ``profile`` ``TPS_PROFILED`` steps run under the profiler."""
+    ``profile`` ``TPS_PROFILED`` steps run under the profiler.  fp32
+    records every MoE router call's ``top_i`` and, with ``replay`` (the
+    ranks' ``top_i``), routes by it (``_Routing``)."""
     from repro_torch.models import decode_step, gather_logits, init_cache, init_params
     from repro_torch.runtime.serve import build_prefill_fn, build_serve_step, prime_cache
 
@@ -4260,37 +4428,41 @@ def _tps_run(cfg, dev, profile: bool = False) -> dict:
     # ---- the main path: counts from 0 just before, read just after ----
     t0 = time.perf_counter()
     first = []
-    for b, prompt in enumerate(prompts):
-        tok, pc = prefill_fn(model, {"tokens": prompt})
-        primed = prime_cache(cfg, pc, prompt.shape[1], TPS_MAX_SEQ)
-        for name in caches:
-            caches[name][:, b:b + 1] = primed[name]
-        first.append(tok)
-        del pc, primed
-    torch.cuda.synchronize()
-    prefill_ms = (time.perf_counter() - t0) * 1e3
-    tok, toks, step_ms = torch.cat(first), [], []
-    toks.append(tok)
-    for i in range(TPS_STEPS):
+    # fp32: each MoE router call's top_i (the bf16 runs are timed without)
+    with _Routing(replay) if cfg.dtype == "float32" else contextlib.nullcontext() as routing:
+        for b, prompt in enumerate(prompts):
+            tok, pc = prefill_fn(model, {"tokens": prompt})
+            primed = prime_cache(cfg, pc, prompt.shape[1], TPS_MAX_SEQ)
+            for name in caches:
+                caches[name][:, b:b + 1] = primed[name]
+            first.append(tok)
+            del pc, primed
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tok, caches = step(model, tok, caches, pos + i)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        tok, toks, step_ms = torch.cat(first), [], []
         toks.append(tok)
-    launches = {k: c.count for k, c in ops.items()}
-    by_shape = {k: dict(c.by_shape) for k, c in ops.items() if c.count}
-    # -------------------------------------------------------------------
-    peak = torch.cuda.max_memory_allocated()
-    arg_bytes = _nbytes(model.parameters()) + _nbytes([tok, pos]) + _nbytes(caches.values())
-    torch.cuda.reset_peak_memory_stats()
-    before = torch.cuda.memory_allocated()
-    lg, _ = decode_step(model, tok, caches, pos + TPS_STEPS, cfg)
-    logits = gather_logits(model, lg)[:, 0].float().cpu().numpy()
-    step_temp = torch.cuda.max_memory_allocated() - before
+        for i in range(TPS_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok, caches = step(model, tok, caches, pos + i)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            toks.append(tok)
+        launches = {k: c.count for k, c in ops.items()}
+        by_shape = {k: dict(c.by_shape) for k, c in ops.items() if c.count}
+        # -------------------------------------------------------------------
+        peak = torch.cuda.max_memory_allocated()
+        arg_bytes = _nbytes(model.parameters()) + _nbytes([tok, pos]) + _nbytes(caches.values())
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        lg, _ = decode_step(model, tok, caches, pos + TPS_STEPS, cfg)
+        logits = gather_logits(model, lg)[:, 0].float().cpu().numpy()
+        step_temp = torch.cuda.max_memory_allocated() - before
     out = dict(tokens=torch.cat(toks, dim=1).cpu().numpy(), step_ms=step_ms, prefill_ms=prefill_ms,
                launches=launches, by_shape=by_shape, peak=peak, base=base, arg_bytes=arg_bytes,
-               step_temp=step_temp, logits=logits, cache_shapes={k: tuple(v.shape) for k, v in caches.items()})
+               step_temp=step_temp, logits=logits, cache_shapes={k: tuple(v.shape) for k, v in caches.items()},
+               routing=getattr(routing, "digests", []), top_i=getattr(routing, "top_i", []),
+               flips=getattr(routing, "flips", []))
     if profile:
         from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -4340,16 +4512,16 @@ def _tps_collective_ms(dev) -> dict:
 def _tps_rank(device: str = "cuda") -> dict:
     """One rank of the (1, 2) data × model mesh, every tensor on the card
     (run by ``[tp]``'s ranks, ``_tp_rank``): the ``TPS_RUNS`` serving runs
-    (``_tps_run``; the bf16 one profiled), then the decode step's
+    (``_tps_run``; deepseek-7b's bf16 one profiled), then the decode step's
     collectives timed alone."""
     import torch.distributed as dist
 
     dev = torch.device(device)
     t0 = time.perf_counter()
     out = {"rank": dist.get_rank()}
-    for dtype, kv_shard in TPS_RUNS:
-        r = _tps_run(_tps_cfg(dtype, kv_shard), dev, profile=dtype == "bfloat16")
-        out[f"{dtype}-{kv_shard}"] = r
+    for arch, dtype, kv_shard in TPS_RUNS:
+        profile = arch == "deepseek-7b" and dtype == "bfloat16"
+        out[_tps_run_name(arch, dtype, kv_shard)] = _tps_run(_tps_cfg(dtype, kv_shard, arch), dev, profile=profile)
         gc.collect()
         torch.cuda.empty_cache()
     out["collective_ms"] = _tps_collective_ms(dev)
@@ -4357,89 +4529,131 @@ def _tps_rank(device: str = "cuda") -> dict:
     return out
 
 
+def _tps_decode_key(cfg, kv_shard: str):
+    """The decode kernel's by-shape key on a rank of a model axis of 2: every
+    head against the rank's rows (the partial route) under ``"seq"``, the
+    rank's heads against every row under ``"heads"``; None for MLA (its
+    decode runs in torch ops)."""
+    if cfg.mla is not None:
+        return None
+    B, S = len(TPS_PROMPTS), TPS_MAX_SEQ
+    H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return (B, S // 2, H, KH, Dh, Dh, "partial") if kv_shard == "seq" else (B, S, H // 2, KH // 2, Dh, Dh)
+
+
 def tp_serve_phase(dev, tp: dict) -> dict:
-    """19. Dense serving on the ``model`` mesh axis on one card: one
-    process's fp32 and bf16 runs here (``_tps_run``) against the two gloo
-    rank processes' on a (1, 2) data × model mesh sharing the card
+    """19. Serving on the ``model`` mesh axis on one card: one process's
+    fp32 and bf16 runs here (``_tps_run``) against the two gloo rank
+    processes' on a (1, 2) data × model mesh sharing the card
     (``_tps_rank``, run in ``[tp]``'s process group: ``tp["serve_ranks"]``):
-    fp32 under ``kv_shard="seq"`` (the sequence-sharded cache: decode's
-    partial route and the combine) and ``"heads"``, each rank's tokens
+    deepseek-7b fp32 under ``kv_shard="seq"`` (the sequence-sharded cache:
+    decode's partial route and the combine) and ``"heads"``, qwen3-moe
+    (expert parallelism, its GQA 64 : 4 on the partial route) and
+    minicpm3-4b (MLA's heads over ``model``, its latent cache by rows and
+    the latent decode's combine) fp32 under ``"seq"``: each rank's tokens
     equal to one process's and its logits within ``TPS_LOGIT_RTOL`` of the
-    row's largest; bf16 ``"seq"`` timed (ms a decode step, its device-busy
-    share), each rank's peak, exact launch counts, and its tokens'
-    agreement with one process's logged."""
+    row's largest; bf16 ``"seq"`` timed (ms a decode step; deepseek-7b's
+    device-busy share), each rank's peak, exact launch counts, and its
+    tokens' agreement with one process's logged."""
     t_all = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
-    one = {dtype: _tps_run(_tps_cfg(dtype), dev) for dtype in ("float32", "bfloat16")}
-    gc.collect()
-    torch.cuda.empty_cache()
     ranks = tp["serve_ranks"]
+    one = {}
+    for arch in TPS_ARCHS:
+        for dtype in ("float32", "bfloat16"):
+            # fp32 routes by rank 0's choices: a near-tie that the ranks' float
+            # sums flip would otherwise send a token to another expert
+            replay = ranks[0][_tps_run_name(arch, dtype, "seq")]["top_i"] if dtype == "float32" else []
+            one[(arch, dtype)] = _tps_run(_tps_cfg(dtype, arch=arch), dev, replay=replay or None)
+            gc.collect()
+            torch.cuda.empty_cache()
     B, S = len(TPS_PROMPTS), TPS_MAX_SEQ
-    for dtype, kv_shard in TPS_RUNS:
-        run = f"{dtype}-{kv_shard}"
-        cfg = _tps_cfg(dtype, kv_shard)
+    for arch, dtype, kv_shard in TPS_RUNS:
+        run = _tps_run_name(arch, dtype, kv_shard)
+        cfg = _tps_cfg(dtype, kv_shard, arch)
         want = _serve_launches(cfg, prefills=B, decode_steps=TPS_STEPS)
-        # seq: every head against the rank's rows (the partial route); heads: the rank's heads, whole rows
-        H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        dec_key = (B, S // 2, H, KH, Dh, Dh, "partial") if kv_shard == "seq" else (B, S, H // 2, KH // 2, Dh, Dh)
+        dec_key = _tps_decode_key(cfg, kv_shard)
         for r in ranks:
             got = r[run]
             assert got["launches"] == want, f"[tp-serve] {run} rank {r['rank']}: launches {got['launches']}, {want}"
-            assert got["by_shape"]["decode_attention"] == {dec_key: want["decode_attention"]}, \
-                (run, got["by_shape"]["decode_attention"])
+            if dec_key is not None:
+                assert got["by_shape"]["decode_attention"] == {dec_key: want["decode_attention"]}, \
+                    (run, got["by_shape"]["decode_attention"])
             assert np.isfinite(got["logits"]).all(), run
             assert got["tokens"].min() >= 0 and got["tokens"].max() < cfg.vocab, run
         if dtype == "float32":
-            base = one["float32"]
-            scale = np.abs(base["logits"]).max(axis=-1, keepdims=True)
+            base = one[(arch, "float32")]
+            V = cfg.vocab  # the padding classes' -1e30 would set the scale
+            scale = np.abs(base["logits"][:, :V]).max(axis=-1, keepdims=True)
+            assert ranks[0][run]["routing"] == ranks[1][run]["routing"], f"[tp-serve] {run}: the ranks routed apart"
+            # the one process routed by the ranks' choices; where its own
+            # differed, the two experts' probabilities must be a near-tie
+            flips = base["flips"]
             for r in ranks:
                 got = r[run]
                 assert np.array_equal(got["tokens"], base["tokens"]), \
                     f"[tp-serve] {run} rank {r['rank']}: tokens {got['tokens'].tolist()} != {base['tokens'].tolist()}"
-                rel = float((np.abs(got["logits"] - base["logits"]) / scale).max())
+                rel = float((np.abs(got["logits"][:, :V] - base["logits"][:, :V]) / scale).max())
                 assert rel <= TPS_LOGIT_RTOL, f"[tp-serve] {run} rank {r['rank']}: logits {rel:.2e} of the row max"
                 got["logit_rel"] = rel
-            log(f"[tp-serve] fp32 kv_shard={kv_shard!r}, deepseek-7b full width, {TPS_LAYERS} layers, 2 gloo ranks "
+            if base["routing"]:
+                log(f"[tp-serve] {arch} fp32: {len(base['routing'])} router calls, both ranks' top_i the same bits; "
+                    f"the one process routed by them; calls where its own top_i differed (call, tokens, largest "
+                    f"probability gap of the token's largest; limit {TIE_RTOL}): {flips or 'none'}")
+                assert all(gap <= TIE_RTOL for _, _, gap in flips), f"[tp-serve] {run}: not near-ties: {flips}"
+            log(f"[tp-serve] {arch} fp32 kv_shard={kv_shard!r}, full width, {TPS_LAYERS} layers, 2 gloo ranks "
                 f"on one card (data 1 x model 2), prompts {TPS_PROMPTS} into {S} rows, {TPS_STEPS} greedy steps: "
                 f"tokens equal one process's on both ranks; logits within "
                 f"{max(r[run]['logit_rel'] for r in ranks):.2e} of the row's largest (limit {TPS_LOGIT_RTOL}); "
-                f"cache parts {ranks[0][run]['cache_shapes']}; launches a rank {ranks[0][run]['launches']}, "
-                f"decode at {dec_key}")
-    b16 = [r["bfloat16-seq"] for r in ranks]
-    agree = [float((r["tokens"][:, 1:] == one["bfloat16"]["tokens"][:, 1:]).mean()) for r in b16]
-    for i, r in enumerate(b16):
-        prof = r["profile"]
-        log(f"[tp-serve] bf16 kv_shard='seq', rank {i}: decode ms a step {np.median(r['step_ms']):.2f} (median of "
-            f"{TPS_STEPS}; {[round(x, 2) for x in r['step_ms']]}), 4 prefills + primes {r['prefill_ms']:.1f} ms; "
-            f"under the profiler {prof['profiled_wall_ms']:.2f} ms a step, device {prof['device_ms']:.2f} ms, busy "
-            f"{prof['busy']:.1%} (this rank's kernels); peak {r['peak'] / 2**30:.2f} GiB ({r['base'] / 2**30:.2f} "
-            f"GiB allocated before), argument bytes {r['arg_bytes']}; launches {r['launches']}; tokens equal to "
-            f"one process's bf16 run: {agree[i]:.3f} of {B * TPS_STEPS}")
-        log("[tp-serve] bf16 device time by kind: " + ", ".join(f"{k} {ms:.3f} ms" for k, ms in prof["kinds"]))
-    log(f"[tp-serve] one process on the card: bf16 decode ms a step {np.median(one['bfloat16']['step_ms']):.2f}, "
-        f"fp32 {np.median(one['float32']['step_ms']):.2f}")
+                f"cache parts {ranks[0][run]['cache_shapes']}; launches a rank {ranks[0][run]['launches']}"
+                + (f", decode at {dec_key}" if dec_key is not None else ", decode in latent space (torch ops)"))
+        else:
+            bone = one[(arch, "bfloat16")]
+            for r in ranks:
+                got = r[run]
+                got["agree"] = float((got["tokens"][:, 1:] == bone["tokens"][:, 1:]).mean())
+                prof = got.get("profile")
+                log(f"[tp-serve] {arch} bf16 kv_shard={kv_shard!r}, rank {r['rank']}: decode ms a step "
+                    f"{np.median(got['step_ms']):.2f} (median of {TPS_STEPS}; {[round(x, 2) for x in got['step_ms']]}), "
+                    f"4 prefills + primes {got['prefill_ms']:.1f} ms"
+                    + (f"; under the profiler {prof['profiled_wall_ms']:.2f} ms a step, device {prof['device_ms']:.2f} "
+                       f"ms, busy {prof['busy']:.1%} (this rank's kernels)" if prof else "")
+                    + f"; peak {got['peak'] / 2**30:.2f} GiB ({got['base'] / 2**30:.2f} GiB allocated before), "
+                    f"argument bytes {got['arg_bytes']}; launches {got['launches']}; tokens equal to one process's bf16 "
+                    f"run: {got['agree']:.3f} of {B * TPS_STEPS}")
+                if prof:
+                    log("[tp-serve] bf16 device time by kind: " + ", ".join(f"{k} {ms:.3f} ms" for k, ms in prof["kinds"]))
+            log(f"[tp-serve] {arch}, one process on the card: bf16 decode ms a step "
+                f"{np.median(bone['step_ms']):.2f}, fp32 {np.median(one[(arch, 'float32')]['step_ms']):.2f}")
     n_coll = {"qkv all-gather": TPS_LAYERS, "(out, lse) all-gather": TPS_LAYERS,
-              "activation sum": 2 * TPS_LAYERS + 1, "argmax all-gather": 1}  # a bf16 "seq" decode step's calls
+              "activation sum": 2 * TPS_LAYERS + 1, "argmax all-gather": 1}  # deepseek-7b's bf16 "seq" step's calls
     for r in ranks:
         c = r["collective_ms"]
         log(f"[tp-serve] rank {r['rank']}: one gloo call on CUDA tensors, median of {TPS_COLL_ITERS}: "
             + ", ".join(f"{k} {v:.3f} ms (x{n_coll[k]} a step)" for k, v in c.items())
             + f"; {sum(c[k] * n for k, n in n_coll.items()):.2f} ms of collectives a decode step")
-    launches = {k: sum(r[f"{dt}-{ks}"]["launches"][k] for r in ranks for dt, ks in TPS_RUNS) for k in want}
+    names = [_tps_run_name(*run) for run in TPS_RUNS]
+    launches = {k: sum(r[n]["launches"][k] for r in ranks for n in names) for k in ranks[0][names[0]]["launches"]}
     by_shape: dict = {}
     for r in ranks:
-        for dt, ks in TPS_RUNS:
-            for kern, shapes in r[f"{dt}-{ks}"]["by_shape"].items():
-                for key, n in shapes.items():
-                    by_shape.setdefault(kern, {})[key] = by_shape.setdefault(kern, {}).get(key, 0) + n
+        for n in names:
+            for kern, shapes in r[n]["by_shape"].items():
+                for key, c in shapes.items():
+                    by_shape.setdefault(kern, {})[key] = by_shape.setdefault(kern, {}).get(key, 0) + c
     seconds = time.perf_counter() - t_all
     log(f"[tp-serve] {seconds:.1f} s here; the ranks' runs {sum(r['seconds'] for r in ranks) / len(ranks):.1f} s "
         f"a rank, inside [tp]'s")
-    return dict(launches=launches, launches_by_shape=by_shape, seconds=seconds, agree=agree,
+    bf16 = {arch: [r[_tps_run_name(arch, "bfloat16", "seq")] for r in ranks] for arch in TPS_ARCHS}
+    b16 = bf16["deepseek-7b"]
+    return dict(launches=launches, launches_by_shape=by_shape, seconds=seconds, agree=[r["agree"] for r in b16],
                 collective_ms=[r["collective_ms"] for r in ranks],
                 step_ms=[r["step_ms"] for r in b16], busy=[r["profile"]["busy"] for r in b16],
                 peak=[r["peak"] for r in b16], base=[r["base"] for r in b16],
-                arg_bytes=[r["arg_bytes"] for r in b16], step_temp=[r["step_temp"] for r in b16])
+                arg_bytes=[r["arg_bytes"] for r in b16], step_temp=[r["step_temp"] for r in b16],
+                arch={arch: dict(step_ms=[r["step_ms"] for r in rs], arg_bytes=[r["arg_bytes"] for r in rs],
+                                 step_temp=[r["step_temp"] for r in rs], peak=[r["peak"] for r in rs],
+                                 agree=[r["agree"] for r in rs])
+                      for arch, rs in bf16.items()})
 
 
 # [dryrun]: the train runs whose cells the dry run models on one device
@@ -4451,9 +4665,10 @@ def dryrun_phase(trains: dict, tp: dict, tp_serve: dict) -> dict:
     tensors, on the CPU) of cells this script measures: ``[train]``'s
     deepseek-7b (its 30 layers, (2, 2048) in 2 microbatches, Adafactor,
     remat "full", logits chunks of 1024) on one device, the two new
-    configs' ``[train-*]`` cells the same way, ``[tp]``'s bf16 cell on a
-    (data 1, model 2) mesh, and ``[tp-serve]``'s bf16 decode step there
-    (its per-slot positions).  Its argument bytes (state, step, inputs;
+    configs' ``[train-*]`` cells the same way, ``[tp]``'s bf16 cells
+    (deepseek-7b, qwen3-moe) on a (data 1, model 2) mesh, and
+    ``[tp-serve]``'s bf16 decode steps there (deepseek-7b, qwen3-moe,
+    minicpm3-4b; their per-slot positions).  Its argument bytes (state, step, inputs;
     parameters, tokens, caches and positions) must equal the card's (each
     rank's); its peak is logged beside ``max_memory_allocated`` less what
     was allocated besides one step (earlier phases' leftovers, the other
@@ -4469,13 +4684,17 @@ def dryrun_phase(trains: dict, tp: dict, tp_serve: dict) -> dict:
     cells = [(arch, trains[arch]["cfg"], train_shape, None, dict(n_microbatches=TRAIN_MB), [trains[arch]["arg_bytes"]],
               [trains[arch]["peak_bytes"] - trains[arch]["extra_bytes"]], trains[arch]["step_ms"])
              for arch in DRYRUN_ARCHS]
-    cells.append(("tp", _tp_cfg("bfloat16"), ShapeSpec("tp", "train", TP_SEQ, TP_BATCH),
-                  DryRunMesh({"data": 1, "model": 2}), dict(n_microbatches=2), tp["arg_bytes"],
-                  [p - b for p, b in zip(tp["peak"], tp["base"])], float(np.median(tp["step_ms"][0][1:]))))
-    cells.append(("tp-serve", _tps_cfg("bfloat16"), _tps_shape(), DryRunMesh({"data": 1, "model": 2}),
-                  dict(pos_per_sequence=True), tp_serve["arg_bytes"],
-                  [a + t for a, t in zip(tp_serve["arg_bytes"], tp_serve["step_temp"])],
-                  float(np.median(tp_serve["step_ms"][0]))))
+    for arch in TP_ARCHS:
+        t = tp["arch"][arch]
+        cells.append(("tp" if arch == "deepseek-7b" else f"tp {arch}", _tp_cfg("bfloat16", arch),
+                      ShapeSpec("tp", "train", TP_SEQ, TP_BATCH), DryRunMesh({"data": 1, "model": 2}),
+                      dict(n_microbatches=2), t["arg_bytes"], [p - b for p, b in zip(t["peak"], t["base"])],
+                      float(np.median(t["step_ms"][0][1:]))))
+    for arch in TPS_ARCHS:
+        t = tp_serve["arch"][arch]
+        cells.append(("tp-serve" if arch == "deepseek-7b" else f"tp-serve {arch}", _tps_cfg("bfloat16", arch=arch),
+                      _tps_shape(), DryRunMesh({"data": 1, "model": 2}), dict(pos_per_sequence=True), t["arg_bytes"],
+                      [a + b for a, b in zip(t["arg_bytes"], t["step_temp"])], float(np.median(t["step_ms"][0]))))
     out = {}
     for name, cfg, shape, mesh, kw, measured_args, measured_peaks, step_ms in cells:
         t1 = time.perf_counter()
@@ -4622,7 +4841,9 @@ def main() -> int:
         f"{pipe['bf16']['1f1b']['wall_ms']:.1f} / {pipe['bf16']['fifo']['wall_ms']:.1f} ms (bubble "
         f"{pipe['bf16']['1f1b']['bubble']:.3f} / {pipe['bf16']['fifo']['bubble']:.3f}), chaos {chaos['seconds']:.1f} s, "
         f"mesh {mesh['seconds']:.1f} s, tp (2 ranks, model 2) bf16 step ms {tp['step_ms']} (fp32 worst weight "
-        f"{tp['fp32_worst']:.2e} of its max), tp-serve bf16 decode ms a step "
+        f"{tp['fp32_worst']:.2e} of its max; qwen3-moe {tp['moe_step_ms']}), tp-serve bf16 decode ms a step "
+        f"(qwen3-moe {[round(float(np.median(m)), 2) for m in tp_serve['arch'][TP_MOE]['step_ms']]}, minicpm3-4b "
+        f"{[round(float(np.median(m)), 2) for m in tp_serve['arch'][TPS_MLA]['step_ms']]}) deepseek-7b "
         f"{[round(float(np.median(m)), 2) for m in tp_serve['step_ms']]} (busy "
         f"{[round(b, 3) for b in tp_serve['busy']]}, tokens agreeing with one process {tp_serve['agree']}), hubert-xlarge encoder {serve_h['wall_ms']:.1f} ms a 2 x 4096 call "
         f"({serve_h['frames_per_s']:.1f} frames/s, peak {serve_h['peak_bytes'] / 2**30:.2f} GiB, fp32 "

@@ -18,7 +18,10 @@ Layout (per step)::
   manifest dtype ``"bfloat16"``) and come back through a ``uint16`` view,
   never rounded through float32;
 * **atomicity**: a crash mid-write leaves only a ``.tmp`` dir, which restore
-  ignores and the next manager purges;
+  ignores and the next manager purges (on a group of more than one rank,
+  rank 0 purges them at the start of a save, when every rank has reached
+  it: a manager made on one rank must not remove another's save in
+  flight);
 * **async commit**: the device→host copy runs on the caller's thread (so
   the train loop may update the state in place right after ``save``
   returns), serialization + fsync on a background thread;
@@ -163,10 +166,14 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         self._pending: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
-        # purge stale tmp dirs from a previous crash
-        for d in os.listdir(directory):
+        if _group_size() == 1:  # a group's ranks purge in _save_sharded
+            self._purge_tmp()
+
+    def _purge_tmp(self) -> None:
+        """Remove the ``.tmp`` dirs a crash left."""
+        for d in os.listdir(self.dir):
             if d.endswith(".tmp"):
-                shutil.rmtree(os.path.join(directory, d), ignore_errors=True)
+                shutil.rmtree(os.path.join(self.dir, d), ignore_errors=True)
 
     # ------------------------------------------------------------------ save
 
@@ -230,6 +237,9 @@ class CheckpointManager:
         rank = dist.get_rank()
         tmp = os.path.join(self.dir, f"step_{step:09d}.tmp")
         final = os.path.join(self.dir, f"step_{step:09d}")
+        if rank == 0:
+            self._purge_tmp()
+        dist.barrier()  # every rank is here: no save of this group is in flight
         os.makedirs(tmp, exist_ok=True)
         fragment = []
         for i, (p, arr) in enumerate(leaves):

@@ -149,6 +149,86 @@ class DryRunMesh:
         return self._groups[axis]
 
 
+class BatchAxes:
+    """The axes of a mesh a step's rows are split over, each with more
+    than one rank, major to minor (of ``default_rules()["batch"]``:
+    ``pod``, ``data``).  Like :class:`ModelAxis` it keeps the mesh, for
+    autograd's threads."""
+
+    def __init__(self, mesh, axes: tuple):
+        self.mesh = mesh
+        self.axes = axes
+        sizes = mesh_shape(mesh)
+        self.sizes = tuple(sizes[a] for a in axes)
+        self.size = math.prod(self.sizes)
+
+    @property
+    def rank(self) -> int:
+        """This rank's block of rows: its coordinates on the axes, major to
+        minor."""
+        index = 0
+        for a, n in zip(self.axes, self.sizes):
+            index = index * n + self.mesh.get_local_rank(a)
+        return index
+
+    @property
+    def groups(self) -> list:
+        """Each axis' process group, major to minor."""
+        return [self.mesh.get_group(a) for a in self.axes]
+
+
+def batch_axes(mesh=None) -> Optional[BatchAxes]:
+    """The batch axes of ``mesh`` (default: :func:`current_mesh`) with more
+    than one rank, or None when there are none."""
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is None:
+        return None
+    sizes = mesh_shape(mesh)
+    axes = tuple(a for a in default_rules()["batch"] if sizes.get(a, 1) > 1)
+    return BatchAxes(mesh, axes) if axes else None
+
+
+_split_axes: contextvars.ContextVar[tuple] = contextvars.ContextVar("repro_torch_split_axes", default=())
+
+
+def batch_split_axes(batch: int, mesh=None) -> tuple:
+    """The mesh axes a global batch of ``batch`` rows splits over on
+    ``mesh`` (default: :func:`current_mesh`), as :func:`safe_spec` lays it
+    out, major to minor: () off-mesh and where the batch axes replicate
+    it."""
+    mesh = mesh if mesh is not None else current_mesh()
+    return () if mesh is None else spec_axes(safe_spec((batch,), ("batch",), mesh=mesh)[0])
+
+
+@contextlib.contextmanager
+def split_rows(axes: Sequence[str]):
+    """Declare, for the dynamic extent of the ``with`` block, that the rows
+    a step runs on are this rank's block of a batch split over the mesh
+    axes ``axes`` (:func:`batch_split_axes`).  The train step, the serve
+    step and the dry run declare theirs; a MoE layer routes over the rows
+    of every rank of a declared split (``models/moe.py``).  Undeclared, a
+    rank's rows are the whole batch."""
+    token = _split_axes.set(tuple(axes))
+    try:
+        yield
+    finally:
+        _split_axes.reset(token)
+
+
+def rows_split(mesh=None) -> Optional[BatchAxes]:
+    """The split :func:`split_rows` declares, on ``mesh`` (default:
+    :func:`current_mesh`): its axes of more than one rank, or None when
+    there are none and this rank's rows are the whole batch.  Read in the
+    calling thread: the model passes it on to its layers, whose
+    recomputation in the backward may run on autograd's threads."""
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is None:
+        return None
+    sizes = mesh_shape(mesh)
+    axes = tuple(a for a in _split_axes.get() if sizes.get(a, 1) > 1)
+    return BatchAxes(mesh, axes) if axes else None
+
+
 def model_axis(mesh=None) -> Optional[ModelAxis]:
     """The ``model`` axis of ``mesh`` (default: :func:`current_mesh`), or
     None off-mesh and when the axis is absent or of size 1."""

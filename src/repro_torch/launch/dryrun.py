@@ -66,11 +66,23 @@ vector, as the serving engine feeds).  Their arguments are the local
 parameters and inputs (and caches and position); a decode step updates the
 caches in place, so they are its alias bytes.  On a ``model`` axis of m > 1
 the sequence-sharded decode's all-gathers (q / k / v, then (out, lse)) and
-the greedy argmax's are recorded like the sums.  Every block kind but
-``"attn"`` (and a frontend) raises the port's own ``NotImplementedError``
-on such an axis (ROADMAP.md, Queue 1 item 5.6), which :func:`run_cell`
-records as ``ok: false``, as ``repro``'s records a failed lowering.
-Nothing here imports JAX or ``repro``, or sets ``XLA_FLAGS``.
+the greedy argmax's are recorded like the sums.  Block kinds ``"attn"``,
+``"moe"`` and ``"mla"`` run there (the MoE cells with expert parallelism,
+and on the batch axes the all-gather of ``top_i`` where a dispatch group
+spans ranks and the load-balance means' sums: ``models/moe.py``; MLA's
+heads over ``model`` where m divides them and its latent cache by rows:
+``models/mla.py``); every other block kind (and a frontend) raises the
+port's own ``NotImplementedError`` on such an axis (ROADMAP.md, Queue 1
+item 5.6), which :func:`run_cell` records as ``ok: false``, as ``repro``'s
+records a failed lowering.  Nothing here imports JAX or ``repro``, or sets
+``XLA_FLAGS``.
+
+The MoE configs' default dispatch is ``einsum``: ``repro`` builds one-hot
+(G, S, E, C) dispatch and combine tensors and contracts them, FLOPs that
+XLA counts; the port writes and gathers each choice's slot instead, so
+those products are not in its count.  Read a MoE cell's FLOPs against
+``repro``'s ``dispatch="scatter"`` lowering (``--set moe.dispatch=scatter``),
+whose products are the port's.
 """
 from __future__ import annotations
 
@@ -92,7 +104,7 @@ from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.configs import ARCH_NAMES, get_config
-from repro_torch.dist.sharding import DryRunMesh, use_mesh
+from repro_torch.dist.sharding import DryRunMesh, batch_split_axes, split_rows, use_mesh
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.launch.mesh import MULTI_POD, MULTI_POD_AXES, SINGLE_POD, SINGLE_POD_AXES
@@ -390,8 +402,9 @@ def model_cell(cfg: ArchConfig, shape: ShapeSpec, mesh: Optional[DryRunMesh], n_
     no mesh): → ``{"memory", "cost", "collectives", "peak_terms",
     "kernels"}`` (module docstring).  A decode cell's position is a scalar
     unless ``pos_per_sequence``.  Raises what the port raises for a cell
-    it cannot run (a model axis of m > 1 outside block kind ``"attn"``:
-    ``NotImplementedError`` naming Queue 1 item 5.6)."""
+    it cannot run (a model axis of m > 1 outside block kinds ``"attn"``,
+    ``"moe"`` and ``"mla"``: ``NotImplementedError`` naming Queue 1 item
+    5.6)."""
     from repro_torch.models import abstract_cache, abstract_inputs, set_trainable
     from repro_torch.optim import TrainState
     from repro_torch.runtime.serve import build_prefill_fn, build_serve_step
@@ -418,7 +431,8 @@ def model_cell(cfg: ArchConfig, shape: ShapeSpec, mesh: Optional[DryRunMesh], n_
         elif shape.kind == "prefill":
             rows = _local_rows(inputs, mesh)
             known = list(model.parameters()) + list(inputs.values())
-            _, tr = _run_instrumented(model, 1, known, log, lambda: build_prefill_fn(cfg)(model, rows))
+            with split_rows(() if mesh is None else batch_split_axes(shape.global_batch, mesh)):
+                _, tr = _run_instrumented(model, 1, known, log, lambda: build_prefill_fn(cfg)(model, rows))
             arguments = _nbytes(model.parameters()) + _nbytes(rows.values())
             outputs, alias = 0, 0
         else:  # decode: one greedy step against caches of the shape's length

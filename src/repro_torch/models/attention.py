@@ -273,7 +273,7 @@ def _out_project(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return out.reshape(*out.shape[:-2], H * Dh) @ wo.reshape(H * Dh, D)
 
 
-def _write_owned(cache: torch.Tensor, new: torch.Tensor, row: torch.Tensor) -> None:
+def write_owned(cache: torch.Tensor, new: torch.Tensor, row: torch.Tensor) -> None:
     """Write ``new`` (B, 1, ...) at local row ``row`` (B,) of ``cache``
     where the row lies in it; elsewhere rewrite the row a clamp picks with
     itself (no data-dependent indexing: nothing waits on the card)."""
@@ -305,8 +305,8 @@ def _decode_every_head(p: Attention, x: torch.Tensor, cache: dict, pos: torch.Te
     H, Dh) in the cache's dtype, the same on every rank."""
     q, k, v = _every_head(p, x, pos[:, None], cfg)
     slot = pos % part.seq_len if cfg.attn_window is not None else pos
-    _write_owned(cache["k"], k, slot - part.offset)
-    _write_owned(cache["v"], v, slot - part.offset)
+    write_owned(cache["k"], k, slot - part.offset)
+    write_owned(cache["v"], v, slot - part.offset)
     if part.mode == "whole":
         return decode_attention(q, cache["k"], cache["v"], pos)
     out, lse = decode_ops.decode_attention(q, cache["k"], cache["v"], pos, part.offset, partial=True)

@@ -39,18 +39,20 @@ parameter (``safe_spec`` of its ``ParamDef`` axes: ``heads``, ``kv_heads``,
 ``ff`` and ``vocab`` go to ``model`` where m divides them;
 :func:`param_shardings` gives the specs), and its forward is
 tensor-parallel over those parts (``models/attention.py``,
-``models/layers.py``).  :func:`init_params` draws each leaf at its full
-shape and keeps this rank's part, so a rank's tensors are bit for bit the
-slices of the off-mesh init.  That slice of the port covers block kind
-``"attn"`` over token embeddings, in training and in serving:
-:func:`prefill`, :func:`decode_step` and :func:`verify_step` run
-tensor-parallel, their caches (:func:`init_cache`, :func:`abstract_cache`,
-``prefill``'s) are this rank's parts of ``repro``'s global caches
-(:class:`MeshCaches`; the KV caches sequence-sharded under
-``kv_shard="seq"``: ``models/attention.py``) and their logits this rank's
-vocab part (``layers.gather_logits``, ``layers.greedy_tokens``).  The other
-block kinds, the frontends, the hybrid layout and ``ServeEngine`` raise
-under such a mesh (ROADMAP.md, Queue 1 item 5.6).
+``models/layers.py``; ``experts`` and ``expert_ff``: ``models/moe.py``;
+MLA's ``heads``: ``models/mla.py``).  :func:`init_params` draws each leaf
+at its full shape and keeps this rank's part, so a rank's tensors are bit
+for bit the slices of the off-mesh init.  That covers block kinds
+``"attn"``, ``"moe"`` and ``"mla"`` over token embeddings, in training and
+in serving: :func:`prefill`, :func:`decode_step` and :func:`verify_step`
+run tensor-parallel, their caches (:func:`init_cache`,
+:func:`abstract_cache`, ``prefill``'s) are this rank's parts of
+``repro``'s global caches (:class:`MeshCaches`; the KV caches
+sequence-sharded under ``kv_shard="seq"``: ``models/attention.py``; MLA's
+latent cache by rows: ``models/mla.py``) and their logits this rank's
+vocab part (``layers.gather_logits``, ``layers.greedy_tokens``).  Block
+kinds ``"ssm"`` and ``"rec"``, the hybrid layout, the frontends and
+``ServeEngine`` raise under such a mesh (ROADMAP.md, Queue 1 item 5.6).
 
 :func:`input_defs`, :func:`abstract_inputs`, :func:`abstract_params` and
 :func:`abstract_cache` describe a batch, the parameters and the caches as
@@ -66,7 +68,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
-from repro_torch.dist.sharding import current_mesh, model_axis, safe_spec
+from repro_torch.dist.sharding import current_mesh, model_axis, rows_split, safe_spec
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mla as mla_mod
@@ -167,21 +169,25 @@ def block_defs(cfg: ArchConfig, kind: Optional[str] = None) -> dict:
 
 MODEL_AXIS_ITEM = "ROADMAP.md, Queue 1 item 5.6"
 
+#: the block kinds that run on a ``model`` mesh axis of m > 1
+MODEL_AXIS_KINDS = frozenset({"attn", "mla", "moe"})
+
 
 def check_model_axis(cfg: ArchConfig, mesh=None) -> None:
     """Raise ``NotImplementedError`` (naming Queue 1 item 5.6) for a config
     the port cannot run tensor-parallel on ``mesh``'s (default: the active
-    mesh's) ``model`` axis of m > 1: anything but a stack of ``"attn"``
-    blocks over token embeddings."""
+    mesh's) ``model`` axis of m > 1: anything but a stack of one of
+    ``MODEL_AXIS_KINDS`` over token embeddings (the hybrid layout mixes
+    ``"rec"`` in)."""
     tp = model_axis(mesh)
     if tp is None:
         return
     kinds = set(layer_kinds(cfg))
-    if kinds != {"attn"} or cfg.frontend is not None:
+    if not kinds <= MODEL_AXIS_KINDS or cfg.frontend is not None:
         what = f"frontend {cfg.frontend!r}" if cfg.frontend is not None else f"block kinds {sorted(kinds)}"
         raise NotImplementedError(
             f"{cfg.name}: {what} on a 'model' mesh axis of {tp.size} is not ported; the port runs "
-            f"block kind 'attn' tensor-parallel ({MODEL_AXIS_ITEM})"
+            f"block kinds {sorted(MODEL_AXIS_KINDS)} tensor-parallel ({MODEL_AXIS_ITEM})"
         )
 
 
@@ -249,25 +255,30 @@ class Block(nn.Module):
         else:
             self.mlp = MLP(cfg, dtype=dtype, device=device)
 
-    def _ffn(self, x, cfg: ArchConfig):
+    def _ffn(self, x, cfg: ArchConfig, rows, want_aux: bool):
         if self.kind == "moe":
-            return moe_mod.moe_apply(self.moe, self.ln2(x), cfg)
+            return moe_mod.moe_apply(self.moe, self.ln2(x), cfg, rows, want_aux)
         return self.mlp(self.ln2(x)), None
 
-    def forward(self, x, positions, cfg: ArchConfig, *, causal: bool, want_cache: bool):
+    def forward(self, x, positions, cfg: ArchConfig, *, causal: bool, want_cache: bool, rows=None,
+                want_aux: bool = True):
+        """``rows``: the split of the step's rows over the batch axes, which
+        a MoE routes over (``dist.sharding.rows_split``; None: whole);
+        ``want_aux``: whether a MoE computes its aux losses."""
         apply = mla_mod.mla_apply if self.kind == "mla" else attn_mod.attention_apply
         h, cache = apply(self.attn, self.ln1(x), positions, cfg, causal=causal, want_cache=want_cache)
         x = x + h
-        h, aux = self._ffn(x, cfg)
+        h, aux = self._ffn(x, cfg, rows, want_aux)
         return x + h, cache, aux
 
-    def decode(self, x, cache: dict, pos: torch.Tensor, cfg: ArchConfig, part=None):
-        """``part``: the KV cache's place on the ``model`` axis
-        (``attention.KVPart``; None off it)."""
+    def decode(self, x, cache: dict, pos: torch.Tensor, cfg: ArchConfig, part=None, rows=None):
+        """``part``: the KV (or MLA latent) cache's place on the ``model``
+        axis (``attention.KVPart``; None off it); ``rows`` as for
+        :meth:`forward`."""
         step = mla_mod.mla_decode_step if self.kind == "mla" else attn_mod.attention_decode_step
         h, cache = step(self.attn, self.ln1(x), cache, pos, cfg, *(() if part is None else (part,)))
         x = x + h
-        return x + self._ffn(x, cfg)[0], cache
+        return x + self._ffn(x, cfg, rows, False)[0], cache
 
 
 class RecBlock(nn.Module):
@@ -494,7 +505,8 @@ def head_logits(model: Transformer, x: torch.Tensor, cfg: ArchConfig) -> torch.T
     return logits_apply(model, x, cfg)
 
 
-def forward(model: Transformer, batch: dict, cfg: ArchConfig, *, want_cache: bool = False):
+def forward(model: Transformer, batch: dict, cfg: ArchConfig, *, want_cache: bool = False,
+            want_aux: bool = True):
     """→ (hidden (B, L, D), caches | None, aux).  ``batch`` is
     :func:`embed_inputs`'s (``tokens``; ``embeds`` / ``mask`` for audio;
     ``patch_embeds`` and ``tokens`` for vision, L = n_patches + tokens).
@@ -505,13 +517,17 @@ def forward(model: Transformer, batch: dict, cfg: ArchConfig, *, want_cache: boo
     ``{'c_kv': (n, B, L, r_kv), 'k_rope': (n, B, L, d_rope)}`` for MLA,
     ``{'state', 'conv'}`` for ssm, ``{'h': (n, B, W) float32, 'conv': (n,
     B, 3, W)}`` for rec; a hybrid's dict holds both its kinds' leaves.
-    ``aux`` is the MoE aux losses summed over the layers ({} without MoE)."""
+    ``aux`` is the MoE aux losses summed over the layers ({} without MoE
+    or ``want_aux``)."""
     x, positions = embed_inputs(model, batch, cfg)
     causal = not cfg.is_encoder
     lcfg = layer_cfg(cfg)
+    # read here, in the calling thread, and passed to the layers: a
+    # recomputation in the backward may run on autograd's threads
+    moe_kw = {"rows": rows_split(), "want_aux": want_aux} if cfg.moe is not None else {}
     layer_caches, aux = [], None
     for layer in model.layers:
-        x, cache, a = _remat(layer, cfg)(x, positions, lcfg, causal=causal, want_cache=want_cache)
+        x, cache, a = _remat(layer, cfg)(x, positions, lcfg, causal=causal, want_cache=want_cache, **moe_kw)
         aux = _add_aux(aux, a)
         if want_cache:
             layer_caches.append(cache)
@@ -553,9 +569,9 @@ def loss_fn(model: Transformer, batch: dict, cfg: ArchConfig):
 class MeshCaches(dict):
     """Decode caches on a ``model`` axis of m > 1: this rank's part of each
     leaf of ``repro``'s global caches, and ``seq_len``, the global rows of
-    the KV leaves' sequence axis, which places each rank's part
-    (``attention.kv_part``): a local shape alone cannot tell a
-    sequence-sharded cache from a whole one of fewer rows."""
+    the KV (or MLA latent) leaves' sequence axis, which places each rank's
+    part (``attention.kv_part``, ``mla.latent_part``): a local shape alone
+    cannot tell a sequence-sharded cache from a whole one of fewer rows."""
 
     def __init__(self, leaves: dict, seq_len: int):
         super().__init__(leaves)
@@ -568,7 +584,7 @@ def prefill(model: Transformer, batch: dict, cfg: ArchConfig):
     position's logits are computed.  On a ``model`` axis the logits are
     this rank's vocab part and the caches a :class:`MeshCaches` of the
     prompt's rows."""
-    x, caches, _ = forward(model, batch, cfg, want_cache=True)
+    x, caches, _ = forward(model, batch, cfg, want_cache=True, want_aux=False)
     tp = getattr(model, "tp", None)  # (a speculative draft shares a model's modules without one)
     if tp is not None:
         caches = MeshCaches(caches, x.shape[1])
@@ -593,16 +609,22 @@ def decode_step(model: Transformer, tokens: torch.Tensor, caches: dict, pos, cfg
     x = embed_apply(model, tokens, cfg)
     pos_b = _pos_vector(pos, tokens.shape[0], tokens.device)
     lcfg = layer_cfg(cfg)
-    kw = {}
+    parts = None
     tp = getattr(model, "tp", None)
     if tp is not None:
         if not isinstance(caches, MeshCaches):
             raise ValueError("decode on a 'model' axis takes the MeshCaches that init_cache, prefill or "
                              "runtime.serve.prime_cache make: their global rows place each rank's part")
-        kw["part"] = attn_mod.kv_part(lcfg, caches.seq_len, tp)
+        place = {"mla": mla_mod.latent_part}  # the others' caches are KV caches
+        parts = {kind: place.get(kind, attn_mod.kv_part)(lcfg, caches.seq_len, tp)
+                 for kind in set(layer_kinds(cfg))}
+    rows = rows_split() if cfg.moe is not None else None
     seen: dict = {}  # layers of each kind so far: the index into its leaves
     for layer, kind in zip(model.layers, layer_kinds(cfg)):
         j = seen[kind] = seen.get(kind, -1) + 1
+        kw = {} if parts is None else {"part": parts[kind]}
+        if kind == "moe":
+            kw["rows"] = rows
         x, _ = layer.decode(x, {k: caches[k][j] for k in CACHE_KEYS[kind]}, pos_b, lcfg, **kw)
     x = model.final_norm(x)
     return logits_apply(model, x, cfg), caches

@@ -4,12 +4,17 @@ decode, and moving one slot's KV rows in and out of the paged pool.  A port
 of ``repro.runtime.serve``: PyTorch runs eagerly, so each ``build_*``
 returns a plain closure where ``repro``'s jits one.
 
-On a mesh with a ``model`` axis of m > 1 (block kind ``"attn"``, the model
-built under it) the steps run tensor-parallel on each rank's parts, as
-``repro``'s jitted steps run under ``param_shardings`` and
-:func:`cache_shardings`: the caches are each rank's part of ``repro``'s
-global caches (``models.MeshCaches``), the next tokens the argmax over the
-whole vocabulary (``models.greedy_tokens``) on every rank.
+On a mesh with a ``model`` axis of m > 1 (block kinds ``"attn"``,
+``"moe"`` and ``"mla"``, the model built under it) the steps run
+tensor-parallel on each rank's parts, as ``repro``'s jitted steps run
+under ``param_shardings`` and :func:`cache_shardings`: the caches are each
+rank's part of ``repro``'s global caches (``models.MeshCaches``; MLA's
+latent cache by rows), the next tokens the argmax over the
+whole vocabulary (``models.greedy_tokens``) on every rank.  Where the
+batch axes split the rows, a MoE routes over every rank's rows as the
+step declares them (``dist.sharding.split_rows``): :func:`build_serve_step`
+does from its shape; a caller of the other steps on such rows declares
+them itself.
 :func:`prime_cache` pads in the global view, which moves rows between the
 ranks of a sequence-sharded cache.  The paged-pool plumbing and the serving
 engine stay off such an axis, as ``repro``'s engine takes no mesh.
@@ -22,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.dist.collectives import model_all_gather
-from repro_torch.dist.sharding import current_mesh, model_axis, safe_spec, spec_axes
+from repro_torch.dist.sharding import batch_split_axes, current_mesh, model_axis, safe_spec, spec_axes, split_rows
 from repro_torch.models.config import ArchConfig, ShapeSpec
 from repro_torch.models.layers import greedy_tokens
 from repro_torch.models.param import local_shape, sharding_tree
@@ -177,17 +182,21 @@ def build_serve_step(cfg: ArchConfig, shape: ShapeSpec):
     """The serve step of a decode shape: :func:`build_decode_fn`'s, which
     takes caches of ``shape``'s global batch and rows as this rank's parts
     on the active mesh (:func:`cache_shardings`, as ``repro``'s jitted step
-    takes them) and raises on any other."""
+    takes them) and raises on any other.  It declares its rows' split of
+    the global batch (``dist.sharding.split_rows``), which a MoE routes
+    over."""
     decode_fn = build_decode_fn(cfg)
     mesh = current_mesh()
     want = {name: local_shape(d.shape, safe_spec(d.shape, d.axes, mesh=mesh), mesh) if mesh is not None
             else tuple(d.shape) for name, d in cache_defs(cfg, shape.global_batch, shape.seq_len).items()}
+    split = batch_split_axes(shape.global_batch, mesh)
 
     def serve_step(model, tokens, caches, pos):
         got = {name: tuple(t.shape) for name, t in caches.items()}
         if got != want:
             raise ValueError(f"serve step of {shape.name}: caches {got}, expected this rank's parts {want}")
-        return decode_fn(model, tokens, caches, pos)
+        with split_rows(split):
+            return decode_fn(model, tokens, caches, pos)
 
     return serve_step
 

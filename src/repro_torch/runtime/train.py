@@ -45,8 +45,13 @@ What differs from ``repro``:
   ``m`` / ``v`` are local parts and Adafactor's state is whole on every rank
   (:func:`train_state_shardings`); the global norm sums the sharded
   gradients' squares over ``model``.  Each metric is the same on every
-  ``model`` rank.  Block kinds other than ``"attn"`` raise there
-  (``models.check_model_axis``).  Off-mesh the step runs on one card as
+  ``model`` rank.  Block kinds ``"attn"``, ``"moe"`` (expert
+  parallelism, ``models/moe.py``; its ``moe_balance`` and ``moe_zloss``
+  are each one process's) and ``"mla"`` run there; the others raise
+  (``models.check_model_axis``).  A MoE model routes over the global
+  batch (the step declares its rows' split: ``dist.sharding.split_rows``),
+  so its batch must split over every batch axis of the mesh.
+  Off-mesh the step runs on one card as
   before.
 """
 from __future__ import annotations
@@ -66,7 +71,15 @@ from repro_torch.dist.collectives import (
     mesh_psum_,
     model_sum_,
 )
-from repro_torch.dist.sharding import PartitionSpec, current_mesh, mesh_shape, safe_spec, use_mesh
+from repro_torch.dist.sharding import (
+    PartitionSpec,
+    batch_axes,
+    current_mesh,
+    mesh_shape,
+    safe_spec,
+    split_rows,
+    use_mesh,
+)
 from repro_torch.models import abstract_params, init_params, leaf_layout, loss_fn, model_defs, set_trainable
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.param import DTYPES, sharding_tree
@@ -301,6 +314,11 @@ def build_train_step(
         entry = safe_spec((B,), ("batch",), mesh=mesh)[0]
         axes = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
         sizes = mesh_shape(mesh)
+        split = batch_axes(mesh)
+        want = () if split is None else split.axes
+        if cfg.family == "moe" and tuple(a for a in axes if sizes[a] > 1) != want:
+            raise ValueError(f"a MoE step routes over the global batch of the mesh's batch axes {want}; "
+                             f"a batch of {B} splits over {axes}")
         index, n = 0, 1
         for a in axes:
             index, n = index * sizes[a] + mesh.get_local_rank(a), n * sizes[a]
@@ -322,7 +340,7 @@ def build_train_step(
         leaves = param_leaves((n for n, _ in model.named_parameters()), layout)
 
         # the mesh the step was built under, wherever it is called from
-        with use_mesh(mesh) if mesh is not None else contextlib.nullcontext(), \
+        with use_mesh(mesh) if mesh is not None else contextlib.nullcontext(), split_rows(dp_axes), \
                 SpRuntime(backend="staged", policy=schedule_policy) as rt:
             for i in range(n_mb):
                 mb_c = SpData({k: t[i] for k, t in mb_batch.items()}, f"mb{i}")

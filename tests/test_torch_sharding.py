@@ -219,12 +219,13 @@ def test_data_parallel_step_in_two_gloo_processes_matches_one_process():
 
 def test_model_axis_raises_and_axis_needs_a_mesh():
     """A block kind the port does not run tensor-parallel (reduced
-    qwen3-moe) raises on a model axis of 2, naming Queue 1 item 5.6; the
-    dense step is ``tests/test_torch_tp.py``'s."""
+    mamba2-130m) raises on a model axis of 2, naming Queue 1 item 5.6; the
+    dense step is ``tests/test_torch_tp.py``'s, the MoE and MLA ones
+    ``tests/test_torch_tp_moe_mla.py``'s."""
     from repro_torch.configs import reduced_config
     from repro_torch.runtime.train import build_train_step
 
-    cfg = reduced_config("qwen3-moe-235b-a22b")
+    cfg = reduced_config("mamba2-130m")
     with use_mesh(FakeMesh(data=1, model=2)):
         with pytest.raises(NotImplementedError, match="Queue 1 item 5.6"):
             build_train_step(cfg)

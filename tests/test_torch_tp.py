@@ -109,16 +109,21 @@ def test_meta_build_holds_the_local_shapes():
 
 
 def test_other_block_kinds_and_frontends_raise_on_a_model_axis():
+    """The SSM and RG-LRU block kinds, the hybrid layout and the frontends
+    raise on a model axis of 2 naming Queue 1 item 5.6; the MoE and MLA
+    configs build there (tests/test_torch_tp_moe_mla.py runs them)."""
     from repro_torch.runtime.train import build_train_step
 
-    for arch in ("qwen3-moe-235b-a22b", "minicpm3-4b", "mamba2-130m", "recurrentgemma-9b",
-                 "hubert-xlarge", "internvl2-2b", "llama4-scout-17b-a16e"):
+    for arch in ("mamba2-130m", "recurrentgemma-9b", "hubert-xlarge", "internvl2-2b"):
         cfg = reduced_config(arch)  # an unknown name raises: every arch here is checked
         with use_mesh(FakeMesh(data=1, model=2)):
             with pytest.raises(NotImplementedError, match="Queue 1 item 5.6"):
                 Transformer(cfg, device="meta")
             with pytest.raises(NotImplementedError, match="Queue 1 item 5.6"):
                 build_train_step(cfg)
+    for arch in ("qwen3-moe-235b-a22b", "llama4-scout-17b-a16e", "minicpm3-4b"):
+        with use_mesh(FakeMesh(data=1, model=2)):
+            assert Transformer(reduced_config(arch), device="meta").tp.size == 2
     with use_mesh(FakeMesh(data=2, model=1)):  # a model axis of 1 is no model axis
         assert Transformer(reduced_config("mamba2-130m"), device="meta").tp is None
 
