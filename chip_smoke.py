@@ -100,7 +100,7 @@ Phases (any failure raises and the script exits non-zero):
               prompts: the QKV bias, GQA 8:1 at 64 heads, top-1 routing
               with a shared expert);
 8. train    — parity: deepseek-7b at full width and 1 layer, fp32, one
-              staged train step (B = 2, L = 256, 2 microbatches) with
+              staged train step (B = 2, L = 128, 2 microbatches) with
               Adafactor and with AdamW on the card against the CPU port
               from the same state (loss, grad norm, parameters; exact
               launch counts); gemma-7b (1 layer, one step), minicpm3-4b (1
@@ -164,7 +164,7 @@ Phases (any failure raises and the script exits non-zero):
               spread); save, commit and restore times.  The checkpoint
               directory (``_smoke_ckpt/``) is removed at the end;
 14. comm    — communication in the task graph, payloads of mamba2-130m's
-              parameter count at 12 of its 24 layers in float32 (0.34 GB a
+              parameter count at 6 of its 24 layers in float32 (0.17 GB a
               rank; ``COMM_LAYERS``), every result
               bit for bit and on the card: (a) four ranks on one
               ``ChannelHub`` (eager runtimes with a ``cuda`` worker, groups
@@ -218,7 +218,7 @@ Phases (any failure raises and the script exits non-zero):
               and grad norm within 1e-5 relative, every weight's parts
               within 1e-5 of its max and the norm offsets' within 5e-7,
               replicated leaves and the Adafactor state
-              the same bits on both ranks); bf16 at 4 layers, the same
+              the same bits on both ranks); bf16 at 2 layers, the same
               steps: each rank's step ms, peak, state bytes, and exact
               flash / rmsnorm launch counts (off-mesh's per layer, every
               flash call at the 16 local heads).  Then qwen3-moe at full
@@ -226,7 +226,7 @@ Phases (any failure raises and the script exits non-zero):
               of its 64 query heads on 2 of its 4 KV heads), fp32 at 1
               layer under the same limits plus its MoE metrics and every
               router call's ``top_i`` the same bits on both ranks, bf16
-              at 2 layers timed (2.42 GB of expert weights a layer a
+              at 1 layer timed (2.42 GB of expert weights a layer a
               rank).  The kernel phase holds the flash forward and
               backward at those (1, 2048, 16, 128) and (1, 2048, 32 on 2
               KV heads, 128).  The same ranks then run ``[tp-serve]``'s
@@ -625,6 +625,14 @@ L4_FLASH = (1, 2048, 2048, 40, 8, 128, 128, True, None, 0)
 Q110_HEADS, L4_HEADS, NEW_KV_HEADS = 64, 40, 8
 IVL_DECODE_POS = [2063, 2063, 2063, 2063]
 IVL_HEADS, IVL_KV_HEADS = 16, 8
+# one rank's heads on a model axis of 2 ([tp]'s microbatch of 2048):
+# recurrentgemma-9b's windowed MQA (8 of 16 heads on its 1 KV head of 256),
+# hubert-xlarge's non-causal Dh 80 (8 of 16 heads), internvl2-2b's GQA 2:1 (8
+# on 4) and mamba2-130m's ssd (12 of 24 heads of 64, B/C (1, 2048, 1, 128))
+TP_RG_FLASH = (1, 2048, 2048, 8, 1, 256, 256, True, 2048, 0)
+TP_HUBERT_FLASH = (1, 2048, 2048, 8, 8, 80, 80, False, None, 0)
+TP_IVL_FLASH = (1, 2048, 2048, 8, 4, 128, 128, True, None, 0)
+TP_SSD_HEADS = 12
 
 
 def _window_mask(L: int, window, dev) -> torch.Tensor:
@@ -706,6 +714,7 @@ def check_flash(dev) -> dict:
         TP_FLASH,  # the tensor-parallel step's local heads
         Q110_FLASH, L4_FLASH,  # qwen1.5-110b's and llama4-scout's prefill
         TP_MOE_FLASH, TP_MLA_FLASH,  # qwen3-moe's and minicpm3-4b's local heads at model=2
+        TP_RG_FLASH, TP_HUBERT_FLASH, TP_IVL_FLASH,  # recurrentgemma-9b's, hubert's, internvl's at model=2
     ]
     err = err256 = 0.0
     errs = {}
@@ -748,7 +757,11 @@ def check_flash(dev) -> dict:
               "qwen110b": _flash_times(gen, dev, 1, 2048, Q110_HEADS, 128, KH=NEW_KV_HEADS),
               "llama4": _flash_times(gen, dev, 1, 2048, L4_HEADS, 128, KH=NEW_KV_HEADS),
               "tp_moe": _flash_times(gen, dev, 1, 2048, 32, 128, KH=2),
-              "tp_mla": _flash_times(gen, dev, 1, 2048, 20, 96, Dv=64)}
+              "tp_mla": _flash_times(gen, dev, 1, 2048, 20, 96, Dv=64),
+              "tp_rgemma": _flash_times(gen, dev, 1, 2048, 8, 256, KH=1, window=2048),
+              "tp_hubert": _flash_times(gen, dev, 1, 2048, 8, 80, causal=False)}
+    shapes["tp_rgemma"]["max_abs_err"] = errs[TP_RG_FLASH]
+    shapes["tp_hubert"]["max_abs_err"] = errs[TP_HUBERT_FLASH]
     shapes["tp"]["max_abs_err"] = errs[TP_FLASH]
     shapes["tp_moe"]["max_abs_err"] = errs[TP_MOE_FLASH]
     shapes["tp_mla"]["max_abs_err"] = errs[TP_MLA_FLASH]
@@ -974,8 +987,65 @@ def check_decode(dev) -> dict:
         name="decode_attention", route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention/kernel.py:81", max_abs_err=err, **main,
         short=short, d256=d256, rgemma=ring, qwen=qwen, internvl=ivl, qwen110b=q110, llama4=l4,
-        tpserve_partial=partial,
+        tpserve_partial=partial, tpserve_ring=_decode_ring_partial(dev, gen),
     )
+
+
+def _decode_ring_partial(dev, gen) -> dict:
+    """The partial route on recurrentgemma-9b's ring split over a model axis
+    of 2 ([tp-serve]'s cache: 8 slots, 1024 of the 2048 ring slots a rank,
+    16 heads on 1 KV head of 256) at its last positions, all wrapped but
+    one: each slice against the plain version (output within the bf16
+    tolerance, lse within ``LSE_ATOL``), the two combined against the whole
+    ring's kernel output; then slice 0's time (and slice 1's logged)
+    beside the bound of its bytes."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    B, S, H, KH, D, dtype = len(TPS_REC_PROMPTS), RG_RING, 16, 1, 256, torch.bfloat16
+    pos_l = [p + TPS_STEPS - 1 for p in TPS_REC_PROMPTS]
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+    Sl, err, rows = S // 2, 0.0, []
+    sets = [(_randn(gen, (B, 1, H, D), dtype, dev), _randn(gen, (B, S, KH, D), dtype, dev),
+             _randn(gen, (B, S, KH, D), dtype, dev)) for _ in range(2)]
+    q, k, v = sets[0]
+    outs, lses = [], []
+    for i in range(2):
+        ks, vs = k[:, i * Sl:(i + 1) * Sl], v[:, i * Sl:(i + 1) * Sl]
+        out, lse = ops.decode_attention(q, ks, vs, pos, i * Sl, partial=True)
+        ref_out, ref_lse = decode_attention_ref(q, ks, vs, pos, i * Sl, partial=True)
+        err = max(err, _compare(f"decode partial ring slice {i} of 2 at {pos_l}", out, ref_out, dtype))
+        empty = pos < i * Sl  # short sequences hold no slot of the second half
+        assert torch.equal(torch.isinf(lse), empty[:, None].expand(B, H)), f"ring slice {i}: lse -inf"
+        lse_err = float((lse[~empty] - ref_lse[~empty]).abs().max())
+        assert lse_err <= LSE_ATOL, f"ring slice {i}: lse {lse_err:.2e} from the plain one's"
+        outs.append(out)
+        lses.append(lse)
+    combined = ops.combine_partials(torch.stack(outs), torch.stack(lses)).to(dtype)
+    _compare(f"decode partial ring, 2 slices combined at {pos_l}, against the whole ring's kernel", combined,
+             ops.decode_attention(q, k, v, pos), dtype)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for i in range(2):
+        sl = [(q, k[:, i * Sl:(i + 1) * Sl].contiguous(), v[:, i * Sl:(i + 1) * Sl].contiguous(), pos)
+              for q, k, v in sets]
+        ms = time_ms(lambda q, k, v, p, i=i: ops.decode_attention(q, k, v, p, i * Sl, partial=True), sl)
+        plain = time_ms(lambda q, k, v, p, i=i: decode_attention_ref(q, k, v, p, i * Sl, partial=True), sl)
+        n_valid_b = [max(0, min(p + 1 - i * Sl, Sl)) for p in pos_l]
+        valid = (torch.arange(Sl, device=dev)[None, :] < torch.tensor(n_valid_b, device=dev)[:, None])[:, None, None, :]
+        lib_sets = [(q.transpose(1, 2), k.transpose(1, 2).expand(-1, H, -1, -1), v.transpose(1, 2).expand(-1, H, -1, -1),
+                     p) for q, k, v, p in sl]
+        lib = time_ms(lambda q, k, v, p: sdpa(q, k, v, attn_mask=valid), lib_sets)
+        n_valid = sum(n_valid_b)
+        bytes_moved = B * H * D * 2 + 2 * n_valid * KH * D * 2 + B * H * (D + 1) * 4 + B * 4
+        bound, by = _bound(bytes_moved, 4 * n_valid * H * D, dtype)
+        log(f"[kernels] decode partial ring slice {i} of 2 (cache ({B}, {Sl}, {KH}, {D}) from slot {i * Sl} of "
+            f"{S}, {H} heads, {n_valid} valid rows) at pos {pos_l}: kernel {ms:.4f} ms, masked SDPA (output only) "
+            f"{lib:.4f} ms, plain {plain:.4f} ms, bound {bound:.5f} ms ({by}, {bound / ms:.1%} of it)")
+        rows.append(dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by))
+    return dict(rows[0], max_abs_err=err, slices=rows,
+                shape=f"partial route on a wrapped ring: q ({B}, 1, {H}, {D}), slice ({B}, {Sl}, {KH}, {D}) from "
+                      f"slot 0 of {S} bf16, pos {pos_l}",
+                key=(B, Sl, H, KH, D, D, "partial"))
 
 
 # ssd outputs are float32 sums of up to cs·N products, whatever the input
@@ -1075,9 +1145,25 @@ def check_ssd(dev) -> dict:
         f"{score_flops / PEAK_FLOPS[dtype] * 1e3:.5f} ms + {f32_flops / 1e9:.3f} GFLOP at f32 "
         f"{f32_flops / PEAK_FLOPS[torch.float32] * 1e3:.5f} ms = {t_ops_old:.5f} ms; bound {old_bound:.5f} ms, "
         f"kernel at {old_bound / ms:.1%} of it")
+    # one rank's heads on a model axis of 2 ([tp]'s mamba2-130m microbatch)
+    tp_H = TP_SSD_HEADS
+    sets = [_ssd_chunk_args(*_ssd_inputs(gen, dev, dtype, L, tp_H, P, N, 1), cs) for _ in range(4)]
+    (y, st), (y0, st0) = ops.ssd_intra_chunk(*sets[0]), ssd_chunk_ref(*sets[0])
+    tp_err = _compare_ssd(f"ssd y at one rank's {tp_H} heads", y, y0)
+    _compare_ssd(f"ssd state at one rank's {tp_H} heads", st, st0)
+    n_tp = tp_H * (L // cs)
+    tp_tc = n_tp * (2 * pairs * N + 2 * (2 * pairs * P + 2 * cs * N * P))
+    tp_bytes = (L * tp_H * P + 2 * L * N) * 2 + 2 * L * tp_H * 4 + (L * tp_H * P + n_tp * N * P) * 4
+    tp_bound, tp_by = _bound(tp_bytes, tp_tc, dtype)
+    tp_ms, tp_plain = time_ms(ops.ssd_intra_chunk, sets), time_ms(ssd_chunk_ref, sets)
+    log(f"[kernels] ssd at one rank's {tp_H} of 24 heads: kernel {tp_ms:.4f} ms, plain {tp_plain:.4f} ms, bound "
+        f"{tp_bound:.5f} ms ({tp_by}, {tp_bound / tp_ms:.1%} of it)")
+    tp_heads = dict(ms=tp_ms, plain_ms=tp_plain, library_ms=None, bound_ms=tp_bound, bound_by=tp_by,
+                    max_abs_err=tp_err, shape=f"x (1, {L}, {tp_H}, {P}), B/C (1, {L}, 1, {N}) bf16, cs {cs}",
+                    key=(1, tp_H, L // cs, cs, P, 1, N))
     return dict(
         name="ssd", route="cuda", source="src/repro_torch/kernels/csrc/ssd.cu",
-        replaces="src/repro/kernels/ssd/kernel.py:58", max_abs_err=err, ms=ms,
+        replaces="src/repro/kernels/ssd/kernel.py:58", max_abs_err=err, ms=ms, tp_heads=tp_heads,
         plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None, old_bound_ms=old_bound,
         shape=(f"x (1, {L}, {H}, {P}), B/C (1, {L}, 1, {N}) bf16, cs {cs}; "
                f"{(score_flops + f32_flops) / 1e9:.2f} GFLOP ({tc_flops / 1e9:.2f} on the tensor cores)"),
@@ -1214,6 +1300,7 @@ def check_flash_bwd(dev) -> dict:
         TP_FLASH,  # deepseek-7b's local heads at model=2
         Q110_FLASH, L4_FLASH,  # qwen1.5-110b's and llama4-scout's, at (2, 2048) in 2 microbatches
         TP_MOE_FLASH, TP_MLA_FLASH,  # qwen3-moe's and minicpm3-4b's local heads at model=2
+        TP_RG_FLASH, TP_HUBERT_FLASH, TP_IVL_FLASH,  # recurrentgemma-9b's, hubert's, internvl's at model=2
     ]
     err = err256 = 0.0
     errs: dict = {}
@@ -1258,7 +1345,11 @@ def check_flash_bwd(dev) -> dict:
               "llama4": _flash_bwd_times(gen, dev, 1, 2048, L4_HEADS, 128, KH=NEW_KV_HEADS),
               "tp_moe": _flash_bwd_times(gen, dev, 1, 2048, 32, 128, KH=2),
               # MLA's local heads: timed, not on a path here ([tp] trains no MLA model)
-              "mla_tp": _flash_bwd_times(gen, dev, 1, 2048, 20, 96, Dv=64)}
+              "mla_tp": _flash_bwd_times(gen, dev, 1, 2048, 20, 96, Dv=64),
+              "tp_rgemma": _flash_bwd_times(gen, dev, 1, 2048, 8, 256, KH=1, window=2048),
+              "tp_hubert": _flash_bwd_times(gen, dev, 1, 2048, 8, 80, causal=False)}
+    shapes["tp_rgemma"]["max_abs_err"] = errs[TP_RG_FLASH]
+    shapes["tp_hubert"]["max_abs_err"] = errs[TP_HUBERT_FLASH]
     shapes["tp"]["max_abs_err"] = errs[TP_FLASH]
     shapes["tp_moe"]["max_abs_err"] = errs[TP_MOE_FLASH]
     shapes["mla_tp"]["max_abs_err"] = errs[TP_MLA_FLASH]
@@ -1455,8 +1546,29 @@ def check_ssd_bwd(dev) -> dict:
     log(f"[kernels] ssd bwd apart: wgmma kernel {main_ms:.4f} ms ({flops / main_ms / 1e9:.1f} TFLOP/s of "
         f"the needed work), dy / dS conversion {cvt_ms:.4f} ms ({cvt_bytes} bytes, "
         f"{cvt_bytes / cvt_ms / 1e9:.3f} TB/s), dcum pass {dcum_ms:.4f} ms")
+    # one rank's heads on a model axis of 2 ([tp]'s mamba2-130m microbatch)
+    tp_b, tp_H = 1, TP_SSD_HEADS
+    sets = [_ssd_bwd_args(gen, dev, dtype, tp_b, L, tp_H, G, cs) for _ in range(2)]
+    sets = [(*args, dy, dS) for args, dy, dS in sets]
+    got, want = ops.ssd_intra_chunk_bwd(*sets[0]), ssd_chunk_bwd_ref(*sets[0])
+    tp_err = [_compare_bwd(f"ssd bwd {name} at one rank's {tp_H} heads", g, w, dtype)
+              for name, g, w in zip(("dx", "ddt", "dcum", "dB", "dC"), got, want)][0]  # dx's, as the main row's
+    del got, want
+    n_tp = tp_b * tp_H * nc
+    tp_flops = n_tp * (2 * pairs * (3 * N + 2 * P) + 4 * cs * N * P)
+    tp_bytes = (tp_b * L * tp_H * P * el + 2 * tp_b * L * G * N * el
+                + tp_b * L * tp_H * P * 4 + n_tp * N * P * 4 + 2 * tp_b * L * tp_H * 4
+                + tp_b * L * tp_H * P * el + 2 * tp_b * L * tp_H * 4 + 2 * tp_b * L * G * N * el)
+    tp_bound, tp_by = _bound(tp_bytes, tp_flops, dtype)
+    tp_ms, tp_plain = time_ms(ops.ssd_intra_chunk_bwd, sets), time_ms(ssd_chunk_bwd_ref, sets[:1], iters=3)
+    log(f"[kernels] ssd bwd at one rank's {tp_H} of 24 heads: kernel {tp_ms:.4f} ms, plain {tp_plain:.4f} ms, bound "
+        f"{tp_bound:.5f} ms ({tp_by}, {tp_bound / tp_ms:.1%} of it)")
+    tp_heads = dict(ms=tp_ms, plain_ms=tp_plain, library_ms=None, bound_ms=tp_bound, bound_by=tp_by,
+                    max_abs_err=tp_err,
+                    shape=f"x ({tp_b}, {L}, {tp_H}, {P}), B/C ({tp_b}, {L}, {G}, {N}) bf16, cs {cs}",
+                    key=(tp_b, tp_H, nc, cs, P, G, N))
     return dict(
-        name="ssd_bwd", route="cuda", source="src/repro_torch/kernels/csrc/ssd_bwd_wgmma.cu",
+        name="ssd_bwd", route="cuda", source="src/repro_torch/kernels/csrc/ssd_bwd_wgmma.cu", tp_heads=tp_heads,
         replaces="src/repro/models/ssm.py:74 (no Pallas kernel: JAX differentiates the jnp ssd_chunked)",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None,
         simt_ms=t_simt, flops=flops, bytes=bytes_moved,
@@ -2494,7 +2606,7 @@ def _host_memory_kept():
 def train_parity_phase(dev) -> dict:
     """Full width, depth cut, float32, B = 2, two microbatches, one or two
     steps (``_parity_run``; cut for the script's time limit): deepseek-7b
-    (1 layer, L = 256, one step) with Adafactor and with AdamW,
+    (1 layer, L = 128, one step) with Adafactor and with AdamW,
     gemma-7b (1 layer, L = 128, one step; head dim 256: the f32 routes
     of the flash forward and backward at Dh 256), minicpm3-4b (1 MLA
     layer, L = 256, two steps), recurrentgemma-9b (3 layers, L = 128,
@@ -2515,7 +2627,7 @@ def train_parity_phase(dev) -> dict:
     # ~68 GB of the host's 96 GiB then)
     with _host_memory_kept() as libc:
         for arch, opt, seq, n_layers, steps in (
-                ("deepseek-7b", "adafactor", 256, 1, 1), ("deepseek-7b", "adamw", 256, 1, 1),
+                ("deepseek-7b", "adafactor", 128, 1, 1), ("deepseek-7b", "adamw", 128, 1, 1),
                 ("gemma-7b", "adafactor", 128, 1, 1), ("minicpm3-4b", "adafactor", 256, 1, 2),
                 ("recurrentgemma-9b", "adafactor", 128, 3, 1), ("qwen3-moe-235b-a22b", "adafactor", 128, 1, 1),
                 ("hubert-xlarge", "adamw", 256, 1, 2), ("internvl2-2b", "adamw", 384, 1, 2)):
@@ -3331,7 +3443,7 @@ COMM_LAUNCH = ["--arch", "mamba2-130m", "--steps", "3", "--batch", "8", "--seq",
                "--microbatches", "2", "--log-every", "1"]
 
 
-COMM_LAYERS = 12  # of mamba2-130m's 24: the payload's depth (the script's time limit)
+COMM_LAYERS = 6  # of mamba2-130m's 24: the payload's depth (the script's time limit)
 
 
 def _comm_n() -> int:
@@ -4040,18 +4152,48 @@ def mesh_phase(dev) -> dict:
 TP_SEQ = 2048
 TP_BATCH = 2  # in 2 microbatches: every flash call at (1, 2048, the local heads, 128)
 TP_MOE = "qwen3-moe-235b-a22b"
-TP_ARCHS = ("deepseek-7b", TP_MOE)
-# depths: deepseek-7b 2 (fp32) / 4 (bf16); qwen3-moe 1 / 2: its 128 experts
-# are 4.83 GB a layer in bf16 (2.42 GB a rank), 9.66 GB in fp32
-TP_LAYERS = {"deepseek-7b": {"float32": 2, "bfloat16": 4}, TP_MOE: {"float32": 1, "bfloat16": 2}}
+TP_ARCHS = ("deepseek-7b", TP_MOE, "mamba2-130m", "recurrentgemma-9b", "hubert-xlarge", "internvl2-2b")
+# depths (the script's time limit): deepseek-7b 2 (fp32 and bf16); qwen3-moe
+# 1: its 128 experts are 4.83 GB a layer in bf16 (2.42 GB a rank), 9.66 GB in
+# fp32; mamba2-130m 4 of its 24; recurrentgemma-9b one (rec, rec, attn)
+# super-block; hubert-xlarge and internvl2-2b 2
+TP_LAYERS = {"deepseek-7b": {"float32": 2, "bfloat16": 2}, TP_MOE: {"float32": 1, "bfloat16": 1},
+             "mamba2-130m": {"float32": 4, "bfloat16": 4}, "recurrentgemma-9b": {"float32": 3, "bfloat16": 3},
+             "hubert-xlarge": {"float32": 2, "bfloat16": 2}, "internvl2-2b": {"float32": 2, "bfloat16": 2}}
 TP_STEPS = 2
 TP_OFFSET_ATOL = 5e-7  # the fp32 norm offsets' |difference| from one process (see tp_phase)
+# the leaves initialised to zero, held as the norm offsets are: the norms',
+# the SSM's gated norm, the conv and RG-LRU gate biases
+TP_ZERO_INIT = (".scale", ".norm", ".conv_b", ".b_a", ".b_x")
+# the |difference| of a leaf whose Adafactor update is elementwise: a factored
+# dim of 1 (the (D, 1, Dh) K / V weights of recurrentgemma-9b's MQA, replicated
+# over model, their gradients summed) makes v = g² per element, so the update
+# is lr·sign(g)·(a row's scale), as AdamW's first step is, and float noise in a
+# near-zero gradient moves the weight by a share of lr: held as
+# tests/test_torch_tp.py holds AdamW's parameters
+TP_SIGN_ATOL = 1e-5
 
 
 def _tp_cfg(dtype: str, arch: str = "deepseek-7b"):
+    """``arch`` at full width and ``TP_LAYERS``' depth, Adafactor; internvl2-2b's
+    loss in chunks of 256 (its 1792 text positions a sequence are no multiple
+    of its 768)."""
     from repro_torch.configs import get_config
 
-    return get_config(arch).replace(n_layers=TP_LAYERS[arch][dtype], dtype=dtype, optimizer="adafactor")
+    cfg = get_config(arch).replace(n_layers=TP_LAYERS[arch][dtype], dtype=dtype, optimizer="adafactor")
+    return cfg.replace(logits_chunk=256) if cfg.frontend == "vision" else cfg
+
+
+def _tp_local_key(cfg) -> tuple:
+    """The by-shape key of the mixer kernel's calls on a rank of a model axis
+    of 2 in ``[tp]``'s microbatch: flash at the rank's heads (its KV heads
+    where 2 divides them, else all), or the ssd at its 12 of 24 heads."""
+    if cfg.family == "ssm":
+        s = cfg.ssm
+        return (1, s.expand * cfg.d_model // s.head_dim // 2, TP_SEQ // s.chunk_size, s.chunk_size, s.head_dim,
+                s.n_groups, s.d_state)
+    kv = cfg.n_kv_heads // 2 if cfg.n_kv_heads % 2 == 0 else cfg.n_kv_heads
+    return (1, TP_SEQ, TP_SEQ, cfg.n_heads // 2, kv, cfg.head_dim, cfg.head_dim)
 
 
 TIE_RTOL = 1e-4  # a flipped choice: its and the replaced choice's probabilities within this share of the largest
@@ -4114,12 +4256,19 @@ def _tp_run(cfg, dev) -> tuple:
     norms, each step's wall ms, the batch, the steps' MoE metrics)."""
     from repro_torch.runtime.train import build_train_step, init_train_state
 
+    from repro_torch.launch.mesh import tp_batch
+    from repro_torch.models.param import DTYPES
+
     state = init_train_state(cfg, 0, device=dev)
     art = build_train_step(cfg, n_microbatches=2)
-    gen = torch.Generator(device=dev).manual_seed(5)
-    tokens = torch.randint(0, cfg.vocab, (TP_BATCH, TP_SEQ + 1), generator=gen, device=dev, dtype=torch.int32)
-    assert 0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab, "token draw out of range (F3)"
-    batch = {"tokens": tokens[:, :-1].contiguous(), "labels": tokens[:, 1:].contiguous()}
+    if cfg.frontend is None:
+        gen = torch.Generator(device=dev).manual_seed(5)
+        tokens = torch.randint(0, cfg.vocab, (TP_BATCH, TP_SEQ + 1), generator=gen, device=dev, dtype=torch.int32)
+        assert 0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab, "token draw out of range (F3)"
+        batch = {"tokens": tokens[:, :-1].contiguous(), "labels": tokens[:, 1:].contiguous()}
+    else:  # the data pipeline's frames or patches, in the model's dtype (the dry run's inputs)
+        batch = {k: v.to(DTYPES[cfg.dtype]) if v.is_floating_point() else v
+                 for k, v in tp_batch(cfg, TP_BATCH, TP_SEQ, dev).items()}
     losses, norms, ms, aux = [], [], [], []
     for _ in range(TP_STEPS):
         torch.cuda.synchronize()
@@ -4139,24 +4288,35 @@ def _digest(t) -> str:
     return hashlib.sha1(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
 
 
-def _tp_rank(refs: dict, device: str = "cuda") -> dict:
+def _tp_rank(device: str = "cuda") -> dict:
     """One rank of the (1, 2) data × model mesh, every tensor on the card,
-    for each of ``TP_ARCHS``: the fp32 run's parts against the off-mesh
-    parameters ``refs[arch]`` (the parent's tensors on the card, shared
-    with this process through CUDA IPC; each part's worst |difference|),
-    digests of its replicated leaves and Adafactor state (and, MoE, of
-    every router call's ``top_i``); then the bf16 run's step ms, peak,
-    state bytes and launch counts (all 0 just before each run, read just
-    after)."""
+    for each of ``TP_ARCHS``: this process's own one-process fp32 run, off
+    the mesh, first (the ranks take turns: two of qwen3-moe's, 41.76 GiB
+    each at their peak, do not fit on the card together; of its parameters
+    this rank keeps its parts); the fp32 run's parts against those (each
+    part's worst |difference|), digests of its replicated leaves and
+    Adafactor state (and, MoE, of every router call's ``top_i``); then the
+    bf16 run's step ms, peak, state bytes and launch counts (all 0 just
+    before each run, read just after)."""
     import torch.distributed as dist
 
+    from repro_torch.models import Transformer
     from repro_torch.runtime.train import state_bytes
+
+    from repro_torch.dist.sharding import use_mesh
 
     dev = torch.device(device)
     ops = _kernel_ops()
     out = {"rank": dist.get_rank()}
     for arch in TP_ARCHS:
-        out[arch] = {}
+        index = {n: sh.index for n, sh in Transformer(_tp_cfg("float32", arch), device="meta").shards.items()}
+        for turn in range(dist.get_world_size()):
+            if turn == dist.get_rank():
+                with use_mesh(None):
+                    one = _tp_reference(arch, dev, index)
+            dist.barrier()
+        ref = one.pop("params")
+        out[arch] = {"one": one}
         for dtype in ("float32", "bfloat16"):
             cfg = _tp_cfg(dtype, arch)
             torch.cuda.empty_cache()
@@ -4182,15 +4342,13 @@ def _tp_rank(refs: dict, device: str = "cuda") -> dict:
                 r["err"], r["digests"] = {}, {}
                 for name, p in model.named_parameters():
                     sh = model.shards[name]
-                    r["err"][name] = float((p.detach() - refs[arch][name][sh.index]).abs().max())
+                    r["err"][name] = float((p.detach() - ref[name]).abs().max())
                     if not sh.sharded:
                         r["digests"][name] = _digest(p)
                 for path, leaf in state.opt.items():
                     for k, v in leaf.items():
                         r["digests"][f"opt {path}/{k}"] = _digest(v)
-                # release the shared tensors now: the parent frees them (and
-                # checks that every consumer let go) when the ranks return
-                refs.pop(arch).clear()
+                del ref
             out[arch][dtype] = r
             del state, art, model
             gc.collect()
@@ -4200,18 +4358,26 @@ def _tp_rank(refs: dict, device: str = "cuda") -> dict:
     return out
 
 
-def _tp_reference(arch: str, dev) -> dict:
+def _tp_reference(arch: str, dev, index: dict) -> dict:
     """The off-mesh fp32 run of ``arch`` on the card → losses, grad norms,
-    MoE metrics, each leaf's largest magnitude and the parameters (kept on
-    the card for the ranks; the state's other tensors freed)."""
+    MoE metrics, each leaf's largest magnitude and each parameter's part at
+    ``index[name]`` (the rest of the state freed)."""
     cfg = _tp_cfg("float32", arch)
+    torch.cuda.reset_peak_memory_stats()
+    base, t0 = torch.cuda.memory_allocated(), time.perf_counter()
     state, art, losses, norms, _, _, aux = _tp_run(cfg, dev)
     params = {name: p.detach() for name, p in state.params.named_parameters()}
     leaf_max = {name: float(p.abs().max()) for name, p in params.items()}
+    sign_like = [name for name, p in params.items() if p.dim() >= 2 and p.shape[-2] == 1]
+    params = {name: p[index[name]].clone() for name, p in params.items()}
     del state, art
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(losses=losses, grad_norms=norms, aux=aux, leaf_max=leaf_max, params=params)
+    kept = sum(p.numel() * p.element_size() for p in params.values())
+    log(f"[tp] {arch} fp32 one-process reference: {time.perf_counter() - t0:.1f} s, peak "
+        f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB allocated "
+        f"before it, parts of the parameters kept {kept / 2**30:.2f} GiB")
+    return dict(losses=losses, grad_norms=norms, aux=aux, leaf_max=leaf_max, params=params, sign_like=sign_like)
 
 
 def _tp_check_fp32(arch: str, one: dict, f32: list) -> dict:
@@ -4226,8 +4392,9 @@ def _tp_check_fp32(arch: str, one: dict, f32: list) -> dict:
         for got, want, what in pairs:
             rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
             assert rel <= 1e-5, f"[tp] {arch} fp32 {what} {got} against one process's {want} ({rel:.2e} relative)"
-    # every weight within 1e-5 of its leaf's max.  The norm offsets start at
-    # zero, so their values are the two updates; Adafactor factors a stacked
+    # every weight within 1e-5 of its leaf's max.  The norm offsets (and the
+    # other zero-initialised leaves, TP_ZERO_INIT) start at zero, so their
+    # values are the two updates; Adafactor factors a stacked
     # (layers, D) offset leaf over its layers (at 1 layer it does not
     # factor), which normalises each column's update over those values: a
     # sign-like step that turns float noise in a near-zero gradient into a
@@ -4237,8 +4404,9 @@ def _tp_check_fp32(arch: str, one: dict, f32: list) -> dict:
     # 1.64e-3 at most).
     leaf_max = one["leaf_max"]
     err = {n: max(r["err"][n] for r in f32) for n in leaf_max}
-    offsets = [n for n in leaf_max if n.endswith(".scale")]
-    worst = {n: err[n] / max(leaf_max[n], 1e-30) for n in leaf_max if n not in offsets}
+    offsets = [n for n in leaf_max if n.endswith(TP_ZERO_INIT)]
+    sign_like = [n for n in one["sign_like"] if n not in offsets]
+    worst = {n: err[n] / max(leaf_max[n], 1e-30) for n in leaf_max if n not in offsets and n not in sign_like}
     worst_name = max(worst, key=worst.get)
     worst_offset = max(offsets, key=err.get)
     top = sorted(leaf_max, key=lambda n: -err[n] / max(leaf_max[n], 1e-30))[:4]
@@ -4247,6 +4415,11 @@ def _tp_check_fp32(arch: str, one: dict, f32: list) -> dict:
     assert worst[worst_name] <= 1e-5, f"[tp] {arch} fp32 {worst_name}: {worst[worst_name]:.2e} of its leaf's max"
     assert err[worst_offset] <= TP_OFFSET_ATOL, \
         f"[tp] {arch} fp32 {worst_offset}: {err[worst_offset]:.2e} from one process"
+    if sign_like:
+        worst_sign = max(sign_like, key=err.get)
+        log(f"[tp] {arch} fp32 leaves with an elementwise Adafactor update: worst {worst_sign} {err[worst_sign]:.2e} "
+            f"(limit {TP_SIGN_ATOL}; its max {leaf_max[worst_sign]:.2e})")
+        assert err[worst_sign] <= TP_SIGN_ATOL, f"[tp] {arch} fp32 {worst_sign}: {err[worst_sign]:.2e} from one process"
     assert f32[0]["digests"] == f32[1]["digests"], \
         [k for k in f32[0]["digests"] if f32[0]["digests"][k] != f32[1]["digests"].get(k)]
     assert f32[0]["routing"] == f32[1]["routing"], f"[tp] {arch}: the ranks routed differently"
@@ -4254,57 +4427,32 @@ def _tp_check_fp32(arch: str, one: dict, f32: list) -> dict:
                 offset_err=err[worst_offset], offset_max=leaf_max[worst_offset])
 
 
-def _release_shared(refs: dict, shared: int, held: int) -> None:
-    """Free the parameters the ranks read through CUDA IPC, now that they
-    have exited: empty ``refs`` itself (the rank processes' objects hold it
-    as an argument), then collect the blocks torch keeps for a consumer
-    until it lets go, until the ``shared`` bytes are freed from the ``held``
-    ones.  A block still held fails here, where torch would warn and could
-    crash while it tears down at exit."""
-    for leaves in refs.values():
-        leaves.clear()
-    refs.clear()
-    gc.collect()
-    for attempt in range(20):
-        torch.cuda.ipc_collect()
-        freed = held - torch.cuda.memory_allocated()
-        if freed >= shared:
-            break
-        time.sleep(0.5)
-    log(f"[tp] CUDA IPC: {shared / 1e9:.2f} GB of parameters shared with the ranks, {freed / 1e9:.2f} GB freed "
-        f"after {attempt + 1} collect(s)")
-    assert freed >= shared, f"[tp] {(shared - freed) / 1e9:.2f} GB shared through CUDA IPC still held"
-    torch.cuda.empty_cache()
-
-
 def tp_phase(dev) -> dict:
-    """18. The ``model`` mesh axis on one card: the off-mesh fp32 runs here
-    (their parameters kept on the card and handed to the ranks through
-    CUDA IPC: 19.9 GB, which a disk round trip took ~20 s to move), then
-    two gloo rank processes on a (1, 2) data × model mesh sharing the card
-    (``_tp_rank``): for deepseek-7b
-    and qwen3-moe (expert parallelism: 64 of its 128 experts a rank), fp32
-    against the one process, bf16 timed and counted.  One process group,
-    which then runs ``[tp-serve]``'s serving runs (``_tps_rank``; checked
-    by ``tp_serve_phase``): a group takes ~20 s to start."""
+    """18. The ``model`` mesh axis on one card: two gloo rank processes on
+    a (1, 2) data × model mesh sharing the card (``_tp_rank``), each
+    making its own one-process fp32 runs off the mesh: deepseek-7b,
+    qwen3-moe (expert parallelism: 64 of its 128 experts a rank),
+    mamba2-130m (the SSD on 12 of 24 heads), recurrentgemma-9b (the RG-LRU
+    width and windowed MQA), hubert-xlarge and internvl2-2b (the
+    frontends), fp32 against the one process, bf16 timed and counted.  One
+    process group, which then runs ``[tp-serve]``'s serving runs
+    (``_tps_rank``; checked by ``tp_serve_phase``): a group takes ~20 s to
+    start."""
     from repro_torch.launch import mesh as launch_mesh
-
-    import torch.multiprocessing  # noqa: F401  (registers the CUDA tensors' IPC pickling for the ranks)
 
     t_all = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
-    one = {arch: _tp_reference(arch, dev) for arch in TP_ARCHS}
-    refs = {arch: one[arch].pop("params") for arch in TP_ARCHS}
-    shared = sum(st.nbytes() for st in {t.untyped_storage().data_ptr(): t.untyped_storage()
-                                        for leaves in refs.values() for t in leaves.values()}.values())
-    held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    ranks = launch_mesh.spawn_mesh(_tp_rank, 2, (1, 2), ("data", "model"), refs, str(dev), timeout=900.0)
+    ranks = launch_mesh.spawn_mesh(_tp_rank, 2, (1, 2), ("data", "model"), str(dev), timeout=900.0)
     spawn_s = time.perf_counter() - t0
-    _release_shared(refs, shared, held)
     serve_ranks = [r.pop("serve") for r in ranks]
     out = dict(serve_ranks=serve_ranks, launches_by_shape={}, arch={})
     launches: dict = {}
+    one = {}
+    for arch in TP_ARCHS:  # both ranks ran the same one-process reference
+        a, b = (r[arch].pop("one") for r in ranks)
+        assert (a["losses"], a["grad_norms"]) == (b["losses"], b["grad_norms"]), f"[tp] {arch}: references differ"
+        one[arch] = a
     for arch in TP_ARCHS:
         f32 = [r[arch]["float32"] for r in ranks]
         chk = _tp_check_fp32(arch, one[arch], f32)
@@ -4320,30 +4468,33 @@ def tp_phase(dev) -> dict:
             + f"; worst weight {chk['worst_name']} {chk['worst']:.2e} of its max, worst norm offset "
             f"{chk['worst_offset']} {chk['offset_err']:.2e} (values {chk['offset_max']:.2e} at most); "
             f"{len(f32[0]['digests'])} replicated leaves and Adafactor state tensors the same bits on both ranks; "
-            f"launches a rank {f32[0]['launches']}")
+            f"launches a rank {f32[0]['launches']}; peak a rank {[round(r['peak'] / 2**30, 2) for r in f32]} GiB "
+            f"({[round(r['base'] / 2**30, 2) for r in f32]} GiB of it allocated before the run)")
         # bf16: times, memory, exact launch counts
         b16 = [r[arch]["bfloat16"] for r in ranks]
         want16 = {k: v * TP_STEPS for k, v in _train_launches_per_step(cfg16, 2).items()}
-        local = cfg16.n_heads // 2, cfg16.n_kv_heads // 2 if cfg16.n_kv_heads % 2 == 0 else cfg16.n_kv_heads
-        local_key = (1, TP_SEQ, TP_SEQ, *local, cfg16.head_dim, cfg16.head_dim)
+        local_key = _tp_local_key(cfg16)
+        mixer = ("ssd", "ssd_bwd") if cfg16.family == "ssm" else ("flash_attention", "flash_attention_bwd")
         for r in b16:
             assert all(np.isfinite(r["losses"])), r["losses"]
             assert r["launches"] == want16, f"[tp] {arch} bf16 launches {r['launches']}, expected {want16}"
-            for kind in ("flash_attention", "flash_attention_bwd"):
+            for kind in mixer:
                 assert r["by_shape"][kind] == {local_key: want16[kind]}, (arch, kind, r["by_shape"][kind])
         for i, r in enumerate(b16):
             log(f"[tp] {arch} bf16, {cfg16.n_layers} layers, rank {i}: step ms {[round(x, 2) for x in r['step_ms']]}, "
                 f"losses {r['losses']}, peak {r['peak'] / 2**30:.2f} GiB ({r['base'] / 2**30:.2f} GiB of it "
                 f"allocated before the run), state bytes {r['bytes']} (params + grads + opt "
-                f"{sum(r['bytes'].values()) / 2**30:.3f} GiB), launches {r['launches']} (every flash call at "
+                f"{sum(r['bytes'].values()) / 2**30:.3f} GiB), launches {r['launches']} (every {mixer[0]} call at "
                 f"{local_key})")
         for k in want16:
             launches[k] = launches.get(k, 0) + sum(r[arch][dt]["launches"][k] for r in ranks for dt in ("float32",
                                                                                                             "bfloat16"))
-        for k in ("flash_attention", "flash_attention_bwd"):
-            n = sum(r[arch][dt]["by_shape"].get(k, {}).get(local_key, 0) for r in ranks for dt in ("float32",
-                                                                                                  "bfloat16"))
-            out["launches_by_shape"].setdefault(k, {})[local_key] = n
+        for r in ranks:
+            for dt in ("float32", "bfloat16"):
+                for kern, shapes in r[arch][dt]["by_shape"].items():
+                    got = out["launches_by_shape"].setdefault(kern, {})
+                    for key, c in shapes.items():
+                        got[key] = got.get(key, 0) + c
         out["arch"][arch] = dict(fp32_worst=chk["worst"], fp32_offset=chk["offset_err"],
                                  step_ms=[r["step_ms"] for r in b16], peak=[r["peak"] for r in b16],
                                  base=[r["base"] for r in b16], bytes=[r["bytes"] for r in b16],
@@ -4368,10 +4519,20 @@ TPS_LAYERS = 4
 TPS_MLA = "minicpm3-4b"
 # (arch, dtype, kv_shard) of each serving run on the mesh; the bf16 deepseek-7b
 # run is profiled
+# the recurrent models: 8 slots of prompts to 4096 tokens, so recurrentgemma-9b's
+# 2048-slot ring wraps (1024 slots a rank); internvl2-2b: its 256 patches before
+# each prompt's text; depths: mamba2-130m 4, recurrentgemma-9b one super-block,
+# internvl2-2b 2
+TPS_REC_PROMPTS = (4096, 2500, 2048, 777, 100, 321, 1031, 131)
+TPS_REC_MAX_SEQ = 4096 + 256
+TPS_IVL_TEXT = (1792, 521, 100, 65)
+TPS_NEW = ("mamba2-130m", "recurrentgemma-9b", "internvl2-2b")
+TPS_LAYERS_OF = {"mamba2-130m": 4, "recurrentgemma-9b": 3, "internvl2-2b": 2}
 TPS_RUNS = (("deepseek-7b", "float32", "seq"), ("deepseek-7b", "float32", "heads"), ("deepseek-7b", "bfloat16", "seq"),
             (TP_MOE, "float32", "seq"), (TP_MOE, "bfloat16", "seq"),
-            (TPS_MLA, "float32", "seq"), (TPS_MLA, "bfloat16", "seq"))
-TPS_ARCHS = ("deepseek-7b", TP_MOE, TPS_MLA)
+            (TPS_MLA, "float32", "seq"), (TPS_MLA, "bfloat16", "seq")) + tuple(
+    (arch, dtype, "seq") for arch in TPS_NEW for dtype in ("float32", "bfloat16"))
+TPS_ARCHS = ("deepseek-7b", TP_MOE, TPS_MLA) + TPS_NEW
 TPS_PROFILED = 2  # decode steps under the profiler (bf16)
 TPS_LOGIT_RTOL = 1e-5  # fp32 logits against one process's, of the row's largest magnitude
 
@@ -4379,17 +4540,29 @@ TPS_LOGIT_RTOL = 1e-5  # fp32 logits against one process's, of the row's largest
 def _tps_cfg(dtype: str, kv_shard: str = "seq", arch: str = "deepseek-7b"):
     from repro_torch.configs import get_config
 
-    return get_config(arch).replace(n_layers=TPS_LAYERS, dtype=dtype, kv_shard=kv_shard)
+    return get_config(arch).replace(n_layers=TPS_LAYERS_OF.get(arch, TPS_LAYERS), dtype=dtype, kv_shard=kv_shard)
+
+
+def _tps_prompts(cfg) -> tuple:
+    """(each prompt's positions, the caches' rows) of ``cfg``'s serving run:
+    ``TPS_REC_PROMPTS`` into ``TPS_REC_MAX_SEQ`` rows for the recurrent
+    models, internvl2-2b's patches and ``TPS_IVL_TEXT``, else ``TPS_PROMPTS``."""
+    if cfg.family in ("ssm", "hybrid"):
+        return TPS_REC_PROMPTS, TPS_REC_MAX_SEQ
+    if cfg.frontend == "vision":
+        return tuple(cfg.n_patches + t for t in TPS_IVL_TEXT), TPS_MAX_SEQ
+    return TPS_PROMPTS, TPS_MAX_SEQ
 
 
 def _tps_run_name(arch: str, dtype: str, kv_shard: str) -> str:
     return f"{arch}-{dtype}-{kv_shard}"
 
 
-def _tps_shape():
+def _tps_shape(cfg=None):
     from repro_torch.models import ShapeSpec
 
-    return ShapeSpec("tp-serve", "decode", TPS_MAX_SEQ, len(TPS_PROMPTS))
+    prompts, max_seq = _tps_prompts(cfg) if cfg is not None else (TPS_PROMPTS, TPS_MAX_SEQ)
+    return ShapeSpec("tp-serve", "decode", max_seq, len(prompts))
 
 
 def _nbytes(ts) -> int:
@@ -4409,16 +4582,24 @@ def _tps_run(cfg, dev, profile: bool = False, replay=None) -> dict:
     records every MoE router call's ``top_i`` and, with ``replay`` (the
     ranks' ``top_i``), routes by it (``_Routing``)."""
     from repro_torch.models import decode_step, gather_logits, init_cache, init_params
+    from repro_torch.models.param import DTYPES
     from repro_torch.runtime.serve import build_prefill_fn, build_serve_step, prime_cache
 
     ops = _kernel_ops()
     model = init_params(cfg, 0, device=dev)
     gen = torch.Generator().manual_seed(7)
-    prompts = [torch.randint(0, cfg.vocab, (1, L), generator=gen, dtype=torch.int32).to(dev) for L in TPS_PROMPTS]
+    lens, max_seq = _tps_prompts(cfg)
+    n_patches = cfg.n_patches if cfg.frontend == "vision" else 0
+    prompts = []
+    for L in lens:
+        b = {"tokens": torch.randint(0, cfg.vocab, (1, L - n_patches), generator=gen, dtype=torch.int32).to(dev)}
+        if n_patches:
+            b["patch_embeds"] = torch.randn((1, n_patches, 1024), generator=gen).to(dev, DTYPES[cfg.dtype])
+        prompts.append(b)
     prefill_fn = build_prefill_fn(cfg)
-    step = build_serve_step(cfg, _tps_shape())
-    caches = init_cache(cfg, len(prompts), TPS_MAX_SEQ, device=dev)
-    pos = torch.tensor(TPS_PROMPTS, dtype=torch.int32, device=dev)
+    step = build_serve_step(cfg, _tps_shape(cfg))
+    caches = init_cache(cfg, len(prompts), max_seq, device=dev)
+    pos = torch.tensor(lens, dtype=torch.int32, device=dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4430,9 +4611,9 @@ def _tps_run(cfg, dev, profile: bool = False, replay=None) -> dict:
     first = []
     # fp32: each MoE router call's top_i (the bf16 runs are timed without)
     with _Routing(replay) if cfg.dtype == "float32" else contextlib.nullcontext() as routing:
-        for b, prompt in enumerate(prompts):
-            tok, pc = prefill_fn(model, {"tokens": prompt})
-            primed = prime_cache(cfg, pc, prompt.shape[1], TPS_MAX_SEQ)
+        for b, (prompt, L) in enumerate(zip(prompts, lens)):
+            tok, pc = prefill_fn(model, prompt)
+            primed = prime_cache(cfg, pc, L, max_seq)
             for name in caches:
                 caches[name][:, b:b + 1] = primed[name]
             first.append(tok)
@@ -4478,6 +4659,22 @@ def _tps_run(cfg, dev, profile: bool = False, replay=None) -> dict:
 
 
 TPS_COLL_ITERS = 50  # calls timed of each of a decode step's collectives
+TPS_ENCODE = (2, 2048)  # hubert-xlarge's encode on the axis: frames, fp32 at 2 layers
+TPS_ENCODE_RTOL = 1e-5  # its logits against one process's, of the largest magnitude
+
+
+def _tps_encode(dev) -> np.ndarray:
+    """hubert-xlarge's serving call, fp32 at 2 layers, full width, from the
+    weights seeded with 0: the encoder forward and the head over
+    ``TPS_ENCODE`` seeded frames, every 4th masked (``_encode``), the logits
+    put together over ``model`` on the active mesh (one process off it)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import gather_logits, init_params
+
+    cfg = get_config("hubert-xlarge").replace(n_layers=2, dtype="float32")
+    model = init_params(cfg, 0, device=dev)
+    logits = gather_logits(model, _encode(model, _audio_batch(cfg, *TPS_ENCODE, dev, seed=9), cfg))
+    return logits.cpu().numpy()
 
 
 def _tps_collective_ms(dev) -> dict:
@@ -4524,6 +4721,7 @@ def _tps_rank(device: str = "cuda") -> dict:
         out[_tps_run_name(arch, dtype, kv_shard)] = _tps_run(_tps_cfg(dtype, kv_shard, arch), dev, profile=profile)
         gc.collect()
         torch.cuda.empty_cache()
+    out["encode"] = _tps_encode(dev)
     out["collective_ms"] = _tps_collective_ms(dev)
     out["seconds"] = time.perf_counter() - t0
     return out
@@ -4531,12 +4729,16 @@ def _tps_rank(device: str = "cuda") -> dict:
 
 def _tps_decode_key(cfg, kv_shard: str):
     """The decode kernel's by-shape key on a rank of a model axis of 2: every
-    head against the rank's rows (the partial route) under ``"seq"``, the
-    rank's heads against every row under ``"heads"``; None for MLA (its
-    decode runs in torch ops)."""
-    if cfg.mla is not None:
+    head against the rank's rows (the partial route; a windowed model's
+    ring slots) under ``"seq"``, the rank's heads against every row under
+    ``"heads"``; None for MLA and the SSM (their decode runs in torch ops)."""
+    from repro_torch.models.attention import kv_cache_shape
+    from repro_torch.models.transformer import layer_cfg
+
+    if cfg.mla is not None or cfg.family == "ssm":
         return None
-    B, S = len(TPS_PROMPTS), TPS_MAX_SEQ
+    prompts, max_seq = _tps_prompts(cfg)
+    B, S = len(prompts), kv_cache_shape(layer_cfg(cfg), 1, max_seq)[1]
     H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     return (B, S // 2, H, KH, Dh, Dh, "partial") if kv_shard == "seq" else (B, S, H // 2, KH // 2, Dh, Dh)
 
@@ -4548,9 +4750,12 @@ def tp_serve_phase(dev, tp: dict) -> dict:
     (``_tps_rank``, run in ``[tp]``'s process group: ``tp["serve_ranks"]``):
     deepseek-7b fp32 under ``kv_shard="seq"`` (the sequence-sharded cache:
     decode's partial route and the combine) and ``"heads"``, qwen3-moe
-    (expert parallelism, its GQA 64 : 4 on the partial route) and
+    (expert parallelism, its GQA 64 : 4 on the partial route),
     minicpm3-4b (MLA's heads over ``model``, its latent cache by rows and
-    the latent decode's combine) fp32 under ``"seq"``: each rank's tokens
+    the latent decode's combine), mamba2-130m (the whole state on every
+    rank), recurrentgemma-9b (its 2048-slot ring wrapped, 1024 slots a
+    rank) and internvl2-2b (its patches) fp32 under ``"seq"``, and
+    hubert-xlarge's encode: each rank's tokens
     equal to one process's and its logits within ``TPS_LOGIT_RTOL`` of the
     row's largest; bf16 ``"seq"`` timed (ms a decode step; deepseek-7b's
     device-busy share), each rank's peak, exact launch counts, and its
@@ -4567,10 +4772,11 @@ def tp_serve_phase(dev, tp: dict) -> dict:
             one[(arch, dtype)] = _tps_run(_tps_cfg(dtype, arch=arch), dev, replay=replay or None)
             gc.collect()
             torch.cuda.empty_cache()
-    B, S = len(TPS_PROMPTS), TPS_MAX_SEQ
     for arch, dtype, kv_shard in TPS_RUNS:
         run = _tps_run_name(arch, dtype, kv_shard)
         cfg = _tps_cfg(dtype, kv_shard, arch)
+        prompts, S = _tps_prompts(cfg)
+        B = len(prompts)
         want = _serve_launches(cfg, prefills=B, decode_steps=TPS_STEPS)
         dec_key = _tps_decode_key(cfg, kv_shard)
         for r in ranks:
@@ -4601,12 +4807,12 @@ def tp_serve_phase(dev, tp: dict) -> dict:
                     f"the one process routed by them; calls where its own top_i differed (call, tokens, largest "
                     f"probability gap of the token's largest; limit {TIE_RTOL}): {flips or 'none'}")
                 assert all(gap <= TIE_RTOL for _, _, gap in flips), f"[tp-serve] {run}: not near-ties: {flips}"
-            log(f"[tp-serve] {arch} fp32 kv_shard={kv_shard!r}, full width, {TPS_LAYERS} layers, 2 gloo ranks "
-                f"on one card (data 1 x model 2), prompts {TPS_PROMPTS} into {S} rows, {TPS_STEPS} greedy steps: "
+            log(f"[tp-serve] {arch} fp32 kv_shard={kv_shard!r}, full width, {cfg.n_layers} layers, 2 gloo ranks "
+                f"on one card (data 1 x model 2), prompts {prompts} into {S} rows, {TPS_STEPS} greedy steps: "
                 f"tokens equal one process's on both ranks; logits within "
                 f"{max(r[run]['logit_rel'] for r in ranks):.2e} of the row's largest (limit {TPS_LOGIT_RTOL}); "
                 f"cache parts {ranks[0][run]['cache_shapes']}; launches a rank {ranks[0][run]['launches']}"
-                + (f", decode at {dec_key}" if dec_key is not None else ", decode in latent space (torch ops)"))
+                + (f", decode at {dec_key}" if dec_key is not None else ", decode in torch ops"))
         else:
             bone = one[(arch, "bfloat16")]
             for r in ranks:
@@ -4615,7 +4821,7 @@ def tp_serve_phase(dev, tp: dict) -> dict:
                 prof = got.get("profile")
                 log(f"[tp-serve] {arch} bf16 kv_shard={kv_shard!r}, rank {r['rank']}: decode ms a step "
                     f"{np.median(got['step_ms']):.2f} (median of {TPS_STEPS}; {[round(x, 2) for x in got['step_ms']]}), "
-                    f"4 prefills + primes {got['prefill_ms']:.1f} ms"
+                    f"{B} prefills + primes {got['prefill_ms']:.1f} ms"
                     + (f"; under the profiler {prof['profiled_wall_ms']:.2f} ms a step, device {prof['device_ms']:.2f} "
                        f"ms, busy {prof['busy']:.1%} (this rank's kernels)" if prof else "")
                     + f"; peak {got['peak'] / 2**30:.2f} GiB ({got['base'] / 2**30:.2f} GiB allocated before), "
@@ -4625,6 +4831,12 @@ def tp_serve_phase(dev, tp: dict) -> dict:
                     log("[tp-serve] bf16 device time by kind: " + ", ".join(f"{k} {ms:.3f} ms" for k, ms in prof["kinds"]))
             log(f"[tp-serve] {arch}, one process on the card: bf16 decode ms a step "
                 f"{np.median(bone['step_ms']):.2f}, fp32 {np.median(one[(arch, 'float32')]['step_ms']):.2f}")
+    want_enc = _tps_encode(dev)
+    scale = float(np.abs(want_enc).max())
+    enc_err = [float(np.abs(r["encode"] - want_enc).max()) / scale for r in ranks]
+    assert max(enc_err) <= TPS_ENCODE_RTOL, f"[tp-serve] hubert encode: {enc_err} of the largest logit"
+    log(f"[tp-serve] hubert-xlarge encode, fp32, 2 layers, {TPS_ENCODE} frames on (data 1 x model 2): logits "
+        f"{want_enc.shape} within {max(enc_err):.2e} of one process's largest (limit {TPS_ENCODE_RTOL})")
     n_coll = {"qkv all-gather": TPS_LAYERS, "(out, lse) all-gather": TPS_LAYERS,
               "activation sum": 2 * TPS_LAYERS + 1, "argmax all-gather": 1}  # deepseek-7b's bf16 "seq" step's calls
     for r in ranks:
@@ -4692,8 +4904,9 @@ def dryrun_phase(trains: dict, tp: dict, tp_serve: dict) -> dict:
                       float(np.median(t["step_ms"][0][1:]))))
     for arch in TPS_ARCHS:
         t = tp_serve["arch"][arch]
-        cells.append(("tp-serve" if arch == "deepseek-7b" else f"tp-serve {arch}", _tps_cfg("bfloat16", arch=arch),
-                      _tps_shape(), DryRunMesh({"data": 1, "model": 2}), dict(pos_per_sequence=True), t["arg_bytes"],
+        cfg = _tps_cfg("bfloat16", arch=arch)
+        cells.append(("tp-serve" if arch == "deepseek-7b" else f"tp-serve {arch}", cfg,
+                      _tps_shape(cfg), DryRunMesh({"data": 1, "model": 2}), dict(pos_per_sequence=True), t["arg_bytes"],
                       [a + b for a, b in zip(t["arg_bytes"], t["step_temp"])], float(np.median(t["step_ms"][0]))))
     out = {}
     for name, cfg, shape, mesh, kw, measured_args, measured_peaks, step_ms in cells:

@@ -497,6 +497,45 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+def _group_rank(group) -> int:
+    """This process's rank in ``group`` (0 on a dry run's recording group,
+    whose mesh answers rank 0 of every axis)."""
+    if isinstance(group, RecordingGroup):
+        return 0
+    import torch.distributed as dist
+
+    return dist.get_rank(group)
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, partial):
+        ctx.group, ctx.dim, ctx.partial = group, dim, partial
+        return torch.cat(list(model_all_gather(x, group).unbind(0)), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        dist = comm_backend(ctx.group)
+        m = dist.get_world_size(ctx.group)
+        if not ctx.partial:  # every rank holds the whole gradient: its slice
+            return g.chunk(m, dim=ctx.dim)[_group_rank(ctx.group)].contiguous(), None, None, None
+        # every rank holds a part of it: the sum's slice, one reduce-scatter
+        pieces = g.movedim(ctx.dim, 0).contiguous()
+        out = pieces.new_empty((pieces.shape[0] // m,) + tuple(pieces.shape[1:]))
+        dist.reduce_scatter_tensor(out, pieces, op=dist.ReduceOp.SUM, group=ctx.group)
+        return out.movedim(0, ctx.dim).contiguous(), None, None, None
+
+
+def gather_from_model(x: torch.Tensor, group, dim: int, partial: bool = True) -> torch.Tensor:
+    """Every rank's ``x`` over ``group`` put together along ``dim`` in rank
+    order (one all-gather).  Its gradient is this rank's slice of the
+    gradient: of its sum over ``group`` (one reduce-scatter) when each rank
+    uses the whole tensor in a sharded region and so holds a part of the
+    gradient (``partial``), of its own when each rank computes the same
+    whole gradient (``partial=False``)."""
+    return _GatherFromModel.apply(x, group, dim % x.dim(), partial)
+
+
 def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` as it is; its gradient summed over ``group`` (each rank's
     sharded region contributes a part of it)."""

@@ -44,7 +44,8 @@ step on ``meta`` tensors, as rank 0 of a :class:`~repro_torch.dist.sharding.DryR
   attention's products over one key block of ``cfg.attn_block_kv`` for
   every query (``repro``'s masked blockwise scan; below
   ``cfg.attn_blockwise_min_seq``, its reference attention over every
-  pair).  It exists to be held against ``repro``'s records;
+  pair), an SSD kernel's over every pair of a chunk (``repro``'s jnp
+  ``ssd_chunked`` masks after forming them all).  It exists to be held against ``repro``'s records;
 * *collectives*: the recorded calls in ``repro``'s layout, in all and split
   into the layer body (layer 0's), the logits chunk (the first) and the
   rest (``by_part``; the first two summed over the microbatches), with
@@ -66,16 +67,19 @@ vector, as the serving engine feeds).  Their arguments are the local
 parameters and inputs (and caches and position); a decode step updates the
 caches in place, so they are its alias bytes.  On a ``model`` axis of m > 1
 the sequence-sharded decode's all-gathers (q / k / v, then (out, lse)) and
-the greedy argmax's are recorded like the sums.  Block kinds ``"attn"``,
-``"moe"`` and ``"mla"`` run there (the MoE cells with expert parallelism,
-and on the batch axes the all-gather of ``top_i`` where a dispatch group
-spans ranks and the load-balance means' sums: ``models/moe.py``; MLA's
-heads over ``model`` where m divides them and its latent cache by rows:
-``models/mla.py``); every other block kind (and a frontend) raises the
-port's own ``NotImplementedError`` on such an axis (ROADMAP.md, Queue 1
-item 5.6), which :func:`run_cell` records as ``ok: false``, as ``repro``'s
-records a failed lowering.  Nothing here imports JAX or ``repro``, or sets
-``XLA_FLAGS``.
+the greedy argmax's are recorded like the sums.  Every block kind and
+frontend runs there (the MoE cells with expert parallelism, and on the
+batch axes the all-gather of ``top_i`` where a dispatch group spans ranks
+and the load-balance means' sums: ``models/moe.py``; MLA's heads over
+``model`` where m divides them and its latent cache by rows:
+``models/mla.py``; the SSM on its channels, its sharded weights gathered
+and their gradients reduce-scattered: ``models/ssm.py``; the RG-LRU on its
+width, ``u`` all-gathered for the gates: ``models/rglru.py``).  A hybrid's
+scan body is its first (rec, rec, attn) super-block, its remainder layers
+lie outside the scan (``flops_scan_once``, ``scan_once``), as ``repro``
+scans it.  What the port cannot run raises, and :func:`run_cell` records
+it as ``ok: false`` (with the error), as ``repro``'s records a failed
+lowering.  Nothing here imports JAX or ``repro``, or sets ``XLA_FLAGS``.
 
 The MoE configs' default dispatch is ``einsum``: ``repro`` builds one-hot
 (G, S, E, C) dispatch and combine tensors and contracts them, FLOPs that
@@ -108,8 +112,12 @@ from repro_torch.dist.sharding import DryRunMesh, batch_split_axes, split_rows, 
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.launch.mesh import MULTI_POD, MULTI_POD_AXES, SINGLE_POD, SINGLE_POD_AXES
-from repro_torch.models import Block, SHAPES, ArchConfig, ShapeSpec, Transformer, applicable_shapes
+from repro_torch.models import SHAPES, ArchConfig, ShapeSpec, Transformer, applicable_shapes
 from repro_torch.models import layers as layers_mod
+from repro_torch.models.transformer import Block, RecBlock, SSMBlock, hybrid_layout
+
+#: the layer classes whose ``decode`` a decode step calls
+BLOCK_CLASSES = (Block, RecBlock, SSMBlock)
 
 #: per-arch dry-run overrides: memory-budget knobs for the ≥100B configs (``repro``'s)
 DRYRUN_OVERRIDES: dict[str, dict] = {
@@ -208,20 +216,20 @@ class _Parts:
 
     # module hooks (the layers)
     def pre_hook(self, module, args):
-        if isinstance(module, Block) and id(module) in self.layer_of:
+        if id(module) in self.layer_of:
             self.stack.append(("layer", self.layer_of[id(module)]))
 
     def post_hook(self, module, args, output):
         """Also called when a remat recompute stops early (by raising):
         ``output`` is None then."""
-        if isinstance(module, Block) and id(module) in self.layer_of:
+        if id(module) in self.layer_of:
             part = self.stack.pop()
             if output is not None:
                 self.tag(tree_flatten(output)[0], tree_flatten(args)[0], part)
 
     def decode_method(self, fn):
-        """``Block.decode``, marking its layer's part: a decode step calls
-        it, not the module, so no forward hook sees the layer."""
+        """A block class's ``decode``, marking its layer's part: a decode
+        step calls it, not the module, so no forward hook sees the layer."""
 
         def decode(module, *args, **kw):
             i = self.layer_of.get(id(module))
@@ -366,6 +374,17 @@ def _attention_scan_once_flops(call: dict, cfg: ArchConfig) -> int:
     return count(B, H, Dh, Dv, Lq * keys)
 
 
+def _ssd_scan_once_flops(call: dict) -> int:
+    """An SSD kernel call's operations as XLA counts ``repro``'s jnp
+    ``ssd_chunked``: its intra-chunk products over every (i, j) pair of a
+    chunk (it masks the upper triangle after forming it), where the kernels
+    count the causal pairs."""
+    b, H, nc, cs, P, _, N = call["shape"]
+    if call["name"] == "ssd_intra_chunk":
+        return b * H * nc * (2 * cs * cs * (N + P) + 2 * cs * N * P)
+    return b * H * nc * (2 * cs * cs * (3 * N + 2 * P) + 4 * cs * N * P)
+
+
 def _run_instrumented(model: Transformer, n_chunks: int, known: list, log, fn):
     """Run ``fn()`` under the tracker, the part hooks and the kernels' meta
     routes, ``log`` (a ``CollectiveLog`` or None) naming each collective's
@@ -376,24 +395,38 @@ def _run_instrumented(model: Transformer, n_chunks: int, known: list, log, fn):
         log.region = parts.current
     hooks = (torch.nn.modules.module.register_module_forward_pre_hook(parts.pre_hook),
              torch.nn.modules.module.register_module_forward_hook(parts.post_hook, always_call=True))
-    chunk_nll, decode = layers_mod._chunk_nll, Block.decode
+    chunk_nll, decodes = layers_mod._chunk_nll, {cls: cls.decode for cls in BLOCK_CLASSES}
     layers_mod._chunk_nll = parts.chunk_fn(chunk_nll)
-    Block.decode = parts.decode_method(decode)
+    for cls, decode in decodes.items():
+        cls.decode = parts.decode_method(decode)
     try:
         with dispatch.meta_kernel_calls(tracker.kernel_call), tracker:
             result = fn()
         tracker.finish()
     finally:
-        layers_mod._chunk_nll, Block.decode = chunk_nll, decode
+        layers_mod._chunk_nll = chunk_nll
+        for cls, decode in decodes.items():
+            cls.decode = decode
         for h in hooks:
             h.remove()
     return result, tracker
 
 
-def _first_of_scan(part) -> bool:
+def _scan_body_layers(cfg: ArchConfig) -> frozenset:
+    """The layers of what XLA counts of ``repro``'s layer scan: layer 0 of
+    a stack of one kind; a hybrid's first super-block and its remainder
+    layers (outside the scan)."""
+    if cfg.family != "hybrid":
+        return frozenset({0})
+    n_super, rem = hybrid_layout(cfg)
+    k = len(cfg.hybrid.pattern)
+    return frozenset(range(min(k, n_super * k))) | frozenset(range(n_super * k, n_super * k + len(rem)))
+
+
+def _first_of_scan(part, body: frozenset = frozenset({0})) -> bool:
     """Part of what XLA counts of a scan: outside every scan, or its first
-    body (layer 0, a microbatch's first logits chunk)."""
-    return part is None or part[1] == 0
+    body (the layers ``body``, a microbatch's first logits chunk)."""
+    return part is None or part[1] in (body if part[0] == "layer" else (0,))
 
 
 def model_cell(cfg: ArchConfig, shape: ShapeSpec, mesh: Optional[DryRunMesh], n_microbatches: int = 1,
@@ -402,9 +435,7 @@ def model_cell(cfg: ArchConfig, shape: ShapeSpec, mesh: Optional[DryRunMesh], n_
     no mesh): → ``{"memory", "cost", "collectives", "peak_terms",
     "kernels"}`` (module docstring).  A decode cell's position is a scalar
     unless ``pos_per_sequence``.  Raises what the port raises for a cell
-    it cannot run (a model axis of m > 1 outside block kinds ``"attn"``,
-    ``"moe"`` and ``"mla"``: ``NotImplementedError`` naming Queue 1 item
-    5.6)."""
+    it cannot run (a kernel's ``ValueError`` for a shape it refuses)."""
     from repro_torch.models import abstract_cache, abstract_inputs, set_trainable
     from repro_torch.optim import TrainState
     from repro_torch.runtime.serve import build_prefill_fn, build_serve_step
@@ -456,11 +487,14 @@ def model_cell(cfg: ArchConfig, shape: ShapeSpec, mesh: Optional[DryRunMesh], n_
         "peak_bytes": arguments + temp,
     }
     flops = sum(tr.flops.values())
-    scan_once = sum(f for part, f in tr.flops.items() if _first_of_scan(part))
+    body = _scan_body_layers(cfg)
+    scan_once = sum(f for part, f in tr.flops.items() if _first_of_scan(part, body))
     # the attention's kernels as XLA counts repro's blockwise scan
     for call in tr.kernels:
-        if call["name"] in ("flash_attention", "flash_attention_bwd") and _first_of_scan(call["part"]):
+        if call["name"] in ("flash_attention", "flash_attention_bwd") and _first_of_scan(call["part"], body):
             scan_once += _attention_scan_once_flops(call, cfg) - call["flops"]
+        elif call["name"] in ("ssd_intra_chunk", "ssd_intra_chunk_bwd") and _first_of_scan(call["part"], body):
+            scan_once += _ssd_scan_once_flops(call) - call["flops"]
     by_part: dict = defaultdict(int)
     for part, f in tr.flops.items():
         by_part["outside" if part is None else f"{part[0]}_body"] += f
@@ -473,7 +507,7 @@ def model_cell(cfg: ArchConfig, shape: ShapeSpec, mesh: Optional[DryRunMesh], n_
             "flops_by_part": {k: float(v) for k, v in by_part.items()}}
     records = log.records if log is not None else []
     collectives = collective_stats(records)
-    collectives["scan_once"] = collective_stats([r for r in records if _first_of_scan(r["region"])])
+    collectives["scan_once"] = collective_stats([r for r in records if _first_of_scan(r["region"], body)])
     collectives["by_part"] = {
         name: collective_stats([r for r in records if keep(r["region"])])
         for name, keep in (("layer_body", lambda p: p == ("layer", 0)),

@@ -227,26 +227,51 @@ def dp_train(device="cuda") -> dict:
 TP_STEPS, TP_BATCH, TP_SEQ = 2, 4, 16
 
 
+#: :func:`tp_config`'s variants of another family: the reduced config of each arch
+TP_FAMILIES = {"ssm": "mamba2-130m", "hybrid": "recurrentgemma-9b", "audio": "hubert-xlarge",
+               "vision": "internvl2-2b"}
+
+
 def tp_config(variant: str = "dense", optimizer: str = "adamw"):
     """Reduced deepseek-7b in fp32 with ``optimizer``; ``variant="gqa"``
     gives it 1 KV head (replicated over ``model``: each rank reads it),
     ``qk_norm``, the QKV bias, tied embeddings and a vocab of 100 padded
-    to 128."""
+    to 128.  ``"ssm"``, ``"hybrid"``, ``"audio"`` and ``"vision"`` are the
+    reduced mamba2-130m, recurrentgemma-9b, hubert-xlarge and internvl2-2b
+    (``TP_FAMILIES``) in fp32 with ``optimizer``."""
     from repro_torch.configs import reduced_config
 
+    if variant in TP_FAMILIES:
+        return reduced_config(TP_FAMILIES[variant]).replace(dtype="float32", optimizer=optimizer)
     cfg = reduced_config("deepseek-7b").replace(dtype="float32", optimizer=optimizer)
     if variant == "gqa":
         cfg = cfg.replace(n_kv_heads=1, qk_norm=True, qkv_bias=True, tie_embeddings=True, vocab=100)
     elif variant != "dense":
-        raise ValueError(f"unknown variant {variant!r}; use 'dense' or 'gqa'")
+        raise ValueError(f"unknown variant {variant!r}; use 'dense', 'gqa' or one of {sorted(TP_FAMILIES)}")
     return cfg
+
+
+def tp_batch(cfg, batch: int, seq: int, device) -> dict:
+    """One seeded global batch of (``batch``, ``seq``) for ``cfg``'s train
+    step: tokens and next-token labels, or a frontend model's inputs (the
+    synthetic data pipeline's first batch: frame embeddings and mask, or
+    patches before ``seq - n_patches`` text tokens)."""
+    if cfg.frontend is not None:
+        from repro_torch.data import SyntheticLMDataset
+        from repro_torch.models import ShapeSpec
+
+        b = SyntheticLMDataset(cfg, ShapeSpec("tp", "train", seq, batch), seed=1).batch_for_step(0)
+        return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+    tokens = torch.randint(0, cfg.vocab, (batch, seq + 1), generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32)
+    return {"tokens": tokens[:, :-1].to(device), "labels": tokens[:, 1:].to(device)}
 
 
 def tp_train(device="cuda", cfg=None, *, steps: int = TP_STEPS, batch: int = TP_BATCH, seq: int = TP_SEQ,
              n_microbatches: int = 1, grad_compression: bool = False) -> dict:
     """``steps`` train steps of ``cfg`` (default :func:`tp_config`'s) from
     the state seeded with 0, every step on one seeded global batch of
-    (``batch``, ``seq``): tensor- and data-parallel under an active mesh
+    (``batch``, ``seq``) (:func:`tp_batch`): tensor- and data-parallel under an active mesh
     with a ``model`` axis, one process off it.  → {"losses", "grad_norms",
     "params" (name → this rank's part, float32 numpy), "shards" (name →
     (full shape, index) or None off a ``model`` axis), "bytes" (this rank's
@@ -259,9 +284,7 @@ def tp_train(device="cuda", cfg=None, *, steps: int = TP_STEPS, batch: int = TP_
     cfg = cfg if cfg is not None else tp_config()
     state = init_train_state(cfg, 0, device=device)
     art = build_train_step(cfg, n_microbatches=n_microbatches, grad_compression=grad_compression)
-    tokens = torch.randint(0, cfg.vocab, (batch, seq + 1), generator=torch.Generator().manual_seed(1),
-                           dtype=torch.int32)
-    b = {"tokens": tokens[:, :-1].to(device), "labels": tokens[:, 1:].to(device)}
+    b = tp_batch(cfg, batch, seq, device)
     losses, grad_norms = [], []
     for _ in range(steps):
         state, metrics = art(state, b)

@@ -16,6 +16,17 @@ the same pair combine); decode is the single-step update, writing the
 slot's ``h`` and ``conv`` caches **in place**.  ``repro`` runs the block in
 jnp outside any Pallas kernel, so the port runs it in torch ops; only its
 norms (in the enclosing block) go through a kernel.
+
+On a ``model`` mesh axis of m > 1 that divides the width W (``RGLRU.tp``)
+every leaf is this rank's W/m channels (``ff``), as ``repro`` lays them
+out: ``in_x`` / ``in_gate`` column-parallel, the depthwise conv, the
+recurrence and ``b_a`` / ``b_x`` / ``Lambda`` on the rank's channels,
+``out_proj`` row-parallel (its output summed over ``model``).  The gates'
+``w_a`` / ``w_x`` (W, W) hold the rank's columns, so each needs the whole
+``u``: one all-gather over ``model`` of the conv output, whose gradient is
+reduce-scattered (``dist.collectives.gather_from_model``).  The caches
+``h`` / ``conv`` are the rank's channels.  Where m does not divide W every
+leaf is whole and each rank runs the whole block.
 """
 from __future__ import annotations
 
@@ -23,8 +34,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.dist.collectives import copy_to_model, gather_from_model, model_all_gather, reduce_from_model
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import make_params
+from repro_torch.models.layers import make_params, sharded_axis
 from repro_torch.models.param import ParamDef
 
 _C = 8.0
@@ -59,9 +71,14 @@ def rglru_cache_defs(cfg: ArchConfig, batch: int) -> dict:
 
 
 class RGLRU(nn.Module):
+    """``tp``: the ``model`` axis when it splits the width (module
+    docstring), else None."""
+
     def __init__(self, cfg: ArchConfig, *, dtype: torch.dtype, device):
         super().__init__()
-        make_params(self, rglru_defs(cfg), dtype=dtype, device=device)
+        defs = rglru_defs(cfg)
+        make_params(self, defs, dtype=dtype, device=device)
+        self.tp = sharded_axis(defs["out_proj"], 0)
 
 
 def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor, state=None):
@@ -75,14 +92,15 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor, state=None):
     return y + b, u_full[:, -(Wd - 1):]
 
 
-def _gates(p: RGLRU, u: torch.Tensor):
-    """u (B, L, W) → (a, gated input), both float32."""
-    uf = u.float()
-    r = torch.sigmoid(uf @ p.w_a.float() + p.b_a.float())
-    i = torch.sigmoid(uf @ p.w_x.float() + p.b_x.float())
+def _gates(p: RGLRU, u: torch.Tensor, u_whole: torch.Tensor):
+    """u (B, L, W) (this rank's channels on a ``model`` axis; ``u_whole``
+    all of them) → (a, gated input), both float32."""
+    uw = u_whole.float()
+    r = torch.sigmoid(uw @ p.w_a.float() + p.b_a.float())
+    i = torch.sigmoid(uw @ p.w_x.float() + p.b_x.float())
     a = torch.exp(-_C * F.softplus(p.Lambda.float()) * r)
     beta = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
-    return a, beta * (i * uf)
+    return a, beta * (i * u.float())
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0=None) -> torch.Tensor:
@@ -101,12 +119,17 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0=None) -> torch.Tensor:
 
 
 def rglru_apply(p: RGLRU, x: torch.Tensor, cfg: ArchConfig, *, want_cache: bool = False):
-    """Griffin recurrent block; x (B, L, D) → (y (B, L, D), cache | None)."""
+    """Griffin recurrent block; x (B, L, D) → (y (B, L, D), cache | None);
+    tensor-parallel over the width on a ``model`` axis that splits it."""
+    if p.tp is not None:
+        x = copy_to_model(x, p.tp.group)
     gate = F.gelu(x @ p.in_gate, approximate="tanh")
     u, conv_state = _causal_conv(x @ p.in_x, p.conv_w, p.conv_b)
-    a, b = _gates(p, u)
+    a, b = _gates(p, u, u if p.tp is None else gather_from_model(u, p.tp.group, -1))
     h = rglru_scan(a, b)
     out = (h.to(x.dtype) * gate) @ p.out_proj
+    if p.tp is not None:
+        out = reduce_from_model(out, p.tp.group)
     if want_cache:
         return out, {"h": h[:, -1], "conv": conv_state}
     return out, None
@@ -114,12 +137,16 @@ def rglru_apply(p: RGLRU, x: torch.Tensor, cfg: ArchConfig, *, want_cache: bool 
 
 def rglru_decode_step(p: RGLRU, x: torch.Tensor, cache: dict, cfg: ArchConfig):
     """x (B, 1, D); cache {'h': (B, W) float32, 'conv': (B, Wd − 1, W)},
-    both **updated in place**.  → (out (B, 1, D), cache)."""
+    both **updated in place** (this rank's channels on a ``model`` axis).
+    → (out (B, 1, D), cache)."""
     gate = F.gelu(x @ p.in_gate, approximate="tanh")
     u, conv_state = _causal_conv(x @ p.in_x, p.conv_w, p.conv_b, state=cache["conv"])
-    a, b = _gates(p, u)
+    u_whole = u if p.tp is None else torch.cat(list(model_all_gather(u, p.tp.group).unbind(0)), dim=-1)
+    a, b = _gates(p, u, u_whole)
     h = cache["h"]
     h.mul_(a[:, 0]).add_(b[:, 0])
     out = (h[:, None].to(x.dtype) * gate) @ p.out_proj
+    if p.tp is not None:
+        out = reduce_from_model(out, p.tp.group)
     cache["conv"].copy_(conv_state)
     return out, cache

@@ -50,9 +50,15 @@ run tensor-parallel, their caches (:func:`init_cache`,
 ``repro``'s global caches (:class:`MeshCaches`; the KV caches
 sequence-sharded under ``kv_shard="seq"``: ``models/attention.py``; MLA's
 latent cache by rows: ``models/mla.py``) and their logits this rank's
-vocab part (``layers.gather_logits``, ``layers.greedy_tokens``).  Block
-kinds ``"ssm"`` and ``"rec"``, the hybrid layout, the frontends and
-``ServeEngine`` raise under such a mesh (ROADMAP.md, Queue 1 item 5.6).
+vocab part (``layers.gather_logits``, ``layers.greedy_tokens``).  That
+covers every block kind, the hybrid layout and the frontends: ``"ssm"``
+over its channels (``models/ssm.py``: its ``state`` cache whole on every
+rank, ``conv`` by channels), ``"rec"`` over the RG-LRU width
+(``models/rglru.py``: ``h`` / ``conv`` by channels), the hybrid's windowed
+attention with its ring cache sequence-sharded, the frontends' projections
+replicated and an audio model's ``head`` vocab-parallel (its logits and
+its masked loss over each rank's classes).  ``ServeEngine`` raises under
+such a mesh, as ``repro``'s engine takes none.
 
 :func:`input_defs`, :func:`abstract_inputs`, :func:`abstract_params` and
 :func:`abstract_cache` describe a batch, the parameters and the caches as
@@ -68,6 +74,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
+from repro_torch.dist.collectives import copy_to_model
 from repro_torch.dist.sharding import current_mesh, model_axis, rows_split, safe_spec
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -167,37 +174,13 @@ def block_defs(cfg: ArchConfig, kind: Optional[str] = None) -> dict:
     return {"ln1": rmsnorm_def(D), mixer[0]: mixer[1](cfg), "ln2": rmsnorm_def(D), ffn[0]: ffn[1]}
 
 
-MODEL_AXIS_ITEM = "ROADMAP.md, Queue 1 item 5.6"
-
-#: the block kinds that run on a ``model`` mesh axis of m > 1
-MODEL_AXIS_KINDS = frozenset({"attn", "mla", "moe"})
-
-
-def check_model_axis(cfg: ArchConfig, mesh=None) -> None:
-    """Raise ``NotImplementedError`` (naming Queue 1 item 5.6) for a config
-    the port cannot run tensor-parallel on ``mesh``'s (default: the active
-    mesh's) ``model`` axis of m > 1: anything but a stack of one of
-    ``MODEL_AXIS_KINDS`` over token embeddings (the hybrid layout mixes
-    ``"rec"`` in)."""
-    tp = model_axis(mesh)
-    if tp is None:
-        return
-    kinds = set(layer_kinds(cfg))
-    if not kinds <= MODEL_AXIS_KINDS or cfg.frontend is not None:
-        what = f"frontend {cfg.frontend!r}" if cfg.frontend is not None else f"block kinds {sorted(kinds)}"
-        raise NotImplementedError(
-            f"{cfg.name}: {what} on a 'model' mesh axis of {tp.size} is not ported; the port runs "
-            f"block kinds {sorted(MODEL_AXIS_KINDS)} tensor-parallel ({MODEL_AXIS_ITEM})"
-        )
-
-
 def refuse_model_axis(model, what: str) -> None:
     """Raise for ``what`` (the serving engine) on a model built on a
     ``model`` axis of m > 1: ``repro``'s engine takes no mesh."""
     if getattr(model, "tp", None) is not None:
         raise NotImplementedError(
-            f"{what} on a model built on a 'model' mesh axis of {model.tp.size} is not ported "
-            f"({MODEL_AXIS_ITEM})"
+            f"{what} on a model built on a 'model' mesh axis of {model.tp.size}: repro's serving "
+            "engine takes no mesh, and the port's follows it"
         )
 
 
@@ -344,7 +327,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ArchConfig, *, device="cuda"):
         super().__init__()
-        check_model_axis(cfg)
         device = torch.device(device)
         if device.type != "meta":
             device = resolve_device(device)
@@ -354,7 +336,8 @@ class Transformer(nn.Module):
         self.tp = model_axis()
         fdefs = frontend_defs(cfg)
         make_params(self, fdefs, dtype=dtype, device=device)
-        self.vocab_tp = sharded_axis(fdefs["embedding"], 0) if "embedding" in fdefs else None
+        # the embedding's rows, or an audio model's head's columns
+        self.vocab_tp = sharded_axis(fdefs["embedding"], 0) if "embedding" in fdefs else sharded_axis(fdefs["head"], 1)
         lcfg = layer_cfg(cfg)
         self.layers = nn.ModuleList(
             _make_block(lcfg, kind, dtype=dtype, device=device) for kind in layer_kinds(cfg)
@@ -405,13 +388,16 @@ def named_defs(model: Transformer):
 
 def partial_grad_names(model: Transformer) -> tuple[str, ...]:
     """Parameters replicated over the ``model`` axis whose gradient each
-    rank holds a part of (``attention.partial_grad_names``): the train step
-    sums them over ``model``.  Empty off a ``model`` axis."""
+    rank holds a part of (``attention.partial_grad_names``,
+    ``ssm.partial_grad_names``): the train step sums them over ``model``.
+    Empty off a ``model`` axis."""
     out = []
     for i, layer in enumerate(model.layers):
         attn = getattr(layer, "attn", None)
         if isinstance(attn, attn_mod.Attention):
             out += [f"layers.{i}.attn.{n}" for n in attn_mod.partial_grad_names(attn)]
+        if isinstance(layer, SSMBlock):
+            out += [f"layers.{i}.ssm.{n}" for n in ssm_mod.partial_grad_names(layer.ssm)]
     return tuple(out)
 
 
@@ -499,9 +485,11 @@ def embed_inputs(model: Transformer, batch: dict, cfg: ArchConfig):
 def head_logits(model: Transformer, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Logits of hidden states ``x`` (..., D): an audio model's ``x @
     head`` over the padded classes (``repro`` masks no padding class and
-    applies no softcap there), else :func:`~repro_torch.models.layers.logits_apply`."""
+    applies no softcap there; on a ``model`` axis that shards the head,
+    this rank's classes), else :func:`~repro_torch.models.layers.logits_apply`."""
     if cfg.frontend == "audio":
-        return x @ model.head
+        tp = getattr(model, "vocab_tp", None)
+        return (x if tp is None else copy_to_model(x, tp.group)) @ model.head
     return logits_apply(model, x, cfg)
 
 
@@ -553,7 +541,7 @@ def loss_fn(model: Transformer, batch: dict, cfg: ArchConfig):
     if cfg.frontend == "vision":
         x = x[:, -labels.shape[1]:]
     if cfg.frontend == "audio":
-        loss = softmax_xent(head_logits(model, x, cfg), labels, mask)
+        loss = softmax_xent(head_logits(model, x, cfg), labels, mask, tp=model.vocab_tp)
     elif cfg.logits_chunk:
         loss = chunked_softmax_xent(x, labels, model, cfg, mask, chunk=cfg.logits_chunk)
     else:
@@ -615,14 +603,14 @@ def decode_step(model: Transformer, tokens: torch.Tensor, caches: dict, pos, cfg
         if not isinstance(caches, MeshCaches):
             raise ValueError("decode on a 'model' axis takes the MeshCaches that init_cache, prefill or "
                              "runtime.serve.prime_cache make: their global rows place each rank's part")
-        place = {"mla": mla_mod.latent_part}  # the others' caches are KV caches
-        parts = {kind: place.get(kind, attn_mod.kv_part)(lcfg, caches.seq_len, tp)
-                 for kind in set(layer_kinds(cfg))}
+        # the KV and latent caches' places; ssm / rec caches are split by channels
+        place = {"attn": attn_mod.kv_part, "moe": attn_mod.kv_part, "mla": mla_mod.latent_part}
+        parts = {kind: place[kind](lcfg, caches.seq_len, tp) for kind in set(layer_kinds(cfg)) if kind in place}
     rows = rows_split() if cfg.moe is not None else None
     seen: dict = {}  # layers of each kind so far: the index into its leaves
     for layer, kind in zip(model.layers, layer_kinds(cfg)):
         j = seen[kind] = seen.get(kind, -1) + 1
-        kw = {} if parts is None else {"part": parts[kind]}
+        kw = {} if parts is None or kind not in parts else {"part": parts[kind]}
         if kind == "moe":
             kw["rows"] = rows
         x, _ = layer.decode(x, {k: caches[k][j] for k in CACHE_KEYS[kind]}, pos_b, lcfg, **kw)

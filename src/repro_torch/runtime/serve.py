@@ -4,12 +4,14 @@ decode, and moving one slot's KV rows in and out of the paged pool.  A port
 of ``repro.runtime.serve``: PyTorch runs eagerly, so each ``build_*``
 returns a plain closure where ``repro``'s jits one.
 
-On a mesh with a ``model`` axis of m > 1 (block kinds ``"attn"``,
-``"moe"`` and ``"mla"``, the model built under it) the steps run
+On a mesh with a ``model`` axis of m > 1 (every block kind and frontend,
+the model built under it) the steps run
 tensor-parallel on each rank's parts, as ``repro``'s jitted steps run
 under ``param_shardings`` and :func:`cache_shardings`: the caches are each
 rank's part of ``repro``'s global caches (``models.MeshCaches``; MLA's
-latent cache by rows), the next tokens the argmax over the
+latent cache by rows; the ssm ``conv`` and rec ``h`` / ``conv`` leaves by
+channels, the ssm ``state`` whole on every rank; the hybrid's attention
+rings by slots), the next tokens the argmax over the
 whole vocabulary (``models.greedy_tokens``) on every rank.  Where the
 batch axes split the rows, a MoE routes over every rank's rows as the
 step declares them (``dist.sharding.split_rows``): :func:`build_serve_step`
@@ -34,7 +36,6 @@ from repro_torch.models.param import local_shape, sharding_tree
 from repro_torch.models.transformer import (
     MeshCaches,
     cache_defs,
-    check_model_axis,
     decode_step,
     layer_cfg,
     prefill,
@@ -111,8 +112,6 @@ def prime_cache(cfg: ArchConfig, prefill_caches: dict, prompt_len: int, max_seq:
     sizes = {"k": min(max_seq, W) if W is not None else max_seq, "c_kv": max_seq}
     sizes.update(v=sizes["k"], k_rope=max_seq)
     tp = model_axis(current_mesh())
-    if tp is not None:
-        check_model_axis(cfg)
     out = {}
     for name, c in prefill_caches.items():
         if name not in sizes:

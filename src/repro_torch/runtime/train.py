@@ -39,16 +39,15 @@ What differs from ``repro``:
   model (built under the same mesh) holds this rank's part of each
   parameter (``safe_spec`` of its ``ParamDef`` axes), its forward and
   backward run over those parts (``models/attention.py``,
-  ``models/layers.py``), the gradients stay local but for the parameters
+  ``models/layers.py``, ``models/ssm.py``, ``models/rglru.py``), the gradients stay local but for the parameters
   replicated inside a sharded region (``models.partial_grad_names``), which
   ``grad_finalize`` sums over ``model``, as GSPMD does in ``repro``; AdamW's
   ``m`` / ``v`` are local parts and Adafactor's state is whole on every rank
   (:func:`train_state_shardings`); the global norm sums the sharded
   gradients' squares over ``model``.  Each metric is the same on every
-  ``model`` rank.  Block kinds ``"attn"``, ``"moe"`` (expert
-  parallelism, ``models/moe.py``; its ``moe_balance`` and ``moe_zloss``
-  are each one process's) and ``"mla"`` run there; the others raise
-  (``models.check_model_axis``).  A MoE model routes over the global
+  ``model`` rank.  Every block kind and frontend runs there (a MoE
+  with expert parallelism, ``models/moe.py``; its ``moe_balance`` and
+  ``moe_zloss`` are each one process's).  A MoE model routes over the global
   batch (the step declares its rows' split: ``dist.sharding.split_rows``),
   so its batch must split over every batch axis of the mesh.
   Off-mesh the step runs on one card as
@@ -83,7 +82,7 @@ from repro_torch.dist.sharding import (
 from repro_torch.models import abstract_params, init_params, leaf_layout, loss_fn, model_defs, set_trainable
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.param import DTYPES, sharding_tree
-from repro_torch.models.transformer import check_model_axis, partial_grad_names
+from repro_torch.models.transformer import partial_grad_names
 from repro_torch.optim import TrainState, global_norm, make_optimizer, param_leaves
 
 
@@ -283,7 +282,6 @@ def build_train_step(
     then divide into the ranks of the batch's mesh axes × ``n_microbatches``
     (axes that do not divide it are dropped, as ``safe_spec`` drops them)."""
     mesh = current_mesh()
-    check_model_axis(cfg, mesh)
     lr_schedule = lr_schedule or (
         lambda step: torch.tensor(3e-4, dtype=torch.float32, device=step.device))
     layout = leaf_layout(cfg)

@@ -28,8 +28,15 @@
   are FLOPs XLA counts and the port does not do) and reduced minicpm3-4b on
   the (2, 2) host mesh: argument and alias bytes exact, ``flops_scan_once``
   within 5%;
-* every cell of the other block kinds and the frontends on the production
-  mesh refused naming Queue 1 item 5.6, and recorded as ``ok: false``;
+* every cell of the SSM, the RG-LRU hybrid and the frontends
+  (mamba2-130m, recurrentgemma-9b, hubert-xlarge, internvl2-2b) on both
+  production meshes: ``ok``, their argument and alias bytes the local train
+  state or parameters, inputs and caches, their checked-in records
+  reproduced; ``repro`` lowerings of each reduced config's train cell on
+  the (2, 2) host mesh: argument and alias bytes exact,
+  ``flops_scan_once`` within 5%;
+* a cell the port refuses (a head dim above the kernels' 256) recorded as
+  ``ok: false`` with the kernel's error;
 * the recording seam's bytes by ``repro``'s HLO convention, and the
   kernels' meta routes (the outputs alone, their operation counts, no
   launch);
@@ -426,7 +433,7 @@ def test_a_real_group_sums_through_the_seam(gloo_counts):
 
 
 # ---------------------------------------------------------------------------
-# Cells the port refuses, and the record of a refusal.
+# The cells of every block kind, and the record of a refusal.
 # ---------------------------------------------------------------------------
 
 def _attn_only(arch: str) -> bool:
@@ -434,29 +441,32 @@ def _attn_only(arch: str) -> bool:
     return set(layer_kinds(cfg)) == {"attn"} and cfg.frontend is None
 
 
-def _runs_on_model_axis(arch: str) -> bool:
+def _attn_moe_mla(arch: str) -> bool:
     """Block kinds ``"attn"``, ``"moe"`` and ``"mla"`` over token embeddings."""
     cfg = get_config(arch)
     return set(layer_kinds(cfg)) <= {"attn", "moe", "mla"} and cfg.frontend is None
 
 
-REFUSED = [(arch, s.name) for arch in ARCH_NAMES for s in applicable_shapes(get_config(arch))
-           if not _runs_on_model_axis(arch)]
+#: the cells of the SSM, the RG-LRU hybrid and the frontends
+SSM_REC_FRONTEND_CELLS = [(arch, s.name) for arch in ARCH_NAMES for s in applicable_shapes(get_config(arch))
+                          if not _attn_moe_mla(arch)]
 DENSE_SERVING = [(arch, s.name) for arch in ARCH_NAMES for s in applicable_shapes(get_config(arch))
                  if _attn_only(arch) and s.kind != "train"]
 MOE_MLA_CELLS = [(arch, s.name) for arch in ARCH_NAMES for s in applicable_shapes(get_config(arch))
-                 if _runs_on_model_axis(arch) and not _attn_only(arch)]
+                 if _attn_moe_mla(arch) and not _attn_only(arch)]
 
 
 def test_refused_cells_are_every_cell_but_the_dense_train_ones():
-    """Every cell of the dense ``"attn"`` configs and of the MoE and MLA
-    ones runs (train, prefill and decode); every other config's is
-    refused."""
-    ok = {(arch, s.name) for arch in ARCH_NAMES for s in applicable_shapes(get_config(arch))} - set(REFUSED)
-    assert ok == {(arch, shape) for arch in ("deepseek-7b", "gemma-7b", "qwen1.5-110b", "qwen3-moe-235b-a22b",
-                                             "llama4-scout-17b-a16e", "minicpm3-4b")
-                  for shape in ("train_4k", "prefill_32k", "decode_32k")}
-    assert len(DENSE_SERVING) == 6 and len(MOE_MLA_CELLS) == 9
+    """Every cell of every config runs on both production meshes: the
+    dense ``"attn"`` ones, the MoE and MLA ones, and the 13 cells (26
+    records) of the SSM, the RG-LRU hybrid and the frontends, which the
+    port once refused."""
+    assert {arch for arch, _ in SSM_REC_FRONTEND_CELLS} == {"mamba2-130m", "recurrentgemma-9b", "hubert-xlarge",
+                                                            "internvl2-2b"}
+    assert len(SSM_REC_FRONTEND_CELLS) == 13 and len(DENSE_SERVING) == 6 and len(MOE_MLA_CELLS) == 9
+    for arch, shape in SSM_REC_FRONTEND_CELLS:
+        for mesh in MESH_NAMES:
+            assert json.loads((PORT_RECORDS / f"{arch}__{shape}__{mesh}.json").read_text())["ok"], (arch, shape, mesh)
 
 
 def _local_bytes(defs, mesh, dtype_bytes) -> int:
@@ -551,17 +561,76 @@ def test_moe_and_mla_cells_run_on_both_production_meshes(arch, shape, tmp_path):
             assert caches == cfg.n_layers * 8 * 2048 * (cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim) * 2
 
 
-@pytest.mark.parametrize("arch,shape", REFUSED)
-def test_refused_cells_name_item_5_6(arch, shape):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5.6"):
-        dryrun.model_cell(dryrun.config_for_dryrun(arch), SHAPES[shape], DryRunMesh(dryrun.MESHES["pod_16x16"]))
+@pytest.mark.parametrize("arch,shape", SSM_REC_FRONTEND_CELLS)
+def test_refused_cells_name_item_5_6(arch, shape, tmp_path):
+    """Each cell of the SSM, the RG-LRU hybrid and the frontends (once
+    refused naming Queue 1 item 5.6) runs ``ok`` on both production meshes
+    and reproduces its checked-in record; its argument bytes are the local
+    train state or parameters, this rank's rows of the inputs and, decoding,
+    the local caches (the SSM ``state`` whole, its ``conv`` and the RG-LRU's
+    by channels, the hybrid's ring by slots) and the scalar position; a
+    decode step's alias bytes are the caches."""
+    from repro_torch.models import cache_defs, input_defs, model_defs
+    from repro_torch.runtime.train import abstract_train_state, train_state_shardings
+
+    cfg = dryrun.config_for_dryrun(arch)
+    spec = SHAPES[shape]
+    size = {"bfloat16": 2, "float32": 4, "int32": 4, "bool": 1, None: {"bfloat16": 2, "float32": 4}[cfg.dtype]}
+    nbytes = lambda dt: size[dt]  # noqa: E731
+    for mesh_name in MESH_NAMES:
+        rec = dryrun.run_cell(arch, shape, mesh_name.startswith("multipod"), outdir=str(tmp_path))
+        assert rec["ok"], rec.get("error")
+        mesh = DryRunMesh(dryrun.MESHES[mesh_name])
+        inputs = _local_bytes(input_defs(cfg, spec), mesh, nbytes)
+        caches = _local_bytes(cache_defs(cfg, spec.global_batch, spec.seq_len), mesh, nbytes) \
+            if spec.kind == "decode" else 0
+        if spec.kind == "train":
+            ab, sh = abstract_train_state(cfg), train_state_shardings(cfg, mesh)
+            args = _local_tree_bytes(ab.params, sh.params, mesh) + _local_tree_bytes(ab.opt, sh.opt, mesh) + 4 + inputs
+        else:
+            args = _local_bytes(model_defs(cfg), mesh, nbytes) + inputs + caches + (4 if spec.kind == "decode" else 0)
+        want = json.loads((PORT_RECORDS / f"{arch}__{shape}__{mesh_name}.json").read_text())
+        got = json.loads(json.dumps(rec))  # the file's own round trip
+        for key in ("memory", "cost", "collectives", "peak_terms", "kernels"):
+            assert got[key] == want[key], (mesh_name, key)  # the checked-in record
+        mem = rec["memory"]
+        assert mem["argument_size_in_bytes"] == args, mesh_name
+        assert mem["alias_size_in_bytes"] == (args - inputs if spec.kind == "train" else caches), mesh_name
+        assert rec["collectives"]["total_count"] > 0, mesh_name
 
 
 def test_a_refused_cell_is_recorded_not_raised(tmp_path):
-    rec = dryrun.run_cell("mamba2-130m", "decode_32k", True, outdir=str(tmp_path))
-    assert rec["ok"] is False and "Queue 1 item 5.6" in rec["error"]
-    saved = json.loads((tmp_path / "mamba2-130m__decode_32k__multipod_2x16x16.json").read_text())
+    """A cell the port refuses, a head dim above the kernels' 256 (ROADMAP
+    Queue 2), is recorded as ``ok: false`` with the kernel's error."""
+    rec = dryrun.run_cell("deepseek-7b", "decode_32k", True, {"head_dim": 512}, outdir=str(tmp_path))
+    assert rec["ok"] is False and "exceed 256" in rec["error"] and rec["error"].startswith("ValueError")
+    saved = json.loads((tmp_path / "deepseek-7b__decode_32k__multipod_2x16x16.json").read_text())
     assert saved["ok"] is False and saved["error"] == rec["error"]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b", "hubert-xlarge", "internvl2-2b"])
+def test_a_reduced_ssm_rec_or_frontend_cell_against_a_repro_lowering(arch):
+    """Reduced mamba2-130m (the SSM on its channels: ``in_proj``'s 304
+    columns over 2 ranks, 8 of its 16 heads a rank), recurrentgemma-9b
+    (the RG-LRU width over ``model``, one (rec, rec, attn) super-block and
+    two tail layers), hubert-xlarge (the vocab-parallel head) and
+    internvl2-2b (the patches), float32, AdamW: the port's dry run of the
+    train cell against ``repro``'s lowering on the (2, 2) host mesh,
+    argument and alias bytes exact, ``flops_scan_once`` within 5% of XLA's
+    FLOPs (read: -4.1%, +1.6%, -2.1%, -3.0%; mamba2's SSD kernels counted
+    over every pair of a chunk, as ``repro``'s jnp SSD forms them).
+    internvl2-2b's loss runs unchunked (its 124 text positions are no
+    multiple of the other cells' 32)."""
+    cfg_kw = dict(_REDUCED, optimizer="adamw")
+    if arch == "internvl2-2b":
+        cfg_kw["logits_chunk"] = None
+    seq, batch = _REDUCED_SHAPE
+    want = _lower_train(arch, cfg_kw, {}, seq, batch)
+    got = dryrun.model_cell(reduced_config(arch).replace(**cfg_kw), ShapeSpec("t", "train", seq, batch),
+                            DryRunMesh({"data": 2, "model": 2}))
+    assert got["memory"]["argument_size_in_bytes"] == want["argument"]
+    assert got["memory"]["alias_size_in_bytes"] == want["alias"]
+    assert abs(got["cost"]["flops_scan_once"] / want["flops"] - 1) <= 0.05, (got["cost"], want)
 
 
 # ---------------------------------------------------------------------------

@@ -218,17 +218,22 @@ def test_data_parallel_step_in_two_gloo_processes_matches_one_process():
 
 
 def test_model_axis_raises_and_axis_needs_a_mesh():
-    """A block kind the port does not run tensor-parallel (reduced
-    mamba2-130m) raises on a model axis of 2, naming Queue 1 item 5.6; the
-    dense step is ``tests/test_torch_tp.py``'s, the MoE and MLA ones
-    ``tests/test_torch_tp_moe_mla.py``'s."""
+    """Reduced mamba2-130m (block kind ``"ssm"``, once refused here naming
+    Queue 1 item 5.6) builds its train step on a model axis of 2, its SSM
+    split by channels (the dense step is ``tests/test_torch_tp.py``'s, the
+    MoE and MLA ones ``tests/test_torch_tp_moe_mla.py``'s, the SSM, RG-LRU
+    and frontend ones ``tests/test_torch_tp_ssm_rec_frontends.py``'s); an
+    axis collective needs a mesh and a host mesh a process group."""
     from repro_torch.configs import reduced_config
+    from repro_torch.models import Transformer
     from repro_torch.runtime.train import build_train_step
 
     cfg = reduced_config("mamba2-130m")
     with use_mesh(FakeMesh(data=1, model=2)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5.6"):
-            build_train_step(cfg)
+        build_train_step(cfg)
+        ssm = Transformer(cfg, device="meta").layers[0].ssm
+    assert ssm.tp.size == 2 and ssm.split == {"in_proj", "conv_w", "conv_b"}
+    assert tuple(ssm.norm.shape) == (64,) and tuple(ssm.A_log.shape) == (16,)
     with pytest.raises(ValueError, match="mesh"):
         coll.all_reduce(torch.ones(2), axis="data")
     with pytest.raises(RuntimeError, match="init_process_group"):

@@ -110,17 +110,32 @@ def test_meta_build_holds_the_local_shapes():
 
 def test_other_block_kinds_and_frontends_raise_on_a_model_axis():
     """The SSM and RG-LRU block kinds, the hybrid layout and the frontends
-    raise on a model axis of 2 naming Queue 1 item 5.6; the MoE and MLA
-    configs build there (tests/test_torch_tp_moe_mla.py runs them)."""
+    (once refused here, naming Queue 1 item 5.6) build on a model axis of
+    2, their parameters at their parts of ``repro``'s ``param_shardings``,
+    and so do the MoE and MLA configs (``tests/test_torch_tp_moe_mla.py``
+    and ``tests/test_torch_tp_ssm_rec_frontends.py`` run them)."""
+    from repro.dist.sharding import safe_spec as jax_safe_spec
+    from repro.models.transformer import model_defs as jax_model_defs
+    from repro_torch.models import param_shardings
     from repro_torch.runtime.train import build_train_step
 
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k2: v2 for k, v in tree.items() for k2, v2 in flat(v, f"{prefix}/{k}").items()}
+        return {prefix: tree}
+
+    fake = FakeMesh(data=1, model=2)
     for arch in ("mamba2-130m", "recurrentgemma-9b", "hubert-xlarge", "internvl2-2b"):
+        from repro.configs import reduced_config as jax_reduced_config
+
         cfg = reduced_config(arch)  # an unknown name raises: every arch here is checked
-        with use_mesh(FakeMesh(data=1, model=2)):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 5.6"):
-                Transformer(cfg, device="meta")
-            with pytest.raises(NotImplementedError, match="Queue 1 item 5.6"):
-                build_train_step(cfg)
+        with use_mesh(fake):
+            model = Transformer(cfg, device="meta")
+            build_train_step(cfg)
+        assert model.tp.size == 2 and any(sh.sharded for sh in model.shards.values())
+        want = {k: tuple(jax_safe_spec(d.shape, d.axes, mesh=fake))
+                for k, d in flat(jax_model_defs(jax_reduced_config(arch))).items()}
+        assert {k: tuple(v) for k, v in flat(param_shardings(cfg, fake)).items()} == want, arch
     for arch in ("qwen3-moe-235b-a22b", "llama4-scout-17b-a16e", "minicpm3-4b"):
         with use_mesh(FakeMesh(data=1, model=2)):
             assert Transformer(reduced_config(arch), device="meta").tp.size == 2
@@ -210,7 +225,7 @@ def _two_rank_cases(ckpt_dir, repro_pack):
     template = TrainState(step=torch.zeros((), dtype=torch.int32), params=Transformer(cfg, device="meta"), opt=None)
     _, restored = CheckpointManager(ckpt_dir).restore(template)
     out["restored"] = _state_parts(restored)
-    # prefill runs on the mesh; the serving engine is 5.6's
+    # prefill runs on the mesh; the serving engine takes none, as repro's
     model = restored.params
     tokens = torch.zeros((1, 4), dtype=torch.int64)
     for what, call in (("prefill", lambda: prefill(model, {"tokens": tokens}, cfg)),
@@ -218,7 +233,7 @@ def _two_rank_cases(ckpt_dir, repro_pack):
         try:
             call()
         except NotImplementedError as e:
-            if "Queue 1 item 5.6" in str(e):
+            if "takes no mesh" in str(e):
                 out["refused"].append(what)
     # repro's state, bridged: its whole leaves are cut to this rank's parts
     p_tree, o_tree, step, batches, rcfg = repro_pack

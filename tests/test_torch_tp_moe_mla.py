@@ -43,8 +43,9 @@ against one process of the port and against ``repro``.
 * the layouts: each layer's parts at m = 2 / 4 / 16 on a meta build,
   ``latent_part``, and ``cache_shardings`` of qwen3-moe, llama4-scout and
   minicpm3-4b equal to ``repro``'s on both production meshes;
-* the refusals that stay: the SSM and RG-LRU block kinds, the hybrid
-  layout and the frontends on a ``model`` axis name Queue 1 item 5.6.
+* the SSM and RG-LRU block kinds, the hybrid layout and the frontends
+  build there too, laid out as ``repro``'s (run in
+  ``tests/test_torch_tp_ssm_rec_frontends.py``).
 
 Tolerances (float32; the readings are this file's runs on the CPU).
 Against one process: the losses, aux losses and grad norms within
@@ -496,14 +497,33 @@ def test_latent_part_follows_the_cache_spec():
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b", "hubert-xlarge", "internvl2-2b"])
 def test_the_other_kinds_still_raise_naming_item_5_6(arch):
+    """The other block kinds, the hybrid layout and the frontends (once
+    refused here, naming Queue 1 item 5.6) now build and lay out on a
+    ``model`` axis of 2 as ``repro`` does: every parameter at its part of
+    ``repro``'s ``safe_spec``, some of them sharded; the train step builds
+    (``tests/test_torch_tp_ssm_rec_frontends.py`` runs them)."""
+    from repro.dist.sharding import safe_spec as jax_safe_spec
+    from repro_torch.models.param import local_shape
     from repro_torch.runtime.train import build_train_step
 
     cfg = reduced_config(arch)
-    with use_mesh(FakeMesh(data=1, model=2)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5.6"):
-            Transformer(cfg, device="meta")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5.6"):
-            build_train_step(cfg)
+    fake = FakeMesh(data=1, model=2)
+    with use_mesh(fake):
+        t = Transformer(cfg, device="meta")
+        build_train_step(cfg)
+    assert t.tp.size == 2
+    params = dict(t.named_parameters())
+    for name, sh in t.shards.items():
+        assert tuple(sh.spec) == tuple(jax_safe_spec(sh.full, _defs_axes(t, name), mesh=fake)), name
+        assert tuple(params[name].shape) == local_shape(sh.full, sh.spec, fake), name
+    assert any(sh.sharded for sh in t.shards.values())
+
+
+def _defs_axes(model, name: str) -> tuple:
+    """The logical axes of parameter ``name``'s unstacked ``ParamDef``."""
+    from repro_torch.models.transformer import named_defs
+
+    return next(tuple(d.axes) for n, _, d in named_defs(model) if n == name)
 
 
 # ---------------------------------------------------------------------------
