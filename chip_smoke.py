@@ -9,7 +9,7 @@ Phases (any failure raises and the script exits non-zero):
 2. build    — builds the hand-written kernels from ``src/repro_torch/kernels/csrc``;
 3. kernels  — the HGMMA count of the flash and ssd (forward and backward)
               kernels' SASS where ``cuobjdump`` is present (the bf16 routes
-              have some, the f32 routes none), the registers and spills of
+              have some, the wide (SIMT) routes none), the registers and spills of
               the backward kernels; each kernel against its plain PyTorch version on
               the card, at the serving paths' shapes (deepseek-7b,
               mamba2-130m, gemma-7b's head dim 256; bf16) and at edge
@@ -28,7 +28,8 @@ Phases (any failure raises and the script exits non-zero):
               also apart); the ssd backward against its plain version at
               cs 256 / 100 / 1, G = 1 and G = H, a strong decay (finite
               gradients), bf16 (tensor cores: each output's worst share of
-              its limit; an unaligned input raises) and fp32 (SIMT), run to
+              its limit; an unaligned input takes the wide route) and fp32
+              (the wide route), run to
               run identical, autograd through the scan on a ragged L, and
               timed at the mamba2 train path's shape with both reckonings
               of its bound and its three kernels apart; the other
@@ -94,7 +95,7 @@ Phases (any failure raises and the script exits non-zero):
 7. model    — full width cut in depth, fp32: the card's logits against the
               CPU port's (plain versions) for a prompt and decode steps, for
               deepseek-7b (2 layers), mamba2-130m (4 layers), gemma-7b
-              (2 layers: the f32 routes at head dim 256), minicpm3-4b (2),
+              (2 layers: the wide routes at head dim 256), minicpm3-4b (2),
               recurrentgemma-9b (3), qwen3-moe-235b-a22b (1), and
               qwen1.5-110b and llama4-scout-17b-a16e (1 each, 128-token
               prompts: the QKV bias, GQA 8:1 at 64 heads, top-1 routing
@@ -103,9 +104,10 @@ Phases (any failure raises and the script exits non-zero):
               staged train step (B = 2, L = 128, 2 microbatches) with
               Adafactor and with AdamW on the card against the CPU port
               from the same state (loss, grad norm, parameters; exact
-              launch counts); gemma-7b (1 layer, one step), minicpm3-4b (1
-              layer, L = 256, two steps), recurrentgemma-9b (3 layers, one
-              step) and qwen3-moe (1 layer, one step; its gradients held
+              launch counts); gemma-7b (1 layer, L = 128, one step),
+              minicpm3-4b (1 layer, L = 256, two steps), recurrentgemma-9b
+              (3 layers, L = 128, one step) and qwen3-moe (1 layer, L = 128,
+              one step; its gradients held
               elementwise, its card optimizer fed the CPU's gradients) with
               Adafactor; hubert-xlarge (1 layer, 256 frames) and
               internvl2-2b (1 layer, 256 patches + 128 tokens) with their
@@ -118,8 +120,8 @@ Phases (any failure raises and the script exits non-zero):
               profiled step; a nonfinite step that leaves every bit as it
               was; then, at a quarter of their depth for the script's time
               limit, gemma-7b the same way at 7 of its 28 layers
-              (``[train-gemma]``: no rollback), minicpm3-4b at 16 of its
-              62 layers, recurrentgemma-9b at 10 of its 38 and qwen3-moe
+              (``[train-gemma]``: no rollback), minicpm3-4b at 8 of its
+              62 layers, recurrentgemma-9b at 6 of its 38 and qwen3-moe
               cut to 2 (3 steps each; model FLOPs over the active
               parameters); hubert-xlarge (12 of 48, ``[train-hubert]``)
               and internvl2-2b (6 of 24, ``[train-internvl]``) at (2,
@@ -251,7 +253,20 @@ Phases (any failure raises and the script exits non-zero):
               their argument bytes must equal the card's (each rank's);
               their peak, FLOPs and the terms live at the peak are logged
               beside the card's ``max_memory_allocated`` (less what was
-              allocated before the run) and step time.
+              allocated before the run) and step time;
+21. wide    — (run right after the kernel phase) ``[wide]``: the wide routes (``csrc/*_wide.cu``: head dims
+              above 256, SSD P above 64, N above 128 and chunks above 256,
+              bf16 off the tensor-core grid) against their plain versions
+              in fp32 and bf16, run to run identical, each timed at its
+              path's shape beside its bound (and SDPA for attention); then
+              deepseek-7b with 8 heads of 512 (serving 4 prompts through
+              ``ServeEngine`` at 8 of its 30 layers, one bf16 train step at
+              2 layers) and mamba2-130m with SSD head dim 128, state 256,
+              chunk 512 (serving 8 slots with prompts up to 4096, one train
+              step at 4 layers), each with a 1-layer fp32 check (logits
+              and one train step, card against the CPU port) and exact
+              launch counts on the wide routes (none on the main routes'
+              attention and ssd).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing of JAX.
@@ -497,7 +512,8 @@ def _pairs(Lq, Lk, causal, window, q_offset) -> int:
 def _hgmma_counts() -> dict | None:
     """HGMMA (wgmma) instructions in the SASS of each flash-attention
     (forward and backward) and ssd (forward and backward) kernel of the
-    built library, by ``cuobjdump -sass``; None where the tool is missing."""
+    built library, the wide routes' included, by ``cuobjdump -sass``; None
+    where the tool is missing."""
     from repro_torch.kernels import dispatch
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -510,8 +526,7 @@ def _hgmma_counts() -> dict | None:
         if "Function :" in line:
             # the name after its length digits, not the source file's name that the
             # anonymous namespace's mangling holds (``..._ssd_bwd_cu_<hash>...``)
-            m = re.search(r"(?<=\d)(flash_(?:fwd|bwd)_\w*?kernel|ssd_(?:chunk|bwd)_\w*?kernel)(?:I(\w*?)E+v)?",
-                          line)
+            m = re.search(r"(?<=\d)((?:flash|ssd)_(?:fwd|bwd|wide|chunk)_\w*?kernel)(?:I(\w*?)E+v)?", line)
             fn = (f"{m.group(1)}<{m.group(2)}>" if m.group(2) else m.group(1)) if m else None
             if fn:
                 counts[fn] = 0
@@ -521,10 +536,10 @@ def _hgmma_counts() -> dict | None:
 
 
 def check_hgmma() -> dict | None:
-    """The bf16 routes of flash and ssd (forward and backward) run on the
-    tensor cores (HGMMA in their SASS); the f32 routes, the flash
-    backward's D pass and the ssd backward's conversion and dcum passes do
-    not."""
+    """The main (bf16) routes of flash and ssd (forward and backward) run
+    on the tensor cores (HGMMA in their SASS); the wide routes (every f32
+    call among them), the flash backward's D pass and the ssd backward's
+    conversion and dcum passes do not."""
     counts = _hgmma_counts()
     if counts is None:
         log("[kernels] cuobjdump not on this machine: HGMMA counts not taken")
@@ -538,17 +553,18 @@ def check_hgmma() -> dict | None:
         assert any(k.startswith(prefix) for k in tc), (prefix, counts)
     # the padded head dim 256 of the forward: flash_fwd_wgmma_kernel<256, 256>
     assert any(k.startswith("flash_fwd_wgmma") and "256" in k for k in tc), counts
-    for prefix in ("flash_bwd_dkdv_kernel", "ssd_bwd_kernel"):
+    for prefix in ("flash_wide_fwd_kernel", "flash_wide_dkdv_kernel", "flash_wide_dq_kernel", "ssd_wide_fwd_kernel",
+                   "ssd_wide_dx_kernel", "ssd_wide_dbdc_kernel", "ssd_wide_scalars_kernel"):
         assert any(k.startswith(prefix) for k in simt), (prefix, counts)
     assert all(counts[k] > 0 for k in tc) and all(counts[k] == 0 for k in simt), counts
     return counts
 
 
 # the kernels whose registers and spills the kernel phase prints
-RESOURCE_KERNELS = ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel", "ssd_bwd_kernel",
-                    "ssd_bwd_wgmma_kernel", "flash_fwd_wgmma_kernel", "flash_bwd_dkdv_wgmma256_kernel",
-                    "flash_bwd_dq_wgmma256_kernel", "flash_fwd_kernel", "flash_bwd_dkdv_kernel",
-                    "flash_bwd_dq_kernel", "decode_kernel")
+RESOURCE_KERNELS = ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel", "ssd_bwd_wgmma_kernel",
+                    "flash_fwd_wgmma_kernel", "flash_bwd_dkdv_wgmma256_kernel", "flash_bwd_dq_wgmma256_kernel",
+                    "flash_wide_fwd_kernel", "flash_wide_dkdv_kernel", "flash_wide_dq_kernel", "ssd_wide_fwd_kernel",
+                    "ssd_wide_dx_kernel", "ssd_wide_dbdc_kernel", "ssd_wide_scalars_kernel", "decode_kernel")
 
 
 def resource_usage() -> dict:
@@ -688,7 +704,7 @@ def check_flash(dev) -> dict:
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     gen = torch.Generator(device=dev).manual_seed(2)
-    # every case in bf16 (tensor cores) and fp32 (SIMT)
+    # every case in bf16 (the tensor cores) and fp32 (the wide route)
     cases = [  # (B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_offset)
         (1, 2048, 2048, 32, 32, 128, 128, True, None, 0),
         (2, 1000, 1000, 32, 8, 128, 128, True, 256, 0),
@@ -1091,7 +1107,7 @@ def check_ssd(dev) -> dict:
     err = 0.0
     # the intra-chunk step on ssd_chunked's views: the path's shape, then
     # ragged chunk lengths (cs = 100: tiles of 64 + 36 rows; cs = 1), then
-    # one group per head; bf16 runs on the tensor cores, f32 on the SIMT cores
+    # one group per head; bf16 runs on the tensor cores, f32 on the wide route
     for L, cs, G in ((2048, 256, 1), (300, 100, 1), (5, 1, 1), (512, 256, H)):
         for dtype in (torch.float32, torch.bfloat16):
             args = _ssd_chunk_args(*_ssd_inputs(gen, dev, dtype, L, H, P, N, G), cs)
@@ -1170,22 +1186,76 @@ def check_ssd(dev) -> dict:
     )
 
 
-def profiled_calls(fn, iters: int = 10) -> dict:
-    """Device time of one call of ``fn``, in all (``device_ms``) and by
-    kernel (``top``): ``_device_rows`` of ``iters`` calls under
-    ``torch.profiler``, warmed up first.  For calls that a CUDA graph does
-    not capture (an autograd backward through a library op) and to split a
-    call by kernel; like a graph replay, it leaves out the host's gaps
-    between launches, which events around eager calls would count."""
+TRACE_PAD_S = 0.02  # the card idle at either end of a torch.profiler window
+
+
+@contextlib.contextmanager
+def device_trace(cpu: bool = True):
+    """``torch.profiler`` (CUDA, and CPU unless told) over the body, the
+    card idle for ``TRACE_PAD_S`` at either end of the window: a trace was
+    seen to drop the kernels that ran at its window's start."""
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+
+
+def backward_ms(forward, leaves, grad, iters: int = 10) -> float:
+    """Device time of one autograd backward of ``forward(*leaves)`` (a
+    library op's) against ``grad``, as :func:`time_ms` takes it: ``iters``
+    backward calls captured into a CUDA graph, replayed between two CUDA
+    events.  The leaves are made anew and the forward run on the capture
+    stream, so that the backward's nodes run on it too."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        leaves = [t.detach().requires_grad_() for t in leaves]
+        out = forward(*leaves)
+        torch.autograd.grad(out, leaves, grad, retain_graph=True)  # warm up outside capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(iters):
+            torch.autograd.grad(out, leaves, grad, retain_graph=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def profiled_calls(fn, iters: int = 10, tries: int = 3) -> dict | None:
+    """Device time of one call of ``fn`` by kernel (``top``, to split a
+    call into its kernels): ``_device_rows`` of ``iters`` calls under
+    ``torch.profiler``, warmed up first.
+
+    Every call runs the same kernels, so a whole trace holds a whole
+    multiple of ``iters`` kernel runs, at least one a call.  A trace that
+    lost some is taken again, up to ``tries`` times; then the split is not
+    measured (None), so a trace that lost kernels never gives a number."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return _device_rows(prof, 0.0, iters)
+    for attempt in range(1, tries + 1):
+        with device_trace() as prof:
+            for _ in range(iters):
+                fn()
+        kernels = {ev.key: ev.count for ev in prof.key_averages()
+                   if getattr(ev, "device_time_total", 0.0) and ev.device_type.name == "CUDA"
+                   and not ev.key.startswith(("Memset", "Memcpy"))}
+        n = sum(kernels.values())
+        if n >= iters and n % iters == 0:
+            return _device_rows(prof, 0.0, iters)
+        log(f"[kernels] trace {attempt} of {tries}: torch.profiler saw {n} kernel runs in {iters} identical "
+            f"calls (not a whole multiple, at least one a call): {kernels}")
+    return None
 
 
 # backward outputs are float32 sums over a sequence (dK, dV over queries, dQ
@@ -1220,7 +1290,7 @@ def _flash_bwd_times(gen, dev, B, L, H, D, KH=None, Dv=None, window=None, causal
         out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
         sets.append((q, k, v, out, lse, do))
     ms = time_ms(lambda *a: ops.flash_attention_bwd(*a, **kw), sets)
-    parts = dict(profiled_calls(lambda: ops.flash_attention_bwd(*sets[0], **kw))["top"])
+    split = profiled_calls(lambda: ops.flash_attention_bwd(*sets[0], **kw))
     plain = time_ms(lambda *a: attention_bwd_ref(*a, **kw), sets[:1], iters=3)
     # the serving forward (lse not asked for) against the train forward
     fwd_sets = [s[:3] for s in sets]
@@ -1230,14 +1300,12 @@ def _flash_bwd_times(gen, dev, B, L, H, D, KH=None, Dv=None, window=None, causal
     # GQA expanded, a window shorter than L as an explicit mask)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     heads = lambda t: t.transpose(1, 2).repeat_interleave(H // KH, dim=1) if KH != H else t.transpose(1, 2)  # noqa: E731
-    qt = sets[0][0].transpose(1, 2).detach().requires_grad_()
-    kt, vt = (heads(t).detach().requires_grad_() for t in sets[0][1:3])
+    leaves = [sets[0][0].transpose(1, 2), *(heads(t) for t in sets[0][1:3])]
     if window is not None and window < L:
-        o = sdpa(qt, kt, vt, attn_mask=_window_mask(L, window, dev))
+        mask = _window_mask(L, window, dev)
+        lib = backward_ms(lambda q, k, v: sdpa(q, k, v, attn_mask=mask), leaves, sets[0][5].transpose(1, 2))
     else:
-        o = sdpa(qt, kt, vt, is_causal=causal)
-    dot = sets[0][5].transpose(1, 2)
-    lib = profiled_calls(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True))["device_ms"]
+        lib = backward_ms(lambda q, k, v: sdpa(q, k, v, is_causal=causal), leaves, sets[0][5].transpose(1, 2))
     pairs = _pairs(L, L, causal, window, 0)
     # 5 products over the unmasked pairs (the kernels run 7): S and dQ, dK
     # at D; dP and dV at Dv
@@ -1253,13 +1321,18 @@ def _flash_bwd_times(gen, dev, B, L, H, D, KH=None, Dv=None, window=None, causal
         f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), SDPA backward {lib:.4f} ms (kernel / library "
         f"{ms / lib:.2f}), plain {plain:.4f} ms, bound {bound:.4f} ms ({by}, {bound / ms:.1%} of it)")
     # the dK/dV and dQ kernels apart: dK/dV runs 4 of the 7 products, dQ 3
-    dkdv = sum(t for n, t in parts.items() if "dkdv" in n)
-    dq = sum(t for n, t in parts.items() if "dq_" in n)
-    dot = sum(t for n, t in parts.items() if "dot" in n)
-    log(f"[kernels] flash bwd kernels apart at head dim {D} (profiler, 10 calls): dK/dV {dkdv:.4f} ms "
-        f"({flops * 4 / 7 / dkdv / 1e9:.1f} TFLOP/s of its 4 products), dQ {dq:.4f} ms "
-        f"({flops * 3 / 7 / dq / 1e9:.1f} TFLOP/s of its 3), D pass {dot:.4f} ms; "
-        + ", ".join(f"{n[:60]} {t:.4f}" for n, t in parts.items()))
+    if split is None:
+        dkdv = dq = dot = None
+        log(f"[kernels] flash bwd kernels apart at head dim {D}: not measured (every trace lost kernels)")
+    else:
+        parts = dict(split["top"])
+        dkdv = sum(t for n, t in parts.items() if "dkdv" in n)
+        dq = sum(t for n, t in parts.items() if "dq_" in n)
+        dot = sum(t for n, t in parts.items() if "dot" in n)
+        log(f"[kernels] flash bwd kernels apart at head dim {D} (profiler, 10 calls): dK/dV {dkdv:.4f} ms "
+            f"({flops * 4 / 7 / dkdv / 1e9:.1f} TFLOP/s of its 4 products), dQ {dq:.4f} ms "
+            f"({flops * 3 / 7 / dq / 1e9:.1f} TFLOP/s of its 3), D pass {dot:.4f} ms; "
+            + ", ".join(f"{n[:60]} {t:.4f}" for n, t in parts.items()))
     log(f"[kernels] flash fwd at ({B}, {L}, {H}, {D}): {fwd_ms:.4f} ms without lse (serving), "
         f"{fwd_lse_ms:.4f} ms with it (train)")
     return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib,
@@ -1284,7 +1357,7 @@ def check_flash_bwd(dev) -> dict:
         (1, 1, 65, 4, 4, 64, 64, True, None, 64),  # one query row
         (1, 300, 300, 4, 4, 128, 128, False, None, 0),
         (1, 500, 500, 8, 8, 96, 96, True, None, 0),  # head dim padded to 128
-        # padded to 256 (the role-split bf16 kernels, 32-row f32 tiles):
+        # padded to 256 (the role-split bf16 kernels):
         # gemma-7b's path, GQA + window at 192, offset queries, a ragged
         # non-causal 136, Dv < Dh
         (1, 2048, 2048, G_HEADS, G_HEADS, G_DIM, G_DIM, True, None, 0),
@@ -1407,11 +1480,9 @@ def check_rmsnorm_bwd(dev) -> dict:
              _randn(gen, (T, D), dtype, dev)) for _ in range(4)]
     ms = time_ms(ops.rmsnorm_bwd, sets)
     plain = time_ms(rmsnorm_bwd_ref, sets)
-    x, s, dy = (t.detach() for t in sets[0])
-    xl = x.clone().requires_grad_()
-    wl = (1.0 + s.float()).to(dtype).requires_grad_()
-    y = torch.nn.functional.rms_norm(xl, (D,), wl, 1e-6)
-    lib = profiled_calls(lambda: torch.autograd.grad(y, (xl, wl), dy, retain_graph=True))["device_ms"]
+    x, s, dy = sets[0]
+    lib = backward_ms(lambda x, w: torch.nn.functional.rms_norm(x, (D,), w, 1e-6),
+                      [x, (1.0 + s.float()).to(dtype)], dy)
     bound, by = _bound(3 * T * D * 2 + 2 * D * 2, 8 * T * D, dtype)
     log(f"[kernels] rmsnorm bwd x ({T}, {D}) bf16: kernel {ms:.4f} ms, F.rms_norm backward {lib:.4f} ms "
         f"(kernel / library {ms / lib:.2f}), plain {plain:.4f} ms, bound {bound:.4f} ms ({by}, "
@@ -1424,11 +1495,11 @@ def check_rmsnorm_bwd(dev) -> dict:
     )
 
 
-def _ssd_bwd_args(gen, dev, dtype, b, L, H, G, cs, dt_shift=-1.0):
-    """``_ssd_chunk_args`` of a (b, L) batch (mamba2's P = 64, N = 128), and
-    float32 cotangents of y (the permuted view of the model's (b, nc, cs,
-    H, P) order that autograd hands the backward) and of the state."""
-    P, N = 64, 128
+def _ssd_bwd_args(gen, dev, dtype, b, L, H, G, cs, dt_shift=-1.0, P=64, N=128):
+    """``_ssd_chunk_args`` of a (b, L) batch (mamba2's P = 64, N = 128
+    unless told), and float32 cotangents of y (the permuted view of the
+    model's (b, nc, cs, H, P) order that autograd hands the backward) and
+    of the state."""
     x = _randn(gen, (b, L, H, P), dtype, dev)
     Bm, Cm = (_randn(gen, (b, L, G, N), dtype, dev) for _ in range(2))
     dt = torch.nn.functional.softplus(torch.randn((b, L, H), generator=gen, device=dev) + dt_shift)
@@ -1444,7 +1515,7 @@ def check_ssd_bwd(dev) -> dict:
     cs 256 / 100 / 1, one group and one group per head, a strong decay (the
     span of cum inside a chunk past 88, where exp of the masked triangle
     overflows: every gradient finite), bf16 (the tensor-core route, each
-    output's worst share of its limit logged) and fp32 (SIMT), run to run
+    output's worst share of its limit logged) and fp32 (the wide route), run to run
     identical; an unaligned bf16 input raises; autograd through the scan on
     a ragged L (777: a padded 9-row tail) with an initial state against the
     plain scan's autograd; times at the train path's shape (one microbatch
@@ -1482,17 +1553,16 @@ def check_ssd_bwd(dev) -> dict:
     log("[kernels] ssd bwd: run to run identical in every case; dcum exactly 0 at cs 1")
     log("[kernels] ssd bwd bf16 (tensor cores): worst share of the limit over the cases: "
         + ", ".join(f"{k} {v:.4f}" for k, v in share.items()))
-    # an unaligned bf16 input (x one element into its buffer) raises, nothing launched
+    # an unaligned bf16 input (x one element into its buffer): the tensor-core
+    # route does not take it, the wide route does (none launched here)
     (x, *rest), dy, dS = _ssd_bwd_args(gen, dev, torch.bfloat16, 1, 512, 4, 1, 256)
-    shifted = torch.zeros(x.numel() + 1, dtype=torch.bfloat16, device=dev)[1:].view(x.shape)
-    before = ops.bwd_launches.count
-    try:
-        ops.ssd_intra_chunk_bwd(shifted, *rest, dy, dS)
-    except ValueError as exc:
-        log(f"[kernels] ssd bwd unaligned bf16 x raised: {str(exc)[:100]}")
-    else:
-        raise AssertionError("ssd bwd: an unaligned bf16 x did not raise")
-    assert ops.bwd_launches.count == before
+    shifted = torch.zeros(x.numel() + 1, dtype=torch.bfloat16, device=dev)[1:].view(x.shape).copy_(x)
+    before, wide_before = ops.bwd_launches.count, ops.wide_bwd_launches.count
+    for name, g, w in zip(("dx", "ddt", "dcum", "dB", "dC"), ops.ssd_intra_chunk_bwd(shifted, *rest, dy, dS),
+                          ssd_chunk_bwd_ref(shifted, *rest, dy, dS)):
+        _compare_bwd(f"ssd bwd {name} unaligned bf16 x (the wide route)", g, w, torch.bfloat16)
+    assert ops.bwd_launches.count == before and ops.wide_bwd_launches.count == wide_before + 1
+    log("[kernels] ssd bwd unaligned bf16 x: the wide route took it, none launched on the tensor-core route")
     # autograd through the scan: ragged L, one group read in place, an initial state
     L, H, P, N = 777, 24, 64, 128
     leaves = [torch.randn((1, L, H, P), generator=gen, device=dev),
@@ -1536,16 +1606,20 @@ def check_ssd_bwd(dev) -> dict:
         f"{flops / PEAK_FLOPS[dtype] * 1e3:.5f} ms, {bytes_moved} bytes {bytes_moved / HBM_BYTES_PER_S * 1e3:.5f} ms: "
         f"bound {bound:.5f} ms ({by}), kernel at {bound / ms:.1%} of it; at the f32 SIMT rate the "
         f"products take {t_simt:.5f} ms, kernel at {t_simt / ms:.1%} of that")
-    parts = dict(profiled_calls(lambda: ops.ssd_intra_chunk_bwd(*sets[0]))["top"])
-    log("[kernels] ssd bwd kernels apart (profiler, 10 calls): "
-        + ", ".join(f"{n[:70]} {t:.4f} ms" for n, t in parts.items()))
-    main_ms = sum(t for n, t in parts.items() if "wgmma" in n)
-    cvt_ms = sum(t for n, t in parts.items() if "cvt" in n)
-    dcum_ms = sum(t for n, t in parts.items() if "dcum" in n)
-    cvt_bytes = b * L * H * P * (4 + 2) + n_chunks * N * P * (4 + 2)
-    log(f"[kernels] ssd bwd apart: wgmma kernel {main_ms:.4f} ms ({flops / main_ms / 1e9:.1f} TFLOP/s of "
-        f"the needed work), dy / dS conversion {cvt_ms:.4f} ms ({cvt_bytes} bytes, "
-        f"{cvt_bytes / cvt_ms / 1e9:.3f} TB/s), dcum pass {dcum_ms:.4f} ms")
+    split = profiled_calls(lambda: ops.ssd_intra_chunk_bwd(*sets[0]))
+    if split is None:
+        log("[kernels] ssd bwd kernels apart: not measured (every trace lost kernels)")
+    else:
+        parts = dict(split["top"])
+        log("[kernels] ssd bwd kernels apart (profiler, 10 calls): "
+            + ", ".join(f"{n[:70]} {t:.4f} ms" for n, t in parts.items()))
+        main_ms = sum(t for n, t in parts.items() if "wgmma" in n)
+        cvt_ms = sum(t for n, t in parts.items() if "cvt" in n)
+        dcum_ms = sum(t for n, t in parts.items() if "dcum" in n)
+        cvt_bytes = b * L * H * P * (4 + 2) + n_chunks * N * P * (4 + 2)
+        log(f"[kernels] ssd bwd apart: wgmma kernel {main_ms:.4f} ms ({flops / main_ms / 1e9:.1f} TFLOP/s of "
+            f"the needed work), dy / dS conversion {cvt_ms:.4f} ms ({cvt_bytes} bytes, "
+            f"{cvt_bytes / cvt_ms / 1e9:.3f} TB/s), dcum pass {dcum_ms:.4f} ms")
     # one rank's heads on a model axis of 2 ([tp]'s mamba2-130m microbatch)
     tp_b, tp_H = 1, TP_SSD_HEADS
     sets = [_ssd_bwd_args(gen, dev, dtype, tp_b, L, tp_H, G, cs) for _ in range(2)]
@@ -1700,7 +1774,10 @@ def examples_phase(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 def _kernel_ops() -> dict:
-    """Each kernel's launch counter, by the name its record carries."""
+    """Each kernel's launch counter, by the name its record carries: the
+    main routes' (``flash_attention``, ...) and the wide routes'
+    (``flash_attention_wide``, ...: every f32 call of flash and ssd, and
+    every shape the main routes refuse); rmsnorm has one route."""
     from repro_torch.kernels.decode_attention import ops as decode_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
@@ -1709,7 +1786,33 @@ def _kernel_ops() -> dict:
     return {"rmsnorm": rmsnorm_ops.launches, "flash_attention": flash_ops.launches,
             "decode_attention": decode_ops.launches, "ssd": ssd_ops.launches,
             "flash_attention_bwd": flash_ops.bwd_launches, "rmsnorm_bwd": rmsnorm_ops.bwd_launches,
-            "ssd_bwd": ssd_ops.bwd_launches}
+            "ssd_bwd": ssd_ops.bwd_launches, "flash_attention_wide": flash_ops.wide_launches,
+            "flash_attention_bwd_wide": flash_ops.wide_bwd_launches, "decode_attention_wide": decode_ops.wide_launches,
+            "ssd_wide": ssd_ops.wide_launches, "ssd_bwd_wide": ssd_ops.wide_bwd_launches}
+
+
+def _on_routes(cfg, counts: dict) -> dict:
+    """``counts`` (launches by kernel name) moved onto the routes that
+    ``cfg``'s shapes take, as each wrapper's ``route`` picks them: a
+    float32 model's attention and ssd (both ways), and a head dim above 256
+    (decode too), count under the wide routes' names.  Every name of
+    ``_kernel_ops`` is present."""
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    dtype = torch.float32 if cfg.dtype == "float32" else torch.bfloat16
+    dk, dv = ((cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim, cfg.mla.v_head_dim) if cfg.mla is not None
+              else (cfg.head_dim, cfg.head_dim))
+    flash = flash_ops.route(dk, dv, dtype) == "wide"
+    ssd = cfg.ssm is not None and ssd_ops.route(cfg.ssm.chunk_size, cfg.ssm.head_dim, cfg.ssm.d_state,
+                                                 dtype) == "wide"
+    wide = {"flash_attention": flash, "flash_attention_bwd": flash, "ssd": ssd, "ssd_bwd": ssd,
+            "decode_attention": decode_ops.route(cfg.head_dim, cfg.head_dim) == "wide"}
+    out = dict.fromkeys(_kernel_ops(), 0)
+    for name, n in counts.items():
+        out[name + "_wide" if wide.get(name) else name] += n
+    return out
 
 
 def _sequential_greedy(model, cfg, prompt, slot, dev, n_slots=N_SLOTS, max_seq=MAX_SEQ,
@@ -1742,7 +1845,6 @@ def _profile_decode(eng, prompts, n_iter: int = 4) -> dict:
     """One decode iteration with every slot busy: wall time (host clock, no
     profiler), then device time by kernel and the device-busy share over
     ``n_iter`` profiled iterations (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
 
     reqs = [eng.submit(p, 3 * n_iter + 2) for p in prompts]
     eng.step()  # admissions (prefills) outside the windows
@@ -1752,7 +1854,7 @@ def _profile_decode(eng, prompts, n_iter: int = 4) -> dict:
         eng.step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n_iter
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         t0 = time.perf_counter()
         for _ in range(n_iter):
             eng.step()
@@ -1796,7 +1898,6 @@ def _profile_call(fn, n_iter: int = 3, n_prof: int = 1) -> dict:
     running: wall time (host clock around a synchronised call, median of
     ``n_iter``), then device time by kernel and the busy share of
     ``n_prof`` profiled calls."""
-    from torch.profiler import ProfilerActivity, profile
 
     walls = []
     for _ in range(n_iter):
@@ -1805,7 +1906,7 @@ def _profile_call(fn, n_iter: int = 3, n_prof: int = 1) -> dict:
         fn()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n_prof):
@@ -2109,8 +2210,9 @@ def recurrent_serving_phase(dev, arch: str = "mamba2-130m", tag: str = "mamba2")
     _log_profile(f"{arch} prefill of {M_PROMPT_LENS[0]} tokens alone", pp)
     mixer = "ssd_chunk" if cfg.ssm else "flash_fwd"
     mixer_ms = sum(ms for name, ms in pp["top"] if mixer in name)
+    share = f"{mixer_ms / pp['device_ms']:.1%}" if pp["device_ms"] else "the trace holds no kernel"
     log(f"[profile] the {mixer} kernel takes {mixer_ms:.3f} ms of that prefill's {pp['device_ms']:.2f} ms of "
-        f"device time ({mixer_ms / pp['device_ms']:.1%})")
+        f"device time ({share})")
     return dict(
         launches=launches, tok_per_s=n_tok / wall, wall_s=wall, peak_bytes=peak, stats=stats,
         ttft_ms=[(r.t_first - r.t_arrival) * 1e3 for r in reqs], decode_profile=sp,
@@ -2426,15 +2528,14 @@ def _train_launches_per_step(cfg, n_mb: int) -> dict:
     the matrix products' outputs), and one backward of each."""
     remat = 2 if cfg.remat in ("full", "dots_saveable") else 1
     c = _layer_launches(cfg)
-    return {
+    return _on_routes(cfg, {
         "flash_attention": n_mb * remat * c["flash"],
         "flash_attention_bwd": n_mb * c["flash"],
         "ssd": n_mb * remat * c["ssd"],
         "ssd_bwd": n_mb * c["ssd"],
         "rmsnorm": n_mb * (remat * (c["norms"] - 1) + 1),
         "rmsnorm_bwd": n_mb * c["norms"],
-        "decode_attention": 0,
-    }
+    })
 
 
 def _batches(cfg, dev, n: int, batch: int, seq: int) -> list[dict]:
@@ -2522,7 +2623,7 @@ def _parity_run(dev, cfg, *, tag: str, seq: int, steps: int = 2, n_mb: int = 2, 
     gradient, so an element whose gradient is float noise may move by up to
     lr differently on the two devices) and within 1e-6 for adafactor (its
     update is normalised by row and column statistics); exact launch
-    counts per step.
+    counts per step (float32: flash and ssd on the wide routes).
 
     A MoE model's parity is held in two parts (``_moe_parity_step``, the
     train step's arithmetic unstaged): the card's gradients elementwise
@@ -2607,7 +2708,7 @@ def train_parity_phase(dev) -> dict:
     """Full width, depth cut, float32, B = 2, two microbatches, one or two
     steps (``_parity_run``; cut for the script's time limit): deepseek-7b
     (1 layer, L = 128, one step) with Adafactor and with AdamW,
-    gemma-7b (1 layer, L = 128, one step; head dim 256: the f32 routes
+    gemma-7b (1 layer, L = 128, one step; head dim 256: the wide routes
     of the flash forward and backward at Dh 256), minicpm3-4b (1 MLA
     layer, L = 256, two steps), recurrentgemma-9b (3 layers, L = 128,
     one step) and qwen3-moe-235b-a22b (1 layer, L = 128, one step) with
@@ -2681,9 +2782,7 @@ def _codelet_times(art, state, batch) -> tuple:
 
 
 def _profile_train_step(art, state, batch) -> tuple:
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = art(state, batch)
@@ -2727,10 +2826,11 @@ def _model_flops(cfg, params: dict, seq: int) -> tuple[float, float]:
 # the train runs: arch → (its layers here, the phase's tag, nonfinite rollback);
 # deepseek-7b at full depth, qwen3-moe at the fixed cut above
 TRAIN_RUNS = {"deepseek-7b": (30, "train", True),
-              # the others at a quarter of their depth: the script's time limit
+              # the others at a quarter of their depth or less (minicpm3-4b and
+              # recurrentgemma-9b an eighth, two super-blocks): the script's time limit
               "gemma-7b": (7, "train-gemma", False),
-              "minicpm3-4b": (16, "train-minicpm3", False),
-              "recurrentgemma-9b": (10, "train-rgemma", False),
+              "minicpm3-4b": (8, "train-minicpm3", False),
+              "recurrentgemma-9b": (6, "train-rgemma", False),
               "qwen3-moe-235b-a22b": (MOE_TRAIN_LAYERS, "train-moe", False),
               "hubert-xlarge": (12, "train-hubert", False), "internvl2-2b": (6, "train-internvl", False),
               "qwen1.5-110b": (NEW_TRAIN_LAYERS, "train-qwen110b", False),
@@ -3083,12 +3183,12 @@ def _serve_launches(cfg, *, prefills, decode_steps, draft_layers=0, primes=0, dr
     c = _layer_launches(cfg)
     d = _layer_launches(cfg.replace(n_layers=draft_layers)) if draft_layers else dict.fromkeys(c, 0)
     fwd = prefills + decode_steps + verify_substeps
-    return {
+    return _on_routes(cfg, {
         "flash_attention": c["flash"] * prefills + d["flash"] * primes,
         "decode_attention": c["decode"] * (decode_steps + verify_substeps) + d["decode"] * draft_feeds,
         "rmsnorm": c["norms"] * fwd + d["norms"] * (primes + draft_feeds),
-        "ssd": c["ssd"] * prefills, "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_bwd": 0,
-    }
+        "ssd": c["ssd"] * prefills,
+    })
 
 
 def _verify_substeps(sp: dict, k: int) -> int:
@@ -3153,12 +3253,11 @@ def _profile_round(eng, prompts) -> dict:
     """One speculation round with every slot busy, under the profiler:
     device time by kernel and the device-busy share (outside the counted
     window)."""
-    from torch.profiler import ProfilerActivity, profile
 
     reqs = [eng.submit(p, GEN) for p in prompts]
     eng.step()  # admissions
     rounds = eng._spec.rounds
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         t0 = time.perf_counter()
         eng.step()
         torch.cuda.synchronize()
@@ -3809,13 +3908,13 @@ PIPE_FP32_LAYERS = 4  # the fp32 parity's cut: one layer a stage
 PIPE_TOL = {"bfloat16": 2e-2, "float32": 1e-5}  # of each leaf's largest |gradient|
 
 
-def _pipeline_launches(n_layers: int) -> dict:
+def _pipeline_launches(cfg) -> dict:
     """One pipelined forward + backward of ``PIPE_MB`` microbatches (remat
     off): per microbatch and layer a flash forward and backward and two
     norms each way, plus the head's final norm each way."""
-    per = dict(flash_attention=n_layers, flash_attention_bwd=n_layers,
-               rmsnorm=2 * n_layers + 1, rmsnorm_bwd=2 * n_layers + 1)
-    return {k: PIPE_MB * per.get(k, 0) for k in _kernel_ops()}
+    n = cfg.n_layers
+    per = dict(flash_attention=n, flash_attention_bwd=n, rmsnorm=2 * n + 1, rmsnorm_bwd=2 * n + 1)
+    return _on_routes(cfg, {k: PIPE_MB * v for k, v in per.items()})
 
 
 def _pipeline_reference(model, cfg, mbs) -> tuple:
@@ -3841,7 +3940,6 @@ def _pipeline_case(dev, dtype: str, n_layers: int, timed: bool) -> dict:
     largest |gradient|), exact launch counts; with ``timed`` a second run
     timed (wall, peak memory, the bubble from ``trace_metrics``) and a
     third profiled (device busy share)."""
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.core import SpComputeEngine, SpWorkerTeam, trace_metrics
@@ -3859,7 +3957,7 @@ def _pipeline_case(dev, dtype: str, n_layers: int, timed: bool) -> dict:
     stage_fns, stage_params, head_fn, head_params = model_stages(model, cfg, PIPE_STAGES)
     tol = PIPE_TOL[dtype]
     ops = _kernel_ops()
-    want = _pipeline_launches(n_layers)
+    want = _pipeline_launches(cfg)
     eng = SpComputeEngine(SpWorkerTeam(["cuda"] * PIPE_STAGES))
     out = {"launches": dict.fromkeys(ops, 0), "layers": n_layers, "dtype": dtype,
            "resident_bytes": torch.cuda.memory_allocated()}  # the weights and the reference's gradients
@@ -3903,7 +4001,7 @@ def _pipeline_case(dev, dtype: str, n_layers: int, timed: bool) -> dict:
                 rec["span_ms"] = m["span_s"] * 1e3
                 del gs, gh, tg
                 gc.collect()
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                with device_trace() as prof:
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
                     _, gs, gh, _ = run(schedule)
@@ -4091,7 +4189,9 @@ def _mesh_nccl(dev) -> dict:
             # -------------------------------------------------------------------
     finally:
         dist.destroy_process_group()
-    want = {k: v * DP_STEPS for k, v in _train_launches_per_step(reduced_config("deepseek-7b"), 1).items()}
+    # dp_train's config: reduced deepseek-7b in float32 (the wide routes)
+    want = {k: v * DP_STEPS
+            for k, v in _train_launches_per_step(reduced_config("deepseek-7b").replace(dtype="float32"), 1).items()}
     assert launches == want, f"mesh train steps: launches {launches}, expected {want}"
     assert on["losses"] == off["losses"] and on["grad_norms"] == off["grad_norms"], \
         (on["losses"], off["losses"], on["grad_norms"], off["grad_norms"])
@@ -4645,9 +4745,7 @@ def _tps_run(cfg, dev, profile: bool = False, replay=None) -> dict:
                routing=getattr(routing, "digests", []), top_i=getattr(routing, "top_i", []),
                flips=getattr(routing, "flips", []))
     if profile:
-        from torch.profiler import ProfilerActivity, profile as torch_profile
-
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with device_trace() as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for j in range(TPS_PROFILED):
@@ -4932,6 +5030,354 @@ def dryrun_phase(trains: dict, tp: dict, tp_serve: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 21. the wide routes: every shape the Pallas kernels take
+# ---------------------------------------------------------------------------
+
+# shape variants of two configs (dataclasses.replace; no file under configs/):
+# deepseek-7b with 8 heads of 512 (d_model 4096 and the parameter count
+# unchanged) and mamba2-130m with SSD head dim 128, state 256, chunk 512 (12
+# heads; d_inner 1536 unchanged)
+WIDE_DS = dict(n_heads=8, n_kv_heads=8, head_dim=512)
+WIDE_M2 = dict(head_dim=128, d_state=256, chunk_size=512)
+WIDE_DS_SERVE_LAYERS = 8  # of deepseek-7b's 30: the script's time limit (mamba2 serves all 24)
+WIDE_TRAIN_LAYERS = {"deepseek-7b": 2, "mamba2-130m": 4}
+WIDE_PROMPTS = {"deepseek-7b": (2048, 777, 100, 321), "mamba2-130m": (4096, 2048, 777, 100, 1000, 512, 64, 321)}
+WIDE_GEN = 16
+WIDE_SOURCES = {
+    "flash_attention_wide": ("src/repro_torch/kernels/csrc/flash_attention_wide.cu",
+                             "src/repro/kernels/flash_attention/kernel.py:111"),
+    "flash_attention_bwd_wide": ("src/repro_torch/kernels/csrc/flash_attention_wide.cu",
+                                 "src/repro/models/attention.py:139 (no Pallas kernel: JAX differentiates the "
+                                 "jnp custom VJP)"),
+    "decode_attention_wide": ("src/repro_torch/kernels/csrc/decode_attention_wide.cu",
+                              "src/repro/kernels/decode_attention/kernel.py:81"),
+    "ssd_wide": ("src/repro_torch/kernels/csrc/ssd_wide.cu", "src/repro/kernels/ssd/kernel.py:58"),
+    "ssd_bwd_wide": ("src/repro_torch/kernels/csrc/ssd_wide.cu",
+                     "src/repro/models/ssm.py:74 (no Pallas kernel: JAX differentiates the jnp ssd_chunked)"),
+}
+
+
+def _wide_cfg(arch: str):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    if arch == "deepseek-7b":
+        return full.replace(**WIDE_DS)
+    return full.replace(ssm=dataclasses.replace(full.ssm, **WIDE_M2))
+
+
+def _wide_kernel_checks(dev) -> None:
+    """Each wide route against its plain version on the card, in fp32 and
+    bf16, at head dims above 256 (Dh != Dv, GQA / MQA, windows, offset
+    queries, ragged lengths), bf16 widths off the tensor-core grid, SSD P
+    above 64, N above 128 and chunks above 256; each route's counter moves
+    by one a call and the main routes' not at all, and a second run gives
+    the same bits."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd import ops as sops
+
+    gen = torch.Generator(device=dev).manual_seed(40)
+    counts = {k: c for k, c in _kernel_ops().items() if not k.startswith("rmsnorm")}
+    before = {k: c.count for k, c in counts.items()}
+    n_calls = dict.fromkeys(counts, 0)
+    flash_cases = [  # (B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_offset)
+        (1, 300, 300, 8, 8, 512, 512, True, None, 0), (2, 130, 200, 4, 2, 320, 288, True, 64, 70),
+        (1, 65, 65, 2, 1, 300, 600, False, None, 0), (1, 333, 333, 8, 4, 100, 100, True, None, 0),
+        (2, 77, 90, 4, 4, 36, 20, False, 30, 13)]
+    for B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_off in flash_cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            if fops.route(Dh, Dv, dtype, Dh % 8 == 0 and Dv % 8 == 0) != "wide":
+                continue
+            q, k = _randn(gen, (B, Lq, H, Dh), dtype, dev), _randn(gen, (B, Lk, KH, Dh), dtype, dev)
+            v, do = _randn(gen, (B, Lk, KH, Dv), dtype, dev), _randn(gen, (B, Lq, H, Dv), dtype, dev)
+            kw = dict(causal=causal, window=window, q_offset=q_off)
+            label = f"{dtype} B={B} Lq={Lq} Lk={Lk} H={H} KH={KH} Dh={Dh} Dv={Dv} {kw}"
+            out, lse = fops.flash_attention(q, k, v, return_lse=True, **kw)
+            want, want_lse = fops.attention_fwd_ref(q, k, v, **kw)
+            _compare(f"wide flash {label}", out, want, dtype)
+            _compare(f"wide flash lse {label}", lse, want_lse, None, dict(atol=1e-4, rtol=0))
+            got = fops.flash_attention_bwd(q, k, v, want, want_lse, do, **kw)
+            for name, g, w in zip(("dq", "dk", "dv"), got, fops.attention_bwd_ref(q, k, v, want, want_lse, do, **kw)):
+                _compare_bwd(f"wide flash bwd {name} {label}", g, w, dtype)
+            assert torch.equal(out, fops.flash_attention(q, k, v, **kw)), f"wide flash {label}: not deterministic"
+            again = fops.flash_attention_bwd(q, k, v, want, want_lse, do, **kw)
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), f"wide flash bwd {label}: not deterministic"
+            n_calls["flash_attention_wide"] += 2
+            n_calls["flash_attention_bwd_wide"] += 2
+    for B, S, H, KH, Dh, Dv, pos_l in ((4, 2304, 8, 8, 512, 512, [2063, 792, 115, 336]),
+                                       (3, 300, 8, 2, 320, 288, [0, 150, 299])):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k = _randn(gen, (B, 1, H, Dh), dtype, dev), _randn(gen, (B, S, KH, Dh), dtype, dev)
+            v = _randn(gen, (B, S, KH, Dv), dtype, dev)
+            pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+            label = f"{dtype} B={B} S={S} H={H} KH={KH} Dh={Dh} Dv={Dv} pos {pos_l}"
+            out = dops.decode_attention(q, k, v, pos)
+            _compare(f"wide decode {label}", out, dops.decode_attention_ref(q, k, v, pos), dtype)
+            assert torch.equal(out, dops.decode_attention(q, k, v, pos)), f"wide decode {label}: not deterministic"
+            half = S // 2  # the partial route on the cache's two halves, combined
+            parts = [dops.decode_attention(q, k[:, s0:s0 + half], v[:, s0:s0 + half], pos, slot_offset=s0,
+                                           partial=True) for s0 in (0, half)]
+            for (o, lse), s0 in zip(parts, (0, half)):
+                wo, wl = dops.decode_attention_ref(q, k[:, s0:s0 + half], v[:, s0:s0 + half], pos, s0, True)
+                _compare(f"wide decode partial slot {s0} {label}", o, wo, dtype)
+                live = torch.isfinite(wl)
+                assert torch.equal(live, torch.isfinite(lse))
+                _compare(f"wide decode partial lse slot {s0} {label}", lse[live], wl[live], None,
+                         dict(atol=LSE_ATOL, rtol=0))
+            both = dops.combine_partials(torch.stack([o for o, _ in parts]), torch.stack([l for _, l in parts]))
+            _compare(f"wide decode partial combined {label}", both.to(dtype), out, dtype)
+            n_calls["decode_attention_wide"] += 4
+    for b, L, cs, H, G, P, N in ((1, 1024, 512, 12, 1, 128, 256), (2, 96, 48, 4, 2, 96, 160),
+                                 (1, 640, 320, 4, 4, 16, 16), (1, 80, 40, 4, 1, 20, 12)):
+        for dtype in (torch.bfloat16, torch.float32):
+            if sops.route(cs, P, N, dtype, P % 8 == 0 and N % 8 == 0) != "wide":
+                continue
+            for shift in (-1.0, 3.0):  # a strong decay: exp of the masked triangle overflows
+                args, dy, dS = _ssd_bwd_args(gen, dev, dtype, b, L, H, G, cs, shift, P=P, N=N)
+                label = f"{dtype} b={b} L={L} cs={cs} H={H} G={G} P={P} N={N} dt_shift={shift}"
+                got = sops.ssd_intra_chunk(*args)
+                for name, g, w in zip(("y", "state"), got, sops.ssd_chunk_ref(*args)):
+                    _compare_ssd(f"wide ssd {name} {label}", g, w)
+                grads = sops.ssd_intra_chunk_bwd(*args, dy, dS)
+                for name, g, w in zip(("dx", "ddt", "dcum", "dB", "dC"), grads,
+                                      sops.ssd_chunk_bwd_ref(*args, dy, dS)):
+                    _compare_bwd(f"wide ssd bwd {name} {label}", g, w, dtype)
+                assert all(torch.equal(a, c) for a, c in zip(got, sops.ssd_intra_chunk(*args))), label
+                assert all(torch.equal(a, c) for a, c in zip(grads, sops.ssd_intra_chunk_bwd(*args, dy, dS))), label
+                n_calls["ssd_wide"] += 2
+                n_calls["ssd_bwd_wide"] += 2
+    torch.cuda.synchronize()
+    moved = {k: c.count - before[k] for k, c in counts.items()}
+    want = n_calls
+    log(f"[wide] kernel checks: every wide route within tolerance of its plain version in fp32 and bf16, run to "
+        f"run identical; launches {moved}")
+    assert moved == want, (moved, want)
+
+
+def _ssd_wide_times(gen, dev, b, L, H, P, N, cs, backward: bool) -> dict:
+    """Kernel and plain times of the wide ssd route (bf16) at (b, L, H, P)
+    / (b, L, 1, N), chunk cs, and the bound of the work: the forward's
+    scores, y and state, or the backward's ``bwd_flops``, at the bf16
+    rate, against each input read once and each output written once."""
+    from repro_torch.kernels.ssd import ops
+    from repro_torch.kernels.ssd.ref import ssd_chunk_bwd_ref, ssd_chunk_ref
+
+    dtype, G, nc = torch.bfloat16, 1, L // cs
+    sets = [_ssd_bwd_args(gen, dev, dtype, b, L, H, G, cs, P=P, N=N) for _ in range(2)]
+    if backward:
+        sets = [(*args, dy, dS) for args, dy, dS in sets]
+        fn, ref, flops = ops.ssd_intra_chunk_bwd, ssd_chunk_bwd_ref, ops.bwd_flops(b, H, nc, cs, P, N)
+        got, want = fn(*sets[0]), ref(*sets[0])
+        err = max(_compare_bwd(f"wide ssd bwd {n} at the path's shape", g, w, dtype)
+                  for n, g, w in zip(("dx", "ddt", "dcum", "dB", "dC"), got, want))
+        # x, B, C, dx, dB, dC in bf16; dt, cum, dy, dS read, ddt, dcum written in f32
+        bytes_moved = (2 * b * L * H * P + 4 * b * L * G * N) * 2 + (4 * b * L * H + b * L * H * P
+                                                                     + b * H * nc * N * P) * 4
+    else:
+        sets = [args for args, _, _ in sets]
+        fn, ref, flops = ops.ssd_intra_chunk, ssd_chunk_ref, ops.fwd_flops(b, H, nc, cs, P, N)
+        got, want = fn(*sets[0]), ref(*sets[0])
+        err = max(_compare_ssd(f"wide ssd {n} at the path's shape", g, w) for n, g, w in zip(("y", "state"), got, want))
+        # x, B, C in bf16; dt, cum read, y and the state written in f32
+        bytes_moved = (b * L * H * P + 2 * b * L * G * N) * 2 + (2 * b * L * H + b * L * H * P + b * H * nc * N * P) * 4
+    del got, want
+    ms = time_ms(fn, sets)
+    plain = time_ms(ref, sets[:1], iters=3)
+    bound, by = _bound(bytes_moved, flops, dtype)
+    what = "bwd" if backward else "fwd"
+    log(f"[wide] ssd {what} at x ({b}, {L}, {H}, {P}), B/C ({b}, {L}, {G}, {N}) bf16, cs {cs}: {flops / 1e9:.2f} "
+        f"GFLOP, kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, bound {bound:.4f} ms "
+        f"({by}, {bound / ms:.1%} of it)")
+    return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound, bound_by=by, max_abs_err=err,
+                shape=f"x ({b}, {L}, {H}, {P}), B/C ({b}, {L}, {G}, {N}) bf16, cs {cs}; {flops / 1e9:.2f} GFLOP")
+
+
+def _wide_attention_errs(gen, dev, H: int, D: int, L: int, pos_l: list) -> dict:
+    """The attention wide routes against their plain versions at the path's
+    shapes (bf16): the forward and backward at (1, L, H, D) causal, decode
+    against a (4, MAX_SEQ, H, D) cache at ``pos_l``; each the largest
+    absolute error over its outputs."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    dtype = torch.bfloat16
+    q, k, v, do = (_randn(gen, (1, L, H, D), dtype, dev) for _ in range(4))
+    want, lse = fops.attention_fwd_ref(q, k, v)
+    errs = {"flash_attention_wide": _compare("wide flash at the path's shape", fops.flash_attention(q, k, v),
+                                             want, dtype)}
+    errs["flash_attention_bwd_wide"] = max(
+        _compare_bwd(f"wide flash bwd {n} at the path's shape", g, w, dtype)
+        for n, g, w in zip(("dq", "dk", "dv"), fops.flash_attention_bwd(q, k, v, want, lse, do),
+                           fops.attention_bwd_ref(q, k, v, want, lse, do)))
+    B = len(pos_l)
+    q, k, v = _randn(gen, (B, 1, H, D), dtype, dev), _randn(gen, (B, MAX_SEQ, H, D), dtype, dev), \
+        _randn(gen, (B, MAX_SEQ, H, D), dtype, dev)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+    errs["decode_attention_wide"] = _compare("wide decode at the path's shape", dops.decode_attention(q, k, v, pos),
+                                             dops.decode_attention_ref(q, k, v, pos), dtype)
+    return errs
+
+
+def _wide_records(dev) -> list[dict]:
+    """Each wide route timed at its path's shape (deepseek-7b's heads of 512
+    and mamba2-130m's wide SSD, bf16): kernel, plain and library times (SDPA
+    where it takes the shape), the bound of the work and the largest error
+    against the plain version there."""
+    gen = torch.Generator(device=dev).manual_seed(41)
+    H, D, L = WIDE_DS["n_heads"], WIDE_DS["head_dim"], TRAIN_SEQ
+    m2 = _wide_cfg("mamba2-130m")
+    mH, mP, mN, mcs = m2.ssm.expand * m2.d_model // m2.ssm.head_dim, m2.ssm.head_dim, m2.ssm.d_state, m2.ssm.chunk_size
+    pos_l = [2063, 792, 115, 336]
+    errs = _wide_attention_errs(gen, dev, H, D, L, pos_l)
+    times = {"flash_attention_wide": _flash_times(gen, dev, 1, L, H, D),
+             "flash_attention_bwd_wide": _flash_bwd_times(gen, dev, 1, L, H, D),
+             "decode_attention_wide": _decode_times(gen, dev, H, D, pos_l),
+             "ssd_wide": _ssd_wide_times(gen, dev, 1, 4096, mH, mP, mN, mcs, backward=False),
+             "ssd_bwd_wide": _ssd_wide_times(gen, dev, M2_BATCH // M2_MB, M2_SEQ, mH, mP, mN, mcs, backward=True)}
+    records = []
+    for name, t in times.items():
+        source, replaces = WIDE_SOURCES[name]
+        t.setdefault("max_abs_err", errs.get(name))
+        records.append(dict(name=name, route="cuda", source=source, replaces=replaces, **t))
+    return records
+
+
+def _wide_serve(dev, arch: str) -> dict:
+    """The wide variant of ``arch`` through ``ServeEngine`` at full width
+    (deepseek-7b cut to ``WIDE_DS_SERVE_LAYERS``): the prompts of
+    ``WIDE_PROMPTS`` greedy, ``WIDE_GEN`` tokens each; exact launch counts
+    on the wide routes and none on the main routes' attention / ssd; one
+    greedy stream against the sequential prefill + decode loop."""
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServeEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = _wide_cfg(arch)
+    if arch == "deepseek-7b":
+        cfg, n_slots, max_seq = cfg.replace(n_layers=WIDE_DS_SERVE_LAYERS), N_SLOTS, MAX_SEQ
+    else:
+        n_slots, max_seq = M_SLOTS, M_MAX_SEQ
+    tag = f"[wide] {arch}"
+    t0 = time.perf_counter()
+    model = init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{tag} serving: {cfg.n_layers} layers, {n_params / 1e9:.3f} B params, "
+        + (f"{cfg.n_heads} heads of {cfg.head_dim}" if cfg.ssm is None else
+           f"SSD head dim {cfg.ssm.head_dim}, state {cfg.ssm.d_state}, chunk {cfg.ssm.chunk_size}")
+        + f", bf16, initialised in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in WIDE_PROMPTS[arch]]
+    ops = _kernel_ops()
+    with ServeEngine(cfg, model, n_slots=n_slots, max_seq=max_seq, block_size=BLOCK_SIZE, device=dev) as eng:
+        # ---- the main path: counts from 0 just before, read just after ----
+        for c in ops.values():
+            c.reset()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, WIDE_GEN) for p in prompts]
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: c.count for name, c in ops.items()}
+        # --------------------------------------------------------------------
+        prefills, decode_steps = eng.prefills, eng.decode_steps
+    assert all(r.done and len(r.out_tokens) == WIDE_GEN for r in reqs), "a request did not finish"
+    want = _serve_launches(cfg, prefills=prefills, decode_steps=decode_steps)
+    log(f"{tag} {len(reqs)} requests, {sum(len(r.out_tokens) for r in reqs)} tokens in {wall:.3f} s; "
+        f"{prefills} prefills, {decode_steps} decode steps; launches {launches}, expected {want}")
+    assert launches == want, "the wide variant did not run through the wide routes as expected"
+    assert launches["ssd_wide" if cfg.ssm else "flash_attention_wide"] > 0
+    want_toks = _sequential_greedy(model, cfg, prompts[1], 1, dev, n_slots=n_slots, max_seq=max_seq, gen=WIDE_GEN)[0]
+    assert reqs[1].out_tokens == want_toks, (reqs[1].out_tokens, want_toks)
+    log(f"{tag} the stream of prompt {len(prompts[1])} equals the sequential loop's: {want_toks[:8]}...")
+    del model
+    return dict(launches=launches, wall_s=wall)
+
+
+def _wide_train(dev, arch: str) -> dict:
+    """One bf16 train step of the wide variant at full width and
+    ``WIDE_TRAIN_LAYERS`` (deepseek-7b: Adafactor, (2, 2048) in 2
+    microbatches; mamba2-130m: AdamW, (8, 2048) in 2): finite loss and
+    grad norm, exact launch counts on the wide routes (flash / ssd forward
+    and backward)."""
+    from repro_torch.runtime.train import build_train_step, init_train_state
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = _wide_cfg(arch).replace(n_layers=WIDE_TRAIN_LAYERS[arch])
+    if arch == "deepseek-7b":
+        cfg, batch, seq, n_mb = cfg.replace(optimizer="adafactor"), TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB
+    else:
+        batch, seq, n_mb = M2_BATCH, M2_SEQ, M2_MB
+    state = init_train_state(cfg, 0, device=dev)
+    art = build_train_step(cfg, n_microbatches=n_mb)
+    b = _batches(cfg, dev, 1, batch, seq)[0]
+    ops = _kernel_ops()
+    torch.cuda.synchronize()
+    # ---- the main path: counts from 0 just before, read just after ----
+    for c in ops.values():
+        c.reset()
+    t0 = time.perf_counter()
+    state, m = art(state, b)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = {name: c.count for name, c in ops.items()}
+    # ------------------------------------------------------------------
+    want = _train_launches_per_step(cfg, n_mb)
+    loss, gn = float(m["loss"]), float(m["grad_norm"])
+    log(f"[wide] {arch} train step ({cfg.n_layers} layers, bf16, {cfg.optimizer}, ({batch}, {seq}) in {n_mb} "
+        f"microbatches): loss {loss:.5f}, grad norm {gn:.5f}, {wall:.1f} ms (the first step: builds included); "
+        f"launches {launches}, expected {want}")
+    assert np.isfinite(loss) and np.isfinite(gn), (loss, gn)
+    assert launches == want, "the wide train step did not run through the wide routes as expected"
+    del state, art
+    return dict(launches=launches, step_ms=wall, loss=loss)
+
+
+def wide_phase(dev) -> dict:
+    """``[wide]``: the wide routes (``csrc/*_wide.cu``) at every shape the
+    main routes refuse.  Each against its plain version in fp32 and bf16,
+    run to run identical (``_wide_kernel_checks``); then two shape variants
+    of repo configs at full width, through the normal entry points:
+    deepseek-7b with 8 heads of 512 (serving through ``ServeEngine`` cut to
+    8 layers, one bf16 train step at 2 layers, and a 1-layer fp32 check of
+    prefill / decode logits and of a train step, card against the CPU
+    port) and mamba2-130m with SSD head dim 128, state 256, chunk 512
+    (serving 8 slots with prompts up to 4096, one train step at 4 layers,
+    the same fp32 checks); exact launch counts on the wide routes in every
+    run; each route timed at its path's shape."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _wide_kernel_checks(dev)
+    records = _wide_records(dev)
+    runs = []
+    for arch in ("deepseek-7b", "mamba2-130m"):
+        runs.append(_wide_serve(dev, arch))
+        runs.append(_wide_train(dev, arch))
+        f32 = _wide_cfg(arch).replace(n_layers=1, dtype="float32")
+        counts = _kernel_ops()
+        before = {n: c.count for n, c in counts.items()}
+        model_phase(dev, f32, prompt_len=1100 if f32.ssm else 128)
+        moved = {n: c.count - before[n] for n, c in counts.items()}
+        assert moved["ssd_wide" if f32.ssm else "flash_attention_wide"] == 1, moved
+        assert f32.ssm or moved["decode_attention_wide"] == 4, moved
+        chunk = 128 if f32.ssm is None else None
+        with _host_memory_kept():  # Adafactor, as [train-parity]'s deepseek-7b (AdamW's CPU side is slower)
+            runs.append(_parity_run(dev, f32.replace(logits_chunk=chunk or f32.logits_chunk, optimizer="adafactor"),
+                                    tag="wide", seq=128 if f32.ssm is None else 1024, steps=1))
+    for r in records:
+        r["launches"] = sum(run["launches"][r["name"]] for run in runs)
+        assert r["launches"] > 0, f"{r['name']}: no launch on the wide variants' paths"
+    log(f"[wide] launches on the wide variants' paths: {({r['name']: r['launches'] for r in records})}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(records=records, runs=runs)
+
+
 def f2_digests() -> dict:
     """ROADMAP F2: ``tools/ssd_grad_determinism.py``'s loop, short (5
     iterations, no test file), so every run prints each stage's digest of
@@ -4972,6 +5418,7 @@ def main() -> int:
     dev = torch.device("cuda")
     build_s = build_kernels()
     records = phase("kernels", kernel_phase, dev)
+    wide = phase("wide", wide_phase, dev)
     phase("f2", f2_digests)
     phase("codelets", codelet_phase, dev)
     examples = phase("examples", examples_phase, dev)
@@ -5015,11 +5462,12 @@ def main() -> int:
     tp_serve = phase("tp-serve", tp_serve_phase, dev, tp)
     dry = phase("dryrun", dryrun_phase, trains, tp, tp_serve)
     # launches on every path: serving and train (every model), speculation, load, checkpoint, the launcher,
-    # the pipeline, the chaos soak's serve runs, the mesh's train steps, the tensor-parallel ranks' steps and
-    # their serving runs
+    # the pipeline, the chaos soak's serve runs, the mesh's train steps, the tensor-parallel ranks' steps,
+    # their serving runs and the wide variants' paths (fp32 runs count on the wide routes)
+    records += wide["records"]
     runs = (serve, serve_m, serve_g, serve_c, serve_r, serve_q, serve_h, serve_v, serve_q110, serve_l4,
             *trains.values(), train_m2, remat,
-            spec, load, ckpt, comm, pipe, chaos, mesh, tp, tp_serve)
+            spec, load, ckpt, comm, pipe, chaos, mesh, tp, tp_serve, *wide["runs"])
     for r in records:
         r["launches"] = sum(run["launches"][r["name"]] for run in runs)
     _frontend_shape_launches(records, {"hubert": (serve_h, trains["hubert-xlarge"]),
@@ -5063,8 +5511,9 @@ def main() -> int:
         f"{serve_h['fp32_err']:.2e}), internvl2-2b prefill {serve_v['prefill_ms']:.1f} ms and decode "
         f"{serve_v['decode_ms']:.2f} ms a step (peak {serve_v['peak_bytes'] / 2**30:.2f} GiB, fp32 "
         f"{serve_v['fp32_err']:.2e}), remat dots_saveable / full {remat['dots_ms']:.1f} / {remat['full_ms']:.1f} ms "
-        f"(peak {remat['dots_peak'] / 2**30:.2f} / {remat['full_peak'] / 2**30:.2f} GiB, bit for bit), "
-        f"{time.perf_counter() - t_start:.1f} s in all")
+        f"(peak {remat['dots_peak'] / 2**30:.2f} / {remat['full_peak'] / 2**30:.2f} GiB, bit for bit), wide routes "
+        + ", ".join(f"{r['name']} {r['ms']:.4f} ms ({r['launches']} launches)" for r in wide["records"])
+        + f", {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -30,6 +30,7 @@ from .access import (
     SpCpu,
     SpCuda,
     SpData,
+    SpHip,
     SpHost,
     SpImpl,
     SpMaybeWrite,
@@ -85,13 +86,14 @@ from .scheduler import (
     compute_upward_ranks,
     make_scheduler,
 )
+from .staged import execute_staged, linearize, schedule_summary
 from .task import SpTaskPolicy, SpTaskTimeoutError, Task, TaskState, TaskView
 from .trace import trace_metrics
 
 __all__ = [
     "AccessMode", "SpAccess", "SpArrayAccess", "SpAtomicWrite", "SpAtomicWriteArray",
     "SpCommutativeWrite", "SpCommutativeWriteArray", "SpCpu", "SpCuda", "SpData",
-    "SpHost", "SpImpl", "SpMaybeWrite", "SpMaybeWriteArray", "SpPriority", "SpRead",
+    "SpHip", "SpHost", "SpImpl", "SpMaybeWrite", "SpMaybeWriteArray", "SpPriority", "SpRead",
     "SpReadArray", "SpRef", "SpWrite", "SpWriteArray", "SpWriteRef",
     "ChannelHub", "RouterTransport", "SocketTransport", "SpTransport", "SpCommGroup",
     "SpCommError", "SpCommTimeoutError", "SpCommAbortedError",
@@ -104,6 +106,7 @@ __all__ = [
     "SpSpeculativeModel", "SpTaskGraph", "CriticalPathScheduler", "FifoScheduler",
     "LifoScheduler", "PriorityScheduler", "SpAbstractScheduler",
     "WorkStealingScheduler", "compute_upward_ranks", "make_scheduler",
+    "execute_staged", "linearize", "schedule_summary",
     "SpTaskPolicy", "SpTaskTimeoutError", "Task", "TaskState", "TaskView",
     "trace_metrics",
 ]

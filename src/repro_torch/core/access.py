@@ -235,5 +235,7 @@ def SpHost(fn) -> SpImpl:
     return SpImpl(fn, "host")
 
 
-# Paper-compatible alias: SpCpu ≙ the reference path.
+# Paper-compatible aliases: SpCpu ≙ the reference path, SpCuda / SpHip ≙
+# the device-kernel path (kind ``"cuda"``).
 SpCpu = SpRef
+SpHip = SpCuda

@@ -720,6 +720,11 @@ class SpRuntime:
         )
         return order
 
+    @property
+    def schedule(self) -> list:
+        """The staged task order of the last :meth:`run` (staged backend)."""
+        return list(self._order or [])
+
     def wait_all_tasks(self, timeout: float | None = None, raise_errors: bool = True) -> None:
         if self.backend == "staged":
             self._flush()

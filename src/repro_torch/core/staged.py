@@ -12,8 +12,9 @@ program order of the step:
    tensors, modules or dicts of them;
 2. :func:`linearize` it — a Kahn topological sort whose tie-break is the
    pluggable scheduling policy;
-3. :func:`run_schedule` runs the task bodies in that order, threading
-   values through the cells.
+3. :func:`execute_staged` runs the task bodies in that order, threading
+   values through the cells (:func:`run_schedule` is the executor under it
+   and under ``SpRuntime``'s staged backend).
 
 Policies:
 
@@ -86,13 +87,14 @@ def run_schedule(
 ) -> BaseException | None:
     """Run ``order`` sequentially with full graph bookkeeping.
 
-    The staged executor under ``SpRuntime._flush``: each task is run with
-    ``impl_for(task)`` as the preferred implementation kind, its handles
-    released and its done event set, so ``wait_all_tasks`` / ``TaskView``
-    work afterwards.  On the first exception the remaining not-yet-run tasks
-    are marked *cancelled* (``TaskView.result()`` on them raises
-    ``CancelledError``) and the error is returned, for ``result()`` /
-    ``wait_all_tasks`` to raise.
+    The single staged executor under both :func:`execute_staged` and
+    ``SpRuntime._flush``: each task is run with ``impl_for(task)`` as the
+    preferred implementation kind, its handles released and its done event
+    set, so ``wait_all_tasks`` / ``TaskView`` work afterwards.  On the first
+    exception the remaining not-yet-run tasks are marked *cancelled*
+    (``TaskView.result()`` on them raises ``CancelledError``) and the error
+    is returned: the caller decides whether to raise now (functional API)
+    or defer to ``result()`` / ``wait_all_tasks`` (runtime API).
     """
     error: BaseException | None = None
     for t in order:
@@ -111,3 +113,30 @@ def run_schedule(
         graph.on_task_finished(t)
         t.mark_finished()
     return error
+
+
+def execute_staged(
+    graph: SpTaskGraph, policy: str = "fifo", impl: str = "ref"
+) -> list[Task]:
+    """Run every task body sequentially in the linearized order, each with
+    ``impl`` as its preferred implementation kind (``"ref"``, or ``"cuda"``
+    for the device kernels).  Cell values after the call hold the outputs.
+    Returns the schedule for introspection.  The first task exception
+    propagates at once (the remaining tasks are cancelled)."""
+    order = linearize(graph, policy)
+    error = run_schedule(graph, order, lambda t: impl)
+    if error is not None:
+        raise error
+    return order
+
+
+def schedule_summary(order: list[Task]) -> dict:
+    """Positions of the comm tasks in a schedule (earlier = more room to
+    overlap them with compute)."""
+    comm_pos = [i for i, t in enumerate(order) if t.is_comm]
+    return {
+        "n_tasks": len(order),
+        "n_comm": len(comm_pos),
+        "comm_positions": comm_pos,
+        "mean_comm_pos": (sum(comm_pos) / len(comm_pos)) if comm_pos else None,
+    }

@@ -17,9 +17,9 @@
 // Bound: at prefill lengths the work is ~4·L²·H·Dh/2 flops against ~4·L·H·Dh
 // elements moved, far above the card's ops-per-byte line, so it is bound by
 // operations, and only the tensor cores (989 TFLOP/s bf16) come near that
-// bound.  Two routes:
+// bound.  This file is the bf16 route (the serving and train path):
 //
-// bf16 (the serving path): flash_fwd_wgmma_kernel.  One block of two
+// flash_fwd_wgmma_kernel.  One block of two
 //   warpgroups owns 128 query rows (64 per warpgroup) of one head and loops
 //   over 64-key tiles.  S = Q·Kᵀ is a wgmma with Q and K read from shared
 //   memory (both K-major); P is rounded to bf16 in registers (as the TPU
@@ -47,10 +47,10 @@
 //   (two m64n128 products over V's column halves): one block an SM, up to
 //   255 registers, the block's two warpgroups still overlapping each
 //   other's softmax and products.
-// f32: flash_fwd_kernel, on the SIMT cores: f32 tiles in shared memory and
-//   4x4 / 4x8 FMA register micro-tiles (4x16 when Dv passes 128; 209 KB of
-//   shared memory at Dh = Dv = 256).  No serving path runs f32; it keeps
-//   f32 exact for the checks that need it (TF32 would not be).
+// f32, and bf16 outside this kernel's envelope (a head dim above 256, or a
+// base, head dim or stride off the 16-byte grid), run the SIMT kernel of
+// flash_attention_wide.cu: f32 exact for the checks that need it (TF32
+// would not be).
 #include <cstdint>
 
 #include "common.cuh"
@@ -58,175 +58,7 @@
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// f32: SIMT cores
-// ---------------------------------------------------------------------------
-
-constexpr int BQ = 64;   // query rows per block
-constexpr int BK = 64;   // keys per inner tile
-constexpr int NT = 256;  // threads: 16 (ty) x 16 (tx)
-constexpr int DMAX = 256;
-
-// NJ: output columns per thread (tx + 16j), 8 for Dv <= 128, else 16
-template <typename T, int NJ>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
-    float* __restrict__ lse, int H, int KH, int Lq, int Lk, int Dh, int Dv,
-    long long q_sb, long long q_sl, long long q_sh,
-    long long k_sb, long long k_sl, long long k_sh,
-    long long v_sb, long long v_sl, long long v_sh,
-    long long o_sb, long long o_sl, long long o_sh,
-    int causal, int window, int q_offset, float scale) {
-  extern __shared__ float smem[];
-  const int DP = Dh + 1;          // padded rows: conflict-free column reads
-  float* Qs = smem;               // BQ x DP
-  float* Ks = Qs + BQ * DP;       // BK x DP
-  float* Vs = Ks + BK * DP;       // BK x Dv
-  float* Ps = Vs + BK * Dv;       // BQ x (BK + 1)
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (H / KH);
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-
-  const T* qb = q + b * q_sb + h * q_sh;
-  const T* kb = k + b * k_sb + kh * k_sh;
-  const T* vb = v + b * v_sb + kh * v_sh;
-
-  for (int idx = tid; idx < BQ * Dh; idx += NT) {
-    const int r = idx / Dh, d = idx - r * Dh, row = q0 + r;
-    Qs[r * DP + d] = row < Lq ? rt::to_f32(qb[row * q_sl + d]) : 0.f;
-  }
-
-  float m[4], l[4], acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = rt::NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-
-  // live key range of this query tile: [k_lo, k_hi)
-  const int qpos_lo = q_offset + q0;
-  const int qpos_hi = q_offset + min(q0 + BQ, Lq) - 1;
-  const int k_hi = causal ? min(Lk, qpos_hi + 1) : Lk;
-  const int k_lo = window > 0 ? max(0, qpos_lo - window + 1) : 0;
-
-  for (int k0 = (k_lo / BK) * BK; k0 < k_hi; k0 += BK) {
-    __syncthreads();  // Qs written / previous tile's Ks, Vs, Ps consumed
-    for (int idx = tid; idx < BK * Dh; idx += NT) {
-      const int r = idx / Dh, d = idx - r * Dh, kr = k0 + r;
-      Ks[r * DP + d] = kr < Lk ? rt::to_f32(kb[kr * k_sl + d]) : 0.f;
-    }
-    for (int idx = tid; idx < BK * Dv; idx += NT) {
-      const int r = idx / Dv, d = idx - r * Dv, kr = k0 + r;
-      Vs[r * Dv + d] = kr < Lk ? rt::to_f32(vb[kr * v_sl + d]) : 0.f;
-    }
-    __syncthreads();
-
-    // scores for rows ty + 16i, keys tx + 16j
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < Dh; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] += qv[i] * kv[j];
-    }
-
-    // mask + online softmax; a row's 16 owners are one half-warp
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q_offset + q0 + ty + 16 * i;
-      float mx = rt::NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        bool ok = kpos < Lk;
-        if (causal) ok = ok && qpos >= kpos;
-        if (window > 0) ok = ok && qpos - kpos < window;
-        s[i][j] = ok ? s[i][j] * scale : rt::NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= corr;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Ps[(ty + 16 * i) * (BK + 1) + tx + 16 * j] = s[i][j];
-    }
-    __syncthreads();
-
-    // acc += P V for rows ty + 16i, columns tx + 16j
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * (BK + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int c = tx + 16 * j;
-        const float vv = c < Dv ? Vs[kk * Dv + c] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] += pv[i] * vv;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= Lq) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    if (lse != nullptr && tx == 0)
-      lse[(static_cast<long long>(b) * H + h) * Lq + row] = m[i] + logf(fmaxf(l[i], 1e-30f));
-    T* orow = o + b * o_sb + row * o_sl + h * o_sh;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < Dv) orow[c] = rt::from_f32<T>(acc[i][j] * inv);
-    }
-  }
-}
-
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int KH, int Lq,
-           int Lk, int Dh, int Dv, const long long* qs, const long long* ks, const long long* vs,
-           const long long* os, int causal, int window, int q_offset, float scale,
-           cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-      (static_cast<size_t>(BQ) * (Dh + 1) + static_cast<size_t>(BK) * (Dh + 1) +
-       static_cast<size_t>(BK) * Dv + static_cast<size_t>(BQ) * (BK + 1));
-  auto kernel = Dv <= 128 ? flash_fwd_kernel<T, 8> : flash_fwd_kernel<T, 16>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Lq + BQ - 1) / BQ, H, B);
-  kernel<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, H, KH, Lq, Lk, Dh, Dv, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2],
-      vs[0], vs[1], vs[2], os[0], os[1], os[2], causal, window, q_offset, scale);
-  return static_cast<int>(cudaGetLastError());
-}
+constexpr int DMAX = 256;  // the widest head dim of this route
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (wgmma), cp.async ring
@@ -467,24 +299,19 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse
 }  // namespace
 
 // strides are (batch, sequence, head) in elements; the head_dim stride is 1.
-// window <= 0 means no window.  bf16 takes the tensor-core kernel, f32 the
-// SIMT kernel.  lse, when not null, is a (B, H, Lq) float32 buffer that
-// receives each row's natural-log log-sum-exp of the scaled, masked scores
-// (the residual the backward, flash_attention_bwd.cu, recomputes P from);
-// serving passes null.
+// window <= 0 means no window.  bf16 only (flash_attention_wide.cu takes
+// f32): head dims up to 256 in 16-byte chunks.  lse, when not null, is a
+// (B, H, Lq) float32 buffer that receives each row's natural-log
+// log-sum-exp of the scaled, masked scores (the residual the backward,
+// flash_attention_bwd.cu, recomputes P from); serving passes null.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int B, int H, int KH, int Lq, int Lk, int Dh, int Dv,
                                    const long long* q_strides, const long long* k_strides,
                                    const long long* v_strides, const long long* o_strides,
                                    int causal, int window, int q_offset, float scale, int dtype,
                                    void* stream) {
-  if (Dh > DMAX || Dv > DMAX || KH <= 0 || H % KH != 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == rt::BF16)
-    return tc::launch_bf16(q, k, v, o, static_cast<float*>(lse), B, H, KH, Lq, Lk, Dh, Dv, q_strides, k_strides, v_strides,
-                           o_strides, causal, window, q_offset, scale, st);
-  if (dtype == rt::F32)
-    return launch<float>(q, k, v, o, static_cast<float*>(lse), B, H, KH, Lq, Lk, Dh, Dv, q_strides, k_strides, v_strides,
-                         o_strides, causal, window, q_offset, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != rt::BF16 || Dh > DMAX || Dv > DMAX || KH <= 0 || H % KH != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return tc::launch_bf16(q, k, v, o, static_cast<float*>(lse), B, H, KH, Lq, Lk, Dh, Dv, q_strides, k_strides,
+                         v_strides, o_strides, causal, window, q_offset, scale, static_cast<cudaStream_t>(stream));
 }

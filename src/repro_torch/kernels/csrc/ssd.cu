@@ -14,37 +14,33 @@
 //
 // Bound: ~cs^2/2 * (N + P) * 2 flops per chunk against ~cs * (P + 2N)
 // elements read.  On the tensor cores (989 TFLOP/s bf16) the bytes bound the
-// whole step at the serving shape; on the SIMT cores (67 TFLOP/s f32) the
-// operations do.  Inside the diagonal tile the masked decay (exp of a
-// positive number, possibly inf) is removed by a select, never by a multiply
-// with a 0/1 mask (inf * 0 = NaN), and the decay is never factored into
-// exp(cum_i) * exp(-cum_j): across a chunk of strong decay those overflow.
-// Two routes:
+// whole step at the serving shape.  Inside the diagonal tile the masked decay
+// (exp of a positive number, possibly inf) is removed by a select, never by a
+// multiply with a 0/1 mask (inf * 0 = NaN), and the decay is never factored
+// into exp(cum_i) * exp(-cum_j): across a chunk of strong decay those
+// overflow.
 //
-// bf16 (the serving path): ssd_chunk_wgmma_kernel, two blocks per chunk
-//   (cs <= 256).  Each holds the whole chunk's B and x and two 64-row tiles
-//   of C in shared memory, loaded once by 16-byte cp.async into the
-//   128-byte swizzle and waited for once.  Warpgroup 0 computes y for the
-//   causal i tiles {0, 3} (block 0) or {1, 2} (block 1), 5 tile products
-//   each: S = C_i.B_j^T by wgmma (both K-major from shared memory, as
-//   flash's Q.K^T), W = S * exp(cum_i - cum_j) * dt_j on the accumulator
-//   layout (the decay as one ex2.approx, branch-free: a branch per element
-//   cost about a fifth of the kernel's time on an H100), then
-//   y += W.x_j with W as the register A operand and x_j as an
-//   MN-major B operand (flash's P.V).  W is f32: it goes in as
-//   hi = bf16(W) and lo = bf16(W - hi), two wgmmas into one f32
-//   accumulator, so each term is within ~2^-17 of its f32 value (x is
-//   exact in bf16).  Warpgroup 1 computes 64 of the N state rows (block 0
-//   rows 0-63, block 1 rows 64-127): A = (B_j * w_j)^T, built from shared
-//   memory in registers and split hi / lo the same way, B = x_j.  P <= 64
-//   and N <= 128 that are multiples of 8 are padded by zero-filled copies.
-//   135 KB of shared memory: one block an SM; 2 * nc * H blocks per call
-//   (384 at the serving shape: 2.9 waves of 132 SMs).
-// f32: ssd_chunk_kernel on the SIMT cores.  One block of 256 threads owns a
-//   64-row tile of i, keeps its C rows in shared memory, and loops over the
-//   tiles of j up to its own diagonal: score tile (4 x 4 per thread), decay
-//   weights, then y_i += W x_j in registers.  One extra block per chunk
-//   takes the state role.  It keeps f32 exact for the checks that need it.
+// This file is the bf16 route (the serving and train path) and nothing else:
+// ssd_chunk_wgmma_kernel, two blocks per chunk (cs <= 256).  Each holds the
+//   whole chunk's B and x and two 64-row tiles of C in shared memory, loaded
+//   once by 16-byte cp.async into the 128-byte swizzle and waited for once.
+//   Warpgroup 0 computes y for the causal i tiles {0, 3} (block 0) or {1, 2}
+//   (block 1), 5 tile products each: S = C_i.B_j^T by wgmma (both K-major
+//   from shared memory, as flash's Q.K^T), W = S * exp(cum_i - cum_j) * dt_j
+//   on the accumulator layout (the decay as one ex2.approx, branch-free: a
+//   branch per element cost about a fifth of the kernel's time on an H100),
+//   then y += W.x_j with W as the register A operand and x_j as an MN-major
+//   B operand (flash's P.V).  W is f32: it goes in as hi = bf16(W) and lo =
+//   bf16(W - hi), two wgmmas into one f32 accumulator, so each term is
+//   within ~2^-17 of its f32 value (x is exact in bf16).  Warpgroup 1
+//   computes 64 of the N state rows (block 0 rows 0-63, block 1 rows
+//   64-127): A = (B_j * w_j)^T, built from shared memory in registers and
+//   split hi / lo the same way, B = x_j.  P <= 64 and N <= 128 that are
+//   multiples of 8 are padded by zero-filled copies.  135 KB of shared
+//   memory: one block an SM; 2 * nc * H blocks per call (384 at the serving
+//   shape: 2.9 waves of 132 SMs).
+// f32, and bf16 outside this kernel's envelope, run the SIMT kernels of
+// ssd_wide.cu (any P, N and chunk; f32 exact for the checks that need it).
 #include <cstdint>
 
 #include "common.cuh"
@@ -52,10 +48,7 @@
 
 namespace {
 
-constexpr int TR = 64;    // rows per tile (i and j)
-constexpr int NT = 256;   // threads: 16 (ty) x 16 (tx)
-constexpr int PMAX = 64;  // head dim: 4 columns per thread
-constexpr int NMAX = 128; // state dim: 8 state rows per thread in the state role
+constexpr int TR = 64;  // rows per tile (i and j)
 
 struct SsdParams {
   const void* x;
@@ -68,206 +61,6 @@ struct SsdParams {
   int heads, heads_per_group, cs, P, N;
   long long xs[4], dts[4], cums[4], bs[4], cms[4], ys[4], sts[3];
 };
-
-size_t smem_bytes(int N, int P) {
-  return sizeof(float) * (2 * static_cast<size_t>(TR) * (N + 1) + static_cast<size_t>(TR) * P +
-                          static_cast<size_t>(TR) * (TR + 1) + 3 * TR);
-}
-
-template <typename T>
-__device__ void state_role(const SsdParams& p, float* smem, const T* bb, const T* xb,
-                           const float* dtb, const float* cumb, float* st) {
-  const int N = p.N, P = p.P, cs = p.cs, NP = N + 1;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  float* Bw = smem;          // TR x NP: B_j * wts_j
-  float* Xs = Bw + TR * NP;  // TR x P
-  float* wts = Xs + TR * P;  // TR
-  const float cum_end = cumb[(cs - 1) * p.cums[3]];
-
-  float acc[8][4];
-#pragma unroll
-  for (int a = 0; a < 8; ++a)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) acc[a][k] = 0.f;
-
-  for (int j0 = 0; j0 < cs; j0 += TR) {
-    __syncthreads();  // previous tile consumed
-    if (tid < TR) {
-      const int j = j0 + tid;
-      wts[tid] = j < cs ? expf(cum_end - cumb[j * p.cums[3]]) * dtb[j * p.dts[3]] : 0.f;
-    }
-    __syncthreads();
-    for (int idx = tid; idx < TR * N; idx += NT) {
-      const int r = idx / N, n = idx - r * N, j = j0 + r;
-      Bw[r * NP + n] = j < cs ? rt::to_f32(bb[j * p.bs[3] + n]) * wts[r] : 0.f;
-    }
-    for (int idx = tid; idx < TR * P; idx += NT) {
-      const int r = idx / P, q = idx - r * P, j = j0 + r;
-      Xs[r * P + q] = j < cs ? rt::to_f32(xb[j * p.xs[3] + q]) : 0.f;
-    }
-    __syncthreads();
-    for (int jj = 0; jj < TR; ++jj) {
-      float bv[8], xv[4];
-#pragma unroll
-      for (int a = 0; a < 8; ++a) {
-        const int n = ty + 16 * a;
-        bv[a] = n < N ? Bw[jj * NP + n] : 0.f;
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int q = tx + 16 * k;
-        xv[k] = q < P ? Xs[jj * P + q] : 0.f;
-      }
-#pragma unroll
-      for (int a = 0; a < 8; ++a)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc[a][k] += bv[a] * xv[k];
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    const int n = ty + 16 * a;
-    if (n >= N) continue;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int q = tx + 16 * k;
-      if (q < P) st[n * P + q] = acc[a][k];
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT) ssd_chunk_kernel(const SsdParams p) {
-  extern __shared__ float smem[];
-  const int N = p.N, P = p.P, cs = p.cs, NP = N + 1;
-  const int n_tiles = (cs + TR - 1) / TR;
-  const int tile = blockIdx.x, c = blockIdx.y, bh = blockIdx.z;
-  const int b = bh / p.heads, h = bh - b * p.heads, g = h / p.heads_per_group;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-
-  const T* xb = static_cast<const T*>(p.x) + b * p.xs[0] + h * p.xs[1] + c * p.xs[2];
-  const T* bb = static_cast<const T*>(p.bm) + b * p.bs[0] + g * p.bs[1] + c * p.bs[2];
-  const T* cb = static_cast<const T*>(p.cm) + b * p.cms[0] + g * p.cms[1] + c * p.cms[2];
-  const float* dtb = p.dt + b * p.dts[0] + h * p.dts[1] + c * p.dts[2];
-  const float* cumb = p.cum + b * p.cums[0] + h * p.cums[1] + c * p.cums[2];
-
-  if (tile == n_tiles) {
-    state_role<T>(p, smem, bb, xb, dtb, cumb,
-                  p.state + b * p.sts[0] + h * p.sts[1] + c * p.sts[2]);
-    return;
-  }
-
-  float* Cs = smem;                   // TR x NP: C rows of this i tile
-  float* Bs = Cs + TR * NP;           // TR x NP: B rows of the j tile
-  float* Xs = Bs + TR * NP;           // TR x P
-  float* Ws = Xs + TR * P;            // TR x (TR + 1): decay-weighted scores
-  float* cum_i = Ws + TR * (TR + 1);  // TR
-  float* cum_j = cum_i + TR;          // TR
-  float* dt_j = cum_j + TR;           // TR
-
-  const int i0 = tile * TR;
-  for (int idx = tid; idx < TR * N; idx += NT) {
-    const int r = idx / N, n = idx - r * N, i = i0 + r;
-    Cs[r * NP + n] = i < cs ? rt::to_f32(cb[i * p.cms[3] + n]) : 0.f;
-  }
-  if (tid < TR) cum_i[tid] = i0 + tid < cs ? cumb[(i0 + tid) * p.cums[3]] : 0.f;
-
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) acc[a][k] = 0.f;
-
-  for (int j0 = 0; j0 <= i0; j0 += TR) {  // tiles above the diagonal are skipped
-    __syncthreads();  // Cs / cum_i written, previous tile's Bs, Xs, Ws consumed
-    for (int idx = tid; idx < TR * N; idx += NT) {
-      const int r = idx / N, n = idx - r * N, j = j0 + r;
-      Bs[r * NP + n] = j < cs ? rt::to_f32(bb[j * p.bs[3] + n]) : 0.f;
-    }
-    for (int idx = tid; idx < TR * P; idx += NT) {
-      const int r = idx / P, q = idx - r * P, j = j0 + r;
-      Xs[r * P + q] = j < cs ? rt::to_f32(xb[j * p.xs[3] + q]) : 0.f;
-    }
-    if (tid < TR) {
-      const int j = j0 + tid;
-      cum_j[tid] = j < cs ? cumb[j * p.cums[3]] : 0.f;
-      dt_j[tid] = j < cs ? dtb[j * p.dts[3]] : 0.f;
-    }
-    __syncthreads();
-
-    // scores for rows ty + 16a, columns tx + 16k of the tile
-    float s[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) s[a][k] = 0.f;
-    for (int n = 0; n < N; ++n) {
-      float cv[4], bv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) cv[a] = Cs[(ty + 16 * a) * NP + n];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) bv[k] = Bs[(tx + 16 * k) * NP + n];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) s[a][k] += cv[a] * bv[k];
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int ri = ty + 16 * a, i = i0 + ri;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int rj = tx + 16 * k, j = j0 + rj;
-        // select, not multiply: the decay for i < j may be inf
-        Ws[ri * (TR + 1) + rj] = (i >= j && i < cs && j < cs)
-                                     ? s[a][k] * expf(cum_i[ri] - cum_j[rj]) * dt_j[rj]
-                                     : 0.f;
-      }
-    }
-    __syncthreads();
-
-    // y rows ty + 16a, columns tx + 16k: acc += W x_j
-    for (int kk = 0; kk < TR; ++kk) {
-      float wv[4], xv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) wv[a] = Ws[(ty + 16 * a) * (TR + 1) + kk];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int q = tx + 16 * k;
-        xv[k] = q < P ? Xs[kk * P + q] : 0.f;
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc[a][k] += wv[a] * xv[k];
-    }
-  }
-
-  float* yb = p.y + b * p.ys[0] + h * p.ys[1] + c * p.ys[2];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = i0 + ty + 16 * a;
-    if (i >= cs) continue;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int q = tx + 16 * k;
-      if (q < P) yb[i * p.ys[3] + q] = acc[a][k];
-    }
-  }
-}
-
-template <typename T>
-int launch(const SsdParams& p, int batch, int n_chunks, cudaStream_t stream) {
-  const size_t smem = smem_bytes(p.N, p.P);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_chunk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // x: the i tiles, then one block in the state role
-  const dim3 grid((p.cs + TR - 1) / TR + 1, n_chunks, batch * p.heads);
-  ssd_chunk_kernel<T><<<grid, NT, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (wgmma)
@@ -548,9 +341,9 @@ void copy_strides(long long* dst, const long long* src, int n) {
 // Strides are in elements: (batch, head, chunk, row) for x, dt, cum and y;
 // (batch, group, chunk, row) for B and C; (batch, head, chunk) for state,
 // whose N x P matrix is contiguous.  x, B and C share one dtype; dt, cum, y
-// and state are f32.  bf16 takes the tensor-core kernel (cs <= 256; P, N,
-// bases and strides in 16-byte chunks, else cudaErrorMisalignedAddress or
-// cudaErrorInvalidValue), f32 the SIMT kernel (any cs).
+// and state are f32.  bf16 only (ssd_wide.cu takes f32): cs <= 256, P <= 64
+// and N <= 128; P, N, bases and strides in 16-byte chunks (else
+// cudaErrorMisalignedAddress or cudaErrorInvalidValue).
 extern "C" int ssd_intra_chunk_fwd(const void* x, const void* dt, const void* cum, const void* b,
                                    const void* c, void* y, void* state, int batch, int heads,
                                    int heads_per_group, int n_chunks, int cs, int P, int N,
@@ -558,7 +351,7 @@ extern "C" int ssd_intra_chunk_fwd(const void* x, const void* dt, const void* cu
                                    const long long* cum_strides, const long long* b_strides,
                                    const long long* c_strides, const long long* y_strides,
                                    const long long* state_strides, int dtype, void* stream) {
-  if (P < 1 || P > PMAX || N < 1 || N > NMAX || cs < 1 || heads < 1 || heads_per_group < 1 ||
+  if (dtype != rt::BF16 || P < 1 || N < 1 || cs < 1 || heads < 1 || heads_per_group < 1 ||
       heads % heads_per_group != 0 || n_chunks < 1 || n_chunks > 65535 || batch < 1 ||
       static_cast<long long>(batch) * heads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -582,8 +375,5 @@ extern "C" int ssd_intra_chunk_fwd(const void* x, const void* dt, const void* cu
   copy_strides(p.cms, c_strides, 4);
   copy_strides(p.ys, y_strides, 4);
   copy_strides(p.sts, state_strides, 3);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == rt::BF16) return tc::launch(p, batch, n_chunks, st);
-  if (dtype == rt::F32) return launch<float>(p, batch, n_chunks, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return tc::launch(p, batch, n_chunks, static_cast<cudaStream_t>(stream));
 }

@@ -1,9 +1,9 @@
 // Backward of the Mamba-2 SSD intra-chunk step on the tensor cores (bf16).
 //
-// Replaces: no Pallas kernel, as csrc/ssd_bwd.cu (its header has the
-//           formulas): repro trains mamba2 through jax.grad of the jnp
-//           ssd_chunked (src/repro/models/ssm.py:74).  This is the bf16
-//           route; float32 keeps the SIMT ssd_bwd_kernel.
+// Replaces: no Pallas kernel: repro trains mamba2 through jax.grad of the
+//           jnp ssd_chunked (src/repro/models/ssm.py:74).  This is the bf16
+//           route; float32, and bf16 outside this kernel's envelope, run
+//           the SIMT kernels of ssd_wide.cu.
 // Computes: per (batch, chunk, group), with s = C_i.B_j, L_ij = exp(cum_i -
 //           cum_j) (i >= j), dW = dy_i.x_j, G = dW L dt_j, W = s L dt_j,
 //           M = G s, e_j = exp(cum_last - cum_j) and the state terms

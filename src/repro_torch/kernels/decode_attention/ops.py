@@ -23,6 +23,11 @@ slice holds no valid slot, whose output is then 0), so a caller combines
 the slices as the kernel combines its chunks (:func:`combine_partials`).
 The same kernel and launch: its last chunk writes lse = M + log L of the
 (M, L) it forms anyway, and skips the cast.
+
+Head dims above 256 take the *wide route* (``csrc/decode_attention_wide.cu``,
+both the full and the partial route), chosen by :func:`route` before any
+launch: the same work list, chunks and in-launch combine, with nothing held
+a head dim wide in shared memory; counted apart (:data:`wide_launches`).
 """
 from __future__ import annotations
 
@@ -37,8 +42,12 @@ from .ref import decode_attention_ref
 
 #: launches of the kernel through :func:`decode_attention` (``.count``)
 launches = dispatch.LaunchCounter()
+#: launches of the wide route (``csrc/decode_attention_wide.cu``)
+wide_launches = dispatch.LaunchCounter()
 
-_MAX_HEAD_DIM = 256
+#: the widest head dim of ``decode_attention.cu`` (its tiles pad to 128 or
+#: 256); wider heads take the wide route
+MAIN_MAX_HEAD_DIM = 256
 #: cache slots per block (``decode_attention_chunk()`` of the kernel)
 CHUNK = 64
 
@@ -71,6 +80,23 @@ def work_list(pos, S: int, KH: int, slot_offset: int = 0) -> list[tuple[int, int
         for c in range(max(len(chunks), 1))
         for kh in range(KH)
     ]
+
+
+#: threads of a wide-route block (``decode_attention_wide.cu``'s NT)
+WIDE_THREADS = 128
+
+
+def wide_columns(Dv: int) -> list[range]:
+    """The head-dim columns each thread of a wide-route block takes in the
+    chunk's P·V pass and in the combine: thread t takes t, t + 128, ...
+    (each summing the chunk's slots, or the chunks, in order)."""
+    return [range(t, Dv, WIDE_THREADS) for t in range(WIDE_THREADS)]
+
+
+def route(Dh: int, Dv: int) -> str:
+    """The route a call takes, by shape, before any launch: ``"main"``
+    (``decode_attention.cu``, head dims up to 256) or ``"wide"``."""
+    return "wide" if Dh > MAIN_MAX_HEAD_DIM or Dv > MAIN_MAX_HEAD_DIM else "main"
 
 
 def _ticket_buffer(n: int, device: torch.device, stream: int) -> torch.Tensor:
@@ -131,11 +157,6 @@ def decode_attention(
             f"decode_attention: shapes q {tuple(q.shape)}, k {tuple(k_cache.shape)}, "
             f"v {tuple(v_cache.shape)} do not fit (B, 1, H, D) / (B, S, KH, D)"
         )
-    if Dh > _MAX_HEAD_DIM or Dv > _MAX_HEAD_DIM:
-        raise ValueError(
-            f"decode_attention: head dims {Dh}/{Dv} exceed {_MAX_HEAD_DIM}, the widest the kernel "
-            "takes (wider heads: ROADMAP.md, Queue 2)"
-        )
     if tuple(pos.shape) != (B,) or pos.dtype != torch.int32 or not pos.is_contiguous():
         raise ValueError(
             f"decode_attention: pos must be a contiguous ({B},) int32 tensor, "
@@ -155,15 +176,17 @@ def decode_attention(
         dispatch.meta_launch("decode_attention", key, flops(B, S, H, Dh, Dv))
         return (out[:, None], lse) if partial else out[:, None]
     lib = dispatch.library()
+    wide = route(Dh, Dv) == "wide"
     G = H // KH
     n_chunks = -(-S // CHUNK)
     # one workspace: per chunk, G rows of partial sums as wide as the
-    # kernel's padded head dim (128 or 256), then G (max, sum)
-    row = lib.decode_attention_padded_dim(Dh, Dv)
+    # kernel's padded head dim (128 or 256; the wide route's Dv), then G
+    # (max, sum)
+    row = Dv if wide else lib.decode_attention_padded_dim(Dh, Dv)
     ws = torch.empty(B * KH * n_chunks * G * (row + 2), dtype=torch.float32, device=q.device)
     stream = dispatch.stream_handle(q)
     tickets = _ticket_buffer(B * KH, q.device, stream)
-    rc = lib.decode_attention_fwd(
+    rc = (lib.decode_attention_wide_fwd if wide else lib.decode_attention_fwd)(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
         out.data_ptr(), lse.data_ptr() if partial else None, ws.data_ptr(), tickets.data_ptr(),
         B, H, KH, S, Dh, Dv, n_chunks, int(slot_offset),
@@ -172,7 +195,7 @@ def decode_attention(
         1.0 / math.sqrt(Dh), code, stream,
     )
     dispatch.check(rc, "decode_attention")
-    launches.add(key)
+    (wide_launches if wide else launches).add(key)
     return (out[:, None], lse) if partial else out[:, None]
 
 

@@ -146,14 +146,22 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.decode_attention_chunk.argtypes = []
     lib.decode_attention_padded_dim.argtypes = [I, I]
     lib.ssd_intra_chunk_fwd.argtypes = [P] * 7 + [I] * 7 + [S3] * 7 + [I, P]
-    lib.ssd_intra_chunk_bwd.argtypes = [P] * 16 + [I] * 7 + [S3] * 12 + [I, P]
     lib.ssd_intra_chunk_bwd_tc.argtypes = [P] * 16 + [I] * 7 + [S3] * 12 + [P]
+    # the wide routes (``*_wide.cu``) take their main routes' arguments (the
+    # ssd backward's without the main route's scratch)
+    lib.flash_attention_wide_fwd.argtypes = lib.flash_attention_fwd.argtypes
+    lib.flash_attention_wide_bwd.argtypes = lib.flash_attention_bwd.argtypes
+    lib.decode_attention_wide_fwd.argtypes = lib.decode_attention_fwd.argtypes
+    lib.ssd_intra_chunk_wide_fwd.argtypes = lib.ssd_intra_chunk_fwd.argtypes
+    lib.ssd_intra_chunk_wide_bwd.argtypes = [P] * 12 + [I] * 7 + [S3] * 12 + [I, P]
     lib.kernels_error_string.argtypes = [I]
     lib.kernels_error_string.restype = ctypes.c_char_p
     for fn in (lib.rmsnorm_fwd, lib.rmsnorm_bwd, lib.flash_attention_fwd,
                lib.flash_attention_bwd, lib.decode_attention_fwd, lib.decode_attention_chunk,
                lib.decode_attention_padded_dim,
-               lib.ssd_intra_chunk_fwd, lib.ssd_intra_chunk_bwd, lib.ssd_intra_chunk_bwd_tc):
+               lib.ssd_intra_chunk_fwd, lib.ssd_intra_chunk_bwd_tc,
+               lib.flash_attention_wide_fwd, lib.flash_attention_wide_bwd, lib.decode_attention_wide_fwd,
+               lib.ssd_intra_chunk_wide_fwd, lib.ssd_intra_chunk_wide_bwd):
         fn.restype = I
     return lib
 

@@ -1,27 +1,37 @@
 """Wrappers for the flash-attention kernels (``csrc/flash_attention.cu``,
-``csrc/flash_attention_bwd.cu``) and the autograd function over them.
+``csrc/flash_attention_bwd.cu``, ``csrc/flash_attention_wide.cu``) and the
+autograd function over them.
 
 The forward replaces
 ``src/repro/kernels/flash_attention/kernel.py::flash_attention_pallas``.
 At prefill lengths the work is bound by operations (~4·L²·H·Dh/2 flops for
-~4·L·H·Dh elements moved).  bfloat16 runs on the tensor cores (``wgmma``),
-128 queries per block over 64-key tiles that arrive by 16-byte asynchronous
-copies; float32 runs on the SIMT cores.  Both take head dims up to 256,
-never load a tile that the causal diagonal or the window masks out, and
-read the model's (B, L, H, D) layout through strides, so nothing is
-transposed.  A CPU tensor takes the
-plain version in ``ref.py``; a CUDA tensor launches the kernel or raises;
-``meta`` tensors take the meta route (``dispatch``): the outputs alone, and
-:func:`fwd_flops` / :func:`bwd_flops` over the :func:`mask_pairs` the mask
-keeps.
+~4·L·H·Dh elements moved).  Two routes, chosen by :func:`route` before any
+launch, each counted apart:
+
+- the *main* route, bfloat16 at head dims up to 256 whose bases, head dims
+  and strides are whole 16-byte chunks (the serving and train paths): the
+  tensor cores (``wgmma``), 128 queries per block over 64-key tiles that
+  arrive by 16-byte asynchronous copies (:data:`launches`,
+  :data:`bwd_launches`);
+- the *wide* route, every other shape: every float32 shape, and bfloat16
+  above a head dim of 256 or off the 16-byte grid
+  (``csrc/flash_attention_wide.cu``): SIMT, float32 accumulation, any width
+  (:data:`wide_launches`, :data:`wide_bwd_launches`; launch plans
+  :func:`wide_fwd_plan`, :func:`wide_bwd_plan`).
+
+Both never load a tile that the causal diagonal or the window masks out,
+and read the model's (B, L, H, D) layout through strides, so nothing is
+transposed.  A CPU tensor takes the plain version in ``ref.py``; a CUDA
+tensor launches a kernel or raises; ``meta`` tensors take the meta route
+(``dispatch``): the outputs alone, and :func:`fwd_flops` /
+:func:`bwd_flops` over the :func:`mask_pairs` the mask keeps.
 
 The forward can also return each row's log-sum-exp (``return_lse``), the
 residual that :func:`flash_attention_bwd` recomputes the probabilities
 from.  The backward has no Pallas counterpart: JAX trains through the jnp
 custom VJP of ``repro/models/attention.py::_make_flash``, whose recurrence
-the kernels compute, on the tensor cores in bfloat16 and on the SIMT cores
-in float32.  :class:`FlashAttentionFn` ties the two together for training;
-serving calls :func:`flash_attention` without it.
+both routes compute.  :class:`FlashAttentionFn` ties the two together for
+training; serving calls :func:`flash_attention` without it.
 """
 from __future__ import annotations
 
@@ -35,27 +45,70 @@ from repro_torch.kernels import dispatch
 
 from .ref import attention_bwd_ref, attention_fwd_ref, attention_ref
 
-#: launches of the forward kernel through :func:`flash_attention` (``.count``)
+#: launches of the main (tensor-core) route through :func:`flash_attention`
+#: (``.count``)
 launches = dispatch.LaunchCounter()
-#: launches of the backward kernels through :func:`flash_attention_bwd`
+#: launches of the main route's backward through :func:`flash_attention_bwd`
 bwd_launches = dispatch.LaunchCounter()
+#: launches of the wide route's forward (``csrc/flash_attention_wide.cu``)
+wide_launches = dispatch.LaunchCounter()
+#: launches of the wide route's backward
+wide_bwd_launches = dispatch.LaunchCounter()
 
-_MAX_HEAD_DIM = 256  # bfloat16 pads to 64, 128 or 256
+#: the widest head dim of the main route (it pads to 64, 128 or 256); wider
+#: heads take the wide route
+MAIN_MAX_HEAD_DIM = 256
+#: rows of the wide route's tiles, and the output columns of one of its blocks
+WIDE_TILE = 64
+WIDE_COLS = 256
 
 
-def check_tensor_core_layout(**tensors: torch.Tensor) -> None:
-    """The bfloat16 kernel copies 16-byte chunks: each tensor's base must lie
-    on 16 bytes, and its head dim and its batch, sequence and head strides
-    must be whole multiples of 8 elements.  Raises ``ValueError`` otherwise."""
-    for name, t in tensors.items():
-        bad = [d for d in (0, 1, 2) if t.stride(d) % 8]
-        if t.data_ptr() % 16 or t.shape[-1] % 8 or bad:
-            raise ValueError(
-                f"flash_attention: bfloat16 {name} {tuple(t.shape)} with strides {t.stride()} "
-                f"at offset {t.data_ptr() % 16} mod 16 bytes: the tensor-core kernel needs a "
-                "16-byte-aligned base and a head dim and (batch, sequence, head) strides "
-                "that are multiples of 8 elements"
-            )
+def meets_tensor_core_layout(**tensors: torch.Tensor) -> bool:
+    """Whether the main route's 16-byte copies can read every tensor: its
+    base on 16 bytes, and its head dim and its batch, sequence and head
+    strides whole multiples of 8 elements."""
+    return not any(t.data_ptr() % 16 or t.shape[-1] % 8 or any(t.stride(d) % 8 for d in (0, 1, 2))
+                   for t in tensors.values())
+
+
+def route(Dh: int, Dv: int, dtype: torch.dtype, aligned: bool = True) -> str:
+    """The route a call takes, by shape, before any launch: ``"main"``
+    (``flash_attention.cu`` / ``flash_attention_bwd.cu``: bfloat16 at head
+    dims up to 256 in whole 16-byte chunks, ``aligned``) or ``"wide"``
+    (``flash_attention_wide.cu``: every other shape, float32 included)."""
+    if dtype != torch.bfloat16 or not aligned:
+        return "wide"
+    return "main" if Dh <= MAIN_MAX_HEAD_DIM and Dv <= MAIN_MAX_HEAD_DIM else "wide"
+
+
+def wide_fwd_plan(Lq: int, H: int, Dv: int) -> list[tuple[int, int, int, int]]:
+    """The blocks the wide forward launches for one batch row, as the
+    kernel indexes them (grid (query tiles, H · slices, B)): (first query
+    row, head, first output column, columns), each writing its 64 query
+    rows × its slice of Dv; slice 0 of a head also writes lse."""
+    n_sl = -(-Dv // WIDE_COLS)
+    return [(q0, h, sl * WIDE_COLS, min(WIDE_COLS, Dv - sl * WIDE_COLS))
+            for q0 in range(0, Lq, WIDE_TILE) for h in range(H) for sl in range(n_sl)]
+
+
+def wide_bwd_plan(Lq: int, Lk: int, H: int, KH: int, Dh: int, Dv: int) -> list[tuple[str, int, int, int, int]]:
+    """The blocks of the wide backward's dK/dV and dQ kernels for one batch
+    row, as they index them: (output, first row, head (KV head for dK /
+    dV), first column, columns).  dK/dV: grid (key tiles, KH · (Dh slices
+    + Dv slices), B); dQ: grid (query tiles, H · Dh slices, B).  Each
+    block owns its 64 rows × its columns of one output."""
+    n_dh, n_dv = -(-Dh // WIDE_COLS), -(-Dv // WIDE_COLS)
+    plan = []
+    for k0 in range(0, Lk, WIDE_TILE):
+        for kh in range(KH):
+            for sl in range(n_dh + n_dv):
+                what, c0 = ("dk", sl * WIDE_COLS) if sl < n_dh else ("dv", (sl - n_dh) * WIDE_COLS)
+                plan.append((what, k0, kh, c0, min(WIDE_COLS, (Dh if what == "dk" else Dv) - c0)))
+    for q0 in range(0, Lq, WIDE_TILE):
+        for h in range(H):
+            for sl in range(n_dh):
+                plan.append(("dq", q0, h, sl * WIDE_COLS, min(WIDE_COLS, Dh - sl * WIDE_COLS)))
+    return plan
 
 
 def mask_pairs(Lq: int, Lk: int, causal: bool, window: Optional[int], q_offset: int) -> int:
@@ -95,7 +148,7 @@ def flash_attention(
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
         return attention_fwd_ref(q, k, v, **kw) if return_lse else attention_ref(q, k, v, **kw)
-    B, Lq, H, Dh, Lk, KH, Dv, code, meta = _check("flash_attention", q, k, v)
+    B, Lq, H, Dh, Lk, KH, Dv, code, meta, wide = _check("flash_attention", q, k, v)
     out = torch.empty((B, Lq, H, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device) if return_lse else None
     if out.numel() == 0 or Lk == 0:
@@ -106,7 +159,7 @@ def flash_attention(
                              fwd_flops(B, H, Dh, Dv, mask_pairs(Lq, Lk, causal, window, q_offset)), **kw)
         return (out, lse) if return_lse else out
     lib = dispatch.library()
-    rc = lib.flash_attention_fwd(
+    rc = (lib.flash_attention_wide_fwd if wide else lib.flash_attention_fwd)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
         B, H, KH, Lq, Lk, Dh, Dv,
@@ -116,14 +169,15 @@ def flash_attention(
         1.0 / math.sqrt(Dh), code, dispatch.stream_handle(q),
     )
     dispatch.check(rc, "flash_attention")
-    launches.add((B, Lq, Lk, H, KH, Dh, Dv))
+    (wide_launches if wide else launches).add((B, Lq, Lk, H, KH, Dh, Dv))
     return (out, lse) if return_lse else out
 
 
 def _check(name: str, q, k, v, *more):
-    """Shapes, dtypes and layouts both kernels take; → (B, Lq, H, Dh, Lk,
-    KH, Dv, dtype code, meta route).  ``more``: (name, tensor) pairs shaped
-    like the output (out, dout), held to the same rules."""
+    """Shapes, dtypes and layouts every route takes; → (B, Lq, H, Dh, Lk,
+    KH, Dv, dtype code, meta route, wide route).  ``more``: (name, tensor)
+    pairs shaped like the output (out, dout), held to the same rules and
+    to the same route."""
     meta = dispatch.check_kernel_tensors(name, q, k, v, *(t for _, t in more))
     B, Lq, H, Dh = q.shape
     Bk, Lk, KH, Dk = k.shape
@@ -136,20 +190,14 @@ def _check(name: str, q, k, v, *more):
     for what, t in more:
         if tuple(t.shape) != (B, Lq, H, Dv):
             raise ValueError(f"{name}: {what} {tuple(t.shape)} is not (B, Lq, H, Dv) = {(B, Lq, H, Dv)}")
-    if Dh > _MAX_HEAD_DIM or Dv > _MAX_HEAD_DIM:
-        raise ValueError(
-            f"{name}: head dims {Dh}/{Dv} exceed {_MAX_HEAD_DIM}, the widest the kernels take "
-            "(wider heads: ROADMAP.md, Queue 2)"
-        )
     ts = (q, k, v) + tuple(t for _, t in more)
     if any(t.dtype != q.dtype for t in ts):
         raise TypeError(f"{name}: mixed dtypes {[t.dtype for t in ts]}")
     if any(t.stride(-1) != 1 for t in ts):
         raise ValueError(f"{name}: the head dim must be contiguous")
     code = dispatch.dtype_code(name, q)
-    if q.dtype == torch.bfloat16:
-        check_tensor_core_layout(q=q, k=k, v=v, **dict(more))
-    return B, Lq, H, Dh, Lk, KH, Dv, code, meta
+    aligned = q.dtype == torch.bfloat16 and meets_tensor_core_layout(q=q, k=k, v=v, **dict(more))
+    return B, Lq, H, Dh, Lk, KH, Dv, code, meta, route(Dh, Dv, q.dtype, aligned) == "wide"
 
 
 def flash_attention_bwd(
@@ -167,17 +215,17 @@ def flash_attention_bwd(
     """→ (dq, dk, dv) in the inputs' dtype, accumulated in float32 without
     atomics (the same bits on every run).  All tensors are read through
     their (batch, sequence, head) strides; the head dim must be contiguous.
-    bfloat16 runs on the tensor cores (``wgmma``: a dK/dV kernel per key
-    tile and a dQ kernel per query tile, P and dS rounded to bfloat16 as
-    the forward rounds P), and q, k, v, out, dout, dq, dk and dv must meet
-    the forward's 16-byte rules (:func:`check_tensor_core_layout`,
-    ``ValueError`` otherwise); float32 runs on the SIMT cores."""
+    The main route runs on the tensor cores (``wgmma``: a dK/dV kernel per
+    key tile and a dQ kernel per query tile, P and dS rounded to bfloat16
+    as the forward rounds P) where q, k, v, out and dout meet the forward's
+    16-byte rules (:func:`meets_tensor_core_layout`); every other shape,
+    float32 included, takes the wide route (:func:`route`)."""
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention_bwd: window must be positive, got {window}")
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     if all(t.device.type == "cpu" for t in (q, k, v, out, lse, dout)):
         return attention_bwd_ref(q, k, v, out, lse, dout, **kw)
-    B, Lq, H, Dh, Lk, KH, Dv, code, meta = _check(
+    B, Lq, H, Dh, Lk, KH, Dv, code, meta, wide = _check(
         "flash_attention_bwd", q, k, v, ("out", out), ("dout", dout)
     )
     dispatch.check_kernel_tensors("flash_attention_bwd", q, lse)
@@ -187,8 +235,6 @@ def flash_attention_bwd(
             f"float32 ({B}, {H}, {Lq})"
         )
     dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
-    if q.dtype == torch.bfloat16:
-        check_tensor_core_layout(dq=dq, dk=dk, dv=dv)
     if Lq == 0 or Lk == 0 or B == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     if meta:
@@ -197,7 +243,7 @@ def flash_attention_bwd(
         return dq, dk, dv
     dvec = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
     lib = dispatch.library()
-    rc = lib.flash_attention_bwd(
+    rc = (lib.flash_attention_wide_bwd if wide else lib.flash_attention_bwd)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         B, H, KH, Lq, Lk, Dh, Dv,
@@ -206,7 +252,7 @@ def flash_attention_bwd(
         1.0 / math.sqrt(Dh), code, dispatch.stream_handle(q),
     )
     dispatch.check(rc, "flash_attention_bwd")
-    bwd_launches.add((B, Lq, Lk, H, KH, Dh, Dv))
+    (wide_bwd_launches if wide else bwd_launches).add((B, Lq, Lk, H, KH, Dh, Dv))
     return dq, dk, dv
 
 

@@ -1,31 +1,43 @@
-"""Wrappers for the SSD intra-chunk kernel (``csrc/ssd.cu``) and its
-backward (``csrc/ssd_bwd.cu``), the autograd function over them, and the
-chunked SSD scan built on it.
+"""Wrappers for the SSD intra-chunk kernels (``csrc/ssd.cu``,
+``csrc/ssd_wide.cu``) and their backward (``csrc/ssd_bwd_wgmma.cu``,
+``csrc/ssd_wide.cu``), the autograd function over them, and the chunked SSD
+scan built on it.
 
 Replaces ``src/repro/kernels/ssd/kernel.py::ssd_intra_chunk_pallas`` and the
-scan around it, ``ops.py::ssd_chunked_pallas``.  bfloat16 (the serving path)
-runs its three products on the tensor cores (``wgmma``): two blocks per
-chunk, each holding the chunk's B and x and two causal 64-row tiles of C in
-shared memory, with the f32 decay weights carried as a bf16 hi + lo pair so
-the f32 accuracy is kept; float32 runs on the SIMT cores.  Both never
-compute the masked triangle, whose decay may be inf, and read the model's
-(B, L, H, ·) layout, and B/C by group, through strides, so nothing is
-transposed or expanded.  A CPU tensor takes the plain version in ``ref.py``;
-a CUDA tensor launches the kernel or raises; ``meta`` tensors take the meta
-route (``dispatch``): the outputs alone, and :func:`fwd_flops` /
+scan around it, ``ops.py::ssd_chunked_pallas``.  Two routes, chosen by
+:func:`route` before any launch, each counted apart:
+
+- the *main* route, bfloat16 at a chunk of at most 256, P <= 64 and N <=
+  128 in 16-byte chunks (the serving and train paths): the three products
+  on the tensor cores (``wgmma``), two blocks per chunk, each holding the
+  chunk's B and x and two causal 64-row tiles of C in shared memory, with
+  the f32 decay weights carried as a bf16 hi + lo pair so the f32 accuracy
+  is kept (:data:`launches`, :data:`bwd_launches`);
+- the *wide* route, every other shape: every float32 shape, and bfloat16
+  with a chunk above 256, P above 64, N above 128, P or N not a multiple
+  of 8, or a base or stride off the 16-byte grid (``csrc/ssd_wide.cu``):
+  SIMT, float32 accumulation, 64 × 64 output tiles over any P, N and chunk
+  (:data:`wide_launches`, :data:`wide_bwd_launches`; launch plans
+  :func:`wide_fwd_plan`, :func:`wide_bwd_plan`).
+
+Both never compute the masked triangle, whose decay may be inf, and read the
+model's (B, L, H, ·) layout, and B/C by group, through strides, so nothing
+is transposed or expanded.  A CPU tensor takes the plain version in
+``ref.py``; a CUDA tensor launches a kernel or raises; ``meta`` tensors take
+the meta route (``dispatch``): the outputs alone, and :func:`fwd_flops` /
 :func:`bwd_flops`.
 
 The backward has no Pallas counterpart: ``repro`` trains mamba2 through
 ``jax.grad`` of the jnp ``ssd_chunked``.  :func:`ssd_intra_chunk_bwd` runs
-its vector-Jacobian product in two routes, both summing dB / dC over each
-group's heads in a fixed order (no atomics): bfloat16 on the tensor cores
-(``csrc/ssd_bwd_wgmma.cu``: two warpgroups a block in a column role (dx,
-dB, ddt, dcum) or a row role (dC), walking its group's heads in order with
-dB / dC in f32 registers; the plan is :func:`bwd_tc_launch_plan`), float32
-on the SIMT cores (``csrc/ssd_bwd.cu``).  On CUDA (and meta) tensors
-:func:`ssd_intra_chunk` always goes through :class:`SsdIntraChunkFn`, whose
-backward launches that kernel; under ``torch.no_grad`` (serving) it
-records nothing.
+its vector-Jacobian product on the same two routes, both summing dB / dC
+over each group's heads in a fixed order (no atomics): the main route on
+the tensor cores (``csrc/ssd_bwd_wgmma.cu``: two warpgroups a block in a
+column role (dx, dB, ddt, dcum) or a row role (dC), walking its group's
+heads in order with dB / dC in f32 registers; the plan is
+:func:`bwd_tc_launch_plan`), the wide route on the SIMT cores.  On CUDA
+(and meta) tensors :func:`ssd_intra_chunk` always goes through
+:class:`SsdIntraChunkFn`, whose backward launches those kernels; under
+``torch.no_grad`` (serving) it records nothing.
 """
 from __future__ import annotations
 
@@ -39,13 +51,20 @@ from repro_torch.kernels import dispatch
 
 from .ref import ssd_chunk_bwd_ref, ssd_chunk_ref
 
-#: launches of the kernel through :func:`ssd_intra_chunk` (``.count``)
+#: launches of the main (tensor-core) route through :func:`ssd_intra_chunk`
+#: (``.count``)
 launches = dispatch.LaunchCounter()
-#: launches of the backward kernel through :func:`ssd_intra_chunk_bwd`
+#: launches of the main route's backward through :func:`ssd_intra_chunk_bwd`
 bwd_launches = dispatch.LaunchCounter()
+#: launches of the wide route's forward (``csrc/ssd_wide.cu``)
+wide_launches = dispatch.LaunchCounter()
+#: launches of the wide route's backward
+wide_bwd_launches = dispatch.LaunchCounter()
 
-_MAX_HEAD_DIM = 64
-_MAX_STATE_DIM = 128
+#: the widest head and state dims of the main route (``ssd.cu`` /
+#: ``ssd_bwd_wgmma.cu``); wider ones take the wide route
+MAIN_MAX_HEAD_DIM = 64
+MAIN_MAX_STATE_DIM = 128
 #: rows of a tile (i and j) and the longest chunk of the tensor-core route
 TILE = 64
 TC_MAX_CHUNK = 256
@@ -59,7 +78,7 @@ class TcBlock(NamedTuple):
     state_j_tiles: tuple[int, ...]
 
 
-def tc_launch_plan(cs: int, N: int = _MAX_STATE_DIM) -> list[TcBlock]:
+def tc_launch_plan(cs: int, N: int = MAIN_MAX_STATE_DIM) -> list[TcBlock]:
     """The two blocks ``ssd_chunk_wgmma_kernel`` runs for one chunk of
     ``cs`` rows (its grid is (2, chunks, batch · heads)), as the kernel
     indexes them: block ``half`` takes the causal i tiles ``half`` and
@@ -112,25 +131,58 @@ def bwd_tc_launch_plan(cs: int, heads: int, groups: int) -> list[BwdTcBlock]:
     return plan
 
 
-def check_tensor_core_layout(cs: int, **tensors: torch.Tensor) -> None:
-    """The bfloat16 kernel holds a chunk of at most 256 rows and copies
-    16-byte chunks: each tensor's base must lie on 16 bytes, its last dim
-    (P or N) must be a multiple of 8 elements, and every stride of a dim
-    with more than one index must be a whole multiple of 8 elements.
-    Raises ``ValueError`` otherwise."""
-    if cs > TC_MAX_CHUNK:
-        raise ValueError(
-            f"ssd_intra_chunk: bfloat16 chunk of {cs} rows: the tensor-core kernel takes "
-            f"at most {TC_MAX_CHUNK}"
-        )
-    for name, t in tensors.items():
-        bad = [d for d in range(t.ndim - 1) if t.shape[d] > 1 and t.stride(d) % 8]
-        if t.data_ptr() % 16 or t.shape[-1] % 8 or bad:
-            raise ValueError(
-                f"ssd_intra_chunk: bfloat16 {name} {tuple(t.shape)} with strides {t.stride()} "
-                f"at offset {t.data_ptr() % 16} mod 16 bytes: the tensor-core kernel needs a "
-                "16-byte-aligned base, a last dim and strides that are multiples of 8 elements"
-            )
+class WideBlock(NamedTuple):
+    """One block of the wide route for one (sequence, head or group, chunk):
+    it owns rows [row0, row0 + rows) × columns [col0, col0 + cols) of one
+    output."""
+    output: str
+    row0: int
+    rows: int
+    col0: int
+    cols: int
+
+
+def _tiles(n: int) -> list[tuple[int, int]]:
+    return [(t0, min(TILE, n - t0)) for t0 in range(0, n, TILE)]
+
+
+def wide_fwd_plan(cs: int, P: int, N: int) -> list[WideBlock]:
+    """The blocks ``ssd_wide_fwd_kernel`` runs for one chunk of one head,
+    in blockIdx.x order: the y role over (i tile, P tile), then the state
+    role over (N tile, P tile)."""
+    return ([WideBlock("y", i0, ni, p0, np_) for i0, ni in _tiles(cs) for p0, np_ in _tiles(P)]
+            + [WideBlock("state", n0, nn, p0, np_) for n0, nn in _tiles(N) for p0, np_ in _tiles(P)])
+
+
+def wide_bwd_plan(cs: int, P: int, N: int) -> list[WideBlock]:
+    """The blocks of the wide backward's three kernels for one chunk: dx by
+    (j tile, P tile) a head; dB by (j tile, N tile) and dC by (i tile, N
+    tile) a group, each walking the group's heads in order; ddt and dcum by
+    one block over every row (the last row's sum included)."""
+    return ([WideBlock("dx", j0, nj, p0, np_) for j0, nj in _tiles(cs) for p0, np_ in _tiles(P)]
+            + [WideBlock("dB", j0, nj, n0, nn) for j0, nj in _tiles(cs) for n0, nn in _tiles(N)]
+            + [WideBlock("dC", i0, ni, n0, nn) for i0, ni in _tiles(cs) for n0, nn in _tiles(N)]
+            + [WideBlock("ddt", 0, cs, 0, 1), WideBlock("dcum", 0, cs, 0, 1)])
+
+
+def route(cs: int, P: int, N: int, dtype: torch.dtype, aligned: bool = True) -> str:
+    """The route a call (either way) takes, by shape, before any launch:
+    ``"main"`` (``ssd.cu`` / ``ssd_bwd_wgmma.cu``: bfloat16 with cs <= 256,
+    P <= 64, N <= 128 and the 16-byte layout, ``aligned``) or ``"wide"``
+    (``ssd_wide.cu``: every other shape, float32 included)."""
+    if dtype != torch.bfloat16 or not aligned:
+        return "wide"
+    return "main" if cs <= TC_MAX_CHUNK and P <= MAIN_MAX_HEAD_DIM and N <= MAIN_MAX_STATE_DIM else "wide"
+
+
+def meets_tensor_core_layout(**tensors: torch.Tensor) -> bool:
+    """Whether the main route's 16-byte copies can read every tensor: its
+    base on 16 bytes, its last dim (P or N) a multiple of 8 elements and
+    every stride of a dim with more than one index a whole multiple of 8
+    elements."""
+    return not any(t.data_ptr() % 16 or t.shape[-1] % 8
+                   or any(t.shape[d] > 1 and t.stride(d) % 8 for d in range(t.ndim - 1))
+                   for t in tensors.values())
 
 
 def fwd_flops(b: int, H: int, nc: int, cs: int, P: int, N: int) -> int:
@@ -150,8 +202,8 @@ def bwd_flops(b: int, H: int, nc: int, cs: int, P: int, N: int) -> int:
 
 
 def _check(name: str, x, dt, cum, B, C) -> tuple:
-    """Shapes, dtypes and layouts both kernels take; → (b, H, nc, cs, P, G,
-    N, dtype code, meta route)."""
+    """Shapes, dtypes and layouts every route takes; → (b, H, nc, cs, P, G,
+    N, dtype code, meta route, wide route)."""
     meta = dispatch.check_kernel_tensors(name, x, dt, cum, B, C)
     if x.ndim != 5:
         raise ValueError(f"{name}: x must be (b, H, nc, cs, P), got {tuple(x.shape)}")
@@ -167,22 +219,21 @@ def _check(name: str, x, dt, cum, B, C) -> tuple:
             f"{tuple(cum.shape)}, B {tuple(B.shape)}, C {tuple(C.shape)} do not fit "
             "(b, H, nc, cs, ·) with B/C on H or on G | H groups"
         )
-    if P > _MAX_HEAD_DIM or N > _MAX_STATE_DIM:
-        raise ValueError(f"{name}: head dim {P} / state dim {N} exceed {_MAX_HEAD_DIM} / {_MAX_STATE_DIM}")
     if not (x.dtype == B.dtype == C.dtype):
         raise TypeError(f"{name}: mixed dtypes x {x.dtype}, B {B.dtype}, C {C.dtype}")
     if dt.dtype != torch.float32 or cum.dtype != torch.float32:
         raise TypeError(f"{name}: dt and cum must be float32, got {dt.dtype}, {cum.dtype}")
     if any(t.shape[-1] > 1 and t.stride(-1) != 1 for t in (x, B, C)):
         raise ValueError(f"{name}: the last dim of x, B and C must be contiguous")
-    return Bsz, H, nc, cs, P, G, N, dispatch.dtype_code(name, x), meta
+    aligned = x.dtype == torch.bfloat16 and meets_tensor_core_layout(x=x, B=B, C=C)
+    wide = route(cs, P, N, x.dtype, aligned) == "wide"
+    return Bsz, H, nc, cs, P, G, N, dispatch.dtype_code(name, x), meta, wide
 
 
 def _intra_chunk_kernel(x, dt, cum, B, C):
-    """The forward launch: → (y, state) written by ``csrc/ssd.cu``."""
-    Bsz, H, nc, cs, P, G, N, code, meta = _check("ssd_intra_chunk", x, dt, cum, B, C)
-    if x.dtype == torch.bfloat16:
-        check_tensor_core_layout(cs, x=x, B=B, C=C)
+    """The forward launch: → (y, state) written by ``csrc/ssd.cu`` or
+    ``csrc/ssd_wide.cu``."""
+    Bsz, H, nc, cs, P, G, N, code, meta, wide = _check("ssd_intra_chunk", x, dt, cum, B, C)
     # y in the model's (b, nc, cs, H, P) order, seen as (b, H, nc, cs, P)
     y = torch.empty((Bsz, nc, cs, H, P), dtype=torch.float32, device=x.device).permute(0, 3, 1, 2, 4)
     state = torch.empty((Bsz, H, nc, N, P), dtype=torch.float32, device=x.device)
@@ -193,7 +244,7 @@ def _intra_chunk_kernel(x, dt, cum, B, C):
         return y, state
     lib = dispatch.library()
     dims = (0, 1, 2, 3)
-    rc = lib.ssd_intra_chunk_fwd(
+    rc = (lib.ssd_intra_chunk_wide_fwd if wide else lib.ssd_intra_chunk_fwd)(
         x.data_ptr(), dt.data_ptr(), cum.data_ptr(), B.data_ptr(), C.data_ptr(),
         y.data_ptr(), state.data_ptr(), Bsz, H, H // G, nc, cs, P, N,
         dispatch.strides(x, dims), dispatch.strides(dt, dims), dispatch.strides(cum, dims),
@@ -201,7 +252,7 @@ def _intra_chunk_kernel(x, dt, cum, B, C):
         dispatch.strides(state, (0, 1, 2)), code, dispatch.stream_handle(x),
     )
     dispatch.check(rc, "ssd_intra_chunk")
-    launches.add((Bsz, H, nc, cs, P, G, N))
+    (wide_launches if wide else launches).add((Bsz, H, nc, cs, P, G, N))
     return y, state
 
 
@@ -243,17 +294,14 @@ def ssd_intra_chunk_bwd(x, dt, cum, B, C, dy, dS):
     and dC sum each group's heads.  Accumulated in float32 without atomics
     (the same bits on every run).  ``dy`` is read through its strides (a
     non-contiguous last dim is copied once); ``dS`` is copied once unless
-    each (N, P) matrix is contiguous.  bfloat16 runs on the tensor cores and
-    takes what :func:`check_tensor_core_layout` allows (``ValueError``
-    otherwise); its first pass converts dy and dS to bfloat16 copies."""
+    each (N, P) matrix is contiguous.  The main route runs on the tensor
+    cores (its first pass converts dy and dS to bfloat16 copies); every
+    other shape, float32 included, takes the wide route (:func:`route`)."""
     if all(t.device.type == "cpu" for t in (x, dt, cum, B, C, dy, dS)):
         return ssd_chunk_bwd_ref(x, dt, cum, B, C, dy, dS)
     name = "ssd_intra_chunk_bwd"
-    Bsz, H, nc, cs, P, G, N, code, meta = _check(name, x, dt, cum, B, C)
+    Bsz, H, nc, cs, P, G, N, code, meta, wide = _check(name, x, dt, cum, B, C)
     dispatch.check_kernel_tensors(name, x, dy, dS)
-    tc = x.dtype == torch.bfloat16
-    if tc:
-        check_tensor_core_layout(cs, x=x, B=B, C=C)
     if (
         tuple(dy.shape) != (Bsz, H, nc, cs, P) or tuple(dS.shape) != (Bsz, H, nc, N, P)
         or dy.dtype != torch.float32 or dS.dtype != torch.float32
@@ -280,27 +328,30 @@ def ssd_intra_chunk_bwd(x, dt, cum, B, C, dy, dS):
     if meta:
         dispatch.meta_launch(name, (Bsz, H, nc, cs, P, G, N), bwd_flops(Bsz, H, nc, cs, P, N))
         return dx, ddt, dcum, dB, dC
-    tiles = -(-cs // TILE)
-    f32 = dict(dtype=torch.float32, device=dev)
-    if tc:  # bf16 copies of dy and dS; rowsum(M) and the last row's sum in parts by (j tile, warp)
-        scratch = (torch.empty((Bsz, H, nc, cs, P), dtype=torch.bfloat16, device=dev),
-                   torch.empty((Bsz, H, nc, N, P), dtype=torch.bfloat16, device=dev),
-                   torch.empty((Bsz, H, nc, tiles, 4, cs), **f32), torch.empty((Bsz, H, nc, tiles, 4), **f32))
-    else:  # per-head f32 dB / dC, rowsum(M), the last row's sum by j tile
-        scratch = (torch.empty((Bsz, H, nc, cs, N), **f32), torch.empty((Bsz, H, nc, cs, N), **f32),
-                   torch.empty((Bsz, H, nc, cs), **f32), torch.empty((Bsz, H, nc, tiles), **f32))
     lib = dispatch.library()
     dims = (0, 1, 2, 3)
-    args = (
+    if wide:
+        rc = lib.ssd_intra_chunk_wide_bwd(
+            *(t.data_ptr() for t in (x, dt, cum, B, C, dy, dS, dx, ddt, dcum, dB, dC)),
+            Bsz, H, H // G, nc, cs, P, N,
+            *(dispatch.strides(t, dims) for t in (x, dt, cum, B, C, dy)), dispatch.strides(dS, (0, 1, 2)),
+            *(dispatch.strides(t, dims) for t in (dx, ddt, dcum, dB, dC)), code, dispatch.stream_handle(x),
+        )
+        dispatch.check(rc, name)
+        wide_bwd_launches.add((Bsz, H, nc, cs, P, G, N))
+        return dx, ddt, dcum, dB, dC
+    tiles = -(-cs // TILE)
+    f32 = dict(dtype=torch.float32, device=dev)
+    # bf16 copies of dy and dS; rowsum(M) and the last row's sum in parts by (j tile, warp)
+    scratch = (torch.empty((Bsz, H, nc, cs, P), dtype=torch.bfloat16, device=dev),
+               torch.empty((Bsz, H, nc, N, P), dtype=torch.bfloat16, device=dev),
+               torch.empty((Bsz, H, nc, tiles, 4, cs), **f32), torch.empty((Bsz, H, nc, tiles, 4), **f32))
+    rc = lib.ssd_intra_chunk_bwd_tc(
         *(t.data_ptr() for t in (x, dt, cum, B, C, dy, dS, dx, ddt, dcum, dB, dC, *scratch)),
         Bsz, H, H // G, nc, cs, P, N,
         *(dispatch.strides(t, dims) for t in (x, dt, cum, B, C, dy)), dispatch.strides(dS, (0, 1, 2)),
-        *(dispatch.strides(t, dims) for t in (dx, ddt, dcum, dB, dC)),
+        *(dispatch.strides(t, dims) for t in (dx, ddt, dcum, dB, dC)), dispatch.stream_handle(x),
     )
-    if tc:
-        rc = lib.ssd_intra_chunk_bwd_tc(*args, dispatch.stream_handle(x))
-    else:
-        rc = lib.ssd_intra_chunk_bwd(*args, code, dispatch.stream_handle(x))
     dispatch.check(rc, name)
     bwd_launches.add((Bsz, H, nc, cs, P, G, N))
     return dx, ddt, dcum, dB, dC

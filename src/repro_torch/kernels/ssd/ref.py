@@ -15,8 +15,8 @@ does autograd (``where(causal, exp(diff), 0)`` sends a zero cotangent into
 exp of an inf entry, and 0·inf = NaN in the gradient of ``cum``).
 
 :func:`ssd_chunk_bwd_ref` is the backward written out as formulas, the
-yardstick of ``csrc/ssd_bwd.cu``.  Used for CPU tensors and by the tests;
-the card runs ``csrc/ssd.cu`` and ``csrc/ssd_bwd.cu``.
+yardstick of ``csrc/ssd_bwd_wgmma.cu`` and ``csrc/ssd_wide.cu``.  Used for
+CPU tensors and by the tests; the card runs those and ``csrc/ssd.cu``.
 """
 from __future__ import annotations
 

@@ -35,6 +35,18 @@ def _close(got, want, dtype: str) -> None:
     torch.testing.assert_close(got.float().cpu(), want.float().cpu(), **TOL[dtype])
 
 
+def _fwd(ops, dtype: str):
+    """The forward counter that a call in ``dtype`` moves at the main
+    routes' widths: flash and ssd run float32 on their wide (SIMT) route,
+    bfloat16 on the tensor cores; rmsnorm and decode have one route there."""
+    return ops.wide_launches if dtype == "float32" and ops in (flash_ops, ssd_ops) else ops.launches
+
+
+def _bwd(ops, dtype: str):
+    """The backward counter of flash or ssd that a call in ``dtype`` moves."""
+    return ops.wide_bwd_launches if dtype == "float32" else ops.bwd_launches
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernels_match_plain(cuda_device, dtype):
@@ -44,8 +56,8 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=cuda_device).to(tdt)
 
-    ops = (rmsnorm_ops, flash_ops, decode_ops)
-    before = [m.launches.count for m in ops]
+    ops = [_fwd(m, dtype) for m in (rmsnorm_ops, flash_ops, decode_ops)]
+    before = [c.count for c in ops]
     x, s = rnd(100, 256), rnd(256) * 0.1
     _close(rmsnorm_ops.rmsnorm(x, s), rmsnorm_ops.rmsnorm_ref(x, s), dtype)
     q, k, v = rnd(2, 77, 8, 64), rnd(2, 77, 2, 64), rnd(2, 77, 2, 64)
@@ -58,7 +70,7 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
         decode_ops.decode_attention(q[:, :1], k, v, pos),
         decode_ops.decode_attention_ref(q[:, :1], k, v, pos), dtype,
     )
-    after = [m.launches.count for m in ops]
+    after = [c.count for c in ops]
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
 
 
@@ -160,30 +172,38 @@ def test_decode_kernel_at_head_dims_above_128(cuda_device, dtype, D, KH):
 
 @pytest.mark.cuda
 def test_kernels_reject_head_dims_above_256(cuda_device):
-    """Above 256 every attention wrapper raises, naming the ROADMAP, and
-    launches nothing; a bf16 head of 256 read from a 264-wide buffer is not
-    whole 16-byte rows for the tensor-core copies and raises too."""
-    for dtype in (torch.float32, torch.bfloat16):
-        x = torch.zeros(1, 16, 2, 264, device=cuda_device, dtype=dtype)
-        lse = torch.zeros(1, 2, 16, device=cuda_device)
+    """The name is historical: no route rejects these shapes any more.
+    Above 256 every attention wrapper takes its wide route (one launch
+    there, none on the main routes) and matches its plain version; a bf16
+    head of 256 read from a 260-wide buffer is not whole 16-byte rows for
+    the tensor-core copies and takes the wide route too."""
+    gen = torch.Generator(device=cuda_device).manual_seed(31)
+    mains = lambda: (flash_ops.launches.count, flash_ops.bwd_launches.count, decode_ops.launches.count)  # noqa: E731
+    wides = lambda: (flash_ops.wide_launches.count, flash_ops.wide_bwd_launches.count,  # noqa: E731
+                     decode_ops.wide_launches.count)
+    for dtype in ("float32", "bfloat16"):
+        q, k, v, do = (torch.randn(1, 16, 2, 264, generator=gen, device=cuda_device).to(DTYPES[dtype])
+                       for _ in range(4))
+        out, lse = flash_ops.attention_fwd_ref(q, k, v)
         pos = torch.tensor([15], dtype=torch.int32, device=cuda_device)
-        counts = (flash_ops.launches.count, flash_ops.bwd_launches.count, decode_ops.launches.count)
-        with pytest.raises(ValueError, match="ROADMAP"):
-            flash_ops.flash_attention(x, x, x)
-        with pytest.raises(ValueError, match="ROADMAP"):
-            flash_ops.flash_attention_bwd(x, x, x, x, lse, x)
-        with pytest.raises(ValueError, match="ROADMAP"):
-            decode_ops.decode_attention(x[:, :1], x, x, pos)
-        assert (flash_ops.launches.count, flash_ops.bwd_launches.count, decode_ops.launches.count) == counts
-    wide = torch.zeros(1, 16, 2, 260, device=cuda_device, dtype=torch.bfloat16)
-    kv = torch.zeros(1, 16, 2, 256, device=cuda_device, dtype=torch.bfloat16)
-    lse = torch.zeros(1, 2, 16, device=cuda_device)
-    before = (flash_ops.launches.count, flash_ops.bwd_launches.count)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        flash_ops.flash_attention(wide[..., :256], kv, kv)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        flash_ops.flash_attention_bwd(kv, kv, kv, kv, lse, wide[..., :256])
-    assert (flash_ops.launches.count, flash_ops.bwd_launches.count) == before
+        counts, w0 = mains(), wides()
+        _close(flash_ops.flash_attention(q, k, v), out, dtype)
+        for g, w in zip(flash_ops.flash_attention_bwd(q, k, v, out, lse, do),
+                        flash_ops.attention_bwd_ref(q, k, v, out, lse, do)):
+            _close_scaled(g, w, dtype)
+        _close(decode_ops.decode_attention(q[:, :1], k, v, pos),
+               decode_ops.decode_attention_ref(q[:, :1], k, v, pos), dtype)
+        assert mains() == counts and [a - b for a, b in zip(wides(), w0)] == [1, 1, 1]
+    wide = torch.randn(1, 16, 2, 260, generator=gen, device=cuda_device).to(torch.bfloat16)
+    q, k, v = (torch.randn(1, 16, 2, 256, generator=gen, device=cuda_device).to(torch.bfloat16) for _ in range(3))
+    out, lse = flash_ops.attention_fwd_ref(q, k, v)
+    counts, w0 = mains(), wides()
+    _close(flash_ops.flash_attention(wide[..., :256], k, v), flash_ops.attention_ref(wide[..., :256], k, v),
+           "bfloat16")
+    for g, w in zip(flash_ops.flash_attention_bwd(q, k, v, out, lse, wide[..., :256]),
+                    flash_ops.attention_bwd_ref(q, k, v, out, lse, wide[..., :256])):
+        _close_scaled(g, w, "bfloat16")
+    assert mains() == counts and [a - b for a, b in zip(wides(), w0)] == [1, 1, 0]
 
 
 def _close_to_scale(got, want) -> None:
@@ -210,7 +230,8 @@ def test_ssd_kernel_matches_plain(cuda_device, dtype):
     dt = torch.nn.functional.softplus(rnd(2, 300, 8) - 1)
     A = -torch.exp(rnd(8) * 0.2)
     s0 = rnd(2, 8, 128, 64)
-    before = ssd_ops.launches.count
+    counter = _fwd(ssd_ops, dtype)
+    before = counter.count
     y, s = ssd_ops.ssd_chunked(x, dt, A, Bg, Cg, 128, s0)
     rep = lambda t: torch.repeat_interleave(t, 4, dim=2)  # noqa: E731
     y0, s_ref = ssd_ops.ssd_chunked_ref(x, dt, A, rep(Bg), rep(Cg), 128, s0)
@@ -222,7 +243,7 @@ def test_ssd_kernel_matches_plain(cuda_device, dtype):
     got, want = ssd_ops.ssd_intra_chunk(xc, dtc, cum, Bc, Cc), ssd_ops.ssd_chunk_ref(xc, dtc, cum, Bc, Cc)
     for g, w in zip(got, want):
         _close_to_scale(g, w)
-    assert ssd_ops.launches.count - before == 2
+    assert counter.count - before == 2
 
 
 @pytest.mark.cuda
@@ -338,15 +359,18 @@ def test_flash_tensor_core_route_matches_plain(cuda_device, case):
 
 @pytest.mark.cuda
 def test_flash_tensor_core_route_rejects_unaligned_heads(cuda_device):
-    """A head stride of 68 elements (a slice of a wider tensor) is not whole
-    16-byte chunks: the bf16 wrapper raises instead of launching."""
-    wide = torch.zeros(1, 16, 4, 68, device=cuda_device, dtype=torch.bfloat16)
+    """The name is historical: the wrapper takes this shape on the wide
+    route.  A head stride of 68 elements (a slice of a wider tensor) is not whole
+    16-byte chunks: the tensor-core route does not take it, and the bf16
+    wrapper launches the wide route instead, which matches plain."""
+    gen = torch.Generator(device=cuda_device).manual_seed(32)
+    wide = torch.randn(1, 16, 4, 68, generator=gen, device=cuda_device).to(torch.bfloat16)
     q = wide[..., :64]
-    kv = torch.zeros(1, 16, 4, 64, device=cuda_device, dtype=torch.bfloat16)
-    before = flash_ops.launches.count
-    with pytest.raises(ValueError, match="multiples of 8"):
-        flash_ops.flash_attention(q, kv, kv)
-    assert flash_ops.launches.count == before
+    kv = torch.randn(1, 16, 4, 64, generator=gen, device=cuda_device).to(torch.bfloat16)
+    assert not flash_ops.meets_tensor_core_layout(q=q)
+    before, wide_before = flash_ops.launches.count, flash_ops.wide_launches.count
+    _close(flash_ops.flash_attention(q, kv, kv), flash_ops.attention_ref(q, kv, kv), "bfloat16")
+    assert flash_ops.launches.count == before and flash_ops.wide_launches.count == wide_before + 1
 
 
 @pytest.mark.cuda
@@ -419,19 +443,22 @@ def test_ssd_tensor_core_route_matches_plain(cuda_device, L, cs, H, G, dt_shift)
 
 @pytest.mark.cuda
 def test_ssd_tensor_core_route_rejects_unaligned(cuda_device):
-    """x one element into its buffer is not whole 16-byte chunks, and a
-    chunk of 512 rows is past what a block holds: the bf16 wrapper raises
-    instead of launching."""
+    """The name is historical: the wrapper takes these shapes on the wide
+    route.  x one element into its buffer is not whole 16-byte chunks, and a
+    chunk of 512 rows is past what a block holds: the tensor-core route
+    takes neither, and the bf16 wrapper launches the wide route instead,
+    which matches plain."""
     gen = torch.Generator(device=cuda_device).manual_seed(9)
     x, dt, cum, B, C = _ssd_model_views(gen, cuda_device, 512, 256, 4, 1)
     shifted = torch.zeros(x.numel() + 1, dtype=torch.bfloat16, device=cuda_device)[1:].view(x.shape)
-    before = ssd_ops.launches.count
-    with pytest.raises(ValueError, match="multiples of 8"):
-        ssd_ops.ssd_intra_chunk(shifted, dt, cum, B, C)
-    x2, dt2, cum2, B2, C2 = _ssd_model_views(gen, cuda_device, 512, 512, 4, 1)
-    with pytest.raises(ValueError, match="at most 256"):
-        ssd_ops.ssd_intra_chunk(x2, dt2, cum2, B2, C2)
-    assert ssd_ops.launches.count == before
+    shifted.copy_(x)
+    before, wide_before = ssd_ops.launches.count, ssd_ops.wide_launches.count
+    for g, w in zip(ssd_ops.ssd_intra_chunk(shifted, dt, cum, B, C), ssd_ops.ssd_chunk_ref(shifted, dt, cum, B, C)):
+        _close_to_scale(g, w)
+    args = _ssd_model_views(gen, cuda_device, 512, 512, 4, 1)
+    for g, w in zip(ssd_ops.ssd_intra_chunk(*args), ssd_ops.ssd_chunk_ref(*args)):
+        _close_to_scale(g, w)
+    assert ssd_ops.launches.count == before and ssd_ops.wide_launches.count == wide_before + 2
 
 
 # ---------------------------------------------------------------------------
@@ -501,9 +528,10 @@ def test_flash_bwd_kernel_matches_plain(cuda_device, case, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(6)
     q, k, v, do, kw = _flash_bwd_inputs(gen, cuda_device, case, DTYPES[dtype])
     out, lse = flash_ops.attention_fwd_ref(q, k, v, **kw)
-    before = flash_ops.bwd_launches.count
+    counter = _bwd(flash_ops, dtype)
+    before = counter.count
     got = flash_ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
-    assert flash_ops.bwd_launches.count - before == 1
+    assert counter.count - before == 1
     want = flash_ops.attention_bwd_ref(q, k, v, out, lse, do, **kw)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
@@ -533,23 +561,31 @@ def test_flash_forward_lse_matches_plain(cuda_device, case, dtype):
 
 @pytest.mark.cuda
 def test_flash_bwd_rejects_what_the_kernel_does_not_take(cuda_device):
-    wide = torch.zeros(1, 16, 4, 68, device=cuda_device, dtype=torch.bfloat16)
-    kv = torch.zeros(1, 16, 4, 64, device=cuda_device, dtype=torch.bfloat16)
-    lse = torch.zeros(1, 4, 16, device=cuda_device)
-    before = flash_ops.bwd_launches.count
-    with pytest.raises(ValueError, match="multiples of 8"):  # the forward's bf16 rule
-        flash_ops.flash_attention_bwd(kv, kv, kv, kv, lse, wide[..., :64])
+    """The name is partly historical: only what no route takes is
+    rejected.  That raises and launches nothing (an lse not float32,
+    a dout not shaped like out); a dout, out or base off the bf16
+    tensor-core route's 16-byte grid takes the wide route, which matches
+    plain."""
+    gen = torch.Generator(device=cuda_device).manual_seed(33)
+    wide = torch.randn(1, 16, 4, 68, generator=gen, device=cuda_device).to(torch.bfloat16)
+    q, k, v, kv = (torch.randn(1, 16, 4, 64, generator=gen, device=cuda_device).to(torch.bfloat16)
+                   for _ in range(4))
+    out, lse = flash_ops.attention_fwd_ref(q, k, v)
+    before, wide_before = flash_ops.bwd_launches.count, flash_ops.wide_bwd_launches.count
     with pytest.raises(ValueError, match="lse"):
-        flash_ops.flash_attention_bwd(kv, kv, kv, kv, lse.double(), kv)
+        flash_ops.flash_attention_bwd(q, k, v, out, lse.double(), kv)
     with pytest.raises(ValueError, match="dout"):
-        flash_ops.flash_attention_bwd(kv, kv, kv, kv, lse, kv[:, :8])
-    # an out or dout whose base is one element off 16 bytes: the bf16 kernels' copies refuse it
-    shifted = torch.zeros(kv.numel() + 1, device=cuda_device, dtype=torch.bfloat16)[1:].view(kv.shape)
-    with pytest.raises(ValueError, match="out"):
-        flash_ops.flash_attention_bwd(kv, kv, kv, shifted, lse, kv)
-    with pytest.raises(ValueError, match="dout"):
-        flash_ops.flash_attention_bwd(kv, kv, kv, kv, lse, shifted)
-    assert flash_ops.bwd_launches.count == before
+        flash_ops.flash_attention_bwd(q, k, v, out, lse, kv[:, :8])
+    assert flash_ops.wide_bwd_launches.count == wide_before
+    # an out or dout whose base is one element off 16 bytes, a dout whose head stride is 68
+    shifted_out, shifted_do = (
+        torch.zeros(kv.numel() + 1, device=cuda_device, dtype=torch.bfloat16)[1:].view(kv.shape).copy_(t)
+        for t in (out, kv))
+    for o, do in ((out, wide[..., :64]), (shifted_out, kv), (out, shifted_do)):
+        for g, w in zip(flash_ops.flash_attention_bwd(q, k, v, o, lse, do),
+                        flash_ops.attention_bwd_ref(q, k, v, o, lse, do)):
+            _close_scaled(g, w, "bfloat16")
+    assert flash_ops.bwd_launches.count == before and flash_ops.wide_bwd_launches.count == wide_before + 3
 
 
 @pytest.mark.cuda
@@ -593,13 +629,14 @@ def test_rmsnorm_bwd_kernel_unaligned_rows(cuda_device, dtype):
 
 @pytest.mark.cuda
 def test_autograd_functions_run_the_backward_kernels(cuda_device):
-    """rmsnorm → flash attention under autograd: one forward and one
-    backward launch of each, and gradients equal to the plain versions'."""
+    """rmsnorm → flash attention under autograd (float32: flash on its wide
+    route): one forward and one backward launch of each, and gradients
+    equal to the plain versions'."""
     gen = torch.Generator(device=cuda_device).manual_seed(10)
     x = torch.randn(2, 64, 4, 64, generator=gen, device=cuda_device, requires_grad=True)
     s = torch.zeros(64, device=cuda_device, requires_grad=True)
-    counters = (rmsnorm_ops.launches, rmsnorm_ops.bwd_launches, flash_ops.launches,
-                flash_ops.bwd_launches)
+    counters = (rmsnorm_ops.launches, rmsnorm_ops.bwd_launches, flash_ops.wide_launches,
+                flash_ops.wide_bwd_launches)
     before = [c.count for c in counters]
     y = rmsnorm_ops.rmsnorm_train(x, s)
     out = flash_ops.flash_attention_train(y, y, y, causal=True)
@@ -642,15 +679,16 @@ def test_ssd_bwd_kernel_matches_plain(cuda_device, dtype, L, cs, H, G, dt_shift)
     strided views: cs 256 / 100 / 1, one group or one group per head, and
     a strong decay (cum_i − cum_j > 100 inside a chunk) whose gradients
     stay finite; one launch, the same bits on a second run.  bfloat16 runs
-    the tensor-core route (``csrc/ssd_bwd_wgmma.cu``), float32 the SIMT
-    kernel."""
+    the tensor-core route (``csrc/ssd_bwd_wgmma.cu``), float32 the wide
+    route's SIMT kernels (``csrc/ssd_wide.cu``)."""
     gen = torch.Generator(device=cuda_device).manual_seed(12)
     args, dy, dS = _ssd_views(gen, cuda_device, L, cs, H, G, DTYPES[dtype], dt_shift)
     if dt_shift > 0:
         assert float((args[2][..., 0] - args[2][..., -1]).max()) > 100
-    before = ssd_ops.bwd_launches.count
+    counter = _bwd(ssd_ops, dtype)
+    before = counter.count
     got = ssd_ops.ssd_intra_chunk_bwd(*args, dy, dS)
-    assert ssd_ops.bwd_launches.count - before == 1
+    assert counter.count - before == 1
     want = ssd_ops.ssd_chunk_bwd_ref(*args, dy, dS)
     for g, w, a in zip(got, want, args):
         assert g.shape == a.shape and g.dtype == a.dtype and torch.isfinite(g.float()).all()
@@ -661,26 +699,28 @@ def test_ssd_bwd_kernel_matches_plain(cuda_device, dtype, L, cs, H, G, dt_shift)
 
 @pytest.mark.cuda
 def test_ssd_bwd_tensor_core_route_rejects_unaligned(cuda_device):
-    """bfloat16 x one element into its buffer is not in whole 16-byte
+    """The name is historical: the wrapper takes these shapes on the wide
+    route.  bfloat16 x one element into its buffer is not in whole 16-byte
     chunks, and a chunk of 512 rows is past what the route holds: the
-    backward raises ``ValueError`` and launches nothing (it never falls
-    back to the SIMT kernel)."""
+    tensor-core backward takes neither, and the wrapper launches the wide
+    route (never the plain version), which matches plain."""
     gen = torch.Generator(device=cuda_device).manual_seed(16)
     (x, dt, cum, B, C), dy, dS = _ssd_views(gen, cuda_device, 512, 256, 4, 1, torch.bfloat16)
     shifted = torch.zeros(x.numel() + 1, dtype=torch.bfloat16, device=cuda_device)[1:].view(x.shape)
-    before = ssd_ops.bwd_launches.count
-    with pytest.raises(ValueError, match="multiples of 8"):
-        ssd_ops.ssd_intra_chunk_bwd(shifted, dt, cum, B, C, dy, dS)
-    args, dy, dS = _ssd_views(gen, cuda_device, 512, 512, 4, 1, torch.bfloat16)
-    with pytest.raises(ValueError, match="at most 256"):
-        ssd_ops.ssd_intra_chunk_bwd(*args, dy, dS)
-    assert ssd_ops.bwd_launches.count == before
+    shifted.copy_(x)
+    before, wide_before = ssd_ops.bwd_launches.count, ssd_ops.wide_bwd_launches.count
+    cases = (((shifted, dt, cum, B, C), dy, dS), _ssd_views(gen, cuda_device, 512, 512, 4, 1, torch.bfloat16))
+    for args, dy, dS in cases:
+        for g, w in zip(ssd_ops.ssd_intra_chunk_bwd(*args, dy, dS), ssd_ops.ssd_chunk_bwd_ref(*args, dy, dS)):
+            _close_scaled(g, w, "bfloat16")
+    assert ssd_ops.bwd_launches.count == before and ssd_ops.wide_bwd_launches.count == wide_before + 2
 
 
 @pytest.mark.cuda
 def test_ssd_chunked_gradients_on_the_card(cuda_device):
     """Autograd through ``ssd_chunked`` on a ragged L with one group read in
-    place and an initial state: one forward and one backward launch, and
+    place and an initial state (float32: the wide route): one forward and
+    one backward launch, and
     every gradient (x, dt, A, B, C, the initial state) equal to the CPU's
     plain autograd within the backward tolerance; the padded tail's rows
     get none."""
@@ -699,9 +739,9 @@ def test_ssd_chunked_gradients_on_the_card(cuda_device):
         y, s = ssd_ops.ssd_chunked(*ts[:5], 128, ts[5])
         return torch.autograd.grad((y * dy.to(device)).sum() + (s * ds.to(device)).sum(), ts)
 
-    before = (ssd_ops.launches.count, ssd_ops.bwd_launches.count)
+    before = (ssd_ops.wide_launches.count, ssd_ops.wide_bwd_launches.count)
     got = grads(cuda_device)
-    assert (ssd_ops.launches.count - before[0], ssd_ops.bwd_launches.count - before[1]) == (1, 1)
+    assert (ssd_ops.wide_launches.count - before[0], ssd_ops.wide_bwd_launches.count - before[1]) == (1, 1)
     for g, w in zip(got, grads("cpu")):
         _close_scaled(g, w, "float32")
 
@@ -710,8 +750,9 @@ def test_ssd_chunked_gradients_on_the_card(cuda_device):
 def test_mamba2_train_step_on_the_card(cuda_device):
     """Reduced mamba2 in float32 under ``remat="full"``: one staged train
     step on the card against the CPU port from the same state (loss and
-    grad norm within 1e-4 relative); the ssd kernel ran twice a layer
-    (the forward and its recompute) and its backward once."""
+    grad norm within 1e-4 relative); the ssd kernel (float32: its wide
+    route) ran twice a layer (the forward and its recompute) and its
+    backward once."""
     from repro_torch.configs import reduced_config
     from repro_torch.runtime.train import build_train_step, init_train_state
 
@@ -725,9 +766,9 @@ def test_mamba2_train_step_on_the_card(cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(14)
     tokens = torch.randint(0, cfg.vocab, (2, 37), generator=gen, device=cuda_device, dtype=torch.int32)
     batch = {"tokens": tokens, "labels": tokens}
-    before = (ssd_ops.launches.count, ssd_ops.bwd_launches.count)
+    before = (ssd_ops.wide_launches.count, ssd_ops.wide_bwd_launches.count)
     gpu, mg = build_train_step(cfg)(gpu, batch)
-    assert (ssd_ops.launches.count - before[0], ssd_ops.bwd_launches.count - before[1]) == (
+    assert (ssd_ops.wide_launches.count - before[0], ssd_ops.wide_bwd_launches.count - before[1]) == (
         2 * cfg.n_layers, cfg.n_layers)
     cpu, mc = build_train_step(cfg)(cpu, {k: v.cpu() for k, v in batch.items()})
     for key in ("loss", "grad_norm"):
@@ -794,7 +835,8 @@ def test_other_families_on_the_card(cuda_device, arch):
     """Reduced MLA, RG-LRU hybrid and MoE models in float32: prefill logits
     and 20 decode steps (past the hybrid's window of 16) on the card
     against the CPU port within 1e-4, then one staged train step's loss
-    and grad norm within 1e-4 relative; the kernels of each path ran."""
+    and grad norm within 1e-4 relative; the kernels of each path ran
+    (flash on its float32 wide route)."""
     from repro_torch import models as tm
     from repro_torch.configs import reduced_config
     from repro_torch.runtime.serve import prime_cache
@@ -809,7 +851,7 @@ def test_other_families_on_the_card(cuda_device, arch):
             q.copy_(p.cpu())
     gen = torch.Generator(device=cuda_device).manual_seed(16)
     tokens = torch.randint(0, cfg.vocab, (2, 21), generator=gen, device=cuda_device, dtype=torch.int32)
-    before = (flash_ops.launches.count, decode_ops.launches.count, rmsnorm_ops.launches.count)
+    before = (flash_ops.wide_launches.count, decode_ops.launches.count, rmsnorm_ops.launches.count)
     with torch.no_grad():
         lg, cg = tm.prefill(gpu.params, {"tokens": tokens}, cfg)
         lc, cc = tm.prefill(cpu.params, {"tokens": tokens.cpu()}, cfg)
@@ -821,7 +863,7 @@ def test_other_families_on_the_card(cuda_device, arch):
             lc, cc = tm.decode_step(cpu.params, tok, cc, 21 + s, cfg)
             _close(lg, lc, "float32")
             tok = torch.argmax(lc[:, 0], dim=-1).to(torch.int32)[:, None]
-    ran = (flash_ops.launches.count - before[0], decode_ops.launches.count - before[1],
+    ran = (flash_ops.wide_launches.count - before[0], decode_ops.launches.count - before[1],
            rmsnorm_ops.launches.count - before[2])
     assert ran[0] > 0 and ran[2] > 0 and (ran[1] > 0) == (cfg.mla is None), ran
     batch = {"tokens": tokens, "labels": tokens}
@@ -838,7 +880,7 @@ def test_hubert_train_step_on_the_card(cuda_device):
     flash attention forward and backward inside the model): one staged
     train step (2 microbatches) on the card against the CPU port from the
     same state, loss and grad norm within 1e-4 relative; the flash kernel
-    ran twice a layer and microbatch (forward and recompute) and its
+    (float32: its wide route) ran twice a layer and microbatch (forward and recompute) and its
     backward once; under ``remat="dots_saveable"`` the same step gives the
     same loss and grad norm bit for bit."""
     import numpy as np
@@ -860,9 +902,9 @@ def test_hubert_train_step_on_the_card(cuda_device):
     for remat in ("full", "dots_saveable"):
         c = cfg.replace(remat=remat)
         gpu = init_train_state(c, 0, device=cuda_device)
-        before = (flash_ops.launches.count, flash_ops.bwd_launches.count)
+        before = (flash_ops.wide_launches.count, flash_ops.wide_bwd_launches.count)
         gpu, mg = build_train_step(c, n_microbatches=2)(gpu, batch)
-        assert (flash_ops.launches.count - before[0], flash_ops.bwd_launches.count - before[1]) == (
+        assert (flash_ops.wide_launches.count - before[0], flash_ops.wide_bwd_launches.count - before[1]) == (
             2 * 2 * cfg.n_layers, 2 * cfg.n_layers)
         runs[remat] = (float(mg["loss"]), float(mg["grad_norm"]))
     assert runs["full"] == runs["dots_saveable"], runs
@@ -875,3 +917,146 @@ def test_hubert_train_step_on_the_card(cuda_device):
     for key, g in zip(("loss", "grad_norm"), runs["full"]):
         c = float(mc[key])
         assert abs(g - c) <= 1e-4 * abs(c), (key, g, c)
+
+
+# ---------------------------------------------------------------------------
+# The wide routes: every shape the main routes refuse
+# ---------------------------------------------------------------------------
+
+# (B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_offset): head dims above 256
+# (Dh != Dv, two Dv slices, a Dh walk of 5 steps + a ragged one), GQA / MQA,
+# a window, offset queries, ragged lengths, a non-causal case; then widths
+# the bf16 tensor-core route refuses (not multiples of 8); fp32 takes the
+# wide route at every width
+WIDE_FLASH_CASES = [
+    (1, 130, 130, 4, 2, 320, 288, True, None, 0),
+    (2, 77, 200, 4, 4, 512, 512, True, 50, 123),
+    (1, 65, 65, 2, 1, 300, 600, False, None, 0),
+    (1, 1, 129, 8, 8, 512, 512, True, None, 128),
+    (1, 100, 100, 4, 2, 100, 100, True, None, 0),
+    (2, 70, 90, 4, 4, 36, 20, False, 30, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", WIDE_FLASH_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_wide_route_matches_plain(cuda_device, case, dtype):
+    """Forward (with lse) and backward on the route ``flash_ops.route``
+    picks: the wide one above 256 or off the bf16 tensor-core grid, one
+    launch each on its own counter; against the plain versions, and the
+    same bits on a second run."""
+    gen = torch.Generator(device=cuda_device).manual_seed(34)
+    tdt = DTYPES[dtype]
+    q, k, v, do, kw = _flash_bwd_inputs(gen, cuda_device, case, tdt)
+    Dh, Dv = case[5], case[6]
+    wide = flash_ops.route(Dh, Dv, tdt, Dh % 8 == 0 and Dv % 8 == 0) == "wide"
+    assert wide == (tdt == torch.float32 or Dh > 256 or Dv > 256 or Dh % 8 != 0 or Dv % 8 != 0)
+    fwd_c, bwd_c = ((flash_ops.wide_launches, flash_ops.wide_bwd_launches) if wide
+                    else (flash_ops.launches, flash_ops.bwd_launches))
+    before = (fwd_c.count, bwd_c.count)
+    out, lse = flash_ops.flash_attention(q, k, v, return_lse=True, **kw)
+    want_out, want_lse = flash_ops.attention_fwd_ref(q, k, v, **kw)
+    _close(out, want_out, dtype)
+    torch.testing.assert_close(lse.cpu(), want_lse.cpu(), rtol=0, atol=1e-4)
+    got = flash_ops.flash_attention_bwd(q, k, v, want_out, want_lse, do, **kw)
+    for g, w in zip(got, flash_ops.attention_bwd_ref(q, k, v, want_out, want_lse, do, **kw)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _close_scaled(g, w, dtype)
+    assert (fwd_c.count - before[0], bwd_c.count - before[1]) == (1, 1)
+    assert torch.equal(out, flash_ops.flash_attention(q, k, v, **kw))
+    again = flash_ops.flash_attention_bwd(q, k, v, want_out, want_lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Dh,Dv,H,KH", [(320, 320, 8, 2), (512, 512, 8, 8), (300, 600, 4, 1)])
+def test_decode_wide_route_matches_plain(cuda_device, dtype, Dh, Dv, H, KH):
+    """Head dims above 256 on the wide decode route: positions in one chunk,
+    across many and none valid; batch-invariant and the same bits on a
+    second run; the partial route on two slices of the cache combines to
+    the whole cache's output."""
+    gen = torch.Generator(device=cuda_device).manual_seed(35)
+    tdt = DTYPES[dtype]
+    B, S = 4, 300
+    q = torch.randn(B, 1, H, Dh, generator=gen, device=cuda_device).to(tdt)
+    k = torch.randn(B, S, KH, Dh, generator=gen, device=cuda_device).to(tdt)
+    v = torch.randn(B, S, KH, Dv, generator=gen, device=cuda_device).to(tdt)
+    pos = torch.tensor([0, 63, 299, 150], dtype=torch.int32, device=cuda_device)
+    before = (decode_ops.launches.count, decode_ops.wide_launches.count)
+    out = decode_ops.decode_attention(q, k, v, pos)
+    _close(out, decode_ops.decode_attention_ref(q, k, v, pos), dtype)
+    assert torch.equal(out, decode_ops.decode_attention(q, k, v, pos))
+    alone = torch.zeros_like(pos)
+    alone[2] = pos[2]
+    assert torch.equal(decode_ops.decode_attention(q, k, v, alone)[2], out[2])
+    parts = [decode_ops.decode_attention(q, k[:, s0:s0 + 150], v[:, s0:s0 + 150], pos, slot_offset=s0,
+                                         partial=True) for s0 in (0, 150)]
+    for (o, lse), s0 in zip(parts, (0, 150)):
+        want_o, want_lse = decode_ops.decode_attention_ref(q, k[:, s0:s0 + 150], v[:, s0:s0 + 150], pos, s0, True)
+        _close(o, want_o, dtype)
+        live = torch.isfinite(want_lse)
+        assert torch.equal(live, torch.isfinite(lse))
+        torch.testing.assert_close(lse[live].cpu(), want_lse[live].cpu(), rtol=1e-5, atol=2e-5)
+    both = decode_ops.combine_partials(torch.stack([o for o, _ in parts]), torch.stack([lse for _, lse in parts]))
+    _close(both.to(tdt), out, dtype)
+    assert decode_ops.launches.count == before[0] and decode_ops.wide_launches.count - before[1] == 5
+
+
+def _ssd_wide_views(gen, dev, b, L, cs, H, G, P, N, dtype, dt_shift=-1.0):
+    """Model-layout ssd inputs at any (cs, P, N): x / B / C as strided
+    (b, H or G, nc, cs, ·) views, dt / cum (b, H, nc, cs), and float32
+    cotangents dy (a permuted view) and dS."""
+    nc = L // cs
+    x = torch.randn(b, L, H, P, generator=gen, device=dev).to(dtype)
+    Bm, Cm = (torch.randn(b, L, G, N, generator=gen, device=dev).to(dtype) for _ in range(2))
+    dt = torch.nn.functional.softplus(torch.randn(b, L, H, generator=gen, device=dev) + dt_shift)
+    A = -torch.exp(torch.randn(H, generator=gen, device=dev) * 0.2)
+    dtc = dt.reshape(b, nc, cs, H)
+    cum = torch.cumsum(dtc * A, dim=2)
+    heads_first = lambda t: t.reshape(b, nc, cs, t.shape[2], t.shape[3]).permute(0, 3, 1, 2, 4)  # noqa: E731
+    dy = torch.randn(b, nc, cs, H, P, generator=gen, device=dev).permute(0, 3, 1, 2, 4)
+    dS = torch.randn(b, H, nc, N, P, generator=gen, device=dev)
+    args = (heads_first(x), dtc.permute(0, 3, 1, 2), cum.permute(0, 3, 1, 2), heads_first(Bm), heads_first(Cm))
+    return args, dy, dS
+
+
+# (L, cs, H, G, P, N, dtype): P above 64 and N above 128 (one group, and one
+# group of 2 heads), a chunk above 256, mamba2's wide variant (P 128, N 256,
+# cs 512), and bf16 widths that are not multiples of 8; float32 takes the
+# wide route at every shape
+WIDE_SSD_CASES = [
+    (96, 48, 4, 1, 96, 160, "float32"), (96, 48, 4, 2, 96, 160, "bfloat16"),
+    (640, 320, 4, 1, 16, 16, "float32"), (640, 320, 4, 4, 16, 16, "bfloat16"),
+    (1024, 512, 4, 1, 128, 256, "bfloat16"), (80, 40, 4, 1, 20, 12, "bfloat16"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WIDE_SSD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_ssd_wide_route_matches_plain(cuda_device, case):
+    """The ssd route ``ssd_ops.route`` picks (wide for every case) both ways on the model's strided views: one launch
+    each on its route's counters, none on the other's, against the plain
+    versions; the same bits on a second run; a strong decay stays finite."""
+    L, cs, H, G, P, N, dtype = case
+    gen = torch.Generator(device=cuda_device).manual_seed(36)
+    tdt = DTYPES[dtype]
+    wide = ssd_ops.route(cs, P, N, tdt, P % 8 == 0 and N % 8 == 0) == "wide"
+    assert wide
+    for shift in (-1.0, 3.0):
+        args, dy, dS = _ssd_wide_views(gen, cuda_device, 2, L, cs, H, G, P, N, tdt, shift)
+        before = (ssd_ops.launches.count, ssd_ops.bwd_launches.count, ssd_ops.wide_launches.count,
+                  ssd_ops.wide_bwd_launches.count)
+        got = ssd_ops.ssd_intra_chunk(*args)
+        for g, w in zip(got, ssd_ops.ssd_chunk_ref(*args)):
+            _close_to_scale(g, w)
+        grads = ssd_ops.ssd_intra_chunk_bwd(*args, dy, dS)
+        for g, w, a in zip(grads, ssd_ops.ssd_chunk_bwd_ref(*args, dy, dS), args):
+            assert g.shape == a.shape and g.dtype == a.dtype and torch.isfinite(g.float()).all()
+            _close_scaled(g, w, dtype)
+        after = (ssd_ops.launches.count, ssd_ops.bwd_launches.count, ssd_ops.wide_launches.count,
+                 ssd_ops.wide_bwd_launches.count)
+        assert [a - b for a, b in zip(after, before)] == ([0, 0, 1, 1] if wide else [1, 1, 0, 0])
+        assert all(torch.equal(a, b) for a, b in zip(got, ssd_ops.ssd_intra_chunk(*args)))
+        assert all(torch.equal(a, b) for a, b in zip(grads, ssd_ops.ssd_intra_chunk_bwd(*args, dy, dS)))

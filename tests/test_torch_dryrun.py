@@ -600,12 +600,38 @@ def test_refused_cells_name_item_5_6(arch, shape, tmp_path):
 
 
 def test_a_refused_cell_is_recorded_not_raised(tmp_path):
-    """A cell the port refuses, a head dim above the kernels' 256 (ROADMAP
-    Queue 2), is recorded as ``ok: false`` with the kernel's error."""
-    rec = dryrun.run_cell("deepseek-7b", "decode_32k", True, {"head_dim": 512}, outdir=str(tmp_path))
-    assert rec["ok"] is False and "exceed 256" in rec["error"] and rec["error"].startswith("ValueError")
+    """A cell the port refuses, KV heads that do not divide the query heads
+    (5 of 32), is recorded as ``ok: false`` with the kernel's error."""
+    rec = dryrun.run_cell("deepseek-7b", "decode_32k", True, {"n_kv_heads": 5}, outdir=str(tmp_path))
+    assert rec["ok"] is False and "do not fit" in rec["error"] and rec["error"].startswith("ValueError")
     saved = json.loads((tmp_path / "deepseek-7b__decode_32k__multipod_2x16x16.json").read_text())
     assert saved["ok"] is False and saved["error"] == rec["error"]
+
+
+def test_a_head_dim_512_cell_runs(tmp_path):
+    """Heads of 512, once refused, run: the kernels' wide routes take them
+    on the meta route too.  deepseek-7b's ``decode_32k`` with
+    ``head_dim=512`` is ``ok``; its argument bytes are the local
+    parameters, this rank's rows of the inputs, the local caches and the
+    scalar position, and its alias bytes the caches."""
+    from repro_torch.models import cache_defs, input_defs, model_defs
+
+    rec = dryrun.run_cell("deepseek-7b", "decode_32k", True, {"head_dim": 512}, outdir=str(tmp_path))
+    assert rec["ok"], rec.get("error")
+    cfg = dryrun.config_for_dryrun("deepseek-7b", {"head_dim": 512})
+    spec = SHAPES["decode_32k"]
+    mesh = DryRunMesh(dryrun.MESHES["multipod_2x16x16"])
+    size = {"bfloat16": 2, "float32": 4, "int32": 4, None: 2}
+    nbytes = lambda dt: size[dt]  # noqa: E731
+    params = _local_bytes(model_defs(cfg), mesh, nbytes)
+    inputs = _local_bytes(input_defs(cfg, spec), mesh, nbytes)
+    caches = _local_bytes(cache_defs(cfg, spec.global_batch, spec.seq_len), mesh, nbytes)
+    assert rec["memory"]["argument_size_in_bytes"] == params + inputs + caches + 4
+    assert rec["memory"]["alias_size_in_bytes"] == caches
+    # the decode kernel's meta route counts its operations at the head dim: 4x those of the heads of 128
+    base = json.loads((PORT_RECORDS / "deepseek-7b__decode_32k__multipod_2x16x16.json").read_text())
+    assert rec["kernels"]["decode_attention"] == dict(calls=cfg.n_layers,
+                                                      flops=4 * base["kernels"]["decode_attention"]["flops"])
 
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b", "hubert-xlarge", "internvl2-2b"])
@@ -722,7 +748,8 @@ def test_meta_route_returns_the_outputs_and_reports_the_operations(name):
     from repro_torch.kernels.ssd import ops as ssd
 
     counters = [fl.launches, fl.bwd_launches, dec.launches, rms.launches, rms.bwd_launches, ssd.launches,
-                ssd.bwd_launches]
+                ssd.bwd_launches, fl.wide_launches, fl.wide_bwd_launches, dec.wide_launches, ssd.wide_launches,
+                ssd.wide_bwd_launches]
     before = [c.count for c in counters]
     call, flops, plain = _kernel_calls()[name]
     seen = []

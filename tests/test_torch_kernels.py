@@ -130,9 +130,8 @@ def test_flash_model_qkv_meet_tensor_core_layout(monkeypatch):
     x = torch.randn(2, 37, cfg.d_model).to(torch.bfloat16)
     q, k, v = qkv_project(attn, x, torch.arange(37), cfg)
     assert q.dtype == torch.bfloat16 and q.shape == (2, 37, cfg.n_heads, cfg.head_dim)
-    flash_ops.check_tensor_core_layout(q=q, k=k, v=v)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        flash_ops.check_tensor_core_layout(q=q[..., :12])
+    assert flash_ops.meets_tensor_core_layout(q=q, k=k, v=v)
+    assert not flash_ops.meets_tensor_core_layout(q=q[..., :12])
 
     seen = []
     plain_bwd = flash_ops.flash_attention_bwd
@@ -149,7 +148,8 @@ def test_flash_model_qkv_meet_tensor_core_layout(monkeypatch):
     assert len(seen) == cfg.n_layers
     for q, k, v, out, dout in seen:
         assert out.dtype == dout.dtype == torch.bfloat16
-        flash_ops.check_tensor_core_layout(q=q, k=k, v=v, out=out, dout=dout)
+        assert flash_ops.meets_tensor_core_layout(q=q, k=k, v=v, out=out, dout=dout)
+        assert flash_ops.route(q.shape[-1], v.shape[-1], q.dtype) == "main"
 
 
 def test_flash_rejects_nonpositive_window():
@@ -674,7 +674,8 @@ def test_ssd_model_views_meet_tensor_core_layout():
     def spy(xh, dt, A, Bc, Cc, chunk, initial_state=None):
         def intra(x, dtc, cum, B, C):
             assert x.dtype == B.dtype == C.dtype == torch.bfloat16
-            ssd_ops.check_tensor_core_layout(x.shape[-2], x=x, B=B, C=C)
+            aligned = ssd_ops.meets_tensor_core_layout(x=x, B=B, C=C)
+            assert aligned and ssd_ops.route(x.shape[-2], x.shape[-1], B.shape[-1], x.dtype, aligned) == "main"
             seen.append(x.shape)
             return ssd_ops.ssd_chunk_ref(x, dtc, cum, B, C)
 
@@ -691,10 +692,9 @@ def test_ssd_model_views_meet_tensor_core_layout():
     assert len(seen) == 2 * cfg.n_layers
     x = torch.zeros(1, 2, 3, 8, 65, dtype=torch.bfloat16)[..., 1:]
     B = torch.zeros(1, 1, 3, 8, 16, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        ssd_ops.check_tensor_core_layout(8, x=x, B=B, C=B)
-    with pytest.raises(ValueError, match="at most 256"):
-        ssd_ops.check_tensor_core_layout(512, x=x[..., :64], B=B, C=B)
+    assert not ssd_ops.meets_tensor_core_layout(x=x, B=B, C=B)
+    assert ssd_ops.route(8, 64, 16, torch.bfloat16, aligned=False) == "wide"
+    assert ssd_ops.route(512, 64, 16, torch.bfloat16) == "wide"
 
 
 # ---------------------------------------------------------------------------
@@ -836,8 +836,9 @@ def test_cuda_request_without_card_raises():
 
 def test_kernel_sources_are_present():
     names = sorted(p.name for p in dispatch.CSRC.glob("*.cu"))
-    assert names == ["decode_attention.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-                     "rmsnorm.cu", "ssd.cu", "ssd_bwd.cu", "ssd_bwd_wgmma.cu"]
+    assert names == ["decode_attention.cu", "decode_attention_wide.cu", "flash_attention.cu",
+                     "flash_attention_bwd.cu", "flash_attention_wide.cu", "rmsnorm.cu", "ssd.cu",
+                     "ssd_bwd_wgmma.cu", "ssd_wide.cu"]
 
 
 # ---------------------------------------------------------------------------

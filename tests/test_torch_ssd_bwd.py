@@ -1,8 +1,9 @@
 """The port's SSD backward against ``repro``'s autodiff, on the CPU.
 
 ``repro`` has no Pallas backward for the SSD: it trains through ``jax.grad``
-of the jnp ``ssd_chunked``.  The port's card runs a hand-written backward
-kernel (``csrc/ssd_bwd.cu``) whose plain version, ``ssd_chunk_bwd_ref``,
+of the jnp ``ssd_chunked``.  The port's card runs hand-written backward
+kernels (``csrc/ssd_bwd_wgmma.cu``, ``csrc/ssd_wide.cu``) whose plain
+version, ``ssd_chunk_bwd_ref``,
 writes the vector-Jacobian product out as formulas.  These tests hold that
 plain version, and autograd of the port's ``ssd_chunk_ref``, against
 ``jax.vjp`` of ``repro.kernels.ssd.ref.ssd_chunk_ref`` and of

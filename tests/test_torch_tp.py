@@ -548,11 +548,12 @@ def test_two_spawn_mesh_groups_started_at_once_both_finish():
 
 def _card_rank():
     """Two steps of reduced deepseek-7b at model=2 with every tensor on the
-    card; each rank's flash and rmsnorm launch counts."""
+    card; each rank's flash (float32: its wide route) and rmsnorm launch
+    counts."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 
-    counters = {"flash": flash_ops.launches, "flash_bwd": flash_ops.bwd_launches,
+    counters = {"flash": flash_ops.wide_launches, "flash_bwd": flash_ops.wide_bwd_launches,
                 "rmsnorm": rmsnorm_ops.launches, "rmsnorm_bwd": rmsnorm_ops.bwd_launches}
     for c in counters.values():
         c.reset()

@@ -1,14 +1,15 @@
 """Is the ssd gradient on the card the same on every run?
 
 ``tests/test_torch_cuda_kernels.py::test_ssd_chunked_gradients_on_the_card``
-(fp32, the SIMT route) once missed its tolerance in 10 of 307,200
+(fp32, a SIMT route) once missed its tolerance in 10 of 307,200
 x-gradient elements.  Its inputs are seeded and the ssd kernels are meant
 to be run-to-run identical, so this repeats its computation and compares
 every stage bit for bit with the first iteration's:
 
-- ``fwd``: the outputs of the intra-chunk forward kernel (``csrc/ssd.cu``);
+- ``fwd``: the outputs of the intra-chunk forward kernel (fp32 takes the
+  wide route, ``csrc/ssd_wide.cu``);
 - ``bwd_in``: the cotangents autograd hands the backward kernel;
-- ``bwd``: the outputs of the backward kernel (``csrc/ssd_bwd.cu``);
+- ``bwd``: the outputs of the backward kernel (``csrc/ssd_wide.cu`` too);
 - ``grads``: the gradients of the leaves (the torch ops of ``ssd_chunked``
   around the kernels included);
 - ``cpu``: the CPU's plain autograd, the test's yardstick, run each
