@@ -254,19 +254,24 @@ Phases (any failure raises and the script exits non-zero):
               their peak, FLOPs and the terms live at the peak are logged
               beside the card's ``max_memory_allocated`` (less what was
               allocated before the run) and step time;
-21. wide    — (run right after the kernel phase) ``[wide]``: the wide routes (``csrc/*_wide.cu``: head dims
-              above 256, SSD P above 64, N above 128 and chunks above 256,
-              bf16 off the tensor-core grid) against their plain versions
-              in fp32 and bf16, run to run identical, each timed at its
-              path's shape beside its bound (and SDPA for attention); then
+21. wide    — (run right after the kernel phase) ``[wide]``: the wide routes (``csrc/*_wide.cu``: every
+              fp32 call, decode's head dims above 256, SSD P above 64, N
+              above 128 and chunks above 256, bf16 off the tensor-core
+              grid) and flash's split kernels (``flash_attention_split.cu``:
+              bf16 heads in (256, 576] / (256, 512] on the tensor cores)
+              against their plain versions in fp32 and bf16, run to run
+              identical, each timed at its path's shape beside its bound
+              (and SDPA for attention: the split kernels in bf16, flash's
+              wide route in fp32); then
               deepseek-7b with 8 heads of 512 (serving 4 prompts through
               ``ServeEngine`` at 8 of its 30 layers, one bf16 train step at
               2 layers) and mamba2-130m with SSD head dim 128, state 256,
               chunk 512 (serving 8 slots with prompts up to 4096, one train
               step at 4 layers), each with a 1-layer fp32 check (logits
               and one train step, card against the CPU port) and exact
-              launch counts on the wide routes (none on the main routes'
-              attention and ssd).
+              launch counts on the routes the shapes take (deepseek-7b's
+              bf16 flash on the split kernels, counted on the main
+              route's counters and apart by shape).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing of JAX.
@@ -537,9 +542,10 @@ def _hgmma_counts() -> dict | None:
 
 def check_hgmma() -> dict | None:
     """The main (bf16) routes of flash and ssd (forward and backward) run
-    on the tensor cores (HGMMA in their SASS); the wide routes (every f32
-    call among them), the flash backward's D pass and the ssd backward's
-    conversion and dcum passes do not."""
+    on the tensor cores (HGMMA in their SASS), flash's split kernels above
+    a head dim of 256 among them; the wide routes (every f32 call among
+    them), the flash backward's D pass and the ssd backward's conversion
+    and dcum passes do not."""
     counts = _hgmma_counts()
     if counts is None:
         log("[kernels] cuobjdump not on this machine: HGMMA counts not taken")
@@ -549,7 +555,8 @@ def check_hgmma() -> dict | None:
     tc = [k for k in counts if "wgmma" in k]
     simt = [k for k in counts if "wgmma" not in k]
     for prefix in ("ssd_chunk_wgmma", "flash_fwd_wgmma", "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma",
-                   "ssd_bwd_wgmma", "flash_bwd_dkdv_wgmma256", "flash_bwd_dq_wgmma256"):
+                   "ssd_bwd_wgmma", "flash_bwd_dkdv_wgmma256", "flash_bwd_dq_wgmma256", "flash_fwd_wgmma_split",
+                   "flash_bwd_dkdv_wgmma_split", "flash_bwd_dq_wgmma_split"):
         assert any(k.startswith(prefix) for k in tc), (prefix, counts)
     # the padded head dim 256 of the forward: flash_fwd_wgmma_kernel<256, 256>
     assert any(k.startswith("flash_fwd_wgmma") and "256" in k for k in tc), counts
@@ -563,6 +570,8 @@ def check_hgmma() -> dict | None:
 # the kernels whose registers and spills the kernel phase prints
 RESOURCE_KERNELS = ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel", "ssd_bwd_wgmma_kernel",
                     "flash_fwd_wgmma_kernel", "flash_bwd_dkdv_wgmma256_kernel", "flash_bwd_dq_wgmma256_kernel",
+                    "flash_fwd_wgmma_split_kernel", "flash_bwd_dkdv_wgmma_split_kernel",
+                    "flash_bwd_dq_wgmma_split_kernel",
                     "flash_wide_fwd_kernel", "flash_wide_dkdv_kernel", "flash_wide_dq_kernel", "ssd_wide_fwd_kernel",
                     "ssd_wide_dx_kernel", "ssd_wide_dbdc_kernel", "ssd_wide_scalars_kernel", "decode_kernel")
 
@@ -658,8 +667,8 @@ def _window_mask(L: int, window, dev) -> torch.Tensor:
     return (j <= i) & (i - j < window)
 
 
-def _flash_times(gen, dev, B, L, H, D, KH=None, Dv=None, window=None, causal=True) -> dict:
-    """Kernel, plain and SDPA times of the bf16 forward (causal unless
+def _flash_times(gen, dev, B, L, H, D, KH=None, Dv=None, window=None, causal=True, dtype=torch.bfloat16) -> dict:
+    """Kernel, plain and SDPA times of the forward (bf16 and causal unless
     told) at (B, L, H, D) with KH key / value heads of value dim Dv
     (``window`` keys at most), the bound of the work this input needs (at
     the head dim D, not the kernels' padded one), and whether two runs give
@@ -669,7 +678,6 @@ def _flash_times(gen, dev, B, L, H, D, KH=None, Dv=None, window=None, causal=Tru
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     KH, Dv = KH or H, Dv or D
-    dtype = torch.bfloat16
     kw = dict(causal=causal, window=window)
     sets = [(_randn(gen, (B, L, H, D), dtype, dev), _randn(gen, (B, L, KH, D), dtype, dev),
              _randn(gen, (B, L, KH, Dv), dtype, dev)) for _ in range(2)]
@@ -687,16 +695,18 @@ def _flash_times(gen, dev, B, L, H, D, KH=None, Dv=None, window=None, causal=Tru
         lib = time_ms(lambda q, k, v: sdpa(q, k, v, is_causal=causal), lib_sets)
     pairs = _pairs(L, L, causal, window, 0)
     flops = 2 * B * H * (D + Dv) * pairs
-    bound, by = _bound(B * L * (H * D + KH * D + KH * Dv + H * Dv) * 2, flops, dtype)
+    bound, by = _bound(B * L * (H * D + KH * D + KH * Dv + H * Dv) * dtype.itemsize, flops, dtype)
     label = f"({B}, {L}, {H}, {D}" + (f" / {Dv}" if Dv != D else "") + ")" + (f", KH {KH}" if KH != H else "") \
         + (f", window {window}" if window else "")
-    mode = "causal" if causal else "non-causal"
-    log(f"[kernels] flash at {label} bf16 {mode}: {flops / 1e9:.2f} GFLOP, kernel {ms:.4f} ms "
+    mode = ("causal" if causal else "non-causal") if dtype == torch.bfloat16 else \
+        ("fp32 causal" if causal else "fp32 non-causal")
+    label_dt = "bf16 " if dtype == torch.bfloat16 else ""
+    log(f"[kernels] flash at {label} {label_dt}{mode}: {flops / 1e9:.2f} GFLOP, kernel {ms:.4f} ms "
         f"({flops / ms / 1e9:.1f} TFLOP/s), SDPA {lib:.4f} ms (kernel / SDPA {ms / lib:.2f}), plain {plain:.4f} "
         f"ms, bound {bound:.4f} ms ({by}, {bound / ms:.1%} of it); run to run identical: {same}")
     assert same, f"flash at {label}: not deterministic"
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
-                shape=f"q/k/v {label} bf16 {mode}", key=(B, L, L, H, KH, D, Dv))
+                shape=f"q/k/v {label} {label_dt}{mode}", key=(B, L, L, H, KH, D, Dv))
 
 
 def check_flash(dev) -> dict:
@@ -1271,8 +1281,9 @@ def _compare_bwd(name, got, want, dtype) -> float:
                     dict(atol=atol * scale, rtol=rtol))
 
 
-def _flash_bwd_times(gen, dev, B, L, H, D, KH=None, Dv=None, window=None, causal=True) -> dict:
-    """The bf16 backward (causal unless told) at (B, L, H, D) with KH key /
+def _flash_bwd_times(gen, dev, B, L, H, D, KH=None, Dv=None, window=None, causal=True,
+                     dtype=torch.bfloat16) -> dict:
+    """The backward (bf16 and causal unless told) at (B, L, H, D) with KH key /
     value heads of value dim Dv (``window`` keys at most): kernel, plain
     and SDPA backward times, the dK/dV and dQ kernels apart, the forward
     with and without lse, and the bound of the 5 products the unmasked
@@ -1281,7 +1292,6 @@ def _flash_bwd_times(gen, dev, B, L, H, D, KH=None, Dv=None, window=None, causal
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
 
     KH, Dv = KH or H, Dv or D
-    dtype = torch.bfloat16
     kw = dict(causal=causal, window=window)
     sets = []
     for _ in range(2):
@@ -1311,13 +1321,13 @@ def _flash_bwd_times(gen, dev, B, L, H, D, KH=None, Dv=None, window=None, causal
     # at D; dP and dV at Dv
     flops = 2 * B * H * (3 * D + 2 * Dv) * pairs
     # q, k, v, out, dout read, dq, dk, dv written, lse read
-    bound, by = _bound(2 * B * L * (2 * H * D + 2 * KH * D + 2 * KH * Dv + 2 * H * Dv) + B * H * L * 4, flops,
-                       dtype)
+    bound, by = _bound(dtype.itemsize * B * L * (2 * H * D + 2 * KH * D + 2 * KH * Dv + 2 * H * Dv) + B * H * L * 4,
+                       flops, dtype)
     label = f"({B}, {L}, {H}, {D}" + (f" / {Dv}" if Dv != D else "") + ")" + (f", KH {KH}" if KH != H else "") \
         + (f", window {window}" if window else "")
     Dh, D = D, f"{D} / {Dv}" if Dv != D else D
-    mode = "causal" if causal else "non-causal"
-    log(f"[kernels] flash bwd at {label} bf16 {mode}: {flops / 1e9:.2f} GFLOP, kernel "
+    mode = ("bf16 " if dtype == torch.bfloat16 else "fp32 ") + ("causal" if causal else "non-causal")
+    log(f"[kernels] flash bwd at {label} {mode}: {flops / 1e9:.2f} GFLOP, kernel "
         f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), SDPA backward {lib:.4f} ms (kernel / library "
         f"{ms / lib:.2f}), plain {plain:.4f} ms, bound {bound:.4f} ms ({by}, {bound / ms:.1%} of it)")
     # the dK/dV and dQ kernels apart: dK/dV runs 4 of the 7 products, dQ 3
@@ -1337,7 +1347,7 @@ def _flash_bwd_times(gen, dev, B, L, H, D, KH=None, Dv=None, window=None, causal
         f"{fwd_lse_ms:.4f} ms with it (train)")
     return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib,
                 fwd_ms=fwd_ms, fwd_lse_ms=fwd_lse_ms, dkdv_ms=dkdv, dq_ms=dq, dot_ms=dot,
-                shape=f"q/k/v/out/dout {label} bf16 {mode}", key=(B, L, L, H, KH, Dh, Dv))
+                shape=f"q/k/v/out/dout {label} {mode}", key=(B, L, L, H, KH, Dh, Dv))
 
 
 def check_flash_bwd(dev) -> dict:
@@ -1794,9 +1804,9 @@ def _kernel_ops() -> dict:
 def _on_routes(cfg, counts: dict) -> dict:
     """``counts`` (launches by kernel name) moved onto the routes that
     ``cfg``'s shapes take, as each wrapper's ``route`` picks them: a
-    float32 model's attention and ssd (both ways), and a head dim above 256
-    (decode too), count under the wide routes' names.  Every name of
-    ``_kernel_ops`` is present."""
+    float32 model's attention and ssd (both ways), decode above a head dim
+    of 256 and flash past its split kernels' widths count under the wide
+    routes' names.  Every name of ``_kernel_ops`` is present."""
     from repro_torch.kernels.decode_attention import ops as decode_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
@@ -5045,6 +5055,11 @@ WIDE_TRAIN_LAYERS = {"deepseek-7b": 2, "mamba2-130m": 4}
 WIDE_PROMPTS = {"deepseek-7b": (2048, 777, 100, 321), "mamba2-130m": (4096, 2048, 777, 100, 1000, 512, 64, 321)}
 WIDE_GEN = 16
 WIDE_SOURCES = {
+    "flash_attention_split": ("src/repro_torch/kernels/csrc/flash_attention_split.cu",
+                              "src/repro/kernels/flash_attention/kernel.py:111"),
+    "flash_attention_bwd_split": ("src/repro_torch/kernels/csrc/flash_attention_split.cu",
+                                  "src/repro/models/attention.py:139 (no Pallas kernel: JAX differentiates the "
+                                  "jnp custom VJP)"),
     "flash_attention_wide": ("src/repro_torch/kernels/csrc/flash_attention_wide.cu",
                              "src/repro/kernels/flash_attention/kernel.py:111"),
     "flash_attention_bwd_wide": ("src/repro_torch/kernels/csrc/flash_attention_wide.cu",
@@ -5070,16 +5085,24 @@ def _wide_cfg(arch: str):
 
 
 def _wide_kernel_checks(dev) -> None:
-    """Each wide route against its plain version on the card, in fp32 and
-    bf16, at head dims above 256 (Dh != Dv, GQA / MQA, windows, offset
-    queries, ragged lengths), bf16 widths off the tensor-core grid, SSD P
-    above 64, N above 128 and chunks above 256; each route's counter moves
-    by one a call and the main routes' not at all, and a second run gives
-    the same bits."""
+    """Each wide route, and flash's split kernels, against its plain
+    version on the card, in fp32 and bf16, at head dims above 256 (Dh !=
+    Dv, GQA / MQA, windows, offset queries, ragged lengths, non-causal; bf16
+    up to 576 / 512 takes the split kernels on the main route, fp32 the
+    wide one), bf16 widths off the tensor-core grid, SSD P above 64, N above
+    128 and chunks above 256; the counter of the route ``route`` picks moves
+    by one a call and no other, and a second run gives the same bits."""
+    from repro_torch.kernels import dispatch
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.ssd import ops as sops
 
+    # the shared memory each split kernel's launch asks for: the C side's
+    # own count is the CPU-tested mirror's (ops.split_smem), within the limit
+    for Dh, Dv in ((264, 264), (320, 288), (512, 512), (576, 512), (128, 512), (576, 64)):
+        c_side = [dispatch.library().flash_attention_split_smem(i, Dh, Dv) for i in range(3)]
+        assert c_side == list(fops.split_smem(Dh, Dv).values()), (Dh, Dv, c_side)
+        assert max(c_side) <= fops.SMEM_LIMIT, (Dh, Dv, c_side)
     gen = torch.Generator(device=dev).manual_seed(40)
     counts = {k: c for k, c in _kernel_ops().items() if not k.startswith("rmsnorm")}
     before = {k: c.count for k, c in counts.items()}
@@ -5087,27 +5110,33 @@ def _wide_kernel_checks(dev) -> None:
     flash_cases = [  # (B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_offset)
         (1, 300, 300, 8, 8, 512, 512, True, None, 0), (2, 130, 200, 4, 2, 320, 288, True, 64, 70),
         (1, 65, 65, 2, 1, 300, 600, False, None, 0), (1, 333, 333, 8, 4, 100, 100, True, None, 0),
-        (2, 77, 90, 4, 4, 36, 20, False, 30, 13)]
+        (2, 77, 90, 4, 4, 36, 20, False, 30, 13),
+        # the split kernels' widest on MQA, non-causal; offset queries; a
+        # window on GQA over ragged lengths
+        (1, 65, 65, 2, 1, 576, 512, False, None, 0), (1, 1, 129, 8, 8, 512, 512, True, None, 128),
+        (2, 333, 333, 4, 2, 512, 512, True, 100, 0)]
     for B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_off in flash_cases:
         for dtype in (torch.bfloat16, torch.float32):
-            if fops.route(Dh, Dv, dtype, Dh % 8 == 0 and Dv % 8 == 0) != "wide":
-                continue
+            wide = fops.route(Dh, Dv, dtype, Dh % 8 == 0 and Dv % 8 == 0) == "wide"
+            names = ("flash_attention_wide", "flash_attention_bwd_wide") if wide else \
+                ("flash_attention", "flash_attention_bwd")
             q, k = _randn(gen, (B, Lq, H, Dh), dtype, dev), _randn(gen, (B, Lk, KH, Dh), dtype, dev)
             v, do = _randn(gen, (B, Lk, KH, Dv), dtype, dev), _randn(gen, (B, Lq, H, Dv), dtype, dev)
             kw = dict(causal=causal, window=window, q_offset=q_off)
             label = f"{dtype} B={B} Lq={Lq} Lk={Lk} H={H} KH={KH} Dh={Dh} Dv={Dv} {kw}"
+            tag = "wide flash" if wide else "split flash"
             out, lse = fops.flash_attention(q, k, v, return_lse=True, **kw)
             want, want_lse = fops.attention_fwd_ref(q, k, v, **kw)
-            _compare(f"wide flash {label}", out, want, dtype)
-            _compare(f"wide flash lse {label}", lse, want_lse, None, dict(atol=1e-4, rtol=0))
+            _compare(f"{tag} {label}", out, want, dtype)
+            _compare(f"{tag} lse {label}", lse, want_lse, None, dict(atol=1e-4, rtol=0))
             got = fops.flash_attention_bwd(q, k, v, want, want_lse, do, **kw)
             for name, g, w in zip(("dq", "dk", "dv"), got, fops.attention_bwd_ref(q, k, v, want, want_lse, do, **kw)):
-                _compare_bwd(f"wide flash bwd {name} {label}", g, w, dtype)
-            assert torch.equal(out, fops.flash_attention(q, k, v, **kw)), f"wide flash {label}: not deterministic"
+                _compare_bwd(f"{tag} bwd {name} {label}", g, w, dtype)
+            assert torch.equal(out, fops.flash_attention(q, k, v, **kw)), f"{tag} {label}: not deterministic"
             again = fops.flash_attention_bwd(q, k, v, want, want_lse, do, **kw)
-            assert all(torch.equal(a, b) for a, b in zip(got, again)), f"wide flash bwd {label}: not deterministic"
-            n_calls["flash_attention_wide"] += 2
-            n_calls["flash_attention_bwd_wide"] += 2
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{tag} bwd {label}: not deterministic"
+            n_calls[names[0]] += 2
+            n_calls[names[1]] += 2
     for B, S, H, KH, Dh, Dv, pos_l in ((4, 2304, 8, 8, 512, 512, [2063, 792, 115, 336]),
                                        (3, 300, 8, 2, 320, 288, [0, 150, 299])):
         for dtype in (torch.bfloat16, torch.float32):
@@ -5153,8 +5182,8 @@ def _wide_kernel_checks(dev) -> None:
     torch.cuda.synchronize()
     moved = {k: c.count - before[k] for k, c in counts.items()}
     want = n_calls
-    log(f"[wide] kernel checks: every wide route within tolerance of its plain version in fp32 and bf16, run to "
-        f"run identical; launches {moved}")
+    log(f"[wide] kernel checks: every wide route and flash's split kernels within tolerance of their plain "
+        f"versions in fp32 and bf16, run to run identical; launches {moved}")
     assert moved == want, (moved, want)
 
 
@@ -5197,22 +5226,26 @@ def _ssd_wide_times(gen, dev, b, L, H, P, N, cs, backward: bool) -> dict:
 
 
 def _wide_attention_errs(gen, dev, H: int, D: int, L: int, pos_l: list) -> dict:
-    """The attention wide routes against their plain versions at the path's
-    shapes (bf16): the forward and backward at (1, L, H, D) causal, decode
-    against a (4, MAX_SEQ, H, D) cache at ``pos_l``; each the largest
-    absolute error over its outputs."""
+    """The attention kernels at heads above 256 against their plain
+    versions at the path's shapes: the forward and backward at (1, L, H, D)
+    causal in bf16 (the split kernels) and in fp32 (the wide route), decode
+    against a (4, MAX_SEQ, H, D) bf16 cache at ``pos_l`` (its wide route);
+    each the largest absolute error over its outputs."""
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
 
+    errs = {}
+    for dtype, tag, suffix in ((torch.bfloat16, "split", "_split"), (torch.float32, "wide", "_wide")):
+        q, k, v, do = (_randn(gen, (1, L, H, D), dtype, dev) for _ in range(4))
+        want, lse = fops.attention_fwd_ref(q, k, v)
+        errs["flash_attention" + suffix] = _compare(f"{tag} flash at the path's shape", fops.flash_attention(q, k, v),
+                                                    want, dtype)
+        errs["flash_attention_bwd" + suffix] = max(
+            _compare_bwd(f"{tag} flash bwd {n} at the path's shape", g, w, dtype)
+            for n, g, w in zip(("dq", "dk", "dv"), fops.flash_attention_bwd(q, k, v, want, lse, do),
+                               fops.attention_bwd_ref(q, k, v, want, lse, do)))
+        del q, k, v, do, want, lse
     dtype = torch.bfloat16
-    q, k, v, do = (_randn(gen, (1, L, H, D), dtype, dev) for _ in range(4))
-    want, lse = fops.attention_fwd_ref(q, k, v)
-    errs = {"flash_attention_wide": _compare("wide flash at the path's shape", fops.flash_attention(q, k, v),
-                                             want, dtype)}
-    errs["flash_attention_bwd_wide"] = max(
-        _compare_bwd(f"wide flash bwd {n} at the path's shape", g, w, dtype)
-        for n, g, w in zip(("dq", "dk", "dv"), fops.flash_attention_bwd(q, k, v, want, lse, do),
-                           fops.attention_bwd_ref(q, k, v, want, lse, do)))
     B = len(pos_l)
     q, k, v = _randn(gen, (B, 1, H, D), dtype, dev), _randn(gen, (B, MAX_SEQ, H, D), dtype, dev), \
         _randn(gen, (B, MAX_SEQ, H, D), dtype, dev)
@@ -5223,18 +5256,21 @@ def _wide_attention_errs(gen, dev, H: int, D: int, L: int, pos_l: list) -> dict:
 
 
 def _wide_records(dev) -> list[dict]:
-    """Each wide route timed at its path's shape (deepseek-7b's heads of 512
-    and mamba2-130m's wide SSD, bf16): kernel, plain and library times (SDPA
-    where it takes the shape), the bound of the work and the largest error
-    against the plain version there."""
+    """flash's split kernels and each wide route timed at its path's shape
+    (deepseek-7b's heads of 512 in bf16, and in fp32 for flash's wide route,
+    which every fp32 call takes; mamba2-130m's wide SSD in bf16): kernel,
+    plain and library times (SDPA where it takes the shape), the bound of
+    the work and the largest error against the plain version there."""
     gen = torch.Generator(device=dev).manual_seed(41)
     H, D, L = WIDE_DS["n_heads"], WIDE_DS["head_dim"], TRAIN_SEQ
     m2 = _wide_cfg("mamba2-130m")
     mH, mP, mN, mcs = m2.ssm.expand * m2.d_model // m2.ssm.head_dim, m2.ssm.head_dim, m2.ssm.d_state, m2.ssm.chunk_size
     pos_l = [2063, 792, 115, 336]
     errs = _wide_attention_errs(gen, dev, H, D, L, pos_l)
-    times = {"flash_attention_wide": _flash_times(gen, dev, 1, L, H, D),
-             "flash_attention_bwd_wide": _flash_bwd_times(gen, dev, 1, L, H, D),
+    times = {"flash_attention_split": _flash_times(gen, dev, 1, L, H, D),
+             "flash_attention_bwd_split": _flash_bwd_times(gen, dev, 1, L, H, D),
+             "flash_attention_wide": _flash_times(gen, dev, 1, L, H, D, dtype=torch.float32),
+             "flash_attention_bwd_wide": _flash_bwd_times(gen, dev, 1, L, H, D, dtype=torch.float32),
              "decode_attention_wide": _decode_times(gen, dev, H, D, pos_l),
              "ssd_wide": _ssd_wide_times(gen, dev, 1, 4096, mH, mP, mN, mcs, backward=False),
              "ssd_bwd_wide": _ssd_wide_times(gen, dev, M2_BATCH // M2_MB, M2_SEQ, mH, mP, mN, mcs, backward=True)}
@@ -5246,12 +5282,34 @@ def _wide_records(dev) -> list[dict]:
     return records
 
 
+def _split_launches() -> dict:
+    """Launches of flash's split kernels (``flash_attention_split.cu``: a
+    head dim above 256), which count on the main route's counters, by the
+    shapes those keep."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    return {name: sum(n for key, n in c.by_shape.items() if flash_ops.splits(key[5], key[6]))
+            for name, c in (("flash_attention_split", flash_ops.launches),
+                            ("flash_attention_bwd_split", flash_ops.bwd_launches))}
+
+
+def _with_split(launches: dict, split: dict) -> dict:
+    """``launches`` with the split kernels' launches under their own names
+    and out of the main route's (``flash_attention`` keeps the kernels up
+    to a head dim of 256)."""
+    out = dict(launches, **split)
+    out["flash_attention"] -= split["flash_attention_split"]
+    out["flash_attention_bwd"] -= split["flash_attention_bwd_split"]
+    return out
+
+
 def _wide_serve(dev, arch: str) -> dict:
     """The wide variant of ``arch`` through ``ServeEngine`` at full width
     (deepseek-7b cut to ``WIDE_DS_SERVE_LAYERS``): the prompts of
     ``WIDE_PROMPTS`` greedy, ``WIDE_GEN`` tokens each; exact launch counts
-    on the wide routes and none on the main routes' attention / ssd; one
-    greedy stream against the sequential prefill + decode loop."""
+    on the routes the shapes take (deepseek-7b's flash on the split kernels,
+    its decode and mamba2's ssd on the wide routes); one greedy stream
+    against the sequential prefill + decode loop."""
     from repro_torch.models import init_params
     from repro_torch.serving import ServeEngine
 
@@ -5284,14 +5342,16 @@ def _wide_serve(dev, arch: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: c.count for name, c in ops.items()}
+        split = _split_launches()
         # --------------------------------------------------------------------
         prefills, decode_steps = eng.prefills, eng.decode_steps
     assert all(r.done and len(r.out_tokens) == WIDE_GEN for r in reqs), "a request did not finish"
     want = _serve_launches(cfg, prefills=prefills, decode_steps=decode_steps)
     log(f"{tag} {len(reqs)} requests, {sum(len(r.out_tokens) for r in reqs)} tokens in {wall:.3f} s; "
         f"{prefills} prefills, {decode_steps} decode steps; launches {launches}, expected {want}")
-    assert launches == want, "the wide variant did not run through the wide routes as expected"
-    assert launches["ssd_wide" if cfg.ssm else "flash_attention_wide"] > 0
+    assert launches == want, "the wide variant did not run through the routes as expected"
+    launches = _with_split(launches, split)
+    assert launches["ssd_wide" if cfg.ssm else "flash_attention_split"] > 0
     want_toks = _sequential_greedy(model, cfg, prompts[1], 1, dev, n_slots=n_slots, max_seq=max_seq, gen=WIDE_GEN)[0]
     assert reqs[1].out_tokens == want_toks, (reqs[1].out_tokens, want_toks)
     log(f"{tag} the stream of prompt {len(prompts[1])} equals the sequential loop's: {want_toks[:8]}...")
@@ -5303,8 +5363,8 @@ def _wide_train(dev, arch: str) -> dict:
     """One bf16 train step of the wide variant at full width and
     ``WIDE_TRAIN_LAYERS`` (deepseek-7b: Adafactor, (2, 2048) in 2
     microbatches; mamba2-130m: AdamW, (8, 2048) in 2): finite loss and
-    grad norm, exact launch counts on the wide routes (flash / ssd forward
-    and backward)."""
+    grad norm, exact launch counts on the routes the shapes take (flash on
+    the split kernels, ssd on the wide route, forward and backward)."""
     from repro_torch.runtime.train import build_train_step, init_train_state
 
     gc.collect()
@@ -5327,6 +5387,7 @@ def _wide_train(dev, arch: str) -> dict:
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     launches = {name: c.count for name, c in ops.items()}
+    split = _split_launches()
     # ------------------------------------------------------------------
     want = _train_launches_per_step(cfg, n_mb)
     loss, gn = float(m["loss"]), float(m["grad_norm"])
@@ -5334,14 +5395,17 @@ def _wide_train(dev, arch: str) -> dict:
         f"microbatches): loss {loss:.5f}, grad norm {gn:.5f}, {wall:.1f} ms (the first step: builds included); "
         f"launches {launches}, expected {want}")
     assert np.isfinite(loss) and np.isfinite(gn), (loss, gn)
-    assert launches == want, "the wide train step did not run through the wide routes as expected"
+    assert launches == want, "the wide train step did not run through the routes as expected"
+    launches = _with_split(launches, split)
+    assert cfg.ssm or launches["flash_attention_split"] > 0 and launches["flash_attention_bwd_split"] > 0
     del state, art
     return dict(launches=launches, step_ms=wall, loss=loss)
 
 
 def wide_phase(dev) -> dict:
     """``[wide]``: the wide routes (``csrc/*_wide.cu``) at every shape the
-    main routes refuse.  Each against its plain version in fp32 and bf16,
+    main routes refuse, and flash's split kernels (bf16 heads above 256 on
+    the tensor cores).  Each against its plain version in fp32 and bf16,
     run to run identical (``_wide_kernel_checks``); then two shape variants
     of repo configs at full width, through the normal entry points:
     deepseek-7b with 8 heads of 512 (serving through ``ServeEngine`` cut to
@@ -5349,8 +5413,8 @@ def wide_phase(dev) -> dict:
     prefill / decode logits and of a train step, card against the CPU
     port) and mamba2-130m with SSD head dim 128, state 256, chunk 512
     (serving 8 slots with prompts up to 4096, one train step at 4 layers,
-    the same fp32 checks); exact launch counts on the wide routes in every
-    run; each route timed at its path's shape."""
+    the same fp32 checks); exact launch counts on the routes the shapes
+    take in every run; each kernel timed at its path's shape."""
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     _wide_kernel_checks(dev)
@@ -5371,7 +5435,7 @@ def wide_phase(dev) -> dict:
             runs.append(_parity_run(dev, f32.replace(logits_chunk=chunk or f32.logits_chunk, optimizer="adafactor"),
                                     tag="wide", seq=128 if f32.ssm is None else 1024, steps=1))
     for r in records:
-        r["launches"] = sum(run["launches"][r["name"]] for run in runs)
+        r["launches"] = sum(run["launches"].get(r["name"], 0) for run in runs)
         assert r["launches"] > 0, f"{r['name']}: no launch on the wide variants' paths"
     log(f"[wide] launches on the wide variants' paths: {({r['name']: r['launches'] for r in records})}; "
         f"{time.perf_counter() - t0:.1f} s")
@@ -5469,7 +5533,7 @@ def main() -> int:
             *trains.values(), train_m2, remat,
             spec, load, ckpt, comm, pipe, chaos, mesh, tp, tp_serve, *wide["runs"])
     for r in records:
-        r["launches"] = sum(run["launches"][r["name"]] for run in runs)
+        r["launches"] = sum(run["launches"].get(r["name"], 0) for run in runs)
     _frontend_shape_launches(records, {"hubert": (serve_h, trains["hubert-xlarge"]),
                                        "internvl": (serve_v, trains["internvl2-2b"]), "tp": (tp, tp_serve),
                                        "tpserve": (tp_serve,),

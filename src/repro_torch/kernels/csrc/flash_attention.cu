@@ -47,10 +47,11 @@
 //   (two m64n128 products over V's column halves): one block an SM, up to
 //   255 registers, the block's two warpgroups still overlapping each
 //   other's softmax and products.
-// f32, and bf16 outside this kernel's envelope (a head dim above 256, or a
-// base, head dim or stride off the 16-byte grid), run the SIMT kernel of
-// flash_attention_wide.cu: f32 exact for the checks that need it (TF32
-// would not be).
+// bf16 with a head dim above 256 (Dh up to 576, Dv up to 512, in whole
+// 16-byte chunks) runs flash_attention_split.cu, the same route's kernels
+// for those widths.  f32, and bf16 off the 16-byte grid or wider still, run
+// the SIMT kernel of flash_attention_wide.cu: f32 exact for the checks that
+// need it (TF32 would not be).
 #include <cstdint>
 
 #include "common.cuh"

@@ -68,9 +68,10 @@
 //     128 KB, P and dP 32 KB: 225 KB.
 //   The arithmetic is the 128 kernels' (P and dS in f32, rounded to bf16
 //   only as a product's A operand), and still no atomics.
-// f32, and bf16 outside these kernels' envelope, run the SIMT kernels of
-// flash_attention_wide.cu (the same recurrence, no atomics): f32 stays exact
-// for the checks that need it.
+// bf16 with a head dim above 256 (up to Dh 576, Dv 512) runs
+// flash_attention_split.cu's backward.  f32, and bf16 off the 16-byte grid
+// or wider still, run the SIMT kernels of flash_attention_wide.cu (the same
+// recurrence, no atomics): f32 stays exact for the checks that need it.
 #include <cstdint>
 
 #include "common.cuh"
@@ -128,13 +129,6 @@ constexpr int BQT = 64;   // query rows of a tile of the dK/dV loop
 constexpr int BQB = 128;  // query rows of a dQ block: two warpgroups of 64
 constexpr int BKT = 64;   // keys of a tile of the dQ loop
 constexpr float LOG2E = 1.4426950408889634f;
-
-// 4 bytes global -> shared; valid == false writes 4 zero bytes
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
 
 // A 64 x 64 f32 accumulator tile as the register A operand of four k
 // steps of 16 columns, rounded to bf16 (as the forward feeds P to O += P·V)
@@ -861,6 +855,12 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o, cons
 }  // namespace tc
 
 }  // namespace
+
+// The D pass alone, bf16 (flash_attention_split.cu's backward runs it first)
+int flash_bwd_dot_bf16(const void* o, const void* dout, float* dvec, int B, int H, int Lq, int Dv,
+                       const long long* os, const long long* dos, cudaStream_t stream) {
+  return launch_dot<__nv_bfloat16>(o, dout, dvec, B, H, Lq, Dv, os, dos, stream);
+}
 
 // q, k, v, out, dout in the model's (B, L, H, D) layout with (batch,
 // sequence, head) strides in elements (head dim contiguous); lse (B, H, Lq)

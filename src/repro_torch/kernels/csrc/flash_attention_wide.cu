@@ -9,8 +9,9 @@
 //           Lq % block_q and Lk % block_kv: any head dim and any layout.
 //           This route takes head dims Dh and Dv of any width in f32 or
 //           bf16, bf16 at any base, head dim or stride (the tensor-core
-//           route, flash_attention.cu / flash_attention_bwd.cu, takes bf16
-//           only, in whole 16-byte chunks and widths up to 256).
+//           route takes bf16 only, in whole 16-byte chunks:
+//           flash_attention.cu / flash_attention_bwd.cu up to 256,
+//           flash_attention_split.cu up to Dh 576 and Dv 512).
 // Computes: the same functions as flash_attention.cu / flash_attention_bwd.cu:
 //   out = softmax(q k^T · scale) v with the online softmax of the TPU
 //   kernel (f32 running max and sum, masked scores NEG_INF, l clamped at

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (flash_attention.cu, flash_attention_bwd.cu, ssd.cu, ssd_bwd_wgmma.cu): 16-byte cp.async copies into the 128-byte
+// (flash_attention.cu, flash_attention_bwd.cu, flash_attention_split.cu,
+// ssd.cu, ssd_bwd_wgmma.cu): 16-byte cp.async copies into the 128-byte
 // swizzle, wgmma shared-memory descriptors, the m64nNk16 bf16 wgmma forms
 // with f32 accumulators, and small register helpers.
 //
@@ -26,6 +27,12 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(valid ? 16 : 0)
+               : "memory");
+}
+// 4 bytes global -> shared; valid == false writes 4 zero bytes
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
@@ -59,6 +66,18 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 __device__ __forceinline__ uint64_t desc128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// D (64 x 32) (+)= A·B, A and B K-major from shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // D (64 x 64) (+)= A·B, A and B K-major from shared memory

@@ -111,13 +111,6 @@ struct Params {
   long long xs[4], dts[4], cums[4], bs[4], cms[4], dxs[4], ddts[4], dcums[4], dbs[4], dcs[4];
 };
 
-// 4 bytes global -> shared; valid == false writes 4 zero bytes
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-
 // cum and dt of a head's chunk (rows past cs as 0) into dst: cum, then dt;
 // one row a thread of the block
 __device__ __forceinline__ void load_vecs(uint32_t dst, const float* cum, long long cs_stride,

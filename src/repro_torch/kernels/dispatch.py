@@ -147,8 +147,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.decode_attention_padded_dim.argtypes = [I, I]
     lib.ssd_intra_chunk_fwd.argtypes = [P] * 7 + [I] * 7 + [S3] * 7 + [I, P]
     lib.ssd_intra_chunk_bwd_tc.argtypes = [P] * 16 + [I] * 7 + [S3] * 12 + [P]
-    # the wide routes (``*_wide.cu``) take their main routes' arguments (the
-    # ssd backward's without the main route's scratch)
+    # flash's kernels above a head dim of 256 (``flash_attention_split.cu``)
+    # and the wide routes (``*_wide.cu``) take their main routes' arguments
+    # (the ssd backward's without the main route's scratch)
+    lib.flash_attention_split_fwd.argtypes = lib.flash_attention_fwd.argtypes
+    lib.flash_attention_split_bwd.argtypes = lib.flash_attention_bwd.argtypes
+    lib.flash_attention_split_smem.argtypes = [I, I, I]
     lib.flash_attention_wide_fwd.argtypes = lib.flash_attention_fwd.argtypes
     lib.flash_attention_wide_bwd.argtypes = lib.flash_attention_bwd.argtypes
     lib.decode_attention_wide_fwd.argtypes = lib.decode_attention_fwd.argtypes
@@ -159,7 +163,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     for fn in (lib.rmsnorm_fwd, lib.rmsnorm_bwd, lib.flash_attention_fwd,
                lib.flash_attention_bwd, lib.decode_attention_fwd, lib.decode_attention_chunk,
                lib.decode_attention_padded_dim,
-               lib.ssd_intra_chunk_fwd, lib.ssd_intra_chunk_bwd_tc,
+               lib.ssd_intra_chunk_fwd, lib.ssd_intra_chunk_bwd_tc, lib.flash_attention_split_fwd,
+               lib.flash_attention_split_bwd, lib.flash_attention_split_smem,
                lib.flash_attention_wide_fwd, lib.flash_attention_wide_bwd, lib.decode_attention_wide_fwd,
                lib.ssd_intra_chunk_wide_fwd, lib.ssd_intra_chunk_wide_bwd):
         fn.restype = I

@@ -1,6 +1,6 @@
 """Wrappers for the flash-attention kernels (``csrc/flash_attention.cu``,
-``csrc/flash_attention_bwd.cu``, ``csrc/flash_attention_wide.cu``) and the
-autograd function over them.
+``csrc/flash_attention_bwd.cu``, ``csrc/flash_attention_split.cu``,
+``csrc/flash_attention_wide.cu``) and the autograd function over them.
 
 The forward replaces
 ``src/repro/kernels/flash_attention/kernel.py::flash_attention_pallas``.
@@ -8,13 +8,19 @@ At prefill lengths the work is bound by operations (~4·L²·H·Dh/2 flops for
 ~4·L·H·Dh elements moved).  Two routes, chosen by :func:`route` before any
 launch, each counted apart:
 
-- the *main* route, bfloat16 at head dims up to 256 whose bases, head dims
-  and strides are whole 16-byte chunks (the serving and train paths): the
-  tensor cores (``wgmma``), 128 queries per block over 64-key tiles that
-  arrive by 16-byte asynchronous copies (:data:`launches`,
-  :data:`bwd_launches`);
+- the *main* route, the tensor cores (``wgmma``): bfloat16 whose bases,
+  head dims and strides are whole 16-byte chunks, Dh up to
+  :data:`SPLIT_MAX_HEAD_DIM` and Dv up to :data:`SPLIT_MAX_VALUE_DIM` (the
+  serving and train paths).  Head dims up to 256 take
+  ``flash_attention.cu`` / ``flash_attention_bwd.cu`` (128 queries per
+  block over 64-key tiles that arrive by 16-byte asynchronous copies);
+  wider ones take ``flash_attention_split.cu`` (one 64 x 256 f32
+  accumulator a warpgroup, 32-row tiles; launch plans
+  :func:`split_fwd_plan`, :func:`split_bwd_plan`, shared memory
+  :func:`split_smem`).  Both count on :data:`launches`,
+  :data:`bwd_launches`;
 - the *wide* route, every other shape: every float32 shape, and bfloat16
-  above a head dim of 256 or off the 16-byte grid
+  past those widths or off the 16-byte grid
   (``csrc/flash_attention_wide.cu``): SIMT, float32 accumulation, any width
   (:data:`wide_launches`, :data:`wide_bwd_launches`; launch plans
   :func:`wide_fwd_plan`, :func:`wide_bwd_plan`).
@@ -55,9 +61,18 @@ wide_launches = dispatch.LaunchCounter()
 #: launches of the wide route's backward
 wide_bwd_launches = dispatch.LaunchCounter()
 
-#: the widest head dim of the main route (it pads to 64, 128 or 256); wider
-#: heads take the wide route
+#: the widest head dim of the main route's first kernels (they pad to 64,
+#: 128 or 256); wider heads take its split kernels
 MAIN_MAX_HEAD_DIM = 256
+#: the widest q·k and v head dims of the split kernels, set by shared memory
+#: (:func:`split_smem`); wider heads take the wide route
+SPLIT_MAX_HEAD_DIM = 576
+SPLIT_MAX_VALUE_DIM = 512
+#: rows a split kernel's block owns, rows of the tiles it streams, and the
+#: output columns of one warpgroup's accumulator
+SPLIT_ROWS, SPLIT_TILE, SPLIT_COLS = 64, 32, 256
+#: the shared memory one block can have on the card (bytes)
+SMEM_LIMIT = 232448
 #: rows of the wide route's tiles, and the output columns of one of its blocks
 WIDE_TILE = 64
 WIDE_COLS = 256
@@ -72,13 +87,77 @@ def meets_tensor_core_layout(**tensors: torch.Tensor) -> bool:
 
 
 def route(Dh: int, Dv: int, dtype: torch.dtype, aligned: bool = True) -> str:
-    """The route a call takes, by shape, before any launch: ``"main"``
-    (``flash_attention.cu`` / ``flash_attention_bwd.cu``: bfloat16 at head
-    dims up to 256 in whole 16-byte chunks, ``aligned``) or ``"wide"``
-    (``flash_attention_wide.cu``: every other shape, float32 included)."""
-    if dtype != torch.bfloat16 or not aligned:
+    """The route a call takes, by shape, before any launch: ``"main"``, the
+    tensor cores (bfloat16 in whole 16-byte chunks, ``aligned``, with head
+    dims multiples of 8, Dh up to :data:`SPLIT_MAX_HEAD_DIM` and Dv up to
+    :data:`SPLIT_MAX_VALUE_DIM`: ``flash_attention.cu`` /
+    ``flash_attention_bwd.cu`` up to 256, ``flash_attention_split.cu``
+    above, :func:`splits`), or ``"wide"`` (``flash_attention_wide.cu``: every
+    other shape, float32 included)."""
+    if dtype != torch.bfloat16 or not aligned or Dh % 8 or Dv % 8:
         return "wide"
-    return "main" if Dh <= MAIN_MAX_HEAD_DIM and Dv <= MAIN_MAX_HEAD_DIM else "wide"
+    return "main" if Dh <= SPLIT_MAX_HEAD_DIM and Dv <= SPLIT_MAX_VALUE_DIM else "wide"
+
+
+def splits(Dh: int, Dv: int) -> bool:
+    """Whether a main-route call takes the split kernels
+    (``flash_attention_split.cu``): a head dim above 256."""
+    return Dh > MAIN_MAX_HEAD_DIM or Dv > MAIN_MAX_HEAD_DIM
+
+
+def split_smem(Dh: int, Dv: int) -> dict[str, int]:
+    """The shared memory (bytes) each split kernel's launch asks for, as
+    ``flash_attention_split_smem`` in the C source computes it: 1 KB of
+    alignment, then the 64-column regions of the tiles each block holds.
+    Forward: Q (64 rows), a 2-stage ring of K and V (32 rows), a 2-buffer
+    ring of P (bf16) and its rows' corrections, and 1 / l; dK/dV: K
+    and V (64 rows), Q and dO (32 rows), their lse and D, Pᵀ in float32; dQ:
+    Q and dO (64 rows), K and V (32 rows), P and dP in float32."""
+    nrh, nrv, R, T = -(-Dh // 64), -(-Dv // 64), SPLIT_ROWS, SPLIT_TILE
+    return {"fwd": 1024 + (R * nrh + 2 * T * nrh + 2 * T * nrv) * 128 + (2 * 10 + 2) * 128 * 4,
+            "dkdv": 1024 + (R + T) * (nrh + nrv) * 128 + 2 * T * 4 + R * T * 4,
+            "dq": 1024 + (R + T) * (nrh + nrv) * 128 + 2 * R * T * 4}
+
+
+def split_fwd_plan(Lq: int, H: int, Dv: int) -> list[tuple[int, int, int, int]]:
+    """What the split forward writes for one batch row, as it indexes its
+    grid (H, query tiles counted down, B) and its two warpgroups: (first
+    query row, head, first output column, columns), each writing its 64
+    query rows × its 256-column half of Dv (none past Dv); the half at
+    column 0 also writes lse."""
+    R, W = SPLIT_ROWS, SPLIT_COLS
+    n_q = -(-Lq // R)
+    return [((n_q - 1 - y) * R, h, w * W, min(W, Dv - w * W))
+            for h in range(H) for y in range(n_q) for w in range(2) if w * W < Dv]
+
+
+def split_bwd_plan(Lq: int, Lk: int, H: int, KH: int, Dh: int, Dv: int) -> list[tuple[str, int, int, int, int]]:
+    """What the split backward's dK/dV and dQ kernels write for one batch
+    row, as they index their grids and warpgroups: (output, first row, head
+    (KV head for dK / dV), first column, columns).  dK/dV: grid (KH ·
+    slices, key tiles, B), slice s of 256 columns, warpgroup 0 dV's and
+    warpgroup 1 dK's (none past Dv / Dh); dQ: grid (H · slices, query tiles
+    counted down, B), slice s of 512 columns, warpgroup w its 256 from 512s
+    + 256w.  Each owns 64 rows × its columns of one output; a key tile no
+    query sees writes zeros."""
+    R, W = SPLIT_ROWS, SPLIT_COLS
+    n_kv, n_q = -(-max(Dh, Dv) // W), -(-Dh // (2 * W))
+    plan = []
+    for x in range(KH * n_kv):
+        kh, sl = divmod(x, n_kv)
+        for k0 in range(0, Lk, R):
+            for what, d in (("dv", Dv), ("dk", Dh)):
+                if sl * W < d:
+                    plan.append((what, k0, kh, sl * W, min(W, d - sl * W)))
+    n_qt = -(-Lq // R)
+    for x in range(H * n_q):
+        h, sl = divmod(x, n_q)
+        for y in range(n_qt):
+            for w in range(2):
+                c0 = sl * 2 * W + w * W
+                if c0 < Dh:
+                    plan.append(("dq", (n_qt - 1 - y) * R, h, c0, min(W, Dh - c0)))
+    return plan
 
 
 def wide_fwd_plan(Lq: int, H: int, Dv: int) -> list[tuple[int, int, int, int]]:
@@ -159,7 +238,9 @@ def flash_attention(
                              fwd_flops(B, H, Dh, Dv, mask_pairs(Lq, Lk, causal, window, q_offset)), **kw)
         return (out, lse) if return_lse else out
     lib = dispatch.library()
-    rc = (lib.flash_attention_wide_fwd if wide else lib.flash_attention_fwd)(
+    fn = (lib.flash_attention_wide_fwd if wide else lib.flash_attention_split_fwd if splits(Dh, Dv)
+          else lib.flash_attention_fwd)
+    rc = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
         B, H, KH, Lq, Lk, Dh, Dv,
@@ -218,8 +299,8 @@ def flash_attention_bwd(
     The main route runs on the tensor cores (``wgmma``: a dK/dV kernel per
     key tile and a dQ kernel per query tile, P and dS rounded to bfloat16
     as the forward rounds P) where q, k, v, out and dout meet the forward's
-    16-byte rules (:func:`meets_tensor_core_layout`); every other shape,
-    float32 included, takes the wide route (:func:`route`)."""
+    16-byte rules (:func:`meets_tensor_core_layout`) and its widths; every
+    other shape, float32 included, takes the wide route (:func:`route`)."""
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention_bwd: window must be positive, got {window}")
     kw = dict(causal=causal, window=window, q_offset=q_offset)
@@ -243,7 +324,9 @@ def flash_attention_bwd(
         return dq, dk, dv
     dvec = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
     lib = dispatch.library()
-    rc = (lib.flash_attention_wide_bwd if wide else lib.flash_attention_bwd)(
+    fn = (lib.flash_attention_wide_bwd if wide else lib.flash_attention_split_bwd if splits(Dh, Dv)
+          else lib.flash_attention_bwd)
+    rc = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         B, H, KH, Lq, Lk, Dh, Dv,

@@ -171,12 +171,13 @@ def test_decode_kernel_at_head_dims_above_128(cuda_device, dtype, D, KH):
 
 
 @pytest.mark.cuda
-def test_kernels_reject_head_dims_above_256(cuda_device):
-    """The name is historical: no route rejects these shapes any more.
-    Above 256 every attention wrapper takes its wide route (one launch
-    there, none on the main routes) and matches its plain version; a bf16
-    head of 256 read from a 260-wide buffer is not whole 16-byte rows for
-    the tensor-core copies and takes the wide route too."""
+def test_attention_routes_take_head_dims_above_256(cuda_device):
+    """Above 256 every attention wrapper takes the shape and matches its
+    plain version, one launch on the route ``route`` picks: flash in bf16 on
+    the tensor cores (the split kernels, counted on the main route), flash
+    in fp32 and decode in either dtype on the wide route; a bf16 head of 256
+    read from a 260-wide buffer is not whole 16-byte rows for the
+    tensor-core copies and takes flash's wide route."""
     gen = torch.Generator(device=cuda_device).manual_seed(31)
     mains = lambda: (flash_ops.launches.count, flash_ops.bwd_launches.count, decode_ops.launches.count)  # noqa: E731
     wides = lambda: (flash_ops.wide_launches.count, flash_ops.wide_bwd_launches.count,  # noqa: E731
@@ -193,7 +194,9 @@ def test_kernels_reject_head_dims_above_256(cuda_device):
             _close_scaled(g, w, dtype)
         _close(decode_ops.decode_attention(q[:, :1], k, v, pos),
                decode_ops.decode_attention_ref(q[:, :1], k, v, pos), dtype)
-        assert mains() == counts and [a - b for a, b in zip(wides(), w0)] == [1, 1, 1]
+        on_tc = int(dtype == "bfloat16")
+        assert [a - b for a, b in zip(mains(), counts)] == [on_tc, on_tc, 0]
+        assert [a - b for a, b in zip(wides(), w0)] == [1 - on_tc, 1 - on_tc, 1]
     wide = torch.randn(1, 16, 2, 260, generator=gen, device=cuda_device).to(torch.bfloat16)
     q, k, v = (torch.randn(1, 16, 2, 256, generator=gen, device=cuda_device).to(torch.bfloat16) for _ in range(3))
     out, lse = flash_ops.attention_fwd_ref(q, k, v)
@@ -358,9 +361,8 @@ def test_flash_tensor_core_route_matches_plain(cuda_device, case):
 
 
 @pytest.mark.cuda
-def test_flash_tensor_core_route_rejects_unaligned_heads(cuda_device):
-    """The name is historical: the wrapper takes this shape on the wide
-    route.  A head stride of 68 elements (a slice of a wider tensor) is not whole
+def test_flash_wide_route_takes_unaligned_heads(cuda_device):
+    """A head stride of 68 elements (a slice of a wider tensor) is not whole
     16-byte chunks: the tensor-core route does not take it, and the bf16
     wrapper launches the wide route instead, which matches plain."""
     gen = torch.Generator(device=cuda_device).manual_seed(32)
@@ -442,9 +444,8 @@ def test_ssd_tensor_core_route_matches_plain(cuda_device, L, cs, H, G, dt_shift)
 
 
 @pytest.mark.cuda
-def test_ssd_tensor_core_route_rejects_unaligned(cuda_device):
-    """The name is historical: the wrapper takes these shapes on the wide
-    route.  x one element into its buffer is not whole 16-byte chunks, and a
+def test_ssd_wide_route_takes_unaligned_and_long_chunks(cuda_device):
+    """x one element into its buffer is not whole 16-byte chunks, and a
     chunk of 512 rows is past what a block holds: the tensor-core route
     takes neither, and the bf16 wrapper launches the wide route instead,
     which matches plain."""
@@ -560,10 +561,9 @@ def test_flash_forward_lse_matches_plain(cuda_device, case, dtype):
 
 
 @pytest.mark.cuda
-def test_flash_bwd_rejects_what_the_kernel_does_not_take(cuda_device):
-    """The name is partly historical: only what no route takes is
-    rejected.  That raises and launches nothing (an lse not float32,
-    a dout not shaped like out); a dout, out or base off the bf16
+def test_flash_bwd_rejects_only_what_no_route_takes(cuda_device):
+    """What no route takes raises and launches nothing (an lse not
+    float32, a dout not shaped like out); a dout, out or base off the bf16
     tensor-core route's 16-byte grid takes the wide route, which matches
     plain."""
     gen = torch.Generator(device=cuda_device).manual_seed(33)
@@ -698,9 +698,8 @@ def test_ssd_bwd_kernel_matches_plain(cuda_device, dtype, L, cs, H, G, dt_shift)
 
 
 @pytest.mark.cuda
-def test_ssd_bwd_tensor_core_route_rejects_unaligned(cuda_device):
-    """The name is historical: the wrapper takes these shapes on the wide
-    route.  bfloat16 x one element into its buffer is not in whole 16-byte
+def test_ssd_bwd_wide_route_takes_unaligned_and_long_chunks(cuda_device):
+    """bfloat16 x one element into its buffer is not in whole 16-byte
     chunks, and a chunk of 512 rows is past what the route holds: the
     tensor-core backward takes neither, and the wrapper launches the wide
     route (never the plain version), which matches plain."""
@@ -925,9 +924,11 @@ def test_hubert_train_step_on_the_card(cuda_device):
 
 # (B, Lq, Lk, H, KH, Dh, Dv, causal, window, q_offset): head dims above 256
 # (Dh != Dv, two Dv slices, a Dh walk of 5 steps + a ragged one), GQA / MQA,
-# a window, offset queries, ragged lengths, a non-causal case; then widths
-# the bf16 tensor-core route refuses (not multiples of 8); fp32 takes the
-# wide route at every width
+# a window, offset queries, ragged lengths, a non-causal case; 512 / 512
+# with a window and offset queries, 576 / 512 on MQA and a ragged
+# non-causal 512 / 288 (bf16 on the split kernels); then widths the bf16
+# tensor-core route refuses (not multiples of 8, Dv above 512); fp32 takes
+# the wide route at every width
 WIDE_FLASH_CASES = [
     (1, 130, 130, 4, 2, 320, 288, True, None, 0),
     (2, 77, 200, 4, 4, 512, 512, True, 50, 123),
@@ -935,6 +936,9 @@ WIDE_FLASH_CASES = [
     (1, 1, 129, 8, 8, 512, 512, True, None, 128),
     (1, 100, 100, 4, 2, 100, 100, True, None, 0),
     (2, 70, 90, 4, 4, 36, 20, False, 30, 0),
+    (2, 200, 333, 4, 4, 512, 512, True, 96, 133),
+    (1, 130, 130, 4, 1, 576, 512, True, None, 0),
+    (2, 77, 100, 4, 2, 512, 288, False, None, 0),
 ]
 
 
@@ -943,15 +947,17 @@ WIDE_FLASH_CASES = [
 @pytest.mark.parametrize("case", WIDE_FLASH_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_flash_wide_route_matches_plain(cuda_device, case, dtype):
     """Forward (with lse) and backward on the route ``flash_ops.route``
-    picks: the wide one above 256 or off the bf16 tensor-core grid, one
-    launch each on its own counter; against the plain versions, and the
-    same bits on a second run."""
+    picks: bf16 on the 16-byte grid up to 576 / 512 on the tensor cores (the
+    split kernels, counted on the main route), fp32 and every other width
+    on the wide one, one launch each on its own counter; against the plain
+    versions, and the same bits on a second run."""
     gen = torch.Generator(device=cuda_device).manual_seed(34)
     tdt = DTYPES[dtype]
     q, k, v, do, kw = _flash_bwd_inputs(gen, cuda_device, case, tdt)
     Dh, Dv = case[5], case[6]
     wide = flash_ops.route(Dh, Dv, tdt, Dh % 8 == 0 and Dv % 8 == 0) == "wide"
-    assert wide == (tdt == torch.float32 or Dh > 256 or Dv > 256 or Dh % 8 != 0 or Dv % 8 != 0)
+    assert wide == (tdt == torch.float32 or Dh > 576 or Dv > 512 or Dh % 8 != 0 or Dv % 8 != 0)
+    assert wide or flash_ops.splits(Dh, Dv)
     fwd_c, bwd_c = ((flash_ops.wide_launches, flash_ops.wide_bwd_launches) if wide
                     else (flash_ops.launches, flash_ops.bwd_launches))
     before = (fwd_c.count, bwd_c.count)

@@ -837,8 +837,8 @@ def test_cuda_request_without_card_raises():
 def test_kernel_sources_are_present():
     names = sorted(p.name for p in dispatch.CSRC.glob("*.cu"))
     assert names == ["decode_attention.cu", "decode_attention_wide.cu", "flash_attention.cu",
-                     "flash_attention_bwd.cu", "flash_attention_wide.cu", "rmsnorm.cu", "ssd.cu",
-                     "ssd_bwd_wgmma.cu", "ssd_wide.cu"]
+                     "flash_attention_bwd.cu", "flash_attention_split.cu", "flash_attention_wide.cu", "rmsnorm.cu",
+                     "ssd.cu", "ssd_bwd_wgmma.cu", "ssd_wide.cu"]
 
 
 # ---------------------------------------------------------------------------

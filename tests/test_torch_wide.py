@@ -1,17 +1,21 @@
-"""The shapes the wide routes take, held against ``repro`` on the CPU.
+"""The shapes the wide routes and flash's split kernels take, held against
+``repro`` on the CPU.
 
 The Pallas kernels set no bound on head, state or chunk width and take
-bfloat16 at any width; the port's main CUDA routes do (head dims up to 256,
-P <= 64, N <= 128, bfloat16 chunks up to 256 in whole 16-byte chunks), and
-every shape past them takes a wide route (``csrc/*_wide.cu``).  On the CPU
-each wrapper runs its plain version, so these tests hold the plain versions
-against the Pallas kernels in interpret mode and against ``jax.vjp`` of
-``repro``'s jnp code at those shapes, the wide routes' launch plans against
-the outputs they must cover, the route chooser against the shapes the
-kernel table of ``PERF.md`` times (which must keep their main routes), the
-meta route's FLOP counts, and two reduced models with such shapes against
-``repro`` on bridged weights.  ``test_torch_cuda_kernels.py`` holds the
-wide kernels against the plain versions on the card.
+bfloat16 at any width; the port's main CUDA routes do (flash: bfloat16 head
+dims up to 576 / 512, those above 256 on ``csrc/flash_attention_split.cu``;
+decode: head dims up to 256; ssd: P <= 64, N <= 128, chunks up to 256; all
+in whole 16-byte chunks), and every shape past them takes a wide route
+(``csrc/*_wide.cu``).  On the CPU each wrapper runs its plain version, so
+these tests hold the plain versions against the Pallas kernels in interpret
+mode and against ``jax.vjp`` of ``repro``'s jnp code at those shapes, the
+wide routes' and the split kernels' launch plans against the outputs they
+must cover, the split kernels' shared memory against the card's limit, the
+route chooser against a table of shapes (the kernel table of ``PERF.md``'s
+must keep their main routes), the meta route's FLOP counts, and two reduced
+models with such shapes against ``repro`` on bridged weights.
+``test_torch_cuda_kernels.py`` holds the kernels against the plain versions
+on the card.
 """
 from __future__ import annotations
 
@@ -81,11 +85,14 @@ def _scaled_close(got, want, rtol: float, name: str = "") -> None:
 # the plain versions against the Pallas kernels, at the wide shapes
 # ---------------------------------------------------------------------------
 
-# (dtype, H, KH, L, Dh, Dv, bq, bk): head dims above 256 (Dh != Dv), and a
-# head of 100 (not a multiple of 8) in bfloat16
+# (dtype, H, KH, L, Dh, Dv, bq, bk): head dims above 256 (Dh != Dv; 512 /
+# 512 and 576 / 512, the split kernels' widest), and a head of 100 (not a
+# multiple of 8) in bfloat16
 FLASH_CASES = [
     ("float32", 2, 1, 64, 320, 288, 32, 32),
     ("bfloat16", 2, 1, 64, 320, 288, 32, 32),
+    ("bfloat16", 2, 2, 64, 512, 512, 32, 32),
+    ("bfloat16", 2, 1, 64, 576, 512, 32, 32),
     ("bfloat16", 4, 2, 64, 100, 100, 16, 16),
     ("float32", 4, 2, 64, 100, 100, 16, 16),
 ]
@@ -159,7 +166,8 @@ def test_wide_ssd_plain_matches_pallas(case):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("route", ["custom_vjp", "reference"])
-@pytest.mark.parametrize("Dh,Dv,causal,window", [(320, 288, True, None), (320, 288, True, 20), (100, 100, False, None)])
+@pytest.mark.parametrize("Dh,Dv,causal,window", [(320, 288, True, None), (320, 288, True, 20), (100, 100, False, None),
+                                                 (512, 512, True, None), (576, 512, False, None)])
 def test_wide_attention_bwd_ref_matches_jax_vjp(Dh, Dv, causal, window, route):
     """Output and (dq, dk, dv) of the plain versions against ``jax.vjp`` of
     ``repro``'s custom-VJP flash attention and of its reference attention,
@@ -231,15 +239,40 @@ def test_route_chooser_keeps_the_kernel_table_on_the_main_routes():
     assert ssd_ops.route(1000, 20, 12, F32, aligned=False) == "wide"
 
 
+# (Dh, Dv, dtype, aligned) -> flash's route: bfloat16 on the 16-byte grid up
+# to 576 / 512 on the tensor cores (above 256 the split kernels); float32,
+# widths off the grid (whatever ``aligned`` says) and widths past the split
+# kernels' on the SIMT route
+FLASH_ROUTES = [
+    (256, 256, BF16, True, "main"), (264, 264, BF16, True, "main"), (320, 288, BF16, True, "main"),
+    (512, 512, BF16, True, "main"), (576, 512, BF16, True, "main"), (128, 512, BF16, True, "main"),
+    (512, 512, BF16, False, "wide"), (257, 64, BF16, True, "wide"), (64, 257, BF16, True, "wide"),
+    (100, 100, BF16, True, "wide"), (36, 20, BF16, True, "wide"), (584, 512, BF16, True, "wide"),
+    (576, 520, BF16, True, "wide"), (4096, 100, BF16, True, "wide"), (128, 128, F32, True, "wide"),
+    (320, 288, F32, True, "wide"), (512, 512, F32, True, "wide"), (576, 512, F32, True, "wide"),
+    (257, 64, F32, True, "wide"),
+]
+
+
+@pytest.mark.parametrize("Dh,Dv,dtype,aligned,want", FLASH_ROUTES,
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_route_chooser_sends_every_refused_shape_wide(Dh, Dv, dtype, aligned, want):
+    """flash's route by the table above; a main-route call above 256 takes
+    the split kernels."""
+    assert flash_ops.route(Dh, Dv, dtype, aligned) == want
+    if want == "main":
+        assert flash_ops.splits(Dh, Dv) == (Dh > 256 or Dv > 256)
+
+
 @pytest.mark.parametrize("dtype", [BF16, F32])
-def test_route_chooser_sends_every_refused_shape_wide(dtype):
+def test_decode_and_ssd_routes_send_every_refused_shape_wide(dtype):
+    """decode's and ssd's routes are flash's before the split kernels: a
+    head dim above 256 takes decode's wide route in either dtype."""
     for Dh, Dv in ((257, 64), (64, 257), (320, 288), (512, 512), (4096, 100)):
-        assert flash_ops.route(Dh, Dv, dtype) == "wide"
         assert decode_ops.route(Dh, Dv) == "wide"
     for cs, P, N in ((48, 96, 160), (256, 65, 128), (256, 64, 129), (512, 128, 256)):
         assert ssd_ops.route(cs, P, N, dtype) == "wide"
     if dtype == BF16:
-        assert flash_ops.route(100, 100, dtype, aligned=False) == "wide"
         assert ssd_ops.route(320, 16, 16, dtype) == "wide"
         assert ssd_ops.route(40, 20, 12, dtype, aligned=False) == "wide"
 
@@ -280,6 +313,47 @@ def test_flash_wide_bwd_plan_covers_every_gradient_once(Lq, Lk, H, KH, Dh, Dv):
     for what, shape in shapes.items():
         n = _cover(shape, [np.s_[r0:r0 + 64, h, c0:c0 + w] for o, r0, h, c0, w in plan if o == what])
         assert (n == 1).all(), what
+
+
+# (Lq, Lk, H, KH, Dh, Dv): deepseek-7b's heads of 512 at the train length,
+# GQA at 320 / 288 on ragged lengths, one query row offset by 128 (its keys
+# unseen by any query still written), the widest Dh on MQA
+SPLIT_PLANS = [(2048, 2048, 8, 8, 512, 512), (130, 200, 4, 2, 320, 288), (1, 129, 8, 8, 512, 512),
+               (65, 65, 2, 1, 576, 512)]
+
+
+@pytest.mark.parametrize("Lq,Lk,H,KH,Dh,Dv", SPLIT_PLANS)
+def test_flash_split_fwd_plan_covers_every_output_once(Lq, Lk, H, KH, Dh, Dv):
+    plan = flash_ops.split_fwd_plan(Lq, H, Dv)
+    n = _cover((Lq, H, Dv), [np.s_[q0:q0 + 64, h, c0:c0 + w] for q0, h, c0, w in plan])
+    assert (n == 1).all()
+    assert all(0 < w <= 256 for *_, w in plan)
+    # lse: the half at column 0 of each (query tile, head)
+    assert sorted((q0, h) for q0, h, c0, _ in plan if c0 == 0) == [
+        (q0, h) for q0 in range(0, Lq, 64) for h in range(H)]
+
+
+@pytest.mark.parametrize("Lq,Lk,H,KH,Dh,Dv", SPLIT_PLANS)
+def test_flash_split_bwd_plan_covers_every_gradient_once(Lq, Lk, H, KH, Dh, Dv):
+    plan = flash_ops.split_bwd_plan(Lq, Lk, H, KH, Dh, Dv)
+    shapes = {"dk": (Lk, KH, Dh), "dv": (Lk, KH, Dv), "dq": (Lq, H, Dh)}
+    for what, shape in shapes.items():
+        n = _cover(shape, [np.s_[r0:r0 + 64, h, c0:c0 + w] for o, r0, h, c0, w in plan if o == what])
+        assert (n == 1).all(), what
+    assert all(0 < w <= 256 for *_, w in plan)
+
+
+def test_split_kernels_shared_memory_fits_every_admitted_width():
+    """At every (Dh, Dv) the route sends to the split kernels, each launch
+    asks for at most the 232,448 bytes a block can have (a launch asking
+    more is refused and never runs); one 64-column region more of Dh would
+    not fit, so the cap is the one shared memory sets."""
+    admitted = [(Dh, Dv) for Dh in range(8, 1025, 8) for Dv in range(8, 1025, 8)
+                if flash_ops.route(Dh, Dv, BF16) == "main" and flash_ops.splits(Dh, Dv)]
+    assert (flash_ops.SPLIT_MAX_HEAD_DIM, flash_ops.SPLIT_MAX_VALUE_DIM) in admitted
+    assert max(max(flash_ops.split_smem(Dh, Dv).values()) for Dh, Dv in admitted) <= flash_ops.SMEM_LIMIT
+    over = flash_ops.split_smem(flash_ops.SPLIT_MAX_HEAD_DIM + 64, flash_ops.SPLIT_MAX_VALUE_DIM)
+    assert max(over.values()) > flash_ops.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("cs,P,N", [(1, 1, 1), (48, 96, 160), (320, 16, 16), (40, 20, 12), (512, 128, 256)])
